@@ -1,0 +1,30 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+The same fluid-compatible static-graph front end (Program/Block/Op IR,
+``layers``, ``io``, ``inference``) over torch tensors, with the TPU's
+Pallas kernels replaced by CUDA kernels written by hand for Hopper
+(``ops/kernels/``). Entry points run on ``CUDAPlace(0)`` unless the
+caller passes ``CPUPlace()``; without a CUDA device the default raises
+``NoCUDADeviceError``.
+
+This slice serves BERT-base encoder inference: build with ``layers``,
+run the startup program, ``io.save_inference_model``, then
+``inference.create_predictor(Config(dir)).run(requests)``. Training and
+the other models are later slices (see ROADMAP.md).
+"""
+from . import ops            # registers all op kernels
+from .framework import (Program, Variable, Parameter, default_main_program,
+                        default_startup_program, program_guard, CUDAPlace,
+                        CPUPlace, NoCUDADeviceError, Scope, global_scope,
+                        scope_guard, Executor, unique_name,
+                        is_compiled_with_cuda)
+from .ops.registry import NotPortedError
+from .param_attr import ParamAttr
+from . import initializer
+from . import layers
+from . import io
+from .io import (save_inference_model, load_inference_model,
+                 set_params_from_numpy)
+from . import inference
+
+__version__ = "0.1.0"

@@ -1,0 +1,91 @@
+"""Attention layers (counterpart of paddle_tpu/layers/attention.py).
+
+One fused ``scaled_dot_product_attention`` op per attention; on a CUDA
+tensor it runs the port's flash-attention kernel
+(ops/kernels/flash_attention.py).
+"""
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+from .nn import fc, dropout, reshape, transpose
+
+
+def fused_attention(q, k, v, mask=None, scale=None, causal=False,
+                    impl="auto", sp_axis="sp", name=None):
+    """q, k, v: (B, H, T, Dh). impl: "auto" | "flash" (the kernel),
+    "xla" (the plain version); "ring"/"ulysses" wait for the multi-GPU
+    slice."""
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, q.shape)
+    inputs = {"Q": [q.name], "K": [k.name], "V": [v.name]}
+    if mask is not None:
+        inputs["Mask"] = [mask.name]
+    helper.append_op("scaled_dot_product_attention", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"scale": scale, "causal": causal, "impl": impl,
+                            "sp_axis": sp_axis})
+    return out
+
+
+def _split_heads(x, n_head, dh):
+    r = reshape(x, [0, -1 if x.shape[1] == -1 else x.shape[1], n_head, dh])
+    return transpose(r, [0, 2, 1, 3])
+
+
+def mha_kv_projection(keys, values, d_key, d_value, n_head,
+                      param_initializer=None, name="multi_head_att"):
+    """Project once into head-split K/V, (N, H, T_src, Dh) each, with the
+    parameter names multi_head_attention uses."""
+    def _attr(suffix):
+        return ParamAttr(name=None if name is None else name + suffix,
+                         initializer=param_initializer)
+
+    k = fc(keys, d_key * n_head, num_flatten_dims=2,
+           param_attr=_attr("_key_fc.w_0"), bias_attr=_attr("_key_fc.b_0"))
+    v = fc(values, d_value * n_head, num_flatten_dims=2,
+           param_attr=_attr("_value_fc.w_0"), bias_attr=_attr("_value_fc.b_0"))
+    return _split_heads(k, n_head, d_key), _split_heads(v, n_head, d_value)
+
+
+def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
+                         d_model, n_head=1, dropout_rate=0.0, cache=None,
+                         param_initializer=None, name="multi_head_att",
+                         is_test=False, causal=False, attn_impl="auto"):
+    """The transformer MHA block of ERNIE/BERT (same ops and parameter
+    names as the JAX package's). ``cache`` takes precomputed cross-
+    attention ``static_k``/``static_v`` only; the incremental self-
+    attention cache belongs to the decode slice."""
+    keys = queries if keys is None else keys
+    values = keys if values is None else values
+
+    def _attr(suffix):
+        return ParamAttr(name=None if name is None else name + suffix,
+                         initializer=param_initializer)
+
+    q = fc(queries, d_key * n_head, num_flatten_dims=2,
+           param_attr=_attr("_query_fc.w_0"), bias_attr=_attr("_query_fc.b_0"))
+    qh = _split_heads(q, n_head, d_key)
+    if cache is not None and "static_k" in cache:
+        kh, vh = cache["static_k"], cache["static_v"]
+    elif cache is not None:
+        raise NotImplementedError(
+            "multi_head_attention's incremental decode cache needs the "
+            "'concat' op, which arrives with the GPT decode slice of "
+            "paddle_tpu_torch")
+    else:
+        kh, vh = mha_kv_projection(keys, values, d_key, d_value, n_head,
+                                   param_initializer=param_initializer,
+                                   name=name)
+    ctx = fused_attention(qh, kh, vh, mask=attn_bias, scale=d_key ** -0.5,
+                          causal=causal, impl=attn_impl)
+    ctx = transpose(ctx, [0, 2, 1, 3])
+    ctx = reshape(ctx, [0, -1 if queries.shape[1] == -1 else queries.shape[1],
+                        d_value * n_head])
+    if dropout_rate:
+        ctx = dropout(ctx, dropout_rate, is_test=is_test,
+                      dropout_implementation="upscale_in_train")
+    return fc(ctx, d_model, num_flatten_dims=2,
+              param_attr=_attr("_output_fc.w_0"),
+              bias_attr=_attr("_output_fc.b_0"))
+
+
+__all__ = ["fused_attention", "mha_kv_projection", "multi_head_attention"]

@@ -1,0 +1,35 @@
+"""Tensor layers: create_parameter, cast, fill_constant (counterparts in
+paddle_tpu/layers/tensor.py)."""
+from ..framework.dtypes import normalize_dtype
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr._to_attr(attr)
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias,
+                                   default_initializer)
+
+
+def cast(x, dtype):
+    dtype = normalize_dtype(dtype)
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype, x.shape)
+    helper.append_op("cast", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype, tuple(shape))
+    helper.append_op("fill_constant", outputs={"Out": [out.name]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": dtype, "value": float(value)})
+    return out

@@ -1,0 +1,50 @@
+"""Operator registry: op type -> torch kernel.
+
+Counterpart of paddle_tpu/ops/registry.py, with the same kernel contract::
+
+    fn(ctx, ins, attrs) -> {out_slot: tensor or [tensor, ...]}
+
+  - ``ins``: dict slot -> list of torch tensors (slot order = OpDesc order)
+  - ``attrs``: the op's JSON-able attrs
+  - ``ctx``: the executor's run context — ``ctx.device`` (torch.device)
+    and ``ctx.generator(attrs)`` (a seeded torch.Generator for random ops)
+
+``OpDef`` keeps the ``nondiff``/``uses_rng`` fields the training slice
+will read.
+"""
+
+_REGISTRY = {}
+
+
+class NotPortedError(NotImplementedError):
+    """A path that exists in paddle_tpu but belongs to a later slice of the
+    port; the message names the slice."""
+
+
+class OpDef(object):
+    __slots__ = ("type", "fn", "nondiff", "uses_rng", "differentiable")
+
+    def __init__(self, type, fn, nondiff=(), uses_rng=False,
+                 differentiable=True):
+        self.type = type
+        self.fn = fn
+        self.nondiff = tuple(nondiff)
+        self.uses_rng = uses_rng
+        self.differentiable = differentiable
+
+
+def register_op(type, nondiff=(), uses_rng=False, differentiable=True):
+    def deco(fn):
+        if type in _REGISTRY:
+            raise ValueError("op %r already registered" % type)
+        _REGISTRY[type] = OpDef(type, fn, nondiff, uses_rng, differentiable)
+        return fn
+    return deco
+
+
+def get_op(type):
+    op = _REGISTRY.get(type)
+    if op is None:
+        raise NotImplementedError(
+            "op %r has no registered torch kernel in paddle_tpu_torch" % type)
+    return op

@@ -1,0 +1,57 @@
+"""Tensor manipulation op kernels (counterparts in
+paddle_tpu/ops/tensor_ops.py). Views stay views: transpose2 hands a
+strided tensor on, and the kernel wrappers make their inputs dense."""
+import torch
+
+from .registry import register_op
+from ..framework.dtypes import to_torch_dtype
+
+
+def _x(ins, slot="X"):
+    return ins[slot][0]
+
+
+@register_op("fill_constant")
+def _fill_constant(ctx, ins, attrs):
+    shape = tuple(attrs.get("shape", [1]))
+    return {"Out": torch.full(shape, attrs.get("value", 0.0),
+                              dtype=to_torch_dtype(attrs.get("dtype",
+                                                             "float32")),
+                              device=ctx.device)}
+
+
+@register_op("reshape2")
+def _reshape2(ctx, ins, attrs):
+    x = _x(ins)
+    # fluid semantics: 0 copies the input's dim
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return {"Out": x.reshape(shape)}
+
+
+@register_op("transpose2")
+def _transpose2(ctx, ins, attrs):
+    return {"Out": _x(ins).permute(*attrs["axis"])}
+
+
+@register_op("unsqueeze2")
+def _unsqueeze2(ctx, ins, attrs):
+    x = _x(ins)
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return {"Out": x}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    for a in sorted(attrs.get("decrease_axis", []) or [], reverse=True):
+        out = out.squeeze(a)
+    return {"Out": out}

@@ -1,0 +1,299 @@
+"""Each op of the BERT serving slice, the port against the JAX package.
+
+Every test builds a one-op Program through the public ``layers`` API of
+both packages (same calls, same unique names), runs the JAX Program with
+``paddle_tpu.Executor(CPUPlace())``, copies the JAX scope's parameters
+into the port with ``set_params_from_numpy`` and runs the port's Program
+with ``paddle_tpu_torch.Executor(CPUPlace())`` on the same numpy feeds.
+
+Tolerance: f32 on both sides, one op, so only the order of a sum can
+differ: rtol/atol 1e-5. Ops that move data (reshape, transpose, slice,
+lookup, cast, fill) must agree exactly. The random init ops cannot agree
+value for value (threefry against Philox) and are held by statistics.
+"""
+import numpy as np
+import pytest
+
+import paddle_tpu as pt
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import layers as tl
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _build(pkg, build):
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        fetch = build(pkg)
+    return main, startup, fetch
+
+
+def _run_both(build, feed, exact=False):
+    """Build with both packages, run, compare every fetch; returns the
+    (jax, port) fetch lists."""
+    jmain, jstart, jfetch = _build(pt, build)
+    tmain, tstart, tfetch = _build(ptt, build)
+    assert [op.type for op in jmain.global_block().ops] == \
+        [op.type for op in tmain.global_block().ops]
+    jscope = pt.Scope()
+    with pt.scope_guard(jscope):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(jstart)
+        jout = exe.run(jmain, feed=feed, fetch_list=jfetch)
+    params = {v.name: np.asarray(jscope.find_var(v.name))
+              for v in jmain.list_vars() if v.persistable}
+    tscope = ptt.Scope()
+    ptt.set_params_from_numpy(params, tmain, tscope, ptt.CPUPlace())
+    with ptt.scope_guard(tscope):
+        tout = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
+                                                 fetch_list=tfetch)
+    for j, t in zip(jout, tout):
+        j = np.asarray(j)
+        assert j.shape == t.shape
+        if exact:
+            np.testing.assert_array_equal(t, j)
+        else:
+            np.testing.assert_allclose(t, j, **TOL)
+    return jout, tout
+
+
+def _data(pkg, name, shape, dtype="float32"):
+    return pkg.layers.data(name, shape, dtype=dtype, append_batch_size=False)
+
+
+def _x(shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def test_mul():
+    feed = {"x": _x((2, 3, 4)), "y": _x((4, 5), 1)}
+    _run_both(lambda p: [p.layers.mul(_data(p, "x", [2, 3, 4]),
+                                      _data(p, "y", [4, 5]),
+                                      x_num_col_dims=2)], feed)
+
+
+@pytest.mark.parametrize("yshape,axis", [((4,), -1), ((3,), 1),
+                                         ((2, 3, 4), -1), ((3, 4), 1)])
+def test_elementwise_add(yshape, axis):
+    feed = {"x": _x((2, 3, 4)), "y": _x(yshape, 1)}
+    _run_both(lambda p: [p.layers.elementwise_add(
+        _data(p, "x", [2, 3, 4]), _data(p, "y", list(yshape)), axis=axis)],
+        feed)
+
+
+@pytest.mark.parametrize("begin,scale,shift", [(1, True, True),
+                                               (2, True, True),
+                                               (2, False, False)])
+def test_layer_norm(begin, scale, shift):
+    """Y, Mean and Variance; the port's Variance comes from the
+    kernel's rstd (1/rstd^2 - eps)."""
+    feed = {"x": _x((2, 3, 16)) * 2 + 1}
+
+    def build(p):
+        x = _data(p, "x", [2, 3, 16])
+        y = p.layers.layer_norm(x, scale=scale, shift=shift,
+                                begin_norm_axis=begin)
+        op = p.default_main_program().global_block().ops[-1]
+        return [y, op.output("Mean")[0], op.output("Variance")[0]]
+    _run_both(build, feed)
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash", "xla"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_scaled_dot_product_attention(with_mask, causal, impl):
+    b, h, tq, tk, d = 2, 2, 8, 12, 16
+    mask = np.zeros((b, 1, 1, tk), np.float32)
+    mask[1, ..., 8:] = -1e4
+    feed = {"q": _x((b, h, tq, d)), "k": _x((b, h, tk, d), 1),
+            "v": _x((b, h, tk, d), 2), "mask": mask}
+
+    def build(p):
+        q = _data(p, "q", [b, h, tq, d])
+        k = _data(p, "k", [b, h, tk, d])
+        v = _data(p, "v", [b, h, tk, d])
+        m = _data(p, "mask", [b, 1, 1, tk]) if with_mask else None
+        return [p.layers.fused_attention(q, k, v, mask=m, scale=0.3,
+                                         causal=causal, impl=impl)]
+    _run_both(build, feed)
+
+
+def test_sequence_parallel_attention_waits_for_the_multi_gpu_slice():
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        q = _data(ptt, "q", [1, 2, 4, 8])
+        out = tl.fused_attention(q, q, q, impl="ring")
+    with pytest.raises(ptt.NotPortedError, match="multi-GPU"):
+        ptt.Executor(ptt.CPUPlace()).run(
+            main, feed={"q": _x((1, 2, 4, 8))}, fetch_list=[out],
+            scope=ptt.Scope())
+
+
+@pytest.mark.parametrize("padding_idx", [None, 3, -2])
+def test_lookup_table(padding_idx):
+    ids = np.random.RandomState(0).randint(0, 10, (2, 5, 1)).astype(np.int64)
+    ids[0, :3, 0] = [3, 8, 3]
+    _run_both(lambda p: [p.layers.embedding(
+        _data(p, "ids", [2, 5, 1], "int64"), [10, 6],
+        padding_idx=padding_idx)], {"ids": ids}, exact=True)
+
+
+def test_shape_ops():
+    """transpose2, reshape2 (0 copies a dim, -1 infers one), unsqueeze2
+    and slice (negative and clipped bounds), as BERT uses them."""
+    def build(p):
+        x = _data(p, "x", [2, 3, 4])
+        return [p.layers.transpose(x, [0, 2, 1]),
+                p.layers.reshape(x, [0, -1, 2]),
+                p.layers.unsqueeze(x, [1]),
+                p.layers.unsqueeze(x, [0, 3]),
+                p.layers.slice(x, axes=[1], starts=[0], ends=[1]),
+                p.layers.slice(x, axes=[1, 2], starts=[-2, 1],
+                               ends=[100, -1])]
+    _run_both(build, {"x": _x((2, 3, 4))}, exact=True)
+
+
+@pytest.mark.parametrize("after", [True, False])
+def test_scale(after):
+    _run_both(lambda p: [p.layers.scale(_data(p, "x", [3, 4]), scale=1e4,
+                                        bias=-1e4, bias_after_scale=after)],
+              {"x": _x((3, 4))})
+
+
+@pytest.mark.parametrize("impl", ["upscale_in_train", "downgrade_in_infer"])
+def test_dropout_is_test(impl):
+    _run_both(lambda p: [p.layers.dropout(_data(p, "x", [3, 4]), 0.3,
+                                          is_test=True,
+                                          dropout_implementation=impl)],
+              {"x": _x((3, 4))})
+
+
+def test_dropout_with_zero_probability_is_identity():
+    _run_both(lambda p: [p.layers.dropout(_data(p, "x", [3, 4]), 0.0)],
+              {"x": _x((3, 4))}, exact=True)
+
+
+def test_training_dropout_waits_for_the_training_slice():
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        y = tl.dropout(_data(ptt, "x", [3, 4]), 0.1)
+    with pytest.raises(ptt.NotPortedError, match="training slice"):
+        ptt.Executor(ptt.CPUPlace()).run(main, feed={"x": _x((3, 4))},
+                                         fetch_list=[y], scope=ptt.Scope())
+
+
+@pytest.mark.parametrize("op_type,role", [("grad_of", "backward"),
+                                          ("sgd", "optimize")])
+def test_executor_refuses_training_programs(op_type, role):
+    """Backward and optimizer ops belong to the training slice: the
+    Executor refuses the whole program before running any op."""
+    main = ptt.Program()
+    with ptt.program_guard(main, ptt.Program()):
+        y = tl.scale(_data(ptt, "x", [3, 4]), scale=2.0)
+    main.global_block().append_op(op_type, inputs={"X": [y.name]},
+                                  outputs={"Out": [y.name]},
+                                  attrs={"op_role": role})
+    scope = ptt.Scope()
+    with pytest.raises(ptt.NotPortedError, match="training slice"):
+        ptt.Executor(ptt.CPUPlace()).run(main, feed={"x": _x((3, 4))},
+                                         fetch_list=[y], scope=scope)
+    assert not list(scope.keys())
+
+
+def test_activations():
+    """gelu (exact erf, as BERT's act="gelu" emits it), gelu with
+    approximate=True (tanh form, appended through the Program API since
+    the layer takes no attrs) and tanh."""
+    def build(p):
+        x = _data(p, "x", [4, 8])
+        blk = p.default_main_program().global_block()
+        approx = blk.create_var(name="gelu_tanh", shape=(4, 8),
+                                dtype="float32")
+        blk.append_op("gelu", inputs={"X": [x.name]},
+                      outputs={"Out": [approx.name]},
+                      attrs={"approximate": True})
+        return [p.layers.gelu(x), approx, p.layers.tanh(x)]
+    _run_both(build, {"x": _x((4, 8)) * 3})
+
+
+@pytest.mark.parametrize("src,dst", [("float32", "int64"),
+                                     ("int64", "float32"),
+                                     ("float32", "float16")])
+def test_cast(src, dst):
+    x = (_x((3, 4)) * 5).astype(src)
+    _run_both(lambda p: [p.layers.cast(_data(p, "x", [3, 4], src), dst)],
+              {"x": x}, exact=True)
+
+
+def test_fill_constant():
+    _run_both(lambda p: [p.layers.fill_constant([2, 3], "float32", 2.5),
+                         p.layers.fill_constant([4], "int64", 7)], {},
+              exact=True)
+
+
+def _init_param(pkg, init, shape, random_seed):
+    main, startup = pkg.Program(), pkg.Program()
+    startup.random_seed = random_seed
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        w = pkg.layers.create_parameter(shape, "float32", name="w",
+                                        default_initializer=init)
+    scope = pkg.Scope()
+    with pkg.scope_guard(scope):
+        pkg.Executor(pkg.CPUPlace()).run(startup)
+    assert len(startup.global_block().ops) == 1
+    return np.asarray(scope.find_var(w.name)), startup
+
+
+def test_truncated_gaussian_random_statistics():
+    """N(loc, scale) truncated at 2 scales: both packages' draws lie in
+    the bounds and have the truncated law's mean and std (scale *
+    0.87962566) within 5 standard errors; a fixed seed or random_seed repeats the draw, another
+    one changes it."""
+    loc, scale, shape = 0.5, 2.0, (300, 400)
+    draws = {}
+    for name, pkg in (("jax", pt), ("torch", ptt)):
+        w, startup = _init_param(pkg, pkg.initializer.TruncatedNormal(
+            loc=loc, scale=scale), shape, 11)
+        assert startup.global_block().ops[0].type == \
+            "truncated_gaussian_random"
+        draws[name] = w
+        assert w.shape == shape and w.dtype == np.float32
+        assert w.min() >= loc - 2 * scale and w.max() <= loc + 2 * scale
+        # 5 standard errors of the mean; the std's is ~0.2%
+        std = scale * 0.87962566
+        assert abs(w.mean() - loc) < 5 * std / np.sqrt(w.size)
+        assert abs(w.std() / std - 1) < 0.01
+        # the tails reach the bounds: no collapse to a narrower law
+        assert w.min() < loc - 1.9 * scale and w.max() > loc + 1.9 * scale
+    again, _ = _init_param(ptt, ptt.initializer.TruncatedNormal(
+        loc=loc, scale=scale), shape, 11)
+    other, _ = _init_param(ptt, ptt.initializer.TruncatedNormal(
+        loc=loc, scale=scale), shape, 12)
+    seeded, _ = _init_param(ptt, ptt.initializer.TruncatedNormal(
+        loc=loc, scale=scale, seed=5), shape, 11)
+    seeded2, _ = _init_param(ptt, ptt.initializer.TruncatedNormal(
+        loc=loc, scale=scale, seed=5), shape, 12)
+    np.testing.assert_array_equal(again, draws["torch"])
+    assert not np.array_equal(other, draws["torch"])
+    np.testing.assert_array_equal(seeded, seeded2)
+    assert not np.array_equal(draws["jax"], draws["torch"])
+
+
+def test_uniform_random_statistics():
+    """fc's default (Xavier) weight init draws uniform_random."""
+    for pkg in (pt, ptt):
+        w, startup = _init_param(pkg, pkg.initializer.Uniform(-0.5, 1.5),
+                                 (200, 300), 3)
+        assert startup.global_block().ops[0].type == "uniform_random"
+        assert w.min() >= -0.5 and w.max() <= 1.5
+        std = 2.0 / np.sqrt(12)
+        assert abs(w.mean() - 0.5) < 5 * std / np.sqrt(w.size)
+        assert abs(w.std() / std - 1) < 0.01
+
+
+def test_constant_initializer_runs_fill_constant():
+    for pkg in (pt, ptt):
+        w, startup = _init_param(pkg, pkg.initializer.Constant(0.25),
+                                 (3, 5), 0)
+        assert startup.global_block().ops[0].type == "fill_constant"
+        np.testing.assert_array_equal(w, np.full((3, 5), 0.25, np.float32))
