@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's main path on one CUDA card and check it.
+"""Drive paddle_tpu_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
-CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/``, holds each
-against its plain PyTorch version at the main path's shapes, serves
-BERT-base (full width, T=512, random weights from a seed) through
-``inference.create_predictor`` on the card, checks the answers against
-the same saved model served on the CPU, and checks from the kernels'
-launch counters that every request went through both kernels. A
-profile phase then splits one warm request's device time by kernel
-family.
+CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
+against its plain PyTorch version at the main paths' shapes (the
+backward kernels also against themselves: two runs must give equal
+bits). Then it drives the two main paths, each with the kernels' launch
+counters set to 0 just before and read just after:
 
-Each phase prints JSON lines. The last three lines are the card's
+- ``serve``: BERT-base (full width, T=512, random weights from a seed)
+  through ``inference.create_predictor`` on the card, answers checked
+  against the same saved model served on the CPU; 12 flash-attention
+  and 25 LayerNorm forward launches per request.
+- ``train``: BERT-base MLM+NSP pretraining (full width, batch 32,
+  seq 128, dropout 0.1, Adam 1e-4) for six steps on one batch; losses
+  finite and falling; per step 12 flash-attention forward, 12 dK/dV, 12
+  dQ, 26 LayerNorm forward, 26 LayerNorm backward and 206 fused-Adam
+  launches.
+
+``train_parity`` runs three steps of a 2-layer BERT-base-width model on
+the card and on the CPU from the same weights and compares losses and
+final parameters. A profile phase splits one warm request's and one
+warm training step's device time by kernel family.
+
+Each phase prints JSON lines, also kept whole in
+``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the ``ok`` line; so does a machine without a CUDA device, or a
@@ -34,6 +47,15 @@ REQUEST_BATCHES = (1, 3, 8, 1, 3, 8)     # each size cold, then warm
 BUCKETS = (1, 2, 4, 8)
 FLASH_PER_REQUEST = 12                   # one attention per layer
 LN_PER_REQUEST = 25                      # 1 + 2 per layer
+# BERT-base pretraining step (bench.py:388 shapes, batch cut from 128 to
+# 32 to keep the phase short): per step one attention per layer forward
+# and backward, 25 encoder + 1 MLM-head LayerNorm forward and backward,
+# one Adam update per parameter
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS, TRAIN_STEPS = 32, 128, 20, 6
+TRAIN_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                  "flash_attention_bwd_dq": 12, "layer_norm_fwd": 26,
+                  "layer_norm_bwd": 26, "fused_adam": 206}
+PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -50,6 +72,39 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {("flash", "float32"): 2e-5, ("flash", "bfloat16"): 1e-2,
        ("ln", "float32"): 1e-4, ("ln", "bfloat16"): 6.25e-2,
        "stat": 1e-4}
+# Backward kernels against their plain versions: dq/dk/dv are sums over
+# up to 1024 keys or queries of values of order 1 (results up to ~6): f32
+# in another order stays below 1e-4; bf16 outputs may differ by one bf16
+# ulp at up to 4-8, 2^-5. LayerNorm dx is of order 1-3 (one bf16 ulp at 2-4
+# is 2^-6); its dscale/dbias are f32 sums over 4096 rows, held relative to
+# their largest magnitude (random-walk rounding of 4096 terms is ~4e-6 of
+# it).
+BWD_TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3.2e-2,
+           ("ln", "float32"): 1e-4, ("ln", "bfloat16"): 1.6e-2,
+           "ln_cols_rel": 5e-5}
+# Adam: each output (p', m1', m2') is held apart, against the plain
+# version, relative to its own change in the step:
+#   max|got - want| <= ADAM_REL_TOL * max|want - old| + eps(dtype) * max|want|
+# The second term is one ulp of the output, the most the final rounding
+# can differ by when the two order their multiply-adds differently (for a
+# bf16 parameter, one bf16 ulp); the rest of f32 elementwise math agrees
+# to ~1e-7 of the change. A case counts only where the change is at least
+# 10 ulps, so an output left unwritten, a wrong beta or a stale moment
+# misses by most of its change.
+ADAM_REL_TOL = 1e-4
+# train_parity, card against CPU from the same weights, f32 without TF32
+# on both: the per-step loss differs only by summation order through two
+# layers and the head (rtol 1e-4). Final parameters agree within 2e-5,
+# ~10x the 2.3e-6 measured on an H100, while three steps move them by
+# ~3e-4 (at least 10x the tolerance is required). The exception: the
+# embedding and gather gradients are summed with atomics on the card, in
+# no fixed order, so a gradient that sums to near zero may change sign,
+# and Adam then steps that element the other way (up to lr = 1e-4 per
+# step: within 2 * 3 * 1e-4 = 6e-4 after three steps). At most a
+# millionth of the elements may fall beyond 2e-5, and none beyond 6e-4.
+PARITY_LOSS_RTOL, PARITY_PARAM_ATOL = 1e-4, 2e-5
+PARITY_SIGN_FLIP_ATOL, PARITY_SIGN_FLIP_SHARE = 6e-4, 1e-6
+
 # GPU vs CPU serving of one request: f32 end to end without TF32 on
 # either side; the summation order differs per matmul, LayerNorm and
 # attention, and the differences pass through 12 layers of values of
@@ -57,11 +112,17 @@ TOL = {("flash", "float32"): 2e-5, ("flash", "bfloat16"): 1e-2,
 SERVE_ATOL = 1e-3
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
+# every emitted line is also kept here whole: a chip run's printed output
+# may come back cut to its end
+_LOG = os.path.join(_ROOT, "chiprun_out", "chip_smoke.jsonl")
 _failed = []
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(_LOG, "a") as f:
+        f.write(line + "\n")
 
 
 def phase(name):
@@ -117,6 +178,7 @@ def flash_cases(torch, fa, F):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         ("bert_base_k_mask_f32", 8, 12, 512, 512, 64, f32, "k", False),
+        ("bert_train_k_mask_f32", 32, 12, 128, 128, 64, f32, "k", False),
         ("bert_base_k_mask_bf16", 8, 12, 512, 512, 64, bf16, "k", False),
         ("gpt_base_causal_f32", 1, 12, 1024, 1024, 64, f32, None, True),
         ("qk_mask_f32", 2, 12, 256, 256, 64, f32, "qk", False),
@@ -212,6 +274,218 @@ def ln_cases(torch, ln, F):
     return out
 
 
+def _visible(tq, tk, causal):
+    """(query, key) pairs a row sees, and rows that see no key (causal,
+    Tq > Tk: the backward gives them dv += dO / Tk over all keys)."""
+    if not causal:
+        return tq * tk, 0
+    off = tk - tq
+    pairs = sum(min(tk, i + off + 1) for i in range(tq) if i + off >= 0)
+    return pairs, sum(1 for i in range(tq) if i + off < 0)
+
+
+def _flash_inputs(torch, dev, seed, b, h, tq, tk, d, dtype, mode):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=dev)
+                   .to(dtype) for t in (tq, tk, tk, tq))
+    mask = None
+    if mode == "k":
+        # BERT's key-padding bias: 0 for tokens, -1e4 for the padding
+        lens = torch.randint(tk // 2, tk + 1, (b,), generator=g, device=dev)
+        mask = torch.where(torch.arange(tk, device=dev)[None, :] <
+                           lens[:, None], 0.0, -1e4).reshape(b, 1, 1, tk)
+    elif mode == "qk":
+        mask = torch.randn(b, 1, tq, tk, generator=g, device=dev)
+    return q, k, v, do, mask
+
+
+def flash_bwd_cases(torch, fa, F):
+    """Both backward kernels against the plain backward, on the forward
+    kernel's out and lse (themselves held against the plain forward on
+    the same inputs), and against themselves (equal bits on a second
+    run)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("bert_train_k_mask_f32", 32, 12, 128, 128, 64, f32, "k", False),
+        ("bert_serve_k_mask_f32", 8, 12, 512, 512, 64, f32, "k", False),
+        ("bert_serve_k_mask_bf16", 8, 12, 512, 512, 64, bf16, "k", False),
+        ("gpt_base_causal_f32", 1, 12, 1024, 1024, 64, f32, None, True),
+        ("qk_mask_f32", 2, 12, 256, 256, 64, f32, "qk", False),
+        ("ragged_d128_k_mask_f32", 2, 8, 200, 333, 128, f32, "k", False),
+        ("causal_tq_gt_tk_f32", 2, 12, 300, 200, 64, f32, None, True),
+    ]
+    dev = torch.device("cuda", 0)
+    dkv, dq = [], []
+    for i, (name, b, h, tq, tk, d, dtype, mode, causal) in enumerate(cases):
+        q, k, v, do, mask = _flash_inputs(torch, dev, SEED + 200 + i, b, h,
+                                          tq, tk, d, dtype, mode)
+        scale = d ** -0.5
+        out, lse = fa.flash_attention(q, k, v, mask, scale, causal)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, scale,
+                                                      causal)
+        fwd_err = _max_err(out, want_out)
+        fwd_lse_err = _max_err(lse, want_lse)
+        fwd_tol = TOL[("flash", str(dtype).split(".")[1])]
+        fwd_ok = fwd_err <= fwd_tol and fwd_lse_err <= TOL["stat"]
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, mask, lse, delta, do, scale, causal)
+        got_k, got_v = fa.flash_attention_bwd_dkv(*args)
+        got_q = fa.flash_attention_bwd_dq(*args)
+        again_k, again_v = fa.flash_attention_bwd_dkv(*args)
+        again_q = fa.flash_attention_bwd_dq(*args)
+        want_q, want_k, want_v = fa.flash_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[("flash", str(dtype).split(".")[1])]
+        err_kv = max(_max_err(got_k, want_k), _max_err(got_v, want_v))
+        err_q = _max_err(got_q, want_q)
+        same_kv = torch.equal(got_k, again_k) and torch.equal(got_v, again_v)
+        same_q = torch.equal(got_q, again_q)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(*args))
+        library_ms = None
+        if not causal or (mask is None and tq == tk):
+            lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=None if mask is None else mask.to(dtype),
+                is_causal=causal, scale=scale)
+            library_ms = time_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (lq, lk, lv), do, retain_graph=True))
+        pairs, no_key = _visible(tq, tk, causal)
+        el = q.element_size()
+        common = dict(shape=[b, h, tq, tk, d], dtype=str(dtype).split(".")[1],
+                      mask=mode, causal=causal, tol=tol, plain_ms=plain_ms,
+                      library_ms=library_ms, fwd_max_abs_err=fwd_err,
+                      fwd_lse_max_abs_err=fwd_lse_err, fwd_tol=fwd_tol)
+        side = (0 if mask is None else mask.numel() * 4) + \
+            2 * lse.numel() * 4                        # mask, lse, delta
+        # dK/dV: 8*D flops per visible pair (s, dp, dv, dk); a row that sees
+        # no key adds 2*D per key (dv only). Reads q,k,v,dO, writes dk,dv.
+        dkv.append(dict(
+            name=name, max_abs_err=err_kv,
+            ok=err_kv <= tol and same_kv and fwd_ok,
+            bitwise_repeat=same_kv,
+            kernel_ms=time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                *args)),
+            **common, **_bound(8.0 * b * h * d * pairs +
+                               2.0 * b * h * d * tk * no_key,
+                               (2 * q.numel() + 4 * k.numel()) * el + side,
+                               common["dtype"])))
+        # dQ: 6*D flops per visible pair (s, dp, dq). Reads q,k,v,dO,
+        # writes dq.
+        dq.append(dict(
+            name=name, max_abs_err=err_q,
+            ok=err_q <= tol and same_q and fwd_ok,
+            bitwise_repeat=same_q,
+            kernel_ms=time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                *args)),
+            **common, **_bound(6.0 * b * h * d * pairs,
+                               (3 * q.numel() + 2 * k.numel()) * el + side,
+                               common["dtype"])))
+    return dkv, dq
+
+
+def ln_bwd_cases(torch, ln):
+    cases = [("bert_base_f32", 4096, 768, torch.float32),
+             ("bert_base_bf16", 4096, 768, torch.bfloat16),
+             ("wide_8192_f32", 64, 8192, torch.float32)]
+    dev = torch.device("cuda", 0)
+    out = []
+    for i, (name, rows, cols, dtype) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(SEED + 300 + i)
+        x = (torch.randn(rows, cols, generator=g, device=dev) * 3 + 1
+             ).to(dtype)
+        gy = torch.randn(rows, cols, generator=g, device=dev).to(dtype)
+        scale = torch.rand(cols, generator=g, device=dev) + 0.5
+        bias = torch.randn(cols, generator=g, device=dev)
+        _, mean, rstd = ln.layer_norm(x, scale, bias, 1e-5)
+        args = (x, gy, scale, mean, rstd)
+        got = ln.layer_norm_bwd(*args)
+        again = ln.layer_norm_bwd(*args)
+        want = ln.layer_norm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = _max_err(got[0], want[0])
+        col_rel = max(_max_err(got[j], want[j]) /
+                      max(1.0, float(want[j].abs().max())) for j in (1, 2))
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        tol = BWD_TOL[("ln", str(dtype).split(".")[1])]
+        lib_w, lib_b = scale.to(dtype), bias.to(dtype)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(
+            x, (cols,), lib_w, lib_b, 1e-5)
+        el = x.element_size()
+        nbytes = 3 * x.numel() * el + 2 * rows * 4 + 3 * cols * 4
+        out.append(dict(
+            name=name, shape=[rows, cols], dtype=str(dtype).split(".")[1],
+            max_abs_err=err, cols_rel_err=col_rel, tol=tol,
+            cols_rel_tol=BWD_TOL["ln_cols_rel"], bitwise_repeat=same,
+            ok=err <= tol and col_rel <= BWD_TOL["ln_cols_rel"] and same,
+            kernel_ms=time_ms(torch, lambda: ln.layer_norm_bwd(*args)),
+            plain_ms=time_ms(torch, lambda: ln.layer_norm_bwd_plain(*args)),
+            library_ms=time_ms(
+                torch, lambda: torch.ops.aten.native_layer_norm_backward(
+                    gy, x, (cols,), lmean, lrstd, lib_w, lib_b,
+                    [True, True, True])),
+            # ~12 f32 operations per element: x_hat, g*s, two row sums,
+            # two column sums, dx
+            **_bound(12.0 * rows * cols, nbytes, "float32")))
+    return out
+
+
+def adam_cases(torch, fad):
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (name, elements, dtype, parameter centre and spread): BERT's
+    # weights start N(0, 0.02^2) and LayerNorm scales at 1; the bf16
+    # parameter is small enough (N(0, 1e-4^2), a bf16 ulp <= 3.8e-6) that
+    # the step, ~1e-5 and up, shows in bf16
+    cases = [("word_embedding", 30522 * 768, f32, 0.0, 0.02),
+             ("ffn_weight", 768 * 3072, f32, 0.0, 0.02),
+             ("layer_norm_scale", 768, f32, 1.0, 0.02),
+             ("ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4)]
+    dev = torch.device("cuda", 0)
+    lr = torch.tensor([1e-4], device=dev)
+    b1p = torch.tensor([0.9 ** 3], device=dev)
+    b2p = torch.tensor([0.999 ** 3], device=dev)
+    out = []
+    for i, (name, n, dtype, centre, spread) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(SEED + 400 + i)
+        p = (centre + spread * torch.randn(n, generator=g, device=dev)
+             ).to(dtype)
+        gr = torch.randn(n, generator=g, device=dev) * 1e-2
+        m1 = torch.randn(n, generator=g, device=dev) * 1e-3
+        m2 = torch.rand(n, generator=g, device=dev) * 1e-5
+        want = fad.fused_adam_plain(p, gr, m1, m2, lr, b1p, b2p)
+        got = fad.fused_adam(p.clone(), gr, m1.clone(), m2.clone(), lr, b1p,
+                             b2p)
+        torch.cuda.synchronize()
+        errs, tols, changes, ok = {}, {}, {}, True
+        for key, old, w, gt in zip(("p", "m1", "m2"), (p, m1, m2), want,
+                                   got):
+            ulp = torch.finfo(w.dtype).eps * float(w.float().abs().max())
+            changes[key] = _max_err(w, old)
+            errs[key] = _max_err(gt, w)
+            tols[key] = ADAM_REL_TOL * changes[key] + ulp
+            ok = ok and errs[key] <= tols[key] and changes[key] >= 10 * ulp
+        state = (p.clone(), m1.clone(), m2.clone())
+        # yardstick: torch's fused Adam on the same parameter (it places
+        # eps differently, so it is a clock, not an oracle)
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = gr.to(p.dtype)
+        lib_opt = torch.optim.Adam([lib_p], lr=1e-4, fused=True)
+        lib_opt.step()
+        out.append(dict(
+            name=name, numel=n, dtype=str(dtype).split(".")[1],
+            max_abs_err=max(errs.values()), abs_err=errs, tol=tols,
+            change=changes, rel_tol=ADAM_REL_TOL, ok=ok,
+            kernel_ms=time_ms(torch, lambda: fad.fused_adam(
+                state[0], gr, state[1], state[2], lr, b1p, b2p)),
+            plain_ms=time_ms(torch, lambda: fad.fused_adam_plain(
+                p, gr, m1, m2, lr, b1p, b2p)),
+            library_ms=time_ms(torch, lib_opt.step),
+            # read p, g, m1, m2 and write p, m1, m2: 28 bytes per f32
+            # element (24 with a bf16 p); ~12 f32 operations
+            **_bound(12.0 * n, (20.0 + 2 * p.element_size()) * n,
+                     "float32")))
+    return out
+
+
 def _bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -232,7 +506,7 @@ def bert_feeds(np, rng, n, vocab):
             "input_mask": mask}
 
 
-def serve(torch, np, ptt, fa, ln, model_dir):
+def serve(torch, np, ptt, counters, model_dir):
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.models import bert
@@ -259,25 +533,30 @@ def serve(torch, np, ptt, fa, ln, model_dir):
     rng = np.random.RandomState(SEED)
     requests = [bert_feeds(np, rng, n, cfg.vocab_size)
                 for n in REQUEST_BATCHES]
-    fa.launches = ln.launches = 0            # the main path starts here
+    counters.zero()                          # the main path starts here
     lat, per_request, answers = [], [], []
     for feed in requests:
-        before = (fa.launches, ln.launches)
+        before = counters.read()
         t1 = time.perf_counter()
         outs = pred.run(feed)                # numpy: synchronised
         lat.append((time.perf_counter() - t1) * 1e3)
-        per_request.append([fa.launches - before[0],
-                            ln.launches - before[1]])
+        after = counters.read()
+        per_request.append([after["flash_attention_fwd"] -
+                            before["flash_attention_fwd"],
+                            after["layer_norm_fwd"] -
+                            before["layer_norm_fwd"]])
         answers.append(outs)
-    launches = {"flash_attention_fwd": fa.launches,
-                "layer_norm_fwd": ln.launches}
+    launches = counters.read()
     shapes_ok = all(
         o[0].shape == (len(f["src_ids"]), SEQ_LEN, cfg.hidden_size) and
         o[1].shape == (len(f["src_ids"]), cfg.hidden_size) and
         all(np.isfinite(a).all() for a in o)
         for f, o in zip(requests, answers))
     counts_ok = all(c == [FLASH_PER_REQUEST, LN_PER_REQUEST]
-                    for c in per_request)
+                    for c in per_request) and \
+        all(launches[k] == 0 for k in ("flash_attention_bwd_dkv",
+                                       "flash_attention_bwd_dq",
+                                       "layer_norm_bwd", "fused_adam"))
 
     # the same saved model served on the CPU (plain versions), request 0
     cpu_config = Config(model_dir)
@@ -292,7 +571,8 @@ def serve(torch, np, ptt, fa, ln, model_dir):
           "heads": cfg.num_heads, "seq_len": SEQ_LEN, "dtype": "float32",
           "buckets": list(BUCKETS), "setup_s": setup_s,
           "request_batches": list(REQUEST_BATCHES), "latency_ms": lat,
-          "launches_per_request": per_request, "shapes_finite_ok": shapes_ok,
+          "launches_per_request": per_request, "launches": launches,
+          "shapes_finite_ok": shapes_ok,
           "cpu_request_ms": cpu_ms,
           "gpu_vs_cpu_max_abs_err": {"sequence_output": errs[0],
                                      "pooled": errs[1]},
@@ -303,31 +583,188 @@ def serve(torch, np, ptt, fa, ln, model_dir):
     return launches, pred, requests
 
 
+class Counters(object):
+    """The six kernels' launch counters, read and zeroed together."""
+
+    def __init__(self, fa, ln, fad):
+        self._fields = {
+            "flash_attention_fwd": (fa, "launches"),
+            "flash_attention_bwd_dkv": (fa, "dkv_launches"),
+            "flash_attention_bwd_dq": (fa, "dq_launches"),
+            "layer_norm_fwd": (ln, "launches"),
+            "layer_norm_bwd": (ln, "bwd_launches"),
+            "fused_adam": (fad, "launches")}
+
+    def zero(self):
+        for mod, attr in self._fields.values():
+            setattr(mod, attr, 0)
+
+    def read(self):
+        return {k: getattr(mod, attr)
+                for k, (mod, attr) in self._fields.items()}
+
+
+def _pretrain_program(ptt, bert, cfg, batch):
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = bert.bert_pretrain_program(
+            cfg, batch, TRAIN_SEQ, TRAIN_PREDS,
+            optimizer_fn=lambda loss: ptt.optimizer.Adam(1e-4).minimize(loss))
+    startup.random_seed = SEED
+    return main, startup, [fetch["loss"], fetch["mlm_loss"],
+                           fetch["nsp_loss"]]
+
+
+def train(torch, np, ptt, counters):
+    """BERT-base pretraining steps on the card through Executor.run."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base()                   # dropout 0.1
+    t0 = time.perf_counter()
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  TRAIN_BATCH)
+    ops = {}
+    for op in main.global_block().ops:
+        ops[op.type] = ops.get(op.type, 0) + 1
+    feed = bert.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=0)
+    scope = ptt.Scope()
+    exe = ptt.Executor()                     # CUDAPlace(0)
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()                          # the main path starts here
+    step_ms, losses, per_step = [], [], []
+    with ptt.scope_guard(scope):
+        for _ in range(TRAIN_STEPS):
+            before = counters.read()
+            t1 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch_list)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append([float(np.asarray(o).reshape(())) for o in out])
+            after = counters.read()
+            per_step.append({k: after[k] - before[k] for k in after})
+    launches = counters.read()
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    falling = losses[-1][0] < losses[0][0]
+    counts_ok = all(c == TRAIN_PER_STEP for c in per_step)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = step_ms[1:]
+    ok = finite and falling and counts_ok
+    emit({"phase": "train", "ok": ok, "model": "bert_base",
+          "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+          "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "max_preds": TRAIN_PREDS, "dropout": cfg.hidden_dropout,
+          "optimizer": "Adam(1e-4)", "dtype": "float32",
+          "parameters": n_params, "program_ops": sum(ops.values()),
+          "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
+          "tokens_per_s_warm": tokens / (statistics.median(warm) / 1e3),
+          "losses": losses, "finite": finite, "falling": falling,
+          "launches_per_step": per_step, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if not ok:
+        raise AssertionError("train checks failed (see the line above)")
+    return launches, (exe, main, scope, feed, fetch_list)
+
+
+def train_parity(torch, np, ptt):
+    """Three steps of a 2-layer BERT-base-width model on the card and on
+    the CPU (plain versions) from the same weights."""
+    from paddle_tpu_torch.io import set_params_from_numpy
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  PARITY_BATCH)
+    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=1)
+    init = ptt.Scope()
+    with ptt.scope_guard(init):
+        ptt.Executor().run(startup)
+    arrays = {v.name: to_numpy(init.find_var(v.name))
+              for v in main.list_vars() if v.persistable}
+    runs = {}
+    for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+        scope = ptt.Scope()
+        set_params_from_numpy(arrays, main, scope, place)
+        exe = ptt.Executor(place)
+        t0 = time.perf_counter()
+        with ptt.scope_guard(scope):
+            losses = [float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=fetch_list)[0]).reshape(()))
+                for _ in range(PARITY_STEPS)]
+        runs[label] = (losses, scope, (time.perf_counter() - t0) * 1e3)
+    (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    param_err = moved = 0.0
+    beyond = elements = 0
+    for p in main.all_parameters():
+        got = to_numpy(gs.find_var(p.name))
+        diff = np.abs(got - to_numpy(cs.find_var(p.name)))
+        param_err = max(param_err, float(diff.max()))
+        beyond += int((diff > PARITY_PARAM_ATOL).sum())
+        elements += diff.size
+        moved = max(moved, float(np.abs(got - arrays[p.name]).max()))
+    ok = (loss_rel <= PARITY_LOSS_RTOL and all(np.isfinite(gl))
+          and param_err <= PARITY_SIGN_FLIP_ATOL
+          and beyond <= PARITY_SIGN_FLIP_SHARE * elements
+          and moved >= 10 * PARITY_PARAM_ATOL)
+    emit({"phase": "train_parity", "ok": ok, "layers": PARITY_LAYERS,
+          "hidden": cfg.hidden_size, "batch": PARITY_BATCH,
+          "seq_len": TRAIN_SEQ, "steps": PARITY_STEPS, "dropout": 0.0,
+          "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
+          "loss_rtol": PARITY_LOSS_RTOL, "param_max_abs_err": param_err,
+          "param_atol": PARITY_PARAM_ATOL,
+          "param_elements": elements, "param_beyond_atol": beyond,
+          "sign_flip_atol": PARITY_SIGN_FLIP_ATOL,
+          "sign_flip_share": PARITY_SIGN_FLIP_SHARE,
+          "param_max_moved": moved,
+          "gpu_ms": g_ms, "cpu_ms": c_ms})
+    if not ok:
+        raise AssertionError("train_parity checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
+                     ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
+                     ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
                      ("ln_fwd_kernel", "layer_norm_fwd"),
+                     ("ln_bwd_", "layer_norm_bwd"),
+                     ("adam_kernel", "fused_adam"),
                      ("memcpy", "memcpy host<->device"),
                      ("gemm", "matmul"), ("xmma", "matmul"),
-                     ("cutlass", "matmul"), ("copy", "copy (layout/dtype)")):
+                     ("cutlass", "matmul"),
+                     ("index", "scatter/index (embedding, gather)"),
+                     ("scatter", "scatter/index (embedding, gather)"),
+                     ("gather", "scatter/index (embedding, gather)"),
+                     ("copy", "copy (layout/dtype)")):
         if key in k:
             return fam
     return "elementwise/other"
 
 
-def profile(torch, pred, requests):
-    """Where one warm request's time goes on the card: device time by
-    kernel family from torch.profiler, against the request's host time
-    (the profiler's own cost included). Diagnostic only: a profiler that
-    records no device time is reported, not failed."""
+def profile(torch, runs):
+    """Where one warm request's and one warm training step's time goes
+    on the card: device time by kernel family from torch.profiler,
+    against the host time of the run (the profiler's own cost included).
+    Diagnostic only: a profiler that records no device time is reported,
+    not failed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    for feed in (requests[0], requests[2]):  # batch 1 and batch 8
-        pred.run(feed)
+    for label, fn in runs:
+        fn()
+        torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pred.run(feed)
+            fn()
+            torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_family, top = {}, []
         for e in prof.key_averages():
@@ -338,12 +775,28 @@ def profile(torch, pred, requests):
             by_family[fam] = by_family.get(fam, 0.0) + ms
             top.append([ms, e.count, e.key[:100]])
         busy = sum(by_family.values())
-        emit({"phase": "profile", "batch": len(feed["src_ids"]),
+        emit({"phase": "profile", "run": label,
               "host_ms": wall_ms, "device_busy_ms": busy if busy else
               "not measured",
               "idle_share": 1 - busy / wall_ms if busy else "not measured",
               "device_ms_by_family": by_family,
-              "top_kernels": sorted(top, reverse=True)[:10]})
+              "top_kernels": sorted(top, reverse=True)[:12]})
+
+
+_KERNELS = (
+    # name, source in the port, the TPU kernel it replaces
+    ("flash_attention_fwd", "flash_attention_fwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:211"),
+    ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:339"),
+    ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:369"),
+    ("layer_norm_fwd", "layer_norm_fwd.cu",
+     "paddle_tpu/ops/pallas/layer_norm.py:97"),
+    ("layer_norm_bwd", "layer_norm_bwd.cu",
+     "paddle_tpu/ops/pallas/layer_norm.py:135"),
+    ("fused_adam", "fused_adam.cu", "paddle_tpu/ops/pallas/fused_adam.py:85"),
+)
 
 
 def main():
@@ -358,6 +811,7 @@ def main():
         import paddle_tpu_torch as ptt
         from paddle_tpu_torch.ops.kernels import build
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import fused_adam as fad
         from paddle_tpu_torch.ops.kernels import layer_norm as ln
     except ImportError as e:
         print("chip_smoke: run it from a checkout of the repository "
@@ -366,6 +820,9 @@ def main():
     import torch.nn.functional as F
     from paddle_tpu_torch.framework.executor import set_precision
     set_precision()                          # no TF32 anywhere
+    counters = Counters(fa, ln, fad)
+    os.makedirs(os.path.dirname(_LOG), exist_ok=True)
+    open(_LOG, "w").close()
 
     smi = phase("device")(nvidia_smi)()
     print(smi, flush=True)
@@ -384,55 +841,71 @@ def main():
           "nvcc_seconds": build.build_seconds, "ptxas": ptxas})
 
     def kernels():
-        fl, lc = flash_cases(torch, fa, F), ln_cases(torch, ln, F)
-        ok = all(c["ok"] for c in fl + lc)
-        emit({"phase": "kernels", "ok": ok, "flash_attention_fwd": fl,
-              "layer_norm_fwd": lc})
+        dkv, dq = flash_bwd_cases(torch, fa, F)
+        found = {"flash_attention_fwd": flash_cases(torch, fa, F),
+                 "flash_attention_bwd_dkv": dkv,
+                 "flash_attention_bwd_dq": dq,
+                 "layer_norm_fwd": ln_cases(torch, ln, F),
+                 "layer_norm_bwd": ln_bwd_cases(torch, ln),
+                 "fused_adam": adam_cases(torch, fad)}
+        ok = all(c["ok"] for cs in found.values() for c in cs)
+        emit(dict({"phase": "kernels", "ok": ok}, **found))
         if not ok:
             raise AssertionError("a kernel disagrees with its plain version")
-        return fl, lc
+        return found
     cases = phase("kernels")(kernels)()
 
     model_dir = os.path.join(_ROOT, "build", "chip_smoke_model")
     try:
-        served = phase("serve")(serve)(torch, np, ptt, fa, ln, model_dir)
+        served = phase("serve")(serve)(torch, np, ptt, counters, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
-    launches = None
-    if served is not None:
-        launches, pred, requests = served
-        phase("profile")(profile)(torch, pred, requests)
+    trained = phase("train")(train)(torch, np, ptt, counters)
+    phase("train_parity")(train_parity)(torch, np, ptt)
 
-    if cases is not None and launches is not None:
-        fl, lc = cases
-        print(smi, flush=True)
-        emit({"kernels": [
-            _summary("flash_attention_fwd",
-                     "paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
-                     "paddle_tpu/ops/pallas/flash_attention.py:211",
-                     launches["flash_attention_fwd"], fl),
-            _summary("layer_norm_fwd",
-                     "paddle_tpu_torch/ops/kernels/csrc/layer_norm_fwd.cu",
-                     "paddle_tpu/ops/pallas/layer_norm.py:97",
-                     launches["layer_norm_fwd"], lc)]})
-    if _failed or cases is None or launches is None:
+    runs = []
+    if served is not None:
+        _, pred, requests = served
+        runs += [("serve batch 1", lambda: pred.run(requests[0])),
+                 ("serve batch 8", lambda: pred.run(requests[2]))]
+    if trained is not None:
+        exe, main_prog, scope, feed, fetch_list = trained[1]
+
+        def step():
+            with ptt.scope_guard(scope):
+                exe.run(main_prog, feed=feed, fetch_list=fetch_list)
+        runs.append(("train step", step))
+    phase("profile")(profile)(torch, runs)
+
+    if _failed or cases is None or served is None or trained is None:
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
+    by_path = {"serve": served[0], "train": trained[0]}
+    print(smi, flush=True)
+    emit({"kernels": [
+        _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
+                 {path: n[name] for path, n in by_path.items()},
+                 cases[name])
+        for name, src, replaces in _KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def _summary(name, source, replaces, launches, cases):
+def _summary(name, source, replaces, launches_by_path, cases):
     """A kernel's line: its numbers at the main path's shape (the first
-    case: BERT-base at the largest bucket), every case beside them."""
+    case: BERT-base serving at the largest bucket for the forward
+    kernels, the BERT-base training step's shapes for the others), every
+    case beside them. ``launches`` sums the main paths' runs."""
     head = cases[0]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path,
             "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"], "cases": cases}
+            "shape": head.get("shape", head.get("numel")), "cases": cases}
 
 
 if __name__ == "__main__":

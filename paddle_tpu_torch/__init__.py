@@ -7,10 +7,13 @@ Pallas kernels replaced by CUDA kernels written by hand for Hopper
 caller passes ``CPUPlace()``; without a CUDA device the default raises
 ``NoCUDADeviceError``.
 
-This slice serves BERT-base encoder inference: build with ``layers``,
-run the startup program, ``io.save_inference_model``, then
-``inference.create_predictor(Config(dir)).run(requests)``. Training and
-the other models are later slices (see ROADMAP.md).
+Two slices so far. Serving BERT-base: build with ``layers``, run the
+startup program, ``io.save_inference_model``, then
+``inference.create_predictor(Config(dir)).run(requests)``. Training
+BERT-base: ``optimizer.Adam(lr).minimize(loss)`` appends the backward and
+update ops, and ``Executor.run(main, feed, fetch_list)`` takes one step
+(``models.bert.bert_pretrain_program``). The other models are later
+slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -22,6 +25,8 @@ from .ops.registry import NotPortedError
 from .param_attr import ParamAttr
 from . import initializer
 from . import layers
+from . import optimizer
+from .framework.backward import append_backward, gradients
 from . import io
 from .io import (save_inference_model, load_inference_model,
                  set_params_from_numpy)

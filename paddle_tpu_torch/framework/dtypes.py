@@ -56,3 +56,10 @@ def normalize_dtype(dtype):
 
 def to_torch_dtype(dtype):
     return _STR2DTYPE[normalize_dtype(dtype)]
+
+
+FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
+def is_float(dtype):
+    return normalize_dtype(dtype) in FLOAT_DTYPES

@@ -3,8 +3,8 @@
 Counterpart of paddle_tpu/framework/program.py. The IR is pure Python and
 its JSON form (``to_dict``/``from_dict``) is the same as the JAX
 package's, key for key, so a model directory written by either package
-loads in the other. Ops carry a stable ``desc_id`` for the training slice's
-grad pairing.
+loads in the other. Ops carry a stable ``desc_id``: a ``grad_of`` op names
+its forward op by it (framework/backward.py, framework/trace.py).
 """
 import contextlib
 import copy
@@ -19,6 +19,12 @@ from .dtypes import normalize_dtype
 _desc_id_counter = itertools.count()
 
 PROGRAM_FORMAT = "paddle_tpu.program.v1"
+
+GRAD_VAR_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name):
+    return name + GRAD_VAR_SUFFIX
 
 
 class Variable(object):

@@ -9,7 +9,10 @@ A model directory written by either package loads in the other.
 ``set_params_from_numpy`` carries weights into the port: it takes the
 ``{name: np.ndarray}`` dict that ``params.npz`` or a JAX scope yields and
 places each array in a port Scope as a torch tensor, after checking it
-against the program's variable of that name.
+against the program's variable of that name. For a training program
+that is every persistable: the parameters, the optimizer's accumulators
+(Adam's moments and beta powers, named as the JAX package names them) and
+``learning_rate``.
 """
 import json
 import os

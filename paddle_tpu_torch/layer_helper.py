@@ -108,6 +108,16 @@ class LayerHelper(object):
             dtype=dtype, shape=shape, persistable=False,
             stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, stop_gradient=True, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        sblock = self.startup_program.global_block()
+        svar = sblock.create_var(name=var.name, shape=var.shape,
+                                 dtype=var.dtype, persistable=True)
+        initializer(svar, sblock)
+
     # ---- bias / activation ----------------------------------------------
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         bias_attr = self.bias_attr

@@ -1,0 +1,49 @@
+"""Loss layers (counterpart of paddle_tpu/layers/loss.py) for the losses
+BERT pretraining uses."""
+from ..layer_helper import LayerHelper
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax = helper.create_variable_for_type_inference(logits.dtype,
+                                                        logits.shape)
+    loss_shape = None
+    if logits.shape is not None:
+        loss_shape = list(logits.shape)
+        loss_shape[axis] = 1
+        loss_shape = tuple(loss_shape)
+    loss = helper.create_variable_for_type_inference(logits.dtype, loss_shape)
+    helper.append_op(
+        "softmax_with_cross_entropy",
+        inputs={"Logits": [logits.name], "Label": [label.name]},
+        outputs={"Softmax": [softmax.name], "Loss": [loss.name]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "axis": axis})
+    if return_softmax:
+        return loss, softmax
+    return loss
+
+
+def fused_mlm_head_loss(hidden, weight, label, bias=None, cast_bf16=False):
+    """LM/MLM head ``hidden (T, D) @ weight^T (+ bias)`` and per-token
+    softmax CE loss ``(T, 1)`` in one op; ``weight`` is the (V, D) tied
+    embedding table, ``cast_bf16`` runs the projection from bf16 inputs
+    with f32 sums."""
+    helper = LayerHelper("fused_mlm_head_loss")
+    t = hidden.shape[0] if hidden.shape else None
+    loss = helper.create_variable_for_type_inference(
+        "float32", (t, 1) if t is not None else None)
+    inputs = {"Hidden": [hidden.name], "Weight": [weight.name],
+              "Label": [label.name]}
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    helper.append_op(
+        "fused_mlm_head_loss", inputs=inputs,
+        outputs={"Loss": [loss.name]},
+        attrs={"cast_bf16": bool(cast_bf16)})
+    return loss
+
+
+__all__ = ["softmax_with_cross_entropy", "fused_mlm_head_loss"]

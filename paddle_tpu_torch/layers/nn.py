@@ -1,4 +1,4 @@
-"""Neural network layers BERT inference uses.
+"""Neural network layers BERT serving and pretraining use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -194,6 +194,38 @@ def cast(x, dtype):
     return tensor_layers.cast(x, dtype)
 
 
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    return _single(helper, "mean", x, shape=(1,))
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    shape = None
+    if input.shape is not None and index.shape is not None:
+        shape = (index.shape[0],) + tuple(input.shape[1:])
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op("gather", inputs={"X": [input.name],
+                                       "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = None
+    if input.shape is not None:
+        shape = tuple(input.shape[:-1]) + (k,)
+    values = helper.create_variable_for_type_inference(input.dtype, shape)
+    indices = helper.create_variable_for_type_inference("int64", shape)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name],
+                              "Indices": [indices.name]},
+                     attrs={"k": k})
+    indices.stop_gradient = True
+    return values, indices
+
+
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "elementwise_add",
            "mul", "scale", "reshape", "unsqueeze", "transpose", "slice",
-           "cast"]
+           "cast", "mean", "gather", "topk"]

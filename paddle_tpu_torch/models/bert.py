@@ -1,11 +1,16 @@
-"""BERT-base / ERNIE encoder (static graph).
+"""BERT-base / ERNIE encoder and MLM+NSP pretraining program (static
+graph).
 
-Counterpart of paddle_tpu/models/bert.py's encoder: the same layers, op
-types and parameter names, so a model directory written by either
-package serves in the other. The pretraining heads (masked-LM and NSP
-losses) and ``recompute`` arrive with the training slice.
+Counterpart of paddle_tpu/models/bert.py:1-256: the same layers, op
+types, var and parameter names, so a model directory written by either
+package serves in the other and the two pretraining programs serialize
+the same. ``recompute`` arrives with a later slice.
 """
+import numpy as np
+
 from .. import layers
+from ..framework.program import Program, program_guard
+from ..initializer import ConstantInitializer
 from ..initializer import TruncatedNormalInitializer
 from ..layers.attention import multi_head_attention
 from ..ops.registry import NotPortedError
@@ -87,7 +92,7 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask, cfg,
     if cfg.recompute and not is_test:
         raise NotPortedError(
             "BertConfig(recompute=True) rematerializes layers in backward; "
-            "it arrives with the BERT training slice of paddle_tpu_torch")
+            "recompute arrives with a later slice of paddle_tpu_torch")
     emb = layers.embedding(
         src_ids, [cfg.vocab_size, cfg.hidden_size],
         param_attr=_attr(cfg, "word_embedding", ("mp", None)),
@@ -140,4 +145,89 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask, cfg,
     return x, pooled
 
 
-__all__ = ["BertConfig", "bert_base", "encoder_layer", "bert_encoder"]
+def bert_pretrain_program(cfg, batch_size, seq_len, max_preds_per_seq=20,
+                          is_test=False, optimizer_fn=None):
+    """Main and startup programs for MLM+NSP pretraining.
+
+    Feeds: src_ids, pos_ids, sent_ids (N,T,1) int64; input_mask (N,T,1)
+    float; mask_pos (N*max_preds,1) int64 flat indices into (N*T);
+    mask_label (N*max_preds,1) int64; labels (N,1) int64 (NSP).
+    ``optimizer_fn(loss)`` (e.g. ``optimizer.Adam(1e-4).minimize``)
+    appends the training ops. Returns (main, startup, feed names, fetch
+    dict).
+    """
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        src_ids = layers.data("src_ids", [seq_len, 1], dtype="int64")
+        pos_ids = layers.data("pos_ids", [seq_len, 1], dtype="int64")
+        sent_ids = layers.data("sent_ids", [seq_len, 1], dtype="int64")
+        input_mask = layers.data("input_mask", [seq_len, 1],
+                                 dtype="float32")
+        mask_pos = layers.data("mask_pos", [1], dtype="int64")
+        mask_label = layers.data("mask_label", [1], dtype="int64")
+        nsp_label = layers.data("labels", [1], dtype="int64")
+
+        seq_out, pooled = bert_encoder(src_ids, pos_ids, sent_ids,
+                                       input_mask, cfg, is_test=is_test)
+
+        # masked-LM head, decoded with the tied word embedding
+        flat = layers.reshape(seq_out, [-1, cfg.hidden_size])
+        picked = layers.gather(flat, mask_pos)
+        trans = layers.fc(picked, cfg.hidden_size, act="gelu",
+                          param_attr=ParamAttr(name="mask_lm_trans_fc.w_0",
+                                               initializer=_init(cfg)),
+                          bias_attr=ParamAttr(name="mask_lm_trans_fc.b_0"))
+        trans = layers.layer_norm(
+            trans, begin_norm_axis=1,
+            param_attr=ParamAttr(name="mask_lm_trans_ln_s"),
+            bias_attr=ParamAttr(name="mask_lm_trans_ln_b"))
+        word_emb = main.global_block().var("word_embedding")
+        mlm_bias = layers.create_parameter(
+            [cfg.vocab_size], "float32", name="mask_lm_out_fc.b_0",
+            default_initializer=ConstantInitializer(0.0))
+        mlm_loss = layers.mean(layers.fused_mlm_head_loss(
+            trans, word_emb, mask_label, bias=mlm_bias,
+            cast_bf16=cfg.dtype == "bfloat16"))
+
+        # next-sentence head
+        nsp_logits = layers.fc(
+            pooled, 2, param_attr=ParamAttr(name="next_sent_fc.w_0",
+                                            initializer=_init(cfg)),
+            bias_attr=ParamAttr(name="next_sent_fc.b_0"))
+        nsp_loss, nsp_softmax = layers.softmax_with_cross_entropy(
+            nsp_logits, nsp_label, return_softmax=True)
+        nsp_acc = layers.accuracy(nsp_softmax, nsp_label)
+        nsp_loss = layers.mean(nsp_loss)
+
+        loss = layers.elementwise_add(mlm_loss, nsp_loss)
+        if optimizer_fn is not None:
+            optimizer_fn(loss)
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask", "mask_pos",
+             "mask_label", "labels"]
+    fetch = {"loss": loss, "mlm_loss": mlm_loss, "nsp_loss": nsp_loss,
+             "nsp_acc": nsp_acc}
+    return main, startup, feeds, fetch
+
+
+def synthetic_batch(cfg, batch_size, seq_len, max_preds_per_seq=20, seed=0):
+    """Random-but-valid pretraining batch, drawn from numpy's
+    RandomState(seed) exactly as the JAX package draws it."""
+    rng = np.random.RandomState(seed)
+    n, t = batch_size, seq_len
+    src = rng.randint(0, cfg.vocab_size, (n, t, 1)).astype(np.int64)
+    pos = np.tile(np.arange(t).reshape(1, t, 1), (n, 1, 1)).astype(np.int64)
+    sent = np.zeros((n, t, 1), np.int64)
+    sent[:, t // 2:, :] = 1
+    mask = np.ones((n, t, 1), np.float32)
+    mp = np.stack([rng.choice(t, max_preds_per_seq, replace=False) + i * t
+                   for i in range(n)]).reshape(-1, 1).astype(np.int64)
+    ml = rng.randint(0, cfg.vocab_size,
+                     (n * max_preds_per_seq, 1)).astype(np.int64)
+    nsp = rng.randint(0, 2, (n, 1)).astype(np.int64)
+    return {"src_ids": src, "pos_ids": pos, "sent_ids": sent,
+            "input_mask": mask, "mask_pos": mp, "mask_label": ml,
+            "labels": nsp}
+
+
+__all__ = ["BertConfig", "bert_base", "encoder_layer", "bert_encoder",
+           "bert_pretrain_program", "synthetic_batch"]

@@ -1,11 +1,13 @@
 """The fused attention op (counterpart of
 paddle_tpu/ops/attention_ops.py::_sdpa).
 
-impl "auto" and "flash" run the flash-attention kernel wrapper at every
-length: on a CUDA tensor that is the hand-written kernel, on a CPU tensor
-its plain version. The JAX package's rule that sends short sequences to
-XLA was set on a TPU and does not carry over. "xla" runs the plain
-version; "ring"/"ulysses" belong to the multi-GPU slice.
+impl "auto" and "flash" run the flash-attention kernels' autograd
+Function at every length: on a CUDA tensor that is the hand-written
+forward kernel, and the two hand-written backward kernels when a
+gradient is taken; on a CPU tensor their plain versions. The JAX
+package's rule that sends short sequences to XLA was set on a TPU and
+does not carry over. "xla" runs the plain forward (and autograd through
+it); "ring"/"ulysses" belong to the multi-GPU slice.
 """
 from .kernels import flash_attention as _fa
 from .registry import NotPortedError, register_op
@@ -21,7 +23,7 @@ def _sdpa(ctx, ins, attrs):
     causal = attrs.get("causal", False)
     impl = attrs.get("impl", "auto")
     if impl in ("auto", "flash"):
-        out, _ = _fa.flash_attention(q, k, v, mask, scale, causal)
+        out = _fa.FlashAttention.apply(q, k, v, mask, scale, causal)
     elif impl == "xla":
         out, _ = _fa.flash_attention_plain(q, k, v, mask, scale, causal)
     elif impl in ("ring", "ulysses"):

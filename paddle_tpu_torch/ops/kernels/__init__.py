@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port (counterpart of
-paddle_tpu/ops/pallas/): each module holds a kernel's wrapper, its plain
-PyTorch version and its launch counter; ``build`` compiles csrc/ at first
-use."""
-from . import build, flash_attention, layer_norm  # noqa: F401
+paddle_tpu/ops/pallas/): each module holds its kernels' wrappers, their
+plain PyTorch versions and their launch counters; ``build`` compiles
+csrc/ at first use."""
+from . import build, flash_attention, fused_adam, layer_norm  # noqa: F401

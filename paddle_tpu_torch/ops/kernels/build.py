@@ -27,14 +27,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
+_f = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "ptt_flash_attention_fwd": (
         [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
-         ctypes.c_longlong, _i, ctypes.c_float, _i, _vp], _i),
+         _ll, _i, _f, _i, _vp], _i),
+    "ptt_flash_attention_bwd_dkv": (
+        [_vp] * 9 + [_i] * 6 + [_ll, _i, _f, _i, _vp], _i),
+    "ptt_flash_attention_bwd_dq": (
+        [_vp] * 8 + [_i] * 6 + [_ll, _i, _f, _i, _vp], _i),
     "ptt_layer_norm_fwd": (
-        [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_float, _vp], _i),
+        [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _vp], _i),
+    "ptt_layer_norm_bwd": ([_vp] * 8 + [_i] * 4 + [_vp], _i),
+    "ptt_layer_norm_bwd_reduce": ([_vp] * 4 + [_i, _i, _vp], _i),
     "ptt_layer_norm_max_cols": ([], _i),
+    "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 5 + [_vp], _i),
     "ptt_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 

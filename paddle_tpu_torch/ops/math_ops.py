@@ -1,8 +1,8 @@
 """Math / elementwise / activation op kernels.
 
-Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT inference
-runs. ``mul`` is a plain ``torch.matmul``: XLA computes it outside any
-Pallas kernel in the JAX package.
+Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT serving
+and pretraining run. ``mul`` is a plain ``torch.matmul``: XLA computes it
+outside any Pallas kernel in the JAX package.
 """
 import math
 
@@ -79,3 +79,17 @@ def _mul(ctx, ins, attrs):
     x2 = x.reshape(-1, math.prod(xs[xn:]))
     y2 = y.reshape(math.prod(ys[:yn]), -1)
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": _x(ins).mean().reshape((1,))}

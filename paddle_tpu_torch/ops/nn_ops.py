@@ -1,5 +1,16 @@
-"""Neural-net op kernels BERT inference runs: lookup_table, dropout,
-layer_norm (counterparts in paddle_tpu/ops/nn_ops.py)."""
+"""Neural-net op kernels BERT serving and pretraining run: lookup_table,
+dropout, layer_norm, softmax_with_cross_entropy, fused_mlm_head_loss
+(counterparts in paddle_tpu/ops/nn_ops.py).
+
+``softmax_with_cross_entropy`` and ``fused_mlm_head_loss`` take the JAX
+package's own non-Pallas lowering (a ``torch.matmul`` for the head, a
+plain log-softmax cross-entropy): at BERT-base's vocab (30522) and the
+NSP head's 2 classes the JAX package's blockwise kernels decline to tile
+(``fit_blocks``) and it runs the same plain math. Where those kernels
+WOULD tile (GPT's vocab 32000), the ops refuse a CUDA tensor with
+NotPortedError until the kernels are ported, so the plain lowering never
+stands in for a kernel on the card.
+"""
 import math
 
 import torch
@@ -7,9 +18,16 @@ import torch
 from .kernels import layer_norm as _ln_kernel
 from .registry import NotPortedError, register_op
 
+# the JAX package's blockwise-CE / fused-head kernel defaults
+# (ops/pallas/blockwise_ce.py: block_t=128, block_v=512)
+_CE_BLOCK_T, _CE_BLOCK_V = 128, 512
+
 
 @register_op("lookup_table", nondiff=("Ids",))
 def _lookup_table(ctx, ins, attrs):
+    """``w[ids]``; its gradient scatters rows with atomics on a CUDA card
+    (index_put with accumulate), so repeated ids sum in no fixed order
+    there."""
     w, ids = ins["W"][0], ins["Ids"][0]
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
@@ -23,26 +41,32 @@ def _lookup_table(ctx, ins, attrs):
 
 @register_op("dropout", uses_rng=True)
 def _dropout(ctx, ins, attrs):
+    """Training mode keeps each element with probability 1 - p, drawn
+    from the op's seeded generator (Philox on a CUDA card); autograd saves
+    the mask, so the backward reuses the forward's draw."""
     x = ins["X"][0]
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
-    mask = torch.ones_like(x, dtype=torch.uint8)
     if attrs.get("is_test", False):
+        mask = torch.ones_like(x, dtype=torch.uint8)
         if impl == "upscale_in_train":
             return {"Out": x, "Mask": mask}
         return {"Out": x * (1.0 - p), "Mask": mask}
     if p <= 0.0:
-        return {"Out": x, "Mask": mask}
-    raise NotPortedError(
-        "dropout with is_test=False and dropout_prob=%r draws a random mask; "
-        "training-mode dropout arrives with the BERT training slice of "
-        "paddle_tpu_torch" % (p,))
+        return {"Out": x, "Mask": torch.ones_like(x, dtype=torch.uint8)}
+    keep = torch.rand(x.shape, generator=ctx.generator(attrs),
+                      device=x.device) < 1.0 - p
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    kept = x / (1.0 - p) if impl == "upscale_in_train" else x
+    return {"Out": torch.where(keep, kept, zero).to(x.dtype),
+            "Mask": keep.to(torch.uint8)}
 
 
 @register_op("layer_norm")
 def _layer_norm(ctx, ins, attrs):
     """Collapse to (rows, cols) at begin_norm_axis and run the LayerNorm
-    kernel wrapper; Mean/Variance come from its per-row mean and rstd."""
+    kernels' autograd Function; Mean/Variance come from its per-row mean
+    and rstd and carry no gradient."""
     x = ins["X"][0]
     eps = attrs.get("epsilon", 1e-5)
     begin = attrs.get("begin_norm_axis", 1)
@@ -50,8 +74,97 @@ def _layer_norm(ctx, ins, attrs):
     cols = math.prod(x.shape[begin:])
     scale = ins["Scale"][0] if ins.get("Scale") else None
     bias = ins["Bias"][0] if ins.get("Bias") else None
-    y, mean, rstd = _ln_kernel.layer_norm(x.reshape(-1, cols), scale, bias,
-                                          eps)
+    y, mean, rstd = _ln_kernel.LayerNorm.apply(x.reshape(-1, cols), scale,
+                                               bias, eps)
     return {"Y": y.reshape(x.shape),
             "Mean": mean.reshape(lead),
             "Variance": (rstd.pow(-2) - eps).reshape(lead)}
+
+
+def fit_blocks(t, v, block_t, block_v):
+    """(bt, bv) tile sizes for a (T, V) blockwise-CE/MLM-head problem, or
+    None when it cannot tile: halve each block until it divides its axis;
+    compiled Mosaic needs tiles of 128 or more. (The port's copy of
+    paddle_tpu/ops/pallas/costmodel.py:71 ``fit_blocks`` for compiled
+    kernels, the JAX package's tiling rule.)"""
+    bt, bv = min(block_t, t), min(block_v, v)
+    while bt >= 1 and t % bt:
+        bt //= 2
+    while bv >= 1 and v % bv:
+        bv //= 2
+    if bt < 128 or bv < 128:
+        return None
+    return bt, bv
+
+
+def blockwise_kernel_would_tile(t, v, d=None):
+    """Whether the JAX package's compiled blockwise-CE (``d`` None) or
+    fused-MLM-head (hidden width ``d``) kernel takes a (T, V) problem."""
+    if fit_blocks(t, v, _CE_BLOCK_T, _CE_BLOCK_V) is None:
+        return False
+    return d is None or d % 8 == 0
+
+
+def _refuse_where_kernel_tiles(op_type, x, t, v, d=None):
+    if x.device.type == "cuda" and blockwise_kernel_would_tile(t, v, d):
+        raise NotPortedError(
+            "%s at (T, V) = (%d, %d) is a shape the JAX package's blockwise "
+            "Pallas kernel tiles; its CUDA kernel arrives with the "
+            "GPT-pretraining slice of paddle_tpu_torch" % (op_type, t, v))
+
+
+@register_op("softmax_with_cross_entropy", nondiff=("Label",))
+def _softmax_with_cross_entropy(ctx, ins, attrs):
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    axis = attrs.get("axis", -1)
+    soft = attrs.get("soft_label", False)
+    if not soft:
+        lbl = label
+        if lbl.dim() == logits.dim() and lbl.shape[axis] == 1:
+            lbl = lbl.squeeze(axis)
+        if logits.dim() >= 2 and axis in (-1, logits.dim() - 1) and \
+                lbl.dim() == logits.dim() - 1:
+            v = logits.shape[-1]
+            _refuse_where_kernel_tiles("softmax_with_cross_entropy", logits,
+                                       logits.numel() // max(v, 1), v)
+    logp = torch.log_softmax(logits.float(), dim=axis)
+    if soft:
+        loss = -(label * logp).sum(dim=axis, keepdim=True)
+    else:
+        ignore = attrs.get("ignore_index", -100)
+        idx = lbl[..., None].long()
+        hit = idx == ignore
+        picked = torch.take_along_dim(logp, idx.masked_fill(hit, 0),
+                                      dim=axis)
+        loss = torch.where(hit, torch.zeros((), device=logp.device),
+                           -picked)
+    return {"Softmax": torch.exp(logp).to(logits.dtype),
+            "Loss": loss.to(logits.dtype)}
+
+
+@register_op("fused_mlm_head_loss", nondiff=("Label",))
+def _fused_mlm_head_loss(ctx, ins, attrs):
+    """LM/MLM head + softmax CE: ``Hidden (T, D) @ Weight^T (+ Bias)`` ->
+    per-token Loss (T, 1), Weight the (V, D) tied embedding table. The
+    JAX package's non-Pallas lowering: the (T, V) logits exist here."""
+    hidden, weight = ins["Hidden"][0], ins["Weight"][0]
+    label = ins["Label"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    lbl = label.reshape(label.shape[:-1]) if label.dim() > 1 and \
+        label.shape[-1] == 1 else label
+    if hidden.dim() == 2 and lbl.dim() == 1:
+        _refuse_where_kernel_tiles("fused_mlm_head_loss", hidden,
+                                   hidden.shape[0], weight.shape[0],
+                                   hidden.shape[1])
+    h, w = hidden, weight
+    if attrs.get("cast_bf16", False):
+        # bf16 inputs, f32 products and sums (bf16 products are exact in
+        # f32), as the JAX package's preferred_element_type=f32 matmul
+        h = h.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).float()
+    logits = torch.matmul(h, w.t()).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = torch.take_along_dim(logp, lbl[..., None].long(), dim=-1)
+    return {"Loss": -picked}

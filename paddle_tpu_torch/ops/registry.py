@@ -9,8 +9,9 @@ Counterpart of paddle_tpu/ops/registry.py, with the same kernel contract::
   - ``ctx``: the executor's run context — ``ctx.device`` (torch.device)
     and ``ctx.generator(attrs)`` (a seeded torch.Generator for random ops)
 
-``OpDef`` keeps the ``nondiff``/``uses_rng`` fields the training slice
-will read.
+``OpDef.nondiff`` names input slots that never get a gradient (the
+backward and the Executor's grad pairing read it); ``differentiable=False``
+ops get no ``grad_of`` at all.
 """
 
 _REGISTRY = {}
@@ -48,3 +49,7 @@ def get_op(type):
         raise NotImplementedError(
             "op %r has no registered torch kernel in paddle_tpu_torch" % type)
     return op
+
+
+def has_op(type):
+    return type in _REGISTRY

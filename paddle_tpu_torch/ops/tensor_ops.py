@@ -1,6 +1,8 @@
 """Tensor manipulation op kernels (counterparts in
 paddle_tpu/ops/tensor_ops.py). Views stay views: transpose2 hands a
-strided tensor on, and the kernel wrappers make their inputs dense."""
+strided tensor on, and the kernel wrappers make their inputs dense.
+``gather``'s gradient scatters with atomics on a CUDA card (index_add),
+so its sums arrive in no fixed order there."""
 import torch
 
 from .registry import register_op
@@ -18,6 +20,29 @@ def _fill_constant(ctx, ins, attrs):
                               dtype=to_torch_dtype(attrs.get("dtype",
                                                              "float32")),
                               device=ctx.device)}
+
+
+@register_op("fill_any_like")
+def _fill_any_like(ctx, ins, attrs):
+    x = _x(ins)
+    dtype = attrs.get("dtype")
+    dtype = to_torch_dtype(dtype) if dtype else x.dtype
+    return {"Out": torch.full(x.shape, attrs.get("value", 0.0), dtype=dtype,
+                              device=x.device)}
+
+
+@register_op("gather", nondiff=("Index",))
+def _gather(ctx, ins, attrs):
+    x, index = ins["X"][0], ins["Index"][0]
+    if index.dim() == 2 and index.shape[1] == 1:
+        index = index.reshape(-1)
+    return {"Out": x.index_select(attrs.get("axis", 0) or 0, index.long())}
+
+
+@register_op("top_k")
+def _top_k(ctx, ins, attrs):
+    vals, idx = torch.topk(_x(ins), attrs["k"], dim=-1)
+    return {"Out": vals, "Indices": idx.long()}
 
 
 @register_op("reshape2")

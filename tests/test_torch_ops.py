@@ -174,27 +174,44 @@ def test_dropout_with_zero_probability_is_identity():
 
 
 def test_training_dropout_waits_for_the_training_slice():
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, startup):
-        y = tl.dropout(_data(ptt, "x", [3, 4]), 0.1)
-    with pytest.raises(ptt.NotPortedError, match="training slice"):
-        ptt.Executor(ptt.CPUPlace()).run(main, feed={"x": _x((3, 4))},
-                                         fetch_list=[y], scope=ptt.Scope())
+    """The training slice has arrived: dropout with is_test=False draws
+    its mask from the op's seeded generator and runs (its statistics are
+    held in tests/test_torch_training_ops.py); the same scope and seed
+    repeat the draw."""
+    x = _x((64, 64)) + 5.0
+    draws = []
+    for _ in range(2):
+        main, startup = ptt.Program(), ptt.Program()
+        with ptt.program_guard(main, startup):
+            y = tl.dropout(_data(ptt, "x", [64, 64]), 0.25,
+                           dropout_implementation="upscale_in_train")
+        out, = ptt.Executor(ptt.CPUPlace()).run(
+            main, feed={"x": x}, fetch_list=[y], scope=ptt.Scope())
+        draws.append(out)
+    kept = draws[0] != 0
+    assert 0.6 < kept.mean() < 0.9
+    np.testing.assert_array_equal(draws[0][kept],
+                                  (x / np.float32(0.75))[kept])
+    np.testing.assert_array_equal(draws[0], draws[1])
 
 
 @pytest.mark.parametrize("op_type,role", [("grad_of", "backward"),
                                           ("sgd", "optimize")])
 def test_executor_refuses_training_programs(op_type, role):
-    """Backward and optimizer ops belong to the training slice: the
-    Executor refuses the whole program before running any op."""
+    """The Executor runs training programs now, but refuses, before any
+    op runs, one it cannot run whole: a grad_of whose forward op is not
+    in the program (recompute, a later slice) or an optimizer op not
+    ported yet (sgd)."""
     main = ptt.Program()
     with ptt.program_guard(main, ptt.Program()):
         y = tl.scale(_data(ptt, "x", [3, 4]), scale=2.0)
     main.global_block().append_op(op_type, inputs={"X": [y.name]},
                                   outputs={"Out": [y.name]},
-                                  attrs={"op_role": role})
+                                  attrs={"op_role": role, "fwd_id": -1,
+                                         "fwd_type": "scale"})
     scope = ptt.Scope()
-    with pytest.raises(ptt.NotPortedError, match="training slice"):
+    match = "recompute" if op_type == "grad_of" else "not ported"
+    with pytest.raises(ptt.NotPortedError, match=match):
         ptt.Executor(ptt.CPUPlace()).run(main, feed={"x": _x((3, 4))},
                                          fetch_list=[y], scope=scope)
     assert not list(scope.keys())
