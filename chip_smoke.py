@@ -6,9 +6,9 @@
 run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
-against its plain PyTorch version at the main paths' shapes (the
-backward kernels also against themselves: two runs must give equal
-bits). Then it drives the two main paths, each with the kernels' launch
+of the eleven against its plain PyTorch version at the main paths' shapes
+(the backward kernels also against themselves: two runs must give equal
+bits). Then it drives the main paths, each with the kernels' launch
 counters set to 0 just before and read just after:
 
 - ``serve``: BERT-base (full width, T=512, random weights from a seed)
@@ -20,11 +20,26 @@ counters set to 0 just before and read just after:
   finite and falling; per step 12 flash-attention forward, 12 dK/dV, 12
   dQ, 26 LayerNorm forward, 26 LayerNorm backward and 206 fused-Adam
   launches.
+- ``gpt_train``: GPT-base next-token pretraining (full width, vocab
+  32000, batch 2 x 4096, f32, Adam 1e-4) for six steps on one batch;
+  losses finite and falling; per step 12/12/12 flash-attention (causal,
+  T = 4096), 25/25 LayerNorm, 148 fused-Adam and one launch of each of
+  the three fused-head kernels; peak device memory.
+- ``gpt_eval``: on the trained scope, the decode program's logits (2 x
+  4096 x 32000) through ``softmax_with_cross_entropy``, a masked mean and
+  its gradient to the logits: one launch each of the CE forward and
+  backward kernels; the loss must equal the fused-head kernel's loss of
+  the same weights and batch (``gpt_pretrain_program(is_test=True)``).
+- ``gpt_decode``: ``greedy_generate`` (batch 4, a 64-token prompt, 16
+  new tokens) on the card; the CPU's logits of the card's tokens must
+  put each chosen token within SERVE_ATOL of its step's maximum.
 
-``train_parity`` runs three steps of a 2-layer BERT-base-width model on
-the card and on the CPU from the same weights and compares losses and
-final parameters. A profile phase splits one warm request's and one
-warm training step's device time by kernel family.
+``train_parity`` and ``gpt_train_parity`` run three steps of a 2-layer
+BERT-base-width / GPT-base-width model (GPT at 2 x 128 tokens, where the
+head kernels tile) on the card and on the CPU from the same weights and
+compare losses and final parameters. A profile phase splits one warm
+request's, one warm BERT training step's and one warm GPT training
+step's device time by kernel family.
 
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
@@ -52,10 +67,31 @@ LN_PER_REQUEST = 25                      # 1 + 2 per layer
 # and backward, 25 encoder + 1 MLM-head LayerNorm forward and backward,
 # one Adam update per parameter
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS, TRAIN_STEPS = 32, 128, 20, 6
-TRAIN_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
-                  "flash_attention_bwd_dq": 12, "layer_norm_fwd": 26,
-                  "layer_norm_bwd": 26, "fused_adam": 206}
+NEW_KERNELS = ("fused_head_fwd", "fused_head_dh", "fused_head_dw", "ce_fwd",
+               "ce_bwd")
+TRAIN_PER_STEP = dict({"flash_attention_fwd": 12,
+                       "flash_attention_bwd_dkv": 12,
+                       "flash_attention_bwd_dq": 12, "layer_norm_fwd": 26,
+                       "layer_norm_bwd": 26, "fused_adam": 206},
+                      **{k: 0 for k in NEW_KERNELS})
 PARITY_LAYERS, PARITY_BATCH, PARITY_STEPS = 2, 4, 3
+# GPT-base pretraining (bench.py:596-601 widths; dtype bf16 -> f32 and
+# recompute off, the port's current slice): per step one causal attention
+# per layer forward and backward, 2 LayerNorms per block + the final one,
+# one Adam update per parameter (12 per block, two embeddings, final LN
+# scale and bias), one launch of each fused-head kernel
+GPT_BATCH, GPT_SEQ, GPT_STEPS = 2, 4096, 6
+GPT_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
+                "flash_attention_bwd_dq": 12, "layer_norm_fwd": 25,
+                "layer_norm_bwd": 25, "fused_adam": 148,
+                "fused_head_fwd": 1, "fused_head_dh": 1, "fused_head_dw": 1,
+                "ce_fwd": 0, "ce_bwd": 0}
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 64, 16
+GPT_PARITY_BATCH, GPT_PARITY_SEQ = 2, 128
+# gpt_eval: the CE kernel's loss on matmul logits against the head
+# kernel's on the same weights; both sum 8192 per-token losses of ~10 in
+# f32 from logits that differ by summation order only (~1e-6 relative)
+EVAL_LOSS_RTOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -92,6 +128,18 @@ BWD_TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3.2e-2,
 # 10 ulps, so an output left unwritten, a wrong beta or a stale moment
 # misses by most of its change.
 ADAM_REL_TOL = 1e-4
+# Head and CE kernels against their plain versions. loss and lse (f32,
+# values ~10): both sum the same f32 products over D (head) or take the
+# same logsumexp (CE) in another order: 1e-4. Gradients are held relative
+# to their largest magnitude: f32 dhidden sums 32000 terms and dweight
+# 8192, in another order than cuBLAS (random-walk rounding ~1e-6 of the
+# largest value): 5e-5; bf16 dhidden/dweight are rounded to bf16 on
+# output, one bf16 ulp (2^-7 of the largest value) apart at most. CE's
+# dlogits (values below 1): 1e-6 in f32, a bf16 ulp below 1 (2^-8) in
+# bf16.
+HEAD_TOL = {"loss": 1e-4, ("grad_rel", "float32"): 5e-5,
+            ("grad_rel", "bfloat16"): 2.0 ** -7,
+            ("dlogits", "float32"): 1e-6, ("dlogits", "bfloat16"): 2.0 ** -8}
 # train_parity, card against CPU from the same weights, f32 without TF32
 # on both: the per-step loss differs only by summation order through two
 # layers and the head (rtol 1e-4). Final parameters agree within 2e-5,
@@ -169,6 +217,14 @@ def time_ms(torch, fn, reps=7, inner=10):
     return statistics.median(times)
 
 
+def _clock(big):
+    """time_ms, with fewer repetitions for a big case (T = 4096 attention,
+    whose plain versions build (B, H, T, T) scores; GPT-sized heads)."""
+    import torch
+    reps, inner = (3, 2) if big else (7, 10)
+    return lambda fn: time_ms(torch, fn, reps, inner)
+
+
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -184,10 +240,13 @@ def flash_cases(torch, fa, F):
         ("qk_mask_f32", 2, 12, 256, 256, 64, f32, "qk", False),
         ("ragged_d128_k_mask_f32", 2, 8, 200, 333, 128, f32, "k", False),
         ("causal_tq_gt_tk_f32", 2, 12, 300, 200, 64, f32, None, True),
+        ("gpt_train_causal_t4096_f32", 2, 12, 4096, 4096, 64, f32, None,
+         True),
     ]
     dev = torch.device("cuda", 0)
     out = []
     for i, (name, b, h, tq, tk, d, dtype, mode, causal) in enumerate(cases):
+        clock = _clock(tq >= 4096)
         g = torch.Generator(device=dev).manual_seed(SEED + i)
         q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev)
                    .to(dtype) for t in (tq, tk, tk))
@@ -210,7 +269,7 @@ def flash_cases(torch, fa, F):
         library_ms = None
         if not causal or (mask is None and tq == tk):
             lib_mask = None if mask is None else mask.to(dtype)
-            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            library_ms = clock(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=lib_mask, is_causal=causal, scale=scale))
         # work this run needs: 4*D flops per visible (query, key) pair; a
         # causal row that sees no key averages every value (the
@@ -229,9 +288,9 @@ def flash_cases(torch, fa, F):
             max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
             lse_tol=TOL["stat"],
             ok=err <= tol and lse_err <= TOL["stat"],
-            kernel_ms=time_ms(torch, lambda: fa.flash_attention(
+            kernel_ms=clock(lambda: fa.flash_attention(
                 q, k, v, mask, scale, causal)),
-            plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+            plain_ms=clock(lambda: fa.flash_attention_plain(
                 q, k, v, mask, scale, causal)),
             library_ms=library_ms,
             **_bound(flops, nbytes, str(dtype).split(".")[1])))
@@ -313,10 +372,13 @@ def flash_bwd_cases(torch, fa, F):
         ("qk_mask_f32", 2, 12, 256, 256, 64, f32, "qk", False),
         ("ragged_d128_k_mask_f32", 2, 8, 200, 333, 128, f32, "k", False),
         ("causal_tq_gt_tk_f32", 2, 12, 300, 200, 64, f32, None, True),
+        ("gpt_train_causal_t4096_f32", 2, 12, 4096, 4096, 64, f32, None,
+         True),
     ]
     dev = torch.device("cuda", 0)
     dkv, dq = [], []
     for i, (name, b, h, tq, tk, d, dtype, mode, causal) in enumerate(cases):
+        clock = _clock(tq >= 4096)
         q, k, v, do, mask = _flash_inputs(torch, dev, SEED + 200 + i, b, h,
                                           tq, tk, d, dtype, mode)
         scale = d ** -0.5
@@ -340,14 +402,14 @@ def flash_bwd_cases(torch, fa, F):
         err_q = _max_err(got_q, want_q)
         same_kv = torch.equal(got_k, again_k) and torch.equal(got_v, again_v)
         same_q = torch.equal(got_q, again_q)
-        plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(*args))
+        plain_ms = clock(lambda: fa.flash_attention_bwd_plain(*args))
         library_ms = None
         if not causal or (mask is None and tq == tk):
             lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(
                 lq, lk, lv, attn_mask=None if mask is None else mask.to(dtype),
                 is_causal=causal, scale=scale)
-            library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            library_ms = clock(lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), do, retain_graph=True))
         pairs, no_key = _visible(tq, tk, causal)
         el = q.element_size()
@@ -363,8 +425,7 @@ def flash_bwd_cases(torch, fa, F):
             name=name, max_abs_err=err_kv,
             ok=err_kv <= tol and same_kv and fwd_ok,
             bitwise_repeat=same_kv,
-            kernel_ms=time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-                *args)),
+            kernel_ms=clock(lambda: fa.flash_attention_bwd_dkv(*args)),
             **common, **_bound(8.0 * b * h * d * pairs +
                                2.0 * b * h * d * tk * no_key,
                                (2 * q.numel() + 4 * k.numel()) * el + side,
@@ -375,8 +436,7 @@ def flash_bwd_cases(torch, fa, F):
             name=name, max_abs_err=err_q,
             ok=err_q <= tol and same_q and fwd_ok,
             bitwise_repeat=same_q,
-            kernel_ms=time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-                *args)),
+            kernel_ms=clock(lambda: fa.flash_attention_bwd_dq(*args)),
             **common, **_bound(6.0 * b * h * d * pairs,
                                (3 * q.numel() + 2 * k.numel()) * el + side,
                                common["dtype"])))
@@ -486,6 +546,157 @@ def adam_cases(torch, fad):
     return out
 
 
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return _max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def head_cases(torch, bce, F):
+    """The fused head's forward, dhidden and dweight kernels against the
+    plain head (which builds the (T, V) logits), the backward kernels also
+    against a second run of themselves. Library yardstick:
+    ``F.cross_entropy(h @ W^T + b, labels, reduction="none")`` and its
+    autograd backward, which build (T, V) logits and their gradient."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (name, T, D, V, dtype, bias)
+        ("gpt_base_f32", 8192, 768, 32000, f32, False),
+        ("bert_bias_f32", 640, 768, 32000, f32, True),
+        ("gpt_base_bf16", 2048, 768, 32000, bf16, False),
+        ("ragged_f32", 1000, 200, 5003, f32, True),
+        ("wide_d1000_f32", 300, 1000, 777, f32, True),
+        ("ragged_d99_f32", 257, 99, 1001, f32, False),  # scalar tile loads
+    ]
+    dev = torch.device("cuda", 0)
+    fwd, dh_out, dw_out = [], [], []
+    for i, (name, t, d, v, dtype, with_bias) in enumerate(cases):
+        clock = _clock(t * v > 1e8)
+        g = torch.Generator(device=dev).manual_seed(SEED + 500 + i)
+        h = torch.randn(t, d, generator=g, device=dev).to(dtype)
+        w = (torch.randn(v, d, generator=g, device=dev) * 0.05).to(dtype)
+        b = torch.randn(v, generator=g, device=dev) * 0.1 if with_bias \
+            else None
+        lab = torch.randint(0, v, (t,), generator=g, device=dev)
+        lab[::97] = -100                     # ignore_index rows hit nothing
+        dl = torch.rand(t, generator=g, device=dev)
+        loss, lse = bce.fused_head_loss(h, w, lab, b)
+        want_loss, want_lse = bce.fused_head_loss_plain(h, w, lab, b)
+        args = (h, w, lab, b, lse, dl)
+        dh = bce.fused_head_dhidden(*args)
+        dw, db = bce.fused_head_dweight(*args)
+        dh2 = bce.fused_head_dhidden(*args)
+        dw2, db2 = bce.fused_head_dweight(*args)
+        want_dh, want_dw, want_db = bce.fused_head_bwd_plain(*args)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[1]
+        loss_err = max(_max_err(loss, want_loss), _max_err(lse, want_lse))
+        rel_tol = HEAD_TOL[("grad_rel", dt)]
+        dh_rel = _rel_err(dh, want_dh)
+        dw_rel = max(_rel_err(dw, want_dw), _rel_err(db, want_db))
+        same_dh = torch.equal(dh, dh2)
+        same_dw = torch.equal(dw, dw2) and torch.equal(db, db2)
+
+        lh, lw = h.detach().requires_grad_(), w.detach().requires_grad_()
+        lb = None if b is None else b.detach().requires_grad_()
+
+        def lib_fwd():
+            logits = lh @ lw.t()
+            if lb is not None:
+                logits = logits + lb.to(logits.dtype)
+            return F.cross_entropy(logits, lab, reduction="none")
+        lib_loss = lib_fwd()
+        lib_ins = tuple(x for x in (lh, lw, lb) if x is not None)
+        lib_bwd_ms = clock(lambda: torch.autograd.grad(
+            lib_loss, lib_ins, dl.to(lib_loss.dtype), retain_graph=True))
+        plain_bwd_ms = clock(lambda: bce.fused_head_bwd_plain(*args))
+        el = h.element_size()
+        common = dict(shape=[t, d, v], dtype=dt, bias=with_bias,
+                      plain_bwd_ms=plain_bwd_ms)
+        side = t * 8 + (v * 4 if with_bias else 0)    # labels, bias
+        fwd.append(dict(
+            name=name, max_abs_err=loss_err, tol=HEAD_TOL["loss"],
+            ok=loss_err <= HEAD_TOL["loss"],
+            kernel_ms=clock(lambda: bce.fused_head_loss(h, w, lab, b)),
+            plain_ms=clock(lambda: bce.fused_head_loss_plain(h, w, lab, b)),
+            library_ms=clock(lib_fwd), **common,
+            # s = h W^T: 2 T D V; reads h, W, labels, bias, writes loss, lse
+            **_bound(2.0 * t * d * v, (t * d + v * d) * el + side + 8 * t,
+                     dt)))
+        # each backward kernel recomputes s (2 T D V) and forms its
+        # product (2 T D V); reads h, W, labels, bias, lse, dloss
+        reads = (t * d + v * d) * el + side + 8 * t
+        dh_out.append(dict(
+            name=name, max_abs_err=_max_err(dh, want_dh), rel_err=dh_rel,
+            rel_tol=rel_tol, bitwise_repeat=same_dh,
+            ok=dh_rel <= rel_tol and same_dh,
+            kernel_ms=clock(lambda: bce.fused_head_dhidden(*args)),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **common,
+            **_bound(4.0 * t * d * v, reads + t * d * el, dt)))
+        dw_out.append(dict(
+            name=name, max_abs_err=max(_max_err(dw, want_dw),
+                                       _max_err(db, want_db)),
+            rel_err=dw_rel, rel_tol=rel_tol, bitwise_repeat=same_dw,
+            ok=dw_rel <= rel_tol and same_dw,
+            kernel_ms=clock(lambda: bce.fused_head_dweight(*args)),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **common,
+            **_bound(4.0 * t * d * v, reads + v * d * el + 4 * v, dt)))
+    return fwd, dh_out, dw_out
+
+
+def ce_cases(torch, bce, F):
+    """The CE forward and backward kernels against their plain versions
+    (and the backward against a second run of itself). Library yardstick:
+    ``F.cross_entropy(x, labels, reduction="none")`` and its autograd
+    backward."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("gpt_base_f32", 8192, 32000, f32),
+             ("bert_vocab_f32", 640, 30522, f32),
+             ("ragged_bf16", 333, 1001, bf16)]
+    dev = torch.device("cuda", 0)
+    fwd, bwd = [], []
+    for i, (name, t, v, dtype) in enumerate(cases):
+        clock = _clock(t * v > 1e8)
+        g = torch.Generator(device=dev).manual_seed(SEED + 600 + i)
+        x = (torch.randn(t, v, generator=g, device=dev) * 3).to(dtype)
+        lab = torch.randint(0, v, (t,), generator=g, device=dev)
+        lab[::7] = -100                      # ignore_index rows hit nothing
+        dl = torch.rand(t, generator=g, device=dev)
+        loss, lse = bce.softmax_ce(x, lab)
+        want_loss, want_lse = bce.softmax_ce_plain(x, lab)
+        dx = bce.softmax_ce_bwd(x, lab, lse, dl)
+        dx2 = bce.softmax_ce_bwd(x, lab, lse, dl)
+        want_dx = bce.softmax_ce_bwd_plain(x, lab, lse, dl)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[1]
+        loss_err = max(_max_err(loss, want_loss), _max_err(lse, want_lse))
+        dx_err, dx_tol = _max_err(dx, want_dx), HEAD_TOL[("dlogits", dt)]
+        same = torch.equal(dx, dx2)
+        lx = x.detach().requires_grad_()
+        lib_loss = F.cross_entropy(lx, lab, reduction="none")
+        el = x.element_size()
+        fwd.append(dict(
+            name=name, shape=[t, v], dtype=dt, max_abs_err=loss_err,
+            tol=HEAD_TOL["loss"], ok=loss_err <= HEAD_TOL["loss"],
+            kernel_ms=clock(lambda: bce.softmax_ce(x, lab)),
+            plain_ms=clock(lambda: bce.softmax_ce_plain(x, lab)),
+            library_ms=clock(lambda: F.cross_entropy(x, lab,
+                                                     reduction="none")),
+            # ~4 operations per element (max, subtract, exp, add); reads
+            # the logits and labels, writes loss and lse
+            **_bound(4.0 * t * v, t * v * el + 16 * t, "float32")))
+        bwd.append(dict(
+            name=name, shape=[t, v], dtype=dt, max_abs_err=dx_err,
+            tol=dx_tol, bitwise_repeat=same, ok=dx_err <= dx_tol and same,
+            kernel_ms=clock(lambda: bce.softmax_ce_bwd(x, lab, lse, dl)),
+            plain_ms=clock(lambda: bce.softmax_ce_bwd_plain(x, lab, lse,
+                                                            dl)),
+            library_ms=clock(lambda: torch.autograd.grad(
+                lib_loss, (lx,), dl, retain_graph=True)),
+            # ~5 operations per element (subtract, exp, onehot, multiply);
+            # reads logits, labels, lse, dloss, writes dlogits
+            **_bound(5.0 * t * v, 2 * t * v * el + 16 * t, "float32")))
+    return fwd, bwd
+
+
 def _bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -556,7 +767,8 @@ def serve(torch, np, ptt, counters, model_dir):
                     for c in per_request) and \
         all(launches[k] == 0 for k in ("flash_attention_bwd_dkv",
                                        "flash_attention_bwd_dq",
-                                       "layer_norm_bwd", "fused_adam"))
+                                       "layer_norm_bwd", "fused_adam") +
+            NEW_KERNELS)
 
     # the same saved model served on the CPU (plain versions), request 0
     cpu_config = Config(model_dir)
@@ -584,16 +796,21 @@ def serve(torch, np, ptt, counters, model_dir):
 
 
 class Counters(object):
-    """The six kernels' launch counters, read and zeroed together."""
+    """The eleven kernels' launch counters, read and zeroed together."""
 
-    def __init__(self, fa, ln, fad):
+    def __init__(self, fa, ln, fad, bce):
         self._fields = {
             "flash_attention_fwd": (fa, "launches"),
             "flash_attention_bwd_dkv": (fa, "dkv_launches"),
             "flash_attention_bwd_dq": (fa, "dq_launches"),
             "layer_norm_fwd": (ln, "launches"),
             "layer_norm_bwd": (ln, "bwd_launches"),
-            "fused_adam": (fad, "launches")}
+            "fused_adam": (fad, "launches"),
+            "fused_head_fwd": (bce, "head_launches"),
+            "fused_head_dh": (bce, "head_dh_launches"),
+            "fused_head_dw": (bce, "head_dw_launches"),
+            "ce_fwd": (bce, "ce_launches"),
+            "ce_bwd": (bce, "ce_bwd_launches")}
 
     def zero(self):
         for mod, attr in self._fields.values():
@@ -614,6 +831,32 @@ def _pretrain_program(ptt, bert, cfg, batch):
                            fetch["nsp_loss"]]
 
 
+def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+           n):
+    """``n`` runs of ``main`` on the card, the launch counters set to 0
+    just before: (step ms, losses, launches per step, launches)."""
+    counters.zero()                          # the main path starts here
+    step_ms, losses, per_step = [], [], []
+    with ptt.scope_guard(scope):
+        for _ in range(n):
+            before = counters.read()
+            t1 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch_list)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append([float(np.asarray(o).reshape(())) for o in out])
+            after = counters.read()
+            per_step.append({k: after[k] - before[k] for k in after})
+    return step_ms, losses, per_step, counters.read()
+
+
+def _op_counts(main):
+    ops = {}
+    for op in main.global_block().ops:
+        ops[op.type] = ops.get(op.type, 0) + 1
+    return ops
+
+
 def train(torch, np, ptt, counters):
     """BERT-base pretraining steps on the card through Executor.run."""
     from paddle_tpu_torch.models import bert
@@ -621,9 +864,7 @@ def train(torch, np, ptt, counters):
     t0 = time.perf_counter()
     main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
                                                   TRAIN_BATCH)
-    ops = {}
-    for op in main.global_block().ops:
-        ops[op.type] = ops.get(op.type, 0) + 1
+    ops = _op_counts(main)
     feed = bert.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS,
                                 seed=0)
     scope = ptt.Scope()
@@ -634,19 +875,9 @@ def train(torch, np, ptt, counters):
     setup_s = time.perf_counter() - t0
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
     torch.cuda.reset_peak_memory_stats()
-    counters.zero()                          # the main path starts here
-    step_ms, losses, per_step = [], [], []
-    with ptt.scope_guard(scope):
-        for _ in range(TRAIN_STEPS):
-            before = counters.read()
-            t1 = time.perf_counter()
-            out = exe.run(main, feed=feed, fetch_list=fetch_list)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-            losses.append([float(np.asarray(o).reshape(())) for o in out])
-            after = counters.read()
-            per_step.append({k: after[k] - before[k] for k in after})
-    launches = counters.read()
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
     finite = all(np.isfinite(v) for row in losses for v in row)
     falling = losses[-1][0] < losses[0][0]
     counts_ok = all(c == TRAIN_PER_STEP for c in per_step)
@@ -670,18 +901,12 @@ def train(torch, np, ptt, counters):
     return launches, (exe, main, scope, feed, fetch_list)
 
 
-def train_parity(torch, np, ptt):
-    """Three steps of a 2-layer BERT-base-width model on the card and on
-    the CPU (plain versions) from the same weights."""
+def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
+    """PARITY_STEPS runs of a training program on the card and on the CPU
+    (plain versions) from the same startup weights: (the comparison's
+    numbers, whether it passed)."""
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
-    from paddle_tpu_torch.models import bert
-    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
-                         attn_dropout=0.0)
-    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
-                                                  PARITY_BATCH)
-    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
-                                seed=1)
     init = ptt.Scope()
     with ptt.scope_guard(init):
         ptt.Executor().run(startup)
@@ -713,19 +938,234 @@ def train_parity(torch, np, ptt):
           and param_err <= PARITY_SIGN_FLIP_ATOL
           and beyond <= PARITY_SIGN_FLIP_SHARE * elements
           and moved >= 10 * PARITY_PARAM_ATOL)
-    emit({"phase": "train_parity", "ok": ok, "layers": PARITY_LAYERS,
-          "hidden": cfg.hidden_size, "batch": PARITY_BATCH,
-          "seq_len": TRAIN_SEQ, "steps": PARITY_STEPS, "dropout": 0.0,
-          "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
-          "loss_rtol": PARITY_LOSS_RTOL, "param_max_abs_err": param_err,
-          "param_atol": PARITY_PARAM_ATOL,
-          "param_elements": elements, "param_beyond_atol": beyond,
-          "sign_flip_atol": PARITY_SIGN_FLIP_ATOL,
-          "sign_flip_share": PARITY_SIGN_FLIP_SHARE,
-          "param_max_moved": moved,
-          "gpu_ms": g_ms, "cpu_ms": c_ms})
+    return {"steps": PARITY_STEPS, "dropout": 0.0,
+            "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
+            "loss_rtol": PARITY_LOSS_RTOL, "param_max_abs_err": param_err,
+            "param_atol": PARITY_PARAM_ATOL,
+            "param_elements": elements, "param_beyond_atol": beyond,
+            "sign_flip_atol": PARITY_SIGN_FLIP_ATOL,
+            "sign_flip_share": PARITY_SIGN_FLIP_SHARE,
+            "param_max_moved": moved,
+            "gpu_ms": g_ms, "cpu_ms": c_ms}, ok
+
+
+def train_parity(torch, np, ptt):
+    """Three steps of a 2-layer BERT-base-width model on the card and on
+    the CPU (plain versions) from the same weights."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  PARITY_BATCH)
+    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=1)
+    result, ok = _card_vs_cpu(np, ptt, main, startup, fetch_list, feed)
+    emit(dict({"phase": "train_parity", "ok": ok, "layers": PARITY_LAYERS,
+               "hidden": cfg.hidden_size, "batch": PARITY_BATCH,
+               "seq_len": TRAIN_SEQ}, **result))
     if not ok:
         raise AssertionError("train_parity checks failed (see the line "
+                             "above)")
+
+
+def _gpt_cfg(gpt, **kw):
+    """GPT-base at bench.py:596-601's widths, f32, dropout 0."""
+    return gpt.gpt_base(**dict(dict(
+        vocab_size=32000, hidden_size=768, num_layers=12, num_heads=12,
+        ff_size=3072, max_position=4096, dropout=0.0, attn_impl="flash"),
+        **kw))
+
+
+def _gpt_train_program(ptt, gpt, cfg, batch, seq):
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = gpt.gpt_pretrain_program(
+            cfg, batch, seq,
+            optimizer_fn=lambda loss: ptt.optimizer.Adam(1e-4).minimize(loss))
+    startup.random_seed = SEED
+    return main, startup, [fetch["loss"]]
+
+
+def gpt_train(torch, np, ptt, counters):
+    """GPT-base pretraining steps at 2 x 4096 on the card through
+    Executor.run."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt)
+    t0 = time.perf_counter()
+    main, startup, fetch_list = _gpt_train_program(ptt, gpt, cfg, GPT_BATCH,
+                                                   GPT_SEQ)
+    ops = _op_counts(main)
+    feed = gpt.synthetic_batch(cfg, GPT_BATCH, GPT_SEQ, seed=0)
+    scope = ptt.Scope()
+    exe = ptt.Executor()                     # CUDAPlace(0)
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        GPT_STEPS)
+    finite = all(np.isfinite(row[0]) for row in losses)
+    falling = losses[-1][0] < losses[0][0]
+    counts_ok = all(c == GPT_PER_STEP for c in per_step)
+    warm = step_ms[1:]
+    ok = finite and falling and counts_ok
+    emit({"phase": "gpt_train", "ok": ok, "model": "gpt_base",
+          "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+          "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+          "batch": GPT_BATCH, "seq_len": GPT_SEQ, "dropout": cfg.dropout,
+          "optimizer": "Adam(1e-4)", "dtype": "float32",
+          "parameters": n_params, "program_ops": sum(ops.values()),
+          "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
+          "tokens_per_s_warm": GPT_BATCH * GPT_SEQ /
+          (statistics.median(warm) / 1e3),
+          "losses": [row[0] for row in losses], "finite": finite,
+          "falling": falling, "launches_per_step": per_step,
+          "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if not ok:
+        raise AssertionError("gpt_train checks failed (see the line above)")
+    return launches, (exe, main, scope, feed, fetch_list, cfg)
+
+
+def gpt_eval(torch, np, ptt, counters, trained):
+    """On the trained scope: the decode program's logits through
+    softmax_with_cross_entropy, a masked mean and its gradient to the
+    logits (the CE kernels), against the fused-head kernel's loss of the
+    same weights and batch."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework.backward import gradients
+    from paddle_tpu_torch.models import gpt
+    exe, _, scope, feed, _, cfg = trained
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = gpt.gpt_logits_program(cfg, GPT_SEQ)
+        with ptt.program_guard(main, startup):
+            labels = layers.data("labels", [GPT_SEQ, 1], dtype="int64")
+            lmask = layers.data("loss_mask", [GPT_SEQ, 1], dtype="float32")
+            ce = layers.softmax_with_cross_entropy(fetch["logits"], labels)
+            loss = layers.elementwise_div(
+                layers.reduce_sum(layers.elementwise_mul(ce, lmask)),
+                layers.elementwise_add(
+                    layers.reduce_sum(lmask),
+                    layers.fill_constant([1], "float32", 1e-8)))
+            dlogits, = gradients([loss], [fetch["logits"]])
+        head_main, _, _, head_fetch = gpt.gpt_pretrain_program(
+            cfg, GPT_BATCH, GPT_SEQ, is_test=True)
+    with ptt.scope_guard(scope):
+        counters.zero()                      # the CE run
+        t0 = time.perf_counter()
+        ce_loss, grad = exe.run(main, feed=feed, fetch_list=[loss, dlogits],
+                                return_numpy=False)
+        torch.cuda.synchronize()
+        ce_ms = (time.perf_counter() - t0) * 1e3
+        ce_launches = counters.read()
+        counters.zero()                      # the fused-head run
+        t0 = time.perf_counter()
+        head_loss, = exe.run(head_main, feed=feed,
+                             fetch_list=[head_fetch["loss"]])
+        head_ms = (time.perf_counter() - t0) * 1e3
+        head_launches = counters.read()
+    ce_loss = float(ce_loss.reshape(()))
+    head_loss = float(np.asarray(head_loss).reshape(()))
+    rel = abs(ce_loss - head_loss) / abs(head_loss)
+    # each row of dlogits is (p - onehot) * dloss: it sums to 0
+    row_sum = float(grad.sum(dim=-1).abs().max())
+    grad_finite = bool(torch.isfinite(grad).all())
+    want_ce = {k: 0 for k in ce_launches}
+    want_ce.update(flash_attention_fwd=12, layer_norm_fwd=25, ce_fwd=1,
+                   ce_bwd=1)
+    want_head = {k: 0 for k in head_launches}
+    want_head.update(flash_attention_fwd=12, layer_norm_fwd=25,
+                     fused_head_fwd=1)
+    counts_ok = ce_launches == want_ce and head_launches == want_head
+    ok = rel <= EVAL_LOSS_RTOL and grad_finite and row_sum <= 1e-6 and \
+        counts_ok and tuple(grad.shape) == (GPT_BATCH, GPT_SEQ,
+                                            cfg.vocab_size)
+    launches = {k: ce_launches[k] + head_launches[k] for k in ce_launches}
+    emit({"phase": "gpt_eval", "ok": ok, "batch": GPT_BATCH,
+          "seq_len": GPT_SEQ, "ce_kernel_loss": ce_loss,
+          "head_kernel_loss": head_loss, "loss_rel_err": rel,
+          "loss_rtol": EVAL_LOSS_RTOL, "dlogits_shape": list(grad.shape),
+          "dlogits_finite": grad_finite, "dlogits_row_sum_max": row_sum,
+          "ce_run_ms": ce_ms, "head_run_ms": head_ms,
+          "ce_run_launches": ce_launches,
+          "head_run_launches": head_launches, "launches": launches})
+    if not ok:
+        raise AssertionError("gpt_eval checks failed (see the line above)")
+    return launches
+
+
+def gpt_decode(torch, np, ptt, counters, trained):
+    """greedy_generate at full width on the card; the CPU's logits of the
+    card's tokens must put each chosen token within SERVE_ATOL of its
+    step's maximum (a check that holds through near-ties)."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.io import set_params_from_numpy
+    from paddle_tpu_torch.models import gpt
+    exe, _, scope, _, _, cfg = trained
+    total = DECODE_PROMPT + DECODE_NEW
+    with ptt.unique_name.guard():
+        prog = gpt.gpt_logits_program(cfg, total)
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT))
+    counters.zero()                          # the main path starts here
+    t0 = time.perf_counter()
+    with ptt.scope_guard(scope):
+        toks = gpt.greedy_generate(exe, cfg, prompt, DECODE_NEW,
+                                   logits_program=prog)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    launches = counters.read()
+    main = prog[0]
+    arrays = {p.name: to_numpy(scope.find_var(p.name))
+              for p in main.all_parameters()}
+    cpu_scope = ptt.Scope()
+    set_params_from_numpy(arrays, main, cpu_scope, ptt.CPUPlace())
+    pos = np.tile(np.arange(total).reshape(1, total, 1),
+                  (DECODE_BATCH, 1, 1)).astype(np.int64)
+    t0 = time.perf_counter()
+    cpu_logits, = ptt.Executor(ptt.CPUPlace()).run(
+        main, feed={"token_ids": toks[:, :, None], "pos_ids": pos},
+        fetch_list=[prog[3]["logits"]], scope=cpu_scope)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    steps = cpu_logits[:, DECODE_PROMPT - 1:total - 1, :]
+    chosen = toks[:, DECODE_PROMPT:]
+    gap = steps.max(axis=-1) - np.take_along_axis(
+        steps, chosen[..., None], axis=-1)[..., 0]
+    want = {k: 0 for k in launches}
+    want.update(flash_attention_fwd=12 * DECODE_NEW,
+                layer_norm_fwd=25 * DECODE_NEW)
+    ok = bool((toks[:, :DECODE_PROMPT] == prompt).all()) and \
+        float(gap.max()) <= SERVE_ATOL and launches == want and \
+        toks.shape == (DECODE_BATCH, total)
+    emit({"phase": "gpt_decode", "ok": ok, "batch": DECODE_BATCH,
+          "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+          "decode_ms": decode_ms, "ms_per_token": decode_ms / DECODE_NEW,
+          "cpu_check_ms": cpu_ms, "max_gap_to_cpu_max_logit":
+          float(gap.max()), "atol": SERVE_ATOL,
+          "tokens_tail": toks[:, DECODE_PROMPT:].tolist(),
+          "launches": launches})
+    if not ok:
+        raise AssertionError("gpt_decode checks failed (see the line above)")
+    return launches
+
+
+def gpt_train_parity(torch, np, ptt):
+    """Three steps of a 2-layer GPT-base-width model (vocab 32000, 2 x 128
+    tokens: the head kernels tile) on the card and on the CPU from the
+    same weights."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt, num_layers=PARITY_LAYERS)
+    main, startup, fetch_list = _gpt_train_program(
+        ptt, gpt, cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ)
+    feed = gpt.synthetic_batch(cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ, seed=1)
+    result, ok = _card_vs_cpu(np, ptt, main, startup, fetch_list, feed)
+    emit(dict({"phase": "gpt_train_parity", "ok": ok,
+               "layers": PARITY_LAYERS, "hidden": cfg.hidden_size,
+               "vocab": cfg.vocab_size, "batch": GPT_PARITY_BATCH,
+               "seq_len": GPT_PARITY_SEQ}, **result))
+    if not ok:
+        raise AssertionError("gpt_train_parity checks failed (see the line "
                              "above)")
 
 
@@ -737,6 +1177,11 @@ def _family(kernel):
                      ("ln_fwd_kernel", "layer_norm_fwd"),
                      ("ln_bwd_", "layer_norm_bwd"),
                      ("adam_kernel", "fused_adam"),
+                     ("head_fwd_kernel", "fused_head_fwd"),
+                     ("head_dh_kernel", "fused_head_dh"),
+                     ("head_dw_kernel", "fused_head_dw"),
+                     ("ce_fwd_kernel", "ce_fwd"),
+                     ("ce_bwd_kernel", "ce_bwd"),
                      ("memcpy", "memcpy host<->device"),
                      ("gemm", "matmul"), ("xmma", "matmul"),
                      ("cutlass", "matmul"),
@@ -750,8 +1195,8 @@ def _family(kernel):
 
 
 def profile(torch, runs):
-    """Where one warm request's and one warm training step's time goes
-    on the card: device time by kernel family from torch.profiler,
+    """Where one warm request's and one warm training step's (BERT, GPT)
+    time goes on the card: device time by kernel family from torch.profiler,
     against the host time of the run (the profiler's own cost included).
     Diagnostic only: a profiler that records no device time is reported,
     not failed."""
@@ -796,6 +1241,14 @@ _KERNELS = (
     ("layer_norm_bwd", "layer_norm_bwd.cu",
      "paddle_tpu/ops/pallas/layer_norm.py:135"),
     ("fused_adam", "fused_adam.cu", "paddle_tpu/ops/pallas/fused_adam.py:85"),
+    ("fused_head_fwd", "fused_head_fwd.cu",
+     "paddle_tpu/ops/pallas/blockwise_ce.py:316"),
+    ("fused_head_dh", "fused_head_bwd.cu",
+     "paddle_tpu/ops/pallas/blockwise_ce.py:366"),
+    ("fused_head_dw", "fused_head_bwd.cu",
+     "paddle_tpu/ops/pallas/blockwise_ce.py:383"),
+    ("ce_fwd", "blockwise_ce.cu", "paddle_tpu/ops/pallas/blockwise_ce.py:147"),
+    ("ce_bwd", "blockwise_ce.cu", "paddle_tpu/ops/pallas/blockwise_ce.py:184"),
 )
 
 
@@ -809,6 +1262,7 @@ def main():
     sys.path.insert(0, _ROOT)
     try:
         import paddle_tpu_torch as ptt
+        from paddle_tpu_torch.ops.kernels import blockwise_ce as bce
         from paddle_tpu_torch.ops.kernels import build
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
         from paddle_tpu_torch.ops.kernels import fused_adam as fad
@@ -820,7 +1274,7 @@ def main():
     import torch.nn.functional as F
     from paddle_tpu_torch.framework.executor import set_precision
     set_precision()                          # no TF32 anywhere
-    counters = Counters(fa, ln, fad)
+    counters = Counters(fa, ln, fad, bce)
     os.makedirs(os.path.dirname(_LOG), exist_ok=True)
     open(_LOG, "w").close()
 
@@ -836,7 +1290,8 @@ def main():
     if lib is None:
         return 1
     with open(os.path.join(build.library_dir(), "nvcc.log")) as f:
-        ptxas = [ln_.strip() for ln_ in f if "Used" in ln_ or "spill" in ln_]
+        ptxas = [ln_.strip() for ln_ in f
+                 if "Used" in ln_ or "spill" in ln_ or "entry function" in ln_]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": build.build_seconds, "ptxas": ptxas})
 
@@ -848,6 +1303,9 @@ def main():
                  "layer_norm_fwd": ln_cases(torch, ln, F),
                  "layer_norm_bwd": ln_bwd_cases(torch, ln),
                  "fused_adam": adam_cases(torch, fad)}
+        (found["fused_head_fwd"], found["fused_head_dh"],
+         found["fused_head_dw"]) = head_cases(torch, bce, F)
+        found["ce_fwd"], found["ce_bwd"] = ce_cases(torch, bce, F)
         ok = all(c["ok"] for cs in found.values() for c in cs)
         emit(dict({"phase": "kernels", "ok": ok}, **found))
         if not ok:
@@ -862,31 +1320,51 @@ def main():
         shutil.rmtree(model_dir, ignore_errors=True)
     trained = phase("train")(train)(torch, np, ptt, counters)
     phase("train_parity")(train_parity)(torch, np, ptt)
+    gpt_trained = phase("gpt_train")(gpt_train)(torch, np, ptt, counters)
+    evaluated = decoded = None
+    if gpt_trained is not None:
+        evaluated = phase("gpt_eval")(gpt_eval)(torch, np, ptt, counters,
+                                                gpt_trained[1])
+        decoded = phase("gpt_decode")(gpt_decode)(torch, np, ptt, counters,
+                                                  gpt_trained[1])
+    phase("gpt_train_parity")(gpt_train_parity)(torch, np, ptt)
 
     runs = []
     if served is not None:
         _, pred, requests = served
         runs += [("serve batch 1", lambda: pred.run(requests[0])),
                  ("serve batch 8", lambda: pred.run(requests[2]))]
-    if trained is not None:
-        exe, main_prog, scope, feed, fetch_list = trained[1]
+    for label, done in (("train step", trained),
+                        ("gpt train step", gpt_trained)):
+        if done is not None:
+            exe, main_prog, scope, feed, fetch_list = done[1][:5]
 
-        def step():
-            with ptt.scope_guard(scope):
-                exe.run(main_prog, feed=feed, fetch_list=fetch_list)
-        runs.append(("train step", step))
+            def step(exe=exe, main_prog=main_prog, scope=scope, feed=feed,
+                     fetch_list=fetch_list):
+                with ptt.scope_guard(scope):
+                    exe.run(main_prog, feed=feed, fetch_list=fetch_list)
+            runs.append((label, step))
     phase("profile")(profile)(torch, runs)
 
-    if _failed or cases is None or served is None or trained is None:
+    paths = {"serve": served, "train": trained, "gpt_train": gpt_trained,
+             "gpt_eval": evaluated, "gpt_decode": decoded}
+    if _failed or cases is None or None in paths.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
-    by_path = {"serve": served[0], "train": trained[0]}
-    print(smi, flush=True)
-    emit({"kernels": [
+    by_path = {"serve": served[0], "train": trained[0],
+               "gpt_train": gpt_trained[0], "gpt_eval": evaluated,
+               "gpt_decode": decoded}
+    summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
                  {path: n[name] for path, n in by_path.items()},
                  cases[name])
-        for name, src, replaces in _KERNELS]})
+        for name, src, replaces in _KERNELS]
+    idle = [k["name"] for k in summary if k["launches"] < 1]
+    if idle:
+        print("chip_smoke: no main path launched %s" % idle, file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
@@ -894,9 +1372,11 @@ def main():
 
 def _summary(name, source, replaces, launches_by_path, cases):
     """A kernel's line: its numbers at the main path's shape (the first
-    case: BERT-base serving at the largest bucket for the forward
-    kernels, the BERT-base training step's shapes for the others), every
-    case beside them. ``launches`` sums the main paths' runs."""
+    case: BERT-base serving at the largest bucket for the flash and
+    LayerNorm forward kernels, the BERT-base training step's shapes for
+    their backward kernels and Adam, GPT-base's head and logits for the
+    head and CE kernels), every case beside them. ``launches`` sums the
+    main paths' runs."""
     head = cases[0]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -1,4 +1,4 @@
-"""Neural network layers BERT serving and pretraining use.
+"""Neural network layers BERT and GPT serving and pretraining use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -109,14 +109,46 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
-    shape = x.shape if (x.shape is not None and y.shape is not None and
-                        len(x.shape) >= len(y.shape)) else y.shape
-    out = helper.create_variable_for_type_inference(x.dtype, shape)
-    helper.append_op("elementwise_add", inputs={"X": [x.name], "Y": [y.name]},
-                     outputs={"Out": [out.name]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        shape = x.shape if (x.shape is not None and y.shape is not None and
+                            len(x.shape) >= len(y.shape)) else y.shape
+        out = helper.create_variable_for_type_inference(x.dtype, shape)
+        helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                         outputs={"Out": [out.name]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
+           out_dtype=None):
+    """``out_dtype``: the output's (accumulation) dtype; the port takes
+    float32 (its op refuses bf16 programs for now)."""
+    helper = LayerHelper("matmul", name=name)
+    shape = None
+    if x.shape is not None and y.shape is not None:
+        xs, ys = list(x.shape), list(y.shape)
+        if len(xs) >= 2 and len(ys) >= 2:
+            m = xs[-1] if transpose_x else xs[-2]
+            n = ys[-2] if transpose_y else ys[-1]
+            shape = tuple(xs[:-2]) + (m, n) if len(xs) >= len(ys) \
+                else tuple(ys[:-2]) + (m, n)
+    out = helper.create_variable_for_type_inference(out_dtype or x.dtype,
+                                                    shape)
+    attrs = {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+             "alpha": alpha}
+    if out_dtype:
+        attrs["out_dtype"] = out_dtype
+    helper.append_op("matmul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
 
 
 def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
@@ -211,6 +243,43 @@ def gather(input, index, overwrite=True):
     return out
 
 
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        num, sections = num_or_sections, []
+        n_out = num
+    else:
+        num, sections = 0, list(num_or_sections)
+        n_out = len(sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n_out)]
+    helper.append_op("split", inputs={"X": [input.name]},
+                     outputs={"Out": [o.name for o in outs]},
+                     attrs={"num": num, "sections": sections, "axis": dim})
+    return outs
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        shape = (1,) if not keep_dim else None
+    else:
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        attrs = {"dim": dims, "keep_dim": keep_dim, "reduce_all": False}
+        shape = None
+        if input.shape is not None:
+            nd = len(input.shape)
+            axes = {d % nd for d in dims}
+            shape = tuple(s for s in (
+                (1 if keep_dim else None) if i in axes else s
+                for i, s in enumerate(input.shape)) if s is not None)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op("reduce_sum", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
 def topk(input, k, name=None):
     helper = LayerHelper("top_k", name=name)
     shape = None
@@ -227,5 +296,6 @@ def topk(input, k, name=None):
 
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "elementwise_add",
-           "mul", "scale", "reshape", "unsqueeze", "transpose", "slice",
-           "cast", "mean", "gather", "topk"]
+           "elementwise_mul", "elementwise_div", "matmul", "mul", "scale",
+           "reshape", "unsqueeze", "transpose", "slice", "cast", "mean",
+           "gather", "split", "reduce_sum", "topk"]

@@ -1,2 +1,3 @@
-"""Model zoo of the port (counterpart of paddle_tpu/models/): BERT so far."""
-from . import bert  # noqa: F401
+"""Model zoo of the port (counterpart of paddle_tpu/models/): BERT and GPT
+so far."""
+from . import bert, gpt  # noqa: F401

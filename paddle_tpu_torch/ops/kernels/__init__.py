@@ -2,4 +2,5 @@
 paddle_tpu/ops/pallas/): each module holds its kernels' wrappers, their
 plain PyTorch versions and their launch counters; ``build`` compiles
 csrc/ at first use."""
-from . import build, flash_attention, fused_adam, layer_norm  # noqa: F401
+from . import (blockwise_ce, build, flash_attention, fused_adam,  # noqa: F401
+               layer_norm)

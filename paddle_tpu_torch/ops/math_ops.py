@@ -1,16 +1,18 @@
-"""Math / elementwise / activation op kernels.
+"""Math / elementwise / reduction / activation op kernels.
 
-Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT serving
-and pretraining run. ``mul`` is a plain ``torch.matmul``: XLA computes it
-outside any Pallas kernel in the JAX package.
+Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT and GPT
+serving and pretraining run. ``mul`` and ``matmul`` are plain
+``torch.matmul``: XLA computes them outside any Pallas kernel in the JAX
+package.
 """
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register_op
-from ..framework.dtypes import to_torch_dtype
+from .registry import NotPortedError, register_op
+from ..framework.dtypes import normalize_dtype, to_torch_dtype
 
 
 def _x(ins, slot="X"):
@@ -32,10 +34,17 @@ def _bcast(x, y, axis):
     return x, y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    return {"Out": x + y}
+def _elementwise(fn):
+    def kernel(ctx, ins, attrs):
+        x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": fn(x, y)}
+    return kernel
+
+
+for _name, _fn in (("elementwise_add", torch.add),
+                   ("elementwise_mul", torch.mul),
+                   ("elementwise_div", torch.div)):
+    register_op(_name)(_elementwise(_fn))
 
 
 _ACTIVATIONS = {
@@ -81,6 +90,32 @@ def _mul(ctx, ins, attrs):
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
 
 
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    """``X @ Y`` with batch broadcasting, either operand transposed, times
+    ``alpha``. ``out_dtype`` (wider accumulation of bf16 operands) takes
+    float32 only: bf16 programs belong to a later slice."""
+    x, y = ins["X"][0], ins["Y"][0]
+    out_dtype = attrs.get("out_dtype")
+    if out_dtype and normalize_dtype(out_dtype) != "float32":
+        raise NotPortedError(
+            "matmul(out_dtype=%r) widens bf16 operands; bf16 training "
+            "arrives with the bf16 slice of paddle_tpu_torch" % (out_dtype,))
+    if x.dim() == 1:
+        x = x[None, :]
+    if y.dim() == 1:
+        y = y[:, None]
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
+
+
 @register_op("sum")
 def _sum(ctx, ins, attrs):
     xs = ins["X"]
@@ -93,3 +128,21 @@ def _sum(ctx, ins, attrs):
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": _x(ins).mean().reshape((1,))}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    """Sum over ``dim`` (or every axis with ``reduce_all``); a full
+    reduction without ``keep_dim`` has shape (1,), as in fluid."""
+    x = _x(ins)
+    dims = attrs.get("dim", [0])
+    keep = attrs.get("keep_dim", False)
+    reduce_all = attrs.get("reduce_all", False) or dims is None
+    if reduce_all:
+        axes = tuple(range(x.dim()))
+    else:
+        axes = tuple(d % x.dim() for d in np.atleast_1d(dims).tolist())
+    out = x.sum(dim=axes, keepdim=keep) if axes else x.clone()
+    if reduce_all and not keep:
+        out = out.reshape((1,))
+    return {"Out": out}

@@ -1,22 +1,24 @@
-"""Neural-net op kernels BERT serving and pretraining run: lookup_table,
-dropout, layer_norm, softmax_with_cross_entropy, fused_mlm_head_loss
-(counterparts in paddle_tpu/ops/nn_ops.py).
+"""Neural-net op kernels BERT and GPT serving and pretraining run:
+lookup_table, dropout, layer_norm, softmax_with_cross_entropy,
+fused_mlm_head_loss (counterparts in paddle_tpu/ops/nn_ops.py).
 
-``softmax_with_cross_entropy`` and ``fused_mlm_head_loss`` take the JAX
-package's own non-Pallas lowering (a ``torch.matmul`` for the head, a
-plain log-softmax cross-entropy): at BERT-base's vocab (30522) and the
-NSP head's 2 classes the JAX package's blockwise kernels decline to tile
-(``fit_blocks``) and it runs the same plain math. Where those kernels
-WOULD tile (GPT's vocab 32000), the ops refuse a CUDA tensor with
-NotPortedError until the kernels are ported, so the plain lowering never
-stands in for a kernel on the card.
+``softmax_with_cross_entropy`` and ``fused_mlm_head_loss`` follow the JAX
+package's routing rule (``blockwise_kernel_would_tile``, its ``fit_blocks``
+for compiled kernels): where its blockwise Pallas kernels tile (GPT's vocab
+32000) they run the port's blockwise-CE and fused-head autograd Functions
+(ops/kernels/blockwise_ce.py), which launch the hand-written kernels for a
+CUDA tensor and their plain versions for a CPU tensor. Where the rule
+declines (BERT-base's vocab 30522, the NSP head's 2 classes) they take the
+JAX package's own non-Pallas lowering: a ``torch.matmul`` for the head and
+a plain log-softmax cross-entropy, as the JAX package runs there too.
 """
 import math
 
 import torch
 
+from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
-from .registry import NotPortedError, register_op
+from .registry import register_op
 
 # the JAX package's blockwise-CE / fused-head kernel defaults
 # (ops/pallas/blockwise_ce.py: block_t=128, block_v=512)
@@ -105,14 +107,6 @@ def blockwise_kernel_would_tile(t, v, d=None):
     return d is None or d % 8 == 0
 
 
-def _refuse_where_kernel_tiles(op_type, x, t, v, d=None):
-    if x.device.type == "cuda" and blockwise_kernel_would_tile(t, v, d):
-        raise NotPortedError(
-            "%s at (T, V) = (%d, %d) is a shape the JAX package's blockwise "
-            "Pallas kernel tiles; its CUDA kernel arrives with the "
-            "GPT-pretraining slice of paddle_tpu_torch" % (op_type, t, v))
-
-
 @register_op("softmax_with_cross_entropy", nondiff=("Label",))
 def _softmax_with_cross_entropy(ctx, ins, attrs):
     logits, label = ins["Logits"][0], ins["Label"][0]
@@ -122,42 +116,78 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         lbl = label
         if lbl.dim() == logits.dim() and lbl.shape[axis] == 1:
             lbl = lbl.squeeze(axis)
+        v = logits.shape[-1]
         if logits.dim() >= 2 and axis in (-1, logits.dim() - 1) and \
-                lbl.dim() == logits.dim() - 1:
-            v = logits.shape[-1]
-            _refuse_where_kernel_tiles("softmax_with_cross_entropy", logits,
-                                       logits.numel() // max(v, 1), v)
-    logp = torch.log_softmax(logits.float(), dim=axis)
+                lbl.dim() == logits.dim() - 1 and \
+                blockwise_kernel_would_tile(logits.numel() // max(v, 1), v):
+            return _blockwise_softmax_ce(logits, lbl, attrs)
+    x = logits.float()
+    logp = torch.log_softmax(x, dim=axis)
     if soft:
         loss = -(label * logp).sum(dim=axis, keepdim=True)
     else:
         ignore = attrs.get("ignore_index", -100)
         idx = lbl[..., None].long()
-        hit = idx == ignore
-        picked = torch.take_along_dim(logp, idx.masked_fill(hit, 0),
-                                      dim=axis)
-        loss = torch.where(hit, torch.zeros((), device=logp.device),
-                           -picked)
+        loss = torch.where(idx == ignore, torch.zeros((), device=x.device),
+                           _label_loss(x, logp, idx, axis))
     return {"Softmax": torch.exp(logp).to(logits.dtype),
             "Loss": loss.to(logits.dtype)}
+
+
+def _label_loss(x, logp, idx, axis):
+    """-logp at the labels ``idx`` along ``axis``. A label outside [0, V)
+    is never used as an address: its row's loss is the lse (the label's
+    term 0, as the kernels' label hit gives it), x_j - logp_j at any
+    column j."""
+    v = x.shape[axis]
+    safe = idx.clamp(0, v - 1)
+    off = torch.where((idx >= 0) & (idx < v),
+                      torch.zeros((), device=x.device),
+                      torch.take_along_dim(x, safe, dim=axis))
+    return off - torch.take_along_dim(logp, safe, dim=axis)
+
+
+def _blockwise_softmax_ce(logits, lbl, attrs):
+    """The blockwise-CE route: the CE kernels' autograd Function on the
+    (rows, V) logits; ``ignore_index`` rows are zeroed afterwards, and
+    Softmax is exp(logits - lse) from the kernel's lse, one elementwise
+    expression beside it (the JAX package's ``_pallas_softmax_ce``)."""
+    v = logits.shape[-1]
+    x = logits.reshape(-1, v)
+    flat = lbl.reshape(-1)
+    loss, lse = _ce_kernel.BlockwiseCE.apply(x, flat)
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.where(flat == ignore, torch.zeros((), device=loss.device),
+                       loss)
+    softmax = torch.exp(x.float() - lse[:, None]).reshape(logits.shape)
+    return {"Softmax": softmax.to(logits.dtype),
+            "Loss": loss.reshape(lbl.shape)[..., None].to(logits.dtype)}
 
 
 @register_op("fused_mlm_head_loss", nondiff=("Label",))
 def _fused_mlm_head_loss(ctx, ins, attrs):
     """LM/MLM head + softmax CE: ``Hidden (T, D) @ Weight^T (+ Bias)`` ->
-    per-token Loss (T, 1), Weight the (V, D) tied embedding table. The
-    JAX package's non-Pallas lowering: the (T, V) logits exist here."""
+    per-token Loss (T, 1), Weight the (V, D) tied embedding table. Where
+    the blockwise kernel tiles, the fused-head autograd Function (no (T, V)
+    logits on the card); elsewhere the JAX package's non-Pallas lowering,
+    where the logits exist."""
     hidden, weight = ins["Hidden"][0], ins["Weight"][0]
     label = ins["Label"][0]
     bias = ins["Bias"][0] if ins.get("Bias") else None
     lbl = label.reshape(label.shape[:-1]) if label.dim() > 1 and \
         label.shape[-1] == 1 else label
-    if hidden.dim() == 2 and lbl.dim() == 1:
-        _refuse_where_kernel_tiles("fused_mlm_head_loss", hidden,
-                                   hidden.shape[0], weight.shape[0],
-                                   hidden.shape[1])
+    cast_bf16 = attrs.get("cast_bf16", False)
+    if hidden.dim() == 2 and lbl.dim() == 1 and blockwise_kernel_would_tile(
+            hidden.shape[0], weight.shape[0], hidden.shape[1]):
+        h, w = hidden, weight
+        if cast_bf16:
+            # the kernels take bf16 operands and sum in f32, as the JAX op
+            # casts before its kernel
+            h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
+        loss = _ce_kernel.FusedHeadLoss.apply(h, w, bias, lbl)
+        return {"Loss": loss[:, None]}
     h, w = hidden, weight
-    if attrs.get("cast_bf16", False):
+    if cast_bf16:
         # bf16 inputs, f32 products and sums (bf16 products are exact in
         # f32), as the JAX package's preferred_element_type=f32 matmul
         h = h.to(torch.bfloat16).float()
@@ -166,5 +196,4 @@ def _fused_mlm_head_loss(ctx, ins, attrs):
     if bias is not None:
         logits = logits + bias.float()
     logp = torch.log_softmax(logits, dim=-1)
-    picked = torch.take_along_dim(logp, lbl[..., None].long(), dim=-1)
-    return {"Loss": -picked}
+    return {"Loss": _label_loss(logits, logp, lbl[..., None].long(), -1)}

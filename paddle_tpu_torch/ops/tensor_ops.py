@@ -67,6 +67,27 @@ def _unsqueeze2(ctx, ins, attrs):
     return {"Out": x}
 
 
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """``num`` equal parts, or ``sections`` (the last takes the rest), along
+    ``axis``; the parts are views of X."""
+    x = _x(ins)
+    axis = attrs.get("axis", 0)
+    num = attrs.get("num", 0)
+    if num:
+        if x.shape[axis] % num:
+            raise ValueError("split: axis %d of size %d does not divide into "
+                             "%d parts" % (axis, x.shape[axis], num))
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    else:
+        bounds, acc = [], 0
+        for s in attrs.get("sections", [])[:-1]:
+            acc += s
+            bounds.append(acc)
+        outs = torch.tensor_split(x, bounds, dim=axis)
+    return {"Out": list(outs)}
+
+
 @register_op("slice")
 def _slice(ctx, ins, attrs):
     x = ins["Input"][0]

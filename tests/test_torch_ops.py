@@ -1,10 +1,13 @@
-"""Each op of the BERT serving slice, the port against the JAX package.
+"""Each op of the BERT serving slice and of the GPT slice, the port
+against the JAX package.
 
 Every test builds a one-op Program through the public ``layers`` API of
 both packages (same calls, same unique names), runs the JAX Program with
 ``paddle_tpu.Executor(CPUPlace())``, copies the JAX scope's parameters
 into the port with ``set_params_from_numpy`` and runs the port's Program
 with ``paddle_tpu_torch.Executor(CPUPlace())`` on the same numpy feeds.
+The GPT slice's ops are also differentiated: ``gradients`` of
+sum_i <out_i, cot_i> under cotangents fed as data, compared the same way.
 
 Tolerance: f32 on both sides, one op, so only the order of a sum can
 differ: rtol/atol 1e-5. Ops that move data (reshape, transpose, slice,
@@ -314,3 +317,126 @@ def test_constant_initializer_runs_fill_constant():
                                  (3, 5), 0)
         assert startup.global_block().ops[0].type == "fill_constant"
         np.testing.assert_array_equal(w, np.full((3, 5), 0.25, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# ops of the GPT slice: forward and gradient against the JAX package
+# ---------------------------------------------------------------------------
+
+def _grad_data(pkg, name, shape):
+    """A feed var that takes part in differentiation."""
+    return pkg.layers.data(name, list(shape), append_batch_size=False,
+                           stop_gradient=False)
+
+
+def _with_grads(pkg, outs, ins):
+    """outs + d(sum_i <out_i, cot_i>)/d(ins), the cotangents fed as
+    ``cot<i>`` (each inner product a ``mul`` of the flattened pair)."""
+    total = None
+    for i, o in enumerate(outs):
+        cot = pkg.layers.data("cot%d" % i, [-1, 1], append_batch_size=False)
+        dot = pkg.layers.mul(pkg.layers.reshape(o, [1, -1]), cot)
+        total = dot if total is None else \
+            pkg.layers.elementwise_add(total, dot)
+    return list(outs) + pkg.framework.backward.gradients([total], ins)
+
+
+def _cots(*sizes):
+    return {"cot%d" % i: _x((n, 1), 20 + i) for i, n in enumerate(sizes)}
+
+
+@pytest.mark.parametrize("num_or_sections,dim,used", [
+    (3, 2, (0, 1, 2)),             # GPT's q, k, v
+    ([3, 5, 4], -1, (0, 1, 2)),
+    ([2, 1], 1, (0, 1)),
+    (3, 2, (0, 2)),                # an output with no gradient
+])
+def test_split_forward_and_grad(num_or_sections, dim, used):
+    """split's outputs arrive at its grad_of together; an output nothing
+    differentiates contributes zeros to X's gradient."""
+    shape = (2, 3, 12)
+
+    def build(p):
+        x = _grad_data(p, "x", shape)
+        outs = p.layers.split(x, num_or_sections, dim=dim)
+        return _with_grads(p, [outs[i] for i in used], [x]) + \
+            [o for i, o in enumerate(outs) if i not in used]
+    if isinstance(num_or_sections, int):
+        parts = np.split(np.zeros(shape), num_or_sections, axis=dim)
+    else:
+        parts = np.split(np.zeros(shape), np.cumsum(num_or_sections[:-1]),
+                         axis=dim)
+    sizes = [a.size for a in parts]
+    feed = dict({"x": _x(shape)}, **_cots(*[sizes[i] for i in used]))
+    _, tout = _run_both(build, feed)
+    if used == (0, 2):
+        np.testing.assert_array_equal(tout[2][..., 4:8], 0.0)
+
+
+@pytest.mark.parametrize("dim,keep_dim", [(None, False), (None, True),
+                                          (1, False), (1, True),
+                                          ([0, 2], False), (-1, True)])
+def test_reduce_sum_forward_and_grad(dim, keep_dim):
+    """A full reduction without keep_dim has shape (1,)."""
+    shape = (2, 3, 4)
+    n_out = np.zeros(shape).sum(axis=None if dim is None else tuple(
+        np.atleast_1d(dim)), keepdims=keep_dim).size
+
+    def build(p):
+        x = _grad_data(p, "x", shape)
+        return _with_grads(p, [p.layers.reduce_sum(x, dim=dim,
+                                                   keep_dim=keep_dim)], [x])
+    _, tout = _run_both(build, dict({"x": _x(shape)}, **_cots(n_out)))
+    if dim is None and not keep_dim:
+        assert tout[0].shape == (1,)
+
+
+@pytest.mark.parametrize("op", ["elementwise_mul", "elementwise_div"])
+@pytest.mark.parametrize("yshape,axis", [((2, 3, 4), -1), ((4,), -1),
+                                         ((3,), 1), ((3, 4), 1)])
+def test_elementwise_mul_div_forward_and_grad(op, yshape, axis):
+    xshape = (2, 3, 4)
+
+    def build(p):
+        x, y = _grad_data(p, "x", xshape), _grad_data(p, "y", yshape)
+        return _with_grads(p, [getattr(p.layers, op)(x, y, axis=axis)],
+                           [x, y])
+    feed = dict({"x": _x(xshape), "y": np.abs(_x(yshape, 1)) + 0.5},
+                **_cots(24))
+    _run_both(build, feed)
+
+
+@pytest.mark.parametrize("xshape,yshape,tx,ty,alpha", [
+    ((2, 3, 4), (4, 5), False, False, 1.0),
+    ((2, 4, 3), (2, 4, 5), True, False, 1.0),
+    ((2, 3, 4), (5, 4), False, True, 0.5),       # GPT's tied logits
+    ((4, 3), (5, 4), True, True, 2.0),
+    ((3, 4), (4,), False, False, 1.0),
+])
+def test_matmul_forward_and_grad(xshape, yshape, tx, ty, alpha):
+    m = xshape[-1] if tx else xshape[-2]
+    n = 1 if len(yshape) == 1 else (yshape[-2] if ty else yshape[-1])
+    lead = xshape[:-2] if len(xshape) >= len(yshape) else yshape[:-2]
+    size = int(np.prod(lead)) * m * n
+
+    def build(p):
+        x, y = _grad_data(p, "x", xshape), _grad_data(p, "y", yshape)
+        out = p.layers.matmul(x, y, transpose_x=tx, transpose_y=ty,
+                              alpha=alpha)
+        return _with_grads(p, [out], [x, y])
+    _run_both(build, dict({"x": _x(xshape), "y": _x(yshape, 1)},
+                          **_cots(size)))
+
+
+def test_matmul_out_dtype_takes_float32_and_refuses_bf16():
+    _run_both(lambda p: [p.layers.matmul(
+        _data(p, "x", [3, 4]), _data(p, "y", [5, 4]), transpose_y=True,
+        out_dtype="float32")], {"x": _x((3, 4)), "y": _x((5, 4), 1)})
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        out = tl.matmul(_data(ptt, "x", [3, 4]), _data(ptt, "y", [4, 5]),
+                        out_dtype="bfloat16")
+    with pytest.raises(ptt.NotPortedError, match="bf16"):
+        ptt.Executor(ptt.CPUPlace()).run(
+            main, feed={"x": _x((3, 4)), "y": _x((4, 5))}, fetch_list=[out],
+            scope=ptt.Scope())

@@ -215,6 +215,81 @@ def test_fused_mlm_head_loss_forward_and_grad(with_bias):
     _run_both(build, feed, tol=dict(rtol=2e-5, atol=2e-5))
 
 
+def test_softmax_with_cross_entropy_blockwise_route():
+    """At a (T, V) the JAX package's blockwise kernel tiles (128 x 256),
+    the port's op takes the blockwise-CE Function (its plain versions on
+    the CPU): Loss with ignore_index rows zeroed, Softmax as
+    exp(logits - lse), and the logits' gradient under cotangents on both
+    (the Softmax one flows through the lse)."""
+    from paddle_tpu_torch.ops import nn_ops
+    n, v = 128, 256
+    assert nn_ops.blockwise_kernel_would_tile(n, v)
+    label = np.random.RandomState(3).randint(0, v, (n, 1))
+    label[::9] = -100
+
+    def build(p):
+        logits = _data(p, "logits", (n, v))
+        lbl = p.layers.data("label", [n, 1], dtype="int64",
+                            append_batch_size=False)
+        loss, soft = p.layers.softmax_with_cross_entropy(
+            logits, lbl, return_softmax=True)
+        return _with_grads(p, [loss, soft], [logits], [(n, 1), (n, v)])
+    feed = dict({"logits": _x((n, v), 0, 3.0), "label": label},
+                **_cot_feed([(n, 1), (n, v)]))
+    _, tout = _run_both(build, feed)
+    assert np.all(tout[0][::9] == 0)
+
+
+@pytest.mark.parametrize("cast_bf16", [False, True])
+def test_fused_mlm_head_loss_fused_route(cast_bf16):
+    """At a tiling (T, V) = (128, 256) the head op takes the fused-head
+    Function (its plain versions on the CPU). f32: the tolerance above;
+    cast_bf16: both packages sum bf16 products in f32, but the hidden and
+    weight gradients come back through bf16 (8 significant bits): 1e-2."""
+    t, d, v = 128, 64, 256
+    label = np.random.RandomState(4).randint(0, v, (t, 1)).astype(np.int64)
+
+    def build(p):
+        h = _data(p, "h", (t, d))
+        w = _data(p, "w", (v, d))
+        b = _data(p, "b", (v,))
+        lbl = p.layers.data("label", [t, 1], dtype="int64",
+                            append_batch_size=False)
+        loss = p.layers.fused_mlm_head_loss(h, w, lbl, bias=b,
+                                            cast_bf16=cast_bf16)
+        return _with_grads(p, [loss], [h, w, b], [(t, 1)])
+    feed = dict({"h": _x((t, d), 0), "w": _x((v, d), 1, 0.1),
+                 "b": _x((v,), 2, 0.1), "label": label},
+                **_cot_feed([(t, 1)]))
+    tol = dict(rtol=1e-2, atol=1e-2) if cast_bf16 else \
+        dict(rtol=2e-5, atol=2e-5)
+    _run_both(build, feed, tol=tol)
+
+
+def test_labels_outside_the_vocab_read_nothing():
+    """A label outside [0, V) that is not the ignore_index: the plain
+    lowering of both ops gives the lse there (the label's term 0, as the
+    kernels' label hit gives it) and reads no logit out of bounds."""
+    from paddle_tpu_torch.ops import nn_ops
+    import torch
+    h = torch.from_numpy(_x((4, 8)))
+    w = torch.from_numpy(_x((10, 8), 1))
+    lab = torch.tensor([[1], [-7], [3], [10]])
+    logits = h @ w.t()
+    lse = torch.logsumexp(logits, -1)
+    out = nn_ops._fused_mlm_head_loss(
+        None, {"Hidden": [h], "Weight": [w], "Label": [lab]}, {})["Loss"]
+    np.testing.assert_allclose(out[[1, 3], 0].numpy(), lse[[1, 3]].numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(out[[0, 2], 0].numpy(),
+                               (lse - logits[[0, 1, 2, 3], lab[:, 0].clamp(
+                                   0, 9)])[[0, 2]].numpy(), rtol=1e-6)
+    ce = nn_ops._softmax_with_cross_entropy(
+        None, {"Logits": [logits], "Label": [lab]}, {})["Loss"]
+    np.testing.assert_allclose(ce[:, 0].numpy(), out[:, 0].numpy(),
+                               rtol=1e-5)
+
+
 @pytest.mark.parametrize("shape", [(3, 5), (40, 64)])
 def test_adam_op_three_steps(shape):
     """Optimizer.apply_gradients appends the adam op; three updates under
