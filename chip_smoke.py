@@ -8,8 +8,10 @@ sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
 of the eleven against its plain PyTorch version at the main paths' shapes
 (the backward kernels also against themselves: two runs must give equal
-bits). Then it drives the main paths, each with the kernels' launch
-counters set to 0 just before and read just after:
+bits; the flash backward pair, with its delta pass, also timed beside
+SDPA's backward as ``pair_ms``). Then it drives the main paths, each
+with the kernels' launch counters set to 0 just before and read just
+after:
 
 - ``serve``: BERT-base (full width, T=512, random weights from a seed)
   through ``inference.create_predictor`` on the card, answers checked
@@ -95,9 +97,12 @@ EVAL_LOSS_RTOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
-# peak rate for their type
+# peak rate for their type. f32: an f32-accurate product on the tensor
+# cores takes three TF32 products (3xTF32: hi*hi + hi*lo + lo*hi, the
+# scheme SDPA's f32 path uses), so the least time is at 495 / 3 TFLOP/s,
+# above the 67 TFLOP/s of f32 FFMA.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # f32: both sum in f32, in another order -> a few ulps of values of
@@ -362,7 +367,8 @@ def flash_bwd_cases(torch, fa, F):
     """Both backward kernels against the plain backward, on the forward
     kernel's out and lse (themselves held against the plain forward on
     the same inputs), and against themselves (equal bits on a second
-    run)."""
+    run). ``pair_ms`` is dK/dV + dQ + the delta pass rowsum(dO * O), the
+    work SDPA's backward (``library_ms``) does in one call."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [
         ("bert_train_k_mask_f32", 32, 12, 128, 128, 64, f32, "k", False),
@@ -374,6 +380,7 @@ def flash_bwd_cases(torch, fa, F):
         ("causal_tq_gt_tk_f32", 2, 12, 300, 200, 64, f32, None, True),
         ("gpt_train_causal_t4096_f32", 2, 12, 4096, 4096, 64, f32, None,
          True),
+        ("causal_t4096_d128_f32", 2, 12, 4096, 4096, 128, f32, None, True),
     ]
     dev = torch.device("cuda", 0)
     dkv, dq = [], []
@@ -413,9 +420,14 @@ def flash_bwd_cases(torch, fa, F):
                 lib_out, (lq, lk, lv), do, retain_graph=True))
         pairs, no_key = _visible(tq, tk, causal)
         el = q.element_size()
+        dkv_ms = clock(lambda: fa.flash_attention_bwd_dkv(*args))
+        dq_ms = clock(lambda: fa.flash_attention_bwd_dq(*args))
+        delta_ms = clock(lambda: (do.float() * out.float()).sum(-1))
         common = dict(shape=[b, h, tq, tk, d], dtype=str(dtype).split(".")[1],
                       mask=mode, causal=causal, tol=tol, plain_ms=plain_ms,
-                      library_ms=library_ms, fwd_max_abs_err=fwd_err,
+                      library_ms=library_ms, delta_ms=delta_ms,
+                      pair_ms=dkv_ms + dq_ms + delta_ms,
+                      fwd_max_abs_err=fwd_err,
                       fwd_lse_max_abs_err=fwd_lse_err, fwd_tol=fwd_tol)
         side = (0 if mask is None else mask.numel() * 4) + \
             2 * lse.numel() * 4                        # mask, lse, delta
@@ -424,8 +436,7 @@ def flash_bwd_cases(torch, fa, F):
         dkv.append(dict(
             name=name, max_abs_err=err_kv,
             ok=err_kv <= tol and same_kv and fwd_ok,
-            bitwise_repeat=same_kv,
-            kernel_ms=clock(lambda: fa.flash_attention_bwd_dkv(*args)),
+            bitwise_repeat=same_kv, kernel_ms=dkv_ms,
             **common, **_bound(8.0 * b * h * d * pairs +
                                2.0 * b * h * d * tk * no_key,
                                (2 * q.numel() + 4 * k.numel()) * el + side,
@@ -435,8 +446,7 @@ def flash_bwd_cases(torch, fa, F):
         dq.append(dict(
             name=name, max_abs_err=err_q,
             ok=err_q <= tol and same_q and fwd_ok,
-            bitwise_repeat=same_q,
-            kernel_ms=clock(lambda: fa.flash_attention_bwd_dq(*args)),
+            bitwise_repeat=same_q, kernel_ms=dq_ms,
             **common, **_bound(6.0 * b * h * d * pairs,
                                (3 * q.numel() + 2 * k.numel()) * el + side,
                                common["dtype"])))

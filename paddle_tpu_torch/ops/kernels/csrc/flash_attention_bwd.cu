@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: two
-// kernels, dK/dV and dQ.
+// kernels, dK/dV and dQ, on the tensor cores.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py:_pallas_backward
 // (kernel bodies _bwd_dkv_kernel and _bwd_dq_kernel, shared core
@@ -17,50 +17,82 @@
 // lse = -1e30 + log(Tk) rounds to -1e30, so p would come out 1. Both
 // kernels therefore treat such a row explicitly: p = 1/Tk, ds = 0.
 //
-// What bounds it on the H100: per visible (query, key) pair the dK/dV
-// kernel does 8*D flops (s, dp, dv, dk) and the dQ kernel 6*D (s, dp, dq),
-// against reading q/k/v/dO once and writing dq/dk/dv once. At BERT-base
-// training shapes (32 x 12 heads, T = 128, D = 64, f32) that is 1.4
-// GFLOP, ~21 us at 67 TFLOP/s, against ~38 MB, ~11 us at 3.35 TB/s: the
-// operations bound it. This first version computes in f32 on the CUDA cores
-// (no tensor cores, no wgmma/TMA), so its ceiling is the 67 TFLOP/s f32
-// rate; bf16 inputs are widened to f32 on load and accumulate in f32.
+// What bounds it on the H100. Per visible (query, key) pair the dK/dV
+// kernel does 8*D flops (s, dp, dv, dk) and the dQ kernel 6*D (s, dp, dq).
+// f32 inputs keep f32 accuracy on the tensor cores by 3xTF32 (below), the
+// scheme of PyTorch's own f32 attention backward, so their peak is the
+// dense TF32 rate over three: 495 / 3 = 165 TFLOP/s. At GPT-base training
+// ((2, 12, 4096, 4096, 64) causal f32) that is 103 + 77 GFLOP, 0.625 +
+// 0.469 ms: the operations bound it. At BERT-base training ((32, 12, 128,
+// 128, 64) f32) 1.9 + 1.4 GFLOP take 0.012 + 0.009 ms against 75.5 MB
+// moved (q, k, v, dO read, dq, dk, dv written, mask, lse, delta), 0.0225
+// ms at 3.35 TB/s: the bytes bound it there. bf16 runs at 989 TFLOP/s.
 //
-// Design: the TPU's two-kernel split, which needs no atomics. dK/dV: one
-// 256-thread block owns a (b*h, 64-key tile); K and V stay in shared memory
-// while a loop walks the 64-row query tiles (Q, dO staged in shared memory),
-// and dK, dV accumulate in f32 registers (4 key rows x D/16 columns per
-// thread). dQ: one block owns a (b*h, 64-query tile) and walks the key tiles,
-// dQ accumulating in registers. In both, each thread computes a 4 x 4 patch
-// of s and dp (a row's 16 lanes are one half-warp), writes p and ds to
-// shared memory, and the block then multiplies them out. Every output
-// element is summed by one thread in a fixed order, so two runs give equal
-// bits. Tiles past the causal diagonal are skipped unless they hold a row
-// that sees no key. Ragged Tq/Tk edges are masked in-kernel: out-of-range
-// keys and queries are loaded as zeros, get p = ds = 0 and are never stored.
+// Design, against that bound:
+// - All five products (s, dp, dv, dk, dq) are warp-level mma.sync on the
+//   tensor cores with f32 accumulation: m16n8k8 tf32 for f32 inputs,
+//   m16n8k16 bf16 for bf16 inputs. mma.sync rather than wgmma: s and dp
+//   stay in registers through the softmax-gradient step and enter the dv,
+//   dk and dq products straight from there as A fragments, with no round
+//   trip through shared memory, and a 128-thread block keeps the shared
+//   memory of two blocks per SM (wgmma's B operand would need separate hi
+//   and lo tiles of every operand in shared memory).
+// - 3xTF32 (f32 inputs): hi = tf32(x), lo = tf32(x - hi), rounded to
+//   nearest with ties away from zero on the low 13 bits (the rounding of
+//   cvt.rna.tf32.f32); each product is lo*hi + hi*lo + hi*hi, three
+//   m16n8k8 mma with f32 accumulation, dropping only lo*lo (~2^-22
+//   relative). p and ds are split the same way as they enter dv, dk and
+//   dq. Never single-pass TF32. The rounding is two integer instructions
+//   ((bits + 0x1000) & ~0x1fff, exact for finite inputs): ptxas expands
+//   cvt.rna.tf32.f32 into a longer sequence with NaN/Inf handling, which
+//   dominated the split's cost. bf16 inputs: p and ds are rounded to bf16 (to
+//   nearest) as they enter the bf16 products; every sum is f32.
+// - Split once, not once per warp: at f32 and D = 64 each streamed tile is
+//   split by the block as it arrives, hi in place and lo into a second
+//   plane, and the four warps read both planes (ldmatrix where the
+//   fragment is row-major). Resident tiles, and D = 128 (no shared memory
+//   for the planes), split at fragment load.
+// - Streamed tiles (Q, dO, lse, delta in dK/dV; K, V in dQ; 32 rows) come
+//   in with 16-byte cp.async (4-byte for lse/delta) into a ring of two
+//   stages: the next tile is in flight while the current one is
+//   multiplied. Resident tiles (K, V in dK/dV; Q, dO in dQ; 64 rows) load
+//   16 bytes a thread the same way. Shared-memory rows are padded by 16
+//   bytes (D + 4 floats, D + 8 bf16), which makes every fragment load
+//   conflict-free.
+// - Tile sums: the tensor cores round each mma's f32 sum toward zero, a
+//   bias that builds up over thousands of mma into one accumulator (past
+//   the 1e-4 tolerance at T = 4096). So each streamed tile's contribution is
+//   summed from zero (4-12 mma) and then added to the running sum with an
+//   ordinary f32 add: registers at D = 64, shared memory at D = 128.
+// - Two 4-warp blocks per SM leave each scheduler two warps, too few to
+//   hide mma and shared-memory latency by themselves, so each warp keeps
+//   more independent mma chains in flight where registers allow (Cfg::P,
+//   Cfg::PAIRED): at GPT's shape dK/dV 2.21 -> 1.93 ms, dQ 1.64 -> 1.51.
+// - dK/dV: a 128-thread block (4 warps x 16 keys) owns a (b*h, 64-key
+//   tile) and walks the query tiles. dQ: a block owns 64 query rows (16 a
+//   warp) and walks the key tiles. Under causal masking the heaviest blocks
+//   go first: blockIdx.x runs over all heads of the first key tile (dK/dV)
+//   or of the last query tile (dQ) before the next tile.
+// - No atomics (dQ is its own kernel): every output element is summed by
+//   one thread in tile order, so two runs give equal bits. Tiles past the
+//   causal diagonal are skipped unless they hold a row that sees no key;
+//   tiles inside it take a path without per-element masking. Ragged Tq/Tk
+//   edges: out-of-range rows are loaded as zeros (cp.async zero-fill), get
+//   p = ds = 0 and are never stored.
+//
+// ptxas (sm_90a, nvcc -O3), registers per thread as chip_smoke.py's build
+// phase prints them: dK/dV f32 D=64 225, D=128 160, bf16 D=64 168
+// (8-byte spill), D=128 95; dQ f32 165 / 164, bf16 122 / 80; no other
+// spills. Shared memory per block: dK/dV f32 D=64 102.5 KB (two blocks
+// per SM), dQ 102 KB; at D = 128 196.5 and 164 KB (one).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kLd = kBlockK + 1;   // row stride of the p / ds tiles
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kThreads = 128;   // 4 warps, 16 rows each
+constexpr int kRows = 64;       // rows a block owns: keys (dK/dV), queries (dQ)
 
 struct Problem {
   int H, Tq, Tk;
@@ -70,90 +102,485 @@ struct Problem {
   int causal;
 };
 
-// rows x D tile of a (T, D) matrix into shared memory with row stride ld,
-// widened to f32; rows at or past T are zeros.
+// ---- tile shapes ---------------------------------------------------------
+
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int row0, int T_) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D, g = row0 + r;
-    dst[r * ld + c] = g < T_ ? to_f32(src[(size_t)g * D + c]) : 0.f;
+struct Cfg {
+  static constexpr int LD = D + 16 / (int)sizeof(T);   // padded row stride
+  static constexpr int R = 32;                          // streamed tile rows
+  static constexpr int KS = sizeof(T) == 4 ? 8 : 16;    // mma depth
+  static constexpr int ND = D / 8;                      // 8-column tiles of D
+  static constexpr int NC = 8;   // output tiles summed in registers at once
+  // streamed f32 tiles split once into hi/lo planes
+  static constexpr bool PLANES = sizeof(T) == 4 && D == 64;
+  static constexpr bool SUMS_SMEM = D > 64;   // running sums in shared memory
+  // More independent mma chains where registers allow (each measured
+  // faster at GPT's shape): accumulate() sums f32 output tiles in two
+  // partial sums over alternate k-steps; at f32 D = 64 the dK/dV kernel
+  // interleaves a tile's dV and dK products instead (accumulate2). Both
+  // measured slower for bf16, the interleave also at D = 128.
+  static constexpr int P = sizeof(T) == 4 ? 2 : 1;
+  static constexpr bool PAIRED = PLANES;
+};
+
+// ---- cp.async --------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or 16 zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows x D tile of a dense (T_, D) matrix into shared memory (row stride
+// LD), 16 bytes a thread; rows at or past T_ are zeros
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
+                                          int T_) {
+  constexpr int PER = 16 / sizeof(T);        // elements per 16 bytes
+  constexpr int CPR = D / PER;               // 16-byte pieces per row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i % CPR) * PER, g = row0 + r;
+    const bool ok = g < T_;
+    cp_async16(dst + r * Cfg<T, D>::LD + c,
+               src + (size_t)(ok ? g : 0) * D + c, ok);
   }
 }
 
-// s = Q K^T and dp = dO V^T for the thread's 4 query rows x 4 keys, then
-// p and ds into shared memory (Ps, dSs: [kBlockQ][kLd]). Qs, dOs have row
-// stride D; Ks, Vs row stride D + 1.
-template <int D>
-__device__ __forceinline__ void p_ds_tile(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    float* Ps, float* dSs, int q0, int k0, const float* lse,
-    const float* delta, const float* mb, const Problem& pr) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+// ROWS f32 values (lse or delta) of rows row0.. into shared memory, zeros
+// past T_ (4-byte copies: a head's row start need not be 16-byte aligned)
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int T_, int part) {
+  const int i = threadIdx.x - part * ROWS;
+  if (i >= 0 && i < ROWS) {
+    const bool ok = row0 + i < T_;
+    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
+  }
+}
+
+// ---- 3xTF32 split -----------------------------------------------------------
+
+// x rounded to tf32 (10 mantissa bits), to nearest, ties away from zero:
+// cvt.rna.tf32.f32 for finite x
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// split a tile just landed in place: hi over the f32 values, lo into the
+// second plane. Each thread splits the 16-byte pieces its own cp.async
+// brought in (load_tile's assignment), so no barrier is needed before.
+template <int D, int ROWS>
+__device__ __forceinline__ void split_tile(float* hi, float* lo) {
+  constexpr int CPR = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CPR; i += kThreads) {
+    const int off = (i / CPR) * Cfg<float, D>::LD + (i % CPR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// ---- fragments and mma -----------------------------------------------------
+// Thread layout of m16n8 (PTX ISA, mma.m16n8k8 / m16n8k16): lane = 4g + t;
+// accumulator c0, c1 at (row g, cols 2t, 2t+1), c2, c3 at (row g + 8, the
+// same cols).
+
+struct A32 { uint32_t hi[4], lo[4]; };
+struct B32 { uint32_t hi[2], lo[2]; };
+struct A16 { uint32_t r[4]; };
+struct B16 { uint32_t r[2]; };
+
+// Views of a tile in shared memory, row stride ld: f32 split at fragment
+// load, f32 split into planes, bf16.
+struct V32 { const float* p; int ld; };
+struct P32 { const float* hi; const float* lo; int ld; };
+struct V16 { const __nv_bfloat16* p; int ld; };
+
+template <typename T> struct Frag;
+template <> struct Frag<float> { using A = A32; };
+template <> struct Frag<__nv_bfloat16> { using A = A16; };
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: the small cross terms first, then hi*hi
+__device__ __forceinline__ void mma(float (&c)[4], const A32& a,
+                                    const B32& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const A16& a,
+                                    const B16& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
+        "r"(b.r[1]));
+}
+
+// four 8 x 16-byte blocks, row addresses from lanes 8i..8i+7 for block i;
+// the lane gets 32-bit word t of row g of each block (for f32 data: the
+// element (g, t) of an 8 x 4 block)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// A (16 x KS) from a row-major tile Y[m][k] (m = m0.., k = k0..)
+__device__ __forceinline__ A32 load_a(const V32& y, int m0, int k0) {
+  const int l = lane_id();
+  uint32_t r[4];
+  ldsm_x4(r, y.p + (m0 + (l & 7) + (l & 8)) * y.ld + k0 + (l >> 4) * 4);
+  A32 a;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), a.hi[i], a.lo[i]);
+  return a;
+}
+
+__device__ __forceinline__ A16 load_a(const V16& y, int m0, int k0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  const __nv_bfloat16* p = y.p + (m0 + g) * y.ld + k0 + 2 * t;
+  return A16{{word(p), word(p + 8 * y.ld), word(p + 8),
+              word(p + 8 * y.ld + 8)}};
+}
+
+// B (KS x 8) from a tile stored n-major, X[n][k] (s = q k^T: X = K)
+__device__ __forceinline__ B32 load_b(const V32& x, int n0, int k0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  const float* p = x.p + (n0 + g) * x.ld + k0 + t;
+  B32 b;
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[4], b.hi[1], b.lo[1]);
+  return b;
+}
+
+__device__ __forceinline__ B32 load_b(const P32& x, int n0, int k0) {
+  const int l = lane_id();
+  const float* plane = l & 16 ? x.lo : x.hi;
+  uint32_t r[4];
+  ldsm_x4(r, plane + (n0 + (l & 7)) * x.ld + k0 + (l & 8) / 2);
+  return B32{{r[0], r[1]}, {r[2], r[3]}};
+}
+
+__device__ __forceinline__ B16 load_b(const V16& x, int n0, int k0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  const __nv_bfloat16* p = x.p + (n0 + g) * x.ld + k0 + 2 * t;
+  return B16{{word(p), word(p + 8)}};
+}
+
+// B (KS x 8) from a tile stored k-major, X[k][n] (dv = p^T dO: X = dO).
+// f32: the k order inside the 8-deep step is permuted (slot t <-> k = 2t,
+// slot t + 4 <-> k = 2t + 1) to match a_from_c below; a sum does not care
+// in which order its 8 terms enter one mma.
+__device__ __forceinline__ B32 load_bt(const V32& x, int k0, int n0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  const float* p = x.p + (k0 + 2 * t) * x.ld + n0 + g;
+  B32 b;
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[x.ld], b.hi[1], b.lo[1]);
+  return b;
+}
+
+__device__ __forceinline__ B32 load_bt(const P32& x, int k0, int n0) {
+  const int g = lane_id() >> 2, t = lane_id() & 3;
+  const int off = (k0 + 2 * t) * x.ld + n0 + g;
+  return B32{{__float_as_uint(x.hi[off]), __float_as_uint(x.hi[off + x.ld])},
+             {__float_as_uint(x.lo[off]), __float_as_uint(x.lo[off + x.ld])}};
+}
+
+// bf16: ldmatrix.trans of the two 8 x 8 blocks (k0.., k0 + 8..) x (n0..)
+__device__ __forceinline__ B16 load_bt(const V16& x, int k0, int n0) {
+  const __nv_bfloat16* p = x.p + (k0 + (lane_id() & 15)) * x.ld + n0;
+  B16 b;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b.r[0]), "=r"(b.r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+  return b;
+}
+
+// A (16 x KS) from accumulator tiles c[n][4] (columns 8n..8n+7), as the
+// k-step kc: f32 takes tile kc (with the permuted k order of load_bt),
+// bf16 tiles 2kc and 2kc + 1, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void a_from_c(A32& a, const float (&c)[N][4],
+                                         int kc) {
+  split(c[kc][0], a.hi[0], a.lo[0]);
+  split(c[kc][2], a.hi[1], a.lo[1]);
+  split(c[kc][1], a.hi[2], a.lo[2]);
+  split(c[kc][3], a.hi[3], a.lo[3]);
+}
+
+template <int N>
+__device__ __forceinline__ void a_from_c(A16& a, const float (&c)[N][4],
+                                         int kc) {
+  a.r[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
+  a.r[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
+  a.r[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
+  a.r[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// the view of a resident tile (split at fragment load) ...
+template <typename T, int D>
+__device__ __forceinline__ auto resident(const T* p) {
+  if constexpr (sizeof(T) == 4)
+    return V32{p, Cfg<T, D>::LD};
+  else
+    return V16{p, Cfg<T, D>::LD};
+}
+
+// ... and of a streamed one (lo: its second plane, if it has one)
+template <typename T, int D>
+__device__ __forceinline__ auto streamed(const T* p, const T* lo) {
+  if constexpr (Cfg<T, D>::PLANES)
+    return P32{p, lo, Cfg<T, D>::LD};
+  else
+    return resident<T, D>(p);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ---- running sums of a warp's 16 x D output tile ---------------------------
+
+template <int D, bool SMEM> struct Sums;
+
+template <int D> struct Sums<D, false> {     // registers
+  float v[D / 8][4];
+  __device__ __forceinline__ void init(float*) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = dp[r][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qv[r] = Qs[(ty * 4 + r) * D + d];
-      ov[r] = dOs[(ty * 4 + r) * D + d];
+      for (int e = 0; e < 4; ++e) v[n][e] = 0.f;
+  }
+  __device__ __forceinline__ float& at(int n, int e) { return v[n][e]; }
+};
+
+template <int D> struct Sums<D, true> {      // shared memory, conflict-free
+  static constexpr int kFloats = D / 8 * 4 * kThreads;
+  float* p;
+  __device__ __forceinline__ void init(float* base) {
+    p = base + threadIdx.x;
+    for (int i = 0; i < D / 8 * 4; ++i) p[i * kThreads] = 0.f;
+  }
+  __device__ __forceinline__ float& at(int n, int e) {
+    return p[(n * 4 + e) * kThreads];
+  }
+};
+
+// sums += A X over the streamed tile's rows, A from the accumulator tiles
+// c (p or ds, 16 x 8*NKT), X the tile (rows x D, k-major). NC output tiles
+// at a time are summed from zero in registers (in P partial sums over
+// alternate k-steps), then added to the sums.
+template <typename T, int D, int NKT, typename S, typename View>
+__device__ __forceinline__ void accumulate(S& sums, const float (&c)[NKT][4],
+                                           const View& x) {
+  using C = Cfg<T, D>;
+  constexpr int P = C::P;
+#pragma unroll
+  for (int c0 = 0; c0 < C::ND; c0 += C::NC) {
+    float part[P][C::NC][4];
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int n = 0; n < C::NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NKT * 8 / C::KS; ++kc) {
+      typename Frag<T>::A a;
+      a_from_c(a, c, kc);
+#pragma unroll
+      for (int n = 0; n < C::NC; ++n)
+        mma(part[kc % P][n], a, load_bt(x, kc * C::KS, 8 * (c0 + n)));
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-      vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-    }
+    for (int n = 0; n < C::NC; ++n)
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int e = 0; e < 4; ++e) {
+        float t = part[0][n][e];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[r][j] = fmaf(qv[r], kv[j], s[r][j]);
-        dp[r][j] = fmaf(ov[r], vv[j], dp[r][j]);
+        for (int i = 1; i < P; ++i) t += part[i][n][e];
+        sums.at(c0 + n, e) += t;
       }
   }
+}
+
+// two accumulations of one streamed tile interleaved (dV and dK):
+// twice the independent mma chains of accumulate() at a time
+template <typename T, int D, int NKT, typename S, typename View>
+__device__ __forceinline__ void accumulate2(S& s1, const float (&c1)[NKT][4],
+                                            const View& x1, S& s2,
+                                            const float (&c2)[NKT][4],
+                                            const View& x2) {
+  using C = Cfg<T, D>;
+#pragma unroll
+  for (int c0 = 0; c0 < C::ND; c0 += C::NC) {
+    float p1[C::NC][4], p2[C::NC][4];
+#pragma unroll
+    for (int n = 0; n < C::NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p1[n][e] = p2[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NKT * 8 / C::KS; ++kc) {
+      typename Frag<T>::A a1, a2;
+      a_from_c(a1, c1, kc);
+      a_from_c(a2, c2, kc);
+#pragma unroll
+      for (int n = 0; n < C::NC; ++n) {
+        mma(p1[n], a1, load_bt(x1, kc * C::KS, 8 * (c0 + n)));
+        mma(p2[n], a2, load_bt(x2, kc * C::KS, 8 * (c0 + n)));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < C::NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s1.at(c0 + n, e) += p1[n][e];
+        s2.at(c0 + n, e) += p2[n][e];
+      }
+  }
+}
+
+// the thread's two output rows (row0 = g, row0 + 8 of the warp's 16) of the
+// sums, scaled, into row-major (rows, D) memory; rows at or past T_ are
+// not stored
+template <typename T, int D, typename S>
+__device__ __forceinline__ void store_rows(T* out, S& sums, int row0, int T_,
+                                           float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= T_) continue;
+    T* p = out + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(p + 8 * n, scale * sums.at(n, 2 * r),
+             scale * sums.at(n, 2 * r + 1));
+  }
+}
+
+// ---- the softmax-gradient step ----------------------------------------------
+
+// p and ds of one (query qg, key kg) pair from s = q.k and dp = dO.v,
+// in place; m is the mask's value there (0 without one). `full`: the tile
+// is inside both ragged edges and below the causal diagonal, nothing to
+// check.
+__device__ __forceinline__ void p_ds(float& s, float& dp, int qg, int kg,
+                                     float l, float dl, float m, bool full,
+                                     const Problem& pr) {
+  if (!full) {
+    if (qg >= pr.Tq || kg >= pr.Tk) {
+      s = dp = 0.f;
+      return;
+    }
+    if (pr.causal) {
+      const int last = qg + pr.Tk - pr.Tq;   // the last key row qg sees
+      if (last < 0) {                        // no key: uniform, dv only
+        s = 1.f / (float)pr.Tk;
+        dp = 0.f;
+        return;
+      }
+      if (kg > last) {
+        s = dp = 0.f;
+        return;
+      }
+    }
+  }
+  const float p = __expf(s * pr.scale + m - l);
+  s = p;
+  dp = p * (dp - dl);
+}
+
+// ---- dK / dV ----------------------------------------------------------------
+
+template <typename T, int D>
+struct DkvSmem {
+  using C = Cfg<T, D>;
+  static constexpr size_t kv = (size_t)kRows * C::LD;   // K or V
+  static constexpr size_t q = (size_t)C::R * C::LD;     // Q or dO (a plane)
+  static constexpr int planes = C::PLANES ? 2 : 1;
+  static constexpr size_t stage_bytes =
+      2 * planes * q * sizeof(T) + 2 * C::R * 4;        // + lse, delta
+  static constexpr size_t sums = C::SUMS_SMEM ? Sums<D, true>::kFloats : 0;
+  static constexpr size_t bytes =
+      2 * kv * sizeof(T) + 2 * stage_bytes + 2 * sums * 4;
+};
+
+// a query tile matters to key tile k0 unless the causal rule hides all of
+// it from those keys and none of its rows sees no key
+__device__ __forceinline__ bool q_tile_skipped(int q0, int rows, int k0,
+                                               const Problem& pr) {
   const int offset = pr.Tk - pr.Tq;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qg = q0 + ty * 4 + r;
-    const bool q_ok = qg < pr.Tq;
-    const float l = q_ok ? lse[qg] : 0.f;
-    const float dl = q_ok ? delta[qg] : 0.f;
-    const bool no_key = pr.causal && qg + offset < 0;
-    const float* mrow =
-        mb ? mb + (size_t)min(qg, pr.Tq - 1) * pr.mask_stride_q : nullptr;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kg = k0 + tx + 16 * j;
-      float p = 0.f, ds = 0.f;
-      if (q_ok && kg < pr.Tk) {
-        if (no_key) {
-          p = 1.f / (float)pr.Tk;   // uniform row: dv only
-        } else if (!(pr.causal && qg + offset < kg)) {
-          float x = s[r][j] * pr.scale;
-          if (mrow) x += mrow[kg];
-          p = expf(x - l);
-          ds = p * (dp[r][j] - dl);
-        }
-      }
-      Ps[(ty * 4 + r) * kLd + tx + 16 * j] = p;
-      dSs[(ty * 4 + r) * kLd + tx + 16 * j] = ds;
-    }
-  }
+  return pr.causal && min(q0 + rows, pr.Tq) - 1 + offset < k0 &&
+         q0 + offset >= 0;
 }
 
-template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 2 * kBlockK * (D + 1) + 2 * kBlockQ * D + 2 * kBlockQ * kLd;
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 2 * kBlockQ * D + 2 * kBlockK * (D + 1) + kBlockQ * kLd;
+template <int R>
+__device__ __forceinline__ int next_q_tile(int q0, int k0, const Problem& pr) {
+  while (q0 < pr.Tq && q_tile_skipped(q0, R, k0, pr)) q0 += R;
+  return q0;
 }
 
 template <typename T, int D>
@@ -163,20 +590,24 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ mask, T* __restrict__ dk,
-                     T* __restrict__ dv, Problem pr) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                      // [kBlockK][D + 1]
-  float* Vs = Ks + kBlockK * (D + 1);    // [kBlockK][D + 1]
-  float* Qs = Vs + kBlockK * (D + 1);    // [kBlockQ][D]
-  float* dOs = Qs + kBlockQ * D;         // [kBlockQ][D]
-  float* Ps = dOs + kBlockQ * D;         // [kBlockQ][kLd]
-  float* dSs = Ps + kBlockQ * kLd;       // [kBlockQ][kLd]
+                     T* __restrict__ dv, Problem pr, int BH) {
+  using C = Cfg<T, D>;
+  using S = DkvSmem<T, D>;
+  constexpr int R = C::R, KS = C::KS, NQ = R / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + S::kv;
+  unsigned char* stage0 = smem + 2 * S::kv * sizeof(T);
+  float* sums_base = reinterpret_cast<float*>(stage0 + 2 * S::stage_bytes);
+  Sums<D, C::SUMS_SMEM> dk_sum, dv_sum;
+  dk_sum.init(sums_base);
+  dv_sum.init(sums_base + S::sums);
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlockK;
-  const int offset = pr.Tk - pr.Tq;
+  // heaviest first: every head's key tile 0, then tile 1, ...
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
   const T* qb = q + (size_t)bh * pr.Tq * D;
   const T* ob = dout + (size_t)bh * pr.Tq * D;
   const float* lb = lse + (size_t)bh * pr.Tq;
@@ -184,63 +615,115 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* mb =
       mask ? mask + (size_t)(bh / pr.H) * (size_t)pr.mask_stride_b : nullptr;
 
-  load_tile<T, D>(Ks, D + 1, k + (size_t)bh * pr.Tk * D, k0, pr.Tk);
-  load_tile<T, D>(Vs, D + 1, v + (size_t)bh * pr.Tk * D, k0, pr.Tk);
+  // a stage: Q, [Q lo], dO, [dO lo], lse, delta
+  auto stage_q = [&](int s) {
+    return reinterpret_cast<T*>(stage0 + s * S::stage_bytes);
+  };
+  auto load_stage = [&](int s, int q0) {
+    T* Qs = stage_q(s);
+    T* dOs = Qs + S::planes * S::q;
+    float* ls = reinterpret_cast<float*>(dOs + S::planes * S::q);
+    load_tile<T, D, R>(Qs, qb, q0, pr.Tq);
+    load_tile<T, D, R>(dOs, ob, q0, pr.Tq);
+    load_rows<R>(ls, lb, q0, pr.Tq, 0);
+    load_rows<R>(ls + R, db, q0, pr.Tq, 1);
+  };
 
-  float dk_acc[4][DC], dv_acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+  load_tile<T, D, kRows>(Ks, k + (size_t)bh * pr.Tk * D, k0, pr.Tk);
+  load_tile<T, D, kRows>(Vs, v + (size_t)bh * pr.Tk * D, k0, pr.Tk);
+  int q0 = next_q_tile<R>(0, k0, pr);
+  if (q0 < pr.Tq) load_stage(0, q0);
+  cp_async_commit();
+  const auto Kv = resident<T, D>(Ks);
+  const auto Vv = resident<T, D>(Vs);
 
-  for (int q0 = 0; q0 < pr.Tq; q0 += kBlockQ) {
-    // a query tile below this key tile's diagonal sees none of its keys,
-    // unless it holds a row that sees no key at all (uniform: dv only)
-    if (pr.causal && min(q0 + kBlockQ, pr.Tq) - 1 + offset < k0 &&
-        q0 + offset >= 0)
-      continue;
-    __syncthreads();  // the previous tile's Q/dO/p/ds are no longer read
-    load_tile<T, D>(Qs, D, qb, q0, pr.Tq);
-    load_tile<T, D>(dOs, D, ob, q0, pr.Tq);
-    __syncthreads();
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, Ps, dSs, q0, k0, lb, db, mb, pr);
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < kBlockQ; ++i) {
-      float pv[4], sv[4], qv[DC], ov[DC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pv[r] = Ps[i * kLd + ty * 4 + r];
-        sv[r] = dSs[i * kLd + ty * 4 + r];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        qv[c] = Qs[i * D + tx + 16 * c];
-        ov[c] = dOs[i * D + tx + 16 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv_acc[r][c] = fmaf(pv[r], ov[c], dv_acc[r][c]);
-          dk_acc[r][c] = fmaf(sv[r], qv[c], dk_acc[r][c]);
-        }
+  // a "k" mask (one row broadcast over queries) is fixed per key row
+  const int kr[2] = {k0 + m0 + g, k0 + m0 + g + 8};
+  float mk[2] = {0.f, 0.f};
+  if (mb && pr.mask_stride_q == 0)
+    for (int r = 0; r < 2; ++r) mk[r] = kr[r] < pr.Tk ? mb[kr[r]] : 0.f;
+
+  const int offset = pr.Tk - pr.Tq;
+  int cur = 0;
+  while (q0 < pr.Tq) {
+    const int qn = next_q_tile<R>(q0 + R, k0, pr);
+    if (qn < pr.Tq) load_stage(cur ^ 1, qn);
+    cp_async_commit();
+    cp_async_wait<1>();   // everything but the tile just requested
+    T* Qs = stage_q(cur);
+    T* dOs = Qs + S::planes * S::q;
+    const float* ls = reinterpret_cast<const float*>(dOs + S::planes * S::q);
+    const float* ds = ls + R;
+    if constexpr (C::PLANES) {
+      split_tile<D, R>(Qs, Qs + S::q);
+      split_tile<D, R>(dOs, dOs + S::q);
     }
-  }
+    __syncthreads();
+    const auto Qv = streamed<T, D>(Qs, Qs + S::q);
+    const auto dOv = streamed<T, D>(dOs, dOs + S::q);
 
+    // s^T = K Q^T and dp^T = V dO^T for the warp's 16 keys x R queries
+    float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kg = k0 + ty * 4 + r;
-    if (kg >= pr.Tk) continue;
-    T* dkrow = dk + ((size_t)bh * pr.Tk + kg) * D;
-    T* dvrow = dv + ((size_t)bh * pr.Tk + kg) * D;
+    for (int j = 0; j < NQ; ++j)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dkrow[tx + 16 * c] = from_f32<T>(pr.scale * dk_acc[r][c]);
-      dvrow[tx + 16 * c] = from_f32<T>(dv_acc[r][c]);
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += KS) {
+      const auto aK = load_a(Kv, m0, kk);
+      const auto aV = load_a(Vv, m0, kk);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        mma(st[j], aK, load_b(Qv, 8 * j, kk));
+        mma(dpt[j], aV, load_b(dOv, 8 * j, kk));
+      }
     }
+
+    const bool full = q0 + R <= pr.Tq && k0 + kRows <= pr.Tk &&
+                      (!pr.causal || q0 + offset >= k0 + kRows - 1);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1), qg = q0 + col;
+        const int kg = kr[e >> 1];
+        float m = mk[e >> 1];
+        if (mb && pr.mask_stride_q != 0 && qg < pr.Tq && kg < pr.Tk)
+          m = mb[(size_t)qg * pr.mask_stride_q + kg];
+        p_ds(st[j][e], dpt[j][e], qg, kg, ls[col], ds[col], m, full, pr);
+      }
+
+    // dV += p^T dO, dK += ds^T Q
+    if constexpr (C::PAIRED) {
+      accumulate2<T, D>(dv_sum, st, dOv, dk_sum, dpt, Qv);
+    } else {
+      accumulate<T, D>(dv_sum, st, dOv);
+      accumulate<T, D>(dk_sum, dpt, Qv);
+    }
+    __syncthreads();   // this stage is refilled in the next iteration
+    cur ^= 1;
+    q0 = qn;
   }
+  cp_async_wait<0>();
+
+  store_rows<T, D>(dk + (size_t)bh * pr.Tk * D, dk_sum, kr[0], pr.Tk,
+                   pr.scale);
+  store_rows<T, D>(dv + (size_t)bh * pr.Tk * D, dv_sum, kr[0], pr.Tk, 1.f);
 }
+
+// ---- dQ ---------------------------------------------------------------------
+
+template <typename T, int D>
+struct DqSmem {
+  using C = Cfg<T, D>;
+  static constexpr size_t qd = (size_t)kRows * C::LD;   // Q or dO
+  static constexpr size_t kt = (size_t)C::R * C::LD;    // K or V (a plane)
+  static constexpr int planes = C::PLANES ? 2 : 1;
+  static constexpr size_t stage_bytes = 2 * planes * kt * sizeof(T);
+  static constexpr size_t sums = C::SUMS_SMEM ? Sums<D, true>::kFloats : 0;
+  static constexpr size_t bytes =
+      2 * qd * sizeof(T) + 2 * stage_bytes + sums * 4;
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -249,89 +732,138 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const float* __restrict__ mask, T* __restrict__ dq,
-                    Problem pr) {
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBlockQ][D]
-  float* dOs = Qs + kBlockQ * D;         // [kBlockQ][D]
-  float* Ks = dOs + kBlockQ * D;         // [kBlockK][D + 1]
-  float* Vs = Ks + kBlockK * (D + 1);    // [kBlockK][D + 1]
-  float* dSs = Vs + kBlockK * (D + 1);   // [kBlockQ][kLd]
+                    Problem pr, int BH) {
+  using C = Cfg<T, D>;
+  using S = DqSmem<T, D>;
+  constexpr int R = C::R, KS = C::KS, NK = R / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + S::qd;
+  unsigned char* stage0 = smem + 2 * S::qd * sizeof(T);
+  Sums<D, C::SUMS_SMEM> dq_sum;
+  dq_sum.init(reinterpret_cast<float*>(stage0 + 2 * S::stage_bytes));
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int offset = pr.Tk - pr.Tq;
+  // heaviest first: every head's last query tile, then the one before, ...
+  const int n_qt = (pr.Tq + kRows - 1) / kRows;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / BH)) * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
   const T* kb = k + (size_t)bh * pr.Tk * D;
   const T* vb = v + (size_t)bh * pr.Tk * D;
   const float* mb =
       mask ? mask + (size_t)(bh / pr.H) * (size_t)pr.mask_stride_b : nullptr;
+  const int offset = pr.Tk - pr.Tq;
 
-  load_tile<T, D>(Qs, D, q + (size_t)bh * pr.Tq * D, q0, pr.Tq);
-  load_tile<T, D>(dOs, D, dout + (size_t)bh * pr.Tq * D, q0, pr.Tq);
+  // a stage: K, [K lo], V, [V lo]
+  auto stage_k = [&](int s) {
+    return reinterpret_cast<T*>(stage0 + s * S::stage_bytes);
+  };
+  auto load_stage = [&](int s, int k0) {
+    T* Ks = stage_k(s);
+    load_tile<T, D, R>(Ks, kb, k0, pr.Tk);
+    load_tile<T, D, R>(Ks + S::planes * S::kt, vb, k0, pr.Tk);
+  };
 
-  float acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-
+  load_tile<T, D, kRows>(Qs, q + (size_t)bh * pr.Tq * D, q0, pr.Tq);
+  load_tile<T, D, kRows>(dOs, dout + (size_t)bh * pr.Tq * D, q0, pr.Tq);
   // key tiles past the causal diagonal contribute nothing to dq (a row
   // that sees no key has ds = 0 everywhere)
   int k_end = pr.Tk;
-  if (pr.causal) k_end = min(pr.Tk, min(q0 + kBlockQ, pr.Tq) + offset);
+  if (pr.causal) k_end = min(pr.Tk, min(q0 + kRows, pr.Tq) + offset);
+  if (k_end > 0) load_stage(0, 0);
+  cp_async_commit();
+  const auto Qv = resident<T, D>(Qs);
+  const auto dOv = resident<T, D>(dOs);
 
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K/V/ds are no longer read
-    load_tile<T, D>(Ks, D + 1, kb, k0, pr.Tk);
-    load_tile<T, D>(Vs, D + 1, vb, k0, pr.Tk);
-    __syncthreads();
-    // p goes to the same buffer as ds and is overwritten: dQ needs ds only
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, dSs, dSs, q0, k0,
-                 lse + (size_t)bh * pr.Tq, delta + (size_t)bh * pr.Tq, mb,
-                 pr);
-    __syncwarp();  // a row's ds is written and read by the same 16 lanes
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float sv[4], kv[DC];
+  // the thread's two query rows: lse, delta and the mask row
+  const int qr[2] = {q0 + m0 + g, q0 + m0 + g + 8};
+  float l[2], dl[2];
+  const float* mrow[2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sv[r] = dSs[(ty * 4 + r) * kLd + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * (D + 1) + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(sv[r], kv[c], acc[r][c]);
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = qr[r] < pr.Tq;
+    l[r] = ok ? lse[(size_t)bh * pr.Tq + qr[r]] : 0.f;
+    dl[r] = ok ? delta[(size_t)bh * pr.Tq + qr[r]] : 0.f;
+    mrow[r] = mb ? mb + (size_t)min(qr[r], pr.Tq - 1) * pr.mask_stride_q
+                 : nullptr;
+  }
+
+  int cur = 0;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
+    if (k0 + R < k_end) load_stage(cur ^ 1, k0 + R);
+    cp_async_commit();
+    cp_async_wait<1>();
+    T* Ks = stage_k(cur);
+    T* Vs = Ks + S::planes * S::kt;
+    if constexpr (C::PLANES) {
+      split_tile<D, R>(Ks, Ks + S::kt);
+      split_tile<D, R>(Vs, Vs + S::kt);
     }
-  }
+    __syncthreads();
+    const auto Kv = streamed<T, D>(Ks, Ks + S::kt);
+    const auto Vv = streamed<T, D>(Vs, Vs + S::kt);
 
+    // s = Q K^T and dp = dO V^T for the warp's 16 queries x R keys
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qg = q0 + ty * 4 + r;
-    if (qg >= pr.Tq) continue;
-    T* row = dq + ((size_t)bh * pr.Tq + qg) * D;
+    for (int j = 0; j < NK; ++j)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = from_f32<T>(pr.scale * acc[r][c]);
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += KS) {
+      const auto aQ = load_a(Qv, m0, kk);
+      const auto aO = load_a(dOv, m0, kk);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        mma(s[j], aQ, load_b(Kv, 8 * j, kk));
+        mma(dp[j], aO, load_b(Vv, 8 * j, kk));
+      }
+    }
+
+    const bool full = q0 + kRows <= pr.Tq && k0 + R <= pr.Tk &&
+                      (!pr.causal || q0 + offset >= k0 + R - 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, kg = k0 + 8 * j + 2 * t + (e & 1);
+        const float m =
+            mb && qr[r] < pr.Tq && kg < pr.Tk ? mrow[r][kg] : 0.f;
+        p_ds(s[j][e], dp[j][e], qr[r], kg, l[r], dl[r], m, full, pr);
+      }
+
+    // dQ += ds K
+    accumulate<T, D>(dq_sum, dp, Kv);
+    __syncthreads();   // this stage is refilled in the next iteration
+    cur ^= 1;
   }
+  cp_async_wait<0>();
+
+  store_rows<T, D>(dq + (size_t)bh * pr.Tq * D, dq_sum, qr[0], pr.Tq,
+                   pr.scale);
 }
+
+// ---- launches ---------------------------------------------------------------
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* mask, void* dk, void* dv, int B,
                        const Problem& pr, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * dkv_smem_floats<D>();
+  const size_t smem = DkvSmem<T, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((pr.Tk + kBlockK - 1) / kBlockK, B * pr.H);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const int BH = B * pr.H;
+  const int n_kt = (pr.Tk + kRows - 1) / kRows;
+  flash_bwd_dkv_kernel<T, D><<<n_kt * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(mask), static_cast<T*>(dk),
-      static_cast<T*>(dv), pr);
+      static_cast<T*>(dv), pr, BH);
   return cudaGetLastError();
 }
 
@@ -340,17 +872,18 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* mask, void* dq, int B, const Problem& pr,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(float) * dq_smem_floats<D>();
+  const size_t smem = DqSmem<T, D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((pr.Tq + kBlockQ - 1) / kBlockQ, B * pr.H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  const int BH = B * pr.H;
+  const int n_qt = (pr.Tq + kRows - 1) / kRows;
+  flash_bwd_dq_kernel<T, D><<<n_qt * BH, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(mask), static_cast<T*>(dq), pr);
+      static_cast<const float*>(mask), static_cast<T*>(dq), pr, BH);
   return cudaGetLastError();
 }
 

@@ -199,12 +199,16 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, dout, scale=None,
                             causal=False):
     """(dk, dv) by the dK/dV kernel, from the forward's lse and
     delta = rowsum(dO * O) (both f32 (B, H, Tq))."""
-    global dkv_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          scale, causal)[1:]
-    (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = \
-        _bwd_operands(q, k, v, mask, lse, delta, dout)
+    return _launch_dkv(_bwd_operands(q, k, v, mask, lse, delta, dout),
+                       scale, causal)
+
+
+def _launch_dkv(operands, scale, causal):
+    global dkv_launches
+    (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = operands
     if scale is None:
         scale = d ** -0.5
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -227,12 +231,16 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, dout, scale=None,
 def flash_attention_bwd_dq(q, k, v, mask, lse, delta, dout, scale=None,
                            causal=False):
     """dq by the dQ kernel (see flash_attention_bwd_dkv)."""
-    global dq_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          scale, causal)[0]
-    (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = \
-        _bwd_operands(q, k, v, mask, lse, delta, dout)
+    return _launch_dq(_bwd_operands(q, k, v, mask, lse, delta, dout), scale,
+                      causal)
+
+
+def _launch_dq(operands, scale, causal):
+    global dq_launches
+    (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = operands
     if scale is None:
         scale = d ** -0.5
     dq = torch.empty_like(q)
@@ -255,16 +263,15 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout, scale=None,
                         causal=False):
     """(dq, dk, dv): both backward kernels for a CUDA tensor, the plain
     backward for a CPU tensor. delta = rowsum(dO * O) is a torch
-    expression, as in the JAX package."""
+    expression, as in the JAX package. The dense operands (a strided dout
+    copied once) are made once for both kernels."""
     delta = (dout.float() * out.float()).sum(-1)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, mask, lse, delta, dout,
                                          scale, causal)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, dout, scale,
-                                     causal)
-    dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, dout, scale,
-                                causal)
-    return dq, dk, dv
+    operands = _bwd_operands(q, k, v, mask, lse, delta, dout)
+    dk, dv = _launch_dkv(operands, scale, causal)
+    return _launch_dq(operands, scale, causal), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):

@@ -165,6 +165,48 @@ def test_flash_function_mask_gradient_only_when_asked(mask_shape):
     assert mask.grad is None
 
 
+def test_flash_backward_takes_a_strided_dout():
+    """flash_attention_bwd gives a strided dout (a transpose's view, as the
+    ops hand it over) the same gradients as its contiguous copy."""
+    q, k, v, do, mask = _inputs(2, 3, 10, 12, 16, "k")
+    args = (_t(q), _t(k), _t(v), _t(mask))
+    out, lse = tfa.flash_attention_plain(*args, 0.25, True)
+    strided = _t(do).transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    want = tfa.flash_attention_bwd(*args, out, lse, _t(do), 0.25, True)
+    got = tfa.flash_attention_bwd(*args, out, lse, strided, 0.25, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_flash_backward_makes_dense_operands_once(monkeypatch):
+    """Off the CPU, flash_attention_bwd makes the kernels' dense operands
+    (a strided dout's copy among them) once and hands them to both
+    kernels. Meta tensors stand in for the card's, the launches are
+    stubbed."""
+    calls, seen = [], []
+    monkeypatch.setattr(tfa, "_bwd_operands",
+                        lambda *a: calls.append(a) or "operands")
+
+    def launch(name, result):
+        def fn(operands, scale, causal):
+            seen.append((name, operands, scale, causal))
+            return result
+        return fn
+    monkeypatch.setattr(tfa, "_launch_dkv", launch("dkv", ("dk", "dv")))
+    monkeypatch.setattr(tfa, "_launch_dq", launch("dq", "dq"))
+    q, k, v, out, do = (torch.empty(2, 3, 10, 16, device="meta")
+                        for _ in range(5))
+    lse = torch.empty(2, 3, 10, device="meta")
+    got = tfa.flash_attention_bwd(q, k, v, None, out, lse,
+                                  do.transpose(1, 2).transpose(1, 2), 0.25,
+                                  True)
+    assert got == ("dq", "dk", "dv")
+    assert len(calls) == 1
+    assert seen == [("dkv", "operands", 0.25, True),
+                    ("dq", "operands", 0.25, True)]
+
+
 @pytest.mark.parametrize("rows,cols,block_rows", [(37, 64, 16), (8, 300, 8)])
 def test_plain_layer_norm_backward_matches_pallas(rows, cols, block_rows):
     x = _rand((rows, cols), 0, scale=3.0) + 1.0

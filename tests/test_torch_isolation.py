@@ -48,7 +48,8 @@ def _imports(path):
 def _port_files():
     files = glob.glob(os.path.join(ROOT, "paddle_tpu_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
+                            os.path.join(ROOT, "tools", "port_kernel_ab.py")]
 
 
 def test_exact_module_matching():
