@@ -8,8 +8,8 @@ sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
 of the eleven against its plain PyTorch version at the main paths' shapes
 (the backward kernels also against themselves: two runs must give equal
-bits; the flash backward pair, with its delta pass, also timed beside
-SDPA's backward as ``pair_ms``). Then it drives the main paths, each
+bits; the flash backward pair, with its delta pass, and the head backward
+pair also timed beside the library's backward as ``pair_ms``). Then it drives the main paths, each
 with the kernels' launch counters set to 0 just before and read just
 after:
 
@@ -566,12 +566,18 @@ def head_cases(torch, bce, F):
     plain head (which builds the (T, V) logits), the backward kernels also
     against a second run of themselves. Library yardstick:
     ``F.cross_entropy(h @ W^T + b, labels, reduction="none")`` and its
-    autograd backward, which build (T, V) logits and their gradient."""
+    autograd backward, which build (T, V) logits and their gradient;
+    ``pair_ms`` is dhidden + dweight, the work that backward does in one
+    call, and ``tflops`` a kernel's 4 T D V operations over its time."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (name, T, D, V, dtype, bias)
         ("gpt_base_f32", 8192, 768, 32000, f32, False),
         ("bert_bias_f32", 640, 768, 32000, f32, True),
         ("gpt_base_bf16", 2048, 768, 32000, bf16, False),
+        ("gpt_base_t8192_bf16", 8192, 768, 32000, bf16, False),
+        # GPT-2's padded vocabulary: 3144 streamed tiles a token, the
+        # longest dhidden sum of any case
+        ("gpt2_vocab_f32", 8192, 768, 50304, f32, False),
         ("ragged_f32", 1000, 200, 5003, f32, True),
         ("wide_d1000_f32", 300, 1000, 777, f32, True),
         ("ragged_d99_f32", 257, 99, 1001, f32, False),  # scalar tile loads
@@ -634,11 +640,17 @@ def head_cases(torch, bce, F):
         # each backward kernel recomputes s (2 T D V) and forms its
         # product (2 T D V); reads h, W, labels, bias, lse, dloss
         reads = (t * d + v * d) * el + side + 8 * t
+        dh_ms = clock(lambda: bce.fused_head_dhidden(*args))
+        dw_ms = clock(lambda: bce.fused_head_dweight(*args))
+        # the library's backward gives all gradients in one call: the
+        # pair is its counterpart
+        common.update(pair_ms=dh_ms + dw_ms,
+                      pair_over_library=(dh_ms + dw_ms) / lib_bwd_ms)
         dh_out.append(dict(
             name=name, max_abs_err=_max_err(dh, want_dh), rel_err=dh_rel,
             rel_tol=rel_tol, bitwise_repeat=same_dh,
             ok=dh_rel <= rel_tol and same_dh,
-            kernel_ms=clock(lambda: bce.fused_head_dhidden(*args)),
+            kernel_ms=dh_ms, tflops=4.0 * t * d * v / dh_ms / 1e9,
             plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **common,
             **_bound(4.0 * t * d * v, reads + t * d * el, dt)))
         dw_out.append(dict(
@@ -646,7 +658,7 @@ def head_cases(torch, bce, F):
                                        _max_err(db, want_db)),
             rel_err=dw_rel, rel_tol=rel_tol, bitwise_repeat=same_dw,
             ok=dw_rel <= rel_tol and same_dw,
-            kernel_ms=clock(lambda: bce.fused_head_dweight(*args)),
+            kernel_ms=dw_ms, tflops=4.0 * t * d * v / dw_ms / 1e9,
             plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms, **common,
             **_bound(4.0 * t * d * v, reads + v * d * el + 4 * v, dt)))
     return fwd, dh_out, dw_out

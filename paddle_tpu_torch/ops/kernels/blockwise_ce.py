@@ -7,9 +7,11 @@ Replaces paddle_tpu/ops/pallas/blockwise_ce.py: ``_ce_call_fwd`` (kernel
 ``csrc/blockwise_ce.cu``; ``_head_call_fwd`` (``_head_fwd_kernel``;
 ``csrc/fused_head_fwd.cu``) and ``_head_bwd`` (``_head_dh_kernel`` and
 ``_head_dwb_kernel``; ``csrc/fused_head_bwd.cu``). Their shared device code
-(online logsumexp, label hit, ds, finalisation, score tiles) is
-``csrc/blockwise_ce.cuh``. Each source's header says what bounds it on
-the H100 and how its design meets that.
+(online logsumexp, label hit, ds, finalisation, the forward's score
+tiles) is ``csrc/blockwise_ce.cuh``; the head's backward kernels form
+their products on the tensor cores with ``csrc/mma_sm90.cuh``. Each
+source's header says what bounds it on the H100 and how its design meets
+that.
 
 Every wrapper runs its kernel for a CUDA tensor and the plain version for
 a CPU tensor; none falls back from one to the other. The plain versions
@@ -167,17 +169,18 @@ def fused_head_loss(hidden, weight, labels, bias=None):
     return loss, lse
 
 
-def fused_head_dhidden(hidden, weight, labels, bias, lse, dloss):
-    """dhidden (T, D) like hidden, by the dhidden kernel, from the
-    forward's lse and the loss cotangent."""
+def _head_bwd_operands(what, hidden, weight, labels, bias, lse, dloss):
+    """Checked dense operands of the head's backward kernels, made once
+    for both."""
+    h, w, lab, b, t, v, d, lib = _head_operands(what, hidden, weight, labels,
+                                                bias)
+    return (h, w, lab, b, _row_vec(lse, t, h.device, "lse"),
+            _row_vec(dloss, t, h.device, "dloss"), t, v, d, lib)
+
+
+def _launch_dh(operands):
     global head_dh_launches
-    if hidden.device.type == "cpu":
-        return fused_head_bwd_plain(hidden, weight, labels, bias, lse,
-                                    dloss)[0]
-    h, w, lab, b, t, v, d, lib = _head_operands(
-        "fused_head_dhidden", hidden, weight, labels, bias)
-    lse = _row_vec(lse, t, h.device, "lse")
-    dl = _row_vec(dloss, t, h.device, "dloss")
+    h, w, lab, b, lse, dl, t, v, d, lib = operands
     dh = torch.empty_like(h)
     with torch.cuda.device(h.device):
         rc = lib.ptt_fused_head_dh(
@@ -189,17 +192,9 @@ def fused_head_dhidden(hidden, weight, labels, bias, lse, dloss):
     return dh
 
 
-def fused_head_dweight(hidden, weight, labels, bias, lse, dloss):
-    """(dweight (V, D) like weight, dbias f32 (V,)) by the dweight
-    kernel."""
+def _launch_dw(operands):
     global head_dw_launches
-    if hidden.device.type == "cpu":
-        return fused_head_bwd_plain(hidden, weight, labels, bias, lse,
-                                    dloss)[1:]
-    h, w, lab, b, t, v, d, lib = _head_operands(
-        "fused_head_dweight", hidden, weight, labels, bias)
-    lse = _row_vec(lse, t, h.device, "lse")
-    dl = _row_vec(dloss, t, h.device, "dloss")
+    h, w, lab, b, lse, dl, t, v, d, lib = operands
     dw = torch.empty_like(w)
     db = torch.empty(v, dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
@@ -212,13 +207,41 @@ def fused_head_dweight(hidden, weight, labels, bias, lse, dloss):
     return dw, db
 
 
-def fused_head_bwd(hidden, weight, labels, bias, lse, dloss):
-    """(dhidden, dweight, dbias): both backward kernels for a CUDA
-    tensor, the plain backward for a CPU tensor."""
+def fused_head_dhidden(hidden, weight, labels, bias, lse, dloss):
+    """dhidden (T, D) like hidden, by the dhidden kernel, from the
+    forward's lse and the loss cotangent."""
     if hidden.device.type == "cpu":
-        return fused_head_bwd_plain(hidden, weight, labels, bias, lse, dloss)
-    dh = fused_head_dhidden(hidden, weight, labels, bias, lse, dloss)
-    dw, db = fused_head_dweight(hidden, weight, labels, bias, lse, dloss)
+        return fused_head_bwd_plain(hidden, weight, labels, bias, lse,
+                                    dloss)[0]
+    return _launch_dh(_head_bwd_operands(
+        "fused_head_dhidden", hidden, weight, labels, bias, lse, dloss))
+
+
+def fused_head_dweight(hidden, weight, labels, bias, lse, dloss):
+    """(dweight (V, D) like weight, dbias f32 (V,)) by the dweight
+    kernel."""
+    if hidden.device.type == "cpu":
+        return fused_head_bwd_plain(hidden, weight, labels, bias, lse,
+                                    dloss)[1:]
+    return _launch_dw(_head_bwd_operands(
+        "fused_head_dweight", hidden, weight, labels, bias, lse, dloss))
+
+
+def fused_head_bwd(hidden, weight, labels, bias, lse, dloss, need_dh=True,
+                   need_dw=True):
+    """(dhidden, dweight, dbias): both backward kernels for a CUDA
+    tensor, on operands prepared once; the plain backward for a CPU
+    tensor. A gradient not needed (``need_dh``, ``need_dw``: dweight and
+    dbias come from one kernel) is None and its kernel is not launched."""
+    if hidden.device.type == "cpu":
+        dh, dw, db = fused_head_bwd_plain(hidden, weight, labels, bias, lse,
+                                          dloss)
+        return (dh if need_dh else None,) + \
+            ((dw, db) if need_dw else (None, None))
+    operands = _head_bwd_operands("fused_head_bwd", hidden, weight, labels,
+                                  bias, lse, dloss)
+    dh = _launch_dh(operands) if need_dh else None
+    dw, db = _launch_dw(operands) if need_dw else (None, None)
     return dh, dw, db
 
 
@@ -292,18 +315,10 @@ class FusedHeadLoss(torch.autograd.Function):
     def backward(ctx, dloss):
         hidden, weight, bias, labels, lse = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dh = dw = db = None
-        if hidden.device.type == "cpu":
-            dh, dw, db = fused_head_bwd_plain(hidden, weight, labels, bias,
-                                              lse, dloss)
-        else:
-            if need[0]:
-                dh = fused_head_dhidden(hidden, weight, labels, bias, lse,
-                                        dloss)
-            if need[1] or need[2]:
-                dw, db = fused_head_dweight(hidden, weight, labels, bias,
-                                            lse, dloss)
-        return (dh if need[0] else None, dw if need[1] else None,
+        dh, dw, db = fused_head_bwd(hidden, weight, labels, bias, lse, dloss,
+                                    need_dh=need[0],
+                                    need_dw=need[1] or need[2])
+        return (dh, dw if need[1] else None,
                 db.to(bias.dtype) if need[2] else None, None)
 
 

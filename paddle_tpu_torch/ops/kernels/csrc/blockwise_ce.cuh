@@ -1,6 +1,7 @@
 // Device code shared by the blockwise cross-entropy kernels
-// (blockwise_ce.cu) and the fused LM/MLM-head kernels (fused_head_fwd.cu,
-// fused_head_bwd.cu).
+// (blockwise_ce.cu) and the fused LM/MLM-head kernels (fused_head_fwd.cu;
+// fused_head_bwd.cu takes the ds helpers and builds its score tiles on the
+// tensor cores, mma_sm90.cuh).
 //
 // Counterpart of paddle_tpu/ops/pallas/blockwise_ce.py:69-106
 // (_online_lse_update, _label_hit, _finalize_loss, _p_ds), plus the score
@@ -123,7 +124,6 @@ struct TileShape {
   static constexpr int KG = kThreads / kPatches;        // d-groups
   static constexpr int LPR = kThreads / BR;              // lanes per row
   static constexpr int CPL = kBS / LPR;                  // cols per lane
-  static constexpr int RT = BR / (kThreads / 32);        // acc rows/thread
 };
 
 __host__ __device__ constexpr int padded_d(int D) { return (D + 3) & ~3; }

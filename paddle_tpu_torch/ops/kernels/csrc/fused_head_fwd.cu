@@ -9,10 +9,12 @@
 //
 // What bounds it on the H100: 2*T*D*V operations against reading hidden and
 // weight once. At GPT-base's head (T, D, V) = (8192, 768, 32000) in f32 that
-// is 402.7 GFLOP, 6.0 ms at the 67 TFLOP/s f32 rate, against 124 MB, 0.04
-// ms at 3.35 TB/s: the operations bound it. This first version runs f32 FFMA
-// on the CUDA cores (no TF32, no tensor cores); bf16 operands are widened to
-// f32 in shared memory, so bf16 is no faster.
+// is 402.7 GFLOP, 2.44 ms at the 165 TFLOP/s of f32-accurate tensor-core
+// work (3xTF32: 495 TFLOP/s over three), against 124 MB, 0.04 ms at 3.35
+// TB/s: the operations bound it. This version still runs f32 FFMA on the
+// CUDA cores (no TF32, no tensor cores), whose own rate, 67 TFLOP/s, would
+// allow 6.0 ms; bf16 operands are widened to f32 in shared memory, so bf16
+// is no faster.
 //
 // Design: a 256-thread block owns BR tokens (32, or 16 above D = 768): their
 // hidden rows stay in shared memory while a loop walks the vocabulary in

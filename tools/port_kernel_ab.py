@@ -11,7 +11,10 @@ tree's kernels into its own ``build/`` and prints one JSON line: the
 card's name and power limit, and for each shape the kernels' median times
 (CUDA events) and their errors against the tree's plain versions.
 
-- ``head``: the fused head's forward, dhidden and dweight kernels.
+- ``head``: the fused head's forward, dhidden and dweight kernels and the
+  pair (dhidden + dweight), beside the library's backward (``library_ms``,
+  autograd through ``F.cross_entropy(h @ W.t())``, both gradients), at
+  GPT-base's shape in f32 and bf16.
 - ``flash_bwd``: the flash-attention dK/dV and dQ kernels, the delta pass
   rowsum(dO * O) and the pair (dK/dV + dQ + delta), beside SDPA's
   backward (``library_ms``, autograd through
@@ -27,14 +30,15 @@ import statistics
 import subprocess
 import sys
 
-# (name, T, D, V, dtype): GPT-base's head in f32, a bf16 head, and two
-# shapes whose tiles load element by element (D not a multiple of 4) or
-# in 16-row blocks (D above 768)
+# (name, T, D, V, dtype): GPT-base's head in f32 and bf16, a shorter bf16
+# head, and two shapes whose tiles load element by element (D not a
+# multiple of 4) or in 16-row blocks (D above 768)
 HEAD_SHAPES = (("gpt_base_f32", 8192, 768, 32000, "float32"),
+               ("gpt_base_bf16", 8192, 768, 32000, "bfloat16"),
                ("bf16", 2048, 768, 32000, "bfloat16"),
                ("ragged_d99_f32", 257, 99, 1001, "float32"),
                ("wide_d1000_f32", 300, 1000, 777, "float32"))
-HEAD_TIMED = ("gpt_base_f32", "bf16")
+HEAD_TIMED = ("gpt_base_f32", "gpt_base_bf16", "bf16")
 # (name, B, H, T, D, dtype, mask, causal): GPT-base training (causal, T =
 # 4096), BERT-base training (key mask, T = 128), BERT-base serving's
 # shape in bf16
@@ -71,6 +75,7 @@ def _max_err(a, b):
 
 
 def _head(torch, dev):
+    import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import blockwise_ce as bce
     out = {}
     for name, t, d, v, dt in HEAD_SHAPES:
@@ -101,6 +106,14 @@ def _head(torch, dev):
                     *args)),
                 dw_ms=_median_ms(torch, lambda: bce.fused_head_dweight(
                     *args)))
+            lh, lw = (x.detach().requires_grad_() for x in (h, w))
+            lib_loss = F.cross_entropy(lh @ lw.t(), lab, reduction="none")
+            r["library_ms"] = _median_ms(torch, lambda: torch.autograd.grad(
+                lib_loss, (lh, lw), dl.to(lib_loss.dtype),
+                retain_graph=True))
+            del lib_loss
+            r["pair_ms"] = r["dh_ms"] + r["dw_ms"]
+            r["pair_over_library"] = r["pair_ms"] / r["library_ms"]
         out[name] = r
     return out
 
