@@ -7,11 +7,11 @@ run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
 of the eleven against its plain PyTorch version at the main paths' shapes
-(the backward kernels also against themselves: two runs must give equal
-bits; the flash backward pair, with its delta pass, and the head backward
-pair also timed beside the library's backward as ``pair_ms``). Then it drives the main paths, each
-with the kernels' launch counters set to 0 just before and read just
-after:
+(the flash and head kernels and the CE backward also against themselves:
+two runs must give equal bits; the flash backward pair, with its delta
+pass, and the head backward pair also timed beside the library's
+backward as ``pair_ms``). Then it drives the main paths, each with the
+kernels' launch counters set to 0 just before and read just after:
 
 - ``serve``: BERT-base (full width, T=512, random weights from a seed)
   through ``inference.create_predictor`` on the card, answers checked
@@ -247,6 +247,8 @@ def flash_cases(torch, fa, F):
         ("causal_tq_gt_tk_f32", 2, 12, 300, 200, 64, f32, None, True),
         ("gpt_train_causal_t4096_f32", 2, 12, 4096, 4096, 64, f32, None,
          True),
+        ("gpt_train_causal_t4096_bf16", 2, 12, 4096, 4096, 64, bf16, None,
+         True),
     ]
     dev = torch.device("cuda", 0)
     out = []
@@ -266,10 +268,12 @@ def flash_cases(torch, fa, F):
             mask = torch.randn(b, 1, tq, tk, generator=g, device=dev)
         scale = d ** -0.5
         got, lse = fa.flash_attention(q, k, v, mask, scale, causal)
+        again, again_lse = fa.flash_attention(q, k, v, mask, scale, causal)
         want, want_lse = fa.flash_attention_plain(q, k, v, mask, scale,
                                                   causal)
         torch.cuda.synchronize()
         err, lse_err = _max_err(got, want), _max_err(lse, want_lse)
+        same = torch.equal(got, again) and torch.equal(lse, again_lse)
         tol = TOL[("flash", str(dtype).split(".")[1])]
         library_ms = None
         if not causal or (mask is None and tq == tk):
@@ -287,14 +291,15 @@ def flash_cases(torch, fa, F):
         flops = 4.0 * b * h * pairs * d
         nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
             + (0 if mask is None else mask.numel() * 4) + lse.numel() * 4
+        kernel_ms = clock(lambda: fa.flash_attention(q, k, v, mask, scale,
+                                                     causal))
         out.append(dict(
             name=name, shape=[b, h, tq, tk, d], dtype=str(dtype).split(".")[1],
             mask=mode, causal=causal,
             max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
-            lse_tol=TOL["stat"],
-            ok=err <= tol and lse_err <= TOL["stat"],
-            kernel_ms=clock(lambda: fa.flash_attention(
-                q, k, v, mask, scale, causal)),
+            lse_tol=TOL["stat"], bitwise_repeat=same,
+            ok=err <= tol and lse_err <= TOL["stat"] and same,
+            kernel_ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
             plain_ms=clock(lambda: fa.flash_attention_plain(
                 q, k, v, mask, scale, causal)),
             library_ms=library_ms,
@@ -595,6 +600,7 @@ def head_cases(torch, bce, F):
         lab[::97] = -100                     # ignore_index rows hit nothing
         dl = torch.rand(t, generator=g, device=dev)
         loss, lse = bce.fused_head_loss(h, w, lab, b)
+        loss2, lse2 = bce.fused_head_loss(h, w, lab, b)
         want_loss, want_lse = bce.fused_head_loss_plain(h, w, lab, b)
         args = (h, w, lab, b, lse, dl)
         dh = bce.fused_head_dhidden(*args)
@@ -608,6 +614,7 @@ def head_cases(torch, bce, F):
         rel_tol = HEAD_TOL[("grad_rel", dt)]
         dh_rel = _rel_err(dh, want_dh)
         dw_rel = max(_rel_err(dw, want_dw), _rel_err(db, want_db))
+        same_fwd = torch.equal(loss, loss2) and torch.equal(lse, lse2)
         same_dh = torch.equal(dh, dh2)
         same_dw = torch.equal(dw, dw2) and torch.equal(db, db2)
 
@@ -628,10 +635,12 @@ def head_cases(torch, bce, F):
         common = dict(shape=[t, d, v], dtype=dt, bias=with_bias,
                       plain_bwd_ms=plain_bwd_ms)
         side = t * 8 + (v * 4 if with_bias else 0)    # labels, bias
+        fwd_ms = clock(lambda: bce.fused_head_loss(h, w, lab, b))
         fwd.append(dict(
             name=name, max_abs_err=loss_err, tol=HEAD_TOL["loss"],
-            ok=loss_err <= HEAD_TOL["loss"],
-            kernel_ms=clock(lambda: bce.fused_head_loss(h, w, lab, b)),
+            bitwise_repeat=same_fwd,
+            ok=loss_err <= HEAD_TOL["loss"] and same_fwd,
+            kernel_ms=fwd_ms, tflops=2.0 * t * d * v / fwd_ms / 1e9,
             plain_ms=clock(lambda: bce.fused_head_loss_plain(h, w, lab, b)),
             library_ms=clock(lib_fwd), **common,
             # s = h W^T: 2 T D V; reads h, W, labels, bias, writes loss, lse

@@ -7,11 +7,13 @@ Replaces paddle_tpu/ops/pallas/blockwise_ce.py: ``_ce_call_fwd`` (kernel
 ``csrc/blockwise_ce.cu``; ``_head_call_fwd`` (``_head_fwd_kernel``;
 ``csrc/fused_head_fwd.cu``) and ``_head_bwd`` (``_head_dh_kernel`` and
 ``_head_dwb_kernel``; ``csrc/fused_head_bwd.cu``). Their shared device code
-(online logsumexp, label hit, ds, finalisation, the forward's score
-tiles) is ``csrc/blockwise_ce.cuh``; the head's backward kernels form
-their products on the tensor cores with ``csrc/mma_sm90.cuh``. Each
-source's header says what bounds it on the H100 and how its design meets
-that.
+(online logsumexp, label hit, ds, finalisation) is
+``csrc/blockwise_ce.cuh``; the head's forward kernel forms its scores
+with ``wgmma`` (``csrc/wgmma_sm90.cuh``), its backward kernels with
+``mma.sync`` (``csrc/mma_sm90.cuh``). The forward kernel takes a scratch
+buffer the wrapper allocates (its operand planes and its vocabulary
+splits' partials). Each source's header says what bounds it on the H100
+and how its design meets that.
 
 Every wrapper runs its kernel for a CUDA tensor and the plain version for
 a CPU tensor; none falls back from one to the other. The plain versions
@@ -160,10 +162,14 @@ def fused_head_loss(hidden, weight, labels, bias=None):
     loss = torch.empty(t, dtype=torch.float32, device=h.device)
     lse = torch.empty_like(loss)
     with torch.cuda.device(h.device):
+        # the kernel's operand planes and its vocabulary splits' partials
+        scratch = torch.empty(
+            lib.ptt_fused_head_fwd_scratch_bytes(t, v, d, _DTYPES[h.dtype]),
+            dtype=torch.uint8, device=h.device)
         rc = lib.ptt_fused_head_fwd(
             h.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             lab.data_ptr(), loss.data_ptr(), lse.data_ptr(), t, v, d,
-            _DTYPES[h.dtype], _stream())
+            _DTYPES[h.dtype], scratch.data_ptr(), _stream())
     build.check(rc, "fused_head_fwd")
     head_launches += 1
     return loss, lse

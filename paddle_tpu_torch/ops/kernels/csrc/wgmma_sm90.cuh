@@ -1,0 +1,407 @@
+// Warpgroup-level building blocks of the port's wgmma kernels on Hopper
+// (sm_90a): shared-memory matrix descriptors with the 128-byte swizzle,
+// the wgmma fence / commit / wait, m64nNk8 tf32 and m64nNk16 bf16
+// mma_async with A from shared memory (ss) or from registers (rs), and the
+// writers that put a staged tile into swizzled operand planes (f32 split
+// into tf32 hi / lo planes, bf16 copied), K-major as stored or transposed.
+// Shared by flash_attention_fwd.cu and fused_head_fwd.cu; the 3xTF32 split
+// itself is mma_sm90.cuh's (hi = tf32(x), lo = tf32(x - hi)).
+//
+// Operand layout (PTX ISA, "Shared memory matrix layout", K-major with the
+// 128-byte swizzle): a tile of R rows (M or N) is stored as K-blocks of
+// 128 bytes (32 f32 / 64 bf16 along K), block kb at kb * R * 128 bytes, row
+// r of a block at r * 128, and the row's 16-byte chunk c at chunk
+// c ^ (r % 8). Eight rows make one 1024-byte swizzle atom, so every plane
+// starts on 1024 bytes and the descriptor's stride byte offset is 1024. A
+// k-step (32 bytes: 8 tf32 or 16 bf16) inside a block is the block's start
+// address plus 32 * step bytes: the hardware applies the swizzle to the
+// address it forms, as CUTLASS's GMMA descriptors iterate.
+//
+// Fragments (PTX ISA, wgmma register fragments): warp w of the warpgroup
+// owns rows 16w .. 16w + 15; lane = 4g + q. The accumulator of m64nN holds,
+// for each 8-column block j, d[4j], d[4j + 1] at (row 16w + g, cols 8j +
+// 2q, 8j + 2q + 1) and d[4j + 2], d[4j + 3] at row 16w + g + 8. A from
+// registers (tf32, k8): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8,
+// q + 4); (bf16, k16): a0 (g, 2q..2q+1), a1 (g + 8, 2q..), a2 (g, 2q + 8..),
+// a3 (g + 8, 2q + 8..).
+#pragma once
+
+#include "mma_sm90.cuh"
+
+namespace ptt_wgmma {
+
+using ptt_mma::smem_addr;
+
+constexpr int kSwizzleBytes = 128;     // one K-block row
+constexpr int kAtomBytes = 1024;       // eight rows: one swizzle atom
+
+// ---- descriptors, fences ----------------------------------------------------
+
+// The descriptor of a K-major, 128-byte-swizzled operand whose K-block
+// starts at p (1024-byte aligned): start address, leading byte offset 16
+// (unused by swizzled K-major layouts), stride byte offset 1024 (the next
+// eight rows), layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(kAtomBytes >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// the descriptor moved by `bytes` along K inside its K-block
+__device__ __forceinline__ uint64_t desc_add(uint64_t d, int bytes) {
+  return d + (uint64_t)(bytes >> 4);
+}
+
+// The descriptor of k-byte `kbyte` of a tile of `rows` rows (layout above)
+__device__ __forceinline__ uint64_t desc_k(const char* tile, int rows,
+                                           int kbyte) {
+  return desc_add(desc_sw128(tile + (kbyte >> 7) * rows * kSwizzleBytes),
+                  kbyte & (kSwizzleBytes - 1));
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through; each writing thread runs it
+// before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Ties registers to this point: the compiler neither reads an accumulator
+// before the wait that completes it nor reuses an A register that an
+// in-flight wgmma still reads.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// ---- mma_async: d (64 x N, f32) += a (64 x K) * b (K x N) ------------------
+// scale_d = 0 starts d from zero. tf32: K = 8; bf16: K = 16. ss: a by
+// descriptor; rs: a from registers (four 32-bit words, layout above).
+// Defined for the widths in use: tf32 ss N = 8 (tools/wgmma_rate.cu's
+// descriptor check), 32, 64, 128; tf32 rs and bf16 ss / rs N = 64, 128.
+
+template <int N>
+__device__ void mma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
+template <int N>
+__device__ void mma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d);
+template <int N>
+__device__ void mma_bf16_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
+template <int N>
+__device__ void mma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_tf32_ss<8>(float (&d)[4], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3 }, "
+      "%4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32_ss<32>(float (&d)[16], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 }, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32_ss<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32_ss<128>(float (&d)[64], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_ss<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_ss<128>(float (&d)[64], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_bf16_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+// ---- operand planes ---------------------------------------------------------
+
+// Byte offset of byte `kbyte` (along K) of row `row` in a tile of `rows`
+// rows laid out as above.
+__device__ __forceinline__ int sw128(int rows, int row, int kbyte) {
+  return (kbyte >> 7) * rows * kSwizzleBytes + row * kSwizzleBytes +
+         ((((kbyte >> 4) & 7) ^ (row & 7)) << 4) + (kbyte & 15);
+}
+
+// The k order inside each 8-deep step of a transposed f32 operand: slot t
+// holds k = 2t, slot t + 4 holds k = 2t + 1, so that an accumulator's
+// columns (2q, 2q + 1) enter as A's (q, q + 4) without a shuffle
+// (a_from_acc); a sum does not care in which order its 8 terms enter.
+__device__ __forceinline__ int perm8(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
+}
+
+// f32 x[0..3] at (row, k .. k + 3) of a K-major tile, split into its hi and
+// lo planes (k a multiple of 4)
+__device__ __forceinline__ void put4_split(char* hi, char* lo, int rows,
+                                           int row, int k, float4 x) {
+  const int off = sw128(rows, row, 4 * k);
+  uint4 h, l;
+  ptt_mma::split(x.x, h.x, l.x);
+  ptt_mma::split(x.y, h.y, l.y);
+  ptt_mma::split(x.z, h.z, l.z);
+  ptt_mma::split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
+// f32 x at (k, n) of a K x N operand stored transposed (row n, K-major),
+// k in perm8 order, split into its hi and lo planes
+__device__ __forceinline__ void put_t_split(char* hi, char* lo, int rows,
+                                            int n, int k, float x) {
+  const int off = sw128(rows, n, 4 * perm8(k));
+  uint32_t h, l;
+  ptt_mma::split(x, h, l);
+  *reinterpret_cast<uint32_t*>(hi + off) = h;
+  *reinterpret_cast<uint32_t*>(lo + off) = l;
+}
+
+// bf16: eight values (16 bytes) at (row, k .. k + 7), k a multiple of 8
+__device__ __forceinline__ void put8(char* p, int rows, int row, int k,
+                                     uint4 x) {
+  *reinterpret_cast<uint4*>(p + sw128(rows, row, 2 * k)) = x;
+}
+
+// bf16 x at (k, n), stored transposed (row n, K-major, natural k order)
+__device__ __forceinline__ void put_t(char* p, int rows, int n, int k,
+                                      __nv_bfloat16 x) {
+  *reinterpret_cast<__nv_bfloat16*>(p + sw128(rows, n, 2 * k)) = x;
+}
+
+// ---- A from an accumulator --------------------------------------------------
+// The k-step of a product whose A is an accumulator's columns: tf32 takes
+// one 8-column block c (in perm8's k order), split; bf16 two blocks c, e
+// (16 columns), rounded to bf16.
+
+__device__ __forceinline__ void a_from_acc(uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4], float c0,
+                                           float c1, float c2, float c3) {
+  ptt_mma::split(c0, hi[0], lo[0]);
+  ptt_mma::split(c2, hi[1], lo[1]);
+  ptt_mma::split(c1, hi[2], lo[2]);
+  ptt_mma::split(c3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float* c,
+                                           const float* e) {
+  a[0] = ptt_mma::pack_bf16(c[0], c[1]);
+  a[1] = ptt_mma::pack_bf16(c[2], c[3]);
+  a[2] = ptt_mma::pack_bf16(e[0], e[1]);
+  a[3] = ptt_mma::pack_bf16(e[2], e[3]);
+}
+
+// p moved up to the next 1024-byte boundary of shared memory (the caller
+// allocates kAtomBytes more than it uses).
+__device__ __forceinline__ char* align_atom(char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((kAtomBytes - (a & (kAtomBytes - 1))) & (kAtomBytes - 1));
+}
+
+}  // namespace ptt_wgmma

@@ -216,3 +216,184 @@ def test_recipe_is_the_plain_backward():
     got = bwd_recipe(*args, lse, delta, _t(do), 0.25, True, torch.matmul)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel (csrc/flash_attention_fwd.cu)
+# ---------------------------------------------------------------------------
+#
+# S = q k^T and each key tile's P v run by 3xTF32 for f32 (P split like any
+# operand), exactly for bf16 with P as a bf16 pair (hi = bf16(p), lo =
+# bf16(p - hi)); the online softmax is f32; a tile's P v starts from zero
+# and joins the running output as o * corr + tile. Key tiles are 64 keys,
+# 32 for f32 at D = 128.
+
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}   # chip_smoke.py's TOL
+LSE_TOL = 1e-4
+
+
+def _tile_keys(dtype, d):
+    return 32 if dtype == torch.float32 and d == 128 else 64
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def fwd_emulated(q, k, v, mask, scale, causal, mm=mm_3xtf32, p_pair=True):
+    """(out like q, lse) by the forward kernel's arithmetic; bf16 inputs
+    take P as a bf16 pair, or as one bf16 (``p_pair=False``, the
+    reference's DEFAULT precision)."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        mm = torch.matmul
+    qf, kf, vf = q.float(), k.float(), v.float()
+    tq, tk = q.shape[-2], k.shape[-2]
+    bn = _tile_keys(q.dtype, q.shape[-1])
+    keep = torch.ones(tq, tk, dtype=torch.bool).tril(tk - tq)
+    m = torch.full(q.shape[:-1], tfa.NEG_INF)
+    l = torch.zeros(q.shape[:-1])
+    o = torch.zeros(qf.shape)
+    for k0 in range(0, tk, bn):
+        cols = slice(k0, min(k0 + bn, tk))
+        s = mm(qf, kf[..., cols, :].transpose(-1, -2)) * scale
+        if mask is not None:
+            s = s + mask.float()[..., cols]
+        if causal:
+            s = s.masked_fill(~keep[:, cols], tfa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        m = m_new
+        if bf16:     # the pair's sum is exact in f32
+            p = _bf16(p) + (_bf16(p - _bf16(p)) if p_pair else 0.0)
+        o = o * corr[..., None] + mm(p, vf[..., cols, :])
+    l = l.clamp_min(1e-30)
+    return (o / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def _f64_forward(q, k, v, mask, scale, causal):
+    q, k, v = (_t(a).double() for a in (q, k, v))
+    tq, tk = q.shape[-2], k.shape[-2]
+    s = q @ k.transpose(-1, -2) * scale
+    if mask is not None:
+        s = s + _t(mask).double()
+    if causal:
+        keep = torch.ones(tq, tk, dtype=torch.bool).tril(tk - tq)
+        s = s.masked_fill(~keep, tfa.NEG_INF)
+    return torch.softmax(s, -1) @ v, torch.logsumexp(s, -1)
+
+
+@pytest.mark.parametrize("mode,causal,tq,tk", CASES)
+def test_3xtf32_forward_matches_pallas_forward(mode, causal, tq, tk):
+    b, h, d, block = 2, 2, 64, 16
+    q, k, v, _, mask = _inputs(b, h, tq, tk, d, mode, seed=tq * 3 + tk)
+    scale = d ** -0.5
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    jmask = None if mask is None else jnp.asarray(mask)
+    if causal and tq > tk:
+        # rows that see no key: the JAX entry takes its XLA reference there
+        want, want_lse = jfa.flash_attention(
+            jq, jk, jv, mask=jmask, scale=scale, causal=True,
+            interpret=True), None
+    else:
+        want, want_lse = jfa._pallas_forward(jq, jk, jv, jmask, scale,
+                                             causal, block, block, True)
+    got, lse = fwd_emulated(_t(q), _t(k), _t(v), _t(mask), scale, causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_TOL[torch.float32])
+    if want_lse is not None:
+        np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                                   rtol=0, atol=LSE_TOL)
+
+
+def _assert_lse(lse, want_lse):
+    """lse within LSE_TOL of the f64 lse; a row that sees no key has lse
+    -1e30 + log(Tk), which is -1e30 in f32."""
+    sees = want_lse > tfa.NEG_INF / 2
+    np.testing.assert_allclose(lse[sees].double().numpy(),
+                               want_lse[sees].numpy(), rtol=0, atol=LSE_TOL)
+    assert bool((lse[~sees] == np.float32(tfa.NEG_INF)).all())
+
+
+@pytest.mark.parametrize("mode,causal,tq,tk,d", [
+    ("k", False, 256, 256, 64), ("qk", False, 200, 333, 64),
+    (None, True, 256, 256, 64), (None, True, 300, 200, 64),
+    ("k", False, 200, 333, 128), (None, True, 256, 256, 128)])
+def test_3xtf32_forward_matches_f64_reference(mode, causal, tq, tk, d):
+    q, k, v, _, mask = _inputs(1, 2, tq, tk, d, mode, seed=5)
+    scale = d ** -0.5
+    want, want_lse = _f64_forward(q, k, v, mask, scale, causal)
+    got, lse = fwd_emulated(_t(q), _t(k), _t(v), _t(mask), scale, causal)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0,
+                               atol=FWD_TOL[torch.float32])
+    _assert_lse(lse, want_lse)
+
+
+@pytest.mark.parametrize("scheme,low,high", [
+    ("1xtf32", FWD_TOL[torch.float32], 1e-2),   # one pass misses TOL
+    ("3xtf32", 0.0, 2e-6),                      # three passes: ~1e-7
+])
+def test_three_passes_are_needed_forward(scheme, low, high):
+    """Largest |out - f64 out| of the forward at T = 256, causal, D = 64,
+    by one tf32 pass or three."""
+    mm = {"1xtf32": mm_1xtf32, "3xtf32": mm_3xtf32}[scheme]
+    q, k, v, _, _ = _inputs(2, 2, 256, 256, 64, None, seed=17)
+    scale = 64 ** -0.5
+    want, _ = _f64_forward(q, k, v, None, scale, True)
+    got, _ = fwd_emulated(_t(q), _t(k), _t(v), None, scale, True, mm)
+    err = float((got.double() - want).abs().max())
+    assert low < err or low == 0.0, err
+    assert err <= high, err
+
+
+@pytest.mark.parametrize("mode,causal,tq,tk,d", [
+    ("k", False, 128, 128, 64), (None, True, 200, 150, 128)])
+def test_bf16_forward_with_p_as_a_bf16_pair(mode, causal, tq, tk, d):
+    """bf16 inputs: exact products, P as a bf16 pair for P v: within the
+    chip's bf16 tolerance of the f64 reference on the same bf16 values and
+    of the package's plain forward, lse to f32 accuracy."""
+    q, k, v, _, mask = _inputs(2, 2, tq, tk, d, mode, seed=23)
+    qb, kb, vb = (_t(a).bfloat16() for a in (q, k, v))
+    scale = d ** -0.5
+    want, want_lse = _f64_forward(qb.float().numpy(), kb.float().numpy(),
+                                  vb.float().numpy(), mask, scale, causal)
+    got, lse = fwd_emulated(qb, kb, vb, _t(mask), scale, causal)
+    assert got.dtype == torch.bfloat16
+    tol = FWD_TOL[torch.bfloat16]
+    assert float((got.double() - want).abs().max()) <= tol
+    _assert_lse(lse, want_lse)
+    plain, _ = tfa.flash_attention_plain(qb, kb, vb, _t(mask), scale, causal)
+    assert float((got.float() - plain.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("p_pair,low,high", [
+    (False, FWD_TOL[torch.bfloat16], 0.1),   # one bf16 P: a 2^-6 ulp off
+    (True, 0.0, FWD_TOL[torch.bfloat16]),     # the pair: within it
+])
+def test_bf16_p_needs_a_pair_on_causal_rows_with_few_keys(p_pair, low, high):
+    """Causal rows that see a few keys average a few values: |out| reaches
+    2-4, where one bf16 ulp is 2^-6, above the 1e-2 tolerance. P rounded to
+    one bf16 (~2^-9 of each weight) moves such outputs across a bf16
+    rounding boundary against the plain version's f32 P; the pair
+    (~2^-17) does not, on these inputs."""
+    q, k, v, _, _ = _inputs(2, 12, 256, 256, 64, None, seed=1)
+    qb, kb, vb = (_t(a).bfloat16() for a in (q, k, v))
+    got, _ = fwd_emulated(qb, kb, vb, None, 0.125, True, p_pair=p_pair)
+    want, _ = tfa.flash_attention_plain(qb, kb, vb, None, 0.125, True)
+    err = float((got.float() - want.float()).abs().max())
+    assert low < err or low == 0.0, err
+    assert err <= high, err
+
+
+def test_forward_emulation_with_exact_products_is_the_plain_forward():
+    """fwd_emulated with exact f32 products differs from
+    flash_attention_plain only by the order of its f32 sums."""
+    q, k, v, _, mask = _inputs(2, 2, 70, 130, 64, "qk", seed=29)
+    args = (_t(q), _t(k), _t(v), _t(mask), 0.125, True)
+    got, lse = fwd_emulated(*args, mm=torch.matmul)
+    want, want_lse = tfa.flash_attention_plain(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-6)

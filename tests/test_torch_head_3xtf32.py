@@ -234,3 +234,108 @@ def test_backward_wrappers_share_operands_and_count_nothing_on_cpu(
     tce.FusedHeadLoss.apply(only_h, tw, _t(b), _t(lab)).backward(_t(dl))
     assert torch.equal(only_h.grad, want[0])
     assert (tce.head_dh_launches, tce.head_dw_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel (csrc/fused_head_fwd.cu)
+# ---------------------------------------------------------------------------
+#
+# The scores s = h W^T are formed on wgmma: f32 by 3xTF32, a score being the
+# sum of partial scores over 128-column chunks of D, each a fresh chain
+# joined by an f32 add; bf16 products exactly into f32 sums, chunked the
+# same way. Loss and lse are then the f32 logsumexp of the scores (the
+# kernel's vocabulary splits are merged in a fixed order: a change of
+# summation order only). chip_smoke.py holds loss and lse to 1e-4.
+
+LOSS_TOL = 1e-4
+FWD_CHUNK = 128
+
+
+def head_fwd_emulated(h, w, lab, b, mm=mm_3xtf32):
+    """(loss, lse) by the forward kernel's arithmetic."""
+    if h.dtype == torch.bfloat16:
+        mm = torch.matmul
+    hf, wf = h.float(), w.float()
+    s = torch.zeros(h.shape[0], w.shape[0])
+    for c in _chunks(h.shape[1], FWD_CHUNK):
+        s = s + mm(hf[:, c], wf[:, c].t())
+    if b is not None:
+        s = s + b[None, :]
+    return tce._loss_from_logits(s, lab)
+
+
+def _f64_loss(h, w, b, lab):
+    """(loss, lse) in f64 from the f32 (or bf16) operands."""
+    s = _t(h).double() @ _t(w).double().t()
+    if b is not None:
+        s = s + _t(b).double()
+    lse = torch.logsumexp(s, -1)
+    lab = _t(lab)
+    ok = (lab >= 0) & (lab < s.shape[1])
+    picked = s.gather(1, lab.clamp(0, s.shape[1] - 1)[:, None])[:, 0]
+    return lse - torch.where(ok, picked, torch.zeros_like(picked)), lse
+
+
+@pytest.mark.parametrize("t,d,v,block", [(64, 32, 256, 16),
+                                         (48, 200, 96, 16)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_3xtf32_head_forward_matches_pallas_head_forward(with_bias, t, d, v,
+                                                         block):
+    h, w, b, lab, _ = _inputs(t, d, v, seed=t * 3 + v, with_bias=with_bias)
+    jb = jnp.zeros((v,), jnp.float32) if b is None else jnp.asarray(b)
+    want_loss, want_lse = jce._head_call_fwd(
+        jnp.asarray(h), jnp.asarray(w.T), jb, jnp.asarray(lab, jnp.int32),
+        block, block, True)
+    loss, lse = head_fwd_emulated(_t(h), _t(w), _t(lab), _t(b))
+    assert loss.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(loss.numpy(), np.asarray(want_loss), rtol=0,
+                               atol=LOSS_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=0,
+                               atol=LOSS_TOL)
+
+
+@pytest.mark.parametrize("t,d,v,with_bias", [(256, 768, 1000, False),
+                                             (130, 200, 515, True),
+                                             (97, 99, 300, True),
+                                             (40, 1000, 257, False)])
+def test_3xtf32_head_forward_matches_f64_reference(t, d, v, with_bias):
+    """Ragged D (99, 200, 1000: the kernel pads D with zeros) and labels
+    outside [0, V) (rows 0 and 5: -100 and V) included."""
+    h, w, b, lab, _ = _inputs(t, d, v, seed=19, with_bias=with_bias)
+    want_loss, want_lse = _f64_loss(h, w, b, lab)
+    loss, lse = head_fwd_emulated(_t(h), _t(w), _t(lab), _t(b))
+    assert float((loss.double() - want_loss).abs().max()) <= LOSS_TOL
+    assert float((lse.double() - want_lse).abs().max()) <= LOSS_TOL
+    assert torch.equal(loss[[0, 5]], lse[[0, 5]])   # no label logit
+
+
+@pytest.mark.parametrize("scheme,low,high", [
+    ("1xtf32", LOSS_TOL, 1e-1),      # one pass: misses the tolerance
+    ("3xtf32", 0.0, 2e-5),           # three passes
+])
+def test_three_passes_are_needed_forward(scheme, low, high):
+    """Largest |loss - f64 loss| at D = 768, scores of order 10."""
+    mm = {"1xtf32": mm_1xtf32, "3xtf32": mm_3xtf32}[scheme]
+    h, w, b, lab, _ = _inputs(256, 768, 1000, seed=31, with_bias=False)
+    want_loss, _ = _f64_loss(h, w, b, lab)
+    loss, _ = head_fwd_emulated(_t(h), _t(w), _t(lab), None, mm)
+    err = float((loss.double() - want_loss).abs().max())
+    assert low < err or low == 0.0, err
+    assert err <= high, err
+
+
+@pytest.mark.parametrize("t,d,v,with_bias", [(256, 768, 1000, False),
+                                             (97, 99, 300, True)])
+def test_bf16_head_forward(t, d, v, with_bias):
+    """bf16 operands multiply exactly into f32 sums: loss and lse within
+    LOSS_TOL of the f64 reference on the same bf16 values and of the
+    package's plain forward."""
+    h, w, b, lab, _ = _inputs(t, d, v, seed=37, with_bias=with_bias)
+    hb, wb = _t(h).bfloat16(), _t(w).bfloat16()
+    want_loss, want_lse = _f64_loss(hb.float().numpy(), wb.float().numpy(),
+                                    b, lab)
+    loss, lse = head_fwd_emulated(hb, wb, _t(lab), _t(b))
+    assert float((loss.double() - want_loss).abs().max()) <= LOSS_TOL
+    assert float((lse.double() - want_lse).abs().max()) <= LOSS_TOL
+    plain = tce.fused_head_loss_plain(hb, wb, _t(lab), _t(b))
+    assert float((loss - plain[0]).abs().max()) <= LOSS_TOL

@@ -4,6 +4,7 @@ the other on the same card, to compare two versions of them.
 
     python3 tools/port_kernel_ab.py --kernels flash_bwd A B B A
     python3 tools/port_kernel_ab.py --kernels head A B B A
+    python3 tools/port_kernel_ab.py --kernels flash_fwd A B B A
 
 Each of A and B is the root of a checkout (with ``paddle_tpu_torch/``). Every
 argument runs in its own process, in the order given, which builds that
@@ -12,14 +13,22 @@ card's name and power limit, and for each shape the kernels' median times
 (CUDA events) and their errors against the tree's plain versions.
 
 - ``head``: the fused head's forward, dhidden and dweight kernels and the
-  pair (dhidden + dweight), beside the library's backward (``library_ms``,
-  autograd through ``F.cross_entropy(h @ W.t())``, both gradients), at
-  GPT-base's shape in f32 and bf16.
+  pair (dhidden + dweight), beside the library's forward
+  (``fwd_library_ms``, ``F.cross_entropy(h @ W.t())``) and backward
+  (``library_ms``, autograd through it, both gradients), at GPT-base's
+  shape in f32 and bf16.
 - ``flash_bwd``: the flash-attention dK/dV and dQ kernels, the delta pass
   rowsum(dO * O) and the pair (dK/dV + dQ + delta), beside SDPA's
   backward (``library_ms``, autograd through
   ``F.scaled_dot_product_attention``), at GPT-base's and BERT-base
   training's shapes in f32 and bf16.
+- ``flash_fwd``: the flash-attention forward kernel beside SDPA's forward
+  (``library_ms``) and its bound, at GPT-base's causal T = 4096 and BERT-base
+  serving's shape (key mask, T = 512), in f32 and bf16.
+
+Every time stands beside ``bound_ms`` where the tool gives one: the larger
+of the bytes over 3.35 TB/s and the operations over the rate for their type
+(f32: 495 / 3 TFLOP/s, the f32-accurate 3xTF32 rate; bf16: 989).
 
 Needs a CUDA card; prints nothing and exits non-zero without one.
 """
@@ -39,6 +48,8 @@ HEAD_SHAPES = (("gpt_base_f32", 8192, 768, 32000, "float32"),
                ("ragged_d99_f32", 257, 99, 1001, "float32"),
                ("wide_d1000_f32", 300, 1000, 777, "float32"))
 HEAD_TIMED = ("gpt_base_f32", "gpt_base_bf16", "bf16")
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # (name, B, H, T, D, dtype, mask, causal): GPT-base training (causal, T =
 # 4096), BERT-base training (key mask, T = 128), BERT-base serving's
 # shape in bf16
@@ -48,6 +59,15 @@ FLASH_SHAPES = (
     ("bert_train_f32", 32, 12, 128, 64, "float32", "k", False),
     ("bert_train_bf16", 32, 12, 128, 64, "bfloat16", "k", False),
     ("bert_serve_bf16", 8, 12, 512, 64, "bfloat16", "k", False))
+FLASH_FWD_SHAPES = (
+    ("gpt_train_f32", 2, 12, 4096, 64, "float32", None, True),
+    ("gpt_train_bf16", 2, 12, 4096, 64, "bfloat16", None, True),
+    ("bert_serve_f32", 8, 12, 512, 64, "float32", "k", False),
+    ("bert_serve_bf16", 8, 12, 512, 64, "bfloat16", "k", False))
+
+
+def _bound_ms(flops, nbytes, dtype):
+    return max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S) * 1e3
 
 
 def _median_ms(torch, fn, reps=5, inner=3):
@@ -106,14 +126,62 @@ def _head(torch, dev):
                     *args)),
                 dw_ms=_median_ms(torch, lambda: bce.fused_head_dweight(
                     *args)))
+            r["fwd_library_ms"] = _median_ms(
+                torch, lambda: F.cross_entropy(h @ w.t(), lab,
+                                               reduction="none"))
             lh, lw = (x.detach().requires_grad_() for x in (h, w))
             lib_loss = F.cross_entropy(lh @ lw.t(), lab, reduction="none")
             r["library_ms"] = _median_ms(torch, lambda: torch.autograd.grad(
                 lib_loss, (lh, lw), dl.to(lib_loss.dtype),
                 retain_graph=True))
             del lib_loss
+            r["fwd_bound_ms"] = _bound_ms(
+                2.0 * t * d * v, (t * d + v * d) * h.element_size() + 16 * t,
+                dt)
             r["pair_ms"] = r["dh_ms"] + r["dw_ms"]
             r["pair_over_library"] = r["pair_ms"] / r["library_ms"]
+        out[name] = r
+    return out
+
+
+def _flash_inputs(torch, dev, b, h, t, d, dtype, mode):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if mode == "k":
+        lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+        mask = torch.where(torch.arange(t, device=dev)[None, :] <
+                           lens[:, None], 0.0, -1e4).reshape(b, 1, 1, t)
+    return q, k, v, do, mask
+
+
+def _flash_fwd(torch, dev):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    out = {}
+    for name, b, h, t, d, dt, mode, causal in FLASH_FWD_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v, _, mask = _flash_inputs(torch, dev, b, h, t, d, dtype, mode)
+        scale = d ** -0.5
+        o, lse = fa.flash_attention(q, k, v, mask, scale, causal)
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, mask, scale,
+                                                    causal)
+        torch.cuda.synchronize()
+        lib_mask = None if mask is None else mask.to(dtype)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4 + \
+            (0 if mask is None else mask.numel() * 4)
+        r = {"out_err": _max_err(o, want_o), "lse_err": _max_err(lse, want_lse),
+             "ms": _median_ms(torch, lambda: fa.flash_attention(
+                 q, k, v, mask, scale, causal)),
+             "library_ms": _median_ms(
+                 torch, lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=lib_mask, is_causal=causal,
+                     scale=scale)),
+             "bound_ms": _bound_ms(4.0 * b * h * pairs * d, nbytes, dt)}
+        r["over_library"] = r["ms"] / r["library_ms"]
+        r["tflops"] = 4.0 * b * h * pairs * d / r["ms"] / 1e9
         out[name] = r
     return out
 
@@ -123,16 +191,9 @@ def _flash_bwd(torch, dev):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     out = {}
     for name, b, h, t, d, dt, mode, causal in FLASH_SHAPES:
-        g = torch.Generator(device=dev).manual_seed(2)
         dtype = getattr(torch, dt)
-        q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=dev)
-                       .to(dtype) for _ in range(4))
-        mask = None
-        if mode == "k":
-            lens = torch.randint(t // 2, t + 1, (b,), generator=g,
-                                 device=dev)
-            mask = torch.where(torch.arange(t, device=dev)[None, :] <
-                               lens[:, None], 0.0, -1e4).reshape(b, 1, 1, t)
+        q, k, v, do, mask = _flash_inputs(torch, dev, b, h, t, d, dtype,
+                                          mode)
         scale = d ** -0.5
         o, lse = fa.flash_attention(q, k, v, mask, scale, causal)
         delta = (do.float() * o.float()).sum(-1)
@@ -172,14 +233,14 @@ def _one_tree(kernels):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()}
-    out.update(_head(torch, dev) if kernels == "head"
-               else _flash_bwd(torch, dev))
+    out.update({"head": _head, "flash_bwd": _flash_bwd,
+                "flash_fwd": _flash_fwd}[kernels](torch, dev))
     print(json.dumps(out), flush=True)
 
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", choices=("head", "flash_bwd"),
+    ap.add_argument("--kernels", choices=("head", "flash_bwd", "flash_fwd"),
                     required=True)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="*")
