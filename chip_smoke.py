@@ -7,10 +7,12 @@ run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
 of the eleven against its plain PyTorch version at the main paths' shapes
-(the flash and head kernels and the CE backward also against themselves:
-two runs must give equal bits; the flash backward pair, with its delta
-pass, and the head backward pair also timed beside the library's
-backward as ``pair_ms``). Then it drives the main paths, each with the
+(the flash, LayerNorm and head kernels and the CE backward also against
+themselves: two runs must give equal bits; the flash backward pair, with
+its delta pass, and the head backward pair also timed beside the
+library's backward as ``pair_ms``; the LayerNorm kernels at BERT's and
+GPT's shapes also timed with the L2 cold, ``kernel_cold_ms`` beside
+``library_cold_ms``). Then it drives the main paths, each with the
 kernels' launch counters set to 0 just before and read just after:
 
 - ``serve``: BERT-base (full width, T=512, random weights from a seed)
@@ -102,6 +104,7 @@ EVAL_LOSS_RTOL = 1e-5
 # scheme SDPA's f32 path uses), so the least time is at 495 / 3 TFLOP/s,
 # above the 67 TFLOP/s of f32 FFMA.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 # Tolerances of a kernel against its plain version on the same inputs.
@@ -230,6 +233,35 @@ def _clock(big):
     return lambda fn: time_ms(torch, fn, reps, inner)
 
 
+def time_cold_ms(torch, fn, ring, reps=5):
+    """Median device time of one call of ``fn(inputs)`` with the L2 cold:
+    the calls cycle through ``ring``, input sets that together exceed
+    twice the L2, so each call's inputs were evicted since their last
+    use (CUDA events over one pass of the ring, behind a sleep kernel)."""
+    for inputs in ring:
+        fn(inputs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for inputs in ring:
+            fn(inputs)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(ring))
+    return statistics.median(times)
+
+
+def _ring(torch, tensors):
+    """Copies of ``tensors``, enough sets to exceed twice the L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return [tuple(t.clone() for t in tensors)
+            for _ in range(-(-2 * L2_BYTES // nbytes) + 1)]
+
+
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -307,39 +339,78 @@ def flash_cases(torch, fa, F):
     return out
 
 
+# LayerNorm cases (name, rows, cols, dtype, cold): BERT-base's training
+# step (the kernel line's first case), GPT-base's step, a wide row (the
+# block tier), 300 columns on a view whose data_ptr() is not 16-byte
+# aligned (element-wide access) and one row. ``cold`` cases are also timed
+# with the L2 cold.
+def _ln_case_list(torch):
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("bert_base_f32", 4096, 768, f32, True),
+            ("bert_base_bf16", 4096, 768, bf16, True),
+            ("gpt_base_f32", 8192, 768, f32, True),
+            ("gpt_base_bf16", 8192, 768, bf16, True),
+            ("wide_8192_f32", 64, 8192, f32, False),
+            ("ragged_unaligned_f32", 37, 300, f32, False),
+            ("ragged_unaligned_bf16", 37, 300, bf16, False),
+            ("one_row_f32", 1, 768, f32, False)]
+
+
+def _ln_input(torch, g, dev, rows, cols, dtype, unaligned, scale=1.0,
+              shift=0.0):
+    """(rows, cols) normal values; ``unaligned`` puts them one element
+    into their storage, so data_ptr() is not 16-byte aligned."""
+    off = 1 if unaligned else 0
+    flat = torch.randn(rows * cols + off, generator=g, device=dev)
+    return (flat * scale + shift).to(dtype)[off:].view(rows, cols)
+
+
 def ln_cases(torch, ln, F):
-    cases = [("bert_base_f32", 4096, 768, torch.float32),
-             ("bert_base_bf16", 4096, 768, torch.bfloat16),
-             ("wide_8192_f32", 64, 8192, torch.float32)]
     dev = torch.device("cuda", 0)
     out = []
-    for i, (name, rows, cols, dtype) in enumerate(cases):
+    for i, (name, rows, cols, dtype, cold) in enumerate(_ln_case_list(torch)):
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
-        x = (torch.randn(rows, cols, generator=g, device=dev) * 3 + 1
-             ).to(dtype)
+        x = _ln_input(torch, g, dev, rows, cols, dtype, "unaligned" in name,
+                      3.0, 1.0)
         scale = torch.rand(cols, generator=g, device=dev) + 0.5
         bias = torch.randn(cols, generator=g, device=dev)
         got = ln.layer_norm(x, scale, bias, 1e-5)
+        again = ln.layer_norm(x, scale, bias, 1e-5)
         want = ln.layer_norm_plain(x, scale, bias, 1e-5)
         torch.cuda.synchronize()
         err = _max_err(got[0], want[0])
         stat_err = max(_max_err(got[1], want[1]), _max_err(got[2], want[2]))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         tol = TOL[("ln", str(dtype).split(".")[1])]
         nbytes = 2 * x.numel() * x.element_size() + 2 * cols * 4 + \
             2 * rows * 4
-        out.append(dict(
+        lw, lb = scale.to(dtype), bias.to(dtype)
+        case = dict(
             name=name, shape=[rows, cols], dtype=str(dtype).split(".")[1],
+            plan=ln._ln_plan(rows, cols, dtype, ln._aligned(x, scale, bias)
+                             )._asdict(),
             max_abs_err=err, stat_max_abs_err=stat_err, tol=tol,
-            stat_tol=TOL["stat"], ok=err <= tol and stat_err <= TOL["stat"],
+            stat_tol=TOL["stat"], bitwise_repeat=same,
+            ok=err <= tol and stat_err <= TOL["stat"] and same,
             kernel_ms=time_ms(torch, lambda: ln.layer_norm(
                 x, scale, bias, 1e-5)),
             plain_ms=time_ms(torch, lambda: ln.layer_norm_plain(
                 x, scale, bias, 1e-5)),
             library_ms=time_ms(torch, lambda: F.layer_norm(
-                x, (cols,), scale.to(dtype), bias.to(dtype), 1e-5)),
+                x, (cols,), lw, lb, 1e-5)),
+            kernel_cold_ms=None, library_cold_ms=None,
             # ~8 f32 operations per element: mean, centre, square, sum,
             # normalise, scale, shift
-            **_bound(8.0 * rows * cols, nbytes, "float32")))
+            **_bound(8.0 * rows * cols, nbytes, "float32"))
+        if cold:
+            ring = _ring(torch, (x,))
+            case["kernel_cold_ms"] = time_cold_ms(
+                torch, lambda s: ln.layer_norm(s[0], scale, bias, 1e-5), ring)
+            case["library_cold_ms"] = time_cold_ms(
+                torch, lambda s: F.layer_norm(s[0], (cols,), lw, lb, 1e-5),
+                ring)
+            del ring
+        out.append(case)
     return out
 
 
@@ -459,16 +530,13 @@ def flash_bwd_cases(torch, fa, F):
 
 
 def ln_bwd_cases(torch, ln):
-    cases = [("bert_base_f32", 4096, 768, torch.float32),
-             ("bert_base_bf16", 4096, 768, torch.bfloat16),
-             ("wide_8192_f32", 64, 8192, torch.float32)]
     dev = torch.device("cuda", 0)
     out = []
-    for i, (name, rows, cols, dtype) in enumerate(cases):
+    for i, (name, rows, cols, dtype, cold) in enumerate(_ln_case_list(torch)):
         g = torch.Generator(device=dev).manual_seed(SEED + 300 + i)
-        x = (torch.randn(rows, cols, generator=g, device=dev) * 3 + 1
-             ).to(dtype)
-        gy = torch.randn(rows, cols, generator=g, device=dev).to(dtype)
+        unaligned = "unaligned" in name
+        x = _ln_input(torch, g, dev, rows, cols, dtype, unaligned, 3.0, 1.0)
+        gy = _ln_input(torch, g, dev, rows, cols, dtype, unaligned)
         scale = torch.rand(cols, generator=g, device=dev) + 0.5
         bias = torch.randn(cols, generator=g, device=dev)
         _, mean, rstd = ln.layer_norm(x, scale, bias, 1e-5)
@@ -485,22 +553,36 @@ def ln_bwd_cases(torch, ln):
         lib_w, lib_b = scale.to(dtype), bias.to(dtype)
         _, lmean, lrstd = torch.ops.aten.native_layer_norm(
             x, (cols,), lib_w, lib_b, 1e-5)
+
+        def library(x, gy):
+            return torch.ops.aten.native_layer_norm_backward(
+                gy, x, (cols,), lmean, lrstd, lib_w, lib_b,
+                [True, True, True])
         el = x.element_size()
         nbytes = 3 * x.numel() * el + 2 * rows * 4 + 3 * cols * 4
-        out.append(dict(
+        case = dict(
             name=name, shape=[rows, cols], dtype=str(dtype).split(".")[1],
+            plan=ln._ln_plan(rows, cols, dtype, ln._aligned(x, gy, scale),
+                             backward=True)._asdict(),
             max_abs_err=err, cols_rel_err=col_rel, tol=tol,
             cols_rel_tol=BWD_TOL["ln_cols_rel"], bitwise_repeat=same,
             ok=err <= tol and col_rel <= BWD_TOL["ln_cols_rel"] and same,
             kernel_ms=time_ms(torch, lambda: ln.layer_norm_bwd(*args)),
             plain_ms=time_ms(torch, lambda: ln.layer_norm_bwd_plain(*args)),
-            library_ms=time_ms(
-                torch, lambda: torch.ops.aten.native_layer_norm_backward(
-                    gy, x, (cols,), lmean, lrstd, lib_w, lib_b,
-                    [True, True, True])),
+            library_ms=time_ms(torch, lambda: library(x, gy)),
+            kernel_cold_ms=None, library_cold_ms=None,
             # ~12 f32 operations per element: x_hat, g*s, two row sums,
             # two column sums, dx
-            **_bound(12.0 * rows * cols, nbytes, "float32")))
+            **_bound(12.0 * rows * cols, nbytes, "float32"))
+        if cold:
+            ring = _ring(torch, (x, gy))
+            case["kernel_cold_ms"] = time_cold_ms(
+                torch, lambda s: ln.layer_norm_bwd(s[0], s[1], scale, mean,
+                                                   rstd), ring)
+            case["library_cold_ms"] = time_cold_ms(
+                torch, lambda s: library(*s), ring)
+            del ring
+        out.append(case)
     return out
 
 
@@ -1205,7 +1287,7 @@ def _family(kernel):
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
                      ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv"),
                      ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
-                     ("ln_fwd_kernel", "layer_norm_fwd"),
+                     ("ln_fwd_", "layer_norm_fwd"),
                      ("ln_bwd_", "layer_norm_bwd"),
                      ("adam_kernel", "fused_adam"),
                      ("head_fwd_kernel", "fused_head_fwd"),

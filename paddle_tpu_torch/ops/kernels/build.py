@@ -38,10 +38,9 @@ _SIGNATURES = {
         [_vp] * 9 + [_i] * 6 + [_ll, _i, _f, _i, _vp], _i),
     "ptt_flash_attention_bwd_dq": (
         [_vp] * 8 + [_i] * 6 + [_ll, _i, _f, _i, _vp], _i),
-    "ptt_layer_norm_fwd": (
-        [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _vp], _i),
-    "ptt_layer_norm_bwd": ([_vp] * 8 + [_i] * 4 + [_vp], _i),
-    "ptt_layer_norm_bwd_reduce": ([_vp] * 4 + [_i, _i, _vp], _i),
+    "ptt_layer_norm_fwd": ([_vp] * 6 + [_i] * 3 + [_f] + [_i] * 4 + [_vp],
+                           _i),
+    "ptt_layer_norm_bwd": ([_vp] * 9 + [_i] * 7 + [_vp], _i),
     "ptt_layer_norm_max_cols": ([], _i),
     "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 5 + [_vp], _i),
     "ptt_fused_head_fwd": ([_vp] * 6 + [_i] * 4 + [_vp, _vp], _i),

@@ -5,31 +5,100 @@ Replaces paddle_tpu/ops/pallas/layer_norm.py: ``_ln_call_fwd`` (kernel
 ``_ln_fwd_kernel``; ``csrc/layer_norm_fwd.cu``) and ``_ln_bwd`` (kernel
 ``_ln_bwd_kernel``; ``csrc/layer_norm_bwd.cu``). Each source's header says
 what bounds it on the H100 (the bytes: a few flops per element) and how
-its design meets that.
+its design meets that; ``_ln_plan`` picks the kernels' launch.
 
 ``layer_norm`` and ``layer_norm_bwd`` run their kernel for a CUDA tensor
 and the plain version for a CPU tensor; they never fall back from one to
 the other. ``launches`` and ``bwd_launches`` count the kernels' launches
-(the backward's two passes count as one launch of one kernel).
-``LayerNorm`` (a ``torch.autograd.Function``) pairs them; its mean and
-rstd outputs are not differentiable.
+(the backward's row pass and column sum count as one launch of one
+kernel). ``LayerNorm`` (a ``torch.autograd.Function``) pairs them; its
+mean and rstd outputs are not differentiable.
 
 x is (rows, cols) f32 or bf16, normalised over cols; scale and bias are
 optional (cols,). The forward returns (y like x, mean (rows,) f32,
 rstd (rows,) f32); the backward (dx like x, dscale (cols,) f32,
 dbias (cols,) f32).
 """
+import collections
+
 import torch
 
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PACK = {torch.float32: 4, torch.bfloat16: 8}     # values in 16 bytes
 
 launches = 0
 bwd_launches = 0
-# blocks of the backward's first pass: four 256-thread blocks per SM of
-# the H100's 132 (the partial column sums grow with the count)
-_BWD_BLOCKS = 4 * 132
+
+# The kernels' launch plan (csrc/layer_norm.cuh). A row's team, one warp
+# (warp tier) or a block of 2-16 warps (block tier), holds the row in
+# registers: each thread ``k`` packs of ``vec`` values, at most
+# _MAX_PER_LANE values. ``vec`` is 16 bytes of x's type when every pointer
+# is 16-byte aligned and cols a multiple of it, else 1. ``k`` is the
+# smallest rung of _K_LADDER (the instances the C entries hold) that covers
+# the row. The grid is persistent: the blocks that fit on the card at once
+# (``per_sm`` a multiprocessor), never more than the rows need. The
+# backward writes one partial row of dscale and dbias per block.
+_K_LADDER = (1, 2, 3, 4, 6, 8, 16, 32)
+_MAX_PER_LANE = 32
+_ROW_WARPS = 8                      # warp tier: rows a block walks at once
+_MAX_TEAM_WARPS = 16
+_H100_SMS = 132
+
+LnPlan = collections.namedtuple(
+    "LnPlan", "tier vec k values_per_lane team_warps threads grid "
+    "partial_rows")
+
+
+def _ln_plan(rows, cols, dtype, aligned, backward=False, sms=_H100_SMS):
+    """The launch of the forward (or, with ``backward``, the backward)
+    kernel for x (rows, cols) of ``dtype``; ``aligned``: x, the outputs,
+    scale and bias all start on 16 bytes."""
+    vec = _PACK[dtype] if aligned and cols % _PACK[dtype] == 0 else 1
+    team = 1
+    while 32 * team * _MAX_PER_LANE < cols:
+        team *= 2
+    if team > _MAX_TEAM_WARPS:
+        raise ValueError("layer_norm takes up to %d cols, got %d"
+                         % (32 * _MAX_TEAM_WARPS * _MAX_PER_LANE, cols))
+    need = -(-cols // (32 * team * vec))
+    k = next(r for r in _K_LADDER if r >= need)
+    if team == 1:
+        threads = 32 * _ROW_WARPS
+        blocks = -(-rows // _ROW_WARPS)
+        # registers (the kernels' __launch_bounds__): two blocks an SM
+        # while a lane holds up to 24 values of the forward (x, the next
+        # row, scale, bias); one for the backward and above
+        per_sm = 1 if backward or k * vec > 24 else 2
+    else:
+        threads = 32 * team
+        blocks = rows
+        per_sm = max(1, 256 // threads)     # up to 255 registers a thread
+    grid = max(1, min(blocks, per_sm * sms))
+    return LnPlan("warp" if team == 1 else "block", vec, k, k * vec, team,
+                  threads, grid, grid if backward else 0)
+
+
+_max_cols = None
+_sms = {}
+
+
+def _limits(device):
+    """(max cols, SM count of ``device``), each read once."""
+    global _max_cols
+    if _max_cols is None:
+        _max_cols = build.load().ptt_layer_norm_max_cols()
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _max_cols, _sms[index]
+
+
+def _aligned(*tensors):
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def layer_norm_plain(x, scale=None, bias=None, eps=1e-5):
@@ -57,6 +126,18 @@ def _vec(t, cols, device, what):
     return t.to(device=device, dtype=torch.float32).reshape(cols).contiguous()
 
 
+def _check(what, x, max_cols):
+    if x.dim() != 2:
+        raise ValueError("%s kernel wants 2-D (rows, cols) x, got %s"
+                         % (what, tuple(x.shape)))
+    if x.dtype not in _DTYPES:
+        raise ValueError("%s kernel takes float32 or bfloat16, got %s"
+                         % (what, x.dtype))
+    if not 1 <= x.shape[1] <= max_cols:
+        raise ValueError("%s kernel takes 1..%d cols, got %d"
+                         % (what, max_cols, x.shape[1]))
+
+
 def layer_norm(x, scale=None, bias=None, eps=1e-5):
     """LayerNorm forward over the last axis of 2-D x; see the module
     docstring."""
@@ -66,18 +147,9 @@ def layer_norm(x, scale=None, bias=None, eps=1e-5):
     if x.device.type != "cuda":
         raise ValueError("layer_norm runs on CUDA (kernel) or CPU (plain "
                          "version), got a %s tensor" % x.device.type)
-    if x.dim() != 2:
-        raise ValueError("layer_norm kernel wants 2-D (rows, cols) x, got "
-                         "%s" % (tuple(x.shape),))
-    if x.dtype not in _DTYPES:
-        raise ValueError("layer_norm kernel takes float32 or bfloat16, got "
-                         "%s" % x.dtype)
+    max_cols, sms = _limits(x.device)
+    _check("layer_norm", x, max_cols)
     rows, cols = x.shape
-    lib = build.load()
-    max_cols = lib.ptt_layer_norm_max_cols()
-    if not 1 <= cols <= max_cols:
-        raise ValueError("layer_norm kernel takes 1..%d cols, got %d"
-                         % (max_cols, cols))
     x = x.contiguous()
     s = _vec(scale, cols, x.device, "scale")
     b = _vec(bias, cols, x.device, "bias")
@@ -86,12 +158,14 @@ def layer_norm(x, scale=None, bias=None, eps=1e-5):
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return y, mean, rstd
+    plan = _ln_plan(rows, cols, x.dtype, _aligned(x, y, s, b), sms=sms)
     with torch.cuda.device(x.device):
-        rc = lib.ptt_layer_norm_fwd(
+        rc = build.load().ptt_layer_norm_fwd(
             x.data_ptr(), None if s is None else s.data_ptr(),
             None if b is None else b.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), rows, cols, _DTYPES[x.dtype],
-            float(eps), torch.cuda.current_stream().cuda_stream)
+            float(eps), plan.vec, plan.k, plan.team_warps, plan.grid,
+            torch.cuda.current_stream().cuda_stream)
     build.check(rc, "layer_norm_fwd")
     launches += 1
     return y, mean, rstd
@@ -119,18 +193,12 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
     if x.device.type != "cuda":
         raise ValueError("layer_norm_bwd runs on CUDA (kernel) or CPU (plain "
                          "version), got a %s tensor" % x.device.type)
-    if x.dim() != 2 or g.shape != x.shape:
-        raise ValueError("layer_norm_bwd wants 2-D x and g of one shape, got "
+    if g.shape != x.shape:
+        raise ValueError("layer_norm_bwd wants x and g of one shape, got "
                          "%s and %s" % (tuple(x.shape), tuple(g.shape)))
-    if x.dtype not in _DTYPES:
-        raise ValueError("layer_norm_bwd kernel takes float32 or bfloat16, "
-                         "got %s" % x.dtype)
+    max_cols, sms = _limits(x.device)
+    _check("layer_norm_bwd", x, max_cols)
     rows, cols = x.shape
-    lib = build.load()
-    max_cols = lib.ptt_layer_norm_max_cols()
-    if not 1 <= cols <= max_cols:
-        raise ValueError("layer_norm_bwd kernel takes 1..%d cols, got %d"
-                         % (max_cols, cols))
     for name, t in (("mean", mean), ("rstd", rstd)):
         if t.shape != (rows,) or t.dtype != torch.float32:
             raise ValueError("layer_norm_bwd: %s must be float32 (%d,), got "
@@ -139,27 +207,23 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
     g = g.to(x.dtype).contiguous()
     s = _vec(scale, cols, x.device, "scale")
     dx = torch.empty_like(x)
-    dscale = torch.empty(cols, dtype=torch.float32, device=x.device)
-    dbias = torch.empty(cols, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dscale.zero_(), dbias.zero_()
-    rows_per_block = -(-rows // min(rows, _BWD_BLOCKS))
-    blocks = -(-rows // rows_per_block)
-    ds_part = torch.empty((blocks, cols), dtype=torch.float32,
-                          device=x.device)
-    db_part = torch.empty_like(ds_part)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+        zeros = torch.zeros(cols, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    plan = _ln_plan(rows, cols, x.dtype, _aligned(x, g, dx, s),
+                    backward=True, sms=sms)
+    part = torch.empty((2, plan.partial_rows, cols), dtype=torch.float32,
+                       device=x.device)
+    dscale, dbias = torch.empty((2, cols), dtype=torch.float32,
+                                device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.ptt_layer_norm_bwd(
+        rc = build.load().ptt_layer_norm_bwd(
             x.data_ptr(), g.data_ptr(), None if s is None else s.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            ds_part.data_ptr(), db_part.data_ptr(), rows, cols,
-            _DTYPES[x.dtype], rows_per_block, stream)
-        build.check(rc, "layer_norm_bwd")
-        rc = lib.ptt_layer_norm_bwd_reduce(
-            ds_part.data_ptr(), db_part.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), blocks, cols, stream)
-    build.check(rc, "layer_norm_bwd_reduce")
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), rows, cols,
+            _DTYPES[x.dtype], plan.vec, plan.k, plan.team_warps, plan.grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "layer_norm_bwd")
     bwd_launches += 1
     return dx, dscale, dbias
 

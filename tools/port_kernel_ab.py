@@ -5,6 +5,7 @@ the other on the same card, to compare two versions of them.
     python3 tools/port_kernel_ab.py --kernels flash_bwd A B B A
     python3 tools/port_kernel_ab.py --kernels head A B B A
     python3 tools/port_kernel_ab.py --kernels flash_fwd A B B A
+    python3 tools/port_kernel_ab.py --kernels layer_norm A B B A
 
 Each of A and B is the root of a checkout (with ``paddle_tpu_torch/``). Every
 argument runs in its own process, in the order given, which builds that
@@ -25,6 +26,12 @@ card's name and power limit, and for each shape the kernels' median times
 - ``flash_fwd``: the flash-attention forward kernel beside SDPA's forward
   (``library_ms``) and its bound, at GPT-base's causal T = 4096 and BERT-base
   serving's shape (key mask, T = 512), in f32 and bf16.
+- ``layer_norm``: the LayerNorm forward and backward kernels beside
+  ``F.layer_norm`` and ``aten.native_layer_norm_backward`` (all three
+  gradients) and their byte bounds, at GPT-base's (8192, 768) and BERT-base
+  training's (4096, 768) in f32 and bf16; each warm (the same inputs call
+  after call, left in the 50 MB L2) and cold (``*_cold_ms``: the calls cycle
+  through copies of the inputs that together exceed twice the L2).
 
 Every time stands beside ``bound_ms`` where the tool gives one: the larger
 of the bytes over 3.35 TB/s and the operations over the rate for their type
@@ -49,6 +56,12 @@ HEAD_SHAPES = (("gpt_base_f32", 8192, 768, 32000, "float32"),
                ("wide_d1000_f32", 300, 1000, 777, "float32"))
 HEAD_TIMED = ("gpt_base_f32", "gpt_base_bf16", "bf16")
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
+# (name, rows, cols, dtype): GPT-base's and BERT-base training's LayerNorms
+LN_SHAPES = (("gpt_base_f32", 8192, 768, "float32"),
+             ("gpt_base_bf16", 8192, 768, "bfloat16"),
+             ("bert_base_f32", 4096, 768, "float32"),
+             ("bert_base_bf16", 4096, 768, "bfloat16"))
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # (name, B, H, T, D, dtype, mask, causal): GPT-base training (causal, T =
 # 4096), BERT-base training (key mask, T = 128), BERT-base serving's
@@ -87,6 +100,27 @@ def _median_ms(torch, fn, reps=5, inner=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def _cold_ms(torch, fn, ring, reps=5):
+    """Median device time of one call of ``fn(inputs)`` as the calls cycle
+    through ``ring`` (input sets together above twice the L2: each call's
+    inputs come from device memory)."""
+    for inputs in ring:
+        fn(inputs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for inputs in ring:
+            fn(inputs)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(ring))
     return statistics.median(times)
 
 
@@ -223,6 +257,65 @@ def _flash_bwd(torch, dev):
     return out
 
 
+def _layer_norm(torch, dev):
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import layer_norm as ln
+    out = {}
+    for name, rows, cols, dt in LN_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = (torch.randn(rows, cols, generator=g, device=dev) * 3 + 1
+             ).to(dtype)
+        gy = torch.randn(rows, cols, generator=g, device=dev).to(dtype)
+        scale = torch.rand(cols, generator=g, device=dev) + 0.5
+        bias = torch.randn(cols, generator=g, device=dev)
+        lw, lb = scale.to(dtype), bias.to(dtype)
+        y, mean, rstd = ln.layer_norm(x, scale, bias, 1e-5)
+        dx, dscale, dbias = ln.layer_norm_bwd(x, gy, scale, mean, rstd)
+        want = ln.layer_norm_plain(x, scale, bias, 1e-5)
+        want_b = ln.layer_norm_bwd_plain(x, gy, scale, mean, rstd)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(
+            x, (cols,), lw, lb, 1e-5)
+        torch.cuda.synchronize()
+
+        def library_bwd(x, gy):
+            return torch.ops.aten.native_layer_norm_backward(
+                gy, x, (cols,), lmean, lrstd, lw, lb, [True, True, True])
+        nbytes = x.numel() * x.element_size()
+        ring = [(x.clone(), gy.clone())
+                for _ in range(-(-2 * L2_BYTES // (2 * nbytes)) + 1)]
+        r = {"y_err": _max_err(y, want[0]),
+             "dx_err": _max_err(dx, want_b[0]),
+             "cols_err": max(_max_err(dscale, want_b[1]),
+                             _max_err(dbias, want_b[2])),
+             "fwd_ms": _median_ms(torch, lambda: ln.layer_norm(
+                 x, scale, bias, 1e-5), 7, 10),
+             "fwd_cold_ms": _cold_ms(torch, lambda s: ln.layer_norm(
+                 s[0], scale, bias, 1e-5), ring),
+             "fwd_library_ms": _median_ms(torch, lambda: F.layer_norm(
+                 x, (cols,), lw, lb, 1e-5), 7, 10),
+             "fwd_library_cold_ms": _cold_ms(torch, lambda s: F.layer_norm(
+                 s[0], (cols,), lw, lb, 1e-5), ring),
+             "fwd_bound_ms": _bound_ms(8.0 * rows * cols, 2 * nbytes +
+                                       8 * (rows + cols), "float32"),
+             "bwd_ms": _median_ms(torch, lambda: ln.layer_norm_bwd(
+                 x, gy, scale, mean, rstd), 7, 10),
+             "bwd_cold_ms": _cold_ms(torch, lambda s: ln.layer_norm_bwd(
+                 s[0], s[1], scale, mean, rstd), ring),
+             "bwd_library_ms": _median_ms(torch, lambda: library_bwd(x, gy),
+                                          7, 10),
+             "bwd_library_cold_ms": _cold_ms(torch, lambda s: library_bwd(
+                 *s), ring),
+             "bwd_bound_ms": _bound_ms(12.0 * rows * cols, 3 * nbytes +
+                                       8 * rows + 12 * cols, "float32")}
+        for d in ("fwd", "bwd"):
+            r[d + "_cold_share_of_bound"] = \
+                r[d + "_bound_ms"] / r[d + "_cold_ms"]
+        out[name] = r
+        del ring
+    return out
+
+
 def _one_tree(kernels):
     import torch
     sys.path.insert(0, os.getcwd())
@@ -234,14 +327,15 @@ def _one_tree(kernels):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()}
     out.update({"head": _head, "flash_bwd": _flash_bwd,
-                "flash_fwd": _flash_fwd}[kernels](torch, dev))
+                "flash_fwd": _flash_fwd,
+                "layer_norm": _layer_norm}[kernels](torch, dev))
     print(json.dumps(out), flush=True)
 
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", choices=("head", "flash_bwd", "flash_fwd"),
-                    required=True)
+    ap.add_argument("--kernels", choices=("head", "flash_bwd", "flash_fwd",
+                                          "layer_norm"), required=True)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("trees", nargs="*")
     args = ap.parse_args(argv)
