@@ -37,13 +37,28 @@ kernels' launch counters set to 0 just before and read just after:
 - ``gpt_decode``: ``greedy_generate`` (batch 4, a 64-token prompt, 16
   new tokens) on the card; the CPU's logits of the card's tokens must
   put each chosen token within SERVE_ATOL of its step's maximum.
+- ``train_bf16``: BERT-base pretraining at bench.py:388-389 with nothing
+  cut: bf16, batch 128 x 128, 20 masked positions, dropout 0.1, Adam
+  1e-4, six steps; the launches of ``train`` a step; peak memory.
+- ``gpt_train_bf16``: GPT-base at bench.py:596-601 exactly (bf16, flash,
+  recompute, 2 x 4096, Adam 1e-4), six steps: per step 24 flash forward
+  (each block's forward runs again in the backward), 12/12 flash
+  backward, 49/25 LayerNorm, 148 Adam and 1/1/1 head launches; then
+  three steps without recompute from the same startup (12 flash and 25
+  LayerNorm forward a step), whose step must peak higher and whose first
+  loss must equal the recomputed run's bit for bit.
 
 ``train_parity`` and ``gpt_train_parity`` run three steps of a 2-layer
 BERT-base-width / GPT-base-width model (GPT at 2 x 128 tokens, where the
 head kernels tile) on the card and on the CPU from the same weights and
-compare losses and final parameters. A profile phase splits one warm
-request's, one warm BERT training step's and one warm GPT training
-step's device time by kernel family.
+compare losses and final parameters (tolerances at PARITY_*);
+``bf16_parity`` does the same in bf16, and on the card holds a 2-layer
+bf16 GPT with recompute against the same without, bit for bit
+(first-step loss and gradients, three losses, final parameters), and
+decodes with a 2-layer bf16 GPT on the card against the CPU's f32 logits
+(the widened tied head). A profile phase splits one warm request's, one
+warm BERT training step's and one warm GPT training step's device time
+by kernel family, f32 and bf16 (BERT at batch 128, GPT with recompute).
 
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
@@ -90,7 +105,18 @@ GPT_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dkv": 12,
                 "layer_norm_bwd": 25, "fused_adam": 148,
                 "fused_head_fwd": 1, "fused_head_dh": 1, "fused_head_dw": 1,
                 "ce_fwd": 0, "ce_bwd": 0}
+# bf16 training at bench.py's own settings, nothing cut. BERT-base
+# (bench.py:388-389): bf16, batch 128 x 128, the same launches a step as
+# the f32 step. GPT-base (bench.py:596-601): bf16, flash, recompute; the
+# backward re-runs each block's forward, so a step launches the flash
+# forward 24 times (12 + 12) and the LayerNorm forward 49 (25 + 24); then
+# GPT_NO_RECOMPUTE_STEPS steps without recompute (GPT_PER_STEP's counts)
+BF16_TRAIN_BATCH = 128
+GPT_BF16_PER_STEP = dict(GPT_PER_STEP, flash_attention_fwd=24,
+                         layer_norm_fwd=49)
+GPT_NO_RECOMPUTE_STEPS = 3
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 64, 16
+PROFILE_PLAIN_RUNS = 3
 GPT_PARITY_BATCH, GPT_PARITY_SEQ = 2, 128
 # gpt_eval: the CE kernel's loss on matmul logits against the head
 # kernel's on the same weights; both sum 8192 per-token losses of ~10 in
@@ -148,18 +174,50 @@ ADAM_REL_TOL = 1e-4
 HEAD_TOL = {"loss": 1e-4, ("grad_rel", "float32"): 5e-5,
             ("grad_rel", "bfloat16"): 2.0 ** -7,
             ("dlogits", "float32"): 1e-6, ("dlogits", "bfloat16"): 2.0 ** -8}
-# train_parity, card against CPU from the same weights, f32 without TF32
-# on both: the per-step loss differs only by summation order through two
-# layers and the head (rtol 1e-4). Final parameters agree within 2e-5,
-# ~10x the 2.3e-6 measured on an H100, while three steps move them by
-# ~3e-4 (at least 10x the tolerance is required). The exception: the
-# embedding and gather gradients are summed with atomics on the card, in
-# no fixed order, so a gradient that sums to near zero may change sign,
-# and Adam then steps that element the other way (up to lr = 1e-4 per
-# step: within 2 * 3 * 1e-4 = 6e-4 after three steps). At most a
-# millionth of the elements may fall beyond 2e-5, and none beyond 6e-4.
-PARITY_LOSS_RTOL, PARITY_PARAM_ATOL = 1e-4, 2e-5
-PARITY_SIGN_FLIP_ATOL, PARITY_SIGN_FLIP_SHARE = 6e-4, 1e-6
+# train_parity, gpt_train_parity and bf16_parity: PARITY_STEPS Adam(1e-4)
+# steps on the card and on the CPU from the same weights, one comparison
+# for f32 and bf16 (readings: PERF.md, PR 8). f32 runs without TF32 on
+# both sides, so a per-step loss differs only by summation order through
+# two layers and the head (rtol 1e-4; measured 1e-7); bf16 rounds at the
+# same ops on both sides but sums in another order, so a bf16 activation
+# may land an ulp (2^-8 relative) apart at each layer (rtol 1e-3;
+# measured 2.5e-5 BERT, 5.3e-5 GPT). Each final parameter element agrees
+# within PARITY_PARAM_ATOL (2e-5, ~10x the 2.4e-6 measured in f32, while
+# three steps move an element by ~3e-4) plus PARITY_PARAM_ULPS ulps of
+# its own dtype at its own value: none for an f32 parameter, whose Adam
+# update is computed and stored in f32; two for a bf16 one, where each
+# step rounds to bf16 and a difference far below an ulp may round the
+# other way. An element whose gradient sums to near zero may change sign
+# between the two (atomics on the card; bf16 rounding, which makes the
+# gradients of a bf16 model's f32 parameters noisier too), and Adam then
+# steps it the other way, by up to lr a step: at most
+# PARITY_SIGN_FLIP_SHARE (by the model's dtype) of the elements may fall
+# beyond the bound (measured: f32 none; bf16 3.4e-4 BERT, 3.8e-4 GPT),
+# none beyond 2 * steps * lr plus the ulps. Each tensor the CPU moved by
+# at least lr somewhere moved as much on the card: the sums of
+# |final - start| agree within PARITY_MOVED_RTOL (measured 0.096 at most,
+# a bf16 attention key bias, whose gradient is zero in exact arithmetic;
+# 0.015 next), so a tensor the card did not update, or stepped at a
+# wrong scale, misses by its whole change. (An f32 key bias moves by
+# ~1e-8 and is not held.)
+PARITY_LR = 1e-4
+PARITY_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+PARITY_PARAM_ATOL = 2e-5
+PARITY_PARAM_ULPS = {"float32": 0, "bfloat16": 2}
+PARITY_SIGN_FLIP_ATOL = 6e-4                 # 2 * steps * lr
+PARITY_SIGN_FLIP_SHARE = {"float32": 1e-6, "bfloat16": 1e-3}
+PARITY_MOVED_RTOL = 0.25
+MANTISSA_BITS = {"float32": 23, "bfloat16": 7}
+# bf16 decode, card against CPU: the final hidden states are bf16 and may
+# differ by a bf16 ulp (2^-8 relative, values up to ~4) in some elements;
+# each such element moves a logit by its ulp times a tied-embedding
+# weight (~0.02-0.1), over 768 columns. The widened product alone: the
+# same exact bf16 products summed in f32 in another order (1e-5 of the
+# largest |logit|); its bf16 gradients one bf16 ulp apart (2^-7 of the
+# largest).
+BF16_DECODE_ATOL = 2e-2
+WIDEN_REL_TOL = (1e-5, 2.0 ** -7)
+GPT_PARITY_DECODE_PROMPT = 16
 
 # GPU vs CPU serving of one request: f32 end to end without TF32 on
 # either side; the summation order differs per matmul, LayerNorm and
@@ -281,6 +339,9 @@ def flash_cases(torch, fa, F):
          True),
         ("gpt_train_causal_t4096_bf16", 2, 12, 4096, 4096, 64, bf16, None,
          True),
+        # BERT-base bf16 training (bench.py:388-389): the key mask in bf16
+        ("bert_train_b128_k_mask_bf16", 128, 12, 128, 128, 64, bf16, "k16",
+         False),
     ]
     dev = torch.device("cuda", 0)
     out = []
@@ -289,15 +350,7 @@ def flash_cases(torch, fa, F):
         g = torch.Generator(device=dev).manual_seed(SEED + i)
         q, k, v = (torch.randn(b, h, t, d, generator=g, device=dev)
                    .to(dtype) for t in (tq, tk, tk))
-        mask = None
-        if mode == "k":
-            # BERT's key-padding bias: 0 for tokens, -1e4 for the padding
-            lens = torch.randint(tk // 2, tk + 1, (b,), generator=g,
-                                 device=dev)
-            mask = torch.where(torch.arange(tk, device=dev)[None, :] <
-                               lens[:, None], 0.0, -1e4).reshape(b, 1, 1, tk)
-        elif mode == "qk":
-            mask = torch.randn(b, 1, tq, tk, generator=g, device=dev)
+        mask = _flash_mask(torch, g, dev, b, tq, tk, dtype, mode)
         scale = d ** -0.5
         got, lse = fa.flash_attention(q, k, v, mask, scale, causal)
         again, again_lse = fa.flash_attention(q, k, v, mask, scale, causal)
@@ -322,7 +375,8 @@ def flash_cases(torch, fa, F):
             pairs = tq * tk
         flops = 4.0 * b * h * pairs * d
         nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
-            + (0 if mask is None else mask.numel() * 4) + lse.numel() * 4
+            + (0 if mask is None else mask.numel() * mask.element_size()) \
+            + lse.numel() * 4
         kernel_ms = clock(lambda: fa.flash_attention(q, k, v, mask, scale,
                                                      causal))
         out.append(dict(
@@ -340,7 +394,8 @@ def flash_cases(torch, fa, F):
 
 
 # LayerNorm cases (name, rows, cols, dtype, cold): BERT-base's training
-# step (the kernel line's first case), GPT-base's step, a wide row (the
+# step (the kernel line's first case), its bf16 step at batch 128
+# (bench.py:388-389), GPT-base's step, a wide row (the
 # block tier), 300 columns on a view whose data_ptr() is not 16-byte
 # aligned (element-wide access) and one row. ``cold`` cases are also timed
 # with the L2 cold.
@@ -348,6 +403,7 @@ def _ln_case_list(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     return [("bert_base_f32", 4096, 768, f32, True),
             ("bert_base_bf16", 4096, 768, bf16, True),
+            ("bert_train_b128_bf16", 16384, 768, bf16, True),
             ("gpt_base_f32", 8192, 768, f32, True),
             ("gpt_base_bf16", 8192, 768, bf16, True),
             ("wide_8192_f32", 64, 8192, f32, False),
@@ -424,19 +480,26 @@ def _visible(tq, tk, causal):
     return pairs, sum(1 for i in range(tq) if i + off < 0)
 
 
+def _flash_mask(torch, g, dev, b, tq, tk, dtype, mode):
+    """None, or the additive mask of ``mode``: "k" BERT's key-padding bias
+    (0 for tokens, -1e4 for the padding) in f32, "k16" the same in the
+    inputs' dtype (BERT's bf16 attention bias), "qk" a dense (B, 1, Tq,
+    Tk) bias."""
+    if mode in ("k", "k16"):
+        lens = torch.randint(tk // 2, tk + 1, (b,), generator=g, device=dev)
+        mask = torch.where(torch.arange(tk, device=dev)[None, :] <
+                           lens[:, None], 0.0, -1e4).reshape(b, 1, 1, tk)
+        return mask.to(dtype) if mode == "k16" else mask
+    if mode == "qk":
+        return torch.randn(b, 1, tq, tk, generator=g, device=dev)
+    return None
+
+
 def _flash_inputs(torch, dev, seed, b, h, tq, tk, d, dtype, mode):
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=dev)
                    .to(dtype) for t in (tq, tk, tk, tq))
-    mask = None
-    if mode == "k":
-        # BERT's key-padding bias: 0 for tokens, -1e4 for the padding
-        lens = torch.randint(tk // 2, tk + 1, (b,), generator=g, device=dev)
-        mask = torch.where(torch.arange(tk, device=dev)[None, :] <
-                           lens[:, None], 0.0, -1e4).reshape(b, 1, 1, tk)
-    elif mode == "qk":
-        mask = torch.randn(b, 1, tq, tk, generator=g, device=dev)
-    return q, k, v, do, mask
+    return q, k, v, do, _flash_mask(torch, g, dev, b, tq, tk, dtype, mode)
 
 
 def flash_bwd_cases(torch, fa, F):
@@ -457,6 +520,11 @@ def flash_bwd_cases(torch, fa, F):
         ("gpt_train_causal_t4096_f32", 2, 12, 4096, 4096, 64, f32, None,
          True),
         ("causal_t4096_d128_f32", 2, 12, 4096, 4096, 128, f32, None, True),
+        # the bf16 training steps' shapes (bench.py:388-389, 596-601)
+        ("bert_train_b128_k_mask_bf16", 128, 12, 128, 128, 64, bf16, "k16",
+         False),
+        ("gpt_train_causal_t4096_bf16", 2, 12, 4096, 4096, 64, bf16, None,
+         True),
     ]
     dev = torch.device("cuda", 0)
     dkv, dq = [], []
@@ -505,8 +573,8 @@ def flash_bwd_cases(torch, fa, F):
                       pair_ms=dkv_ms + dq_ms + delta_ms,
                       fwd_max_abs_err=fwd_err,
                       fwd_lse_max_abs_err=fwd_lse_err, fwd_tol=fwd_tol)
-        side = (0 if mask is None else mask.numel() * 4) + \
-            2 * lse.numel() * 4                        # mask, lse, delta
+        side = (0 if mask is None else mask.numel() * mask.element_size()) \
+            + 2 * lse.numel() * 4                      # mask, lse, delta
         # dK/dV: 8*D flops per visible pair (s, dp, dv, dk); a row that sees
         # no key adds 2*D per key (dv only). Reads q,k,v,dO, writes dk,dv.
         dkv.append(dict(
@@ -591,21 +659,24 @@ def adam_cases(torch, fad):
     # (name, elements, dtype, parameter centre and spread): BERT's
     # weights start N(0, 0.02^2) and LayerNorm scales at 1; the bf16
     # parameter is small enough (N(0, 1e-4^2), a bf16 ulp <= 3.8e-6) that
-    # the step, ~1e-5 and up, shows in bf16
-    cases = [("word_embedding", 30522 * 768, f32, 0.0, 0.02),
-             ("ffn_weight", 768 * 3072, f32, 0.0, 0.02),
-             ("layer_norm_scale", 768, f32, 1.0, 0.02),
-             ("ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4)]
+    # the step, ~1e-5 and up, shows in bf16; a bf16 layer of the bf16
+    # training steps gets a bf16 gradient
+    cases = [("word_embedding", 30522 * 768, f32, 0.0, 0.02, f32),
+             ("ffn_weight", 768 * 3072, f32, 0.0, 0.02, f32),
+             ("layer_norm_scale", 768, f32, 1.0, 0.02, f32),
+             ("ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4, f32),
+             ("ffn_weight_bf16_grad_bf16", 768 * 3072, bf16, 0.0, 1e-4,
+              bf16)]
     dev = torch.device("cuda", 0)
     lr = torch.tensor([1e-4], device=dev)
     b1p = torch.tensor([0.9 ** 3], device=dev)
     b2p = torch.tensor([0.999 ** 3], device=dev)
     out = []
-    for i, (name, n, dtype, centre, spread) in enumerate(cases):
+    for i, (name, n, dtype, centre, spread, gdtype) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 400 + i)
         p = (centre + spread * torch.randn(n, generator=g, device=dev)
              ).to(dtype)
-        gr = torch.randn(n, generator=g, device=dev) * 1e-2
+        gr = (torch.randn(n, generator=g, device=dev) * 1e-2).to(gdtype)
         m1 = torch.randn(n, generator=g, device=dev) * 1e-3
         m2 = torch.rand(n, generator=g, device=dev) * 1e-5
         want = fad.fused_adam_plain(p, gr, m1, m2, lr, b1p, b2p)
@@ -629,6 +700,7 @@ def adam_cases(torch, fad):
         lib_opt.step()
         out.append(dict(
             name=name, numel=n, dtype=str(dtype).split(".")[1],
+            grad_dtype=str(gdtype).split(".")[1],
             max_abs_err=max(errs.values()), abs_err=errs, tol=tols,
             change=changes, rel_tol=ADAM_REL_TOL, ok=ok,
             kernel_ms=time_ms(torch, lambda: fad.fused_adam(
@@ -637,9 +709,10 @@ def adam_cases(torch, fad):
                 p, gr, m1, m2, lr, b1p, b2p)),
             library_ms=time_ms(torch, lib_opt.step),
             # read p, g, m1, m2 and write p, m1, m2: 28 bytes per f32
-            # element (24 with a bf16 p); ~12 f32 operations
-            **_bound(12.0 * n, (20.0 + 2 * p.element_size()) * n,
-                     "float32")))
+            # element (24 with a bf16 p, 22 with a bf16 g too); ~12 f32
+            # operations
+            **_bound(12.0 * n, (16.0 + 2 * p.element_size() +
+                                gr.element_size()) * n, "float32")))
     return out
 
 
@@ -964,22 +1037,34 @@ def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
 
 
 def _op_counts(main):
+    """Op types of the global block; a recomputed program's segment ops
+    (its sub-blocks, run twice a step) apart under "segments"."""
     ops = {}
     for op in main.global_block().ops:
         ops[op.type] = ops.get(op.type, 0) + 1
+    if main.num_blocks > 1:
+        seg = {}
+        for blk in main.blocks[1:]:
+            for op in blk.ops:
+                seg[op.type] = seg.get(op.type, 0) + 1
+        ops["segments"] = seg
     return ops
 
 
-def train(torch, np, ptt, counters):
-    """BERT-base pretraining steps on the card through Executor.run."""
+def _n_ops(ops):
+    return sum(n if isinstance(n, int) else sum(n.values())
+               for n in ops.values())
+
+
+def _train_bert(torch, np, ptt, counters, label, cfg, batch, want):
+    """Phase ``label``: BERT-base pretraining steps of ``cfg`` at ``batch``
+    x TRAIN_SEQ on the card through Executor.run; ``want`` the launches a
+    step."""
     from paddle_tpu_torch.models import bert
-    cfg = bert.bert_base()                   # dropout 0.1
     t0 = time.perf_counter()
-    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
-                                                  TRAIN_BATCH)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg, batch)
     ops = _op_counts(main)
-    feed = bert.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS,
-                                seed=0)
+    feed = bert.synthetic_batch(cfg, batch, TRAIN_SEQ, TRAIN_PREDS, seed=0)
     scope = ptt.Scope()
     exe = ptt.Executor()                     # CUDAPlace(0)
     with ptt.scope_guard(scope):
@@ -993,37 +1078,57 @@ def train(torch, np, ptt, counters):
         TRAIN_STEPS)
     finite = all(np.isfinite(v) for row in losses for v in row)
     falling = losses[-1][0] < losses[0][0]
-    counts_ok = all(c == TRAIN_PER_STEP for c in per_step)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    counts_ok = all(c == want for c in per_step)
+    tokens = batch * TRAIN_SEQ
     warm = step_ms[1:]
     ok = finite and falling and counts_ok
-    emit({"phase": "train", "ok": ok, "model": "bert_base",
+    emit({"phase": label, "ok": ok, "model": "bert_base",
           "hidden": cfg.hidden_size, "layers": cfg.num_layers,
           "heads": cfg.num_heads, "vocab": cfg.vocab_size,
-          "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "batch": batch, "seq_len": TRAIN_SEQ,
           "max_preds": TRAIN_PREDS, "dropout": cfg.hidden_dropout,
-          "optimizer": "Adam(1e-4)", "dtype": "float32",
-          "parameters": n_params, "program_ops": sum(ops.values()),
+          "optimizer": "Adam(1e-4)", "dtype": cfg.dtype,
+          "recompute": cfg.recompute,
+          "parameters": n_params, "program_ops": _n_ops(ops),
           "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
           "tokens_per_s_warm": tokens / (statistics.median(warm) / 1e3),
           "losses": losses, "finite": finite, "falling": falling,
           "launches_per_step": per_step, "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     if not ok:
-        raise AssertionError("train checks failed (see the line above)")
+        raise AssertionError("%s checks failed (see the line above)"
+                             % label)
     return launches, (exe, main, scope, feed, fetch_list)
+
+
+def train(torch, np, ptt, counters):
+    """BERT-base pretraining steps on the card through Executor.run: f32,
+    batch 32, dropout 0.1."""
+    from paddle_tpu_torch.models import bert
+    return _train_bert(torch, np, ptt, counters, "train", bert.bert_base(),
+                       TRAIN_BATCH, TRAIN_PER_STEP)
+
+
+def train_bf16(torch, np, ptt, counters):
+    """BERT-base pretraining at bench.py:388-389 with nothing cut: bf16,
+    batch 128 x 128, 20 masked positions, dropout 0.1, Adam 1e-4."""
+    from paddle_tpu_torch.models import bert
+    return _train_bert(torch, np, ptt, counters, "train_bf16",
+                       bert.bert_base(dtype="bfloat16"), BF16_TRAIN_BATCH,
+                       TRAIN_PER_STEP)
 
 
 def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     """PARITY_STEPS runs of a training program on the card and on the CPU
-    (plain versions) from the same startup weights: (the comparison's
-    numbers, whether it passed)."""
+    (plain versions) from the same startup weights, held to PARITY_*:
+    (the comparison's numbers, whether it passed)."""
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
     init = ptt.Scope()
     with ptt.scope_guard(init):
         ptt.Executor().run(startup)
-    arrays = {v.name: to_numpy(init.find_var(v.name))
+    # tensors, not numpy: bf16 weights keep their dtype
+    arrays = {v.name: init.find_var(v.name).cpu()
               for v in main.list_vars() if v.persistable}
     runs = {}
     for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
@@ -1037,29 +1142,48 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
                 for _ in range(PARITY_STEPS)]
         runs[label] = (losses, scope, (time.perf_counter() - t0) * 1e3)
     (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
+    dtype = ("bfloat16" if any(p.dtype == "bfloat16"
+                               for p in main.all_parameters()) else "float32")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    beyond = elements = capped = 0
     param_err = moved = 0.0
-    beyond = elements = 0
+    moved_errs = []
     for p in main.all_parameters():
-        got = to_numpy(gs.find_var(p.name))
-        diff = np.abs(got - to_numpy(cs.find_var(p.name)))
+        start = to_numpy(arrays[p.name]).astype(np.float32)
+        got = to_numpy(gs.find_var(p.name)).astype(np.float32)
+        want = to_numpy(cs.find_var(p.name)).astype(np.float32)
+        diff = np.abs(got - want)
+        # the spacing of p's own dtype at each element of the CPU's result
+        _, exp = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
+        ulps = PARITY_PARAM_ULPS[p.dtype] * np.ldexp(
+            1.0, exp - 1 - MANTISSA_BITS[p.dtype])
         param_err = max(param_err, float(diff.max()))
-        beyond += int((diff > PARITY_PARAM_ATOL).sum())
+        beyond += int((diff > PARITY_PARAM_ATOL + ulps).sum())
+        capped += int((diff > PARITY_SIGN_FLIP_ATOL + ulps).sum())
         elements += diff.size
-        moved = max(moved, float(np.abs(got - arrays[p.name]).max()))
-    ok = (loss_rel <= PARITY_LOSS_RTOL and all(np.isfinite(gl))
-          and param_err <= PARITY_SIGN_FLIP_ATOL
-          and beyond <= PARITY_SIGN_FLIP_SHARE * elements
+        on_card, on_cpu = np.abs(got - start), np.abs(want - start)
+        moved = max(moved, float(on_card.max()))
+        if on_cpu.max() >= PARITY_LR:
+            moved_errs.append((abs(float(on_card.sum()) / float(
+                on_cpu.sum()) - 1.0), p.name))
+    moved_errs.sort(reverse=True)
+    ok = (loss_rel <= PARITY_LOSS_RTOL[dtype] and all(np.isfinite(gl))
+          and capped == 0
+          and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
+          and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
           and moved >= 10 * PARITY_PARAM_ATOL)
-    return {"steps": PARITY_STEPS, "dropout": 0.0,
+    return {"steps": PARITY_STEPS, "dropout": 0.0, "dtype": dtype,
             "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
-            "loss_rtol": PARITY_LOSS_RTOL, "param_max_abs_err": param_err,
-            "param_atol": PARITY_PARAM_ATOL,
-            "param_elements": elements, "param_beyond_atol": beyond,
+            "loss_rtol": PARITY_LOSS_RTOL[dtype],
+            "param_max_abs_err": param_err, "param_atol": PARITY_PARAM_ATOL,
+            "param_ulps": PARITY_PARAM_ULPS, "param_elements": elements,
+            "param_beyond_atol": beyond,
+            "param_beyond_sign_flip_atol": capped,
             "sign_flip_atol": PARITY_SIGN_FLIP_ATOL,
-            "sign_flip_share": PARITY_SIGN_FLIP_SHARE,
-            "param_max_moved": moved,
-            "gpu_ms": g_ms, "cpu_ms": c_ms}, ok
+            "sign_flip_share": PARITY_SIGN_FLIP_SHARE[dtype],
+            "moved_rel_err_largest": moved_errs[:4],
+            "moved_rtol": PARITY_MOVED_RTOL,
+            "param_max_moved": moved, "gpu_ms": g_ms, "cpu_ms": c_ms}, ok
 
 
 def train_parity(torch, np, ptt):
@@ -1098,11 +1222,11 @@ def _gpt_train_program(ptt, gpt, cfg, batch, seq):
     return main, startup, [fetch["loss"]]
 
 
-def gpt_train(torch, np, ptt, counters):
-    """GPT-base pretraining steps at 2 x 4096 on the card through
-    Executor.run."""
+def _gpt_run(torch, np, ptt, counters, cfg, steps, want):
+    """``steps`` GPT-base pretraining steps of ``cfg`` at GPT_BATCH x
+    GPT_SEQ on the card from its seeded startup: (the run's numbers, ok,
+    the trained state)."""
     from paddle_tpu_torch.models import gpt
-    cfg = _gpt_cfg(gpt)
     t0 = time.perf_counter()
     main, startup, fetch_list = _gpt_train_program(ptt, gpt, cfg, GPT_BATCH,
                                                    GPT_SEQ)
@@ -1115,31 +1239,81 @@ def gpt_train(torch, np, ptt, counters):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step, launches = _steps(
-        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
-        GPT_STEPS)
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list, steps)
+    peak = torch.cuda.max_memory_allocated()
     finite = all(np.isfinite(row[0]) for row in losses)
     falling = losses[-1][0] < losses[0][0]
-    counts_ok = all(c == GPT_PER_STEP for c in per_step)
+    counts_ok = all(c == want for c in per_step)
     warm = step_ms[1:]
-    ok = finite and falling and counts_ok
-    emit({"phase": "gpt_train", "ok": ok, "model": "gpt_base",
+    run = {"dtype": cfg.dtype, "recompute": cfg.recompute,
+           "parameters": n_params, "program_ops": _n_ops(ops),
+           "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
+           "tokens_per_s_warm": GPT_BATCH * GPT_SEQ /
+           (statistics.median(warm) / 1e3),
+           "losses": [row[0] for row in losses], "finite": finite,
+           "falling": falling, "launches_per_step": per_step,
+           "launches": launches, "peak_mem_gb": peak / 2 ** 30,
+           "step_peak_above_resident_gb": (peak - resident) / 2 ** 30}
+    return run, finite and falling and counts_ok, \
+        (exe, main, scope, feed, fetch_list, cfg)
+
+
+def gpt_train(torch, np, ptt, counters):
+    """GPT-base pretraining steps at 2 x 4096 on the card through
+    Executor.run: f32, recompute off."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt)
+    run, ok, trained = _gpt_run(torch, np, ptt, counters, cfg, GPT_STEPS,
+                                GPT_PER_STEP)
+    emit(dict({"phase": "gpt_train", "ok": ok, "model": "gpt_base",
+               "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+               "heads": cfg.num_heads, "vocab": cfg.vocab_size,
+               "batch": GPT_BATCH, "seq_len": GPT_SEQ,
+               "dropout": cfg.dropout, "optimizer": "Adam(1e-4)"}, **run))
+    if not ok:
+        raise AssertionError("gpt_train checks failed (see the line above)")
+    return run["launches"], trained
+
+
+def gpt_train_bf16(torch, np, ptt, counters):
+    """GPT-base at bench.py:596-601 exactly: bf16, flash attention,
+    recompute, dropout 0, 2 x 4096, Adam 1e-4, GPT_STEPS steps; then
+    GPT_NO_RECOMPUTE_STEPS steps of the same model without recompute from
+    the same seeded startup. The recomputed step re-runs each block's
+    forward (flash forward and LayerNorm forward twice a block) and must
+    peak lower; its first loss must equal the other's bit for bit (the
+    same weights, the same forward kernels). The path's launches are the
+    recomputed run's; the other run's are in its own record."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt, dtype="bfloat16", recompute=True)
+    remat, remat_ok, trained = _gpt_run(torch, np, ptt, counters, cfg,
+                                        GPT_STEPS, GPT_BF16_PER_STEP)
+    plain, plain_ok, _ = _gpt_run(
+        torch, np, ptt, counters, _gpt_cfg(gpt, dtype="bfloat16"),
+        GPT_NO_RECOMPUTE_STEPS, GPT_PER_STEP)
+    lower = remat["step_peak_above_resident_gb"] < \
+        plain["step_peak_above_resident_gb"]
+    same_first = remat["losses"][0] == plain["losses"][0]
+    loss_diff = max(abs(a - b) for a, b in zip(remat["losses"],
+                                               plain["losses"]))
+    ok = remat_ok and plain_ok and lower and same_first
+    emit({"phase": "gpt_train_bf16", "ok": ok, "model": "gpt_base",
           "hidden": cfg.hidden_size, "layers": cfg.num_layers,
           "heads": cfg.num_heads, "vocab": cfg.vocab_size,
           "batch": GPT_BATCH, "seq_len": GPT_SEQ, "dropout": cfg.dropout,
-          "optimizer": "Adam(1e-4)", "dtype": "float32",
-          "parameters": n_params, "program_ops": sum(ops.values()),
-          "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
-          "tokens_per_s_warm": GPT_BATCH * GPT_SEQ /
-          (statistics.median(warm) / 1e3),
-          "losses": [row[0] for row in losses], "finite": finite,
-          "falling": falling, "launches_per_step": per_step,
-          "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+          "attn_impl": cfg.attn_impl, "optimizer": "Adam(1e-4)",
+          "recompute_run": remat, "no_recompute_run": plain,
+          "recompute_peaks_lower": lower,
+          "first_loss_bit_equal": same_first,
+          "loss_max_abs_diff_first_steps": loss_diff,
+          "launches": remat["launches"]})
     if not ok:
-        raise AssertionError("gpt_train checks failed (see the line above)")
-    return launches, (exe, main, scope, feed, fetch_list, cfg)
+        raise AssertionError("gpt_train_bf16 checks failed (see the line "
+                             "above)")
+    return remat["launches"], trained
 
 
 def gpt_eval(torch, np, ptt, counters, trained):
@@ -1282,6 +1456,159 @@ def gpt_train_parity(torch, np, ptt):
                              "above)")
 
 
+def _remat_on_card(torch, np, ptt):
+    """A 2-layer bf16 GPT-base-width model (2 x 128) on the card with and
+    without recompute from the same seeded startup: the first step's loss
+    and every gradient, then PARITY_STEPS steps' losses and parameters.
+    The re-run launches the same deterministic kernels on the same inputs,
+    so all of it must be equal bit for bit."""
+    from paddle_tpu_torch.models import gpt
+    runs = {}
+    for remat in (True, False):
+        cfg = _gpt_cfg(gpt, num_layers=PARITY_LAYERS, dtype="bfloat16",
+                       recompute=remat)
+        main, startup, fetch_list = _gpt_train_program(
+            ptt, gpt, cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ)
+        feed = gpt.synthetic_batch(cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ,
+                                   seed=1)
+        names = [p.name for p in main.all_parameters()]
+        scope, exe = ptt.Scope(), ptt.Executor()
+        with ptt.scope_guard(scope):
+            exe.run(startup)
+            first = exe.run(main, feed=feed, return_numpy=False,
+                            fetch_list=fetch_list + [n + "@GRAD"
+                                                     for n in names])
+            losses = [float(first[0].reshape(()))] + [float(np.asarray(
+                exe.run(main, feed=feed, fetch_list=fetch_list)[0]
+            ).reshape(())) for _ in range(PARITY_STEPS - 1)]
+        runs[remat] = (first, losses, {n: scope.find_var(n) for n in names},
+                       names)
+    (r_first, r_loss, r_par, names), (p_first, p_loss, p_par, _) = \
+        runs[True], runs[False]
+    unequal = [name for name, a, b in zip(["loss"] + names, r_first, p_first)
+               if not torch.equal(a, b)]
+    unequal += [n for n in names if not torch.equal(r_par[n], p_par[n])]
+    par_diff = max(_max_err(r_par[n], p_par[n]) for n in names)
+    ok = not unequal and r_loss == p_loss
+    return {"layers": PARITY_LAYERS, "batch": GPT_PARITY_BATCH,
+            "seq_len": GPT_PARITY_SEQ, "dtype": "bfloat16",
+            "unequal": unequal,
+            "losses_recompute": r_loss, "losses_no_recompute": p_loss,
+            "losses_bit_equal": r_loss == p_loss,
+            "loss_max_abs_diff": max(abs(a - b) for a, b in zip(r_loss,
+                                                                p_loss)),
+            "param_max_abs_diff": par_diff}, ok
+
+
+def _bf16_decode_on_card(torch, np, ptt):
+    """A 2-layer bf16 GPT-base-width model decodes DECODE_NEW tokens with
+    ``greedy_generate`` on the card; the logits come back f32 (the tied
+    head is ``matmul(out_dtype="float32")``: one cuBLAS product with an
+    f32 output, ``torch.mm(out_dtype=)``), within BF16_DECODE_ATOL of the
+    CPU's logits of the same tokens, and each chosen token within it of
+    the CPU's largest logit. The widened product's gradients on the card
+    (bf16, the cotangent cast first) are held against the CPU's."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.io import set_params_from_numpy
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.math_ops import _MatmulWiden
+    cfg = _gpt_cfg(gpt, num_layers=PARITY_LAYERS, dtype="bfloat16")
+    total = GPT_PARITY_DECODE_PROMPT + DECODE_NEW
+    with ptt.unique_name.guard():
+        prog = gpt.gpt_logits_program(cfg, total)
+    main, startup, _, fetch = prog
+    prompt = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (GPT_PARITY_BATCH, GPT_PARITY_DECODE_PROMPT))
+    scope, exe = ptt.Scope(), ptt.Executor()
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+        toks = gpt.greedy_generate(exe, cfg, prompt, DECODE_NEW,
+                                   logits_program=prog)
+        feed = {"token_ids": toks[:, :, None],
+                "pos_ids": np.tile(np.arange(total).reshape(1, total, 1),
+                                   (GPT_PARITY_BATCH, 1, 1))}
+        card, = exe.run(main, feed=feed, fetch_list=[fetch["logits"]],
+                        return_numpy=False)
+    arrays = {p.name: scope.find_var(p.name).cpu()
+              for p in main.all_parameters()}
+    cpu_scope = ptt.Scope()
+    set_params_from_numpy(arrays, main, cpu_scope, ptt.CPUPlace())
+    cpu, = ptt.Executor(ptt.CPUPlace()).run(
+        main, feed=feed, fetch_list=[fetch["logits"]], scope=cpu_scope)
+    err = float(np.abs(to_numpy(card) - cpu).max())
+    steps = cpu[:, GPT_PARITY_DECODE_PROMPT - 1:total - 1, :]
+    gap = float((steps.max(axis=-1) - np.take_along_axis(
+        steps, toks[:, GPT_PARITY_DECODE_PROMPT:, None], axis=-1)[..., 0]
+    ).max())
+    # the widened product alone, forward and backward, card against CPU
+    g = torch.Generator(device="cuda").manual_seed(SEED + 700)
+    h = torch.randn(GPT_PARITY_BATCH, total, cfg.hidden_size, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(cfg.vocab_size, cfg.hidden_size, generator=g,
+                            device="cuda")).to(torch.bfloat16)
+    cot = torch.randn(GPT_PARITY_BATCH, total, cfg.vocab_size, generator=g,
+                      device="cuda")
+    widen = {}
+    for dev in ("cuda", "cpu"):
+        x = h.to(dev).requires_grad_()
+        y = w.to(dev).requires_grad_()
+        out = _MatmulWiden.apply(x, y.t(), torch.float32)
+        dx, dy = torch.autograd.grad(out, (x, y), cot.to(dev))
+        widen[dev] = (out.detach(), dx, dy)
+    dtypes = [str(t.dtype).split(".")[1] for t in widen["cuda"]]
+    widen_err = [_rel_err(a.cpu(), b) for a, b in zip(widen["cuda"],
+                                                      widen["cpu"])]
+    ok = (card.dtype == torch.float32 and err <= BF16_DECODE_ATOL and
+          gap <= BF16_DECODE_ATOL and
+          bool((toks[:, :GPT_PARITY_DECODE_PROMPT] == prompt).all()) and
+          dtypes == ["float32", "bfloat16", "bfloat16"] and
+          widen_err[0] <= WIDEN_REL_TOL[0] and
+          max(widen_err[1:]) <= WIDEN_REL_TOL[1])
+    return {"layers": PARITY_LAYERS, "batch": GPT_PARITY_BATCH,
+            "prompt": GPT_PARITY_DECODE_PROMPT, "new_tokens": DECODE_NEW,
+            "logits_dtype": str(card.dtype).split(".")[1],
+            "logits_max_abs_err_vs_cpu": err,
+            "max_gap_to_cpu_max_logit": gap, "atol": BF16_DECODE_ATOL,
+            "widened_matmul_dtypes": dtypes,
+            "widened_matmul_rel_err": widen_err,
+            "widened_matmul_rel_tol": list(WIDEN_REL_TOL)}, ok
+
+
+def bf16_parity(torch, np, ptt):
+    """bf16 card against CPU: three steps of a 2-layer BERT-base-width
+    (4 x 128) and GPT-base-width (2 x 128) model from the same weights;
+    and on the card, recompute against none (``_remat_on_card``)."""
+    from paddle_tpu_torch.models import bert, gpt
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0, dtype="bfloat16")
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  PARITY_BATCH)
+    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=1)
+    bert_result, bert_ok = _card_vs_cpu(np, ptt, main, startup, fetch_list,
+                                        feed)
+    gcfg = _gpt_cfg(gpt, num_layers=PARITY_LAYERS, dtype="bfloat16")
+    main, startup, fetch_list = _gpt_train_program(
+        ptt, gpt, gcfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ)
+    feed = gpt.synthetic_batch(gcfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ,
+                               seed=1)
+    gpt_result, gpt_ok = _card_vs_cpu(np, ptt, main, startup, fetch_list,
+                                      feed)
+    remat, remat_ok = _remat_on_card(torch, np, ptt)
+    decode, decode_ok = _bf16_decode_on_card(torch, np, ptt)
+    ok = bert_ok and gpt_ok and remat_ok and decode_ok
+    emit({"phase": "bf16_parity", "ok": ok,
+          "bert": dict({"ok": bert_ok, "batch": PARITY_BATCH,
+                        "seq_len": TRAIN_SEQ}, **bert_result),
+          "gpt": dict({"ok": gpt_ok, "batch": GPT_PARITY_BATCH,
+                       "seq_len": GPT_PARITY_SEQ}, **gpt_result),
+          "recompute_vs_none_on_card": dict({"ok": remat_ok}, **remat),
+          "decode_on_card": dict({"ok": decode_ok}, **decode)})
+    if not ok:
+        raise AssertionError("bf16_parity checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -1297,6 +1624,7 @@ def _family(kernel):
                      ("ce_bwd_kernel", "ce_bwd"),
                      ("memcpy", "memcpy host<->device"),
                      ("gemm", "matmul"), ("xmma", "matmul"),
+                     ("nvjet", "matmul"),
                      ("cutlass", "matmul"),
                      ("index", "scatter/index (embedding, gather)"),
                      ("scatter", "scatter/index (embedding, gather)"),
@@ -1310,14 +1638,23 @@ def _family(kernel):
 def profile(torch, runs):
     """Where one warm request's and one warm training step's (BERT, GPT)
     time goes on the card: device time by kernel family from torch.profiler,
-    against the host time of the run (the profiler's own cost included).
-    Diagnostic only: a profiler that records no device time is reported,
-    not failed."""
+    against the host time of the profiled run (the profiler's own cost
+    included) and the median host time of PROFILE_PLAIN_RUNS runs without
+    the profiler just before it (``idle_share_unprofiled``). Diagnostic
+    only: a profiler that records no device time is reported, not
+    failed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     for label, fn in runs:
         fn()
         torch.cuda.synchronize()
+        plain = []
+        for _ in range(PROFILE_PLAIN_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = statistics.median(plain)
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1337,6 +1674,9 @@ def profile(torch, runs):
               "host_ms": wall_ms, "device_busy_ms": busy if busy else
               "not measured",
               "idle_share": 1 - busy / wall_ms if busy else "not measured",
+              "unprofiled_ms": plain,
+              "idle_share_unprofiled": 1 - busy / plain_ms if busy else
+              "not measured",
               "device_ms_by_family": by_family,
               "top_kernels": sorted(top, reverse=True)[:12]})
 
@@ -1396,7 +1736,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "host_cpus": os.cpu_count()})
 
     t0 = time.perf_counter()
     lib = phase("build")(build.load)()
@@ -1441,6 +1781,10 @@ def main():
         decoded = phase("gpt_decode")(gpt_decode)(torch, np, ptt, counters,
                                                   gpt_trained[1])
     phase("gpt_train_parity")(gpt_train_parity)(torch, np, ptt)
+    trained_bf16 = phase("train_bf16")(train_bf16)(torch, np, ptt, counters)
+    gpt_trained_bf16 = phase("gpt_train_bf16")(gpt_train_bf16)(
+        torch, np, ptt, counters)
+    phase("bf16_parity")(bf16_parity)(torch, np, ptt)
 
     runs = []
     if served is not None:
@@ -1448,7 +1792,10 @@ def main():
         runs += [("serve batch 1", lambda: pred.run(requests[0])),
                  ("serve batch 8", lambda: pred.run(requests[2]))]
     for label, done in (("train step", trained),
-                        ("gpt train step", gpt_trained)):
+                        ("gpt train step", gpt_trained),
+                        ("train step bf16 batch 128", trained_bf16),
+                        ("gpt train step bf16 recompute",
+                         gpt_trained_bf16)):
         if done is not None:
             exe, main_prog, scope, feed, fetch_list = done[1][:5]
 
@@ -1460,13 +1807,15 @@ def main():
     phase("profile")(profile)(torch, runs)
 
     paths = {"serve": served, "train": trained, "gpt_train": gpt_trained,
-             "gpt_eval": evaluated, "gpt_decode": decoded}
+             "gpt_eval": evaluated, "gpt_decode": decoded,
+             "train_bf16": trained_bf16, "gpt_train_bf16": gpt_trained_bf16}
     if _failed or cases is None or None in paths.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
     by_path = {"serve": served[0], "train": trained[0],
                "gpt_train": gpt_trained[0], "gpt_eval": evaluated,
-               "gpt_decode": decoded}
+               "gpt_decode": decoded, "train_bf16": trained_bf16[0],
+               "gpt_train_bf16": gpt_trained_bf16[0]}
     summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
                  {path: n[name] for path, n in by_path.items()},

@@ -7,12 +7,14 @@ Pallas kernels replaced by CUDA kernels written by hand for Hopper
 caller passes ``CPUPlace()``; without a CUDA device the default raises
 ``NoCUDADeviceError``.
 
-Two slices so far. Serving BERT-base: build with ``layers``, run the
-startup program, ``io.save_inference_model``, then
+Serving BERT-base: build with ``layers``, run the startup program,
+``io.save_inference_model``, then
 ``inference.create_predictor(Config(dir)).run(requests)``. Training
-BERT-base: ``optimizer.Adam(lr).minimize(loss)`` appends the backward and
-update ops, and ``Executor.run(main, feed, fetch_list)`` takes one step
-(``models.bert.bert_pretrain_program``). The other models are later
+BERT-base and GPT-base: ``optimizer.Adam(lr).minimize(loss)`` appends the
+backward and update ops, and ``Executor.run(main, feed, fetch_list)``
+takes one step (``models.bert.bert_pretrain_program``,
+``models.gpt.gpt_pretrain_program``), in f32 or bf16, with or without
+recompute (``layers.recompute_segment``). The other models are later
 slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels

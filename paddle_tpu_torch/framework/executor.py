@@ -7,15 +7,18 @@ A training program (``minimize`` appended ``grad_of`` and optimizer ops)
 runs the same way: each forward op that a ``grad_of`` names runs with
 autograd on the inputs that op asks a gradient for, and the ``grad_of``
 op computes them (framework/trace.py); every other op runs under
-``torch.no_grad()``. A var's value is dropped after the last op that
-reads it, unless it is persistable or fetched. Optimizer ops may update
-parameters and moments in place (the fused-Adam kernel does). What a
-run derives from the program alone (the check that every op is ported,
-the forward/grad pairing, each value's last reader) is made once per
-program version and fetch list and reused.
+``torch.no_grad()``. The loop is ``run_block``, which also runs a
+sub-block's ops for the op that owns it (``remat_block`` runs its segment
+once in the forward and again in the backward). A var's value is dropped
+after the last op that reads it, unless it is persistable or fetched.
+Optimizer ops may update parameters and moments in place (the fused-Adam
+kernel does). What a run derives from the program alone (the check that
+every op is ported, the forward/grad pairing, each value's last reader)
+is made once per program version and fetch list and reused.
 
 Precision: f32 matmuls run in full f32 — TF32 is switched off where the
-Executor is made (``torch.backends.cuda.matmul.allow_tf32 = False``).
+Executor is made (``torch.backends.cuda.matmul.allow_tf32 = False``) —
+and bf16 matmuls sum in f32 (``set_precision``).
 """
 import hashlib
 
@@ -34,60 +37,63 @@ _SALT_VAR = "@EAGER_SALT@"
 
 
 def set_precision():
-    """Full-f32 math on the card: no TF32 in matmuls or convolutions."""
+    """Full-f32 math on the card: no TF32 in matmuls or convolutions, and
+    bf16 matmuls sum in f32 to the end (no split-K partial sums rounded
+    to bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class RunContext(object):
-    """What an op kernel sees as ``ctx``: the device and seeded
-    generators for random ops."""
+    """What an op kernel sees as ``ctx``: the device, the program (a
+    block-running op finds its sub-block there), seeded generators for
+    random ops and ``run_block`` for a sub-block's ops."""
 
     def __init__(self, device, program, salt):
         self.device = device
-        self._program = program
+        self.program = program
         self._salt = salt
-        self._op_index = 0
+        self._op_pos = "0"
 
-    def begin_op(self, index):
-        self._op_index = index
+    def begin_op(self, block_idx, op_idx):
+        # a global-block op keeps the key it had before sub-blocks ran
+        self._op_pos = "%d" % op_idx if block_idx == 0 else \
+            "%d.%d" % (block_idx, op_idx)
 
     def generator(self, attrs):
         """A torch.Generator on the run's device, seeded from the op's
-        ``seed`` attr, else from (program.random_seed, run salt, op
-        position)."""
+        ``seed`` attr, else from (program.random_seed, run salt, the op's
+        block and position in it): an op run again in the same run (a
+        recomputed segment) draws what it drew the first time."""
         seed = attrs.get("seed", 0)
         if not seed:
-            tag = "%d/%d/%d" % (self._program.random_seed, self._salt,
-                                self._op_index)
+            tag = "%d/%d/%s" % (self.program.random_seed, self._salt,
+                                self._op_pos)
             seed = int.from_bytes(
                 hashlib.sha256(tag.encode()).digest()[:8], "little") >> 1
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed))
         return g
 
+    def run_block(self, block, env, keep=()):
+        """Run a sub-block's ops on ``env`` (its inputs bound by name),
+        freeing each value after its last reader unless it is an input or
+        in ``keep``."""
+        run_block(block, env, self,
+                  drop=_last_uses(block.ops, set(env) | set(keep)))
+
 
 def _check_runnable(program):
     """Refuse, before any op runs, a program holding an op the port has
-    no kernel for or a ``grad_of`` whose forward op is not in it."""
-    fwd_ids = set()
+    no kernel for, in any block."""
     for blk in program.blocks:
         for op in blk.ops:
-            if op.type == GRAD_OP_TYPE:
-                if op.attrs["fwd_id"] not in fwd_ids:
-                    raise NotPortedError(
-                        "grad_of(%s) has no forward op before it in the "
-                        "program (a pruned program or recompute, which "
-                        "re-runs the forward in backward); recompute "
-                        "arrives with a later slice of paddle_tpu_torch"
-                        % op.attrs.get("fwd_type"))
-            elif not has_op(op.type):
+            if op.type != GRAD_OP_TYPE and not has_op(op.type):
                 raise NotPortedError(
                     "op %r (op_role=%r) is not ported to paddle_tpu_torch "
                     "yet; ROADMAP.md lists the slices to come"
                     % (op.type, op.attrs.get("op_role")))
-            else:
-                fwd_ids.add(op.desc_id)
 
 
 def _last_uses(ops, keep):
@@ -187,19 +193,9 @@ class Executor(object):
         salt = scope.find_var(_SALT_VAR) or 0
         scope.set_var(_SALT_VAR, salt + 1)
         ctx = RunContext(self.device, program, salt)
-        records = {}
         with torch.no_grad():
-            for i, op in enumerate(program.global_block().ops):
-                ctx.begin_op(i)
-                if op.type == GRAD_OP_TYPE:
-                    outs = trace.run_grad_op(
-                        op, env, records,
-                        plan.last_grad[op.attrs["fwd_id"]] == i)
-                else:
-                    outs = self._run_fwd_op(op, env, ctx, plan.want, records)
-                self._bind(op, outs, env)
-                for n in plan.drop.get(i, ()):
-                    env.pop(n, None)
+            run_block(program.global_block(), env, ctx, plan.want,
+                      plan.last_grad, plan.drop)
         for n in plan.persistable:
             if n in env:
                 scope.set_var(n, env[n])
@@ -214,44 +210,68 @@ class Executor(object):
             return [to_numpy(t) for t in fetches]
         return fetches
 
-    @staticmethod
-    def _run_fwd_op(op, env, ctx, want, records):
-        ins = {}
-        for slot, names in op.inputs.items():
-            vals = []
-            for n in names:
-                if n == EMPTY_VAR:
-                    continue
-                if n not in env:
-                    raise KeyError(
-                        "op {%s} needs input var %r which has no value; it "
-                        "was neither fed, nor in scope, nor produced by an "
-                        "earlier op" % (op.type, n))
-                vals.append(env[n])
-            ins[slot] = vals
-        opdef = get_op(op.type)
-        if op.desc_id in want and opdef.differentiable:
-            outs, records[op.desc_id] = trace.run_recorded(
-                opdef, ins, op.attrs, ctx, want[op.desc_id])
-            return outs
-        return opdef.fn(ctx, ins, op.attrs)
 
-    @staticmethod
-    def _bind(op, outs, env):
-        for slot, names in op.outputs.items():
-            vals = outs.get(slot)
-            if vals is None:
+def run_block(block, env, ctx, want=None, last_grad=None, drop=None):
+    """Run ``block``'s ops in order on ``env`` ({var name: tensor}).
+
+    ``want``/``last_grad`` (``trace.wanted_grads``) pair each forward op
+    a ``grad_of`` names with that ``grad_of``; ``drop`` ({op index: var
+    names}) frees values after their last reader. Under ``no_grad`` (the
+    Executor's step, a segment's forward) an output that carries an
+    autograd graph is stored detached: the graph stays with its record.
+    Under ``enable_grad`` (a recomputed segment) outputs keep theirs."""
+    want = want or {}
+    records = {}
+    for i, op in enumerate(block.ops):
+        ctx.begin_op(block.idx, i)
+        if op.type == GRAD_OP_TYPE:
+            outs = trace.run_grad_op(op, env, records, ctx,
+                                     last_grad[op.attrs["fwd_id"]] == i)
+        else:
+            outs = _run_fwd_op(op, env, ctx, want, records)
+        _bind(op, outs, env)
+        for n in (drop or {}).get(i, ()):
+            env.pop(n, None)
+
+
+def _run_fwd_op(op, env, ctx, want, records):
+    ins = {}
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            if n == EMPTY_VAR:
                 continue
-            if not isinstance(vals, (list, tuple)):
-                vals = [vals]
-            if len(vals) != len(names):
-                raise RuntimeError("op {%s} slot %r produced %d values for "
-                                   "%d vars" % (op.type, slot, len(vals),
-                                                len(names)))
-            for name, val in zip(names, vals):
-                if name != EMPTY_VAR:
-                    # the graph stays with the record, not in env
-                    env[name] = val.detach() if val.requires_grad else val
+            if n not in env:
+                raise KeyError(
+                    "op {%s} needs input var %r which has no value; it "
+                    "was neither fed, nor in scope, nor produced by an "
+                    "earlier op" % (op.type, n))
+            vals.append(env[n])
+        ins[slot] = vals
+    opdef = get_op(op.type)
+    if op.desc_id in want and opdef.differentiable:
+        outs, records[op.desc_id] = trace.run_recorded(
+            opdef, ins, op.attrs, ctx, want[op.desc_id])
+        return outs
+    return opdef.fn(ctx, ins, op.attrs)
 
 
-__all__ = ["Executor", "RunContext", "set_precision"]
+def _bind(op, outs, env):
+    detach = not torch.is_grad_enabled()
+    for slot, names in op.outputs.items():
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        if not isinstance(vals, (list, tuple)):
+            vals = [vals]
+        if len(vals) != len(names):
+            raise RuntimeError("op {%s} slot %r produced %d values for "
+                               "%d vars" % (op.type, slot, len(vals),
+                                            len(names)))
+        for name, val in zip(names, vals):
+            if name != EMPTY_VAR:
+                env[name] = val.detach() if detach and val.requires_grad \
+                    else val
+
+
+__all__ = ["Executor", "RunContext", "run_block", "set_precision"]

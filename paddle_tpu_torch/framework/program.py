@@ -222,7 +222,9 @@ class Block(object):
 
 
 class Program(object):
-    """A whole computation: list of Blocks, block 0 is global."""
+    """A whole computation: list of Blocks, block 0 is global; a
+    sub-block (``recompute_segment``'s) holds ops an op of its parent
+    runs."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
@@ -235,6 +237,27 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None):
+        """A new sub-block (child of the current block unless
+        ``parent_idx`` is given), made current until ``_rollback``."""
+        parent_idx = (self.current_block_idx
+                      if parent_idx is None else parent_idx)
+        blk = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        self._version += 1
+        return blk
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
+    def block(self, idx):
+        return self.blocks[idx]
+
+    @property
+    def num_blocks(self):
+        return len(self.blocks)
 
     def all_parameters(self):
         return [p for blk in self.blocks for p in blk.all_parameters()]

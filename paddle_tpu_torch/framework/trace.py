@@ -14,12 +14,16 @@ LayerNorm kernels) brings its hand-written backward kernel into this
 call.
 
 A ``grad_of`` whose forward op did not run in the same Executor.run (a
-pruned program, ``recompute``) raises NotPortedError: recomputing the
-forward in backward is a later slice.
+pruned program) re-runs that forward from the ``X:`` inputs and
+``fwd_attrs`` it carries, under autograd, as the JAX package's
+``_trace_grad_op`` does (paddle_tpu/framework/trace.py:296-316). A
+recomputed segment is not that case: its ``remat_block`` op runs in the
+forward and re-runs its sub-block inside its own backward
+(ops/control_flow_ops.py).
 """
 import torch
 
-from ..ops.registry import NotPortedError
+from ..ops.registry import NotPortedError, get_op
 
 EMPTY_VAR = "@EMPTY@"
 GRAD_OP_TYPE = "grad_of"
@@ -78,7 +82,20 @@ def run_recorded(opdef, ins, attrs, ctx, want):
     return outs, GradRecord(leaves, kept)
 
 
-def run_grad_op(op, env, records, last):
+def _rerun_forward(op, env, ctx):
+    """The record of a ``grad_of``'s forward op that did not run: the
+    forward re-run from the op's ``X:`` inputs and ``fwd_attrs``, with
+    autograd on the inputs its ``IG:`` slots ask for."""
+    ins = {slot[2:]: [env[n] for n in names if n != EMPTY_VAR]
+           for slot, names in op.inputs.items() if slot.startswith("X:")}
+    want = {slot[3:]: {j for j, n in enumerate(names) if n != EMPTY_VAR}
+            for slot, names in op.outputs.items() if slot.startswith("IG:")}
+    _, rec = run_recorded(get_op(op.attrs["fwd_type"]), ins,
+                          op.attrs.get("fwd_attrs", {}), ctx, want)
+    return rec
+
+
+def run_grad_op(op, env, records, ctx, last):
     """The ``grad_of`` op: d(inputs) of its forward op from the cotangents
     its ``OG:`` slots carry. ``last``: no later grad_of names the same
     forward op, so its record (and autograd graph) is dropped. Returns
@@ -86,11 +103,9 @@ def run_grad_op(op, env, records, last):
     fwd_type, fwd_id = op.attrs["fwd_type"], op.attrs["fwd_id"]
     rec = records.pop(fwd_id, None) if last else records.get(fwd_id)
     if rec is None:
-        raise NotPortedError(
-            "grad_of(%s) has no forward op run in this program (a pruned "
-            "program or recompute, which re-runs the forward in backward); "
-            "recompute arrives with a later slice of paddle_tpu_torch"
-            % fwd_type)
+        rec = _rerun_forward(op, env, ctx)
+        if not last:
+            records[fwd_id] = rec
     outs, cots = [], []
     for slot, vals in rec.outputs.items():
         og_names = op.inputs.get("OG:" + slot, [EMPTY_VAR] * len(vals))

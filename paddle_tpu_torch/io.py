@@ -6,6 +6,11 @@ format is the JAX package's ``"default"`` one: ``<dir>/__model__.json``
 ``param_manifest`` {name: {shape, dtype}}) beside ``<dir>/params.npz``.
 A model directory written by either package loads in the other.
 
+A bfloat16 persistable (numpy has no bfloat16) is written as its uint16
+bit pattern, under ``"dtype": "bfloat16"`` in the manifest, and read back
+as ``torch.bfloat16``; the JAX package's own bf16 save (numpy's opaque
+``void16``, which its loader refuses) is read the same way, as bf16 bits.
+
 ``set_params_from_numpy`` carries weights into the port: it takes the
 ``{name: np.ndarray}`` dict that ``params.npz`` or a JAX scope yields and
 places each array in a port Scope as a torch tensor, after checking it
@@ -49,8 +54,25 @@ def _atomic_write(path, write):
             os.unlink(tmp)
 
 
+_BF16 = "bfloat16"
+
+
+def _bf16_bits(t):
+    """A bfloat16 tensor's bit pattern as a uint16 numpy array."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def _from_bf16_bits(arr):
+    """The bfloat16 tensor whose bits a uint16 or void16 array holds."""
+    bits = np.ascontiguousarray(arr).view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
 def _persistable_arrays(program, scope):
-    out = {}
+    """({name: numpy array}, {name: dtype name}) of the program's
+    persistables in ``scope``; a bfloat16 one as its uint16 bits."""
+    out, dtypes = {}, {}
     for var in program.list_vars():
         if not var.persistable:
             continue
@@ -58,16 +80,12 @@ def _persistable_arrays(program, scope):
         if val is None:
             continue
         if isinstance(val, torch.Tensor) and val.dtype == torch.bfloat16:
-            # np.savez writes bfloat16 as an opaque void16 that no loader
-            # (the JAX package's included) reads back
-            raise NotPortedError(
-                "persistable %r is bfloat16, which the npz params file "
-                "cannot hold; saving bfloat16 parameters arrives with the "
-                "mixed-precision training slice of paddle_tpu_torch"
-                % var.name)
+            out[var.name], dtypes[var.name] = _bf16_bits(val), _BF16
+            continue
         out[var.name] = to_numpy(val) if isinstance(val, torch.Tensor) \
             else np.asarray(val)
-    return out
+        dtypes[var.name] = out[var.name].dtype.name
+    return out, dtypes
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
@@ -90,9 +108,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     target_names = [v.name for v in target_vars]
     pruned = program.clone(for_test=True)._prune(list(feeded_var_names),
                                                   target_names)
-    arrays = {} if program_only else \
+    arrays, dtypes = ({}, {}) if program_only else \
         _persistable_arrays(pruned, global_scope())
-    manifest = {name: {"shape": list(arr.shape), "dtype": arr.dtype.name}
+    manifest = {name: {"shape": list(arr.shape), "dtype": dtypes[name]}
                 for name, arr in arrays.items()}
     meta = {"format_version": INFERENCE_FORMAT_VERSION,
             "program": pruned.to_dict(),
@@ -108,8 +126,9 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
 
 
 def set_params_from_numpy(arrays, program, scope=None, place=None):
-    """Put ``arrays`` ({name: np.ndarray}) into ``scope`` (default: the
-    global scope) as torch tensors on ``place`` (default: CUDAPlace(0)).
+    """Put ``arrays`` ({name: np.ndarray or torch.Tensor}) into ``scope``
+    (default: the global scope) as torch tensors on ``place`` (default:
+    CUDAPlace(0)).
 
     Every name must be a persistable variable of ``program`` and every
     persistable variable of ``program`` must be given; each array's shape
@@ -128,28 +147,32 @@ def set_params_from_numpy(arrays, program, scope=None, place=None):
         raise ValueError("persistable variables %s of the program have no "
                          "array" % missing)
     for name in sorted(arrays):
-        arr, var = np.asarray(arrays[name]), wanted[name]
+        arr, var = arrays[name], wanted[name]
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+        shape = tuple(arr.shape)
         if var.shape is not None and (
-                len(var.shape) != arr.ndim or
-                any(w not in (-1, g) for w, g in zip(var.shape, arr.shape))):
+                len(var.shape) != len(shape) or
+                any(w not in (-1, g) for w, g in zip(var.shape, shape))):
             raise ValueError("variable %r has shape %s in the program but "
                              "the array has shape %s"
-                             % (name, list(var.shape), list(arr.shape)))
+                             % (name, list(var.shape), list(shape)))
         if normalize_dtype(arr.dtype) != var.dtype:
             raise ValueError("variable %r has dtype %s in the program but "
                              "the array has dtype %s"
-                             % (name, var.dtype, arr.dtype.name))
+                             % (name, var.dtype, normalize_dtype(arr.dtype)))
     for name in sorted(arrays):
-        scope.set_var(name, _to_tensor(np.asarray(arrays[name])).to(device))
+        scope.set_var(name, _to_tensor(arrays[name]).to(device))
 
 
 def _to_tensor(arr):
     # a copy: the arrays may be read-only views (a JAX scope's), and a JAX
     # scope's bfloat16 arrays are ml_dtypes', which torch reads as int16
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(
-            np.ascontiguousarray(arr).view(np.int16).copy()).view(
-                torch.bfloat16)
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().clone()
+    arr = np.asarray(arr)
+    if arr.dtype.name == _BF16:
+        return _from_bf16_bits(arr)
     return torch.from_numpy(np.array(arr, order="C"))
 
 
@@ -191,7 +214,11 @@ def load_inference_model(dirname, executor, model_filename=None,
                     "inference model %s: variable %r has shape %s on disk "
                     "but the manifest declares %s"
                     % (dirname, name, list(arr.shape), spec["shape"]))
-            if arr.dtype.name != spec["dtype"]:
+            if spec["dtype"] == _BF16 and arr.dtype.itemsize == 2 and \
+                    arr.dtype.kind in "uV":
+                # bf16 bits: the port's uint16, the JAX package's void16
+                arrays[name] = _from_bf16_bits(arr)
+            elif arr.dtype.name != spec["dtype"]:
                 raise ValueError(
                     "inference model %s: variable %r has dtype %s on disk "
                     "but the manifest declares %s"

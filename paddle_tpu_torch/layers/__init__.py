@@ -6,3 +6,4 @@ from .io import data  # noqa: F401
 from .attention import *     # noqa: F401,F403
 from .loss import *          # noqa: F401,F403
 from .metric_op import *     # noqa: F401,F403
+from .control_flow import recompute_segment  # noqa: F401

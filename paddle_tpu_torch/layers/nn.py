@@ -129,8 +129,8 @@ elementwise_div = _elementwise_layer("elementwise_div")
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
            out_dtype=None):
-    """``out_dtype``: the output's (accumulation) dtype; the port takes
-    float32 (its op refuses bf16 programs for now)."""
+    """``out_dtype``: the output's dtype, the products summed in f32
+    (bf16 operands into f32 logits)."""
     helper = LayerHelper("matmul", name=name)
     shape = None
     if x.shape is not None and y.shape is not None:

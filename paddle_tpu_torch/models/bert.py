@@ -4,7 +4,9 @@ graph).
 Counterpart of paddle_tpu/models/bert.py:1-256: the same layers, op
 types, var and parameter names, so a model directory written by either
 package serves in the other and the two pretraining programs serialize
-the same. ``recompute`` arrives with a later slice.
+the same. ``dtype="bfloat16"`` runs the encoder layers in bf16 (f32
+embeddings, LayerNorm parameters, pooler and MLM head sums);
+``recompute=True`` makes each training layer a ``recompute_segment``.
 """
 import numpy as np
 
@@ -13,7 +15,6 @@ from ..framework.program import Program, program_guard
 from ..initializer import ConstantInitializer
 from ..initializer import TruncatedNormalInitializer
 from ..layers.attention import multi_head_attention
-from ..ops.registry import NotPortedError
 from ..param_attr import ParamAttr
 
 
@@ -89,10 +90,6 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask, cfg,
                  is_test=False, task_ids=None, task_vocab_size=16):
     """Returns (sequence_output (N,T,H), pooled [CLS] output (N,H)).
     task_ids (ERNIE 2.0) adds a task-type embedding."""
-    if cfg.recompute and not is_test:
-        raise NotPortedError(
-            "BertConfig(recompute=True) rematerializes layers in backward; "
-            "recompute arrives with a later slice of paddle_tpu_torch")
     emb = layers.embedding(
         src_ids, [cfg.vocab_size, cfg.hidden_size],
         param_attr=_attr(cfg, "word_embedding", ("mp", None)),
@@ -131,8 +128,14 @@ def bert_encoder(src_ids, position_ids, sentence_ids, input_mask, cfg,
         attn_bias = layers.cast(attn_bias, "bfloat16")
 
     for i in range(cfg.num_layers):
-        x = encoder_layer(x, attn_bias, cfg, "encoder_layer_%d" % i,
-                          is_test=is_test)
+        if cfg.recompute and not is_test:
+            x = layers.recompute_segment(
+                lambda h, i=i: encoder_layer(
+                    h, attn_bias, cfg, "encoder_layer_%d" % i,
+                    is_test=is_test), [x])
+        else:
+            x = encoder_layer(x, attn_bias, cfg, "encoder_layer_%d" % i,
+                              is_test=is_test)
     if cfg.dtype == "bfloat16":
         x = layers.cast(x, "float32")
 

@@ -8,10 +8,11 @@ through ``fused_attention`` (the flash-attention kernels on the card);
 the tied-embedding head through ``fused_mlm_head_loss`` in training (the
 fused-head kernels where they tile: no (tokens, vocab) logits) and a
 ``matmul`` against the embedding table in decode, where the logits are the
-output. bf16 (``dtype="bfloat16"``), ``recompute``, tensor-parallel
-annotations (``tp``) and sequence-parallel attention
-(``attn_impl="ring"/"ulysses"``) belong to later slices and raise
-NotPortedError.
+output. ``dtype="bfloat16"`` runs the blocks in bf16 (f32 embeddings,
+LayerNorm parameters and logits); ``recompute=True`` makes each training
+block a ``recompute_segment``. Tensor-parallel annotations (``tp``) and
+sequence-parallel attention (``attn_impl="ring"/"ulysses"``) belong to
+the multi-GPU slice and raise NotPortedError.
 """
 import math
 
@@ -48,16 +49,8 @@ def gpt_base(**kw):
     return GPTConfig(**kw)
 
 
-def _refuse_unported(cfg, is_test):
+def _refuse_unported(cfg):
     """NotPortedError, naming its slice, for a setting the port lacks."""
-    if cfg.dtype == "bfloat16":
-        raise NotPortedError(
-            "GPTConfig(dtype='bfloat16') trains and decodes in bf16; bf16 "
-            "programs arrive with the bf16 slice of paddle_tpu_torch")
-    if cfg.recompute and not is_test:
-        raise NotPortedError(
-            "GPTConfig(recompute=True) rematerializes blocks in backward; "
-            "recompute arrives with a later slice of paddle_tpu_torch")
     if cfg.tp:
         raise NotPortedError(
             "GPTConfig(tp=True) shards the model over a tensor-parallel "
@@ -134,8 +127,8 @@ def decoder_block(x, cfg, name, is_test=False):
 
 def gpt_decoder(token_ids, pos_ids, cfg, is_test=False):
     """Token+position embed -> N pre-LN blocks -> final LN.
-    Returns (N, T, H) hidden states."""
-    _refuse_unported(cfg, is_test)
+    Returns (N, T, H) hidden states (cfg.dtype)."""
+    _refuse_unported(cfg)
     emb = layers.embedding(
         token_ids, [cfg.vocab_size, cfg.hidden_size],
         param_attr=_attr(cfg, "gpt_word_embedding", ("mp", None)),
@@ -149,8 +142,15 @@ def gpt_decoder(token_ids, pos_ids, cfg, is_test=False):
     if cfg.dropout:
         x = layers.dropout(x, cfg.dropout, is_test=is_test,
                            dropout_implementation="upscale_in_train")
+    if cfg.dtype == "bfloat16":
+        x = layers.cast(x, "bfloat16")
     for i in range(cfg.num_layers):
-        x = decoder_block(x, cfg, "gpt_layer_%d" % i, is_test=is_test)
+        if cfg.recompute and not is_test:
+            x = layers.recompute_segment(
+                lambda h, i=i: decoder_block(h, cfg, "gpt_layer_%d" % i,
+                                             is_test=is_test), [x])
+        else:
+            x = decoder_block(x, cfg, "gpt_layer_%d" % i, is_test=is_test)
     return layers.layer_norm(x, begin_norm_axis=2,
                              param_attr=ParamAttr(name="gpt_lnf_s"),
                              bias_attr=ParamAttr(name="gpt_lnf_b"))
@@ -190,8 +190,12 @@ def gpt_pretrain_program(cfg, batch_size, seq_len, optimizer_fn=None,
 
 def _tied_logits(cfg, h, main):
     """Tied-embedding vocab projection of the decode program (it shares
-    the train program's parameter names, so a trained scope decodes)."""
+    the train program's parameter names, so a trained scope decodes); in
+    bf16 the products are summed into f32 logits."""
     emb = main.global_block().var("gpt_word_embedding")
+    if cfg.dtype == "bfloat16":
+        return layers.matmul(h, layers.cast(emb, "bfloat16"),
+                             transpose_y=True, out_dtype="float32")
     return layers.matmul(h, emb, transpose_y=True)
 
 

@@ -2,8 +2,8 @@
 
 Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT and GPT
 serving and pretraining run. ``mul`` and ``matmul`` are plain
-``torch.matmul``: XLA computes them outside any Pallas kernel in the JAX
-package.
+``torch.matmul`` (``matmul(out_dtype)`` one widened cuBLAS product): XLA
+computes them outside any Pallas kernel in the JAX package.
 """
 import math
 
@@ -11,8 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import NotPortedError, register_op
-from ..framework.dtypes import normalize_dtype, to_torch_dtype
+from .registry import register_op
+from ..framework.dtypes import to_torch_dtype
 
 
 def _x(ins, slot="X"):
@@ -90,17 +90,67 @@ def _mul(ctx, ins, attrs):
     return {"Out": torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])}
 
 
+def _widened_product(x, y, out_dtype):
+    """``x @ y`` (batch dims broadcast) with products summed in f32 and
+    the result in ``out_dtype``. bf16/f16 operands into f32: on the card
+    one cuBLAS call with an f32 output (``torch.mm``/``torch.bmm``
+    ``out_dtype``, on 2-D/3-D views); on the CPU ``x.float() @
+    y.float()``, exact since a bf16 product is exact in f32. Any other
+    pair: the product in the operands' common type, rounded to
+    ``out_dtype``."""
+    half = (torch.bfloat16, torch.float16)
+    if x.dtype == y.dtype and x.dtype in half and \
+            out_dtype == torch.float32:
+        if x.device.type != "cuda":
+            return torch.matmul(x.float(), y.float())
+        if y.dim() == 2:
+            out = torch.mm(x.reshape(-1, x.shape[-1]), y,
+                           out_dtype=out_dtype)
+            return out.reshape(tuple(x.shape[:-1]) + (y.shape[-1],))
+        batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+        xb = x.expand(batch + tuple(x.shape[-2:])).reshape(
+            (-1,) + tuple(x.shape[-2:]))
+        yb = y.expand(batch + tuple(y.shape[-2:])).reshape(
+            (-1,) + tuple(y.shape[-2:]))
+        out = torch.bmm(xb, yb, out_dtype=out_dtype)
+        return out.reshape(batch + tuple(out.shape[-2:]))
+    common = torch.promote_types(x.dtype, y.dtype)
+    return torch.matmul(x.to(common), y.to(common)).to(out_dtype)
+
+
+class _MatmulWiden(torch.autograd.Function):
+    """The JAX package's ``_matmul_widen`` (ops/math_ops.py:193-217): the
+    product in ``out_dtype``; the backward casts the cotangent to each
+    operand's dtype first, forms both products the same way and rounds
+    them back, summing broadcast batch dims."""
+
+    @staticmethod
+    def forward(ctx, x, y, out_dtype):
+        ctx.save_for_backward(x, y)
+        ctx.out_dtype = out_dtype
+        return _widened_product(x, y, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            dx = _widened_product(g.to(x.dtype), y.transpose(-1, -2),
+                                  ctx.out_dtype).to(x.dtype)
+            dx = dx.sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            dy = _widened_product(x.transpose(-1, -2), g.to(y.dtype),
+                                  ctx.out_dtype).to(y.dtype)
+            dy = dy.sum_to_size(y.shape)
+        return dx, dy, None
+
+
 @register_op("matmul")
 def _matmul(ctx, ins, attrs):
     """``X @ Y`` with batch broadcasting, either operand transposed, times
-    ``alpha``. ``out_dtype`` (wider accumulation of bf16 operands) takes
-    float32 only: bf16 programs belong to a later slice."""
+    ``alpha``. ``out_dtype``: the output's dtype, the products summed in
+    f32 (bf16 operands into f32 logits, GPT's tied decode head)."""
     x, y = ins["X"][0], ins["Y"][0]
-    out_dtype = attrs.get("out_dtype")
-    if out_dtype and normalize_dtype(out_dtype) != "float32":
-        raise NotPortedError(
-            "matmul(out_dtype=%r) widens bf16 operands; bf16 training "
-            "arrives with the bf16 slice of paddle_tpu_torch" % (out_dtype,))
     if x.dim() == 1:
         x = x[None, :]
     if y.dim() == 1:
@@ -109,7 +159,11 @@ def _matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out_dtype = attrs.get("out_dtype")
+    if out_dtype:
+        out = _MatmulWiden.apply(x, y, to_torch_dtype(out_dtype))
+    else:
+        out = torch.matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

@@ -190,13 +190,15 @@ def test_stablehlo_export_waits_for_the_serving_slice(tmp_path):
 
 
 def test_bf16_encoder_matches_jax_with_copied_weights(tmp_path):
-    """BertConfig(dtype="bfloat16") makes the encoder's weights bf16. Its
-    model directory cannot be saved (npz writes bf16 as void16, which the
-    JAX package's own loader refuses), so the JAX scope's weights go into
-    the port through set_params_from_numpy and both Executors run the
-    Program. The two packages round to bf16 at different points (the
-    attention probabilities, GELU), so they may differ by a few bf16 ulps
-    (2^-8 relative) per layer: rtol/atol 2e-2."""
+    """BertConfig(dtype="bfloat16") makes the encoder's weights bf16. The
+    JAX scope's weights go into the port through set_params_from_numpy
+    and both Executors run the Program. The two packages round to bf16 at
+    different points (the attention probabilities, GELU), so they may
+    differ by a few bf16 ulps (2^-8 relative) per layer: rtol/atol 2e-2.
+    The port saves the bf16 weights as their uint16 bits (once refused),
+    and serves both its own directory and the JAX package's (npz's
+    ``void16``, which the JAX package's own loader refuses) with the
+    answers of its Executor, bit for bit."""
     jmain, jstart, jfetch = _build(pt, jbert, dtype="bfloat16")
     tmain, _, tfetch = _build(ptt, tbert, dtype="bfloat16")
     assert _strip_desc_ids(tmain.to_dict()) == \
@@ -218,8 +220,16 @@ def test_bf16_encoder_matches_jax_with_copied_weights(tmp_path):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w).astype(np.float32),
                                    rtol=2e-2, atol=2e-2)
-    with ptt.scope_guard(scope), \
-            pytest.raises(ptt.NotPortedError, match="bfloat16"):
-        ptt.save_inference_model(str(tmp_path), FEEDS, tfetch, None,
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    with ptt.scope_guard(scope):
+        ptt.save_inference_model(port_dir, FEEDS, tfetch, None,
                                  main_program=tmain)
-    assert not os.listdir(str(tmp_path))
+    with pt.scope_guard(jscope):
+        pt.save_inference_model(jax_dir, FEEDS, jfetch, exe,
+                                main_program=jmain)
+    with np.load(os.path.join(jax_dir, "params.npz")) as data:
+        assert {data[k].dtype.kind for k in data.files} == {"V", "f"}
+    for dirname in (port_dir, jax_dir):
+        served = _port_predictor(dirname, (3,)).run(feed)
+        for g, w in zip(served, got):
+            np.testing.assert_array_equal(g, w)

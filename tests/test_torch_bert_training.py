@@ -190,10 +190,24 @@ def test_training_step_frees_its_autograd_records():
 
 
 def test_recompute_waits_for_a_later_slice():
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, startup):
-        feeds = [ptt.layers.data(n, [T, 1], dtype=d) for n, d in (
-            ("src_ids", "int64"), ("pos_ids", "int64"),
-            ("sent_ids", "int64"), ("input_mask", "float32"))]
-        with pytest.raises(ptt.NotPortedError, match="later slice"):
-            tbert.bert_encoder(*feeds, _cfg(tbert, recompute=True))
+    """``BertConfig(recompute=True)`` (refused until its slice) makes each
+    training encoder layer a ``remat_block`` over a sub-block, as in the
+    JAX package; an inference encoder never recomputes."""
+    progs = {}
+    for pkg, bert in ((pt, jbert), (ptt, tbert)):
+        for is_test in (False, True):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+                feeds = [pkg.layers.data(n, [T, 1], dtype=d) for n, d in (
+                    ("src_ids", "int64"), ("pos_ids", "int64"),
+                    ("sent_ids", "int64"), ("input_mask", "float32"))]
+                bert.bert_encoder(*feeds, _cfg(bert, recompute=True),
+                                  is_test=is_test)
+            progs[pkg, is_test] = main
+    for is_test in (False, True):
+        assert _normalized(progs[ptt, is_test]) == \
+            _normalized(progs[pt, is_test])
+    types = [op.type for op in progs[ptt, False].global_block().ops]
+    assert types.count("remat_block") == 2 and \
+        progs[ptt, False].num_blocks == 3
+    assert progs[ptt, True].num_blocks == 1

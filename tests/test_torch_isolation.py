@@ -73,6 +73,8 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch, paddle_tpu_torch.inference\n"
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.models.gpt\n"
+            "import paddle_tpu_torch.layers.control_flow\n"
+            "import paddle_tpu_torch.ops.control_flow_ops\n"
             "import paddle_tpu_torch.ops.kernels.blockwise_ce\n"
             "import paddle_tpu_torch.ops.kernels.build\n"
             "bad = sorted(m for m in sys.modules\n"

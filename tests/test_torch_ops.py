@@ -16,6 +16,7 @@ value for value (threefry against Philox) and are held by statistics.
 """
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as ptt
@@ -201,23 +202,55 @@ def test_training_dropout_waits_for_the_training_slice():
 @pytest.mark.parametrize("op_type,role", [("grad_of", "backward"),
                                           ("sgd", "optimize")])
 def test_executor_refuses_training_programs(op_type, role):
-    """The Executor runs training programs now, but refuses, before any
-    op runs, one it cannot run whole: a grad_of whose forward op is not
-    in the program (recompute, a later slice) or an optimizer op not
-    ported yet (sgd)."""
+    """The Executor refuses, before any op runs, a program holding an
+    optimizer op not ported yet (sgd). A grad_of whose forward op is not
+    in the program (a pruned program; refused before bf16 training and
+    recompute were ported) re-runs that forward from the inputs it
+    carries, as the JAX package's Executor does."""
+    if op_type == "grad_of":
+        _grad_of_reruns_its_missing_forward()
+        return
     main = ptt.Program()
     with ptt.program_guard(main, ptt.Program()):
         y = tl.scale(_data(ptt, "x", [3, 4]), scale=2.0)
     main.global_block().append_op(op_type, inputs={"X": [y.name]},
                                   outputs={"Out": [y.name]},
-                                  attrs={"op_role": role, "fwd_id": -1,
-                                         "fwd_type": "scale"})
+                                  attrs={"op_role": role})
     scope = ptt.Scope()
-    match = "recompute" if op_type == "grad_of" else "not ported"
-    with pytest.raises(ptt.NotPortedError, match=match):
+    with pytest.raises(ptt.NotPortedError, match="not ported"):
         ptt.Executor(ptt.CPUPlace()).run(main, feed={"x": _x((3, 4))},
                                          fetch_list=[y], scope=scope)
     assert not list(scope.keys())
+
+
+def _grad_of_reruns_its_missing_forward():
+    """d<x*y, cot>/d(x, y) with the elementwise_mul op taken out of the
+    program and its output fed instead: its grad_of re-runs it."""
+    def build(p):
+        x, y = _grad_data(p, "x", (3, 4)), _grad_data(p, "y", (3, 4))
+        out = p.layers.elementwise_mul(x, y)
+        fetch = _with_grads(p, [out], [x, y])[1:]
+        blk = p.default_main_program().global_block()
+        fwd, = [op for op in blk.ops if op.type == "elementwise_mul"]
+        blk.ops.remove(fwd)
+        return fetch + [out]
+    x, y, cot = _x((3, 4)), _x((3, 4), 1), _cots(12)["cot0"]
+    feed = {"x": x, "y": y, "cot0": cot}
+    jmain, jstart, jfetch = _build(pt, build)
+    tmain, _, tfetch = _build(ptt, build)
+    assert "elementwise_mul" not in [op.type for op in
+                                     tmain.global_block().ops]
+    feed[tfetch[-1].name] = x * y
+    with pt.scope_guard(pt.Scope()):
+        want = pt.Executor(pt.CPUPlace()).run(jmain, feed=feed,
+                                              fetch_list=jfetch[:2])
+    got = ptt.Executor(ptt.CPUPlace()).run(tmain, feed=feed,
+                                           fetch_list=tfetch[:2],
+                                           scope=ptt.Scope())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)
+    np.testing.assert_allclose(got[0], cot.reshape(3, 4) * y, **TOL)
+    np.testing.assert_allclose(got[1], cot.reshape(3, 4) * x, **TOL)
 
 
 def test_activations():
@@ -429,14 +462,79 @@ def test_matmul_forward_and_grad(xshape, yshape, tx, ty, alpha):
 
 
 def test_matmul_out_dtype_takes_float32_and_refuses_bf16():
+    """``out_dtype`` takes float32 on f32 operands, and a narrower type
+    too: f32 operands with ``out_dtype="bfloat16"`` give the f32 product
+    rounded to bf16, as the JAX op gives it (once a refusal: bf16 programs
+    were a later slice)."""
     _run_both(lambda p: [p.layers.matmul(
         _data(p, "x", [3, 4]), _data(p, "y", [5, 4]), transpose_y=True,
         out_dtype="float32")], {"x": _x((3, 4)), "y": _x((5, 4), 1)})
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, startup):
-        out = tl.matmul(_data(ptt, "x", [3, 4]), _data(ptt, "y", [4, 5]),
-                        out_dtype="bfloat16")
-    with pytest.raises(ptt.NotPortedError, match="bf16"):
-        ptt.Executor(ptt.CPUPlace()).run(
-            main, feed={"x": _x((3, 4)), "y": _x((4, 5))}, fetch_list=[out],
-            scope=ptt.Scope())
+    feed = {"x": _x((3, 4)), "y": _x((4, 5), 1)}
+    jout, tout = _run_matmul_widened(
+        lambda p: [p.layers.matmul(_data(p, "x", [3, 4]),
+                                   _data(p, "y", [4, 5]),
+                                   out_dtype="bfloat16")], feed)
+    assert tout[0].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tout[0].float().numpy(),
+                                  np.asarray(jout[0]).astype(np.float32))
+
+
+def _run_matmul_widened(build, feed):
+    """Run ``build``'s program in both packages; the port's fetches come
+    back as tensors, so their dtypes show."""
+    jmain, jstart, jfetch = _build(pt, build)
+    tmain, _, tfetch = _build(ptt, build)
+    with pt.scope_guard(pt.Scope()):
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(jstart)
+        jout = exe.run(jmain, feed=feed, fetch_list=jfetch)
+    tout = ptt.Executor(ptt.CPUPlace()).run(
+        tmain, feed=feed, fetch_list=tfetch, scope=ptt.Scope(),
+        return_numpy=False)
+    return jout, tout
+
+
+@pytest.mark.parametrize("xshape,yshape,tx,ty", [
+    ((6, 8), (5, 8), False, True),
+    ((2, 3, 8), (5, 8), False, True),            # GPT's bf16 tied logits
+    ((2, 8, 3), (2, 8, 5), True, False),
+    ((3, 8), (2, 8, 5), False, False),            # X broadcast over Y's
+])
+def test_matmul_widens_bf16_operands_to_float32(xshape, yshape, tx, ty):
+    """bf16 operands with ``out_dtype="float32"``: the f32 output of the
+    JAX op (``_matmul_widen``: bf16 products are exact in f32, so only
+    the order of the f32 sums differs, rtol 1e-6), and gradients in the
+    operands' dtype, the cotangent cast to bf16 before both products and
+    each product rounded to bf16 (one bf16 ulp apart at most, 2^-8)."""
+    m = xshape[-1] if tx else xshape[-2]
+    n = yshape[-2] if ty else yshape[-1]
+    lead = xshape[:-2] if len(xshape) >= len(yshape) else yshape[:-2]
+    size = int(np.prod(lead)) * m * n
+
+    def build(p):
+        x, y = _grad_data(p, "x", xshape), _grad_data(p, "y", yshape)
+        xb, yb = p.layers.cast(x, "bfloat16"), p.layers.cast(y, "bfloat16")
+        out = p.layers.matmul(xb, yb, transpose_x=tx, transpose_y=ty,
+                              out_dtype="float32")
+        return _with_grads(p, [out], [xb, yb])
+    jout, tout = _run_matmul_widened(
+        build, dict({"x": _x(xshape), "y": _x(yshape, 1)}, **_cots(size)))
+    assert [t.dtype for t in tout] == [torch.float32, torch.bfloat16,
+                                       torch.bfloat16]
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout[0]),
+                               rtol=1e-6, atol=1e-6)
+    for t, j in zip(tout[1:], jout[1:]):
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(j).astype(np.float32),
+                                   rtol=2.0 ** -8, atol=1e-6)
+
+
+def test_set_precision_keeps_bf16_sums_in_float32():
+    """The Executor turns off cuBLAS's bf16 split-K reductions, whose
+    partial sums are rounded to bf16: bf16 products sum in f32."""
+    flags = torch.backends.cuda.matmul
+    flags.allow_bf16_reduced_precision_reduction = True
+    ptt.Executor(ptt.CPUPlace())
+    assert flags.allow_bf16_reduced_precision_reduction is False
+
+
