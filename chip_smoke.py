@@ -47,6 +47,13 @@ kernels' launch counters set to 0 just before and read just after:
   three steps without recompute from the same startup (12 flash and 25
   LayerNorm forward a step), whose step must peak higher and whose first
   loss must equal the recomputed run's bit for bit.
+- ``train_recipe``: the train_bf16 model and batch trained with the BERT
+  recipe: AdamW (weight decay 0.01; the fused-Adam kernel with its decay,
+  206 launches a step), a linear warmup over a polynomial decay, a
+  global-norm clip at 1.0; six steps, the fetched rates equal to the
+  schedules' closed form, the global norm finite, and train_bf16's
+  flash and LayerNorm launches a step. ``train_recipe_lamb``: the same
+  with LAMB, three steps, no Adam launch.
 
 ``train_parity`` and ``gpt_train_parity`` run three steps of a 2-layer
 BERT-base-width / GPT-base-width model (GPT at 2 x 128 tokens, where the
@@ -56,9 +63,17 @@ compare losses and final parameters (tolerances at PARITY_*);
 bf16 GPT with recompute against the same without, bit for bit
 (first-step loss and gradients, three losses, final parameters), and
 decodes with a 2-layer bf16 GPT on the card against the CPU's f32 logits
-(the widened tied head). A profile phase splits one warm request's, one
-warm BERT training step's and one warm GPT training step's device time
-by kernel family, f32 and bf16 (BERT at batch 128, GPT with recompute).
+(the widened tied head). ``optimizer_parity`` holds every optimizer
+(SGD, Momentum, LarsMomentum, Adagrad, DecayedAdagrad, RMSProp, Adamax,
+AdamW, Lamb, Ftrl, Adadelta; AdamW and Lamb also in bf16) under the
+recipe's schedule (FTRL at a constant rate) and clip and an L2Decay
+regularizer to the same card-against-CPU comparison, and DP-SGD's clip
+and noise by their statistics on the card. A profile phase splits one
+warm request's, one warm BERT training step's and one warm GPT training
+step's device time by kernel family, f32 and bf16 (BERT at batch 128,
+GPT with recompute, and the recipe's AdamW and LAMB steps), and
+``host_ops`` the host's time issuing each op type of the bf16 BERT
+steps.
 
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
@@ -115,6 +130,70 @@ BF16_TRAIN_BATCH = 128
 GPT_BF16_PER_STEP = dict(GPT_PER_STEP, flash_attention_fwd=24,
                          layer_norm_fwd=49)
 GPT_NO_RECOMPUTE_STEPS = 3
+# train_recipe / train_recipe_lamb: BERT-base at bench.py:388-389's
+# shapes (bf16, batch 128 x 128, dropout 0.1) trained with the recipe of
+# BERT pretraining (Devlin et al. 2018, A.2; LAMB: You et al. 2019):
+# AdamW (weight decay 0.01) or LAMB (0.01, none on LayerNorm parameters
+# and biases), a linear warmup from 0 over RECIPE_WARMUP steps on top of
+# a polynomial decay of RECIPE_LR to 0 over RECIPE_DECAY_STEPS, and a
+# global-norm clip at 1.0. The flash and LayerNorm launches of a step are
+# train_bf16's; AdamW launches the fused-Adam kernel once per parameter,
+# LAMB (plain jnp in the JAX package too) never. Each schedule appends an
+# increment of the shared step counter, so the warmup reads counter
+# 2k + 1 and the decay 2k at run k (as in the JAX package; ROADMAP.md
+# Queue 3): the rates at runs 0-5 are 5e-5, 6.67e-5, 3.33e-5, 0, 0, 0.
+RECIPE_LR, RECIPE_WARMUP, RECIPE_DECAY_STEPS = 1e-4, 2, 6
+RECIPE_WEIGHT_DECAY, RECIPE_CLIP = 0.01, 1.0
+RECIPE_STEPS, RECIPE_LAMB_STEPS = 6, 3
+RECIPE_LAMB_PER_STEP = dict(TRAIN_PER_STEP, fused_adam=0)
+RECIPE_LR_RTOL = 1e-6
+# optimizer_parity: the PARITY_* comparison of train_parity (2-layer
+# BERT-base-width, PARITY_BATCH x 128, three steps) for each optimizer
+# under the recipe's schedule and clip and an L2Decay(PARITY_L2)
+# regularizer, f32, and bf16 for AdamW and LAMB. Each base rate is chosen
+# so that three steps move some element by at least 10 * PARITY_PARAM_ATOL
+# (the comparison's own floor) while a near-zero gradient whose sign the
+# two devices may see differently moves an element by at most
+# PARITY_SIGN_FLIP_ATOL: the Adam-like rules step ~lr whatever the
+# gradient's size, and the schedule's three rates sum to 1.5 times its
+# base, so a base of 1.6e-4 moves an element by up to 2.4e-4 and a
+# flipped one by up to 4.8e-4; SGD-like rules step lr * g on clipped
+# gradients (|g| <~ 0.1); LARS scales lr by 1e-3 * ||p|| / ||g||; LAMB
+# by ||p|| / ||r|| (~0.02 for BERT's weights). FTRL steps an element by
+# lr in its gradient's sign however small the gradient (it has no
+# epsilon), ~3 lr in three steps, and 2 lr where a near-zero gradient's
+# sign differs; it runs at a constant rate: its linear accumulator mixes
+# the rates of past steps, so under the schedule (rates 0.5, 0.67, 0.33
+# of the base) an element moves by ~(lr_2 / lr_1 - 1) |p| times a ratio
+# of its gradients (LayerNorm scales by ~0.4), which amplifies the
+# summation-order differences of near-cancelling gradients past the
+# comparison (on the H100, FTRL at 5e-6 under the schedule: 276 elements
+# beyond PARITY_PARAM_ATOL, largest 3.0e-4; PERF.md).
+PARITY_L2 = 1e-4
+PARITY_OPTIMIZERS = (
+    # (name, base rate, under the schedule, make(optimizer module, rate))
+    ("SGD", 1e-2, True, lambda o, lr: o.SGD(lr)),
+    ("Momentum_nesterov", 1e-2, True,
+     lambda o, lr: o.Momentum(lr, 0.9, use_nesterov=True)),
+    ("LarsMomentum", 1.0, True, lambda o, lr: o.LarsMomentum(lr, 0.9)),
+    ("Adagrad", 1.6e-4, True, lambda o, lr: o.Adagrad(lr)),
+    ("DecayedAdagrad", 1e-4, True, lambda o, lr: o.DecayedAdagrad(lr)),
+    ("RMSProp_centered", 1e-4, True,
+     lambda o, lr: o.RMSProp(lr, momentum=0.5, centered=True)),
+    ("Adamax", 1.6e-4, True, lambda o, lr: o.Adamax(lr)),
+    ("AdamW", 1.6e-4, True, lambda o, lr: o.AdamW(lr, weight_decay=0.01)),
+    ("Lamb", 1e-3, True, lambda o, lr: o.Lamb(
+        lr, lamb_weight_decay=0.01,
+        exclude_from_weight_decay_fn=_no_weight_decay)),
+    ("Ftrl", 1e-4, False, lambda o, lr: o.Ftrl(lr)),
+    ("Adadelta", 1.0, True, lambda o, lr: o.Adadelta(lr)),
+)
+PARITY_BF16_OPTIMIZERS = ("AdamW", "Lamb")
+# Dpsgd draws Gaussian noise: on the card, its clip (sigma 0: a step of
+# lr times the gradient clipped to norm DPSGD_CLIP) and its noise (a zero
+# gradient: the step is lr times the noise) over DPSGD_N elements, whose
+# mean and std must lie within 5 standard errors of 0 and sigma * clip.
+DPSGD_N, DPSGD_CLIP, DPSGD_SIGMA, DPSGD_LR = 10 ** 6, 1.0, 1.5, 0.1
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 64, 16
 PROFILE_PLAIN_RUNS = 3
 GPT_PARITY_BATCH, GPT_PARITY_SEQ = 2, 128
@@ -162,6 +241,11 @@ BWD_TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3.2e-2,
 # 10 ulps, so an output left unwritten, a wrong beta or a stale moment
 # misses by most of its change.
 ADAM_REL_TOL = 1e-4
+# AdamW's kernel cases: BERT's recipe decay at the Adam cases' rate. At
+# 0.01 the decay (lr * coeff * p, ~1e-7) is below the tolerance of a
+# step; one more case decays at 1.0 a weight near 1 (LayerNorm-scale-
+# like), where it is ~1e-4, far above it, and must be seen there.
+ADAMW_COEFF, ADAMW_VISIBLE_COEFF = 0.01, 1.0
 # Head and CE kernels against their plain versions. loss and lse (f32,
 # values ~10): both sum the same f32 products over D (head) or take the
 # same logsumexp (CE) in another order: 1e-4. Gradients are held relative
@@ -655,33 +739,47 @@ def ln_bwd_cases(torch, ln):
 
 
 def adam_cases(torch, fad):
+    """Adam and AdamW (the same kernel, coeff > 0) against the plain
+    version at BERT's shapes, each timed beside torch's fused Adam/AdamW;
+    for each AdamW case, coeff = 0 must give the bits of the call Adam
+    makes (no coeff) on the same inputs."""
     f32, bf16 = torch.float32, torch.bfloat16
-    # (name, elements, dtype, parameter centre and spread): BERT's
-    # weights start N(0, 0.02^2) and LayerNorm scales at 1; the bf16
-    # parameter is small enough (N(0, 1e-4^2), a bf16 ulp <= 3.8e-6) that
-    # the step, ~1e-5 and up, shows in bf16; a bf16 layer of the bf16
-    # training steps gets a bf16 gradient
-    cases = [("word_embedding", 30522 * 768, f32, 0.0, 0.02, f32),
-             ("ffn_weight", 768 * 3072, f32, 0.0, 0.02, f32),
-             ("layer_norm_scale", 768, f32, 1.0, 0.02, f32),
-             ("ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4, f32),
+    # (name, elements, dtype, parameter centre and spread, gradient dtype,
+    # coeff): BERT's weights start N(0, 0.02^2) and LayerNorm scales at 1;
+    # the bf16 parameter is small enough (N(0, 1e-4^2), a bf16 ulp <=
+    # 3.8e-6) that the step, ~1e-5 and up, shows in bf16; a bf16 layer of
+    # the bf16 training steps gets a bf16 gradient, a clipped one f32
+    cases = [("word_embedding", 30522 * 768, f32, 0.0, 0.02, f32, 0.0),
+             ("ffn_weight", 768 * 3072, f32, 0.0, 0.02, f32, 0.0),
+             ("layer_norm_scale", 768, f32, 1.0, 0.02, f32, 0.0),
+             ("ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4, f32, 0.0),
              ("ffn_weight_bf16_grad_bf16", 768 * 3072, bf16, 0.0, 1e-4,
-              bf16)]
+              bf16, 0.0),
+             ("adamw_word_embedding", 30522 * 768, f32, 0.0, 0.02, f32,
+              ADAMW_COEFF),
+             ("adamw_ffn_weight_bf16", 768 * 3072, bf16, 0.0, 1e-4, f32,
+              ADAMW_COEFF),
+             ("adamw_ffn_weight_bf16_grad_bf16", 768 * 3072, bf16, 0.0,
+              1e-4, bf16, ADAMW_COEFF),
+             ("adamw_decay_visible", 768 * 3072, f32, 1.0, 0.02, f32,
+              ADAMW_VISIBLE_COEFF)]
     dev = torch.device("cuda", 0)
     lr = torch.tensor([1e-4], device=dev)
     b1p = torch.tensor([0.9 ** 3], device=dev)
     b2p = torch.tensor([0.999 ** 3], device=dev)
     out = []
-    for i, (name, n, dtype, centre, spread, gdtype) in enumerate(cases):
+    for i, (name, n, dtype, centre, spread, gdtype, coeff) in \
+            enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 400 + i)
         p = (centre + spread * torch.randn(n, generator=g, device=dev)
              ).to(dtype)
         gr = (torch.randn(n, generator=g, device=dev) * 1e-2).to(gdtype)
         m1 = torch.randn(n, generator=g, device=dev) * 1e-3
         m2 = torch.rand(n, generator=g, device=dev) * 1e-5
-        want = fad.fused_adam_plain(p, gr, m1, m2, lr, b1p, b2p)
+        want = fad.fused_adam_plain(p, gr, m1, m2, lr, b1p, b2p,
+                                    coeff=coeff)
         got = fad.fused_adam(p.clone(), gr, m1.clone(), m2.clone(), lr, b1p,
-                             b2p)
+                             b2p, coeff=coeff)
         torch.cuda.synchronize()
         errs, tols, changes, ok = {}, {}, {}, True
         for key, old, w, gt in zip(("p", "m1", "m2"), (p, m1, m2), want,
@@ -691,12 +789,31 @@ def adam_cases(torch, fad):
             errs[key] = _max_err(gt, w)
             tols[key] = ADAM_REL_TOL * changes[key] + ulp
             ok = ok and errs[key] <= tols[key] and changes[key] >= 10 * ulp
+        extra = {}
+        if coeff:
+            # the decay's own share of the step (the plain version with
+            # and without it), seen where it exceeds the tolerance
+            shift = _max_err(want[0], fad.fused_adam_plain(
+                p, gr, m1, m2, lr, b1p, b2p)[0])
+            adam = fad.fused_adam(p.clone(), gr, m1.clone(), m2.clone(), lr,
+                                  b1p, b2p)
+            zero = fad.fused_adam(p.clone(), gr, m1.clone(), m2.clone(), lr,
+                                  b1p, b2p, coeff=0.0)
+            bits = all(torch.equal(a, b) for a, b in zip(adam, zero))
+            ok = ok and bits and (shift > tols["p"] or
+                                  coeff < ADAMW_VISIBLE_COEFF)
+            extra = dict(coeff=coeff, decay_shift=shift,
+                         decay_visible=shift > tols["p"],
+                         coeff0_bits_equal_adam=bits)
         state = (p.clone(), m1.clone(), m2.clone())
-        # yardstick: torch's fused Adam on the same parameter (it places
-        # eps differently, so it is a clock, not an oracle)
+        # yardstick: torch's fused Adam / AdamW on the same parameter (it
+        # places eps differently, and AdamW decays before its step with
+        # lr * wd, so it is a clock, not an oracle)
         lib_p = torch.nn.Parameter(p.clone())
         lib_p.grad = gr.to(p.dtype)
-        lib_opt = torch.optim.Adam([lib_p], lr=1e-4, fused=True)
+        lib_opt = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=coeff,
+                                    fused=True) if coeff else \
+            torch.optim.Adam([lib_p], lr=1e-4, fused=True)
         lib_opt.step()
         out.append(dict(
             name=name, numel=n, dtype=str(dtype).split(".")[1],
@@ -704,15 +821,18 @@ def adam_cases(torch, fad):
             max_abs_err=max(errs.values()), abs_err=errs, tol=tols,
             change=changes, rel_tol=ADAM_REL_TOL, ok=ok,
             kernel_ms=time_ms(torch, lambda: fad.fused_adam(
-                state[0], gr, state[1], state[2], lr, b1p, b2p)),
+                state[0], gr, state[1], state[2], lr, b1p, b2p,
+                coeff=coeff)),
             plain_ms=time_ms(torch, lambda: fad.fused_adam_plain(
-                p, gr, m1, m2, lr, b1p, b2p)),
+                p, gr, m1, m2, lr, b1p, b2p, coeff=coeff)),
             library_ms=time_ms(torch, lib_opt.step),
             # read p, g, m1, m2 and write p, m1, m2: 28 bytes per f32
-            # element (24 with a bf16 p, 22 with a bf16 g too); ~12 f32
-            # operations
-            **_bound(12.0 * n, (16.0 + 2 * p.element_size() +
-                                gr.element_size()) * n, "float32")))
+            # element (24 with a bf16 p, 22 with a bf16 g too), AdamW's
+            # decay included (p stays in registers); ~12 f32 operations
+            # (14 with the decay)
+            **dict(extra, **_bound((14.0 if coeff else 12.0) * n,
+                                   (16.0 + 2 * p.element_size() +
+                                    gr.element_size()) * n, "float32"))))
     return out
 
 
@@ -1007,14 +1127,73 @@ class Counters(object):
                 for k, (mod, attr) in self._fields.items()}
 
 
-def _pretrain_program(ptt, bert, cfg, batch):
+def _pretrain_program(ptt, bert, cfg, batch, optimizer_fn=None):
+    """BERT pretraining with ``optimizer_fn`` (default Adam(1e-4)):
+    (main, startup, [loss, mlm_loss, nsp_loss])."""
     with ptt.unique_name.guard():
         main, startup, _, fetch = bert.bert_pretrain_program(
             cfg, batch, TRAIN_SEQ, TRAIN_PREDS,
-            optimizer_fn=lambda loss: ptt.optimizer.Adam(1e-4).minimize(loss))
+            optimizer_fn=optimizer_fn or (
+                lambda loss: ptt.optimizer.Adam(1e-4).minimize(loss)))
     startup.random_seed = SEED
     return main, startup, [fetch["loss"], fetch["mlm_loss"],
                            fetch["nsp_loss"]]
+
+
+def _no_weight_decay(param):
+    """LAMB's exclusion in the BERT recipe: LayerNorm parameters and
+    biases."""
+    return param.name.endswith(("_ln_s", "_ln_b", ".b_0"))
+
+
+def _recipe_schedule(ptt, base):
+    """The recipe's rate: a linear warmup over a polynomial decay."""
+    layers = ptt.layers
+    return layers.linear_lr_warmup(
+        layers.polynomial_decay(base, decay_steps=RECIPE_DECAY_STEPS,
+                                end_learning_rate=0.0),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=base)
+
+
+def _recipe_rate(run, base):
+    """The closed form of _recipe_schedule at run ``run``: the decay reads
+    counter 2 run, the warmup 2 run + 1 (see RECIPE_LR)."""
+    warm = 2 * run + 1
+    if warm < RECIPE_WARMUP:
+        return base * warm / RECIPE_WARMUP
+    return base * (1 - min(2 * run, RECIPE_DECAY_STEPS) /
+                   RECIPE_DECAY_STEPS)
+
+
+def _recipe_optimizer(ptt, make, base, regularization=None, fetch=None,
+                      scheduled=True):
+    """optimizer_fn: ``make(optimizer module, rate)`` under the recipe's
+    schedule (else at the constant ``base``) and global-norm clip; the
+    rate and the global norm land in ``fetch``."""
+    def fn(loss):
+        lr = _recipe_schedule(ptt, base) if scheduled else base
+        opt = make(ptt.optimizer, lr)
+        opt.regularization = regularization
+        out = opt.minimize(
+            loss, grad_clip=ptt.clip.GradientClipByGlobalNorm(RECIPE_CLIP))
+        if fetch is not None:
+            fetch["lr"] = lr
+            fetch["global_norm"] = _global_norm_var(loss.block.program)
+        return out
+    return fn
+
+
+def _global_norm_var(main):
+    """The global-norm clip's norm: the sqrt of the sum of the
+    squared_l2_norm outputs."""
+    block = main.global_block()
+    squares = {op.output("Out")[0] for op in block.ops
+               if op.type == "squared_l2_norm"}
+    sums = {op.output("Out")[0] for op in block.ops
+            if op.type == "sum" and set(op.input("X")) <= squares}
+    norm, = [op.output("Out")[0] for op in block.ops
+             if op.type == "sqrt" and op.input("X")[0] in sums]
+    return block.var(norm)
 
 
 def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
@@ -1056,13 +1235,21 @@ def _n_ops(ops):
                for n in ops.values())
 
 
-def _train_bert(torch, np, ptt, counters, label, cfg, batch, want):
+def _train_bert(torch, np, ptt, counters, label, cfg, batch, want,
+                steps=TRAIN_STEPS, recipe=None):
     """Phase ``label``: BERT-base pretraining steps of ``cfg`` at ``batch``
     x TRAIN_SEQ on the card through Executor.run; ``want`` the launches a
-    step."""
+    step. ``recipe``: (name, make(optimizer module, rate)) trains with the
+    recipe's schedule and clip instead of Adam(1e-4), fetching the rate
+    and the global norm, which must be the closed form and finite."""
     from paddle_tpu_torch.models import bert
     t0 = time.perf_counter()
-    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg, batch)
+    fetch = {}
+    main, startup, fetch_list = _pretrain_program(
+        ptt, bert, cfg, batch, recipe and _recipe_optimizer(
+            ptt, recipe[1], RECIPE_LR, fetch=fetch))
+    if recipe:
+        fetch_list = fetch_list + [fetch["lr"], fetch["global_norm"]]
     ops = _op_counts(main)
     feed = bert.synthetic_batch(cfg, batch, TRAIN_SEQ, TRAIN_PREDS, seed=0)
     scope = ptt.Scope()
@@ -1072,29 +1259,45 @@ def _train_bert(torch, np, ptt, counters, label, cfg, batch, want):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses, per_step, launches = _steps(
         torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
-        TRAIN_STEPS)
+        steps)
+    peak = torch.cuda.max_memory_allocated()
     finite = all(np.isfinite(v) for row in losses for v in row)
     falling = losses[-1][0] < losses[0][0]
     counts_ok = all(c == want for c in per_step)
     tokens = batch * TRAIN_SEQ
     warm = step_ms[1:]
     ok = finite and falling and counts_ok
-    emit({"phase": label, "ok": ok, "model": "bert_base",
+    extra = {"optimizer": "Adam(1e-4)"}
+    if recipe:
+        rates = [row[3] for row in losses]
+        closed = [_recipe_rate(k, RECIPE_LR) for k in range(steps)]
+        rates_ok = all(abs(r - c) <= RECIPE_LR_RTOL * abs(c)
+                       for r, c in zip(rates, closed))
+        ok = ok and rates_ok
+        extra = {"optimizer": recipe[0], "learning_rates": rates,
+                 "learning_rates_closed_form": closed,
+                 "learning_rate_rtol": RECIPE_LR_RTOL,
+                 "learning_rates_ok": rates_ok,
+                 "global_norms": [row[4] for row in losses],
+                 "clip_norm": RECIPE_CLIP}
+    emit(dict({"phase": label, "ok": ok, "model": "bert_base",
           "hidden": cfg.hidden_size, "layers": cfg.num_layers,
           "heads": cfg.num_heads, "vocab": cfg.vocab_size,
           "batch": batch, "seq_len": TRAIN_SEQ,
           "max_preds": TRAIN_PREDS, "dropout": cfg.hidden_dropout,
-          "optimizer": "Adam(1e-4)", "dtype": cfg.dtype,
-          "recompute": cfg.recompute,
+          "dtype": cfg.dtype, "recompute": cfg.recompute,
           "parameters": n_params, "program_ops": _n_ops(ops),
           "op_counts": ops, "setup_s": setup_s, "step_ms": step_ms,
           "tokens_per_s_warm": tokens / (statistics.median(warm) / 1e3),
           "losses": losses, "finite": finite, "falling": falling,
           "launches_per_step": per_step, "launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+          "peak_mem_gb": peak / 2 ** 30,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30},
+         **extra))
     if not ok:
         raise AssertionError("%s checks failed (see the line above)"
                              % label)
@@ -1116,6 +1319,34 @@ def train_bf16(torch, np, ptt, counters):
     return _train_bert(torch, np, ptt, counters, "train_bf16",
                        bert.bert_base(dtype="bfloat16"), BF16_TRAIN_BATCH,
                        TRAIN_PER_STEP)
+
+
+def train_recipe(torch, np, ptt, counters):
+    """BERT-base at bench.py:388-389's shapes (bf16, batch 128 x 128)
+    trained with the BERT recipe: AdamW(weight_decay=0.01) under the
+    warmup-and-decay schedule with a global-norm clip, six steps; the
+    fused-Adam kernel once per parameter a step."""
+    from paddle_tpu_torch.models import bert
+    return _train_bert(
+        torch, np, ptt, counters, "train_recipe",
+        bert.bert_base(dtype="bfloat16"), BF16_TRAIN_BATCH, TRAIN_PER_STEP,
+        RECIPE_STEPS,
+        ("AdamW(schedule, weight_decay=0.01, GradientClipByGlobalNorm(1.0))",
+         lambda o, lr: o.AdamW(lr, weight_decay=RECIPE_WEIGHT_DECAY)))
+
+
+def train_recipe_lamb(torch, np, ptt, counters):
+    """The train_recipe step with LAMB (weight decay 0.01, none on
+    LayerNorm parameters and biases): plain torch ops, no Adam launch."""
+    from paddle_tpu_torch.models import bert
+    return _train_bert(
+        torch, np, ptt, counters, "train_recipe_lamb",
+        bert.bert_base(dtype="bfloat16"), BF16_TRAIN_BATCH,
+        RECIPE_LAMB_PER_STEP, RECIPE_LAMB_STEPS,
+        ("Lamb(schedule, lamb_weight_decay=0.01, "
+         "GradientClipByGlobalNorm(1.0))",
+         lambda o, lr: o.Lamb(lr, lamb_weight_decay=RECIPE_WEIGHT_DECAY,
+                              exclude_from_weight_decay_fn=_no_weight_decay)))
 
 
 def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
@@ -1609,6 +1840,83 @@ def bf16_parity(torch, np, ptt):
                              "above)")
 
 
+def optimizer_parity(torch, np, ptt):
+    """Each optimizer under the recipe's schedule and clip with an
+    L2Decay regularizer: three steps of a 2-layer BERT-base-width model on
+    the card and on the CPU from the same weights, held to PARITY_*; f32
+    for every optimizer, bf16 for AdamW and LAMB. Then DP-SGD's clip and
+    noise on the card (``_dpsgd_on_card``)."""
+    from paddle_tpu_torch.models import bert
+    results, ok = [], True
+    for dtype in ("float32", "bfloat16"):
+        cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                             attn_dropout=0.0, dtype=dtype)
+        feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ,
+                                    TRAIN_PREDS, seed=1)
+        for name, base, scheduled, make in PARITY_OPTIMIZERS:
+            if dtype == "bfloat16" and name not in PARITY_BF16_OPTIMIZERS:
+                continue
+            main, startup, fetch_list = _pretrain_program(
+                ptt, bert, cfg, PARITY_BATCH, _recipe_optimizer(
+                    ptt, make, base,
+                    regularization=ptt.regularizer.L2Decay(PARITY_L2),
+                    scheduled=scheduled))
+            result, case_ok = _card_vs_cpu(np, ptt, main, startup,
+                                           fetch_list, feed)
+            ok = ok and case_ok
+            results.append(dict({"optimizer": name, "base_lr": base,
+                                 "scheduled": scheduled, "ok": case_ok},
+                                **result))
+    dpsgd, dpsgd_ok = _dpsgd_on_card(torch, np, ptt)
+    ok = ok and dpsgd_ok
+    emit({"phase": "optimizer_parity", "ok": ok, "layers": PARITY_LAYERS,
+          "batch": PARITY_BATCH, "seq_len": TRAIN_SEQ,
+          "regularizer": "L2Decay(%g)" % PARITY_L2,
+          "clip": "GradientClipByGlobalNorm(%g)" % RECIPE_CLIP,
+          "cases": results, "dpsgd": dict({"ok": dpsgd_ok}, **dpsgd)})
+    if not ok:
+        raise AssertionError("optimizer_parity checks failed (see the line "
+                             "above)")
+
+
+def _dpsgd_on_card(torch, np, ptt):
+    """Dpsgd on a DPSGD_N-element parameter through Executor.run on the
+    card: with sigma 0, the step is lr times the gradient clipped to norm
+    DPSGD_CLIP (a gradient of norm 1000 * DPSGD_CLIP); with a zero
+    gradient, the step is lr times the noise, whose mean and std must lie
+    within 5 standard errors of 0 and sigma * clip."""
+    def run(sigma, scale):
+        main, startup = ptt.Program(), ptt.Program()
+        startup.random_seed = SEED
+        with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+            c = ptt.layers.data("c", [DPSGD_N], append_batch_size=False)
+            w = ptt.layers.create_parameter([DPSGD_N], "float32")
+            loss = ptt.layers.reduce_sum(ptt.layers.elementwise_mul(w, c))
+            ptt.optimizer.Dpsgd(DPSGD_LR, clip=DPSGD_CLIP,
+                                sigma=sigma).minimize(loss)
+        scope = ptt.Scope()
+        exe = ptt.Executor()                 # CUDAPlace(0)
+        exe.run(startup, scope=scope)
+        start = scope.find_var(w.name).clone()
+        feed = {"c": np.full(DPSGD_N, scale, np.float32)}
+        exe.run(main, feed=feed, scope=scope)
+        step = (start - scope.find_var(w.name)).double() / DPSGD_LR
+        return step.cpu().numpy()
+    clipped = run(0.0, 1000.0 * DPSGD_CLIP / DPSGD_N ** 0.5)
+    noise = run(DPSGD_SIGMA, 0.0)
+    std = DPSGD_SIGMA * DPSGD_CLIP
+    norm = float(np.linalg.norm(clipped))
+    mean_bound = 5 * std / DPSGD_N ** 0.5
+    std_bound = 5 * std / (2 * DPSGD_N) ** 0.5
+    ok = (abs(norm - DPSGD_CLIP) <= 1e-3 * DPSGD_CLIP
+          and abs(float(noise.mean())) <= mean_bound
+          and abs(float(noise.std()) - std) <= std_bound)
+    return {"elements": DPSGD_N, "clip": DPSGD_CLIP, "sigma": DPSGD_SIGMA,
+            "clipped_step_norm": norm, "noise_mean": float(noise.mean()),
+            "noise_std": float(noise.std()), "target_std": std,
+            "mean_bound": mean_bound, "std_bound": std_bound}, ok
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -1679,6 +1987,47 @@ def profile(torch, runs):
               "not measured",
               "device_ms_by_family": by_family,
               "top_kernels": sorted(top, reverse=True)[:12]})
+
+
+def host_ops(torch, runs):
+    """Where a warm BERT bf16 step's host time goes: one run with each
+    op's dispatch timed on the host clock (the Executor's forward-op and
+    grad_of calls; the card runs behind them, so this is the host's cost
+    of issuing each op type), summed by op type, beside the run's whole
+    host time. Diagnostic only."""
+    from paddle_tpu_torch.framework import executor
+    fwd, grad = executor._run_fwd_op, executor.trace.run_grad_op
+    for label, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        by_type = {}
+
+        def timed(kind, inner):
+            def call(op, *args):
+                t0 = time.perf_counter()
+                try:
+                    return inner(op, *args)
+                finally:
+                    key = op.type if kind == "op" else \
+                        "grad_of(%s)" % op.attrs["fwd_type"]
+                    n, ms = by_type.get(key, (0, 0.0))
+                    by_type[key] = (n + 1, ms + (time.perf_counter() - t0)
+                                    * 1e3)
+            return call
+        executor._run_fwd_op = timed("op", fwd)
+        executor.trace.run_grad_op = timed("grad", grad)
+        try:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            executor._run_fwd_op, executor.trace.run_grad_op = fwd, grad
+        emit({"phase": "host_ops", "run": label, "host_ms": wall_ms,
+              "op_calls": sum(n for n, _ in by_type.values()),
+              "dispatch_ms": sum(ms for _, ms in by_type.values()),
+              "by_op_type": {k: [n, ms] for k, (n, ms) in sorted(
+                  by_type.items(), key=lambda kv: -kv[1][1])}})
 
 
 _KERNELS = (
@@ -1785,6 +2134,11 @@ def main():
     gpt_trained_bf16 = phase("gpt_train_bf16")(gpt_train_bf16)(
         torch, np, ptt, counters)
     phase("bf16_parity")(bf16_parity)(torch, np, ptt)
+    trained_recipe = phase("train_recipe")(train_recipe)(torch, np, ptt,
+                                                         counters)
+    trained_lamb = phase("train_recipe_lamb")(train_recipe_lamb)(
+        torch, np, ptt, counters)
+    phase("optimizer_parity")(optimizer_parity)(torch, np, ptt)
 
     runs = []
     if served is not None:
@@ -1795,7 +2149,11 @@ def main():
                         ("gpt train step", gpt_trained),
                         ("train step bf16 batch 128", trained_bf16),
                         ("gpt train step bf16 recompute",
-                         gpt_trained_bf16)):
+                         gpt_trained_bf16),
+                        ("train step bf16 batch 128 recipe (AdamW)",
+                         trained_recipe),
+                        ("train step bf16 batch 128 recipe (LAMB)",
+                         trained_lamb)):
         if done is not None:
             exe, main_prog, scope, feed, fetch_list = done[1][:5]
 
@@ -1805,17 +2163,24 @@ def main():
                     exe.run(main_prog, feed=feed, fetch_list=fetch_list)
             runs.append((label, step))
     phase("profile")(profile)(torch, runs)
+    phase("host_ops")(host_ops)(torch, [
+        (label, fn) for label, fn in runs
+        if label.startswith("train step bf16 batch 128")])
 
     paths = {"serve": served, "train": trained, "gpt_train": gpt_trained,
              "gpt_eval": evaluated, "gpt_decode": decoded,
-             "train_bf16": trained_bf16, "gpt_train_bf16": gpt_trained_bf16}
+             "train_bf16": trained_bf16, "gpt_train_bf16": gpt_trained_bf16,
+             "train_recipe": trained_recipe,
+             "train_recipe_lamb": trained_lamb}
     if _failed or cases is None or None in paths.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
     by_path = {"serve": served[0], "train": trained[0],
                "gpt_train": gpt_trained[0], "gpt_eval": evaluated,
                "gpt_decode": decoded, "train_bf16": trained_bf16[0],
-               "gpt_train_bf16": gpt_trained_bf16[0]}
+               "gpt_train_bf16": gpt_trained_bf16[0],
+               "train_recipe": trained_recipe[0],
+               "train_recipe_lamb": trained_lamb[0]}
     summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
                  {path: n[name] for path, n in by_path.items()},
@@ -1838,9 +2203,11 @@ def _summary(name, source, replaces, launches_by_path, cases):
     LayerNorm forward kernels, the BERT-base training step's shapes for
     their backward kernels and Adam, GPT-base's head and logits for the
     head and CE kernels), every case beside them. ``launches`` sums the
-    main paths' runs."""
+    main paths' runs. The fused-Adam line also gives its first AdamW
+    case's numbers (``adamw``: coeff > 0, the same kernel) beside Adam's,
+    with the AdamW launches of the recipe's path."""
     head = cases[0]
-    return {"name": name, "route": "cuda", "source": source,
+    line = {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
@@ -1848,6 +2215,14 @@ def _summary(name, source, replaces, launches_by_path, cases):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head.get("shape", head.get("numel")), "cases": cases}
+    adamw = [c for c in cases if c.get("coeff")]
+    if adamw:
+        line["adamw"] = dict(
+            {k: adamw[0][k] for k in ("name", "coeff", "max_abs_err",
+                                      "kernel_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+            launches=launches_by_path.get("train_recipe"))
+    return line
 
 
 if __name__ == "__main__":

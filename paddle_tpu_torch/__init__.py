@@ -10,9 +10,11 @@ caller passes ``CPUPlace()``; without a CUDA device the default raises
 Serving BERT-base: build with ``layers``, run the startup program,
 ``io.save_inference_model``, then
 ``inference.create_predictor(Config(dir)).run(requests)``. Training
-BERT-base and GPT-base: ``optimizer.Adam(lr).minimize(loss)`` appends the
-backward and update ops, and ``Executor.run(main, feed, fetch_list)``
-takes one step (``models.bert.bert_pretrain_program``,
+BERT-base and GPT-base: ``optimizer.Adam(lr).minimize(loss)`` (or AdamW,
+Lamb, Momentum and the other optimizers, with a ``regularizer``, a
+``clip`` and a ``layers`` learning-rate schedule) appends the backward
+and update ops, and ``Executor.run(main, feed, fetch_list)`` takes one
+step (``models.bert.bert_pretrain_program``,
 ``models.gpt.gpt_pretrain_program``), in f32 or bf16, with or without
 recompute (``layers.recompute_segment``). The other models are later
 slices (see ROADMAP.md).
@@ -27,6 +29,8 @@ from .ops.registry import NotPortedError
 from .param_attr import ParamAttr
 from . import initializer
 from . import layers
+from . import regularizer
+from . import clip
 from . import optimizer
 from .framework.backward import append_backward, gradients
 from . import io

@@ -77,6 +77,53 @@ class Variable(object):
 
     __str__ = __repr__
 
+    # Math sugar, as the JAX package's Variable has it
+    # (paddle_tpu/framework/program.py:90-150): a Python number becomes a
+    # [1]-shaped fill_constant of this var's dtype, then one elementwise
+    # op. The learning-rate schedules are written with it.
+    def _binary(self, other, fn, reverse=False):
+        from ..layers import tensor as _tensor
+        if not isinstance(other, Variable):
+            other = _tensor.fill_constant(
+                shape=[1], dtype=self.dtype, value=float(other))
+        a, b = (other, self) if reverse else (self, other)
+        return fn(a, b)
+
+    def __add__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_add)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_sub)
+
+    def __rsub__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_sub, reverse=True)
+
+    def __mul__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_mul)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_div)
+
+    def __rtruediv__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_div, reverse=True)
+
+    def __pow__(self, other):
+        from ..layers import nn
+        return self._binary(other, nn.elementwise_pow)
+
+    def __neg__(self):
+        return self.__mul__(-1.0)
+
 
 class Parameter(Variable):
     """A trainable, persistable Variable (fluid Parameter)."""

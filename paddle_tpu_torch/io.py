@@ -26,7 +26,7 @@ import tempfile
 import numpy as np
 import torch
 
-from .framework.dtypes import normalize_dtype
+from .framework.dtypes import normalize_dtype, to_torch_dtype
 from .framework.place import resolve_device
 from .framework.program import Program, default_main_program
 from .framework.scope import global_scope, to_numpy
@@ -132,8 +132,10 @@ def set_params_from_numpy(arrays, program, scope=None, place=None):
 
     Every name must be a persistable variable of ``program`` and every
     persistable variable of ``program`` must be given; each array's shape
-    and dtype must equal the variable's (a -1 dim matches any size).
-    Raises ValueError naming the first variable that breaks this, before
+    and dtype must equal the variable's (a -1 dim matches any size), but
+    an int32 array fills an int64 variable (a JAX scope without 64-bit
+    mode holds a schedule's int64 step counter as int32). Raises
+    ValueError naming the first variable that breaks this, before
     anything is written."""
     scope = scope if scope is not None else global_scope()
     device = resolve_device(place)
@@ -157,12 +159,14 @@ def set_params_from_numpy(arrays, program, scope=None, place=None):
             raise ValueError("variable %r has shape %s in the program but "
                              "the array has shape %s"
                              % (name, list(var.shape), list(shape)))
-        if normalize_dtype(arr.dtype) != var.dtype:
+        dtype = normalize_dtype(arr.dtype)
+        if dtype != var.dtype and (dtype, var.dtype) != ("int32", "int64"):
             raise ValueError("variable %r has dtype %s in the program but "
                              "the array has dtype %s"
-                             % (name, var.dtype, normalize_dtype(arr.dtype)))
+                             % (name, var.dtype, dtype))
     for name in sorted(arrays):
-        scope.set_var(name, _to_tensor(arrays[name]).to(device))
+        scope.set_var(name, _to_tensor(arrays[name]).to(
+            device=device, dtype=to_torch_dtype(wanted[name].dtype)))
 
 
 def _to_tensor(arr):

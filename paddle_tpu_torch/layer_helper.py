@@ -112,6 +112,12 @@ class LayerHelper(object):
         return self.main_program.global_block().create_var(
             *args, persistable=persistable, stop_gradient=True, **kwargs)
 
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        blk = self.main_program.global_block()
+        if blk.has_var(name):
+            return blk.var(name)
+        return self.create_global_variable(name=name, *args, **kwargs)
+
     def set_variable_initializer(self, var, initializer):
         sblock = self.startup_program.global_block()
         svar = sblock.create_var(name=var.name, shape=var.shape,

@@ -1,10 +1,66 @@
 """Control-flow layers (counterpart of paddle_tpu/layers/control_flow.py).
 
-Only ``recompute_segment`` so far: ``cond``, ``while_loop``, ``switch``
-and the fluid control-flow classes arrive with the Transformer slice.
+The compare layers (``less_than`` and its siblings), ``piecewise_select``
+(a chain of ``where`` selects on the device) and ``recompute_segment``
+so far: ``cond``, ``while_loop``, ``switch`` and the fluid control-flow
+classes arrive with the Transformer slice.
 """
 from ..framework.program import Variable, default_main_program
 from ..layer_helper import LayerHelper
+
+
+def _compare(x, y, op_type, cond=None):
+    from . import tensor as tensor_layers
+    helper = LayerHelper(op_type)
+    if not isinstance(y, Variable):
+        y = tensor_layers.fill_constant([1], x.dtype, float(y))
+    out = helper.create_variable_for_type_inference("bool", x.shape)
+    helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]})
+    out.stop_gradient = True
+    if cond is not None:
+        # fluid's out-parameter form: the result is written onto `cond`
+        current = default_main_program().current_block()
+        current.append_op("assign", inputs={"X": [out.name]},
+                          outputs={"Out": [cond.name]})
+        return cond
+    return out
+
+
+def less_than(x, y, force_cpu=None, cond=None):
+    return _compare(x, y, "less_than", cond=cond)
+
+
+def less_equal(x, y, cond=None):
+    return _compare(x, y, "less_equal", cond=cond)
+
+
+def greater_than(x, y, cond=None):
+    return _compare(x, y, "greater_than", cond=cond)
+
+
+def greater_equal(x, y, cond=None):
+    return _compare(x, y, "greater_equal", cond=cond)
+
+
+def equal(x, y, cond=None):
+    return _compare(x, y, "equal", cond=cond)
+
+
+def not_equal(x, y, cond=None):
+    return _compare(x, y, "not_equal", cond=cond)
+
+
+def piecewise_select(step, boundaries, values, dtype="float32"):
+    """values[i] where boundaries[i-1] <= step < boundaries[i]: a chain of
+    ``where`` selects, all on the device."""
+    from . import tensor as tensor_layers
+    from .nn import where
+    out = tensor_layers.fill_constant([1], dtype, values[-1])
+    for b, v in reversed(list(zip(boundaries, values[:-1]))):
+        v_var = tensor_layers.fill_constant([1], dtype, v)
+        out = where(less_than(step, float(b)), v_var, out)
+    return out
 
 
 def _collect_captures(blocks_and_outs, bound_names):
@@ -76,4 +132,5 @@ def recompute_segment(fn, inputs, name=None):
     return out_vars
 
 
-__all__ = ["recompute_segment"]
+__all__ = ["less_than", "less_equal", "greater_than", "greater_equal",
+           "equal", "not_equal", "piecewise_select", "recompute_segment"]

@@ -123,8 +123,14 @@ def _elementwise_layer(op_type):
 
 
 elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
+elementwise_mod = _elementwise_layer("elementwise_mod")
+elementwise_floordiv = _elementwise_layer("elementwise_floordiv")
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None,
@@ -159,6 +165,18 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
                      attrs={"x_num_col_dims": x_num_col_dims,
                             "y_num_col_dims": y_num_col_dims})
     return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    return _single(helper, "clip", x, {"min": float(min), "max": float(max)},
+                   x.shape)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    return _single(helper, "clip_by_norm", x, {"max_norm": float(max_norm)},
+                   x.shape)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -295,7 +313,46 @@ def topk(input, k, name=None):
     return values, indices
 
 
+def where(condition, x=None, y=None):
+    """Ternary select: x where ``condition``, else y."""
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("where", inputs={"Condition": [condition.name],
+                                      "X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter, made at ``begin - step`` in the
+    startup program, and an ``increment`` op (role ``lr_sched``) that adds
+    ``step`` to it each run; returns a copy of its new value. As in the
+    JAX package, every call appends another increment of the same
+    counter, so two schedules built on it in one program advance it twice
+    a run."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@STEP_COUNTER_LR@"
+    counter = helper.create_or_get_global_variable(
+        name=name, dtype="int64", shape=(1,), persistable=True)
+    if not getattr(counter, "_step_init_done", False):
+        helper.set_variable_initializer(
+            counter, ConstantInitializer(float(begin - step)))
+        counter._step_init_done = True
+    out = helper.create_variable_for_type_inference("int64", (1,))
+    helper.append_op("increment", inputs={"X": [counter.name]},
+                     outputs={"Out": [counter.name]},
+                     attrs={"step": float(step), "op_role": "lr_sched"})
+    helper.append_op("assign", inputs={"X": [counter.name]},
+                     outputs={"Out": [out.name]})
+    counter.stop_gradient = True
+    out.stop_gradient = True
+    return out
+
+
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "elementwise_add",
-           "elementwise_mul", "elementwise_div", "matmul", "mul", "scale",
-           "reshape", "unsqueeze", "transpose", "slice", "cast", "mean",
-           "gather", "split", "reduce_sum", "topk"]
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "elementwise_min", "elementwise_pow",
+           "elementwise_mod", "elementwise_floordiv", "matmul", "mul",
+           "clip", "clip_by_norm", "scale", "reshape", "unsqueeze",
+           "transpose", "slice", "cast", "mean", "gather", "split",
+           "reduce_sum", "topk", "where", "autoincreased_step_counter"]

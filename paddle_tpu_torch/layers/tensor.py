@@ -1,6 +1,9 @@
-"""Tensor layers: create_parameter, cast, fill_constant (counterparts in
-paddle_tpu/layers/tensor.py)."""
+"""Tensor layers: create_parameter, cast, sums, assign, fill_constant
+(counterparts in paddle_tpu/layers/tensor.py)."""
+import numpy as np
+
 from ..framework.dtypes import normalize_dtype
+from ..framework.program import Variable
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -23,6 +26,38 @@ def cast(x, dtype):
                      outputs={"Out": [out.name]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
     return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype,
+                                                        input[0].shape)
+    helper.append_op("sum", inputs={"X": [i.name for i in input]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def assign(input, output=None):
+    """Copy a Variable (``assign``) or a numpy value (``assign_value``)
+    into ``output``."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype,
+                                                               input.shape)
+        helper.append_op("assign", inputs={"X": [input.name]},
+                         outputs={"Out": [output.name]})
+    else:
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(arr.dtype), arr.shape)
+        helper.append_op("assign_value", outputs={"Out": [output.name]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": output.dtype,
+                                "values": arr.reshape(-1).tolist()})
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):

@@ -42,7 +42,7 @@ _SIGNATURES = {
                            _i),
     "ptt_layer_norm_bwd": ([_vp] * 9 + [_i] * 7 + [_vp], _i),
     "ptt_layer_norm_max_cols": ([], _i),
-    "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 5 + [_vp], _i),
+    "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 6 + [_vp], _i),
     "ptt_fused_head_fwd": ([_vp] * 6 + [_i] * 4 + [_vp, _vp], _i),
     "ptt_fused_head_fwd_scratch_bytes": ([_i] * 4, _ll),
     "ptt_fused_head_dh": ([_vp] * 7 + [_i] * 4 + [_vp], _i),

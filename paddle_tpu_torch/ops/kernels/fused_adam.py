@@ -1,10 +1,16 @@
-"""Fused Adam: the CUDA kernel's wrapper and its plain version.
+"""Fused Adam / AdamW: the CUDA kernel's wrapper and its plain version.
 
 Replaces paddle_tpu/ops/pallas/fused_adam.py:fused_adam (kernel
-``_adam_kernel``). The kernel is ``csrc/fused_adam.cu``; its header says
-what bounds it on the H100 (the bytes: 28 per f32 element) and how its
-design meets that (one elementwise pass, the bias-corrected learning
-rate computed on the device).
+``_adam_kernel``), which the JAX package's ``adam`` and ``adamw`` ops
+reach. The kernel is ``csrc/fused_adam.cu``; its header says what bounds
+it on the H100 (the bytes: 28 per f32 element, AdamW's decay included)
+and how its design meets that (one elementwise pass, the bias-corrected
+learning rate computed on the device).
+
+``coeff`` is AdamW's decoupled weight decay (0: Adam): after the Adam
+step, rounded to p's dtype, ``p' = p' - (lr * coeff) * p`` from the
+parameter before the step and the raw learning rate, rounded again, as
+the JAX package's ``adamw`` does (paddle_tpu/ops/optimizer_ops.py:116).
 
 ``fused_adam`` runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; it never falls back from one to the other. ``launches``
@@ -27,17 +33,19 @@ launches = 0
 
 
 def fused_adam_plain(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
-                     beta2=0.999, eps=1e-8):
+                     beta2=0.999, eps=1e-8, coeff=0.0):
     """The same update in plain PyTorch, f32 (the CPU path and the
     kernel's oracle)."""
     gf = g.float()
     m1n = beta1 * m1 + (1 - beta1) * gf
     m2n = beta2 * m2 + (1 - beta2) * gf * gf
-    lr_t = lr.float().reshape(()) * torch.sqrt(
-        1 - beta2_pow.float().reshape(())) / (
-            1 - beta1_pow.float().reshape(()))
-    p_new = p.float() - lr_t * m1n / (torch.sqrt(m2n) + eps)
-    return p_new.to(p.dtype), m1n, m2n
+    lr = lr.float().reshape(())
+    lr_t = lr * torch.sqrt(1 - beta2_pow.float().reshape(())) / (
+        1 - beta1_pow.float().reshape(()))
+    p_new = (p.float() - lr_t * m1n / (torch.sqrt(m2n) + eps)).to(p.dtype)
+    if coeff:
+        p_new = (p_new.float() - lr * coeff * p.float()).to(p.dtype)
+    return p_new, m1n, m2n
 
 
 def _scalar(t, device, what):
@@ -49,12 +57,13 @@ def _scalar(t, device, what):
 
 
 def fused_adam(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
-               beta2=0.999, eps=1e-8):
-    """One Adam step of one parameter; see the module docstring."""
+               beta2=0.999, eps=1e-8, coeff=0.0):
+    """One Adam (``coeff`` 0) or AdamW step of one parameter; see the
+    module docstring."""
     global launches
     if p.device.type == "cpu":
         return fused_adam_plain(p, g, m1, m2, lr, beta1_pow, beta2_pow,
-                                beta1, beta2, eps)
+                                beta1, beta2, eps, coeff)
     if p.device.type != "cuda":
         raise ValueError("fused_adam runs on CUDA (kernel) or CPU (plain "
                          "version), got a %s tensor" % p.device.type)
@@ -89,7 +98,7 @@ def fused_adam(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
             p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr(),
             lr.data_ptr(), beta1_pow.data_ptr(), beta2_pow.data_ptr(), n,
             _DTYPES[p.dtype], float(beta1), float(beta2), float(1 - beta1),
-            float(1 - beta2), float(eps),
+            float(1 - beta2), float(eps), float(coeff),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "fused_adam")
     launches += 1

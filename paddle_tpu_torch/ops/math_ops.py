@@ -1,9 +1,17 @@
-"""Math / elementwise / reduction / activation op kernels.
+"""Math / elementwise / reduction / activation / compare op kernels.
 
 Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT and GPT
-serving and pretraining run. ``mul`` and ``matmul`` are plain
+serving and pretraining, the learning-rate schedules, the regularizers
+and the gradient clips run. ``mul`` and ``matmul`` are plain
 ``torch.matmul`` (``matmul(out_dtype)`` one widened cuBLAS product): XLA
 computes them outside any Pallas kernel in the JAX package.
+
+Result dtypes follow JAX's: torch ranks a 0-d tensor below a tensor with
+dims of the same kind (``bf16 (n,) * f32 ()`` is bf16 in torch, f32 in
+JAX), so a binary op whose operands differ in dtype, one of them 0-d,
+casts both to their promoted type first (``_promote``). This is what a
+bf16 model's global-norm clip reads: ``squared_l2_norm`` of a bf16
+gradient is a bf16 scalar, and the clipped gradient is f32.
 """
 import math
 
@@ -34,16 +42,31 @@ def _bcast(x, y, axis):
     return x, y.reshape(new_shape)
 
 
+def _promote(x, y):
+    """(x, y) in JAX's common dtype where torch would rank a 0-d operand
+    lower (see the module docstring); otherwise as they are."""
+    if x.dtype != y.dtype and (x.dim() == 0 or y.dim() == 0):
+        dt = torch.promote_types(x.dtype, y.dtype)
+        return x.to(dt), y.to(dt)
+    return x, y
+
+
 def _elementwise(fn):
     def kernel(ctx, ins, attrs):
         x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-        return {"Out": fn(x, y)}
+        return {"Out": fn(*_promote(x, y))}
     return kernel
 
 
 for _name, _fn in (("elementwise_add", torch.add),
+                   ("elementwise_sub", torch.sub),
                    ("elementwise_mul", torch.mul),
-                   ("elementwise_div", torch.div)):
+                   ("elementwise_div", torch.div),
+                   ("elementwise_max", torch.maximum),
+                   ("elementwise_min", torch.minimum),
+                   ("elementwise_pow", torch.pow),
+                   ("elementwise_mod", torch.remainder),
+                   ("elementwise_floordiv", torch.floor_divide)):
     register_op(_name)(_elementwise(_fn))
 
 
@@ -51,6 +74,19 @@ _ACTIVATIONS = {
     "tanh": lambda x, a: torch.tanh(x),
     "gelu": lambda x, a: F.gelu(
         x, approximate="tanh" if a.get("approximate", False) else "none"),
+    "exp": lambda x, a: torch.exp(x),
+    "log": lambda x, a: torch.log(x),
+    "sqrt": lambda x, a: torch.sqrt(x),
+    "rsqrt": lambda x, a: torch.rsqrt(x),
+    "square": lambda x, a: torch.square(x),
+    "abs": lambda x, a: torch.abs(x),
+    "ceil": lambda x, a: torch.ceil(x),
+    "floor": lambda x, a: torch.floor(x),
+    "round": lambda x, a: torch.round(x),       # half to even, as jnp
+    "reciprocal": lambda x, a: 1.0 / x,
+    "sin": lambda x, a: torch.sin(x),
+    "cos": lambda x, a: torch.cos(x),
+    "sign": lambda x, a: torch.sign(x),
 }
 
 
@@ -72,6 +108,33 @@ def _scale(ctx, ins, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": x * scale + bias}
     return {"Out": (x + bias) * scale}
+
+
+@register_op("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": torch.pow(_x(ins), attrs.get("factor", 1.0))}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": torch.clamp(_x(ins), attrs["min"], attrs["max"])}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """x * max_norm / max(||x||, max_norm), in x's dtype, the norm on the
+    device."""
+    x = _x(ins)
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.square(x).sum())
+    return {"Out": x * (max_norm / torch.clamp(norm, min=max_norm))}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    """sum(x^2) as a 0-d tensor of x's dtype (bf16 for a bf16 gradient,
+    as ``jnp.sum(jnp.square(x))``)."""
+    return {"Out": torch.square(_x(ins)).sum()}
 
 
 @register_op("cast")
@@ -175,6 +238,7 @@ def _sum(ctx, ins, attrs):
     xs = ins["X"]
     out = xs[0]
     for x in xs[1:]:
+        out, x = _promote(out, x)
         out = out + x
     return {"Out": out}
 
@@ -200,3 +264,16 @@ def _reduce_sum(ctx, ins, attrs):
     if reduce_all and not keep:
         out = out.reshape((1,))
     return {"Out": out}
+
+
+def _compare(fn):
+    def kernel(ctx, ins, attrs):
+        x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": fn(*_promote(x, y))}
+    return kernel
+
+
+for _name, _fn in (("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("equal", torch.eq), ("not_equal", torch.ne)):
+    register_op(_name)(_compare(_fn))

@@ -31,6 +31,33 @@ def _fill_any_like(ctx, ins, attrs):
                               device=x.device)}
 
 
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": _x(ins)}
+
+
+@register_op("assign_value")
+def _assign_value(ctx, ins, attrs):
+    return {"Out": torch.tensor(
+        attrs["values"], dtype=to_torch_dtype(attrs.get("dtype", "float32")),
+        device=ctx.device).reshape(attrs["shape"])}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    """x + step in x's own dtype: an int64 counter stays int64 (the float
+    ``step`` attr is truncated to it, as ``jnp.asarray(step, x.dtype)``)."""
+    x = _x(ins)
+    step = attrs.get("step", 1.0)
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
+
+
+@register_op("where")
+def _where(ctx, ins, attrs):
+    cond, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]
+    return {"Out": torch.where(cond, x, y)}
+
+
 @register_op("gather", nondiff=("Index",))
 def _gather(ctx, ins, attrs):
     x, index = ins["X"][0], ins["Index"][0]

@@ -74,6 +74,13 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.models.gpt\n"
             "import paddle_tpu_torch.layers.control_flow\n"
+            "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
+            "import paddle_tpu_torch.regularizer, paddle_tpu_torch.clip\n"
+            "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.ops.optimizer_ops\n"
+            "import paddle_tpu_torch.ops.math_ops\n"
+            "import paddle_tpu_torch.ops.tensor_ops\n"
+            "import paddle_tpu_torch.ops.kernels.fused_adam\n"
             "import paddle_tpu_torch.ops.control_flow_ops\n"
             "import paddle_tpu_torch.ops.kernels.blockwise_ce\n"
             "import paddle_tpu_torch.ops.kernels.build\n"
@@ -131,3 +138,25 @@ def test_weights_default_to_cuda_and_raise_without_it(no_cuda):
     arrays = {w.name: torch.zeros(4, 3).numpy()}
     with pytest.raises(ptt.NoCUDADeviceError):
         ptt.set_params_from_numpy(arrays, main, ptt.Scope())
+
+
+def test_recipe_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """The optimizer slice's entry points only build ops; the program they
+    build runs where its Executor runs: CUDAPlace(0) unless CPUPlace()
+    is given."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [4])
+        loss = ptt.layers.mean(ptt.layers.fc(x, 3))
+        lr = ptt.layers.linear_lr_warmup(
+            ptt.layers.polynomial_decay(0.1, 4), 2, 0.0, 0.1)
+        ptt.optimizer.AdamW(lr, grad_clip=ptt.clip.GradientClipByGlobalNorm(
+            1.0), regularization=ptt.regularizer.L2Decay(1e-4)).minimize(loss)
+    with pytest.raises(ptt.NoCUDADeviceError):
+        ptt.Executor().run(startup, scope=ptt.Scope())
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope)
+    out, = exe.run(main, feed={"x": torch.ones(2, 4).numpy()},
+                   fetch_list=[lr], scope=scope)
+    assert out.shape == (1,)

@@ -200,10 +200,13 @@ def test_training_dropout_waits_for_the_training_slice():
 
 
 @pytest.mark.parametrize("op_type,role", [("grad_of", "backward"),
-                                          ("sgd", "optimize")])
+                                          ("average_accumulates",
+                                           "optimize")])
 def test_executor_refuses_training_programs(op_type, role):
     """The Executor refuses, before any op runs, a program holding an
-    optimizer op not ported yet (sgd). A grad_of whose forward op is not
+    optimizer op not ported yet (``average_accumulates``, ModelAverage's;
+    ``sgd`` was this case until the optimizer slice ported it). A grad_of
+    whose forward op is not
     in the program (a pruned program; refused before bf16 training and
     recompute were ported) re-runs that forward from the inputs it
     carries, as the JAX package's Executor does."""
