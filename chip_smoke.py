@@ -55,6 +55,35 @@ kernels' launch counters set to 0 just before and read just after:
   flash and LayerNorm launches a step. ``train_recipe_lamb``: the same
   with LAMB, three steps, no Adam launch.
 
+Every Executor.run with a fetch list on the card is graphed from its
+key's second run (the first goes op by op, the second is captured into
+a CUDA graph and replayed, later runs replay; ``Executor.run`` docs), so
+the phases above time replays from their third step and their parity
+phases hold replays against the CPU. The slice's own phases run each
+path both ways in one process, op by op (``use_program_cache=False``)
+and graphed, GRAPH_STEPS runs each from one startup and run counter:
+
+- ``graph_serve``: BERT-base serving at T=512, batches 1 and 8: answers
+  bit for bit equal, latency both ways, launches per request.
+- ``graph_train``: the train_recipe step (bf16, batch 128 x 128, dropout
+  0.1): fetches (losses, rate, global norm, a dropout Mask) and final
+  state bit for bit equal, the Mask different every step, equal
+  launches a step; and the step's 206 fused-Adam launches replayed from
+  a graph against one launch per dtype over the same elements.
+- ``run_steps``: a GRAPH_STEPS-step ``Executor.run_steps`` window of
+  that step equals the graphed runs bit for bit; ms per step.
+- ``graph_gpt``: GPT-base bf16 with flash and recompute at 2 x 4096,
+  dropout 0.1 (the recomputed segments redraw their masks inside the
+  graph), checked as graph_train; and a seedless dropout inside a
+  recompute segment, replayed, whose gradient must use its forward's
+  mask.
+
+Each profiles one run both ways (device busy, idle share) and lists
+the replay's kernels: the path's hand-written kernels must appear and
+no library attention, LayerNorm or Adam kernel; the capture's time and
+the pool's growth come from ``Executor.capture_log``. Every phase
+closes its Executors (``close`` lines give the memory still reserved).
+
 ``train_parity`` and ``gpt_train_parity`` run three steps of a 2-layer
 BERT-base-width / GPT-base-width model (GPT at 2 x 128 tokens, where the
 head kernels tile) on the card and on the CPU from the same weights and
@@ -71,9 +100,9 @@ regularizer to the same card-against-CPU comparison, and DP-SGD's clip
 and noise by their statistics on the card. A profile phase splits one
 warm request's, one warm BERT training step's and one warm GPT training
 step's device time by kernel family, f32 and bf16 (BERT at batch 128,
-GPT with recompute, and the recipe's AdamW and LAMB steps), and
-``host_ops`` the host's time issuing each op type of the bf16 BERT
-steps.
+GPT with recompute, and the recipe's AdamW and LAMB steps), each a
+replay, and ``host_ops`` the host's time issuing each op type of the
+bf16 BERT steps run op by op.
 
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
@@ -197,6 +226,27 @@ DPSGD_N, DPSGD_CLIP, DPSGD_SIGMA, DPSGD_LR = 10 ** 6, 1.0, 1.5, 0.1
 DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 64, 16
 PROFILE_PLAIN_RUNS = 3
 GPT_PARITY_BATCH, GPT_PARITY_SEQ = 2, 128
+# graph_serve, graph_train, graph_gpt, run_steps: each path op by op
+# (use_program_cache=False) and graphed (the default: a key's second run
+# is captured into a CUDA graph, later runs replay it), GRAPH_STEPS runs
+# each way from one startup and run counter, bit for bit equal. GPT runs
+# bench.py:596-601 with dropout 0.1 instead of 0, so the recomputed
+# segments redraw their masks inside the graph. A profiled replay must
+# show the path's hand-written kernels (by _family) and no library
+# attention, LayerNorm or Adam kernel (LIBRARY_KERNELS, lower case).
+GRAPH_STEPS = 6
+GRAPH_SERVE_BATCHES = (1, 8)
+GRAPH_SERVE_REPS = 10
+GRAPH_GPT_DROPOUT = 0.1
+SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
+TRAIN_FAMILIES = SERVE_FAMILIES + ("flash_attention_bwd_dkv",
+                                   "flash_attention_bwd_dq",
+                                   "layer_norm_bwd", "fused_adam")
+GPT_FAMILIES = TRAIN_FAMILIES + ("fused_head_fwd", "fused_head_dh",
+                                 "fused_head_dw")
+LIBRARY_KERNELS = ("pytorch_flash", "fmha", "sdpa", "efficient_attention",
+                   "layer_norm", "layernorm", "rowwisemoments", "gammabeta",
+                   "multi_tensor_apply", "fusedadam", "fused_adam")
 # gpt_eval: the CE kernel's loss on matmul logits against the head
 # kernel's on the same weights; both sum 8192 per-token losses of ~10 in
 # f32 from logits that differ by summation order only (~1e-6 relative)
@@ -1351,8 +1401,9 @@ def train_recipe_lamb(torch, np, ptt, counters):
 
 def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     """PARITY_STEPS runs of a training program on the card and on the CPU
-    (plain versions) from the same startup weights, held to PARITY_*:
-    (the comparison's numbers, whether it passed)."""
+    (plain versions) from the same startup weights, held to PARITY_*; on
+    the card also op by op, which must give the graphed runs' bits: (the
+    comparison's numbers, whether it passed)."""
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
     init = ptt.Scope()
@@ -1362,16 +1413,27 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     arrays = {v.name: init.find_var(v.name).cpu()
               for v in main.list_vars() if v.persistable}
     runs = {}
-    for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+    for label, place, cache in (("gpu", ptt.CUDAPlace(0), True),
+                                ("gpu_op_by_op", ptt.CUDAPlace(0), False),
+                                ("cpu", ptt.CPUPlace(), True)):
         scope = ptt.Scope()
         set_params_from_numpy(arrays, main, scope, place)
         exe = ptt.Executor(place)
         t0 = time.perf_counter()
         with ptt.scope_guard(scope):
             losses = [float(np.asarray(exe.run(
-                main, feed=feed, fetch_list=fetch_list)[0]).reshape(()))
+                main, feed=feed, fetch_list=fetch_list,
+                use_program_cache=cache)[0]).reshape(()))
                 for _ in range(PARITY_STEPS)]
         runs[label] = (losses, scope, (time.perf_counter() - t0) * 1e3)
+        exe.close()
+    # the card's graphed runs (a warm run, a capture, a replay) against
+    # its op-by-op runs: equal bits
+    op_scope = runs["gpu_op_by_op"][1]
+    graphed_equal = runs["gpu"][0] == runs["gpu_op_by_op"][0] and all(
+        np.array_equal(to_numpy(runs["gpu"][1].find_var(v.name)),
+                       to_numpy(op_scope.find_var(v.name)))
+        for v in main.list_vars() if v.persistable)
     (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
     dtype = ("bfloat16" if any(p.dtype == "bfloat16"
                                for p in main.all_parameters()) else "float32")
@@ -1402,7 +1464,7 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
           and capped == 0
           and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
           and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
-          and moved >= 10 * PARITY_PARAM_ATOL)
+          and moved >= 10 * PARITY_PARAM_ATOL and graphed_equal)
     return {"steps": PARITY_STEPS, "dropout": 0.0, "dtype": dtype,
             "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
             "loss_rtol": PARITY_LOSS_RTOL[dtype],
@@ -1414,7 +1476,8 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
             "sign_flip_share": PARITY_SIGN_FLIP_SHARE[dtype],
             "moved_rel_err_largest": moved_errs[:4],
             "moved_rtol": PARITY_MOVED_RTOL,
-            "param_max_moved": moved, "gpu_ms": g_ms, "cpu_ms": c_ms}, ok
+            "param_max_moved": moved, "gpu_ms": g_ms, "cpu_ms": c_ms,
+            "graphed_bit_equal_op_by_op": graphed_equal}, ok
 
 
 def train_parity(torch, np, ptt):
@@ -1522,9 +1585,10 @@ def gpt_train_bf16(torch, np, ptt, counters):
     cfg = _gpt_cfg(gpt, dtype="bfloat16", recompute=True)
     remat, remat_ok, trained = _gpt_run(torch, np, ptt, counters, cfg,
                                         GPT_STEPS, GPT_BF16_PER_STEP)
-    plain, plain_ok, _ = _gpt_run(
+    plain, plain_ok, plain_trained = _gpt_run(
         torch, np, ptt, counters, _gpt_cfg(gpt, dtype="bfloat16"),
         GPT_NO_RECOMPUTE_STEPS, GPT_PER_STEP)
+    close_executor(torch, "gpt_train_bf16 no recompute", plain_trained[0])
     lower = remat["step_peak_above_resident_gb"] < \
         plain["step_peak_above_resident_gb"]
     same_first = remat["losses"][0] == plain["losses"][0]
@@ -1714,6 +1778,7 @@ def _remat_on_card(torch, np, ptt):
             ).reshape(())) for _ in range(PARITY_STEPS - 1)]
         runs[remat] = (first, losses, {n: scope.find_var(n) for n in names},
                        names)
+        exe.close()
     (r_first, r_loss, r_par, names), (p_first, p_loss, p_par, _) = \
         runs[True], runs[False]
     unequal = [name for name, a, b in zip(["loss"] + names, r_first, p_first)
@@ -1760,6 +1825,7 @@ def _bf16_decode_on_card(torch, np, ptt):
                                    (GPT_PARITY_BATCH, 1, 1))}
         card, = exe.run(main, feed=feed, fetch_list=[fetch["logits"]],
                         return_numpy=False)
+    exe.close()
     arrays = {p.name: scope.find_var(p.name).cpu()
               for p in main.all_parameters()}
     cpu_scope = ptt.Scope()
@@ -1917,6 +1983,388 @@ def _dpsgd_on_card(torch, np, ptt):
             "mean_bound": mean_bound, "std_bound": std_bound}, ok
 
 
+def close_executor(torch, label, exe):
+    """Close a phase's Executor (its graphs and their pool go) and print
+    the memory the process still holds."""
+    exe.close()
+    emit({"phase": "close", "of": label,
+          "memory_reserved_gb": torch.cuda.memory_reserved() / 2 ** 30,
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 2 ** 30})
+
+
+def _copy_scope(torch, ptt, scope):
+    """A scope holding a clone of each of ``scope``'s tensors and its run
+    counter, so two runs start from the same state and draw the same
+    numbers."""
+    out = ptt.Scope()
+    for name, val in scope.items():
+        out.set_var(name, val.clone() if isinstance(val, torch.Tensor)
+                    else val)
+    return out
+
+
+def _kernel_check(found, families):
+    """(the families of ``families`` that a profiled run shows no kernel
+    of, the library kernels it shows)."""
+    seen = {_family(k) for k in found["kernel_names"]}
+    library = [k for k in found["kernel_names"]
+               if any(p in k.lower() for p in LIBRARY_KERNELS)]
+    return [f for f in families if f not in seen], library
+
+
+def _capture_record(exe):
+    return [{"feeds": c["feeds"], "capture_ms": c["capture_ms"],
+             "pool_bytes": c["pool_bytes"]} for c in exe.capture_log]
+
+
+def graph_serve(torch, np, ptt, counters, pred, requests):
+    """BERT-base serving at T=512, batches 1 and 8, on the served
+    predictor: op by op (``use_program_cache=False``) and graphed
+    (``Predictor.run``; the serve phase ran each batch twice, so its
+    bucket is captured). Answers bit for bit equal; latency both ways,
+    GRAPH_SERVE_REPS requests each in turns; launches per request; one
+    request each way profiled, the replay's kernel names checked."""
+    exe = pred._exe
+    cases, ok = [], True
+    for n in GRAPH_SERVE_BATCHES:
+        feed = next(r for r in requests if len(r["src_ids"]) == n)
+
+        def op_by_op(feed=feed):
+            with ptt.scope_guard(pred._scope):
+                return exe.run(pred._program, feed=feed,
+                               fetch_list=pred._fetch_names,
+                               use_program_cache=False)
+        ways = (("op_by_op", op_by_op), ("graphed", lambda f=feed:
+                                          pred.run(f)))
+        answers, launches, ms = {}, {}, {w: [] for w, _ in ways}
+        for way, fn in ways:
+            before = counters.read()
+            answers[way] = fn()
+            after = counters.read()
+            launches[way] = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+        for _ in range(GRAPH_SERVE_REPS):
+            for way, fn in ways:
+                t0 = time.perf_counter()
+                fn()
+                ms[way].append((time.perf_counter() - t0) * 1e3)
+        found = {way: _profiled(torch, fn) for way, fn in ways}
+        missing, library = _kernel_check(found["graphed"], SERVE_FAMILIES)
+        equal = all(np.array_equal(a, b) for a, b in
+                    zip(answers["op_by_op"], answers["graphed"]))
+        want = {"flash_attention_fwd": FLASH_PER_REQUEST,
+                "layer_norm_fwd": LN_PER_REQUEST}
+        case_ok = equal and launches["op_by_op"] == want and \
+            launches["graphed"] == want and not missing and not library
+        ok = ok and case_ok
+        cases.append({
+            "batch": n, "ok": case_ok, "answers_bit_equal": equal,
+            "request_ms": ms,
+            "request_ms_median": {w: statistics.median(v)
+                                  for w, v in ms.items()},
+            "launches_per_request": launches,
+            "captures": [c for c in _capture_record(exe)
+                         if c["feeds"]["src_ids"][0] == n],
+            "missing_kernel_families": missing,
+            "library_kernels": library,
+            "profile": found})
+    emit({"phase": "graph_serve", "ok": ok, "seq_len": SEQ_LEN,
+          "cases": cases})
+    if not ok:
+        raise AssertionError("graph_serve checks failed (see the line "
+                             "above)")
+
+
+def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
+               fetch_list, want, families):
+    """GRAPH_STEPS runs of ``main`` op by op and graphed, each way on its
+    own copy of one started scope (the run counter included), then one
+    run each way profiled: (the record, ok, the graphed way's fetches and
+    state after GRAPH_STEPS runs, the started scope). The last fetch is a
+    dropout Mask, which must differ from step to step."""
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)    # no fetch list: no graph
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    ways = {}
+    for way, cache in (("op_by_op", False), ("graphed", True)):
+        scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+        step_ms, fetched, per_step = [], [], []
+        counters.zero()                      # the main path starts here
+        for _ in range(GRAPH_STEPS):
+            before = counters.read()
+            t0 = time.perf_counter()
+            fetched.append(exe.run(main, feed=feed, fetch_list=fetch_list,
+                                   scope=scope, use_program_cache=cache,
+                                   return_numpy=False))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = counters.read()
+            per_step.append({k: after[k] - before[k] for k in after})
+        ways[way] = {"exe": exe, "scope": scope, "step_ms": step_ms,
+                     "fetched": fetched, "per_step": per_step,
+                     "launches": counters.read()}
+    a, b = ways["op_by_op"], ways["graphed"]
+    unequal = [fetch_list[i].name for i in range(len(fetch_list))
+               if not all(torch.equal(x[i], y[i])
+                          for x, y in zip(a["fetched"], b["fetched"]))]
+    unequal += [n for n in persist if not torch.equal(
+        a["scope"].find_var(n), b["scope"].find_var(n))]
+    masks = [f[-1] for f in b["fetched"]]
+    masks_differ = all(not torch.equal(x, y)
+                       for x, y in zip(masks, masks[1:]))
+    counts_ok = all(c == want for c in a["per_step"] + b["per_step"])
+    reference = ([[t.clone() for t in f[:-1]] for f in b["fetched"]],
+                 {n: b["scope"].find_var(n).clone() for n in persist})
+    found = {}
+    for way, cache in (("op_by_op", False), ("graphed", True)):
+        w = ways[way]
+        found[way] = _profiled(torch, lambda w=w, cache=cache: w["exe"].run(
+            main, feed=feed, fetch_list=fetch_list, scope=w["scope"],
+            use_program_cache=cache))
+    missing, library = _kernel_check(found["graphed"], families)
+    ok = not unequal and masks_differ and counts_ok and not missing and \
+        not library and all(np.isfinite(float(f[0].reshape(())))
+                            for f in b["fetched"])
+    record = {
+        "steps": GRAPH_STEPS, "bit_equal": not unequal,
+        "unequal": unequal[:8], "masks_differ_step_to_step": masks_differ,
+        "losses": {w: [float(f[0].reshape(())) for f in ways[w]["fetched"]]
+                   for w in ways},
+        "step_ms": {w: ways[w]["step_ms"] for w in ways},
+        "replay_ms_median": statistics.median(b["step_ms"][2:]),
+        "op_by_op_ms_median": statistics.median(a["step_ms"][1:]),
+        "launches_per_step": {w: ways[w]["per_step"][-1] for w in ways},
+        "launches_per_step_ok": counts_ok,
+        "captures": _capture_record(b["exe"]),
+        "missing_kernel_families": missing, "library_kernels": library,
+        "profile": found}
+    launches = b["launches"]
+    for way in ways:
+        close_executor(torch, "%s %s" % (label, way), ways[way]["exe"])
+    return record, ok, reference, start, launches
+
+
+def _dropout_mask(main):
+    """A Mask output of a dropout op of ``main``'s global block."""
+    return main.global_block().var(next(
+        op.output("Mask")[0] for op in main.global_block().ops
+        if op.type == "dropout"))
+
+
+def _adam_in_graph(torch, np, fad, main):
+    """The multi-tensor question: the recipe step's fused-Adam launches as
+    a graph replays them (one per parameter, its shape and dtype, f32
+    gradients and moments, AdamW's decay), against one launch per dtype
+    over flat buffers of the same elements, also replayed from a graph.
+    Device time by CUDA events."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    per = [(int(np.prod(p.shape)), dtypes[p.dtype])
+           for p in main.all_parameters()]
+    flat = {}
+    for n, d in per:
+        flat[d] = flat.get(d, 0) + n
+    scalars = [torch.full((1,), v, device="cuda")
+               for v in (RECIPE_LR, 0.9, 0.999)]
+
+    def buffers(numels):
+        return [(torch.zeros(n, dtype=d, device="cuda"),
+                 torch.full((n,), 1e-3, device="cuda"),
+                 torch.zeros(n, device="cuda"), torch.zeros(n, device="cuda"))
+                for n, d in numels]
+
+    def step(bufs):
+        for p, g, m1, m2 in bufs:
+            fad.fused_adam(p, g, m1, m2, *scalars, coeff=RECIPE_WEIGHT_DECAY)
+    out = {"elements": sum(n for n, _ in per)}
+    for label, numels in (("per_parameter", per),
+                          ("one_per_dtype",
+                           [(n, d) for d, n in flat.items()])):
+        bufs = buffers(numels)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(bufs)                       # warm
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(bufs)
+        out[label] = {"launches": len(bufs),
+                      "graph_ms": time_ms(torch, graph.replay, 5, 5)}
+        del graph, bufs
+    extra = out["per_parameter"]["graph_ms"] - out["one_per_dtype"]["graph_ms"]
+    out["extra_ms_for_the_launches"] = extra
+    out["us_per_extra_launch"] = extra * 1e3 / (
+        out["per_parameter"]["launches"] - out["one_per_dtype"]["launches"])
+    return out
+
+
+def graph_train(torch, np, ptt, counters, fad):
+    """The BERT recipe step (bf16 BERT-base, batch 128 x 128, dropout 0.1,
+    AdamW under the warmup and decay, global-norm clip) GRAPH_STEPS runs op
+    by op and graphed from one startup and run counter: fetches (losses,
+    rate, global norm, a dropout Mask) and final state bit for bit equal,
+    the Mask different every step, train_recipe's launches a step both
+    ways; one run each way profiled; the Adam launches inside a graph."""
+    from paddle_tpu_torch.models import bert
+    fetch = {}
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list = _pretrain_program(
+        ptt, bert, cfg, BF16_TRAIN_BATCH, _recipe_optimizer(
+            ptt, lambda o, lr: o.AdamW(lr, weight_decay=RECIPE_WEIGHT_DECAY),
+            RECIPE_LR, fetch=fetch))
+    fetch_list = fetch_list + [fetch["lr"], fetch["global_norm"],
+                               _dropout_mask(main)]
+    feed = bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_PREDS, seed=0)
+    record, ok, reference, start, launches = _both_ways(
+        torch, np, ptt, counters, "graph_train", main, startup, feed,
+        fetch_list, TRAIN_PER_STEP, TRAIN_FAMILIES)
+    adam = _adam_in_graph(torch, np, fad, main)
+    emit(dict({"phase": "graph_train", "ok": ok, "model": "bert_base",
+               "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "dropout": cfg.hidden_dropout,
+               "optimizer": "AdamW(schedule, weight_decay=0.01, "
+               "GradientClipByGlobalNorm(1.0))",
+               "adam_in_graph": adam}, **record))
+    if not ok:
+        raise AssertionError("graph_train checks failed (see the line "
+                             "above)")
+    return launches, (main, startup, feed, fetch_list[:-1], start,
+                      reference)
+
+
+def run_steps(torch, np, ptt, trained):
+    """A GRAPH_STEPS-step ``run_steps`` window of the recipe step from
+    graph_train's startup: its stacked fetches and final state equal the
+    graphed runs' bit for bit; ms per step of that window (warm run and
+    capture inside) and of a second one (replays only), one host sync
+    each."""
+    main, _, feed, fetch_list, start, (runs, state) = trained
+    window = {k: np.stack([v] * GRAPH_STEPS) for k, v in feed.items()}
+    scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+    timed = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stacked = exe.run_steps(main, feed=window, fetch_list=fetch_list,
+                                scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0) * 1e3)
+        if len(timed) == 1:
+            unequal = [fetch_list[i].name for i in range(len(fetch_list))
+                       if not all(torch.equal(stacked[i][k], runs[k][i])
+                                  for k in range(GRAPH_STEPS))]
+            unequal += [n for n, t in state.items()
+                        if not torch.equal(scope.find_var(n), t)]
+    ok = not unequal and len(exe.capture_log) == 1
+    emit({"phase": "run_steps", "ok": ok, "steps": GRAPH_STEPS,
+          "bit_equal_to_runs": not unequal, "unequal": unequal[:8],
+          "window_ms": timed,
+          "ms_per_step": [t / GRAPH_STEPS for t in timed],
+          "captures": _capture_record(exe)})
+    close_executor(torch, "run_steps", exe)
+    if not ok:
+        raise AssertionError("run_steps checks failed (see the line above)")
+
+
+def _segment_mask_on_card(torch, np, ptt):
+    """A seedless dropout inside a recompute segment, GRAPH_STEPS runs on
+    the card (the first op by op, then captured and replayed): the
+    gradient of sum(c * dropout(2 w)) is 4 c where the forward kept an
+    element and 0 where it dropped it, every run, and the masks differ
+    from run to run."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        w = ptt.layers.create_parameter(
+            [256, 256], "float32", name="w",
+            default_initializer=ptt.initializer.ConstantInitializer(1.0))
+        c = ptt.layers.data("c", [256, 256], append_batch_size=False)
+        h = ptt.layers.recompute_segment(
+            lambda a: ptt.layers.dropout(
+                ptt.layers.scale(a, scale=2.0), 0.5,
+                dropout_implementation="upscale_in_train"), [w])
+        loss = ptt.layers.reduce_sum(ptt.layers.elementwise_mul(h, c))
+        (_, gw), = ptt.append_backward(loss)
+    c_val = np.random.RandomState(SEED).rand(256, 256).astype(np.float32) + 1
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(startup, scope=scope)
+    kept, right = [], True
+    for _ in range(GRAPH_STEPS):
+        hv, g = exe.run(main, feed={"c": c_val}, fetch_list=[h, gw],
+                        scope=scope)
+        k = hv != 0
+        right = right and bool((hv == np.where(k, 4.0, 0.0)).all()) and \
+            bool((g == np.where(k, 4.0 * c_val, 0.0)).all()) and \
+            bool(0.4 < k.mean() < 0.6)
+        kept.append(k)
+    differ = all((x != y).any() for x, y in zip(kept, kept[1:]))
+    captured = len(exe.capture_log) == 1
+    exe.close()
+    return {"runs": GRAPH_STEPS, "gradient_uses_forward_mask": right,
+            "masks_differ": differ, "captured": captured}, \
+        right and differ and captured
+
+
+def _set_params_between_replays(torch, np, ptt):
+    """A weight replaced with ``set_params_from_numpy`` after the step was
+    captured: the next replay copies it into the graph's static input and
+    computes with it, and the scope holds the static tensor again."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [64, 256], append_batch_size=False)
+        w = ptt.layers.create_parameter([256, 128], "float32", name="w")
+        y = ptt.layers.mul(x, w)
+    rng = np.random.RandomState(SEED)
+    xv = rng.rand(64, 256).astype(np.float32)
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(startup, scope=scope)
+    for _ in range(3):                       # warm run, capture, replay
+        exe.run(main, feed={"x": xv}, fetch_list=[y], scope=scope)
+    static = scope.find_var("w")
+    new_w = rng.rand(256, 128).astype(np.float32)
+    ptt.set_params_from_numpy({"w": new_w}, main, scope)
+    replaced = scope.find_var("w") is not static
+    got, = exe.run(main, feed={"x": xv}, fetch_list=[y], scope=scope)
+    err = float(np.abs(got - xv.astype(np.float64) @ new_w).max())
+    ok = replaced and scope.find_var("w") is static and err <= 1e-4 and \
+        len(exe.capture_log) == 1
+    exe.close()
+    return {"replaced_in_scope": replaced, "max_abs_err_vs_numpy": err,
+            "atol": 1e-4, "captures": len(exe.capture_log)}, ok
+
+
+def graph_gpt(torch, np, ptt, counters):
+    """GPT-base bf16 with flash and recompute at 2 x 4096 (bench.py:596-601
+    but dropout 0.1, so the recomputed segments redraw masks),
+    GRAPH_STEPS runs op by op and graphed from one startup and run
+    counter: loss, the embedding dropout's Mask and final state bit for
+    bit equal, the Mask different every step, gpt_train_bf16's launches a
+    step both ways; one run each way profiled. Then a seedless dropout in
+    a segment on the card (``_segment_mask_on_card``) and a weight set
+    between replays (``_set_params_between_replays``)."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt, dtype="bfloat16", recompute=True,
+                   dropout=GRAPH_GPT_DROPOUT)
+    main, startup, fetch_list = _gpt_train_program(ptt, gpt, cfg, GPT_BATCH,
+                                                   GPT_SEQ)
+    fetch_list = fetch_list + [_dropout_mask(main)]
+    feed = gpt.synthetic_batch(cfg, GPT_BATCH, GPT_SEQ, seed=0)
+    record, ok, _, _, launches = _both_ways(
+        torch, np, ptt, counters, "graph_gpt", main, startup, feed,
+        fetch_list, GPT_BF16_PER_STEP, GPT_FAMILIES)
+    segment, segment_ok = _segment_mask_on_card(torch, np, ptt)
+    copy_in, copy_in_ok = _set_params_between_replays(torch, np, ptt)
+    ok = ok and segment_ok and copy_in_ok
+    emit(dict({"phase": "graph_gpt", "ok": ok, "model": "gpt_base",
+               "dtype": cfg.dtype, "recompute": cfg.recompute,
+               "batch": GPT_BATCH, "seq_len": GPT_SEQ,
+               "dropout": cfg.dropout, "optimizer": "Adam(1e-4)",
+               "segment_mask_on_card": segment,
+               "set_params_between_replays": copy_in}, **record))
+    if not ok:
+        raise AssertionError("graph_gpt checks failed (see the line above)")
+    return launches
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -1943,58 +2391,67 @@ def _family(kernel):
     return "elementwise/other"
 
 
-def profile(torch, runs):
-    """Where one warm request's and one warm training step's (BERT, GPT)
-    time goes on the card: device time by kernel family from torch.profiler,
-    against the host time of the profiled run (the profiler's own cost
-    included) and the median host time of PROFILE_PLAIN_RUNS runs without
-    the profiler just before it (``idle_share_unprofiled``). Diagnostic
-    only: a profiler that records no device time is reported, not
-    failed."""
+def _profiled(torch, fn):
+    """Where one run of ``fn`` spends its time on the card: device time by
+    kernel family from torch.profiler, against the host time of the
+    profiled run (the profiler's own cost included) and the median host
+    time of PROFILE_PLAIN_RUNS runs without the profiler just before it
+    (``idle_share_unprofiled``); every kernel's name. A profiler that
+    records no device time is reported, not failed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    for label, fn in runs:
+    fn()
+    torch.cuda.synchronize()
+    plain = []
+    for _ in range(PROFILE_PLAIN_RUNS):
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        plain = []
-        for _ in range(PROFILE_PLAIN_RUNS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            plain.append((time.perf_counter() - t0) * 1e3)
-        plain_ms = statistics.median(plain)
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_family, top = {}, []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            ms = e.self_device_time_total / 1e3
-            fam = _family(e.key)
-            by_family[fam] = by_family.get(fam, 0.0) + ms
-            top.append([ms, e.count, e.key[:100]])
-        busy = sum(by_family.values())
-        emit({"phase": "profile", "run": label,
-              "host_ms": wall_ms, "device_busy_ms": busy if busy else
-              "not measured",
-              "idle_share": 1 - busy / wall_ms if busy else "not measured",
-              "unprofiled_ms": plain,
-              "idle_share_unprofiled": 1 - busy / plain_ms if busy else
-              "not measured",
-              "device_ms_by_family": by_family,
-              "top_kernels": sorted(top, reverse=True)[:12]})
+        plain.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = statistics.median(plain)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_family, top, names = {}, [], set()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        fam = _family(e.key)
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        top.append([ms, e.count, e.key[:100]])
+        names.add(e.key[:120])
+    busy = sum(by_family.values())
+    return {"host_ms": wall_ms,
+            "device_busy_ms": busy if busy else "not measured",
+            "idle_share": 1 - busy / wall_ms if busy else "not measured",
+            "unprofiled_ms": plain,
+            "idle_share_unprofiled": 1 - busy / plain_ms if busy else
+            "not measured",
+            "device_ms_by_family": by_family,
+            "top_kernels": sorted(top, reverse=True)[:12],
+            "kernel_names": sorted(names)}
+
+
+def profile(torch, runs):
+    """``_profiled`` for each (label, run) of ``runs``, a line each (the
+    kernel names left out: the graph phases list them)."""
+    for label, fn in runs:
+        found = _profiled(torch, fn)
+        found.pop("kernel_names")
+        emit(dict({"phase": "profile", "run": label}, **found))
 
 
 def host_ops(torch, runs):
-    """Where a warm BERT bf16 step's host time goes: one run with each
-    op's dispatch timed on the host clock (the Executor's forward-op and
-    grad_of calls; the card runs behind them, so this is the host's cost
-    of issuing each op type), summed by op type, beside the run's whole
-    host time. Diagnostic only."""
+    """Where a warm BERT bf16 step's host time goes when it runs op by op
+    (a replay dispatches no op): one run with each op's dispatch timed on
+    the host clock (the Executor's forward-op and grad_of calls; the card
+    runs behind them, so this is the host's cost of issuing each op type),
+    summed by op type, beside the run's whole host time. Diagnostic
+    only."""
     from paddle_tpu_torch.framework import executor
     fwd, grad = executor._run_fwd_op, executor.trace.run_grad_op
     for label, fn in runs:
@@ -2115,72 +2572,78 @@ def main():
         return found
     cases = phase("kernels")(kernels)()
 
+    # each path's launches, None where its phase failed
+    by_path = {}
+
+    def finish(path, done, label, host=False):
+        """A training path: its launches kept, one more step profiled (a
+        replay) and, with ``host``, one op by op with each op's dispatch
+        timed; then its Executor closed."""
+        by_path[path] = None if done is None else done[0]
+        if done is None:
+            return
+        exe, main_prog, scope, feed, fetch_list = done[1][:5]
+
+        def step(cache=True):
+            exe.run(main_prog, feed=feed, fetch_list=fetch_list, scope=scope,
+                    use_program_cache=cache)
+        phase("profile")(profile)(torch, [(label, step)])
+        if host:
+            phase("host_ops")(host_ops)(torch, [(label, lambda: step(False))])
+        close_executor(torch, path, exe)
+
     model_dir = os.path.join(_ROOT, "build", "chip_smoke_model")
     try:
         served = phase("serve")(serve)(torch, np, ptt, counters, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
-    trained = phase("train")(train)(torch, np, ptt, counters)
-    phase("train_parity")(train_parity)(torch, np, ptt)
-    gpt_trained = phase("gpt_train")(gpt_train)(torch, np, ptt, counters)
-    evaluated = decoded = None
-    if gpt_trained is not None:
-        evaluated = phase("gpt_eval")(gpt_eval)(torch, np, ptt, counters,
-                                                gpt_trained[1])
-        decoded = phase("gpt_decode")(gpt_decode)(torch, np, ptt, counters,
-                                                  gpt_trained[1])
-    phase("gpt_train_parity")(gpt_train_parity)(torch, np, ptt)
-    trained_bf16 = phase("train_bf16")(train_bf16)(torch, np, ptt, counters)
-    gpt_trained_bf16 = phase("gpt_train_bf16")(gpt_train_bf16)(
-        torch, np, ptt, counters)
-    phase("bf16_parity")(bf16_parity)(torch, np, ptt)
-    trained_recipe = phase("train_recipe")(train_recipe)(torch, np, ptt,
-                                                         counters)
-    trained_lamb = phase("train_recipe_lamb")(train_recipe_lamb)(
-        torch, np, ptt, counters)
-    phase("optimizer_parity")(optimizer_parity)(torch, np, ptt)
-
-    runs = []
+    by_path["serve"] = None if served is None else served[0]
     if served is not None:
         _, pred, requests = served
-        runs += [("serve batch 1", lambda: pred.run(requests[0])),
-                 ("serve batch 8", lambda: pred.run(requests[2]))]
-    for label, done in (("train step", trained),
-                        ("gpt train step", gpt_trained),
-                        ("train step bf16 batch 128", trained_bf16),
-                        ("gpt train step bf16 recompute",
-                         gpt_trained_bf16),
-                        ("train step bf16 batch 128 recipe (AdamW)",
-                         trained_recipe),
-                        ("train step bf16 batch 128 recipe (LAMB)",
-                         trained_lamb)):
-        if done is not None:
-            exe, main_prog, scope, feed, fetch_list = done[1][:5]
+        phase("profile")(profile)(torch, [
+            ("serve batch 1", lambda: pred.run(requests[0])),
+            ("serve batch 8", lambda: pred.run(requests[2]))])
+        phase("graph_serve")(graph_serve)(torch, np, ptt, counters, pred,
+                                          requests)
+        close_executor(torch, "serve", pred._exe)
+        del served, pred, requests
+    finish("train", phase("train")(train)(torch, np, ptt, counters),
+           "train step")
+    phase("train_parity")(train_parity)(torch, np, ptt)
+    gpt_trained = phase("gpt_train")(gpt_train)(torch, np, ptt, counters)
+    by_path["gpt_eval"] = by_path["gpt_decode"] = None
+    if gpt_trained is not None:
+        by_path["gpt_eval"] = phase("gpt_eval")(gpt_eval)(
+            torch, np, ptt, counters, gpt_trained[1])
+        by_path["gpt_decode"] = phase("gpt_decode")(gpt_decode)(
+            torch, np, ptt, counters, gpt_trained[1])
+    finish("gpt_train", gpt_trained, "gpt train step")
+    del gpt_trained
+    phase("gpt_train_parity")(gpt_train_parity)(torch, np, ptt)
+    finish("train_bf16", phase("train_bf16")(train_bf16)(
+        torch, np, ptt, counters), "train step bf16 batch 128", host=True)
+    finish("gpt_train_bf16", phase("gpt_train_bf16")(gpt_train_bf16)(
+        torch, np, ptt, counters), "gpt train step bf16 recompute")
+    phase("bf16_parity")(bf16_parity)(torch, np, ptt)
+    finish("train_recipe", phase("train_recipe")(train_recipe)(
+        torch, np, ptt, counters),
+        "train step bf16 batch 128 recipe (AdamW)", host=True)
+    finish("train_recipe_lamb", phase("train_recipe_lamb")(
+        train_recipe_lamb)(torch, np, ptt, counters),
+        "train step bf16 batch 128 recipe (LAMB)", host=True)
+    phase("optimizer_parity")(optimizer_parity)(torch, np, ptt)
+    graphed = phase("graph_train")(graph_train)(torch, np, ptt, counters,
+                                                fad)
+    by_path["graph_train"] = None if graphed is None else graphed[0]
+    if graphed is not None:
+        phase("run_steps")(run_steps)(torch, np, ptt, graphed[1])
+    del graphed
+    by_path["graph_gpt"] = phase("graph_gpt")(graph_gpt)(torch, np, ptt,
+                                                         counters)
 
-            def step(exe=exe, main_prog=main_prog, scope=scope, feed=feed,
-                     fetch_list=fetch_list):
-                with ptt.scope_guard(scope):
-                    exe.run(main_prog, feed=feed, fetch_list=fetch_list)
-            runs.append((label, step))
-    phase("profile")(profile)(torch, runs)
-    phase("host_ops")(host_ops)(torch, [
-        (label, fn) for label, fn in runs
-        if label.startswith("train step bf16 batch 128")])
-
-    paths = {"serve": served, "train": trained, "gpt_train": gpt_trained,
-             "gpt_eval": evaluated, "gpt_decode": decoded,
-             "train_bf16": trained_bf16, "gpt_train_bf16": gpt_trained_bf16,
-             "train_recipe": trained_recipe,
-             "train_recipe_lamb": trained_lamb}
-    if _failed or cases is None or None in paths.values():
+    if _failed or cases is None or None in by_path.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
-    by_path = {"serve": served[0], "train": trained[0],
-               "gpt_train": gpt_trained[0], "gpt_eval": evaluated,
-               "gpt_decode": decoded, "train_bf16": trained_bf16[0],
-               "gpt_train_bf16": gpt_trained_bf16[0],
-               "train_recipe": trained_recipe[0],
-               "train_recipe_lamb": trained_lamb[0]}
     summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
                  {path: n[name] for path, n in by_path.items()},

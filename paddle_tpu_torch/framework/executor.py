@@ -1,4 +1,5 @@
-"""Executor: run a Program op by op on torch tensors.
+"""Executor: run a Program op by op on torch tensors; on a CUDA card,
+capture each warm step into a CUDA graph and replay it.
 
 Counterpart of paddle_tpu/framework/executor.py + trace.py. ``run``
 interprets the global block's ops in order: feeds and persistable scope
@@ -13,8 +14,32 @@ once in the forward and again in the backward). A var's value is dropped
 after the last op that reads it, unless it is persistable or fetched.
 Optimizer ops may update parameters and moments in place (the fused-Adam
 kernel does). What a run derives from the program alone (the check that
-every op is ported, the forward/grad pairing, each value's last reader)
-is made once per program version and fetch list and reused.
+every op is ported, the forward/grad pairing, each value's last reader,
+the random ops' generators) is made once per program version and fetch
+list and reused.
+
+The compiled step (the JAX package's ``_run_jitted``): on a CUDA place a
+run with a fetch list is keyed as the JAX package keys its jitted step:
+the program and its version, the feeds' names, shapes and dtypes, the
+fetch names, the scope's persistable names and dtypes, and the scope.
+The first run of a key goes op by op; it is the warm-up that builds the
+kernels and runs every lazy initialisation. The second captures that
+same op-by-op step into a CUDA graph and replays it; later runs only
+replay (framework/compiled_step.py). Every run of a key, op by op or
+replayed, runs on the Executor's own stream, which waits for the
+caller's stream first and which the caller's stream waits for after.
+Startup programs (no fetch list), ``use_program_cache=False`` and a CPU
+place always run op by op. A capture that fails raises, naming the op.
+``run_steps`` runs a window of steps from stacked feeds with one host
+sync, at its end. ``close()`` drops the graphs and their memory pool.
+
+Random draws: each random op draws from a generator seeded from
+(program.random_seed, the scope's run counter, the op's block and
+position), so run k draws other numbers than run k - 1 and a fresh
+Executor on the same scope carries the stream on. On a CUDA card the
+generators are Philox generators held by the plan and re-seeded at the
+start of every run, so a replayed run k draws what op-by-op run k draws
+(``_Generators``); on the CPU each draw takes a new generator.
 
 Precision: f32 matmuls run in full f32 — TF32 is switched off where the
 Executor is made (``torch.backends.cuda.matmul.allow_tf32 = False``) —
@@ -27,6 +52,7 @@ import torch
 
 from ..ops.registry import NotPortedError, get_op, has_op
 from . import trace
+from .compiled_step import CompiledStep, GraphCaptureError
 from .dtypes import to_torch_dtype
 from .place import _current_expected_place
 from .program import default_main_program
@@ -45,36 +71,118 @@ def set_precision():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def _next_salt(scope):
+    """The scope's run counter: this run's value, advanced by one."""
+    salt = scope.find_var(_SALT_VAR) or 0
+    scope.set_var(_SALT_VAR, salt + 1)
+    return salt
+
+
+def _draw_seed(attr_seed, random_seed, salt, pos):
+    """The seed of a random op's draw in one run: its ``seed`` attr, else
+    one derived from (program.random_seed, the scope's run counter, the
+    op's block and position)."""
+    if attr_seed:
+        return int(attr_seed)
+    tag = "%d/%d/%s" % (random_seed, salt, pos)
+    return int.from_bytes(hashlib.sha256(tag.encode()).digest()[:8],
+                          "little") >> 1
+
+
+class _Generators(object):
+    """A plan's Philox generators on a CUDA card: one for each (op
+    position, n-th draw of that position in a run), kept for the plan's
+    life and registered with every graph that draws from them. ``seat``
+    re-seeds each at the start of every run, op by op or replayed, with
+    the seed the CPU path draws from (``_draw_seed``); a replay writes a
+    registered generator's seed and offset into the graph, so replay k
+    draws what op-by-op run k draws. A second draw of a position in one
+    run (a recomputed segment's op) takes a twin generator seeded alike,
+    so it draws the forward's numbers again: inside a capture a
+    generator's state cannot be set back, and the twin is how that state
+    is restored."""
+
+    def __init__(self, device, random_seed):
+        self._device = device
+        self._random_seed = random_seed
+        self._gens = {}           # (position, n) -> (generator, seed attr)
+        self._salt = 0
+
+    def generators(self):
+        return [g for g, _ in self._gens.values()]
+
+    def seat(self, salt):
+        self._salt = salt
+        for (pos, _), (g, attr_seed) in self._gens.items():
+            g.manual_seed(_draw_seed(attr_seed, self._random_seed, salt,
+                                     pos))
+
+    def get(self, pos, n, attr_seed, capturing):
+        entry = self._gens.get((pos, n))
+        if entry is None:
+            if capturing:
+                raise RuntimeError(
+                    "the op at %s draws from a generator its warm run did "
+                    "not make" % pos)
+            g = torch.Generator(device=self._device)
+            g.manual_seed(_draw_seed(attr_seed, self._random_seed,
+                                     self._salt, pos))
+            entry = self._gens[(pos, n)] = (g, attr_seed)
+        return entry[0]
+
+
 class RunContext(object):
     """What an op kernel sees as ``ctx``: the device, the program (a
     block-running op finds its sub-block there), seeded generators for
-    random ops and ``run_block`` for a sub-block's ops."""
+    random ops, constants made once per plan and ``run_block`` for a
+    sub-block's ops."""
 
-    def __init__(self, device, program, salt):
+    def __init__(self, device, program, salt, rng=None, constants=None,
+                 capturing=False):
         self.device = device
         self.program = program
+        self.op = None
         self._salt = salt
+        self._rng = rng
+        self._constants = constants
+        self._capturing = capturing
+        self._draws = {}
         self._op_pos = "0"
 
-    def begin_op(self, block_idx, op_idx):
+    def begin_op(self, block_idx, op_idx, op=None):
         # a global-block op keeps the key it had before sub-blocks ran
         self._op_pos = "%d" % op_idx if block_idx == 0 else \
             "%d.%d" % (block_idx, op_idx)
+        self.op = op
 
     def generator(self, attrs):
-        """A torch.Generator on the run's device, seeded from the op's
-        ``seed`` attr, else from (program.random_seed, run salt, the op's
-        block and position in it): an op run again in the same run (a
-        recomputed segment) draws what it drew the first time."""
+        """A seeded torch.Generator on the run's device for the current
+        op, seeded from the op's ``seed`` attr, else from
+        (program.random_seed, run salt, the op's block and position)
+        (``_draw_seed``): on a CUDA card the plan's generator of the op's
+        position and draw (``_Generators``), on the CPU a new one. Either
+        way an op run again in the same run (a recomputed segment) draws
+        what it drew the first time."""
         seed = attrs.get("seed", 0)
-        if not seed:
-            tag = "%d/%d/%s" % (self.program.random_seed, self._salt,
-                                self._op_pos)
-            seed = int.from_bytes(
-                hashlib.sha256(tag.encode()).digest()[:8], "little") >> 1
+        if self._rng is not None:
+            n = self._draws.get(self._op_pos, 0)
+            self._draws[self._op_pos] = n + 1
+            return self._rng.get(self._op_pos, n, seed, self._capturing)
         g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed))
+        g.manual_seed(_draw_seed(seed, self.program.random_seed, self._salt,
+                                 self._op_pos))
         return g
+
+    def constant(self, make):
+        """A copy of ``make()``'s tensor. Where the run may be captured,
+        the tensor is made once per plan (its first run is op by op) and
+        copied on the device after, so no host data enters the step."""
+        if self._constants is None:
+            return make()
+        t = self._constants.get(self._op_pos)
+        if t is None:
+            t = self._constants[self._op_pos] = make()
+        return t.clone()
 
     def run_block(self, block, env, keep=()):
         """Run a sub-block's ops on ``env`` (its inputs bound by name),
@@ -114,50 +222,94 @@ def _fetch_names(fetch_list):
     return [f.name if hasattr(f, "name") else f for f in fetch_list]
 
 
+def _fetch(env, names, state=None):
+    """The fetches' tensors: from ``state`` (a replayed step's persistables,
+    written back) where it has the name, else from ``env``."""
+    out = []
+    for name in names:
+        if state is not None and name in state:
+            out.append(state[name])
+        elif name in env:
+            out.append(env[name])
+        else:
+            raise KeyError("fetch %r has no value after the run: it was "
+                           "neither fed, in scope, nor produced by an op"
+                           % name)
+    return out
+
+
 class _RunPlan(object):
     """What ``run`` derives from the program alone: made once per
-    (program, version, fetch names) and reused by later runs."""
-    __slots__ = ("program", "persistable", "want", "last_grad", "drop")
+    (program, version, fetch names) and reused by later runs; on a CUDA
+    card it also holds the random ops' generators and the constants of a
+    step that may be captured."""
+    __slots__ = ("key", "program", "persistable", "want", "last_grad",
+                 "drop", "rng", "constants")
 
-    def __init__(self, program, fetch_names):
+    def __init__(self, key, program, fetch_names, device):
         _check_runnable(program)
         blk = program.global_block()
+        self.key = key
         self.program = program
         self.persistable = sorted({v.name for v in program.list_vars()
                                    if v.persistable})
         self.want, self.last_grad = trace.wanted_grads(blk)
         self.drop = _last_uses(blk.ops,
                                set(self.persistable) | set(fetch_names))
+        self.rng = _Generators(device, program.random_seed) \
+            if device.type == "cuda" else None
+        self.constants = {}
 
 
 class Executor(object):
     """``Executor(place=None)``: place defaults to CUDAPlace(0) and raises
     NoCUDADeviceError without a CUDA device; pass CPUPlace() to run on the
-    CPU."""
+    CPU. ``capture_log`` lists each capture: its feeds' shapes, its
+    time, the memory the pool grew by, and the launches of each kernel
+    a replay is credited (in ``ops.kernels.LAUNCH_COUNTERS`` order)."""
 
     def __init__(self, place=None):
         self.place = place if place is not None else _current_expected_place()
         self.device = self.place.torch_device()
         self._plans = {}
+        self._graphs = {}
+        self._warm = set()
+        self._pool = None
+        self._stream = None
+        self.capture_log = []
         set_precision()
+
+    def close(self):
+        """Drop the captured graphs, their memory pool and the plans (the
+        counterpart of paddle_tpu's ``Executor.close``); the scope keeps
+        its tensors."""
+        self._graphs.clear()
+        self._warm.clear()
+        self._plans.clear()
+        self._pool = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     def _plan(self, program, fetch_names, use_program_cache):
         # the key holds the var count too: creating a var bumps no version
         key = (id(program), program._version,
-               sum(len(b.vars) for b in program.blocks), tuple(fetch_names))
+               sum(len(b.vars) for b in program.blocks), tuple(fetch_names),
+               program.random_seed)
         plan = self._plans.get(key) if use_program_cache else None
         if plan is None or plan.program is not program:
-            plan = _RunPlan(program, fetch_names)
+            plan = _RunPlan(key, program, fetch_names, self.device)
             if use_program_cache:
                 self._plans[key] = plan
         return plan
 
-    def _convert_feed(self, program, feed):
+    def _feed_tensors(self, program, feed):
+        """{name: (tensor as given, dtype it runs in)}, each checked against
+        the shape the program declares."""
         out = {}
         blk = program.global_block()
         for name, val in feed.items():
             var = blk._find_var_recursive(name)
-            dtype = to_torch_dtype(var.dtype) if var is not None else None
             if isinstance(val, torch.Tensor):
                 t = val
             else:
@@ -174,8 +326,13 @@ class Executor(object):
                         raise ValueError(
                             "feed %r shape %s incompatible with declared %s"
                             % (name, got, tuple(want)))
-            out[name] = t.to(device=self.device, dtype=dtype)
+            out[name] = (t, to_torch_dtype(var.dtype) if var is not None
+                         else t.dtype)
         return out
+
+    def _graphed(self, fetch_names, use_program_cache):
+        return bool(fetch_names) and use_program_cache and \
+            self.device.type == "cuda"
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
@@ -184,31 +341,180 @@ class Executor(object):
         scope = scope if scope is not None else global_scope()
         fetch_names = _fetch_names(fetch_list or [])
         plan = self._plan(program, fetch_names, use_program_cache)
+        feeds = self._feed_tensors(program, dict(feed or {}))
+        if self._graphed(fetch_names, use_program_cache):
+            fetches = self._run_graphed(program, plan, feeds, fetch_names,
+                                        scope, copy=not return_numpy)
+        else:
+            fetches = self._run_ops(program, plan, feeds, fetch_names,
+                                    scope)
+        if return_numpy:
+            return [to_numpy(t) for t in fetches]
+        return fetches
+
+    def run_steps(self, program=None, feed=None, fetch_list=None,
+                  scope=None, return_numpy=True, use_program_cache=True):
+        """Run N consecutive steps of ``program``: ``feed`` maps each feed
+        name to an array with a leading steps axis, and step i consumes
+        ``feed[name][i]``. Returns the fetches of every step, stacked on a
+        leading axis of length N; step i draws what the i-th of N ``run``
+        calls would draw, and the state moves as N runs move it.
+
+        Counterpart of paddle_tpu's ``Executor.run_steps`` (one
+        ``lax.scan`` device program) without its pipeline and
+        ``CompiledProgram`` branches. On a CUDA card the window is copied
+        to the device once, each step is one replay of the key's graph
+        (the key's first run and capture as in ``run``) fed by a
+        device-to-device copy of its slice, each fetch goes into a slot
+        of a stacked output, and the host waits once, at the end (and at
+        a capture). On the CPU it is N op-by-op steps."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed = dict(feed or {})
+        fetch_names = _fetch_names(fetch_list or [])
+        if not feed or not fetch_names:
+            raise ValueError("run_steps requires stacked feeds and a "
+                             "fetch_list")
+        lens = {k: (np.shape(v)[0] if np.ndim(v) else None)
+                for k, v in feed.items()}
+        if None in lens.values() or len(set(lens.values())) != 1:
+            raise ValueError(
+                "every run_steps feed needs the same leading steps axis; "
+                "got %r" % lens)
+        n_steps = next(iter(lens.values()))
+        if n_steps == 0:
+            raise ValueError("run_steps needs at least one step; the "
+                             "stacked feeds have a leading axis of 0")
+        plan = self._plan(program, fetch_names, use_program_cache)
+        window = {n: v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(v))) for n, v in feed.items()}
+        dtypes = {n: d for n, (_, d) in self._feed_tensors(
+            program, {n: w[0] for n, w in window.items()}).items()}
+        window = {n: w.to(device=self.device, dtype=dtypes[n])
+                  for n, w in window.items()}
+        graphed = self._graphed(fetch_names, use_program_cache)
+        stacked = None
+        for i in range(n_steps):
+            feeds = {n: (w[i], dtypes[n]) for n, w in window.items()}
+            if graphed:
+                outs = self._run_graphed(program, plan, feeds, fetch_names,
+                                         scope, copy=False)
+            else:
+                outs = self._run_ops(program, plan, feeds, fetch_names,
+                                     scope)
+            if stacked is None:
+                stacked = [torch.empty((n_steps,) + tuple(o.shape),
+                                       dtype=o.dtype, device=o.device)
+                           for o in outs]
+            for s, o in zip(stacked, outs):
+                s[i].copy_(o)
+        if return_numpy:
+            return [to_numpy(s) for s in stacked]
+        return stacked
+
+    def _context(self, program, plan, salt, graphable, capturing=False):
+        if plan.rng is not None and not capturing:
+            plan.rng.seat(salt)
+        return RunContext(self.device, program, salt, plan.rng,
+                          plan.constants if graphable else None, capturing)
+
+    def _run_ops(self, program, plan, feeds, fetch_names, scope,
+                 graphable=False):
+        """One op-by-op run: the scope's persistables and the feeds in,
+        the persistables back to the scope; returns the fetch tensors."""
         env = {}
         for n in plan.persistable:
             v = scope.find_var(n)
             if v is not None:
                 env[n] = v.to(self.device)
-        env.update(self._convert_feed(program, dict(feed or {})))
-        salt = scope.find_var(_SALT_VAR) or 0
-        scope.set_var(_SALT_VAR, salt + 1)
-        ctx = RunContext(self.device, program, salt)
+        env.update({n: t.to(device=self.device, dtype=d)
+                    for n, (t, d) in feeds.items()})
+        ctx = self._context(program, plan, _next_salt(scope), graphable)
         with torch.no_grad():
             run_block(program.global_block(), env, ctx, plan.want,
                       plan.last_grad, plan.drop)
         for n in plan.persistable:
             if n in env:
                 scope.set_var(n, env[n])
-        fetches = []
-        for name in fetch_names:
-            if name not in env:
-                raise KeyError("fetch %r has no value after the run: it was "
-                               "neither fed, in scope, nor produced by an op"
-                               % name)
-            fetches.append(env[name])
-        if return_numpy:
-            return [to_numpy(t) for t in fetches]
-        return fetches
+        return _fetch(env, fetch_names)
+
+    def _run_graphed(self, program, plan, feeds, fetch_names, scope, copy):
+        """A run of a CUDA key on the Executor's stream: op by op the first
+        time, captured and replayed the second, replayed after. ``copy``:
+        return clones of a replay's outputs (the next replay overwrites
+        them)."""
+        state = [(n, v) for n in plan.persistable
+                 for v in (scope.find_var(n),) if v is not None]
+        key = (plan.key, tuple(sorted((n, tuple(t.shape), d)
+                                      for n, (t, d) in feeds.items())),
+               tuple((n, v.dtype) for n, v in state), id(scope))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            step = self._graphs.get(key)
+            if step is None and key not in self._warm:
+                out = self._run_ops(program, plan, feeds, fetch_names,
+                                    scope, graphable=True)
+                self._warm.add(key)
+            else:
+                salt = _next_salt(scope)
+                if step is None:
+                    step = self._capture(program, plan, feeds, fetch_names,
+                                         scope, state, salt)
+                    self._graphs[key] = step
+                else:
+                    step.load(feeds, scope)
+                plan.rng.seat(salt)
+                step.replay()
+                out = [t.clone() for t in step.outputs] if copy \
+                    else step.outputs
+        caller.wait_stream(self._stream)
+        return out
+
+    def _capture(self, program, plan, feeds, fetch_names, scope, state,
+                 salt):
+        """The key's step captured into a CompiledStep (not replayed yet),
+        its feeds loaded."""
+        static = {}
+        for n, v in state:
+            if v.device != self.device:
+                v = v.to(self.device)
+                scope.set_var(n, v)
+            static[n] = v
+        step = CompiledStep(self.device, static, {
+            n: (tuple(t.shape), d) for n, (t, d) in feeds.items()})
+        step.load(feeds, scope)
+        ctx = self._context(program, plan, salt, True, capturing=True)
+
+        def run(env):
+            with torch.no_grad():
+                run_block(program.global_block(), env, ctx, plan.want,
+                          plan.last_grad, plan.drop)
+            stray = [n for n in plan.persistable
+                     if n in env and n not in static]
+            if stray:
+                raise RuntimeError(
+                    "the step writes persistables the scope had no value "
+                    "for when it was captured: %s" % stray[:5])
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        try:
+            step.capture(run, lambda env: _fetch(env, fetch_names, static),
+                         plan.rng.generators(), self._pool)
+        except Exception as e:
+            op = ctx.op
+            raise GraphCaptureError(
+                "capturing the step of program %d failed at op {%s} (%s): "
+                "%s: %s" % (id(program), op.type if op is not None else
+                            "none", ctx._op_pos, type(e).__name__, e)) from e
+        self.capture_log.append({
+            "feeds": {n: list(t.shape) for n, (t, _) in feeds.items()},
+            "capture_ms": step.capture_ms, "pool_bytes": step.pool_bytes,
+            "launches": step.launches})
+        return step
 
 
 def run_block(block, env, ctx, want=None, last_grad=None, drop=None):
@@ -223,7 +529,7 @@ def run_block(block, env, ctx, want=None, last_grad=None, drop=None):
     want = want or {}
     records = {}
     for i, op in enumerate(block.ops):
-        ctx.begin_op(block.idx, i)
+        ctx.begin_op(block.idx, i, op)
         if op.type == GRAD_OP_TYPE:
             outs = trace.run_grad_op(op, env, records, ctx,
                                      last_grad[op.attrs["fwd_id"]] == i)
@@ -274,4 +580,5 @@ def _bind(op, outs, env):
                     else val
 
 
-__all__ = ["Executor", "RunContext", "run_block", "set_precision"]
+__all__ = ["Executor", "GraphCaptureError", "RunContext", "run_block",
+           "set_precision"]

@@ -9,9 +9,11 @@ those inputs and differentiates that run. The JAX package gets the same
 from ``jax.checkpoint``. The re-run launches the same kernels on the same
 inputs, so it recomputes the same values: the flash-attention and
 LayerNorm autograd Functions inside it bring their hand-written backward
-kernels, and a dropout draws the mask it drew in the forward, because
-its generator is keyed on the run and on the op's block and position
-(``RunContext.generator``), not on a global RNG state. So nothing is
+kernels, and a dropout draws the mask it drew in the forward: its
+generator is keyed on the run and on the op's block and position, not on
+a global RNG state, and on a CUDA card the re-run's draw takes a twin
+generator seeded as the forward's was, which also holds inside a
+captured step (``RunContext.generator``). So nothing is
 stashed, and ``torch.utils.checkpoint`` is not used.
 """
 import torch

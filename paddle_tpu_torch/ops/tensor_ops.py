@@ -38,9 +38,12 @@ def _assign(ctx, ins, attrs):
 
 @register_op("assign_value")
 def _assign_value(ctx, ins, attrs):
-    return {"Out": torch.tensor(
+    """The attr's values as a tensor: copied from the host once per plan
+    where the step may be captured, and on the device after
+    (``RunContext.constant``)."""
+    return {"Out": ctx.constant(lambda: torch.tensor(
         attrs["values"], dtype=to_torch_dtype(attrs.get("dtype", "float32")),
-        device=ctx.device).reshape(attrs["shape"])}
+        device=ctx.device).reshape(attrs["shape"]))}
 
 
 @register_op("increment")

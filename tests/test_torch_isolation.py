@@ -84,6 +84,9 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.ops.control_flow_ops\n"
             "import paddle_tpu_torch.ops.kernels.blockwise_ce\n"
             "import paddle_tpu_torch.ops.kernels.build\n"
+            "import paddle_tpu_torch.ops.kernels\n"
+            "import paddle_tpu_torch.framework.compiled_step\n"
+            "import paddle_tpu_torch.framework.executor\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
