@@ -78,6 +78,20 @@ and graphed, GRAPH_STEPS runs each from one startup and run counter:
   recompute segment, replayed, whose gradient must use its forward's
   mask.
 
+``train_state`` drives the training-state slice, graphed: the
+train_recipe step with ``ExponentialMovingAverage(0.999).update()`` on
+top, six steps with two checkpoints of the whole scope after the third
+(uncompressed; zlib, committed on its thread while steps 4-6 replay), a
+resume from the zlib one in a fresh Executor and scope and from the
+other in the live Executor (steps 4-6 again: fetches, dropout masks and
+every persistable bit for bit, the run counter back as a Python int),
+the eval program captured and replayed under ``ema.apply()``
+(parameters and accumulators bit for bit after ``restore``; the next
+training replay equal to an op-by-op run), a persistable set to a new
+shape (a new key, never the old graph) and back (the old graph
+replays); checkpoint bytes and seconds; EMA's device time a step against
+the same step without EMA.
+
 Each profiles one run both ways (device busy, idle share) and lists
 the replay's kernels: the path's hand-written kernels must appear and
 no library attention, LayerNorm or Adam kernel; the capture's time and
@@ -94,10 +108,12 @@ bf16 GPT with recompute against the same without, bit for bit
 decodes with a 2-layer bf16 GPT on the card against the CPU's f32 logits
 (the widened tied head). ``optimizer_parity`` holds every optimizer
 (SGD, Momentum, LarsMomentum, Adagrad, DecayedAdagrad, RMSProp, Adamax,
-AdamW, Lamb, Ftrl, Adadelta; AdamW and Lamb also in bf16) under the
-recipe's schedule (FTRL at a constant rate) and clip and an L2Decay
-regularizer to the same card-against-CPU comparison, and DP-SGD's clip
-and noise by their statistics on the card. A profile phase splits one
+AdamW, Lamb, Ftrl, Adadelta; AdamW and Lamb also in bf16; AdamW under
+ExponentialMovingAverage, LookaheadOptimizer (k = 2) and ModelAverage
+(a window of 2), their state held too) under the recipe's schedule
+(FTRL at a constant rate) and clip and an L2Decay regularizer to the
+same card-against-CPU comparison, and DP-SGD's clip and noise by their
+statistics on the card. A profile phase splits one
 warm request's, one warm BERT training step's and one warm GPT training
 step's device time by kernel family, f32 and bf16 (BERT at batch 128,
 GPT with recompute, and the recipe's AdamW and LAMB steps), each a
@@ -117,6 +133,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 1234
@@ -218,6 +235,18 @@ PARITY_OPTIMIZERS = (
     ("Adadelta", 1.0, True, lambda o, lr: o.Adadelta(lr)),
 )
 PARITY_BF16_OPTIMIZERS = ("AdamW", "Lamb")
+# optimizer_parity's wrapper cases, each around AdamW at 1.6e-4 under the
+# schedule: EMA (decay 0.9, so that three steps move the averages well
+# past PARITY_PARAM_ATOL), Lookahead (k = 2: the sync runs at the second
+# step), ModelAverage (a window of 2: the sums move to sum_3 at the
+# second step). Their state (WRAPPER_STATE_MARKS in the name) is held to
+# the parameters' comparison, counters exactly.
+PARITY_EMA_DECAY = 0.9
+PARITY_LOOKAHEAD_ALPHA, PARITY_LOOKAHEAD_K = 0.5, 2
+PARITY_AVERAGE_RATE, PARITY_AVERAGE_WINDOW = 0.5, 2
+WRAPPER_STATE_MARKS = (".ema_", ".slow_", ".sum_1_", ".sum_2_", ".sum_3_",
+                       ".num_accumulates_", ".old_num_accumulates_",
+                       ".num_updates_")
 # Dpsgd draws Gaussian noise: on the card, its clip (sigma 0: a step of
 # lr times the gradient clipped to norm DPSGD_CLIP) and its noise (a zero
 # gradient: the step is lr times the noise) over DPSGD_N elements, whose
@@ -236,6 +265,14 @@ GPT_PARITY_BATCH, GPT_PARITY_SEQ = 2, 128
 # attention, LayerNorm or Adam kernel (LIBRARY_KERNELS, lower case).
 GRAPH_STEPS = 6
 GRAPH_SERVE_BATCHES = (1, 8)
+# train_state: train_recipe's cell with ExponentialMovingAverage(
+# STATE_EMA_DECAY).update() on top, graphed, RECIPE_STEPS steps with
+# checkpoints after STATE_SAVE_AT; the new-shape check sets STATE_SHAPE_VAR
+# (the pooler's bias, (768,)) to shape (1,), which the eval program's add
+# would broadcast
+STATE_EMA_DECAY = 0.999
+STATE_SAVE_AT = 3
+STATE_SHAPE_VAR = "pooled_fc.b_0"
 GRAPH_SERVE_REPS = 10
 GRAPH_GPT_DROPOUT = 0.1
 SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
@@ -1216,21 +1253,58 @@ def _recipe_rate(run, base):
 
 
 def _recipe_optimizer(ptt, make, base, regularization=None, fetch=None,
-                      scheduled=True):
+                      scheduled=True, wrap=None):
     """optimizer_fn: ``make(optimizer module, rate)`` under the recipe's
     schedule (else at the constant ``base``) and global-norm clip; the
-    rate and the global norm land in ``fetch``."""
+    rate and the global norm land in ``fetch``. ``wrap(optimizer module,
+    inner optimizer, loss)`` minimizes through a wrapper (EMA, Lookahead,
+    ModelAverage) and returns it, kept in ``fetch["wrapper"]``."""
     def fn(loss):
         lr = _recipe_schedule(ptt, base) if scheduled else base
         opt = make(ptt.optimizer, lr)
         opt.regularization = regularization
-        out = opt.minimize(
-            loss, grad_clip=ptt.clip.GradientClipByGlobalNorm(RECIPE_CLIP))
+        clip = ptt.clip.GradientClipByGlobalNorm(RECIPE_CLIP)
+        if wrap is None:
+            out = opt.minimize(loss, grad_clip=clip)
+        else:
+            opt._grad_clip = clip            # a wrapper calls minimize(loss)
+            wrapper = out = wrap(ptt.optimizer, opt, loss)
         if fetch is not None:
             fetch["lr"] = lr
             fetch["global_norm"] = _global_norm_var(loss.block.program)
+            if wrap is not None:
+                fetch["wrapper"] = wrapper
         return out
     return fn
+
+
+def _wrap_ema(o, opt, loss, decay=None):
+    opt.minimize(loss)
+    ema = o.ExponentialMovingAverage(decay or PARITY_EMA_DECAY)
+    ema.update()
+    return ema
+
+
+def _wrap_lookahead(o, opt, loss):
+    lookahead = o.LookaheadOptimizer(opt, alpha=PARITY_LOOKAHEAD_ALPHA,
+                                     k=PARITY_LOOKAHEAD_K)
+    lookahead.minimize(loss)
+    return lookahead
+
+
+def _wrap_model_average(o, opt, loss):
+    opt.minimize(loss)
+    return o.ModelAverage(PARITY_AVERAGE_RATE,
+                          min_average_window=PARITY_AVERAGE_WINDOW,
+                          max_average_window=PARITY_AVERAGE_WINDOW)
+
+
+def _wrapper_state(main):
+    """The persistables a wrapper added: EMA accumulators, Lookahead's
+    slow weights and step counter, ModelAverage's sums and counters."""
+    return sorted(v.name for v in main.list_vars() if v.persistable and (
+        v.name == "@LOOKAHEAD_STEP@" or any(
+            m in v.name for m in WRAPPER_STATE_MARKS)))
 
 
 def _global_norm_var(main):
@@ -1403,7 +1477,9 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     """PARITY_STEPS runs of a training program on the card and on the CPU
     (plain versions) from the same startup weights, held to PARITY_*; on
     the card also op by op, which must give the graphed runs' bits: (the
-    comparison's numbers, whether it passed)."""
+    comparison's numbers, whether it passed). A wrapper's state
+    (``_wrapper_state``) is held as the parameters are, its integer
+    counters exactly."""
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
     init = ptt.Scope()
@@ -1441,7 +1517,14 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     beyond = elements = capped = 0
     param_err = moved = 0.0
     moved_errs = []
-    for p in main.all_parameters():
+    block = main.global_block()
+    wrapper = [block.var(n) for n in _wrapper_state(main)]
+    counters = [v.name for v in wrapper if v.dtype.startswith("int")]
+    counters_equal = all(np.array_equal(to_numpy(gs.find_var(n)),
+                                        to_numpy(cs.find_var(n)))
+                         for n in counters)
+    for p in main.all_parameters() + [v for v in wrapper
+                                      if v.name not in counters]:
         start = to_numpy(arrays[p.name]).astype(np.float32)
         got = to_numpy(gs.find_var(p.name)).astype(np.float32)
         want = to_numpy(cs.find_var(p.name)).astype(np.float32)
@@ -1464,8 +1547,11 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
           and capped == 0
           and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
           and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
-          and moved >= 10 * PARITY_PARAM_ATOL and graphed_equal)
+          and moved >= 10 * PARITY_PARAM_ATOL and graphed_equal
+          and counters_equal)
     return {"steps": PARITY_STEPS, "dropout": 0.0, "dtype": dtype,
+            "wrapper_state": len(wrapper), "wrapper_counters": counters[:4],
+            "wrapper_counters_equal": counters_equal,
             "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
             "loss_rtol": PARITY_LOSS_RTOL[dtype],
             "param_max_abs_err": param_err, "param_atol": PARITY_PARAM_ATOL,
@@ -1910,8 +1996,9 @@ def optimizer_parity(torch, np, ptt):
     """Each optimizer under the recipe's schedule and clip with an
     L2Decay regularizer: three steps of a 2-layer BERT-base-width model on
     the card and on the CPU from the same weights, held to PARITY_*; f32
-    for every optimizer, bf16 for AdamW and LAMB. Then DP-SGD's clip and
-    noise on the card (``_dpsgd_on_card``)."""
+    for every optimizer, bf16 for AdamW and LAMB; then AdamW (f32) under
+    EMA, Lookahead and ModelAverage, their state held too. Then DP-SGD's
+    clip and noise on the card (``_dpsgd_on_card``)."""
     from paddle_tpu_torch.models import bert
     results, ok = [], True
     for dtype in ("float32", "bfloat16"):
@@ -1933,6 +2020,26 @@ def optimizer_parity(torch, np, ptt):
             results.append(dict({"optimizer": name, "base_lr": base,
                                  "scheduled": scheduled, "ok": case_ok},
                                 **result))
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0)
+    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=1)
+    adamw = dict((c[0], c) for c in PARITY_OPTIMIZERS)["AdamW"]
+    for name, wrap in (
+            ("ExponentialMovingAverage(AdamW)", _wrap_ema),
+            ("LookaheadOptimizer(AdamW, k=2)", _wrap_lookahead),
+            ("ModelAverage(AdamW, window 2)", _wrap_model_average)):
+        main, startup, fetch_list = _pretrain_program(
+            ptt, bert, cfg, PARITY_BATCH, _recipe_optimizer(
+                ptt, adamw[3], adamw[1],
+                regularization=ptt.regularizer.L2Decay(PARITY_L2),
+                wrap=wrap))
+        result, case_ok = _card_vs_cpu(np, ptt, main, startup, fetch_list,
+                                       feed)
+        case_ok = case_ok and result["wrapper_state"] > 0
+        ok = ok and case_ok
+        results.append(dict({"optimizer": name, "base_lr": adamw[1],
+                             "scheduled": True, "ok": case_ok}, **result))
     dpsgd, dpsgd_ok = _dpsgd_on_card(torch, np, ptt)
     ok = ok and dpsgd_ok
     emit({"phase": "optimizer_parity", "ok": ok, "layers": PARITY_LAYERS,
@@ -2332,6 +2439,275 @@ def _set_params_between_replays(torch, np, ptt):
             "atol": 1e-4, "captures": len(exe.capture_log)}, ok
 
 
+def train_state(torch, np, ptt, counters):
+    """The BERT recipe cell with ExponentialMovingAverage on top, graphed:
+    RECIPE_STEPS steps with checkpoints after STATE_SAVE_AT of them (an
+    uncompressed one, then a zlib one committed on a thread while the
+    next steps replay), resumed from one in a fresh Executor and scope
+    and from the other in the live Executor, each giving the last steps'
+    fetches (losses, rate, global norm, a dropout Mask) and every
+    persistable bit for bit; the eval program run under ``ema.apply()``
+    (captured there, then replayed after ``restore``); a persistable set
+    to a new shape and back; EMA's device time a step."""
+    from paddle_tpu_torch import io as pio
+    root = os.path.join(_ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _train_state(torch, np, ptt, counters, pio, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _state_program(ptt, bert, cfg, ema):
+    """The recipe program (train_recipe's), with ``ema`` its EMA on top:
+    (main, startup, fetch list ending in a dropout Mask, the EMA)."""
+    fetch = {}
+    main, startup, fetch_list = _pretrain_program(
+        ptt, bert, cfg, BF16_TRAIN_BATCH, _recipe_optimizer(
+            ptt, lambda o, lr: o.AdamW(lr, weight_decay=RECIPE_WEIGHT_DECAY),
+            RECIPE_LR, fetch=fetch, wrap=(
+                lambda o, opt, loss: _wrap_ema(o, opt, loss,
+                                               STATE_EMA_DECAY))
+            if ema else None))
+    return main, startup, fetch_list + [
+        fetch["lr"], fetch["global_norm"], _dropout_mask(main)], \
+        fetch.get("wrapper")
+
+
+def _train_state(torch, np, ptt, counters, pio, root):
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list, ema = _state_program(ptt, bert, cfg, True)
+    feed = bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_PREDS, seed=0)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    params = [p.name for p in main.all_parameters()]
+    pairs = sorted((p, v.name) for p, v in ema._ema_vars.items())
+    dirs = {"none": os.path.join(root, "none"),
+            "zlib": os.path.join(root, "zlib")}
+
+    def run(exe, scope, n, prog=main, fetches=fetch_list, record=None,
+            cache=True):
+        out = []
+        for _ in range(n):
+            before = counters.read()
+            t0 = time.perf_counter()
+            out.append(exe.run(prog, feed=feed, fetch_list=fetches,
+                               scope=scope, return_numpy=False,
+                               use_program_cache=cache))
+            torch.cuda.synchronize()
+            if record is not None:
+                after = counters.read()
+                record.append(({k: after[k] - before[k] for k in after},
+                               (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            torch.equal(x, y) for fa, fb in zip(a, b) for x, y in zip(fa, fb))
+
+    def unequal(scope, ref, names=persist):
+        return [n for n in names if not torch.equal(scope.find_var(n),
+                                                    ref[n])]
+
+    def snapshot(scope, names=persist):
+        return {n: scope.find_var(n).clone() for n in names}
+
+    # the slice's main path: six graphed recipe steps with EMA, the
+    # checkpoints written after the third, the zlib one committed on its
+    # thread while the rest of the phase runs
+    scope, exe = ptt.Scope(), ptt.Executor()     # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    per_step = []
+    counters.zero()                          # the main path starts here
+    first = run(exe, scope, STATE_SAVE_AT, record=per_step)
+    at_save = scope.find_var("@EAGER_SALT@")
+    timing = {}
+    t0 = time.perf_counter()
+    pio.save_checkpoint(exe, dirs["none"], main, step=STATE_SAVE_AT,
+                        scope=scope)
+    timing["save_none_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handle = pio.save_checkpoint(exe, dirs["zlib"], main,
+                                 step=STATE_SAVE_AT, scope=scope,
+                                 compress="zlib", blocking=False)
+    timing["save_zlib_return_s"] = time.perf_counter() - t0
+    committed = {}
+
+    def watch():                             # the commit's own time
+        try:
+            handle.result()
+        except BaseException as e:           # raised again below
+            committed["error"] = repr(e)
+        committed["s"] = time.perf_counter() - t0
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    rest = run(exe, scope, RECIPE_STEPS - STATE_SAVE_AT, record=per_step)
+    launches = counters.read()               # ... and ends here
+    reference = snapshot(scope)
+    salt = scope.find_var("@EAGER_SALT@")
+    counts_ok = all(c == TRAIN_PER_STEP for c, _ in per_step)
+    losses = [float(f[0].reshape(())) for f in first + rest]
+    captures_a = len(exe.capture_log)
+
+    # the eval program (is_test, the same parameters) under ema.apply():
+    # captured there, replayed after
+    with ptt.unique_name.guard():
+        eval_prog, _, _, eval_fetch = bert.bert_pretrain_program(
+            cfg, BF16_TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS, is_test=True)
+    loss = [eval_fetch["loss"]]
+    trained = snapshot(scope, params)
+    averages = snapshot(scope, [e for _, e in pairs])
+    captures = len(exe.capture_log)
+    with ptt.scope_guard(scope):
+        with ema.apply(exe):
+            applied = all(torch.equal(scope.find_var(p), averages[e])
+                          for p, e in pairs)
+            under = run(exe, scope, 2, eval_prog, loss)
+    eval_captured = len(exe.capture_log) - captures
+    restored = {"params": unequal(scope, trained, params)[:8],
+                "ema": unequal(scope, averages, list(averages))[:8]}
+    after = run(exe, scope, 1, eval_prog, loss)
+    after_op = run(exe, scope, 1, eval_prog, loss, cache=False)
+    after_kept = not unequal(scope, trained, params) and \
+        not unequal(scope, averages, list(averages))
+    # one more training replay against an op-by-op run of a copy
+    copy = _copy_scope(torch, ptt, scope)
+    op_by_op = run(exe, copy, 1, cache=False)
+    replayed = run(exe, scope, 1)
+    train_after = same(op_by_op, replayed) and not unequal(
+        scope, snapshot(copy))
+    del copy, trained, averages
+    apply_record = {
+        "params_hold_averages_under_apply": applied,
+        "eval_captured_under_apply": eval_captured,
+        "eval_losses_under_apply": [float(f[0].reshape(())) for f in under],
+        "eval_loss_after_restore": float(after[0][0].reshape(())),
+        "unequal_after_restore": restored,
+        "replay_after_restore_equals_op_by_op": same(after, after_op),
+        "replay_after_restore_keeps_params_and_ema": after_kept,
+        "training_replay_equals_op_by_op": train_after}
+    apply_ok = applied and eval_captured == 1 and same(under[:1], under[1:]) \
+        and not restored["params"] and not restored["ema"] and \
+        same(after, after_op) and after_kept and train_after and \
+        not same(under[:1], after)
+
+    # a persistable set to a new shape: a new key, never the old graph
+    captures = len(exe.capture_log)
+    old_eval = run(exe, scope, 1, eval_prog, loss)
+    old = scope.find_var(STATE_SHAPE_VAR)
+    scope.set_var(STATE_SHAPE_VAR, torch.zeros(1, dtype=old.dtype,
+                                               device=old.device))
+    op_error = None
+    try:
+        reshaped = run(exe, scope, 2, eval_prog, loss)
+    except Exception as e:                   # the op's own shape error
+        op_error = "%s: %s" % (type(e).__name__, str(e)[:200])
+        reshaped = []
+    new_key = len(exe.capture_log) == captures + 1
+    scope.set_var(STATE_SHAPE_VAR, old)
+    back = run(exe, scope, 1, eval_prog, loss)
+    old_replays = same(back, old_eval) and \
+        len(exe.capture_log) == captures + int(new_key)
+    shape_record = {"var": STATE_SHAPE_VAR, "shape": list(old.shape),
+                    "new_shape": [1], "new_key_captured": new_key,
+                    "op_error": op_error,
+                    "new_shape_losses": [float(f[0].reshape(()))
+                                         for f in reshaped],
+                    "old_key_replays_after": old_replays}
+    shape_ok = (new_key or op_error is not None) and old_replays
+
+    # EMA's device time a step: this step and the recipe step without
+    # EMA, each profiled as a replay
+    with_ema = _profiled(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope))
+    main0, startup0, fetch0, _ = _state_program(ptt, bert, cfg, False)
+    scope0, exe0 = ptt.Scope(), ptt.Executor()
+    exe0.run(startup0, scope=scope0)
+    for _ in range(2):
+        exe0.run(main0, feed=feed, fetch_list=fetch0, scope=scope0)
+    without = _profiled(torch, lambda: exe0.run(
+        main0, feed=feed, fetch_list=fetch0, scope=scope0))
+    close_executor(torch, "train_state without EMA", exe0)
+    del scope0
+    busy = [f["device_busy_ms"] for f in (with_ema, without)]
+    ema_cost = {
+        "device_busy_ms": {"with_ema": busy[0], "without": busy[1]},
+        "ema_device_ms": busy[0] - busy[1]
+        if "not measured" not in busy else "not measured",
+        "step_ms_unprofiled": {"with_ema": with_ema["unprofiled_ms"],
+                               "without": without["unprofiled_ms"]},
+        "ema_ops": 3 * len(pairs),
+        "ema_elements": sum(int(np.prod(main.global_block().var(p).shape))
+                            for p, _ in pairs)}
+
+    # resumed in a fresh Executor and scope, from the zlib checkpoint
+    watcher.join()
+    handle.result()
+    timing["save_zlib_commit_s"] = committed["s"]
+    sizes = {c: dict(zip(("raw_bytes", "wire_bytes"),
+                         pio.checkpoint_dir_bytes(d, STATE_SAVE_AT)))
+             for c, d in dirs.items()}
+    fresh_scope, fresh_exe = ptt.Scope(), ptt.Executor()
+    t0 = time.perf_counter()
+    step = pio.load_checkpoint(fresh_exe, dirs["zlib"], main,
+                               scope=fresh_scope)
+    torch.cuda.synchronize()
+    timing["load_zlib_s"] = time.perf_counter() - t0
+    fresh_salt = fresh_scope.find_var("@EAGER_SALT@")
+    fresh = run(fresh_exe, fresh_scope, RECIPE_STEPS - STATE_SAVE_AT)
+    fresh_record = {
+        "step": step, "salt_restored_as_int": type(fresh_salt) is int,
+        "salt": [fresh_salt, at_save], "fetches_equal": same(fresh, rest),
+        "unequal_state": unequal(fresh_scope, reference)[:8],
+        "captures": len(fresh_exe.capture_log)}
+    fresh_ok = step == STATE_SAVE_AT and fresh_salt == at_save and \
+        type(fresh_salt) is int and fresh_record["fetches_equal"] and \
+        not fresh_record["unequal_state"] and \
+        fresh_scope.find_var("@EAGER_SALT@") == salt and \
+        fresh_record["captures"] == 1
+    close_executor(torch, "train_state fresh", fresh_exe)
+    del fresh_scope, fresh
+
+    # resumed in the live Executor, from the uncompressed checkpoint: the
+    # replays copy the loaded tensors into their static inputs
+    captures = len(exe.capture_log)
+    t0 = time.perf_counter()
+    pio.load_checkpoint(exe, dirs["none"], main, scope=scope)
+    torch.cuda.synchronize()
+    timing["load_none_s"] = time.perf_counter() - t0
+    live = run(exe, scope, RECIPE_STEPS - STATE_SAVE_AT)
+    live_record = {"fetches_equal": same(live, rest),
+                   "unequal_state": unequal(scope, reference)[:8],
+                   "new_captures": len(exe.capture_log) - captures}
+    live_ok = live_record["fetches_equal"] and \
+        not live_record["unequal_state"] and \
+        live_record["new_captures"] == 0
+    close_executor(torch, "train_state", exe)
+    del live, scope, reference
+
+    ok = counts_ok and all(np.isfinite(losses)) and captures_a == 1 and \
+        fresh_ok and live_ok and apply_ok and shape_ok
+    emit({"phase": "train_state", "ok": ok, "model": "bert_base",
+          "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "dropout": cfg.hidden_dropout,
+          "optimizer": "AdamW(schedule, weight_decay=0.01, "
+          "GradientClipByGlobalNorm(1.0)) + ExponentialMovingAverage(%g)"
+          % STATE_EMA_DECAY, "steps": RECIPE_STEPS,
+          "checkpoint_after": STATE_SAVE_AT, "losses": losses,
+          "step_ms": [ms for _, ms in per_step],
+          "launches_per_step": per_step[-1][0],
+          "launches_per_step_ok": counts_ok,
+          "persistables": len(persist), "checkpoint_bytes": sizes,
+          "seconds": timing, "resume_fresh": fresh_record,
+          "resume_live": live_record, "ema_apply_restore": apply_record,
+          "new_shape": shape_record, "ema_cost": ema_cost})
+    if not ok:
+        raise AssertionError("train_state checks failed (see the line "
+                             "above)")
+    return launches
+
+
 def graph_gpt(torch, np, ptt, counters):
     """GPT-base bf16 with flash and recompute at 2 x 4096 (bench.py:596-601
     but dropout 0.1, so the recomputed segments redraw masks),
@@ -2638,6 +3014,8 @@ def main():
     if graphed is not None:
         phase("run_steps")(run_steps)(torch, np, ptt, graphed[1])
     del graphed
+    by_path["train_state"] = phase("train_state")(train_state)(
+        torch, np, ptt, counters)
     by_path["graph_gpt"] = phase("graph_gpt")(graph_gpt)(torch, np, ptt,
                                                          counters)
 

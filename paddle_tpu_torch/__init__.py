@@ -16,7 +16,11 @@ Lamb, Momentum and the other optimizers, with a ``regularizer``, a
 and update ops, and ``Executor.run(main, feed, fetch_list)`` takes one
 step (``models.bert.bert_pretrain_program``,
 ``models.gpt.gpt_pretrain_program``), in f32 or bf16, with or without
-recompute (``layers.recompute_segment``). The other models are later
+recompute (``layers.recompute_segment``). The training state leaves
+and comes back through ``io.save_checkpoint``/``io.load_checkpoint``
+(the whole scope) or ``save_persistables``/``load_persistables``, and
+``optimizer.ExponentialMovingAverage``, ``ModelAverage`` and
+``LookaheadOptimizer`` wrap the update. The other models are later
 slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
@@ -34,8 +38,9 @@ from . import clip
 from . import optimizer
 from .framework.backward import append_backward, gradients
 from . import io
-from .io import (save_inference_model, load_inference_model,
-                 set_params_from_numpy)
+from .io import (save_params, save_persistables, load_params,
+                 load_persistables, save_inference_model,
+                 load_inference_model, set_params_from_numpy)
 from . import inference
 
 __version__ = "0.1.0"

@@ -19,8 +19,9 @@ What the graph holds fixed, and how each run gets its own values in:
   persistable that an op rebound to a new tensor back into its static
   input, so after a replay the scope still points at the same tensors.
   A scope tensor that is no longer the static input
-  (``set_params_from_numpy``, a user's ``set_var``) is copied in before
-  the replay;
+  (``set_params_from_numpy``, ``load_checkpoint``, a user's ``set_var``)
+  is copied in before the replay; it has the static input's shape and
+  dtype, since both are part of the step's key;
 - random draws: the plan's Philox generators are registered with the
   graph and re-seeded for the run before each replay, which writes their
   seeds into the graph (``executor._Generators``), so replay k draws
@@ -47,6 +48,13 @@ class GraphCaptureError(RuntimeError):
     running."""
 
 
+class StaticInputMismatchError(ValueError):
+    """A scope tensor replaced between replays has another shape or dtype
+    than the static input it would be copied into. The Executor keys a
+    step on each state tensor's shape and dtype, so its runs never reach
+    this."""
+
+
 class CompiledStep(object):
     """One captured run of a (program, feeds, fetches, state, scope) key.
 
@@ -59,7 +67,7 @@ class CompiledStep(object):
         self.state = state
         self.feeds = {n: torch.empty(shape, dtype=dtype, device=device)
                       for n, (shape, dtype) in feeds.items()}
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = None            # made by capture
         self.outputs = None
         self.launches = None
         self.capture_ms = None
@@ -95,6 +103,13 @@ class CompiledStep(object):
         for name, static in self.state.items():
             val = scope.find_var(name)
             if val is not static:
+                if val.shape != static.shape or val.dtype != static.dtype:
+                    raise StaticInputMismatchError(
+                        "persistable %r is %s %s in the scope but the "
+                        "captured step holds it as %s %s; a new shape or "
+                        "dtype is a new key of the Executor"
+                        % (name, tuple(val.shape), val.dtype,
+                           tuple(static.shape), static.dtype))
                 static.copy_(val)
                 scope.set_var(name, static)
 
@@ -107,6 +122,7 @@ class CompiledStep(object):
         torch.cuda.empty_cache()     # the warm run's cached blocks
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
         before = kernels.launch_counts()
@@ -150,4 +166,4 @@ class CompiledStep(object):
             static.copy_(val)
 
 
-__all__ = ["CompiledStep", "GraphCaptureError"]
+__all__ = ["CompiledStep", "GraphCaptureError", "StaticInputMismatchError"]

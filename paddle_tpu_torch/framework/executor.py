@@ -21,7 +21,8 @@ list and reused.
 The compiled step (the JAX package's ``_run_jitted``): on a CUDA place a
 run with a fetch list is keyed as the JAX package keys its jitted step:
 the program and its version, the feeds' names, shapes and dtypes, the
-fetch names, the scope's persistable names and dtypes, and the scope.
+fetch names, the scope's persistable names, shapes and dtypes, and the
+scope (``_graph_key``).
 The first run of a key goes op by op; it is the warm-up that builds the
 kernels and runs every lazy initialisation. The second captures that
 same op-by-op step into a CUDA graph and replays it; later runs only
@@ -261,6 +262,17 @@ class _RunPlan(object):
         self.constants = {}
 
 
+def _graph_key(plan, feeds, state, scope):
+    """The key of a CUDA run's captured step: the plan's key, each feed's
+    name, shape and dtype, each state tensor's name, shape and dtype, and
+    the scope. A persistable of a new shape is a new key (its first run
+    goes op by op, as ``jax.jit`` traces again on a new shape), never a
+    copy into the captured shape."""
+    return (plan.key, tuple(sorted((n, tuple(t.shape), d)
+                                   for n, (t, d) in feeds.items())),
+            tuple((n, tuple(v.shape), v.dtype) for n, v in state), id(scope))
+
+
 class Executor(object):
     """``Executor(place=None)``: place defaults to CUDAPlace(0) and raises
     NoCUDADeviceError without a CUDA device; pass CPUPlace() to run on the
@@ -445,9 +457,7 @@ class Executor(object):
         them)."""
         state = [(n, v) for n in plan.persistable
                  for v in (scope.find_var(n),) if v is not None]
-        key = (plan.key, tuple(sorted((n, tuple(t.shape), d)
-                                      for n, (t, d) in feeds.items())),
-               tuple((n, v.dtype) for n, v in state), id(scope))
+        key = _graph_key(plan, feeds, state, scope)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         caller = torch.cuda.current_stream(self.device)

@@ -18,7 +18,8 @@ the host). Their result dtypes are JAX's: the learning rate, cast to the
 parameter's dtype, enters as a tensor with as many dims as the parameter
 (``_lr``), so torch promotes it with the parameter and gradient as JAX
 promotes its 0-d array (a bf16 parameter with an f32 gradient gives an
-f32 result in both).
+f32 result in both). ``average_accumulates`` (ModelAverage's window
+sums) is plain torch too, its counters and branches on the device.
 """
 import torch
 
@@ -262,3 +263,43 @@ def _adadelta(ctx, ins, attrs):
     ex_new = rho * ex + (1 - rho) * update * update
     return {"ParamOut": p + update, "AvgSquaredGradOut": eg_new,
             "AvgSquaredUpdateOut": ex_new}
+
+
+# average_accumulates moves sum_1 into sum_2 every K_MAX updates, to bound
+# the error of summing into one buffer (reference average_accumulates_op.h)
+AVERAGE_K_MAX = 16384
+
+
+@register_op("average_accumulates", differentiable=False)
+def _average_accumulates(ctx, ins, attrs):
+    """ModelAverage's sliding-window sums of a parameter: sum_1 gathers
+    the parameter each update, spills into sum_2 every AVERAGE_K_MAX
+    updates, and both move into sum_3 once the window has
+    max(min_average_window, min(max_average_window,
+    int(num_updates * average_window))) accumulations. The int32 counters
+    and every branch stay tensors (``torch.where`` on 0-d masks), so the
+    op replays in a graph with no host read."""
+    p = _p(ins, "param")
+    s1, s2, s3 = _p(ins, "in_sum_1"), _p(ins, "in_sum_2"), _p(ins, "in_sum_3")
+    num_acc = _p(ins, "in_num_accumulates") + 1
+    old_acc = _p(ins, "in_old_num_accumulates")
+    num_upd = _p(ins, "in_num_updates") + 1
+    s1 = s1 + p.to(s1.dtype)
+    spill = (num_upd % AVERAGE_K_MAX == 0).reshape(())
+    s2 = torch.where(spill, s2 + s1, s2)
+    s1 = torch.where(spill, torch.zeros_like(s1), s1)
+    # the window truncates num_updates * rate to an integer, as the
+    # reference does (std::min<int64_t>)
+    window = torch.clamp((num_upd.float() * attrs["average_window"]).to(
+        num_upd.dtype), max=attrs["max_average_window"])
+    trigger = ((num_acc >= attrs["min_average_window"]) &
+               (num_acc >= window)).reshape(())
+    s3 = torch.where(trigger, s1 + s2, s3)
+    s1 = torch.where(trigger, torch.zeros_like(s1), s1)
+    s2 = torch.where(trigger, torch.zeros_like(s2), s2)
+    old_acc = torch.where(trigger, num_acc, old_acc)
+    num_acc = torch.where(trigger, torch.zeros_like(num_acc), num_acc)
+    return {"out_sum_1": s1, "out_sum_2": s2, "out_sum_3": s3,
+            "out_num_accumulates": num_acc,
+            "out_old_num_accumulates": old_acc,
+            "out_num_updates": num_upd}

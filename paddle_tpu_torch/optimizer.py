@@ -14,10 +14,20 @@ accumulator is ``unique_name.generate("%s_%s" % (param.name, name))``, so
 weights and optimizer state carry across packages by name. The learning
 rate is a float or a schedule's Variable
 (layers/learning_rate_scheduler.py).
+
+The wrappers of :497-745: ``ExponentialMovingAverage``,
+``LookaheadOptimizer``, ``ModelAverage`` (its ``average_accumulates``
+op) and ``RecomputeOptimizer``; their in-graph ops replay in a captured
+step like the update ops.
 """
+import contextlib
+
+import torch
+
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.program import Variable, default_main_program
+from .framework.scope import global_scope
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
@@ -446,6 +456,245 @@ class DpsgdOptimizer(Optimizer):
                    [], {"clip": self._clip, "sigma": self._sigma})
 
 
+class ExponentialMovingAverage(object):
+    """EMA of the trainable parameters (paddle_tpu/optimizer.py:497-563):
+    ``update()`` appends, for each trainable parameter of the default main
+    program, a persistable ``<param>.ema_N`` (0 at startup) and the ops
+    ema = decay * ema + (1 - decay) * param (``scale``, ``scale``,
+    ``sum``; role ``optimize``); ``apply()`` puts the averages in the
+    parameters' place until ``restore()``.
+
+    The JAX package swaps array identities in the scope
+    (``scope.set_var(param, ema)``, later ``set_var(param, backup)``),
+    which its immutable arrays make safe. Here the scope's tensors are
+    the captured steps' static inputs, updated in place, so ``apply`` and
+    ``restore`` move values, never tensors: ``apply`` clones each
+    parameter as its backup and copies the average into the parameter's
+    own tensor; ``restore`` copies the backup back. No tensor is ever
+    bound under a second name, so a step captured or replayed under
+    ``apply`` reads the averages through the parameters' own static
+    inputs and writes neither the accumulators nor the backups. The
+    values are the reference's."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or "ema"
+        self._ema_vars = {}
+        self._backup = {}
+
+    def update(self):
+        program = default_main_program()
+        block = program.global_block()
+        helper = LayerHelper(self._name)
+        for param in program.all_parameters():
+            if not getattr(param, "trainable", True):
+                continue
+            ema = helper.create_global_variable(
+                name=unique_name.generate(param.name + ".ema"),
+                dtype=param.dtype, shape=param.shape, persistable=True)
+            helper.set_variable_initializer(ema, ConstantInitializer(0.0))
+            self._ema_vars[param.name] = ema
+            decayed = _scaled(helper, block, ema, self._decay)
+            fresh = _scaled(helper, block, param, 1.0 - self._decay)
+            block.append_op("sum", inputs={"X": [decayed.name, fresh.name]},
+                            outputs={"Out": [ema.name]},
+                            attrs={"op_role": "optimize"})
+
+    def apply(self, executor=None, need_restore=True):
+        """Copy each parameter's average into it (a context manager that
+        restores on exit when ``need_restore``)."""
+        _swap_in(self, {pname: [ema.name]
+                        for pname, ema in self._ema_vars.items()},
+                 lambda values, param: values[0])
+        return _restoring(self, executor, need_restore)
+
+    def restore(self, executor=None):
+        _restore(self)
+
+
+def _swap_in(wrapper, sources, average):
+    """For each {param name: [state names]} of ``sources`` whose values are
+    all in the global scope: a clone of the parameter into
+    ``wrapper._backup``, then ``average([state tensors], param)`` copied
+    into the parameter's own tensor."""
+    scope = global_scope()
+    wrapper._backup = {}
+    for pname, names in sources.items():
+        param = scope.find_var(pname)
+        values = [scope.find_var(n) for n in names]
+        if param is None or any(v is None for v in values):
+            continue
+        wrapper._backup[pname] = param.clone()
+        with torch.no_grad():
+            param.copy_(average(values, param))
+
+
+def _scaled(helper, block, var, factor):
+    out = helper.create_variable_for_type_inference(var.dtype, var.shape)
+    block.append_op("scale", inputs={"X": [var.name]},
+                    outputs={"Out": [out.name]},
+                    attrs={"scale": factor, "op_role": "optimize"})
+    return out
+
+
+@contextlib.contextmanager
+def _restoring(wrapper, executor, need_restore):
+    try:
+        yield
+    finally:
+        if need_restore:
+            wrapper.restore(executor)
+
+
+def _restore(wrapper):
+    """Copy each backed-up parameter value back into the scope's tensor
+    of that name (whichever tensor the scope holds now)."""
+    scope = global_scope()
+    for pname, val in wrapper._backup.items():
+        with torch.no_grad():
+            scope.find_var(pname).copy_(val)
+    wrapper._backup = {}
+
+
+class LookaheadOptimizer(object):
+    """Lookahead (paddle_tpu/optimizer.py:566-619): the inner optimizer
+    takes the fast steps; every ``k`` runs (a step counter
+    ``@LOOKAHEAD_STEP@`` from 1) each parameter and its persistable slow
+    copy ``<param>.slow_N`` become alpha * param + (1 - alpha) * slow. The
+    k-step choice is a ``where`` on the device."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+
+    def minimize(self, loss, startup_program=None):
+        from . import layers as L
+        ops, pgs = self.inner_optimizer.minimize(loss, startup_program)
+        block = default_main_program().global_block()
+        helper = LayerHelper("lookahead")
+        step = L.autoincreased_step_counter(counter_name="@LOOKAHEAD_STEP@",
+                                            begin=1)
+        stepf = L.cast(step, "float32")
+        k = L.fill_constant([1], "float32", float(self.k))
+        rem = L.elementwise_sub(
+            stepf, L.elementwise_mul(L.floor(L.elementwise_div(stepf, k)), k))
+        is_sync = L.equal(rem, 0.0)
+        for param, _ in pgs:
+            slow = helper.create_global_variable(
+                name=unique_name.generate(param.name + ".slow"),
+                dtype=param.dtype, shape=param.shape, persistable=True)
+            helper.set_variable_initializer(slow, ConstantInitializer(0.0))
+            mixed = helper.create_variable_for_type_inference(param.dtype,
+                                                              param.shape)
+            block.append_op(
+                "sum", inputs={"X": [
+                    _scaled(helper, block, param, self.alpha).name,
+                    _scaled(helper, block, slow, 1.0 - self.alpha).name]},
+                outputs={"Out": [mixed.name]}, attrs={"op_role": "optimize"})
+            new_p = L.where(is_sync, mixed, param)
+            new_slow = L.where(is_sync, mixed, slow)
+            for src, dst in ((new_p, param), (new_slow, slow)):
+                block.append_op("assign", inputs={"X": [src.name]},
+                                outputs={"Out": [dst.name]},
+                                attrs={"op_role": "optimize"})
+        return ops, pgs
+
+
+class ModelAverage(object):
+    """Sliding-window parameter averaging (paddle_tpu/optimizer.py:622-721):
+    made after ``minimize``, it appends one ``average_accumulates`` op per
+    trainable parameter of the default main program, with its persistable
+    sums (``sum_1``-``sum_3``, the parameter's dtype) and int32 counters
+    (``num_accumulates``, ``old_num_accumulates``, ``num_updates``), all 0
+    at startup. ``apply()`` puts (sum_1 + sum_2 + sum_3) / max(1,
+    num_accumulates + old_num_accumulates) in each parameter's place until
+    ``restore()``, moving values as ExponentialMovingAverage does."""
+
+    _SUMS = ("sum_1", "sum_2", "sum_3")
+    _COUNTS = ("num_accumulates", "old_num_accumulates", "num_updates")
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        self._rate = float(average_window_rate)
+        self._min_w = int(min_average_window)
+        self._max_w = int(max_average_window)
+        self._name = name or "model_average"
+        self._accs = {}
+        self._backup = {}
+        program = default_main_program()
+        block = program.global_block()
+        helper = LayerHelper(self._name)
+        for param in program.all_parameters():
+            if not getattr(param, "trainable", True):
+                continue
+            accs = {}
+            for slot in self._SUMS + self._COUNTS:
+                counter = slot in self._COUNTS
+                v = helper.create_global_variable(
+                    name=unique_name.generate(param.name + "." + slot),
+                    dtype="int32" if counter else param.dtype,
+                    shape=[1] if counter else param.shape, persistable=True)
+                helper.set_variable_initializer(
+                    v, ConstantInitializer(0 if counter else 0.0))
+                accs[slot] = v
+            self._accs[param.name] = accs
+            inputs = {"param": [param.name]}
+            outputs = {}
+            for slot, v in accs.items():
+                inputs["in_" + slot] = [v.name]
+                outputs["out_" + slot] = [v.name]
+            block.append_op(
+                "average_accumulates", inputs=inputs, outputs=outputs,
+                attrs={"average_window": self._rate,
+                       "min_average_window": self._min_w,
+                       "max_average_window": self._max_w,
+                       "op_role": "optimize"})
+
+    def apply(self, executor=None, need_restore=True):
+        """Copy each parameter's window average into it (a context
+        manager that restores on exit when ``need_restore``)."""
+        _swap_in(self, {pname: [accs[s].name
+                                for s in self._SUMS + self._COUNTS[:2]]
+                        for pname, accs in self._accs.items()},
+                 _window_average)
+        return _restoring(self, executor, need_restore)
+
+    def restore(self, executor=None):
+        _restore(self)
+
+
+def _window_average(values, param):
+    s1, s2, s3, na, no = values
+    total = torch.clamp((na + no).float(), min=1.0)
+    return ((s1.float() + s2 + s3) / total.reshape(())).to(param.dtype)
+
+
+class RecomputeOptimizer(object):
+    """paddle_tpu/optimizer.py:724-745: records the checkpoint vars set by
+    ``_set_checkpoints`` as ``program._recompute_checkpoints`` and
+    delegates ``minimize`` to the inner optimizer. The port's Executor
+    does nothing with the record, as the JAX package's does nothing with
+    it: recompute in the port is ``layers.recompute_segment`` (a
+    ``remat_block`` op per segment; ``recompute=True`` of the BERT and
+    GPT configs)."""
+
+    def __init__(self, optimizer):
+        self.inner_optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        loss.block.program._recompute_checkpoints = [
+            v.name if hasattr(v, "name") else v
+            for v in (self._checkpoints or [])]
+        return self.inner_optimizer.minimize(loss, startup_program,
+                                             parameter_list, no_grad_set)
+
+
 # fluid-style aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
@@ -468,4 +717,6 @@ __all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
            "AdamaxOptimizer", "RMSPropOptimizer", "FtrlOptimizer",
            "DpsgdOptimizer", "SGD", "Momentum", "LarsMomentum", "Adagrad",
            "Adadelta", "DecayedAdagrad", "Adam", "AdamW",
-           "Lamb", "Adamax", "RMSProp", "Ftrl", "Dpsgd"]
+           "Lamb", "Adamax", "RMSProp", "Ftrl", "Dpsgd",
+           "ExponentialMovingAverage", "LookaheadOptimizer", "ModelAverage",
+           "RecomputeOptimizer"]

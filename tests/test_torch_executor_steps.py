@@ -13,7 +13,9 @@ N sequential port runs bit for bit, with and without dropout. They also
 pin the stacking errors, the random stream across ``run`` and
 ``run_steps`` and a recomputed segment's mask, that a CPU Executor
 never captures, and the two ops made capture-safe (``accuracy``,
-``assign_value``), whose values must not change.
+``assign_value``), whose values must not change. The graph key holds
+each state tensor's shape, and a captured step refuses to copy a value
+of another shape into its static input.
 """
 import numpy as np
 import pytest
@@ -322,3 +324,53 @@ def test_launch_counters_are_read_and_credited_together():
     finally:
         kernels.credit_launches(tuple(-d for d in delta))
     assert kernels.launch_counts() == before
+
+
+def test_the_graph_key_holds_each_state_tensors_shape():
+    """A persistable of a new shape is a new key, as ``jax.jit`` traces
+    again on a new shape; the same shapes under new tensors are the same
+    key. (The CPU path never captures: the key is checked directly.)"""
+    from paddle_tpu_torch.framework.executor import _graph_key
+    main, startup, loss = _mlp()
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope)
+    plan = exe._plan(main, [loss.name], True)
+    feeds = exe._feed_tensors(main, dict(zip("xy", (a[0] for a in _xy(1)))))
+
+    def key():
+        state = [(n, scope.find_var(n)) for n in plan.persistable]
+        return _graph_key(plan, feeds, state, scope)
+    k = key()
+    assert key() == k
+    bias = next(p.name for p in main.all_parameters() if len(p.shape) == 1)
+    old = scope.find_var(bias)
+    scope.set_var(bias, old.clone() + 1.0)          # a new tensor, same shape
+    assert key() == k
+    scope.set_var(bias, torch.zeros(1))             # a new shape
+    assert key() != k
+    scope.set_var(bias, old.double())               # a new dtype
+    assert key() != k
+    scope.set_var(bias, old)
+    assert key() == k
+    other = ptt.Scope()
+    for n in plan.persistable:
+        other.set_var(n, scope.find_var(n))
+    state = [(n, other.find_var(n)) for n in plan.persistable]
+    assert _graph_key(plan, feeds, state, other) != k
+
+
+def test_a_captured_step_refuses_a_state_tensor_of_another_shape():
+    from paddle_tpu_torch.framework.compiled_step import (
+        CompiledStep, StaticInputMismatchError)
+    static = torch.arange(4.0)
+    step = CompiledStep(torch.device("cpu"), {"w": static}, {})
+    scope = ptt.Scope()
+    scope.set_var("w", torch.full((4,), 7.0))
+    step.load({}, scope)                       # copied into the static input
+    assert scope.find_var("w") is static and static.tolist() == [7.0] * 4
+    for bad in (torch.ones(1), torch.ones(4, dtype=torch.float64)):
+        scope.set_var("w", bad)
+        with pytest.raises(StaticInputMismatchError, match="new key"):
+            step.load({}, scope)
+        assert static.tolist() == [7.0] * 4

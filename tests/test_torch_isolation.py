@@ -87,6 +87,8 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.ops.kernels\n"
             "import paddle_tpu_torch.framework.compiled_step\n"
             "import paddle_tpu_torch.framework.executor\n"
+            "import paddle_tpu_torch.io\n"
+            "import paddle_tpu_torch.ops.quant_ops\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"

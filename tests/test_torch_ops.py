@@ -200,12 +200,14 @@ def test_training_dropout_waits_for_the_training_slice():
 
 
 @pytest.mark.parametrize("op_type,role", [("grad_of", "backward"),
-                                          ("average_accumulates",
-                                           "optimize")])
+                                          ("c_allreduce_sum_quant",
+                                           "backward")])
 def test_executor_refuses_training_programs(op_type, role):
-    """The Executor refuses, before any op runs, a program holding an
-    optimizer op not ported yet (``average_accumulates``, ModelAverage's;
-    ``sgd`` was this case until the optimizer slice ported it). A grad_of
+    """The Executor refuses, before any op runs, a program holding a
+    training op not ported yet (``c_allreduce_sum_quant``, data
+    parallelism's quantized gradient all-reduce; ``sgd`` and then
+    ``average_accumulates`` were this case until the optimizer and
+    training-state slices ported them). A grad_of
     whose forward op is not
     in the program (a pruned program; refused before bf16 training and
     recompute were ported) re-runs that forward from the inputs it

@@ -1,8 +1,9 @@
 """The optimizer update ops and classes: the port against the JAX package.
 
 Every update op of paddle_tpu/ops/optimizer_ops.py but
-``average_accumulates`` (a later slice) runs in both packages on the same
-numpy state, one parametrised case per (op, variant, dtype): f32, and
+``average_accumulates`` (tests/test_torch_averaging.py) runs in both
+packages on the same numpy state, one parametrised case per (op,
+variant, dtype): f32, and
 bf16 parameter and gradient beside f32 accumulators (what a bf16 model
 hands the optimizer). Each output must have the JAX op's dtype and shape,
 and its values must agree to rtol 1e-6 in the f32 cases (the same

@@ -461,15 +461,17 @@ def test_head_and_ce_run_plain_on_cpu_where_the_kernel_would_tile(t, v):
 
 def test_optimizer_refuses_what_a_later_slice_brings():
     """Regularization and gradient clipping arrived with the optimizer
-    slice (tests/test_torch_clip_regularizer.py holds them); the wrappers
-    of a later slice (EMA, Lookahead, ModelAverage, Recompute, Pipeline)
-    are not in the port's optimizer module yet."""
+    slice (tests/test_torch_clip_regularizer.py holds them) and the four
+    averaging wrappers with the training-state slice
+    (tests/test_torch_averaging.py); ``PipelineOptimizer`` comes with the
+    pipelines and is not in the port's optimizer module yet."""
     opt = ptt.optimizer.Adam(0.1, regularization=ptt.regularizer.L2Decay(
         1e-4), grad_clip=ptt.clip.GradientClipByGlobalNorm(1.0))
     assert opt.regularization is not None and opt._grad_clip is not None
     for name in ("ExponentialMovingAverage", "LookaheadOptimizer",
-                 "ModelAverage", "RecomputeOptimizer", "PipelineOptimizer"):
-        assert not hasattr(ptt.optimizer, name), name
+                 "ModelAverage", "RecomputeOptimizer"):
+        assert hasattr(ptt.optimizer, name), name
+    assert not hasattr(ptt.optimizer, "PipelineOptimizer")
 
 
 def test_gradients_reads_the_given_target_gradient():
