@@ -92,6 +92,29 @@ shape (a new key, never the old graph) and back (the old graph
 replays); checkpoint bytes and seconds; EMA's device time a step against
 the same step without EMA.
 
+Then ResNet-50 and DeepFM at bench.py's own settings (no hand-written
+kernel on the ResNet paths; DeepFM runs the fused-Adam kernel):
+
+- ``resnet_train``: bench.py:472-486 (f32, batch 128 x 3 x 224 x 224,
+  Momentum(0.1, 0.9)) six steps; losses finite, the first update
+  lowering the loss; images/s over the replays, peak memory, the
+  capture's time and pool growth, the step beside its f32 FFMA bound, an
+  op-by-op step's device time by op type (forward ops and grad_of), the
+  cost of cuDNN's deterministic algorithms; a replay profiled.
+- ``resnet_serve``: the trained weights with is_test=True (the softmax)
+  saved and served at batches 1 and 8 against the CPU, op by op and
+  graphed. ``graph_resnet``: the training step op by op against
+  graphed, losses, accuracies, parameters, velocities and moving
+  statistics bit for bit; one step under torch's deterministic check.
+- ``resnet_parity``: a narrow ResNet card against CPU (RESNET_PARITY_*).
+- ``deepfm_train``: bench.py:565-578 (1,000,000 features, embedding 10,
+  batch 2048, Adam(1e-3)) six steps; 11 fused-Adam launches a step, the
+  AUC histograms against numpy's bins of the fetched predictions and the
+  fetched AUC against a float64 integral of them, examples/s, graphed
+  against op by op bit for bit. ``deepfm_parity``: 5000 features card
+  against CPU. The kernels phase times Adam at DeepFM's 1,000,000 x 10
+  table too.
+
 Each profiles one run both ways (device busy, idle share) and lists
 the replay's kernels: the path's hand-written kernels must appear and
 no library attention, LayerNorm or Adam kernel; the capture's time and
@@ -275,6 +298,48 @@ STATE_SAVE_AT = 3
 STATE_SHAPE_VAR = "pooled_fc.b_0"
 GRAPH_SERVE_REPS = 10
 GRAPH_GPT_DROPOUT = 0.1
+# resnet_train, graph_resnet, resnet_serve: ResNet-50 at bench.py:472-486
+# with nothing cut (1000 classes, 3 x 224 x 224 f32, Momentum(0.1, 0.9),
+# batch 128, one batch drawn as bench.py draws it), TRAIN_STEPS steps
+# from one startup; served from the trained scope with is_test=True (its
+# softmax) at batches 1 and 8. No hand-written kernel runs on these paths:
+# convolution, pooling and batch norm have no Pallas kernel in the JAX
+# package, and its blockwise-CE rule declines 1000 classes. The step's
+# least time is its convolutions' and the head's products (counted from
+# the program's shapes, three passes: forward, input and filter
+# gradients) at the H100 SXM's 67 TFLOP/s of f32 FFMA: the path runs
+# full f32 convolutions (set_precision: no TF32).
+RESNET_BATCH, RESNET_CLASSES = 128, 1000
+RESNET_SERVE_BATCHES = (1, 8, 1, 8)          # each size cold, then warm
+# the served logits, card against CPU: f32 through 53 convolutions summed
+# in other orders, max |diff| over max |logit|
+RESNET_SERVE_LOGIT_RTOL = 1e-4
+FP32_FFMA_FLOPS = 67e12
+# resnet_parity: a narrow ResNet (the stem's conv_bn_layer with 8 filters,
+# the max pool, two bottleneck_blocks of 8 filters, the second with
+# stride 2; RESNET_PARITY_SHAPE images, batch RESNET_PARITY_BATCH,
+# Momentum(0.1, 0.9)) PARITY_STEPS steps on the card, graphed, and on the
+# CPU from the same weights. f32 through five convolutions and batch
+# norms a step, summed in other orders on the two devices: losses rtol
+# 1e-5; every persistable (parameters, velocities, moving statistics)
+# rtol 1e-4, atol 1e-5, as tests/test_torch_resnet.py holds the port to
+# the JAX package (batch norm divides by a batch standard deviation, so
+# a last-bit difference in a small variance grows there).
+RESNET_PARITY_SHAPE, RESNET_PARITY_BATCH = (3, 16, 16), 4
+RESNET_PARITY_RTOL, RESNET_PARITY_ATOL, PARITY_FETCH_RTOL = 1e-4, 1e-5, 1e-5
+# deepfm_train: bench.py:565-578 with nothing cut (feature_dim 1,000,000,
+# embedding 10, batch 2048, Adam(1e-3)), TRAIN_STEPS steps on one
+# synthetic_batch(seed=0); one fused-Adam launch per parameter a step
+# (the two tables, the dense weight, four fc layers' weights and biases).
+# deepfm_parity: feature_dim 5000, embedding 8, batch 8, PARITY_STEPS
+# steps card (graphed) against CPU: loss and predictions rtol 1e-5, AUC
+# rtol 1e-6 (integer histograms, float64 sums), parameters and moments
+# rtol 1e-4, atol 1e-6 (Adam divides by sqrt(m2) + eps), histograms equal.
+DEEPFM_FEATURES, DEEPFM_BATCH, DEEPFM_EMBEDDING = 1000000, 2048, 10
+DEEPFM_PER_STEP = {"fused_adam": 11}
+DEEPFM_PARITY = dict(feature_dim=5000, embedding_size=8)
+DEEPFM_PARITY_BATCH = 8
+DEEPFM_PARITY_RTOL, DEEPFM_PARITY_ATOL, AUC_RTOL = 1e-4, 1e-6, 1e-6
 SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
 TRAIN_FAMILIES = SERVE_FAMILIES + ("flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq",
@@ -849,7 +914,11 @@ def adam_cases(torch, fad):
              ("adamw_ffn_weight_bf16_grad_bf16", 768 * 3072, bf16, 0.0,
               1e-4, bf16, ADAMW_COEFF),
              ("adamw_decay_visible", 768 * 3072, f32, 1.0, 0.02, f32,
-              ADAMW_VISIBLE_COEFF)]
+              ADAMW_VISIBLE_COEFF),
+             # DeepFM's largest table (bench.py:565-578: 1,000,000 x 10,
+             # initialised N(0, (1 / sqrt(1e6))^2) truncated)
+             ("deepfm_embedding", DEEPFM_FEATURES * DEEPFM_EMBEDDING, f32,
+              0.0, DEEPFM_FEATURES ** -0.5, f32, 0.0)]
     dev = torch.device("cuda", 0)
     lr = torch.tensor([1e-4], device=dev)
     b1p = torch.tensor([0.9 ** 3], device=dev)
@@ -1320,23 +1389,33 @@ def _global_norm_var(main):
     return block.var(norm)
 
 
-def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
-           n):
+def _fetch_steps(torch, ptt, counters, exe, main, scope, feed, fetch_list,
+                 n):
     """``n`` runs of ``main`` on the card, the launch counters set to 0
-    just before: (step ms, losses, launches per step, launches)."""
+    just before: (step ms, each run's fetches as numpy arrays, launches
+    per step, launches)."""
     counters.zero()                          # the main path starts here
-    step_ms, losses, per_step = [], [], []
+    step_ms, fetched, per_step = [], [], []
     with ptt.scope_guard(scope):
         for _ in range(n):
             before = counters.read()
             t1 = time.perf_counter()
-            out = exe.run(main, feed=feed, fetch_list=fetch_list)
+            fetched.append(exe.run(main, feed=feed, fetch_list=fetch_list))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
-            losses.append([float(np.asarray(o).reshape(())) for o in out])
             after = counters.read()
             per_step.append({k: after[k] - before[k] for k in after})
-    return step_ms, losses, per_step, counters.read()
+    return step_ms, fetched, per_step, counters.read()
+
+
+def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+           n):
+    """_fetch_steps with every fetch a scalar: (step ms, losses, launches
+    per step, launches)."""
+    step_ms, fetched, per_step, launches = _fetch_steps(
+        torch, ptt, counters, exe, main, scope, feed, fetch_list, n)
+    return step_ms, [[float(np.asarray(o).reshape(())) for o in out]
+                     for out in fetched], per_step, launches
 
 
 def _op_counts(main):
@@ -2183,12 +2262,12 @@ def graph_serve(torch, np, ptt, counters, pred, requests):
 
 
 def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
-               fetch_list, want, families):
+               fetch_list, want, families, mask=True):
     """GRAPH_STEPS runs of ``main`` op by op and graphed, each way on its
     own copy of one started scope (the run counter included), then one
     run each way profiled: (the record, ok, the graphed way's fetches and
-    state after GRAPH_STEPS runs, the started scope). The last fetch is a
-    dropout Mask, which must differ from step to step."""
+    state after GRAPH_STEPS runs, the started scope). With ``mask`` the
+    last fetch is a dropout Mask, which must differ from step to step."""
     start = ptt.Scope()
     ptt.Executor().run(startup, scope=start)    # no fetch list: no graph
     persist = [v.name for v in main.list_vars() if v.persistable]
@@ -2216,11 +2295,12 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
                           for x, y in zip(a["fetched"], b["fetched"]))]
     unequal += [n for n in persist if not torch.equal(
         a["scope"].find_var(n), b["scope"].find_var(n))]
-    masks = [f[-1] for f in b["fetched"]]
+    masks = [f[-1] for f in b["fetched"]] if mask else []
     masks_differ = all(not torch.equal(x, y)
                        for x, y in zip(masks, masks[1:]))
     counts_ok = all(c == want for c in a["per_step"] + b["per_step"])
-    reference = ([[t.clone() for t in f[:-1]] for f in b["fetched"]],
+    kept = len(fetch_list) - 1 if mask else len(fetch_list)
+    reference = ([[t.clone() for t in f[:kept]] for f in b["fetched"]],
                  {n: b["scope"].find_var(n).clone() for n in persist})
     found = {}
     for way, cache in (("op_by_op", False), ("graphed", True)):
@@ -2741,6 +2821,565 @@ def graph_gpt(torch, np, ptt, counters):
     return launches
 
 
+def _no_launches(counters, **launched):
+    """Every kernel's launch count 0, but ``launched``."""
+    return dict({k: 0 for k in counters.read()}, **launched)
+
+
+def _resnet_program(np, ptt, resnet, batch):
+    """bench.py:472-486: ResNet-50 training with Momentum(0.1, 0.9) and its
+    batch (RandomState(0): uniform images, random labels): (main, startup,
+    [loss, acc1, acc5], feed)."""
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = resnet.resnet_train_program(
+            depth=50, class_dim=RESNET_CLASSES, image_shape=(3, 224, 224),
+            optimizer_fn=lambda loss: ptt.optimizer.Momentum(
+                0.1, 0.9).minimize(loss))
+    startup.random_seed = SEED
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.rand(batch, 3, 224, 224).astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, (batch, 1)).astype(
+                np.int64)}
+    return main, startup, [fetch["loss"], fetch["acc1"], fetch["acc5"]], \
+        feed
+
+
+def _step_flops(main, batch):
+    """The products a training step of ``main`` needs at ``batch``: each
+    convolution's and fc's forward, and once more for each gradient its
+    grad_of computes (input, filter), from the program's shapes."""
+    block = main.global_block()
+    fwd = {}
+    for op in block.ops:
+        if op.type in ("conv2d", "depthwise_conv2d"):
+            out = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            fwd[op.desc_id] = 2.0 * batch * out[1] * out[2] * out[3] * \
+                w[1] * w[2] * w[3]
+        elif op.type == "mul":
+            w = block.var(op.input("Y")[0]).shape
+            fwd[op.desc_id] = 2.0 * batch * w[0] * w[1]
+    flops = sum(fwd.values())
+    for op in block.ops:
+        if op.type == "grad_of" and op.attrs["fwd_id"] in fwd:
+            flops += fwd[op.attrs["fwd_id"]] * sum(
+                1 for slot in op.outputs if slot.startswith("IG:"))
+    return flops
+
+
+def _device_ms_by_op_type(torch, fn):
+    """Device time of one run of ``fn`` (op by op) by op type: each
+    forward op's and grad_of's call is a profiler range on the host, and
+    each kernel counts for the range its launching host event starts in
+    (a grad_of's kernels are launched by autograd's device thread while
+    the range's thread waits in ``torch.autograd.grad``); beside the
+    run's device busy (every kernel launched from the host)."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import record_function
+    from paddle_tpu_torch.framework import executor
+    fwd, grad = executor._run_fwd_op, executor.trace.run_grad_op
+
+    def ranged(kind, inner):
+        def call(op, *args):
+            key = op.type if kind == "op" else \
+                "grad_of(%s)" % op.attrs["fwd_type"]
+            with record_function("op::" + key):
+                return inner(op, *args)
+        return call
+    fn()
+    torch.cuda.synchronize()
+    executor._run_fwd_op = ranged("op", fwd)
+    executor.trace.run_grad_op = ranged("grad", grad)
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        executor._run_fwd_op, executor.trace.run_grad_op = fwd, grad
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[4:])
+                    for e in events if e.name.startswith("op::"))
+    starts = [r[0] for r in ranges]
+    by_type, busy = {}, 0.0
+    for _, _, key in ranges:
+        n, ms = by_type.get(key, (0, 0.0))
+        by_type[key] = (n + 1, ms)
+    for e in events:
+        ms = sum(k.duration for k in e.kernels
+                 if not k.name.startswith("op::")) / 1e3
+        if not ms:
+            continue
+        busy += ms
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        key = ranges[i][2] if i >= 0 and \
+            e.time_range.start <= ranges[i][1] else "outside any op"
+        n, total = by_type.get(key, (0, 0.0))
+        by_type[key] = (n, total + ms)
+    return {"device_busy_ms": busy,
+            "by_op_type": {k: [n, ms] for k, (n, ms) in sorted(
+                by_type.items(), key=lambda kv: -kv[1][1])}}
+
+
+def _cudnn_deterministic_cost(torch, exe, main, scope, feed, fetch_list):
+    """The step's cost of cuDNN's deterministic algorithms (set_precision
+    asks for them): op-by-op steps with ``cudnn.deterministic`` on and off
+    in turns (on, off, off, on), host ms each after a device sync; then
+    on again."""
+    ms = {True: [], False: []}
+    try:
+        for det in (True, False, False, True):
+            torch.backends.cudnn.deterministic = det
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope,
+                    use_program_cache=False)
+            torch.cuda.synchronize()
+            ms[det].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    return {"op_by_op_step_ms_deterministic": ms[True],
+            "op_by_op_step_ms_not_deterministic": ms[False]}
+
+
+def resnet_train(torch, np, ptt, counters):
+    """ResNet-50 training at bench.py:472-486 with nothing cut, TRAIN_STEPS
+    steps on one batch through Executor.run (graphed from the second):
+    losses finite, the first update lowering the loss (at lr 0.1 and
+    momentum 0.9 from scratch the loss falls for two steps, then climbs
+    past the first by the sixth, the same op by op and graphed; PERF.md),
+    no hand-written kernel launched; images/s
+    over the replays (third step on), peak memory and memory resident
+    before the steps, the capture's time and pool growth, the step's FP32
+    bound; then an op-by-op step's device time by op type and the cost of
+    cuDNN's deterministic algorithms."""
+    from paddle_tpu_torch.models import resnet
+    t0 = time.perf_counter()
+    main, startup, fetch_list, feed = _resnet_program(np, ptt, resnet,
+                                                      RESNET_BATCH)
+    scope, exe = ptt.Scope(), ptt.Executor()      # CUDAPlace(0)
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    descends = losses[1][0] < losses[0][0]
+    counts_ok = all(c == _no_launches(counters) for c in per_step)
+    replay_ms = statistics.median(step_ms[2:])
+    flops = _step_flops(main, RESNET_BATCH)
+    by_op = _device_ms_by_op_type(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope,
+        use_program_cache=False))
+    det = _cudnn_deterministic_cost(torch, exe, main, scope, feed,
+                                    fetch_list)
+    ok = finite and descends and counts_ok
+    emit({"phase": "resnet_train", "ok": ok, "model": "resnet50",
+          "classes": RESNET_CLASSES, "image": [3, 224, 224],
+          "batch": RESNET_BATCH, "dtype": "float32",
+          "optimizer": "Momentum(0.1, 0.9)",
+          "parameters": sum(int(np.prod(p.shape))
+                            for p in main.all_parameters()),
+          "program_ops": _n_ops(_op_counts(main)),
+          "op_counts": _op_counts(main), "setup_s": setup_s,
+          "step_ms": step_ms, "replay_ms_median": replay_ms,
+          "images_per_s_replays": RESNET_BATCH / (replay_ms / 1e3),
+          "losses": losses, "finite": finite,
+          "first_update_descends": descends,
+          "last_below_first": losses[-1][0] < losses[0][0],
+          "launches_per_step": per_step[-1], "launches_per_step_ok":
+          counts_ok, "launches": launches,
+          "resident_gb": resident / 2 ** 30, "peak_mem_gb": peak / 2 ** 30,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30,
+          "captures": _capture_record(exe),
+          "step_flops": flops, "fp32_ffma_bound_ms":
+          flops / FP32_FFMA_FLOPS * 1e3,
+          "device_ms_by_op_type_op_by_op": by_op,
+          "cudnn_deterministic": det})
+    if not ok:
+        raise AssertionError("resnet_train checks failed (see the line "
+                             "above)")
+    return launches, (exe, main, scope, feed, fetch_list)
+
+
+def _deterministic_warnings(torch, ptt, main, start, feed, fetch_list):
+    """One op-by-op step on a copy of ``start`` under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the
+    first line of each warning torch gives for an operation with no
+    deterministic implementation (cuBLAS's workspace warning
+    included)."""
+    import warnings
+    scope = _copy_scope(torch, ptt, start)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ptt.Executor().run(main, feed=feed, fetch_list=fetch_list,
+                               scope=scope, use_program_cache=False)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).strip().splitlines()[0][:200]
+                   for w in caught})
+
+
+def graph_resnet(torch, np, ptt, counters):
+    """resnet_train's step GRAPH_STEPS runs op by op and graphed from one
+    startup: losses, acc1, acc5, every parameter, velocity and moving
+    statistic bit for bit equal, no hand-written kernel either way; one
+    run each way profiled; the warnings of a step under torch's
+    deterministic-algorithms check."""
+    from paddle_tpu_torch.models import resnet
+    main, startup, fetch_list, feed = _resnet_program(np, ptt, resnet,
+                                                      RESNET_BATCH)
+    record, ok, _, start, launches = _both_ways(
+        torch, np, ptt, counters, "graph_resnet", main, startup, feed,
+        fetch_list, _no_launches(counters), (), mask=False)
+    nondeterministic = _deterministic_warnings(torch, ptt, main, start, feed,
+                                               fetch_list)
+    emit(dict({"phase": "graph_resnet", "ok": ok, "model": "resnet50",
+               "batch": RESNET_BATCH,
+               "cudnn_deterministic": torch.backends.cudnn.deterministic,
+               "cudnn_benchmark": torch.backends.cudnn.benchmark,
+               "deterministic_check_warnings": nondeterministic}, **record))
+    if not ok:
+        raise AssertionError("graph_resnet checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def resnet_serve(torch, np, ptt, counters, model_dir, trained_scope):
+    """ResNet-50 with is_test=True (the softmax of ``resnet.resnet``), its
+    weights and moving statistics from resnet_train's scope, saved with
+    save_inference_model and served through create_predictor on the card
+    at RESNET_SERVE_BATCHES (buckets 1 and 8): answers of the shape,
+    finite, rows summing to 1, no hand-written kernel; batch 8 within
+    SERVE_ATOL of the same directory served on the CPU, and its logits
+    (a second target) within RESNET_SERVE_LOGIT_RTOL; then each batch
+    op by op and graphed (answers bit for bit equal, latency in turns,
+    GRAPH_SERVE_REPS each), one request each way profiled."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        image = layers.data("image", [3, 224, 224])
+        logits = resnet.resnet(image, RESNET_CLASSES, 50, is_test=True)
+        prob = layers.softmax(logits)
+    with ptt.scope_guard(trained_scope):
+        ptt.save_inference_model(model_dir, ["image"], [prob, logits],
+                                 ptt.Executor(), main_program=main)
+    config = Config(model_dir)
+    config.batch_buckets = (1, 8)
+    pred = create_predictor(config)
+    rng = np.random.RandomState(SEED)
+    requests = [{"image": rng.rand(n, 3, 224, 224).astype(np.float32)}
+                for n in RESNET_SERVE_BATCHES]
+    counters.zero()                          # the main path starts here
+    lat, answers = [], []
+    for feed in requests:
+        t1 = time.perf_counter()
+        answers.append(pred.run(feed))       # numpy: synchronised
+        lat.append((time.perf_counter() - t1) * 1e3)
+    launches = counters.read()
+    shapes_ok = all(
+        p.shape == (len(f["image"]), RESNET_CLASSES) and
+        z.shape == p.shape and np.isfinite(p).all() and
+        np.isfinite(z).all() and np.allclose(p.sum(1), 1.0, atol=1e-4)
+        for f, (p, z) in zip(requests, answers))
+    cpu_config = Config(model_dir)
+    cpu_config.place = ptt.CPUPlace()
+    t2 = time.perf_counter()
+    cpu_prob, cpu_logits = create_predictor(cpu_config).run(requests[1])
+    cpu_ms = (time.perf_counter() - t2) * 1e3
+    err = float(np.abs(answers[1][0] - cpu_prob).max())
+    # the logits too: a saturated softmax would agree whatever the logits
+    logit_err = float(np.abs(answers[1][1] - cpu_logits).max()) / max(
+        float(np.abs(cpu_logits).max()), 1e-30)
+    exe, cases = pred._exe, []
+    for n in (1, 8):
+        feed = next(r for r in requests if len(r["image"]) == n)
+
+        def op_by_op(feed=feed):
+            with ptt.scope_guard(pred._scope):
+                return exe.run(pred._program, feed=feed,
+                               fetch_list=pred._fetch_names,
+                               use_program_cache=False)
+        ways = (("op_by_op", op_by_op),
+                ("graphed", lambda f=feed: pred.run(f)))
+        got, ms = {}, {w: [] for w, _ in ways}
+        for way, fn in ways:
+            got[way] = fn()
+        for _ in range(GRAPH_SERVE_REPS):
+            for way, fn in ways:
+                t0 = time.perf_counter()
+                fn()
+                ms[way].append((time.perf_counter() - t0) * 1e3)
+        found = {way: _profiled(torch, fn) for way, fn in ways}
+        for f in found.values():
+            f.pop("kernel_names")
+        cases.append({
+            "batch": n, "answers_bit_equal": all(
+                np.array_equal(a, b) for a, b in
+                zip(got["op_by_op"], got["graphed"])),
+            "request_ms": ms,
+            "request_ms_median": {w: statistics.median(v)
+                                  for w, v in ms.items()},
+            "captures": [c for c in _capture_record(exe)
+                         if c["feeds"]["image"][0] == n],
+            "profile": found})
+    ok = shapes_ok and err <= SERVE_ATOL and \
+        logit_err <= RESNET_SERVE_LOGIT_RTOL and \
+        launches == _no_launches(counters) and \
+        all(c["answers_bit_equal"] for c in cases)
+    emit({"phase": "resnet_serve", "ok": ok, "model": "resnet50",
+          "dtype": "float32", "buckets": [1, 8],
+          "request_batches": list(RESNET_SERVE_BATCHES), "latency_ms": lat,
+          "launches": launches, "shapes_finite_ok": shapes_ok,
+          "top_probability": [float(v) for v in answers[1][0].max(1)],
+          "cpu_request_ms": cpu_ms, "gpu_vs_cpu_max_abs_err": err,
+          "atol": SERVE_ATOL, "gpu_vs_cpu_logits_rel_err": logit_err,
+          "logits_rtol": RESNET_SERVE_LOGIT_RTOL, "cases": cases})
+    close_executor(torch, "resnet_serve", exe)
+    if not ok:
+        raise AssertionError("resnet_serve checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _card_vs_cpu_all(np, ptt, main, startup, fetch_list, feed, fetch_tols,
+                     rtol, atol):
+    """PARITY_STEPS runs of a training program on the card (graphed, and
+    op by op) and on the CPU from the same startup weights: every fetch
+    of every run within its (rtol, atol) of ``fetch_tols``, every
+    persistable within (rtol, atol), integer ones equal; the card's
+    graphed runs equal its op-by-op runs bit for bit. (the comparison's
+    numbers, whether it passed)."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.io import set_params_from_numpy
+    init = ptt.Scope()
+    ptt.Executor().run(startup, scope=init)
+    persist = sorted(v.name for v in main.list_vars() if v.persistable)
+    arrays = {n: init.find_var(n).cpu() for n in persist}
+    runs = {}
+    for label, place, cache in (("gpu", ptt.CUDAPlace(0), True),
+                                ("gpu_op_by_op", ptt.CUDAPlace(0), False),
+                                ("cpu", ptt.CPUPlace(), True)):
+        scope, exe = ptt.Scope(), ptt.Executor(place)
+        set_params_from_numpy(arrays, main, scope, place)
+        t0 = time.perf_counter()
+        fetched = [exe.run(main, feed=feed, fetch_list=fetch_list,
+                           scope=scope, use_program_cache=cache)
+                   for _ in range(PARITY_STEPS)]
+        runs[label] = (fetched, {n: to_numpy(scope.find_var(n))
+                                 for n in persist},
+                       (time.perf_counter() - t0) * 1e3)
+        exe.close()
+    (gf, gs, g_ms), (of, os_, _), (cf, cs, c_ms) = \
+        runs["gpu"], runs["gpu_op_by_op"], runs["cpu"]
+    graphed_equal = all(np.array_equal(a, b) for x, y in zip(gf, of)
+                        for a, b in zip(x, y)) and \
+        all(np.array_equal(gs[n], os_[n]) for n in persist)
+    fetch_errs, fetches_ok = [], True
+    for i, (frtol, fatol) in enumerate(fetch_tols):
+        errs = [float(np.abs(g[i] - c[i]).max()) for g, c in zip(gf, cf)]
+        fetches_ok = fetches_ok and all(
+            np.allclose(g[i], c[i], rtol=frtol, atol=fatol)
+            for g, c in zip(gf, cf))
+        fetch_errs.append({"fetch": fetch_list[i].name, "rtol": frtol,
+                           "atol": fatol, "max_abs_err_by_step": errs})
+    beyond, worst, moved = [], (0.0, None), 0.0
+    for n in persist:
+        if gs[n].dtype.kind in "iu":
+            if not np.array_equal(gs[n], cs[n]):
+                beyond.append(n)
+            continue
+        diff = np.abs(gs[n] - cs[n])
+        if not np.allclose(gs[n], cs[n], rtol=rtol, atol=atol):
+            beyond.append(n)
+        if diff.size and float(diff.max()) > worst[0]:
+            worst = (float(diff.max()), n)
+        moved = max(moved, float(np.abs(
+            gs[n] - to_numpy(arrays[n])).max()) if gs[n].size else 0.0)
+    ok = graphed_equal and fetches_ok and not beyond and moved > 10 * atol
+    return {"steps": PARITY_STEPS,
+            "losses": {"gpu": [float(f[0].reshape(())) for f in gf],
+                       "cpu": [float(f[0].reshape(())) for f in cf]},
+            "fetches": fetch_errs, "fetches_ok": fetches_ok,
+            "persistables": len(persist), "rtol": rtol, "atol": atol,
+            "beyond_tolerance": beyond[:8], "max_abs_err": worst[0],
+            "max_abs_err_var": worst[1], "max_moved": moved,
+            "graphed_bit_equal_op_by_op": graphed_equal,
+            "gpu_ms": g_ms, "cpu_ms": c_ms}, ok
+
+
+def resnet_parity(torch, np, ptt):
+    """The narrow ResNet (RESNET_PARITY_*) three Momentum(0.1, 0.9) steps
+    on one batch, the card graphed against the CPU from the same
+    weights."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        image = layers.data("image", list(RESNET_PARITY_SHAPE))
+        label = layers.data("label", [1], dtype="int64")
+        x = resnet.conv_bn_layer(image, 8, 3, stride=2, act="relu",
+                                 name="conv1")
+        x = layers.pool2d(x, 3, "max", 2, 1)
+        x = resnet.bottleneck_block(x, 8, 1, "res2a")
+        x = resnet.bottleneck_block(x, 8, 2, "res2b")
+        pool = layers.pool2d(x, global_pooling=True, pool_type="avg")
+        logits = layers.fc(layers.reshape(pool, [0, pool.shape[1]]), 10)
+        loss, softmax = layers.softmax_with_cross_entropy(
+            logits, label, return_softmax=True)
+        loss = layers.mean(loss)
+        acc = layers.accuracy(softmax, label, k=1)
+        ptt.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    startup.random_seed = SEED
+    rng = np.random.RandomState(7)
+    feed = {"image": rng.rand(RESNET_PARITY_BATCH,
+                              *RESNET_PARITY_SHAPE).astype(np.float32),
+            "label": rng.randint(0, 10, (RESNET_PARITY_BATCH, 1)).astype(
+                np.int64)}
+    result, ok = _card_vs_cpu_all(
+        np, ptt, main, startup, [loss, acc], feed,
+        [(PARITY_FETCH_RTOL, 0.0), (0.0, 0.0)], RESNET_PARITY_RTOL,
+        RESNET_PARITY_ATOL)
+    emit(dict({"phase": "resnet_parity", "ok": ok,
+               "image": list(RESNET_PARITY_SHAPE),
+               "batch": RESNET_PARITY_BATCH}, **result))
+    if not ok:
+        raise AssertionError("resnet_parity checks failed (see the line "
+                             "above)")
+
+
+def _deepfm_program(np, ptt, deepfm, batch, **kw):
+    """deepfm_train_program(**kw) with Adam(1e-3) and one
+    synthetic_batch(seed=0): (main, startup, [loss, auc, predict], feed,
+    the auc op)."""
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = deepfm.deepfm_train_program(
+            optimizer_fn=lambda loss: ptt.optimizer.Adam(1e-3).minimize(
+                loss), **kw)
+    startup.random_seed = SEED
+    feed = deepfm.synthetic_batch(batch, feature_dim=kw["feature_dim"],
+                                  seed=0)
+    auc_op = next(op for op in main.global_block().ops if op.type == "auc")
+    return main, startup, [fetch["loss"], fetch["auc"], fetch["predict"]], \
+        feed, auc_op
+
+
+def _numpy_auc(np, pos, neg):
+    """The AUC of two histograms in float64 (the op's integral)."""
+    tp = np.cumsum(pos[::-1])[::-1].astype(np.float64)
+    fp = np.cumsum(neg[::-1])[::-1].astype(np.float64)
+    tpn, fpn = np.append(tp[1:], 0.0), np.append(fp[1:], 0.0)
+    if tp[0] == 0 or fp[0] == 0:
+        return 0.0
+    return float(((fp - fpn) * (tp + tpn) / 2).sum() / (tp[0] * fp[0]))
+
+
+def deepfm_train(torch, np, ptt, counters):
+    """DeepFM at bench.py:565-578 with nothing cut, TRAIN_STEPS Adam steps
+    on one batch through Executor.run: losses finite and falling, one
+    fused-Adam launch per parameter a step (DEEPFM_PER_STEP), examples/s
+    over the replays; the AUC histograms read back from the scope equal
+    numpy's bins of the fetched predictions, and the fetched AUC equals
+    a float64 numpy integral of them; then GRAPH_STEPS runs op by op
+    and graphed, bit for bit equal."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.models import deepfm
+    t0 = time.perf_counter()
+    kw = dict(feature_dim=DEEPFM_FEATURES, embedding_size=DEEPFM_EMBEDDING)
+    main, startup, fetch_list, feed, auc_op = _deepfm_program(
+        np, ptt, deepfm, DEEPFM_BATCH, **kw)
+    scope, exe = ptt.Scope(), ptt.Executor()
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, fetched, per_step, launches = _fetch_steps(
+        torch, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(f[0].reshape(())) for f in fetched]
+    aucs = [float(f[1].reshape(())) for f in fetched]
+    want = _no_launches(counters, **DEEPFM_PER_STEP)
+    counts_ok = all(c == want for c in per_step)
+    # the histograms against numpy's bins of every fetched prediction
+    n_thr = auc_op.attrs["num_thresholds"]
+    positive = feed["label"].reshape(-1) > 0
+    bins = {True: np.zeros(n_thr + 1, np.int64),
+            False: np.zeros(n_thr + 1, np.int64)}
+    for f in fetched:
+        idx = np.clip((f[2].reshape(-1) * np.float32(n_thr)).astype(
+            np.int32), 0, n_thr)
+        for side in (True, False):
+            np.add.at(bins[side], idx[positive == side], 1)
+    stat_pos = to_numpy(scope.find_var(auc_op.input("StatPos")[0]))
+    stat_neg = to_numpy(scope.find_var(auc_op.input("StatNeg")[0]))
+    bins_equal = np.array_equal(stat_pos, bins[True]) and \
+        np.array_equal(stat_neg, bins[False])
+    oracle = _numpy_auc(np, stat_pos, stat_neg)
+    auc_ok = abs(aucs[-1] - oracle) <= AUC_RTOL * oracle
+    finite = all(np.isfinite(losses)) and all(np.isfinite(aucs))
+    falling = losses[-1] < losses[0]
+    replay_ms = statistics.median(step_ms[2:])
+    record, both_ok, _, _, _ = _both_ways(
+        torch, np, ptt, counters, "deepfm_train", main, startup, feed,
+        fetch_list, want, ("fused_adam",), mask=False)
+    ok = finite and falling and counts_ok and bins_equal and auc_ok and \
+        both_ok
+    emit({"phase": "deepfm_train", "ok": ok, "model": "deepfm",
+          "feature_dim": DEEPFM_FEATURES, "embedding": DEEPFM_EMBEDDING,
+          "batch": DEEPFM_BATCH, "optimizer": "Adam(1e-3)",
+          "parameters": sum(int(np.prod(p.shape))
+                            for p in main.all_parameters()),
+          "op_counts": _op_counts(main), "setup_s": setup_s,
+          "step_ms": step_ms, "replay_ms_median": replay_ms,
+          "examples_per_s_replays": DEEPFM_BATCH / (replay_ms / 1e3),
+          "losses": losses, "aucs": aucs, "finite": finite,
+          "falling": falling, "launches_per_step": per_step[-1],
+          "launches_per_step_ok": counts_ok, "launches": launches,
+          "histograms_equal_numpy_bins": bins_equal,
+          "histogram_counts": [int(stat_pos.sum()), int(stat_neg.sum())],
+          "auc_float64_numpy": oracle, "auc_rtol": AUC_RTOL,
+          "resident_gb": resident / 2 ** 30, "peak_mem_gb": peak / 2 ** 30,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30,
+          "captures": _capture_record(exe), "both_ways": record})
+    if not ok:
+        raise AssertionError("deepfm_train checks failed (see the line "
+                             "above)")
+    return launches, (exe, main, scope, feed, fetch_list)
+
+
+def deepfm_parity(torch, np, ptt):
+    """DeepFM at DEEPFM_PARITY, batch DEEPFM_PARITY_BATCH, PARITY_STEPS Adam
+    steps on one batch, the card graphed against the CPU from the same
+    weights."""
+    from paddle_tpu_torch.models import deepfm
+    main, startup, fetch_list, feed, _ = _deepfm_program(
+        np, ptt, deepfm, DEEPFM_PARITY_BATCH, **DEEPFM_PARITY)
+    result, ok = _card_vs_cpu_all(
+        np, ptt, main, startup, fetch_list, feed,
+        [(PARITY_FETCH_RTOL, 0.0), (AUC_RTOL, 0.0),
+         (PARITY_FETCH_RTOL, DEEPFM_PARITY_ATOL)],
+        DEEPFM_PARITY_RTOL, DEEPFM_PARITY_ATOL)
+    emit(dict({"phase": "deepfm_parity", "ok": ok,
+               "batch": DEEPFM_PARITY_BATCH}, **dict(DEEPFM_PARITY,
+                                                      **result)))
+    if not ok:
+        raise AssertionError("deepfm_parity checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -2754,6 +3393,12 @@ def _family(kernel):
                      ("head_dw_kernel", "fused_head_dw"),
                      ("ce_fwd_kernel", "ce_fwd"),
                      ("ce_bwd_kernel", "ce_bwd"),
+                     ("fprop", "conv (cuDNN)"), ("dgrad", "conv (cuDNN)"),
+                     ("wgrad", "conv (cuDNN)"), ("conv", "conv (cuDNN)"),
+                     ("cudnn", "conv (cuDNN)"),
+                     ("nchwtonhwc", "conv (cuDNN)"),
+                     ("nhwctonchw", "conv (cuDNN)"),
+                     ("pool", "pool"),
                      ("memcpy", "memcpy host<->device"),
                      ("gemm", "matmul"), ("xmma", "matmul"),
                      ("nvjet", "matmul"),
@@ -2791,7 +3436,7 @@ def _profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_family, top, names = {}, [], set()
+    by_family, top, names, kernels = {}, [], set(), 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -2800,8 +3445,9 @@ def _profiled(torch, fn):
         by_family[fam] = by_family.get(fam, 0.0) + ms
         top.append([ms, e.count, e.key[:100]])
         names.add(e.key[:120])
+        kernels += e.count
     busy = sum(by_family.values())
-    return {"host_ms": wall_ms,
+    return {"host_ms": wall_ms, "device_kernels": kernels,
             "device_busy_ms": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",
             "unprofiled_ms": plain,
@@ -3018,6 +3664,23 @@ def main():
         torch, np, ptt, counters)
     by_path["graph_gpt"] = phase("graph_gpt")(graph_gpt)(torch, np, ptt,
                                                          counters)
+    resnet_done = phase("resnet_train")(resnet_train)(torch, np, ptt,
+                                                      counters)
+    finish("resnet_train", resnet_done, "resnet train step")
+    resnet_dir = os.path.join(_ROOT, "build", "chip_smoke_resnet")
+    try:
+        by_path["resnet_serve"] = phase("resnet_serve")(resnet_serve)(
+            torch, np, ptt, counters, resnet_dir,
+            None if resnet_done is None else resnet_done[1][2])
+    finally:
+        shutil.rmtree(resnet_dir, ignore_errors=True)
+    del resnet_done
+    by_path["graph_resnet"] = phase("graph_resnet")(graph_resnet)(
+        torch, np, ptt, counters)
+    phase("resnet_parity")(resnet_parity)(torch, np, ptt)
+    finish("deepfm_train", phase("deepfm_train")(deepfm_train)(
+        torch, np, ptt, counters), "deepfm train step")
+    phase("deepfm_parity")(deepfm_parity)(torch, np, ptt)
 
     if _failed or cases is None or None in by_path.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
@@ -3046,7 +3709,9 @@ def _summary(name, source, replaces, launches_by_path, cases):
     head and CE kernels), every case beside them. ``launches`` sums the
     main paths' runs. The fused-Adam line also gives its first AdamW
     case's numbers (``adamw``: coeff > 0, the same kernel) beside Adam's,
-    with the AdamW launches of the recipe's path."""
+    with the AdamW launches of the recipe's path, and its DeepFM case's
+    (``deepfm_embedding``: the 1,000,000 x 10 table) with the launches
+    of deepfm_train."""
     head = cases[0]
     line = {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3056,13 +3721,17 @@ def _summary(name, source, replaces, launches_by_path, cases):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head.get("shape", head.get("numel")), "cases": cases}
+    keys = ("name", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     adamw = [c for c in cases if c.get("coeff")]
     if adamw:
-        line["adamw"] = dict(
-            {k: adamw[0][k] for k in ("name", "coeff", "max_abs_err",
-                                      "kernel_ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")},
-            launches=launches_by_path.get("train_recipe"))
+        line["adamw"] = dict({k: adamw[0][k] for k in keys + ("coeff",)},
+                             launches=launches_by_path.get("train_recipe"))
+    deepfm = [c for c in cases if c["name"] == "deepfm_embedding"]
+    if deepfm:
+        line["deepfm_embedding"] = dict(
+            {k: deepfm[0][k] for k in keys + ("numel",)},
+            launches=launches_by_path.get("deepfm_train"))
     return line
 
 

@@ -42,9 +42,10 @@ generators are Philox generators held by the plan and re-seeded at the
 start of every run, so a replayed run k draws what op-by-op run k draws
 (``_Generators``); on the CPU each draw takes a new generator.
 
-Precision: f32 matmuls run in full f32 — TF32 is switched off where the
-Executor is made (``torch.backends.cuda.matmul.allow_tf32 = False``) —
-and bf16 matmuls sum in f32 (``set_precision``).
+Precision: f32 matmuls and convolutions run in full f32 — TF32 is
+switched off where the Executor is made
+(``torch.backends.cuda.matmul.allow_tf32 = False``) — bf16 matmuls sum
+in f32, and cuDNN runs deterministic algorithms (``set_precision``).
 """
 import hashlib
 
@@ -66,10 +67,15 @@ _SALT_VAR = "@EAGER_SALT@"
 def set_precision():
     """Full-f32 math on the card: no TF32 in matmuls or convolutions, and
     bf16 matmuls sum in f32 to the end (no split-K partial sums rounded
-    to bf16)."""
+    to bf16). cuDNN picks deterministic convolution algorithms by its
+    heuristics, never by timing (a filter gradient summed with atomics
+    would make two runs of a step, or a replay and an op-by-op run,
+    differ in their last bits)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def _next_salt(scope):

@@ -36,6 +36,18 @@ class UniformInitializer(Initializer):
                    "op_role": "init"})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, param, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": [param.name]},
+            attrs={"shape": list(param.shape), "dtype": param.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed,
+                   "op_role": "init"})
+
+
 class TruncatedNormalInitializer(Initializer):
     def __init__(self, loc=0.0, scale=1.0, seed=0):
         self.loc, self.scale, self.seed = loc, scale, seed
@@ -59,25 +71,24 @@ def _fans(shape):
 
 
 class XavierInitializer(Initializer):
-    """Uniform Xavier only: the normal variant's ``gaussian_random`` op is
-    not ported yet."""
-
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs the gaussian_random "
-                "op, which paddle_tpu_torch does not have yet")
-        self.fan_in, self.fan_out, self.seed = fan_in, fan_out, seed
+        self.uniform, self.fan_in, self.fan_out, self.seed = \
+            uniform, fan_in, fan_out, seed
 
     def __call__(self, param, block):
         fi, fo = _fans(param.shape)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        UniformInitializer(-limit, limit, self.seed)(param, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(param, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(param, block)
 
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer

@@ -1,6 +1,6 @@
 """paddle_tpu_torch.layers — the fluid.layers surface the port has so far."""
-from .tensor import (create_parameter, cast, sums, assign,  # noqa: F401
-                     fill_constant)
+from .tensor import (create_parameter, cast, concat,  # noqa: F401
+                     sums, assign, fill_constant, ones_like)
 from .ops import *           # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .io import data  # noqa: F401

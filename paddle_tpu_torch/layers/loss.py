@@ -1,5 +1,5 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py) for the losses
-BERT pretraining uses."""
+BERT, GPT, ResNet and DeepFM use."""
 from ..layer_helper import LayerHelper
 
 
@@ -46,4 +46,17 @@ def fused_mlm_head_loss(hidden, weight, label, bias=None, cast_bf16=False):
     return loss
 
 
-__all__ = ["softmax_with_cross_entropy", "fused_mlm_head_loss"]
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
+__all__ = ["softmax_with_cross_entropy", "fused_mlm_head_loss",
+           "sigmoid_cross_entropy_with_logits"]

@@ -1,12 +1,13 @@
-"""Neural network layers BERT and GPT serving and pretraining use.
+"""Neural network layers BERT, GPT, ResNet and DeepFM use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
 """
 import math
 
+from ..framework import unique_name
 from ..layer_helper import LayerHelper
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from . import tensor as tensor_layers
 
 
@@ -92,6 +93,128 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         outputs={"Y": [out.name], "Mean": [mean.name],
                  "Variance": [var.name]},
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def _conv_out_size(i, k, p, s, d=1):
+    if i in (None, -1):
+        return -1
+    ke = d * (k - 1) + 1
+    return (i + 2 * p - ke) // s + 1
+
+
+def _pair_list(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    filter_size = _pair_list(filter_size)
+    stride, padding = _pair_list(stride), _pair_list(padding)
+    dilation = _pair_list(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    oh = _conv_out_size(input.shape[2], filter_size[0], padding[0], stride[0],
+                        dilation[0])
+    ow = _conv_out_size(input.shape[3], filter_size[1], padding[1], stride[1],
+                        dilation[1])
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, (input.shape[0], num_filters, oh, ow))
+    helper.append_op(
+        "conv2d", inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", name=name)
+    pool_size, pool_stride = _pair_list(pool_size), _pair_list(pool_stride)
+    pool_padding = _pair_list(pool_padding)
+    if global_pooling:
+        shape = (input.shape[0], input.shape[1], 1, 1)
+    else:
+        shape = (input.shape[0], input.shape[1],
+                 _conv_out_size(input.shape[2], pool_size[0],
+                                pool_padding[0], pool_stride[0]),
+                 _conv_out_size(input.shape[3], pool_size[1],
+                                pool_padding[1], pool_stride[1]))
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(
+        "pool2d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "exclusive": exclusive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    pool_size = _pair_list(pool_size)
+    shape = (input.shape[0], input.shape[1], pool_size[0], pool_size[1])
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(
+        "pool2d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "adaptive": True})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale and Bias are f32 parameters, the moving mean and variance f32
+    persistable globals (constant 0 and 1 in the startup program) that
+    the op reads and writes back, whatever the input's dtype."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = "float32"
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        name=moving_mean_name or unique_name.generate(helper.name + ".mean"),
+        dtype=dtype, shape=(c,), persistable=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_or_get_global_variable(
+        name=moving_variance_name or unique_name.generate(
+            helper.name + ".var"),
+        dtype=dtype, shape=(c,), persistable=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(dtype, (c,))
+    saved_var = helper.create_variable_for_type_inference(dtype, (c,))
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [variance.name]},
+        outputs={"Y": [out.name], "MeanOut": [mean.name],
+                 "VarianceOut": [variance.name],
+                 "SavedMean": [saved_mean.name],
+                 "SavedVariance": [saved_var.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
     return helper.append_activation(out)
 
 
@@ -244,6 +367,11 @@ def cast(x, dtype):
     return tensor_layers.cast(x, dtype)
 
 
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    return _single(helper, "softmax", input, {"axis": axis}, input.shape)
+
+
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     return _single(helper, "mean", x, shape=(1,))
@@ -349,7 +477,8 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     return out
 
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "elementwise_add",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "adaptive_pool2d",
+           "batch_norm", "layer_norm", "dropout", "softmax", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_pow",
            "elementwise_mod", "elementwise_floordiv", "matmul", "mul",

@@ -1,5 +1,5 @@
-"""Tensor layers: create_parameter, cast, sums, assign, fill_constant
-(counterparts in paddle_tpu/layers/tensor.py)."""
+"""Tensor layers: create_parameter, cast, concat, sums, assign,
+fill_constant, ones_like (counterparts in paddle_tpu/layers/tensor.py)."""
 import numpy as np
 
 from ..framework.dtypes import normalize_dtype
@@ -25,6 +25,20 @@ def cast(x, dtype):
     helper.append_op("cast", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    shape = None
+    if all(i.shape is not None for i in input):
+        ax = axis % len(input[0].shape)
+        dims = [i.shape[ax] for i in input]
+        shape = list(input[0].shape)
+        shape[ax] = -1 if any(d == -1 for d in dims) else sum(dims)
+    out = helper.create_variable_for_type_inference(input[0].dtype, shape)
+    helper.append_op("concat", inputs={"X": [i.name for i in input]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
     return out
 
 
@@ -67,4 +81,13 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     helper.append_op("fill_constant", outputs={"Out": [out.name]},
                      attrs={"shape": [int(s) for s in shape],
                             "dtype": dtype, "value": float(value)})
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("fill_any_like", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"value": 1.0})
     return out

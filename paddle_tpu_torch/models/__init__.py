@@ -1,3 +1,3 @@
-"""Model zoo of the port (counterpart of paddle_tpu/models/): BERT and GPT
-so far."""
-from . import bert, gpt  # noqa: F401
+"""Model zoo of the port (counterpart of paddle_tpu/models/): BERT, GPT,
+ResNet and DeepFM so far."""
+from . import bert, deepfm, gpt, resnet  # noqa: F401

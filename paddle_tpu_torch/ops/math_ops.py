@@ -2,7 +2,8 @@
 
 Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT and GPT
 serving and pretraining, the learning-rate schedules, the regularizers
-and the gradient clips run. ``mul`` and ``matmul`` are plain
+and the gradient clips run, and the JAX package's whole activation
+table. ``mul`` and ``matmul`` are plain
 ``torch.matmul`` (``matmul(out_dtype)`` one widened cuBLAS product): XLA
 computes them outside any Pallas kernel in the JAX package.
 
@@ -70,10 +71,39 @@ for _name, _fn in (("elementwise_add", torch.add),
     register_op(_name)(_elementwise(_fn))
 
 
+def _softplus(x):
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (logaddexp(x, 0))."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _leaky_relu(x, a):
+    return torch.where(x >= 0, x, a.get("alpha", 0.02) * x)
+
+
+def _selu(x, a):
+    alpha = a.get("alpha", 1.6732632423543772)
+    return a.get("scale", 1.0507009873554805) * torch.where(
+        x > 0, x, alpha * (torch.exp(x) - 1))
+
+
+def _soft_relu(x, a):
+    t = a.get("threshold", 40.0)
+    return torch.log(1 + torch.exp(torch.clamp(x, -t, t)))
+
+
+# the JAX package's table (paddle_tpu/ops/math_ops.py:70-126), each the
+# same formula: a gradient differs only where JAX's would at a tie
+# (relu's at 0 is 0, as jax.nn.relu's; a clamp's at its bounds is 1
+# where JAX's clip gives 1/2)
 _ACTIVATIONS = {
+    "relu": lambda x, a: torch.relu(x),
+    "relu6": lambda x, a: torch.clamp(x, 0.0, a.get("threshold", 6.0)),
+    "sigmoid": lambda x, a: torch.sigmoid(x),
+    "logsigmoid": lambda x, a: F.logsigmoid(x),
     "tanh": lambda x, a: torch.tanh(x),
-    "gelu": lambda x, a: F.gelu(
-        x, approximate="tanh" if a.get("approximate", False) else "none"),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "softplus": lambda x, a: _softplus(x),
+    "softsign": lambda x, a: F.softsign(x),
     "exp": lambda x, a: torch.exp(x),
     "log": lambda x, a: torch.log(x),
     "sqrt": lambda x, a: torch.sqrt(x),
@@ -86,7 +116,37 @@ _ACTIVATIONS = {
     "reciprocal": lambda x, a: 1.0 / x,
     "sin": lambda x, a: torch.sin(x),
     "cos": lambda x, a: torch.cos(x),
+    "acos": lambda x, a: torch.acos(x),
+    "asin": lambda x, a: torch.asin(x),
+    "atan": lambda x, a: torch.atan(x),
+    "erf": lambda x, a: torch.erf(x),
+    "gelu": lambda x, a: F.gelu(
+        x, approximate="tanh" if a.get("approximate", False) else "none"),
+    "leaky_relu": _leaky_relu,
+    "elu": lambda x, a: F.elu(x, alpha=a.get("alpha", 1.0)),
+    "selu": _selu,
+    "swish": lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x),
+    "hard_sigmoid": lambda x, a: torch.clamp(
+        a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0),
+    "hard_swish": lambda x, a: x * torch.clamp(
+        x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0)) /
+        a.get("scale", 6.0),
+    "hard_shrink": lambda x, a: torch.where(
+        torch.abs(x) > a.get("threshold", 0.5), x, torch.zeros_like(x)),
+    "softshrink": lambda x, a: torch.sign(x) * torch.relu(
+        torch.abs(x) - a.get("lambda", 0.5)),
+    "thresholded_relu": lambda x, a: torch.where(
+        x > a.get("threshold", 1.0), x, torch.zeros_like(x)),
+    "brelu": lambda x, a: torch.clamp(x, a.get("t_min", 0.0),
+                                      a.get("t_max", 24.0)),
+    "soft_relu": _soft_relu,
+    "stanh": lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+        a.get("scale_a", 0.67) * x),
     "sign": lambda x, a: torch.sign(x),
+    "log1p": lambda x, a: torch.log1p(x),
+    "expm1": lambda x, a: torch.expm1(x),
+    "silu": lambda x, a: F.silu(x),
+    "mish": lambda x, a: x * torch.tanh(_softplus(x)),
 }
 
 

@@ -1,6 +1,13 @@
-"""Neural-net op kernels BERT and GPT serving and pretraining run:
-lookup_table, dropout, layer_norm, softmax_with_cross_entropy,
+"""Neural-net op kernels BERT, GPT, ResNet and DeepFM run: conv2d,
+depthwise_conv2d, pool2d, batch_norm, lookup_table, dropout, layer_norm,
+softmax, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
 fused_mlm_head_loss (counterparts in paddle_tpu/ops/nn_ops.py).
+
+Convolution, pooling and batch norm have no Pallas kernel in the JAX
+package (``lax.conv_general_dilated``, ``lax.reduce_window`` and jnp
+statistics), so they lower to torch calls here (cuDNN on the card),
+as ``mul`` and ``matmul`` lower to cuBLAS; a CUDA tensor stays on the
+card.
 
 ``softmax_with_cross_entropy`` and ``fused_mlm_head_loss`` follow the JAX
 package's routing rule (``blockwise_kernel_would_tile``, its ``fit_blocks``
@@ -15,6 +22,7 @@ a plain log-softmax cross-entropy, as the JAX package runs there too.
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
@@ -23,6 +31,120 @@ from .registry import register_op
 # the JAX package's blockwise-CE / fused-head kernel defaults
 # (ops/pallas/blockwise_ce.py: block_t=128, block_v=512)
 _CE_BLOCK_T, _CE_BLOCK_V = 128, 512
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW input, OIHW filter, symmetric padding, dilation, groups. A bf16
+    convolution sums in f32 and rounds once to bf16 (the JAX package's
+    ``preferred_element_type=f32``): cuDNN's bf16 convolution on the card
+    accumulates in f32; on the CPU the operands are widened first (a bf16
+    product is exact in f32)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    args = dict(stride=_pair(attrs.get("strides", [1, 1])),
+                padding=_pair(attrs.get("paddings", [0, 0])),
+                dilation=_pair(attrs.get("dilations", [1, 1])),
+                groups=attrs.get("groups", 1) or 1)
+    if x.dtype == torch.bfloat16 and x.device.type != "cuda":
+        return {"Output": F.conv2d(x.float(), w.float(), **args).to(x.dtype)}
+    return {"Output": F.conv2d(x, w, **args)}
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    return _conv2d(ctx, ins, attrs)
+
+
+def _window_pool(x, ptype, ks, strides, pads, exclusive):
+    """Max (padding -inf, as ``lax.reduce_window``'s init) or average
+    (``exclusive``: over the window's unpadded elements; else over the
+    whole window) pooling. torch's pools pad implicitly up to half the
+    window; a wider padding is made explicit first."""
+    if all(p <= k // 2 for p, k in zip(pads, ks)):
+        if ptype == "max":
+            return F.max_pool2d(x, ks, strides, pads)
+        return F.avg_pool2d(x, ks, strides, pads,
+                            count_include_pad=not exclusive)
+    pad4 = (pads[1], pads[1], pads[0], pads[0])
+    if ptype == "max":
+        return F.max_pool2d(F.pad(x, pad4, value=float("-inf")), ks,
+                            strides)
+    total = F.avg_pool2d(F.pad(x, pad4), ks, strides) * (ks[0] * ks[1])
+    if not exclusive:
+        return total / (ks[0] * ks[1])
+    ones = F.pad(torch.ones_like(x[:1, :1]), pad4)
+    return total / (F.avg_pool2d(ones, ks, strides) * (ks[0] * ks[1]))
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """``pooling_type`` max or avg over ``ksize`` windows; global pooling
+    (also adaptive to 1 x 1) reduces H and W; adaptive pooling to a size
+    that divides the input reduces equal blocks, as the JAX op does."""
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    if attrs.get("global_pooling", False) or (
+            attrs.get("adaptive", False) and
+            _pair(attrs.get("ksize", [1, 1])) == (1, 1)):
+        if ptype == "max":
+            return {"Out": x.amax(dim=(2, 3), keepdim=True)}
+        return {"Out": x.mean(dim=(2, 3), keepdim=True)}
+    ks = _pair(attrs.get("ksize", [2, 2]))
+    if attrs.get("adaptive", False):
+        oh, ow = ks
+        h, w = x.shape[2], x.shape[3]
+        if h % oh or w % ow:
+            raise NotImplementedError(
+                "adaptive pool2d needs input divisible by output size "
+                "(got %sx%s -> %sx%s)" % (h, w, oh, ow))
+        x6 = x.reshape(x.shape[0], x.shape[1], oh, h // oh, ow, w // ow)
+        if ptype == "max":
+            return {"Out": x6.amax(dim=(3, 5))}
+        return {"Out": x6.mean(dim=(3, 5))}
+    return {"Out": _window_pool(
+        x, ptype, ks, _pair(attrs.get("strides", ks)),
+        _pair(attrs.get("paddings", [0, 0])), attrs.get("exclusive", True))}
+
+
+@register_op("batch_norm", nondiff=("Mean", "Variance"))
+def _batch_norm(ctx, ins, attrs):
+    """The JAX op's arithmetic, not ``F.batch_norm``'s: in f32, the biased
+    batch variance for both the normalisation and VarianceOut, the moving
+    stats as ``stat * momentum + batch * (1 - momentum)``, SavedVariance
+    the variance itself (not an inverse std), Y in x's dtype. The gradient
+    flows through the batch mean and variance; the moving stats and the
+    Mean*/Saved* outputs carry none. MeanOut and VarianceOut name the same
+    persistables as Mean and Variance, so a run rebinds them, as the
+    optimizer ops rebind a parameter."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != c_axis)
+    bshape = [1] * x.dim()
+    bshape[c_axis] = x.shape[c_axis]
+    xf = x.float()
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        use_mean, use_var = mean, var
+        mean_out, var_out, saved_mean, saved_var = mean, var, mean, var
+    else:
+        use_var, use_mean = torch.var_mean(xf, dim=axes, unbiased=False)
+        saved_mean, saved_var = use_mean.detach(), use_var.detach()
+        mean_out = mean * momentum + saved_mean * (1 - momentum)
+        var_out = var * momentum + saved_var * (1 - momentum)
+    inv = torch.rsqrt(use_var.float() + eps)
+    y = (xf - use_mean.reshape(bshape)) * \
+        (inv * scale.float()).reshape(bshape) + bias.float().reshape(bshape)
+    return {"Y": y.to(x.dtype), "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": saved_mean, "SavedVariance": saved_var}
 
 
 @register_op("lookup_table", nondiff=("Ids",))
@@ -105,6 +227,29 @@ def blockwise_kernel_would_tile(t, v, d=None):
     if fit_blocks(t, v, _CE_BLOCK_T, _CE_BLOCK_V) is None:
         return False
     return d is None or d % 8 == 0
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", nondiff=("Label",))
+def _sigmoid_ce(ctx, ins, attrs):
+    """max(x, 0) - x * label + log1p(exp(-|x|)) (``torch.maximum``, whose
+    gradient splits a tie in halves as ``jnp.maximum``'s does); elements
+    whose label is ``ignore_index`` give 0; ``normalize`` divides by the
+    count of the others (at least 1)."""
+    x, label = ins["X"][0], ins["Label"][0]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    loss = torch.maximum(x, zero) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    ignore = attrs.get("ignore_index", -100)
+    kept = label != ignore
+    loss = torch.where(kept, loss, zero)
+    if attrs.get("normalize", False):
+        loss = loss / torch.clamp(kept.sum(), min=1)
+    return {"Out": loss}
 
 
 @register_op("softmax_with_cross_entropy", nondiff=("Label",))

@@ -11,6 +11,15 @@ from .registry import register_op
 from ..framework.dtypes import to_torch_dtype
 
 
+@register_op("gaussian_random", uses_rng=True)
+def _gaussian_random(ctx, ins, attrs):
+    out = torch.empty(tuple(attrs["shape"]), dtype=torch.float32,
+                      device=ctx.device)
+    out.normal_(generator=ctx.generator(attrs))
+    out = attrs.get("mean", 0.0) + attrs.get("std", 1.0) * out
+    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+
+
 @register_op("truncated_gaussian_random", uses_rng=True)
 def _truncated_gaussian_random(ctx, ins, attrs):
     out = torch.empty(tuple(attrs["shape"]), dtype=torch.float32,

@@ -97,6 +97,13 @@ def _unsqueeze2(ctx, ins, attrs):
     return {"Out": x}
 
 
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    """X's tensors joined along ``axis``; the gradient splits back by
+    their sizes (``torch.cat``'s own)."""
+    return {"Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))}
+
+
 @register_op("split")
 def _split(ctx, ins, attrs):
     """``num`` equal parts, or ``sections`` (the last takes the rest), along
