@@ -113,7 +113,37 @@ kernel on the ResNet paths; DeepFM runs the fused-Adam kernel):
   fetched AUC against a float64 integral of them, examples/s, graphed
   against op by op bit for bit. ``deepfm_parity``: 5000 features card
   against CPU. The kernels phase times Adam at DeepFM's 1,000,000 x 10
-  table too.
+  table too, and the flash, LayerNorm and Adam kernels at the
+  Transformer's shapes (a decode step's single query row, the decoder's
+  key mask with causal, width 512, the 30000 x 512 tables).
+
+Then the Transformer and ERNIE 2.0 at bench.py's own settings:
+
+- ``transformer_train``: Transformer-base NMT at bench.py:540-562 (f32,
+  batch 64, 64 source and 64 target tokens, dropout 0.1, label smoothing
+  0.1, Adam(1e-4)) six steps; losses finite and falling; per step 18
+  flash forward and backward launches each, 30/30 LayerNorm and 255
+  Adam; tokens/s over the replays, peak memory, the capture's time and
+  pool growth, the step beside its f32 FFMA bound, an op-by-op step's
+  device time by op type. ``graph_transformer``: that step at dropout
+  0.1 op by op against graphed, bit for bit.
+- ``transformer_serve``: beam-search decode at bench.py:684-725 (batch
+  16, beam 4, 64 source and 32 output tokens, the K/V cache) through
+  Executor.run (tokens/s as bench.py counts them, 378 flash forward and
+  570 LayerNorm launches a request), greedy decode beside it, the cache
+  against the re-decode at full width (ids equal but where a step chose
+  within DECODE_GAP_ATOL, scores within DECODE_SCORE_RTOL), the beam
+  program saved and served through create_predictor at batches 1, 3
+  (bucket 4) and 16, op by op and graphed, and batch 3 against the same
+  directory on the CPU.
+- ``transformer_parity``: a 2 + 2-layer Transformer at base width,
+  three Adam steps and a beam decode, card graphed against CPU.
+- ``ernie2_train``: ERNIE 2.0 multi-task pretraining at bench.py:491-515
+  (bf16, batch 128 x 128, dropout 0.1, dynamic task weights, Adam(1e-4)),
+  each step fed ernie2_task_schedule's next weight, op by op against
+  graphed (losses, a dropout Mask and every parameter and moment bit for
+  bit; each loss the fed weights' mix of the task losses);
+  samples/s. ``ernie2_parity``: 2 layers, card against CPU.
 
 Each profiles one run both ways (device busy, idle share) and lists
 the replay's kernels: the path's hand-written kernels must appear and
@@ -151,6 +181,7 @@ without the ``ok`` line; so does a machine without a CUDA device, or a
 directory without the package.
 """
 import json
+import math
 import os
 import shutil
 import statistics
@@ -340,6 +371,61 @@ DEEPFM_PER_STEP = {"fused_adam": 11}
 DEEPFM_PARITY = dict(feature_dim=5000, embedding_size=8)
 DEEPFM_PARITY_BATCH = 8
 DEEPFM_PARITY_RTOL, DEEPFM_PARITY_ATOL, AUC_RTOL = 1e-4, 1e-6, 1e-6
+# transformer_train, graph_transformer: Transformer-base NMT at
+# bench.py:540-562 with nothing cut (d_model 512, d_inner 2048, 6 + 6
+# layers, 8 heads, vocabularies of 30000, dropout 0.1, label smoothing
+# 0.1, f32, batch 64 with 64 source and 64 target tokens, Adam(1e-4)),
+# TRAIN_STEPS steps on one synthetic_batch(seed=0). A step: one attention
+# per encoder layer and two per decoder layer (the decoder's own with its
+# key mask and causal together), forward and backward; two LayerNorms
+# per encoder layer and three per decoder layer; one Adam update per
+# parameter. The soft-label cross-entropy is plain in both packages (the
+# JAX package's blockwise kernel takes hard labels only).
+TRANSFORMER_BATCH, TRANSFORMER_LEN = 64, 64
+TRANSFORMER_PER_STEP = dict({"flash_attention_fwd": 18,
+                             "flash_attention_bwd_dkv": 18,
+                             "flash_attention_bwd_dq": 18,
+                             "layer_norm_fwd": 30, "layer_norm_bwd": 30,
+                             "fused_adam": 255},
+                            **{k: 0 for k in NEW_KERNELS})
+# transformer_serve: beam-search decode at bench.py:684-725 (batch 16, 64
+# source tokens, 32 output tokens, beam 4, the K/V cache), BEAM_RUNS
+# replays timed through Executor.run (bench.py runs 6), greedy decode
+# beside it at the same widths; the beam program served through the
+# Predictor at BEAM_SERVE_BATCHES (buckets 1, 4 and 16; each cold, then
+# warm) and BEAM_SERVE_REPS requests a bucket each way. A request runs
+# the encoder (6 attentions, 12 LayerNorms) and 31 cached steps, each 6
+# self-attentions over the cache (one query row, Tk = 1 ... 31), 6 cross
+# attentions (one query row, the 64 source keys and their mask) and 18
+# LayerNorms. Decodes that should agree (cached against re-decoded,
+# card against CPU) must give equal ids, except where a step chose
+# between candidates within DECODE_GAP_ATOL of each other (f32 sums in
+# another order move a score by ~1e-6 of its ~10-50), and scores within
+# DECODE_SCORE_RTOL.
+BEAM_BATCH, BEAM_SRC, BEAM_OUT, BEAM_SIZE, BEAM_RUNS = 16, 64, 32, 4, 6
+DECODE_PER_REQUEST = dict({k: 0 for k in TRANSFORMER_PER_STEP},
+                          flash_attention_fwd=6 + 31 * 12,
+                          layer_norm_fwd=12 + 31 * 18)
+BEAM_BUCKETS = (1, 4, 16)
+BEAM_SERVE_BATCHES = (1, 3, 16, 1, 3, 16)
+BEAM_SERVE_REPS = 3
+DECODE_GAP_ATOL, DECODE_SCORE_RTOL = 1e-4, 1e-4
+# transformer_parity: 2 + 2 layers at base width, batch PARITY_BATCH x
+# TRANSFORMER_PARITY_LEN tokens, three Adam(PARITY_LR) steps, card
+# against CPU by PARITY_*; then a cached beam decode of (batch, source,
+# output tokens, beam) TRANSFORMER_PARITY_BEAM from seeded weights
+TRANSFORMER_PARITY_LEN = 32
+TRANSFORMER_PARITY_BEAM = (2, 16, 8, 4)
+# ernie2_train: ERNIE 2.0 multi-task pretraining at bench.py:491-515 with
+# nothing cut (bf16 ERNIE-base, batch 128 x 128, 20 masked positions,
+# dropout 0.1, dynamic task weights, Adam(1e-4)); a step launches the
+# BERT bf16 step's flash and LayerNorm kernels and one Adam update per
+# parameter (BERT's, minus the NSP head's two, plus the task embedding
+# and the reorder and IR heads' four). Its MLM head does not tile
+# (vocab 30522) and its heads' CE is plain, as in the JAX package.
+# ernie2_parity: 2 layers, PARITY_BATCH, three steps, card against CPU.
+ERNIE2_FETCHES = ("loss", "mlm_loss", "reorder_loss", "ir_loss")
+ERNIE2_PER_STEP = dict(TRAIN_PER_STEP, fused_adam=209)
 SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
 TRAIN_FAMILIES = SERVE_FAMILIES + ("flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq",
@@ -466,6 +552,9 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 # may come back cut to its end
 _LOG = os.path.join(_ROOT, "chiprun_out", "chip_smoke.jsonl")
 _failed = []
+# wall seconds of each phase (summed over its calls), for the run's
+# time budget
+_seconds = {}
 
 
 def emit(obj):
@@ -477,9 +566,11 @@ def emit(obj):
 
 def phase(name):
     """Run the decorated function as phase ``name``; a raise marks the
-    run failed and prints the error as the phase's line."""
+    run failed and prints the error as the phase's line. Its wall time
+    adds to ``_seconds[name]``."""
     def deco(fn):
         def run(*args):
+            t0 = time.perf_counter()
             try:
                 return fn(*args)
             except Exception as e:  # report, and keep the other phases
@@ -487,6 +578,9 @@ def phase(name):
                 emit({"phase": name, "ok": False,
                       "error": "%s: %s" % (type(e).__name__, e)})
                 return None
+            finally:
+                _seconds[name] = _seconds.get(name, 0.0) + \
+                    time.perf_counter() - t0
         return run
     return deco
 
@@ -578,6 +672,19 @@ def flash_cases(torch, fa, F):
         # BERT-base bf16 training (bench.py:388-389): the key mask in bf16
         ("bert_train_b128_k_mask_bf16", 128, 12, 128, 128, 64, bf16, "k16",
          False),
+        # the Transformer (bench.py:540, 684): a decode step's single query
+        # row against the cross-attention keys with the source mask, and
+        # against the self-attention cache at its shortest and longest
+        # (Tk = 1 and 31, no mask); its training step's decoder
+        # self-attention, key mask and causal together
+        ("transformer_decode_cross_k_mask_f32", 64, 8, 1, 64, 64, f32, "k",
+         False),
+        ("transformer_decode_self_tk1_f32", 64, 8, 1, 1, 64, f32, None,
+         False),
+        ("transformer_decode_self_tk31_f32", 64, 8, 1, 31, 64, f32, None,
+         False),
+        ("transformer_train_k_mask_causal_f32", 64, 8, 64, 64, 64, f32, "k",
+         True),
     ]
     dev = torch.device("cuda", 0)
     out = []
@@ -597,10 +704,12 @@ def flash_cases(torch, fa, F):
         same = torch.equal(got, again) and torch.equal(lse, again_lse)
         tol = TOL[("flash", str(dtype).split(".")[1])]
         library_ms = None
-        if not causal or (mask is None and tq == tk):
-            lib_mask = None if mask is None else mask.to(dtype)
+        if not causal or tq == tk:
+            lib_mask, lib_causal = _sdpa_mask(torch, fa, mask, causal, tq,
+                                              tk, dtype)
             library_ms = clock(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=lib_mask, is_causal=causal, scale=scale))
+                q, k, v, attn_mask=lib_mask, is_causal=lib_causal,
+                scale=scale))
         # work this run needs: 4*D flops per visible (query, key) pair; a
         # causal row that sees no key averages every value (the
         # reference's definition), so it counts all keys
@@ -645,7 +754,11 @@ def _ln_case_list(torch):
             ("wide_8192_f32", 64, 8192, f32, False),
             ("ragged_unaligned_f32", 37, 300, f32, False),
             ("ragged_unaligned_bf16", 37, 300, bf16, False),
-            ("one_row_f32", 1, 768, f32, False)]
+            ("one_row_f32", 1, 768, f32, False),
+            # the Transformer's width 512: its training step (64 x 64
+            # tokens) and a beam decode step (16 x 4 beams, one token)
+            ("transformer_train_f32", 4096, 512, f32, True),
+            ("transformer_decode_f32", 64, 512, f32, False)]
 
 
 def _ln_input(torch, g, dev, rows, cols, dtype, unaligned, scale=1.0,
@@ -706,6 +819,17 @@ def ln_cases(torch, ln, F):
     return out
 
 
+def _sdpa_mask(torch, fa, mask, causal, tq, tk, dtype):
+    """(attn_mask, is_causal) for SDPA to compute the kernel's function:
+    a key mask with ``causal`` becomes one additive mask with the causal
+    fill in it (SDPA takes one or the other)."""
+    if mask is None or not causal:
+        return (None if mask is None else mask.to(dtype)), causal
+    keep = fa._causal_keep(tq, tk, mask.device)
+    return (mask.float() + torch.where(keep, 0.0, fa.NEG_INF)).to(dtype), \
+        False
+
+
 def _visible(tq, tk, causal):
     """(query, key) pairs a row sees, and rows that see no key (causal,
     Tq > Tk: the backward gives them dv += dO / Tk over all keys)."""
@@ -761,6 +885,11 @@ def flash_bwd_cases(torch, fa, F):
          False),
         ("gpt_train_causal_t4096_bf16", 2, 12, 4096, 4096, 64, bf16, None,
          True),
+        # the Transformer's training step: the encoder's and cross
+        # attention's key mask, and the decoder's key mask with causal
+        ("transformer_train_k_mask_f32", 64, 8, 64, 64, 64, f32, "k", False),
+        ("transformer_train_k_mask_causal_f32", 64, 8, 64, 64, 64, f32, "k",
+         True),
     ]
     dev = torch.device("cuda", 0)
     dkv, dq = [], []
@@ -791,11 +920,13 @@ def flash_bwd_cases(torch, fa, F):
         same_q = torch.equal(got_q, again_q)
         plain_ms = clock(lambda: fa.flash_attention_bwd_plain(*args))
         library_ms = None
-        if not causal or (mask is None and tq == tk):
+        if not causal or tq == tk:
             lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_mask, lib_causal = _sdpa_mask(torch, fa, mask, causal, tq,
+                                              tk, dtype)
             lib_out = F.scaled_dot_product_attention(
-                lq, lk, lv, attn_mask=None if mask is None else mask.to(dtype),
-                is_causal=causal, scale=scale)
+                lq, lk, lv, attn_mask=lib_mask, is_causal=lib_causal,
+                scale=scale)
             library_ms = clock(lambda: torch.autograd.grad(
                 lib_out, (lq, lk, lv), do, retain_graph=True))
         pairs, no_key = _visible(tq, tk, causal)
@@ -918,7 +1049,11 @@ def adam_cases(torch, fad):
              # DeepFM's largest table (bench.py:565-578: 1,000,000 x 10,
              # initialised N(0, (1 / sqrt(1e6))^2) truncated)
              ("deepfm_embedding", DEEPFM_FEATURES * DEEPFM_EMBEDDING, f32,
-              0.0, DEEPFM_FEATURES ** -0.5, f32, 0.0)]
+              0.0, DEEPFM_FEATURES ** -0.5, f32, 0.0),
+             # the Transformer's embeddings and output projection (30000 x
+             # 512, initialised N(0, 512^-1) and Xavier)
+             ("transformer_embedding", 30000 * 512, f32, 0.0, 512 ** -0.5,
+              f32, 0.0)]
     dev = torch.device("cuda", 0)
     lr = torch.tensor([1e-4], device=dev)
     b1p = torch.tensor([0.9 ** 3], device=dev)
@@ -1556,9 +1691,11 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     """PARITY_STEPS runs of a training program on the card and on the CPU
     (plain versions) from the same startup weights, held to PARITY_*; on
     the card also op by op, which must give the graphed runs' bits: (the
-    comparison's numbers, whether it passed). A wrapper's state
+    comparison's numbers, whether it passed). ``feed``: one feed, or a
+    list of PARITY_STEPS feeds, one a run. A wrapper's state
     (``_wrapper_state``) is held as the parameters are, its integer
     counters exactly."""
+    feeds = feed if isinstance(feed, list) else [feed] * PARITY_STEPS
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
     init = ptt.Scope()
@@ -1577,9 +1714,9 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
         t0 = time.perf_counter()
         with ptt.scope_guard(scope):
             losses = [float(np.asarray(exe.run(
-                main, feed=feed, fetch_list=fetch_list,
+                main, feed=step_feed, fetch_list=fetch_list,
                 use_program_cache=cache)[0]).reshape(()))
-                for _ in range(PARITY_STEPS)]
+                for step_feed in feeds]
         runs[label] = (losses, scope, (time.perf_counter() - t0) * 1e3)
         exe.close()
     # the card's graphed runs (a warm run, a capture, a replay) against
@@ -2266,8 +2403,12 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
     """GRAPH_STEPS runs of ``main`` op by op and graphed, each way on its
     own copy of one started scope (the run counter included), then one
     run each way profiled: (the record, ok, the graphed way's fetches and
-    state after GRAPH_STEPS runs, the started scope). With ``mask`` the
-    last fetch is a dropout Mask, which must differ from step to step."""
+    state after GRAPH_STEPS runs, the started scope). ``feed``: one feed
+    for every run, or a list of GRAPH_STEPS feeds, one a run (a replay
+    reads each from its static feeds). With ``mask`` the last fetch is a
+    dropout Mask, which must differ from step to step."""
+    feeds = feed if isinstance(feed, list) else [feed] * GRAPH_STEPS
+    feed = feeds[-1]
     start = ptt.Scope()
     ptt.Executor().run(startup, scope=start)    # no fetch list: no graph
     persist = [v.name for v in main.list_vars() if v.persistable]
@@ -2276,11 +2417,12 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
         scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
         step_ms, fetched, per_step = [], [], []
         counters.zero()                      # the main path starts here
-        for _ in range(GRAPH_STEPS):
+        for step_feed in feeds:
             before = counters.read()
             t0 = time.perf_counter()
-            fetched.append(exe.run(main, feed=feed, fetch_list=fetch_list,
-                                   scope=scope, use_program_cache=cache,
+            fetched.append(exe.run(main, feed=step_feed,
+                                   fetch_list=fetch_list, scope=scope,
+                                   use_program_cache=cache,
                                    return_numpy=False))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2847,9 +2989,15 @@ def _resnet_program(np, ptt, resnet, batch):
 def _step_flops(main, batch):
     """The products a training step of ``main`` needs at ``batch``: each
     convolution's and fc's forward, and once more for each gradient its
-    grad_of computes (input, filter), from the program's shapes."""
+    grad_of computes (input, filter), from the program's shapes (a dim of
+    -1 or 0 is the batch); each attention's QK^T and PV over the pairs it
+    sees (half of them, causal), and twice that in its backward (dP, dQ,
+    dK, dV)."""
     block = main.global_block()
-    fwd = {}
+
+    def dims(name):
+        return [batch if d in (-1, 0) else d for d in block.var(name).shape]
+    fwd, attn = {}, set()
     for op in block.ops:
         if op.type in ("conv2d", "depthwise_conv2d"):
             out = block.var(op.output("Output")[0]).shape
@@ -2858,12 +3006,21 @@ def _step_flops(main, batch):
                 w[1] * w[2] * w[3]
         elif op.type == "mul":
             w = block.var(op.input("Y")[0]).shape
-            fwd[op.desc_id] = 2.0 * batch * w[0] * w[1]
+            rows = math.prod(dims(op.input("X")[0])[
+                :op.attrs.get("x_num_col_dims", 1)])
+            fwd[op.desc_id] = 2.0 * rows * w[0] * w[1]
+        elif op.type == "scaled_dot_product_attention":
+            n, h, tq, d = dims(op.input("Q")[0])
+            tk = dims(op.input("K")[0])[2]
+            pairs, _ = _visible(tq, tk, op.attrs.get("causal", False))
+            fwd[op.desc_id] = 4.0 * n * h * pairs * d
+            attn.add(op.desc_id)
     flops = sum(fwd.values())
     for op in block.ops:
         if op.type == "grad_of" and op.attrs["fwd_id"] in fwd:
-            flops += fwd[op.attrs["fwd_id"]] * sum(
-                1 for slot in op.outputs if slot.startswith("IG:"))
+            fid = op.attrs["fwd_id"]
+            flops += fwd[fid] * (2 if fid in attn else sum(
+                1 for slot in op.outputs if slot.startswith("IG:")))
     return flops
 
 
@@ -3380,6 +3537,511 @@ def deepfm_parity(torch, np, ptt):
                              "above)")
 
 
+def _transformer_program(ptt, tr, cfg, batch, seq, lr=1e-4):
+    """transformer_train_program(cfg, seq, seq) with Adam(lr) and one
+    synthetic_batch(seed=0): (main, startup, [loss], feed)."""
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = tr.transformer_train_program(
+            cfg, seq, seq, optimizer_fn=lambda loss: ptt.optimizer.Adam(
+                lr).minimize(loss))
+    startup.random_seed = SEED
+    return main, startup, [fetch["loss"]], tr.synthetic_batch(
+        cfg, batch, seq, seq, seed=0)
+
+
+def transformer_train(torch, np, ptt, counters):
+    """Transformer-base NMT training at bench.py:540-562 with nothing cut
+    (f32, batch 64, 64 source and 64 target tokens, dropout 0.1, label
+    smoothing 0.1, Adam(1e-4)), TRAIN_STEPS steps on one batch through
+    Executor.run (graphed from the second): losses finite and falling,
+    TRANSFORMER_PER_STEP launches a step; tokens/s as bench.py:561 counts
+    them (batch x target tokens) over the replays, peak memory above
+    resident, the capture's time and pool growth, the step beside its f32
+    FFMA bound, and an op-by-op step's device time by op type."""
+    from paddle_tpu_torch.models import transformer as tr
+    t0 = time.perf_counter()
+    cfg = tr.TransformerConfig()
+    main, startup, fetch_list, feed = _transformer_program(
+        ptt, tr, cfg, TRANSFORMER_BATCH, TRANSFORMER_LEN)
+    scope, exe = ptt.Scope(), ptt.Executor()      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    falling = losses[-1][0] < losses[0][0]
+    counts_ok = all(c == TRANSFORMER_PER_STEP for c in per_step)
+    replay_ms = statistics.median(step_ms[2:])
+    flops = _step_flops(main, TRANSFORMER_BATCH)
+    by_op = _device_ms_by_op_type(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope,
+        use_program_cache=False))
+    ok = finite and falling and counts_ok
+    emit({"phase": "transformer_train", "ok": ok,
+          "model": "transformer_base", "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "layers": [cfg.n_layer, cfg.n_layer],
+          "heads": cfg.n_head, "vocab": [cfg.src_vocab, cfg.trg_vocab],
+          "batch": TRANSFORMER_BATCH,
+          "src_trg_len": [TRANSFORMER_LEN, TRANSFORMER_LEN],
+          "dropout": cfg.dropout, "label_smooth_eps": cfg.label_smooth_eps,
+          "dtype": "float32", "optimizer": "Adam(1e-4)",
+          "parameters": sum(int(np.prod(p.shape))
+                            for p in main.all_parameters()),
+          "program_ops": _n_ops(_op_counts(main)),
+          "op_counts": _op_counts(main), "setup_s": setup_s,
+          "step_ms": step_ms, "replay_ms_median": replay_ms,
+          "tokens_per_s_replays": TRANSFORMER_BATCH * TRANSFORMER_LEN /
+          (replay_ms / 1e3),
+          "losses": losses, "finite": finite, "falling": falling,
+          "launches_per_step": per_step[-1], "launches_per_step_ok":
+          counts_ok, "launches": launches,
+          "resident_gb": resident / 2 ** 30, "peak_mem_gb": peak / 2 ** 30,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30,
+          "captures": _capture_record(exe),
+          "step_flops": flops, "fp32_ffma_bound_ms":
+          flops / FP32_FFMA_FLOPS * 1e3,
+          "device_ms_by_op_type_op_by_op": by_op})
+    if not ok:
+        raise AssertionError("transformer_train checks failed (see the "
+                             "line above)")
+    return launches, (exe, main, scope, feed, fetch_list)
+
+
+def graph_transformer(torch, np, ptt, counters):
+    """transformer_train's step (dropout 0.1) GRAPH_STEPS runs op by op
+    and graphed from one startup and run counter: the loss, a dropout
+    Mask and every parameter and Adam moment bit for bit equal, the Mask
+    different every step, TRANSFORMER_PER_STEP launches a step both ways;
+    one run each way profiled."""
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerConfig()
+    main, startup, fetch_list, feed = _transformer_program(
+        ptt, tr, cfg, TRANSFORMER_BATCH, TRANSFORMER_LEN)
+    fetch_list = fetch_list + [_dropout_mask(main)]
+    record, ok, _, _, launches = _both_ways(
+        torch, np, ptt, counters, "graph_transformer", main, startup, feed,
+        fetch_list, TRANSFORMER_PER_STEP, TRAIN_FAMILIES)
+    emit(dict({"phase": "graph_transformer", "ok": ok,
+               "model": "transformer_base", "batch": TRANSFORMER_BATCH,
+               "dropout": cfg.dropout}, **record))
+    if not ok:
+        raise AssertionError("graph_transformer checks failed (see the "
+                             "line above)")
+    return launches
+
+
+def _decode_feed(np, n, src_len, vocab, seed=0):
+    """bench.py:706-708's decode request: source ids from RandomState,
+    every position kept."""
+    rng = np.random.RandomState(seed)
+    return {"src_ids": rng.randint(0, vocab, (n, src_len, 1)).astype(
+                np.int64),
+            "src_mask": np.ones((n, src_len, 1), np.float32)}
+
+
+def _selectors(main):
+    """Each decode step's selection, in program order: (the var it selects
+    from: the beam's candidate scores or greedy's logits, how many it
+    keeps)."""
+    return [(op.input("X")[0], op.attrs.get("k", 1))
+            for op in main.global_block().ops
+            if op.type in ("top_k", "arg_max")]
+
+
+def _first_divergence(np, a, b):
+    """{row: the first output position where two decodes' ids (N, T, 1)
+    or (N, beam, T, 1) differ as sets of beam prefixes}."""
+    t = a.shape[-2]
+    a, b = a.reshape(a.shape[0], -1, t), b.reshape(b.shape[0], -1, t)
+    out = {}
+    for row in range(a.shape[0]):
+        for pos in range(1, t):
+            if sorted(map(tuple, a[row, :, :pos + 1].tolist())) != \
+                    sorted(map(tuple, b[row, :, :pos + 1].tolist())):
+                out[row] = pos
+                break
+    return out
+
+
+def _compare_decodes(np, main, got, want, fetch_a):
+    """Two decodes of one program and request, each (ids, scores or None):
+    ids equal, except where a step chose between candidates within
+    DECODE_GAP_ATOL (the kept candidates' last against the first left
+    out, in ``fetch_a``'s run: fetch_a(var name) -> array); the scores
+    of rows whose ids agree within DECODE_SCORE_RTOL. (record, ok)."""
+    diverged = _first_divergence(np, got[0], want[0])
+    selectors, gaps = _selectors(main), []
+    for row, pos in sorted(diverged.items())[:4]:
+        name, k = selectors[pos - 1]
+        cand = np.sort(fetch_a(name).reshape(got[0].shape[0], -1)[row])[::-1]
+        gaps.append({"row": row, "position": pos, "step": pos - 1,
+                     "gap": float(cand[k - 1] - cand[k])})
+    ties_ok = len(gaps) == len(diverged) and all(
+        g["gap"] <= DECODE_GAP_ATOL for g in gaps)
+    rows = [r for r in range(got[0].shape[0]) if r not in diverged]
+    score_err, scores_ok = None, True
+    if got[1] is not None and rows:
+        score_err = float(np.max(np.abs(got[1][rows] - want[1][rows]) /
+                                 np.abs(want[1][rows])))
+        scores_ok = score_err <= DECODE_SCORE_RTOL
+    return {"ids_equal": not diverged, "diverged_rows": len(diverged),
+            "near_ties": gaps, "gap_atol": DECODE_GAP_ATOL,
+            "scores_max_rel_err": score_err,
+            "scores_rtol": DECODE_SCORE_RTOL}, ties_ok and scores_ok
+
+
+def _timed_runs(torch, fn, n):
+    """``n`` calls of ``fn``, each synchronised: host ms each."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _decode_on_card(torch, np, ptt, counters, label, prog, scope, feed):
+    """One decode program through Executor.run on the card: its first run
+    op by op, the second captured, BEAM_RUNS replays timed as bench.py:725
+    counts them (batch x output tokens x runs / seconds), DECODE_PER_
+    REQUEST launches each run; one replay profiled. (record, the answer,
+    ok, launches)."""
+    main, _, _, fetch = prog
+    fetch_list = [fetch[k] for k in sorted(fetch)]
+    exe = ptt.Executor()
+    counters.zero()                          # the main path starts here
+    per_run, answers = [], []
+
+    def run():
+        before = counters.read()
+        answers.append(exe.run(main, feed=feed, fetch_list=fetch_list,
+                               scope=scope))
+        after = counters.read()
+        per_run.append({k: after[k] - before[k] for k in after})
+    first = _timed_runs(torch, run, 2)
+    ms = _timed_runs(torch, run, BEAM_RUNS)
+    launches = counters.read()
+    n, t_max = feed["src_ids"].shape[0], fetch["out_ids"].shape[-2]
+    found = _profiled(torch, lambda: exe.run(main, feed=feed,
+                                             fetch_list=fetch_list,
+                                             scope=scope))
+    missing, library = _kernel_check(found, SERVE_FAMILIES)
+    found.pop("kernel_names")
+    same = all(np.array_equal(a, b) for ans in answers[1:]
+               for a, b in zip(ans, answers[0]))
+    counts_ok = all(c == DECODE_PER_REQUEST for c in per_run)
+    finite = all(np.isfinite(a).all() for a in answers[0])
+    ok = same and counts_ok and finite and not missing and not library
+    record = {"program": label, "batch": n, "out_len": t_max,
+              "program_ops": _n_ops(_op_counts(main)),
+              "op_by_op_ms": first[0], "capture_run_ms": first[1],
+              "replay_ms": ms,
+              "tokens_per_s": n * t_max * len(ms) / (sum(ms) / 1e3),
+              "answers_bit_equal_every_run": same, "finite": finite,
+              "launches_per_run": per_run[-1], "launches_per_run_ok":
+              counts_ok, "captures": _capture_record(exe),
+              "missing_kernel_families": missing,
+              "library_kernels": library, "profile": found}
+    exe.close()
+    return record, dict(zip(sorted(fetch), answers[0])), ok, launches
+
+
+def transformer_serve(torch, np, ptt, counters, model_dir):
+    """Transformer-base decode at bench.py:684-725's settings (batch 16,
+    64 source tokens, 32 output tokens, beam 4, the K/V cache), from
+    random weights drawn from SEED: the beam and greedy programs through
+    Executor.run (``_decode_on_card``); the beam program without the
+    cache (the prefix re-decoded every step) against the cached one at
+    full width (``_compare_decodes``); then the beam program saved with
+    save_inference_model and served through create_predictor at
+    BEAM_SERVE_BATCHES (buckets 1, 4, 16): answers of the shapes,
+    DECODE_PER_REQUEST launches a request, the warm request equal to the
+    cold one, batch 16 equal to Executor.run's; each bucket op by op and
+    graphed (ms a request, BEAM_SERVE_REPS each), one graphed request
+    profiled; batch 3 against the same directory served on the CPU."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerConfig()
+    progs = {}
+    for label, use_cache in (("beam", True), ("beam_no_cache", False),
+                             ("greedy", True)):
+        with ptt.unique_name.guard():
+            if label == "greedy":
+                progs[label] = tr.greedy_decode_program(
+                    cfg, BEAM_SRC, BEAM_OUT, use_cache=use_cache)
+            else:
+                progs[label] = tr.beam_search_decode_program(
+                    cfg, BEAM_SRC, BEAM_OUT, beam_size=BEAM_SIZE,
+                    use_cache=use_cache)
+    beam = progs["beam"]
+    beam[1].random_seed = SEED
+    scope = ptt.Scope()
+    ptt.Executor().run(beam[1], scope=scope)
+    feed = _decode_feed(np, BEAM_BATCH, BEAM_SRC, cfg.src_vocab)
+    records, answers, ok, launches = {}, {}, True, None
+    for label in ("beam", "greedy"):
+        rec, ans, run_ok, got = _decode_on_card(
+            torch, np, ptt, counters, label, progs[label], scope, feed)
+        records[label], answers[label] = rec, ans
+        ok = ok and run_ok
+        launches = got if launches is None else \
+            {k: launches[k] + got[k] for k in got}
+    # the cache against the re-decode, full width, on the card
+    full = progs["beam_no_cache"]
+    t0 = time.perf_counter()
+    redecode = ptt.Executor().run(
+        full[0], feed=feed, fetch_list=[full[3]["out_ids"],
+                                        full[3]["scores"]], scope=scope)
+    redecode_ms = (time.perf_counter() - t0) * 1e3
+    cached = (answers["beam"]["out_ids"], answers["beam"]["scores"])
+    versus, versus_ok = _compare_decodes(
+        np, beam[0], cached, redecode, lambda name: ptt.Executor().run(
+            beam[0], feed=feed, fetch_list=[name], scope=scope)[0])
+    versus["redecode_ms"] = redecode_ms
+    versus["redecode_program_ops"] = _n_ops(_op_counts(full[0]))
+    ok = ok and versus_ok
+    # served through the Predictor
+    fetch = [beam[3]["out_ids"], beam[3]["scores"]]
+    with ptt.scope_guard(scope):
+        ptt.save_inference_model(model_dir, beam[2], fetch, ptt.Executor(),
+                                 main_program=beam[0])
+    config = Config(model_dir)
+    config.batch_buckets = BEAM_BUCKETS
+    pred = create_predictor(config)
+    requests = {n: _decode_feed(np, n, BEAM_SRC, cfg.src_vocab, seed=n)
+                for n in set(BEAM_SERVE_BATCHES)}
+    requests[BEAM_BATCH] = feed
+    served, lat, per_request = {}, [], []
+    for n in BEAM_SERVE_BATCHES:
+        before = counters.read()
+        t1 = time.perf_counter()
+        out = pred.run(requests[n])          # numpy: synchronised
+        lat.append((time.perf_counter() - t1) * 1e3)
+        after = counters.read()
+        per_request.append({k: after[k] - before[k] for k in after})
+        if n in served:
+            ok = ok and all(np.array_equal(a, b)
+                            for a, b in zip(out, served[n]))
+        served[n] = out
+    launches = {k: launches[k] + sum(r[k] for r in per_request)
+                for k in launches}
+    shapes_ok = all(
+        o[0].shape == (n, BEAM_SIZE, BEAM_OUT, 1) and
+        o[0].dtype == np.int64 and o[1].shape == (n, BEAM_SIZE) and
+        np.isfinite(o[1]).all() for n, o in served.items())
+    like_executor = np.array_equal(served[BEAM_BATCH][0], cached[0]) and \
+        np.array_equal(served[BEAM_BATCH][1], cached[1])
+    counts_ok = all(c == DECODE_PER_REQUEST for c in per_request)
+    exe, buckets = pred._exe, []
+    for n in sorted(set(BEAM_SERVE_BATCHES)):
+        padded = {k: np.pad(v, [(0, pred._bucket(n) - n)] +
+                            [(0, 0)] * (v.ndim - 1))
+                  for k, v in requests[n].items()}
+
+        def op_by_op(feed=padded):
+            return exe.run(pred._program, feed=feed,
+                           fetch_list=pred._fetch_names, scope=pred._scope,
+                           use_program_cache=False)
+        ways = (("op_by_op", op_by_op),
+                ("graphed", lambda r=requests[n]: pred.run(r)))
+        ms = {w: [] for w, _ in ways}
+        for _ in range(BEAM_SERVE_REPS):
+            for way, fn in ways:
+                ms[way].extend(_timed_runs(torch, fn, 1))
+        found = _profiled(torch, ways[1][1])
+        found.pop("kernel_names")
+        med = statistics.median(ms["graphed"])
+        buckets.append({"batch": n, "bucket": pred._bucket(n),
+                        "request_ms": ms,
+                        "request_ms_median": {w: statistics.median(v)
+                                              for w, v in ms.items()},
+                        "tokens_per_s_graphed": n * BEAM_OUT / (med / 1e3),
+                        "profile": found})
+    # the card against the CPU on the same directory, batch 3 (bucket 4):
+    # Executor.run of the loaded program on the padded request each side
+    cpu_config = Config(model_dir)
+    cpu_config.place = ptt.CPUPlace()
+    cpu_pred = create_predictor(cpu_config)
+    n = 3
+    padded = {k: np.pad(v, [(0, pred._bucket(n) - n)] +
+                        [(0, 0)] * (v.ndim - 1))
+              for k, v in requests[n].items()}
+    t2 = time.perf_counter()
+    on_cpu = cpu_pred._exe.run(cpu_pred._program, feed=padded,
+                               fetch_list=cpu_pred._fetch_names,
+                               scope=cpu_pred._scope)
+    cpu_ms = (time.perf_counter() - t2) * 1e3
+    on_card = exe.run(pred._program, feed=padded,
+                      fetch_list=pred._fetch_names, scope=pred._scope)
+    cpu_vs, cpu_ok = _compare_decodes(
+        np, pred._program, on_card, on_cpu, lambda name: exe.run(
+            pred._program, feed=padded, fetch_list=[name],
+            scope=pred._scope)[0])
+    sliced = all(np.array_equal(a[:n], b)
+                 for a, b in zip(on_card, served[n]))
+    ok = ok and shapes_ok and like_executor and counts_ok and cpu_ok and \
+        sliced
+    emit({"phase": "transformer_serve", "ok": ok,
+          "model": "transformer_base", "beam": BEAM_SIZE,
+          "batch": BEAM_BATCH, "src_len": BEAM_SRC, "out_len": BEAM_OUT,
+          "dtype": "float32", "runs": records,
+          "cached_vs_redecode": versus,
+          "predictor": {"buckets": list(BEAM_BUCKETS),
+                        "request_batches": list(BEAM_SERVE_BATCHES),
+                        "latency_ms": lat,
+                        "launches_per_request": per_request[-1],
+                        "launches_per_request_ok": counts_ok,
+                        "shapes_ok": shapes_ok,
+                        "batch_16_equals_executor": like_executor,
+                        "batch_3_equals_padded_run": sliced,
+                        "captures": _capture_record(exe),
+                        "by_bucket": buckets},
+          "card_vs_cpu_batch_3": dict(cpu_vs, cpu_ms=cpu_ms),
+          "launches": launches,
+          "beam_ids_row_0": answers["beam"]["out_ids"][0, :, :, 0].tolist(),
+          "beam_scores_row_0": answers["beam"]["scores"][0].tolist()})
+    close_executor(torch, "transformer_serve", exe)
+    if not ok:
+        raise AssertionError("transformer_serve checks failed (see the "
+                             "line above)")
+    return launches
+
+
+def transformer_parity(torch, np, ptt):
+    """A 2 + 2-layer Transformer at base width (d_model 512, 8 heads,
+    vocab 30000, dropout 0) three Adam(PARITY_LR) steps, batch
+    PARITY_BATCH x TRANSFORMER_PARITY_LEN tokens with padded source and
+    target rows, the card graphed against the CPU (PARITY_*); and its
+    cached beam decode (TRANSFORMER_PARITY_BEAM), the card graphed against
+    the CPU (``_compare_decodes``)."""
+    from paddle_tpu_torch.models import transformer as tr
+    cfg = tr.TransformerConfig(n_layer=PARITY_LAYERS, dropout=0.0)
+    main, startup, fetch_list, feed = _transformer_program(
+        ptt, tr, cfg, PARITY_BATCH, TRANSFORMER_PARITY_LEN, lr=PARITY_LR)
+    feed["src_mask"][1, TRANSFORMER_PARITY_LEN // 2:] = 0.0
+    feed["trg_mask"][2, TRANSFORMER_PARITY_LEN // 2:] = 0.0
+    train, train_ok = _card_vs_cpu(np, ptt, main, startup, fetch_list, feed)
+    n, src, out_len, beam = TRANSFORMER_PARITY_BEAM
+    with ptt.unique_name.guard():
+        prog = tr.beam_search_decode_program(cfg, src, out_len,
+                                             beam_size=beam)
+    prog[1].random_seed = SEED
+    init = ptt.Scope()
+    ptt.Executor().run(prog[1], scope=init)
+    arrays = {p.name: init.find_var(p.name).cpu()
+              for p in prog[0].all_parameters()}
+    dfeed = _decode_feed(np, n, src, cfg.src_vocab, seed=7)
+    dfeed["src_mask"][1, src // 2:] = 0.0
+    fetch = [prog[3]["out_ids"], prog[3]["scores"]]
+    runs = {}
+    for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+        scope, exe = ptt.Scope(), ptt.Executor(place)
+        ptt.set_params_from_numpy(arrays, prog[0], scope, place)
+        got = [exe.run(prog[0], feed=dfeed, fetch_list=fetch, scope=scope)
+               for _ in range(3)]              # op by op, capture, replay
+        runs[label] = (got, scope, exe)
+    (gpu, gscope, gexe), (cpu, _, cexe) = runs["gpu"], runs["cpu"]
+    replays_equal = all(np.array_equal(a, b) for run in gpu[1:]
+                        for a, b in zip(run, gpu[0]))
+    decode, decode_ok = _compare_decodes(
+        np, prog[0], gpu[-1], cpu[-1], lambda name: gexe.run(
+            prog[0], feed=dfeed, fetch_list=[name], scope=gscope)[0])
+    gexe.close()
+    cexe.close()
+    ok = train_ok and decode_ok and replays_equal
+    emit({"phase": "transformer_parity", "ok": ok, "layers": PARITY_LAYERS,
+          "d_model": cfg.d_model, "batch": PARITY_BATCH,
+          "src_trg_len": TRANSFORMER_PARITY_LEN, "train": train,
+          "decode": dict(decode, batch=n, src_len=src, out_len=out_len,
+                         beam=beam, graphed_equals_op_by_op=replays_equal)})
+    if not ok:
+        raise AssertionError("transformer_parity checks failed (see the "
+                             "line above)")
+
+
+def _ernie2(ptt, bert, cfg, batch, lr):
+    """bench.py:491-515's program at ``cfg`` and ``batch``:
+    ernie2_multitask_program(cfg, batch, 128, 20,
+    dynamic_task_weights=True) with Adam(lr); (main, startup, [loss,
+    mlm_loss, reorder_loss, ir_loss], one feed a step for n steps: the
+    synthetic batch with ernie2_task_schedule's next task_weight)."""
+    with ptt.unique_name.guard():
+        main, startup, _, fetch = bert.ernie2_multitask_program(
+            cfg, batch, TRAIN_SEQ, TRAIN_PREDS, dynamic_task_weights=True,
+            optimizer_fn=lambda loss: ptt.optimizer.Adam(lr).minimize(loss))
+    startup.random_seed = SEED
+    base = bert.ernie2_synthetic_batch(cfg, batch, TRAIN_SEQ, TRAIN_PREDS)
+
+    def feeds(n):
+        return [dict(base, task_weight=w)
+                for w in bert.ernie2_task_schedule(n, (1.0, 1.0, 1.0))]
+    return main, startup, [fetch[k] for k in ERNIE2_FETCHES], feeds
+
+
+def ernie2_train(torch, np, ptt, counters):
+    """ERNIE 2.0 multi-task pretraining at bench.py:491-515 with nothing
+    cut (bf16 ERNIE-base, batch 128 x 128, 20 masked positions, dropout
+    0.1, Adam(1e-4)), each step fed the next task_weight of
+    ernie2_task_schedule: GRAPH_STEPS steps op by op and graphed from one
+    startup (``_both_ways``: losses, a dropout Mask and every parameter
+    and moment bit for bit, ERNIE2_PER_STEP launches a step); each step's
+    loss the fed weights' mix of the task losses (a replay reads the new
+    weight); samples/s over the replays."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list, feeds = _ernie2(ptt, bert, cfg,
+                                               BF16_TRAIN_BATCH, 1e-4)
+    steps = feeds(GRAPH_STEPS)
+    fetch_list = fetch_list + [_dropout_mask(main)]
+    record, ok, (fetched, _), _, launches = _both_ways(
+        torch, np, ptt, counters, "ernie2_train", main, startup, steps,
+        fetch_list, ERNIE2_PER_STEP, TRAIN_FAMILIES)
+    mixes = [[float(t.reshape(())) for t in f] for f in fetched]
+    weights_read = all(
+        abs(m[0] - float(np.dot(s["task_weight"], m[1:]))) <=
+        1e-6 * abs(m[0]) for m, s in zip(mixes, steps))
+    tasks = [int(np.argmax(s["task_weight"])) for s in steps]
+    ok = ok and weights_read and len(set(tasks)) > 1
+    emit(dict({"phase": "ernie2_train", "ok": ok, "model": "ernie2_base",
+               "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "max_preds": TRAIN_PREDS,
+               "dropout": cfg.hidden_dropout, "optimizer": "Adam(1e-4)",
+               "program_ops": _n_ops(_op_counts(main)),
+               "op_counts": _op_counts(main), "tasks_by_step": tasks,
+               "task_losses_by_step": mixes,
+               "loss_is_the_fed_mix": weights_read,
+               "samples_per_s_replays": BF16_TRAIN_BATCH /
+               (record["replay_ms_median"] / 1e3)}, **record))
+    if not ok:
+        raise AssertionError("ernie2_train checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def ernie2_parity(torch, np, ptt):
+    """A 2-layer bf16 ERNIE 2.0 at base width (dropout 0) three
+    Adam(PARITY_LR) steps at PARITY_BATCH x 128, each fed the schedule's
+    next task_weight, the card graphed against the CPU (PARITY_*)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0, dtype="bfloat16")
+    main, startup, fetch_list, feeds = _ernie2(ptt, bert, cfg, PARITY_BATCH,
+                                               PARITY_LR)
+    result, ok = _card_vs_cpu(np, ptt, main, startup, fetch_list,
+                              feeds(PARITY_STEPS))
+    emit(dict({"phase": "ernie2_parity", "ok": ok, "layers": PARITY_LAYERS,
+               "batch": PARITY_BATCH, "seq_len": TRAIN_SEQ}, **result))
+    if not ok:
+        raise AssertionError("ernie2_parity checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -3681,7 +4343,23 @@ def main():
     finish("deepfm_train", phase("deepfm_train")(deepfm_train)(
         torch, np, ptt, counters), "deepfm train step")
     phase("deepfm_parity")(deepfm_parity)(torch, np, ptt)
+    finish("transformer_train", phase("transformer_train")(
+        transformer_train)(torch, np, ptt, counters),
+        "transformer train step")
+    by_path["graph_transformer"] = phase("graph_transformer")(
+        graph_transformer)(torch, np, ptt, counters)
+    beam_dir = os.path.join(_ROOT, "build", "chip_smoke_beam")
+    try:
+        by_path["transformer_serve"] = phase("transformer_serve")(
+            transformer_serve)(torch, np, ptt, counters, beam_dir)
+    finally:
+        shutil.rmtree(beam_dir, ignore_errors=True)
+    phase("transformer_parity")(transformer_parity)(torch, np, ptt)
+    by_path["ernie2_train"] = phase("ernie2_train")(ernie2_train)(
+        torch, np, ptt, counters)
+    phase("ernie2_parity")(ernie2_parity)(torch, np, ptt)
 
+    emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
 """paddle_tpu_torch.layers — the fluid.layers surface the port has so far."""
 from .tensor import (create_parameter, cast, concat,  # noqa: F401
-                     sums, assign, fill_constant, ones_like)
+                     sums, assign, fill_constant, ones_like,
+                     fill_constant_batch_size_like, argmax)
 from .ops import *           # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .io import data  # noqa: F401

@@ -7,6 +7,7 @@ tensor it runs the port's flash-attention kernel
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from .nn import fc, dropout, reshape, transpose
+from .tensor import concat
 
 
 def fused_attention(q, k, v, mask=None, scale=None, causal=False,
@@ -50,10 +51,13 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
                          d_model, n_head=1, dropout_rate=0.0, cache=None,
                          param_initializer=None, name="multi_head_att",
                          is_test=False, causal=False, attn_impl="auto"):
-    """The transformer MHA block of ERNIE/BERT (same ops and parameter
-    names as the JAX package's). ``cache`` takes precomputed cross-
-    attention ``static_k``/``static_v`` only; the incremental self-
-    attention cache belongs to the decode slice."""
+    """The transformer MHA block of ERNIE/BERT and the Transformer (same
+    ops and parameter names as the JAX package's). ``cache``: precomputed
+    cross-attention ``static_k``/``static_v`` (see mha_kv_projection), or
+    an incremental self-attention cache ``{"k", "v"}`` (None at the first
+    step): this step's K/V are concatenated onto it along the time axis
+    and stored back, and a single query row attends to the whole cache
+    (``causal`` dropped)."""
     keys = queries if keys is None else keys
     values = keys if values is None else values
 
@@ -66,15 +70,17 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     qh = _split_heads(q, n_head, d_key)
     if cache is not None and "static_k" in cache:
         kh, vh = cache["static_k"], cache["static_v"]
-    elif cache is not None:
-        raise NotImplementedError(
-            "multi_head_attention's incremental decode cache needs the "
-            "'concat' op, which arrives with the GPT decode slice of "
-            "paddle_tpu_torch")
     else:
         kh, vh = mha_kv_projection(keys, values, d_key, d_value, n_head,
                                    param_initializer=param_initializer,
                                    name=name)
+        if cache is not None:
+            if cache.get("k") is not None:
+                kh = concat([cache["k"], kh], axis=2)
+                vh = concat([cache["v"], vh], axis=2)
+            cache["k"], cache["v"] = kh, vh
+            if queries.shape[1] == 1:
+                causal = False
     ctx = fused_attention(qh, kh, vh, mask=attn_bias, scale=d_key ** -0.5,
                           causal=causal, impl=attn_impl)
     ctx = transpose(ctx, [0, 2, 1, 3])

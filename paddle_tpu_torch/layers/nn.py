@@ -1,4 +1,5 @@
-"""Neural network layers BERT, GPT, ResNet and DeepFM use.
+"""Neural network layers BERT, GPT, ResNet, DeepFM and the Transformer
+use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -441,6 +442,55 @@ def topk(input, k, name=None):
     return values, indices
 
 
+def expand(x, expand_times, name=None):
+    """X tiled ``expand_times`` along each axis (``jnp.tile``)."""
+    helper = LayerHelper("expand", name=name)
+    shape = None
+    if x.shape is not None:
+        shape = tuple(-1 if s == -1 else s * t
+                      for s, t in zip(x.shape, expand_times))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("expand", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    return _single(helper, "log_softmax", input, {"axis": axis}, input.shape)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """float32 rows of ``depth``; an id outside [0, depth) gives zeros."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"depth": depth, "dtype": "float32"})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    out = helper.create_variable_for_type_inference(dtype, label.shape)
+    helper.append_op("label_smooth", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    helper = LayerHelper("cumsum")
+    return _single(helper, "cumsum", x,
+                   {"axis": axis, "exclusive": exclusive, "reverse": reverse},
+                   x.shape)
+
+
 def where(condition, x=None, y=None):
     """Ternary select: x where ``condition``, else y."""
     helper = LayerHelper("where")
@@ -484,4 +534,5 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "adaptive_pool2d",
            "elementwise_mod", "elementwise_floordiv", "matmul", "mul",
            "clip", "clip_by_norm", "scale", "reshape", "unsqueeze",
            "transpose", "slice", "cast", "mean", "gather", "split",
-           "reduce_sum", "topk", "where", "autoincreased_step_counter"]
+           "reduce_sum", "topk", "where", "autoincreased_step_counter",
+           "expand", "log_softmax", "one_hot", "label_smooth", "cumsum"]

@@ -1,5 +1,6 @@
 """Tensor layers: create_parameter, cast, concat, sums, assign,
-fill_constant, ones_like (counterparts in paddle_tpu/layers/tensor.py)."""
+fill_constant, fill_constant_batch_size_like, argmax, ones_like
+(counterparts in paddle_tpu/layers/tensor.py)."""
 import numpy as np
 
 from ..framework.dtypes import normalize_dtype
@@ -81,6 +82,35 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
     helper.append_op("fill_constant", outputs={"Out": [out.name]},
                      attrs={"shape": [int(s) for s in shape],
                             "dtype": dtype, "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """``shape`` filled with ``value``, its ``output_dim_idx`` dim taken
+    from ``input``'s ``input_dim_idx`` dim when the op runs."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype, tuple(shape))
+    helper.append_op(
+        "fill_constant_batch_size_like",
+        inputs={"Input": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"shape": [int(s) for s in shape], "dtype": dtype,
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    return out
+
+
+def argmax(x, axis=0):
+    """int64 index of the largest along ``axis`` (the first on a tie)."""
+    helper = LayerHelper("argmax")
+    shape = None
+    if x.shape is not None:
+        shape = tuple(s for i, s in enumerate(x.shape)
+                      if i != axis % len(x.shape))
+    out = helper.create_variable_for_type_inference("int64", shape)
+    helper.append_op("arg_max", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    out.stop_gradient = True
     return out
 
 

@@ -1,7 +1,7 @@
-"""BERT-base / ERNIE encoder and MLM+NSP pretraining program (static
-graph).
+"""BERT-base / ERNIE encoder, MLM+NSP pretraining and ERNIE 2.0
+multi-task pretraining programs (static graph).
 
-Counterpart of paddle_tpu/models/bert.py:1-256: the same layers, op
+Counterpart of paddle_tpu/models/bert.py: the same layers, op
 types, var and parameter names, so a model directory written by either
 package serves in the other and the two pretraining programs serialize
 the same. ``dtype="bfloat16"`` runs the encoder layers in bf16 (f32
@@ -232,5 +232,133 @@ def synthetic_batch(cfg, batch_size, seq_len, max_preds_per_seq=20, seed=0):
             "labels": nsp}
 
 
+def ernie2_large(**kw):
+    """ERNIE 2.0-large: BERT-large geometry with the task-id embedding
+    (ERNIE 2.0 paper, Table 1 'large'); ``tp`` annotations on by
+    default, as in the JAX package."""
+    kw.setdefault("hidden_size", 1024)
+    kw.setdefault("num_layers", 24)
+    kw.setdefault("num_heads", 16)
+    kw.setdefault("ff_size", 4096)
+    kw.setdefault("tp", True)
+    return BertConfig(**kw)
+
+
+def ernie2_task_schedule(n_steps, weights=(1.0, 1.0, 1.0), seed=0):
+    """ERNIE 2.0's sequential multi-task schedule: each step trains one
+    task, drawn with probability proportional to its weight from numpy's
+    RandomState(seed) (the JAX package's draws). Yields (n_tasks,)
+    float32 one-hot vectors to feed as "task_weight"."""
+    w = np.asarray(weights, np.float64)
+    p = w / w.sum()
+    rng = np.random.RandomState(seed)
+    for _ in range(int(n_steps)):
+        vec = np.zeros(len(weights), np.float32)
+        vec[rng.choice(len(weights), p=p)] = 1.0
+        yield vec
+
+
+def _cls_head(cfg, pooled, name, n_cls, label):
+    logits = layers.fc(pooled, n_cls,
+                       param_attr=ParamAttr(name=name + ".w_0",
+                                            initializer=_init(cfg)),
+                       bias_attr=ParamAttr(name=name + ".b_0"))
+    return layers.mean(layers.softmax_with_cross_entropy(logits, label))
+
+
+def ernie2_multitask_program(cfg, batch_size, seq_len, max_preds_per_seq=20,
+                             num_sent_classes=3, num_ir_classes=3,
+                             task_weights=(1.0, 1.0, 1.0),
+                             optimizer_fn=None, is_test=False,
+                             dynamic_task_weights=False):
+    """ERNIE 2.0 multi-task pretraining on one shared encoder with the
+    task-id embedding: masked LM (word-aware), sentence-reorder
+    classification and IR relevance classification on [CLS]; the task
+    losses summed with ``task_weights``, or with a (3,) float32
+    "task_weight" feed (``dynamic_task_weights``; see
+    ernie2_task_schedule). Returns (main, startup, feed names, fetch
+    dict)."""
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        src_ids = layers.data("src_ids", [seq_len, 1], dtype="int64")
+        pos_ids = layers.data("pos_ids", [seq_len, 1], dtype="int64")
+        sent_ids = layers.data("sent_ids", [seq_len, 1], dtype="int64")
+        task_ids = layers.data("task_ids", [seq_len, 1], dtype="int64")
+        input_mask = layers.data("input_mask", [seq_len, 1],
+                                 dtype="float32")
+        mask_pos = layers.data("mask_pos", [1], dtype="int64")
+        mask_label = layers.data("mask_label", [1], dtype="int64")
+        reorder_label = layers.data("reorder_label", [1], dtype="int64")
+        ir_label = layers.data("ir_label", [1], dtype="int64")
+
+        seq_out, pooled = bert_encoder(src_ids, pos_ids, sent_ids,
+                                       input_mask, cfg, is_test=is_test,
+                                       task_ids=task_ids)
+
+        flat = layers.reshape(seq_out, [-1, cfg.hidden_size])
+        picked = layers.gather(flat, mask_pos)
+        trans = layers.fc(picked, cfg.hidden_size, act="gelu",
+                          param_attr=ParamAttr(name="mask_lm_trans_fc.w_0",
+                                               initializer=_init(cfg)),
+                          bias_attr=ParamAttr(name="mask_lm_trans_fc.b_0"))
+        trans = layers.layer_norm(
+            trans, begin_norm_axis=1,
+            param_attr=ParamAttr(name="mask_lm_trans_ln_s"),
+            bias_attr=ParamAttr(name="mask_lm_trans_ln_b"))
+        word_emb = main.global_block().var("word_embedding")
+        mlm_bias = layers.create_parameter(
+            [cfg.vocab_size], "float32", name="mask_lm_out_fc.b_0",
+            default_initializer=ConstantInitializer(0.0))
+        mlm_loss = layers.mean(layers.fused_mlm_head_loss(
+            trans, word_emb, mask_label, bias=mlm_bias,
+            cast_bf16=cfg.dtype == "bfloat16"))
+        reorder_loss = _cls_head(cfg, pooled, "task_reorder_fc",
+                                 num_sent_classes, reorder_label)
+        ir_loss = _cls_head(cfg, pooled, "task_ir_fc", num_ir_classes,
+                            ir_label)
+
+        if dynamic_task_weights:
+            tw = layers.data("task_weight", [3], dtype="float32",
+                             append_batch_size=False)
+            parts = []
+            for i, task_loss in enumerate((mlm_loss, reorder_loss,
+                                           ir_loss)):
+                wi = layers.slice(tw, axes=[0], starts=[i], ends=[i + 1])
+                parts.append(layers.elementwise_mul(task_loss, wi))
+            loss = layers.elementwise_add(
+                layers.elementwise_add(parts[0], parts[1]), parts[2])
+        else:
+            w = task_weights
+            loss = layers.scale(mlm_loss, scale=float(w[0]))
+            loss = layers.elementwise_add(
+                loss, layers.scale(reorder_loss, scale=float(w[1])))
+            loss = layers.elementwise_add(
+                loss, layers.scale(ir_loss, scale=float(w[2])))
+        if optimizer_fn is not None:
+            optimizer_fn(loss)
+    feeds = ["src_ids", "pos_ids", "sent_ids", "task_ids", "input_mask",
+             "mask_pos", "mask_label", "reorder_label", "ir_label"]
+    if dynamic_task_weights:
+        feeds.append("task_weight")
+    fetch = {"loss": loss, "mlm_loss": mlm_loss,
+             "reorder_loss": reorder_loss, "ir_loss": ir_loss}
+    return main, startup, feeds, fetch
+
+
+def ernie2_synthetic_batch(cfg, batch_size, seq_len, max_preds_per_seq=20,
+                           seed=0):
+    """synthetic_batch with task ids 0 and reorder / IR labels in [0, 3)
+    from RandomState(seed + 1), as the JAX package draws them."""
+    b = synthetic_batch(cfg, batch_size, seq_len, max_preds_per_seq, seed)
+    rng = np.random.RandomState(seed + 1)
+    b["task_ids"] = np.zeros((batch_size, seq_len, 1), np.int64)
+    b["reorder_label"] = rng.randint(0, 3, (batch_size, 1)).astype(np.int64)
+    b["ir_label"] = rng.randint(0, 3, (batch_size, 1)).astype(np.int64)
+    del b["labels"]
+    return b
+
+
 __all__ = ["BertConfig", "bert_base", "encoder_layer", "bert_encoder",
-           "bert_pretrain_program", "synthetic_batch"]
+           "bert_pretrain_program", "synthetic_batch", "ernie2_large",
+           "ernie2_task_schedule", "ernie2_multitask_program",
+           "ernie2_synthetic_batch"]

@@ -303,6 +303,28 @@ def _sum(ctx, ins, attrs):
     return {"Out": out}
 
 
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """Running sum along ``axis`` (``flatten``: of X flattened), by the
+    JAX op's arithmetic: ``exclusive`` subtracts X from the inclusive sum,
+    ``reverse`` sums the flipped X and flips back, then subtracts X if
+    ``exclusive``."""
+    x = _x(ins)
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x = x.reshape(-1)
+        axis = 0
+    exclusive = attrs.get("exclusive", False)
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if exclusive:
+        out = out - x
+    return {"Out": out.to(x.dtype)}
+
+
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": _x(ins).mean().reshape((1,))}

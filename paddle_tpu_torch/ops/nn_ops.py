@@ -1,7 +1,9 @@
-"""Neural-net op kernels BERT, GPT, ResNet and DeepFM run: conv2d,
-depthwise_conv2d, pool2d, batch_norm, lookup_table, dropout, layer_norm,
-softmax, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
-fused_mlm_head_loss (counterparts in paddle_tpu/ops/nn_ops.py).
+"""Neural-net op kernels BERT, GPT, ResNet, DeepFM and the Transformer
+run: conv2d, depthwise_conv2d, pool2d, batch_norm, lookup_table, dropout,
+layer_norm, softmax, log_softmax, label_smooth, one_hot,
+add_position_encoding, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, fused_mlm_head_loss (counterparts in
+paddle_tpu/ops/nn_ops.py).
 
 Convolution, pooling and batch norm have no Pallas kernel in the JAX
 package (``lax.conv_general_dilated``, ``lax.reduce_window`` and jnp
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
 from .registry import register_op
+from ..framework.dtypes import to_torch_dtype
 
 # the JAX package's blockwise-CE / fused-head kernel defaults
 # (ops/pallas/blockwise_ce.py: block_t=128, block_v=512)
@@ -232,6 +235,59 @@ def blockwise_kernel_would_tile(t, v, d=None):
 @register_op("softmax")
 def _softmax(ctx, ins, attrs):
     return {"Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))}
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    return {"Out": torch.log_softmax(ins["X"][0], dim=attrs.get("axis", -1))}
+
+
+@register_op("label_smooth", nondiff=("PriorDist",))
+def _label_smooth(ctx, ins, attrs):
+    """(1 - eps) * X + eps * PriorDist, or + eps / K (K: X's last dim)."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist"):
+        return {"Out": (1 - eps) * x + eps * ins["PriorDist"][0]}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}
+
+
+@register_op("one_hot", nondiff=("X",))
+def _one_hot(ctx, ins, attrs):
+    """(..., depth) rows of ``dtype``, a trailing 1 of X dropped first. An
+    id outside [0, depth) gives a row of zeros, as ``jax.nn.one_hot``
+    (``F.one_hot`` would raise)."""
+    x = ins["X"][0]
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = attrs["depth"]
+    hot = x.long()[..., None] == torch.arange(depth, device=x.device)
+    return {"Out": hot.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+
+
+def _position_table(l, d, offset, device):
+    """(l, d) f32 sinusoids of positions offset .. offset + l - 1: sin in
+    the first d // 2 columns, cos in the rest, angle pos / 10000^(2i/d)
+    (the JAX op's arithmetic)."""
+    pos = (torch.arange(l, dtype=torch.float32, device=device) +
+           float(offset))[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+@register_op("add_position_encoding")
+def _add_position_encoding(ctx, ins, attrs):
+    """alpha * X + beta * the sinusoid table of X's (L, D), positions from
+    ``pos_offset`` (a cached decode step's absolute position). The table
+    is made on the device, once per plan where the run may be
+    captured."""
+    x = ins["X"][0]
+    _, l, d = x.shape
+    table = ctx.constant(lambda: _position_table(
+        l, d, attrs.get("pos_offset", 0), x.device))
+    return {"Out": attrs.get("alpha", 1.0) * x +
+            attrs.get("beta", 1.0) * table[None].to(x.dtype)}
 
 
 @register_op("sigmoid_cross_entropy_with_logits", nondiff=("Label",))

@@ -31,6 +31,20 @@ def _fill_any_like(ctx, ins, attrs):
                               device=x.device)}
 
 
+@register_op("fill_constant_batch_size_like", nondiff=("Input",))
+def _fill_constant_batch_size_like(ctx, ins, attrs):
+    """``shape`` filled with ``value``, its ``output_dim_idx`` dim taken
+    from Input's ``input_dim_idx`` dim."""
+    x = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        x.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=to_torch_dtype(attrs.get("dtype",
+                                                             "float32")),
+                              device=x.device)}
+
+
 @register_op("assign")
 def _assign(ctx, ins, attrs):
     return {"Out": _x(ins)}
@@ -69,10 +83,49 @@ def _gather(ctx, ins, attrs):
     return {"Out": x.index_select(attrs.get("axis", 0) or 0, index.long())}
 
 
+def _float_order_key(x):
+    """int64 keys, one per element of float ``x``, that order as
+    (value, then the lower index first) along the last axis: the float's
+    bits made monotone (negatives' magnitude bits flipped) in the high
+    32 bits, 2^32 - 1 - index in the low 32."""
+    bits = x.float().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    low = (2 ** 32 - 1) - torch.arange(x.shape[-1], device=x.device)
+    return (key << 32) + low
+
+
 @register_op("top_k")
 def _top_k(ctx, ins, attrs):
-    vals, idx = torch.topk(_x(ins), attrs["k"], dim=-1)
-    return {"Out": vals, "Indices": idx.long()}
+    """The ``k`` largest along the last axis, largest first; among equal
+    values the lower index first and the lower index kept, as
+    ``lax.top_k`` picks (``torch.topk`` promises no order among ties).
+    Floats take ``torch.topk`` of order keys with no ties
+    (``_float_order_key``), other dtypes a stable sort."""
+    x = _x(ins)
+    k = attrs["k"]
+    if x.is_floating_point():
+        idx = torch.topk(_float_order_key(x), k, dim=-1).indices
+    else:
+        idx = torch.sort(x, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    return {"Out": torch.gather(x, -1, idx), "Indices": idx.long()}
+
+
+@register_op("arg_max", nondiff=("X",))
+def _arg_max(ctx, ins, attrs):
+    """int64 index of the largest along ``axis``, the first on a tie
+    (``torch.argmax``'s and ``jnp.argmax``'s rule)."""
+    x = _x(ins)
+    return {"Out": torch.argmax(x, dim=attrs.get("axis", -1),
+                                keepdim=attrs.get("keepdims", False))}
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    """``jnp.tile``: X repeated ``expand_times`` along each axis, in new
+    memory (``Tensor.repeat``; a stride-0 ``Tensor.expand`` view would
+    reach kernels that read their operand densely)."""
+    return {"Out": _x(ins).repeat(*attrs["expand_times"])}
 
 
 @register_op("reshape2")

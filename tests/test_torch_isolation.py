@@ -75,6 +75,7 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.models.gpt\n"
             "import paddle_tpu_torch.models.resnet\n"
             "import paddle_tpu_torch.models.deepfm\n"
+            "import paddle_tpu_torch.models.transformer\n"
             "import paddle_tpu_torch.ops.nn_ops\n"
             "import paddle_tpu_torch.ops.metric_ops\n"
             "import paddle_tpu_torch.layers.control_flow\n"
