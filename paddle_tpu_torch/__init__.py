@@ -20,8 +20,11 @@ recompute (``layers.recompute_segment``). The training state leaves
 and comes back through ``io.save_checkpoint``/``io.load_checkpoint``
 (the whole scope) or ``save_persistables``/``load_persistables``, and
 ``optimizer.ExponentialMovingAverage``, ``ModelAverage`` and
-``LookaheadOptimizer`` wrap the update. The other models are later
-slices (see ROADMAP.md).
+``LookaheadOptimizer`` wrap the update. The recurrent sequence models
+train the same way (``models.sequence_labeling.bigru_crf_program``,
+LAC's BiGRU-CRF with its Viterbi decode, and ``models.ocr.
+crnn_ctc_program``, CRNN-CTC), on ``contrib.layers.basic_gru``. The
+other models are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -33,6 +36,7 @@ from .ops.registry import NotPortedError
 from .param_attr import ParamAttr
 from . import initializer
 from . import layers
+from . import contrib
 from . import regularizer
 from . import clip
 from . import optimizer

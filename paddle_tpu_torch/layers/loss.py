@@ -1,5 +1,5 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py) for the losses
-BERT, GPT, ResNet and DeepFM use."""
+BERT, GPT, ResNet, DeepFM and CRNN-CTC use."""
 from ..layer_helper import LayerHelper
 
 
@@ -58,5 +58,26 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
     return out
 
 
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss (N, 1) on the dense, padded convention: ``input`` (T, N,
+    C) time-major unnormalised logits (softmax applied inside, as
+    warp-ctc does), ``label`` (N, Lmax), per-example ``input_length`` and
+    ``label_length``."""
+    helper = LayerHelper("warpctc")
+    n = input.shape[1] if input.shape is not None else None
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (n, 1) if n is not None else None)
+    inputs = {"Logits": [input.name], "Label": [label.name]}
+    if input_length is not None:
+        inputs["LogitsLength"] = [input_length.name]
+    if label_length is not None:
+        inputs["LabelLength"] = [label_length.name]
+    helper.append_op("warpctc", inputs=inputs, outputs={"Loss": [out.name]},
+                     attrs={"blank": int(blank),
+                            "norm_by_times": bool(norm_by_times)})
+    return out
+
+
 __all__ = ["softmax_with_cross_entropy", "fused_mlm_head_loss",
-           "sigmoid_cross_entropy_with_logits"]
+           "sigmoid_cross_entropy_with_logits", "warpctc"]

@@ -1,5 +1,5 @@
-"""Neural network layers BERT, GPT, ResNet, DeepFM and the Transformer
-use.
+"""Neural network layers BERT, GPT, ResNet, DeepFM, the Transformer and
+the recurrent sequence models use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -406,24 +406,71 @@ def split(input, num_or_sections, dim=-1, name=None):
     return outs
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    if dim is None:
-        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
-        shape = (1,) if not keep_dim else None
-    else:
-        dims = [dim] if isinstance(dim, int) else list(dim)
-        attrs = {"dim": dims, "keep_dim": keep_dim, "reduce_all": False}
-        shape = None
-        if input.shape is not None:
-            nd = len(input.shape)
-            axes = {d % nd for d in dims}
-            shape = tuple(s for s in (
-                (1 if keep_dim else None) if i in axes else s
-                for i, s in enumerate(input.shape)) if s is not None)
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+            shape = (1,) if not keep_dim else None
+        else:
+            dims = [dim] if isinstance(dim, int) else list(dim)
+            attrs = {"dim": dims, "keep_dim": keep_dim, "reduce_all": False}
+            shape = None
+            if input.shape is not None:
+                nd = len(input.shape)
+                axes = {d % nd for d in dims}
+                shape = tuple(s for s in (
+                    (1 if keep_dim else None) if i in axes else s
+                    for i, s in enumerate(input.shape)) if s is not None)
+        out = helper.create_variable_for_type_inference(input.dtype, shape)
+        helper.append_op(op_type, inputs={"X": [input.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    shape = None
+    if input.shape is not None:
+        shape = tuple(s for i, s in enumerate(input.shape)
+                      if not (i in [a % len(input.shape) for a in axes]
+                              and s == 1))
     out = helper.create_variable_for_type_inference(input.dtype, shape)
-    helper.append_op("reduce_sum", inputs={"X": [input.name]},
-                     outputs={"Out": [out.name]}, attrs=attrs)
+    helper.append_op("squeeze2", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    shape = None
+    if x[0].shape is not None:
+        shape = list(x[0].shape)
+        shape.insert(axis if axis >= 0 else axis + len(shape) + 1, len(x))
+        shape = tuple(shape)
+    out = helper.create_variable_for_type_inference(x[0].dtype, shape)
+    helper.append_op("stack", inputs={"X": [v.name for v in x]},
+                     outputs={"Y": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    shape = None
+    if maxlen is not None and maxlen > 0 and x.shape is not None:
+        shape = tuple(x.shape) + (maxlen,)
+    out = helper.create_variable_for_type_inference(dtype, shape)
+    helper.append_op("sequence_mask", inputs={"X": [x.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"maxlen": maxlen if maxlen is not None else -1,
+                            "out_dtype": dtype})
+    out.stop_gradient = True
     return out
 
 
@@ -534,5 +581,6 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "adaptive_pool2d",
            "elementwise_mod", "elementwise_floordiv", "matmul", "mul",
            "clip", "clip_by_norm", "scale", "reshape", "unsqueeze",
            "transpose", "slice", "cast", "mean", "gather", "split",
-           "reduce_sum", "topk", "where", "autoincreased_step_counter",
+           "reduce_sum", "reduce_mean", "squeeze", "stack", "sequence_mask",
+           "topk", "where", "autoincreased_step_counter",
            "expand", "log_softmax", "one_hot", "label_smooth", "cumsum"]

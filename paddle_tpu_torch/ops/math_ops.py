@@ -330,22 +330,27 @@ def _mean(ctx, ins, attrs):
     return {"Out": _x(ins).mean().reshape((1,))}
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, ins, attrs):
-    """Sum over ``dim`` (or every axis with ``reduce_all``); a full
+def _reduce(fn):
+    """A reduction over ``dim`` (or every axis with ``reduce_all``); a full
     reduction without ``keep_dim`` has shape (1,), as in fluid."""
-    x = _x(ins)
-    dims = attrs.get("dim", [0])
-    keep = attrs.get("keep_dim", False)
-    reduce_all = attrs.get("reduce_all", False) or dims is None
-    if reduce_all:
-        axes = tuple(range(x.dim()))
-    else:
-        axes = tuple(d % x.dim() for d in np.atleast_1d(dims).tolist())
-    out = x.sum(dim=axes, keepdim=keep) if axes else x.clone()
-    if reduce_all and not keep:
-        out = out.reshape((1,))
-    return {"Out": out}
+    def kernel(ctx, ins, attrs):
+        x = _x(ins)
+        dims = attrs.get("dim", [0])
+        keep = attrs.get("keep_dim", False)
+        reduce_all = attrs.get("reduce_all", False) or dims is None
+        if reduce_all:
+            axes = tuple(range(x.dim()))
+        else:
+            axes = tuple(d % x.dim() for d in np.atleast_1d(dims).tolist())
+        out = fn(x, dim=axes, keepdim=keep) if axes else x.clone()
+        if reduce_all and not keep:
+            out = out.reshape((1,))
+        return {"Out": out}
+    return kernel
+
+
+register_op("reduce_sum")(_reduce(torch.sum))
+register_op("reduce_mean")(_reduce(torch.mean))
 
 
 def _compare(fn):

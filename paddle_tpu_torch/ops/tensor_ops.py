@@ -150,6 +150,37 @@ def _unsqueeze2(ctx, ins, attrs):
     return {"Out": x}
 
 
+@register_op("squeeze2")
+def _squeeze2(ctx, ins, attrs):
+    """X without its ``axes`` of size 1 (an axis of another size is kept,
+    as ``jnp.squeeze`` of the JAX op's filtered axes); no ``axes``: every
+    axis of size 1."""
+    x = _x(ins)
+    axes = attrs.get("axes", [])
+    if not axes:
+        return {"Out": x.squeeze()}
+    axes = tuple(a % x.dim() for a in axes if x.shape[a % x.dim()] == 1)
+    return {"Out": x.squeeze(axes) if axes else x}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": torch.stack(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("sequence_mask", nondiff=("X",))
+def _sequence_mask(ctx, ins, attrs):
+    """``arange(maxlen) < x`` for each element of X, in ``out_dtype``;
+    ``maxlen`` must be static, as in the JAX op."""
+    x = _x(ins)
+    maxlen = attrs.get("maxlen", -1)
+    if maxlen is None or maxlen < 0:
+        raise ValueError("sequence_mask needs a static maxlen")
+    mask = torch.arange(maxlen, device=x.device)[None, :] < x.reshape(-1, 1)
+    mask = mask.reshape(tuple(x.shape) + (maxlen,))
+    return {"Y": mask.to(to_torch_dtype(attrs.get("out_dtype", "int64")))}
+
+
 @register_op("concat")
 def _concat(ctx, ins, attrs):
     """X's tensors joined along ``axis``; the gradient splits back by

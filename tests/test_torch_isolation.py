@@ -94,6 +94,15 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.framework.executor\n"
             "import paddle_tpu_torch.io\n"
             "import paddle_tpu_torch.ops.quant_ops\n"
+            "import paddle_tpu_torch.ops.rnn_ops\n"
+            "import paddle_tpu_torch.ops.crf_ops\n"
+            "import paddle_tpu_torch.ops.sequence_ops\n"
+            "import paddle_tpu_torch.layers.rnn\n"
+            "import paddle_tpu_torch.layers.sequence_lod\n"
+            "import paddle_tpu_torch.layers.vision\n"
+            "import paddle_tpu_torch.contrib.layers.rnn_impl\n"
+            "import paddle_tpu_torch.models.sequence_labeling\n"
+            "import paddle_tpu_torch.models.ocr\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
