@@ -169,6 +169,27 @@ replays):
   ``F.ctc_loss`` (a yardstick the port never calls), device time by op
   type. ``ocr_parity``: narrow, card against CPU.
 
+Then the data path, training fed as Paddle 1.6 scripts feed it:
+
+- ``dataset_deepfm``: DeepFM at bench.py:565-578 (nothing cut) fed 24
+  batches of samples written to record files by the port's RecordWriter
+  and read by the C++ data plane into an InMemoryDataset (four threads,
+  a global shuffle): ``train_from_dataset`` step by step and with
+  ``steps_per_dispatch=4`` (equal bit for bit from the same start),
+  ``infer_from_dataset`` on the is_test program, ``DataLoader.
+  from_generator`` with exe.run, and one pre-staged batch: examples/s
+  of each, the plane's read, load and collate rates with no step, a
+  pass's idle share; 11 fused-Adam launches a training step whatever
+  the feed.
+- ``bucketed_train``: bench.py's bucketed model at its on-chip settings
+  (bench.py:745-760), MultiSlot text from the data generator through a
+  QueueDataset with length buckets: run_pass's warm pass and best of
+  two, bucketed and at max_len; the samples/s ratio, the graph keys of
+  each pass and the share of its steps that replayed a graph.
+- ``py_reader_bert``: train_bf16's BERT-base fed by a py_reader for two
+  epochs (EOF, reset), against the same batches fed and one epoch op
+  by op, bit for bit; step ms beside the fed step's.
+
 Each profiles one run both ways (device busy, idle share) and lists
 the replay's kernels: the path's hand-written kernels must appear and
 no library attention, LayerNorm or Adam kernel; the capture's time and
@@ -512,6 +533,38 @@ OCR_PARITY = dict(num_classes=95, image_shape=(1, 16, 48), hidden=32,
                   max_label=8)
 OCR_PARITY_BATCH = 4
 OCR_PARITY_RTOL, OCR_PARITY_ATOL = 1e-4, 3e-5
+# The data path (dataset, py_reader, DataLoader feeding training).
+# dataset_deepfm: DeepFM at deepfm_train's settings (bench.py:565-578,
+# nothing cut), DATASET_BATCHES synthetic_batch batches (seeds 0..23)
+# written a sample a record over DATASET_FILES record files, read into
+# an InMemoryDataset on DATASET_THREADS threads and shuffled; a warm
+# train_from_dataset pass, a timed one, a windowed one
+# (DATASET_WINDOW steps a run_steps window) from the same start (equal
+# bit for bit: both replay one graph), infer_from_dataset on the is_test
+# program, DataLoader.from_generator with exe.run, and the first batch
+# fed DATASET_BATCHES times (deepfm_train's pre-staged way); 11 fused-Adam
+# launches a training step whatever the feed.
+DATASET_BATCHES, DATASET_FILES, DATASET_THREADS, DATASET_WINDOW = 24, 4, \
+    4, 4
+# bucketed_train: bench.py's bench_bucketed_training at its on-chip
+# settings (bench.py:745-760: vocab 8192, hidden 512, 4 GELU layers,
+# max_len 256, batch 128, 24 batches, buckets (32, 64, 128, 256), Adam
+# 1e-3, lengths geometric(1 / (max_len // 8)) clipped to [4, max_len],
+# seed 0), written as MultiSlot text by the data generator and read by
+# a QueueDataset (the C++ ms_parse_file); run_pass's warm pass and best
+# of BUCKETED_TIMED, bucketed and at (max_len,). One Adam launch per
+# parameter (the embedding, five fc weights and biases) a step.
+BUCKETED = dict(vocab=8192, hidden=512, n_layers=4, max_len=256,
+                batch=128, n_batches=24, buckets=(32, 64, 128, 256))
+BUCKETED_TIMED = 2
+BUCKETED_PER_STEP = {"fused_adam": 11}
+# py_reader_bert: train_bf16's model and batch (BERT-base bf16, batch 128
+# x 128) fed by create_py_reader_by_data over the program's own feeds,
+# PY_READER_BATCHES synthetic batches an epoch (a warm run, a capture and
+# PY_READER_BATCHES - 2 replays), two epochs; against the same batches
+# fed (graphed) and one epoch op by op: every fetch bit for bit, and
+# train_bf16's launches a step.
+PY_READER_BATCHES, PY_READER_CAPACITY = 3 + 3, 4
 SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
 TRAIN_FAMILIES = SERVE_FAMILIES + ("flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq",
@@ -4570,6 +4623,470 @@ def ocr_parity(torch, np, ptt):
                              "above)")
 
 
+def _losses_of(np, exe):
+    """Record the loss (the first fetch) of every step ``exe`` runs for
+    the trainer, step by step or in a run_steps window; returns the
+    list it appends to."""
+    losses = []
+    run, run_steps = exe.run, exe.run_steps
+
+    def recorded(*args, **kwargs):
+        out = run(*args, **kwargs)
+        if out:
+            losses.append(float(np.asarray(out[0]).reshape(())))
+        return out
+
+    def recorded_steps(*args, **kwargs):
+        out = run_steps(*args, **kwargs)
+        losses.extend(float(v) for v in np.asarray(out[0]).reshape(-1))
+        return out
+    exe.run, exe.run_steps = recorded, recorded_steps
+    return losses
+
+
+def _pass(torch, counters, fn):
+    """One pass of ``fn``, the launch counters set to 0 just before and
+    read just after: (seconds, launches, what ``fn`` returned)."""
+    counters.zero()                          # the main path starts here
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, counters.read(), out
+
+
+def _sum_launches(*launches):
+    return {k: sum(d[k] for d in launches) for k in launches[0]}
+
+
+def _snapshot(torch, scope):
+    return {n: v.clone() if isinstance(v, torch.Tensor) else v
+            for n, v in scope.items()}
+
+
+def _restore(torch, scope, snap):
+    """``snap``'s values back into ``scope``, each tensor copied into the
+    scope's own (a captured step's static inputs stay its inputs)."""
+    for n, v in snap.items():
+        cur = scope.find_var(n)
+        if isinstance(v, torch.Tensor) and isinstance(cur, torch.Tensor):
+            cur.copy_(v)
+        else:
+            scope.set_var(n, v)
+
+
+def _deepfm_records(deepfm, root):
+    """DATASET_BATCHES synthetic_batch batches (seeds 0, 1, ...) written a
+    sample a record, batch b into file b % DATASET_FILES, with the port's
+    RecordWriter: (paths, records, seconds)."""
+    from paddle_tpu_torch.native import RecordWriter
+    os.makedirs(root, exist_ok=True)
+    names = ("dense_input", "sparse_input", "label")
+    paths = [os.path.join(root, "ctr-%d.ptrec" % i)
+             for i in range(DATASET_FILES)]
+    writers = [RecordWriter(p) for p in paths]
+    n, t0 = 0, time.perf_counter()
+    try:
+        for b in range(DATASET_BATCHES):
+            batch = deepfm.synthetic_batch(
+                DEEPFM_BATCH, feature_dim=DEEPFM_FEATURES, seed=b)
+            w = writers[b % DATASET_FILES]
+            for i in range(DEEPFM_BATCH):
+                w.write_sample([batch[k][i] for k in names])
+                n += 1
+    finally:
+        for w in writers:
+            w.close()
+    return paths, n, time.perf_counter() - t0
+
+
+def dataset_deepfm(torch, np, ptt, counters):
+    """DeepFM at bench.py:565-578 fed from record files through an
+    InMemoryDataset (DATASET_* above): examples/s of train_from_dataset
+    step by step and windowed, of DataLoader with exe.run and of one
+    pre-staged batch, side by side; the C++ plane's own rates (reading,
+    loading, collating, no step) and its build seconds; the idle share of
+    a train_from_dataset pass. Checks: the C++ plane read every record,
+    11 fused-Adam launches a training step whatever the feed (none in
+    inference), the windowed pass equal to the step-by-step one bit for
+    bit from the same start, losses finite and the second pass's mean
+    below the first's."""
+    from paddle_tpu_torch.models import deepfm
+    from paddle_tpu_torch.native import RecordReader, build as plane
+    t0 = time.perf_counter()
+    plane.load_dataplane()                   # DataPlaneBuildError if not
+    plane_s = time.perf_counter() - t0
+    kw = dict(feature_dim=DEEPFM_FEATURES, embedding_size=DEEPFM_EMBEDDING)
+    main, startup, fetch_list, _, _ = _deepfm_program(
+        np, ptt, deepfm, DEEPFM_BATCH, **kw)
+    fetch_list = fetch_list[:2]              # loss, auc
+    use = [main.global_block().var(n)
+           for n in ("dense_input", "sparse_input", "label")]
+    root = os.path.join(_ROOT, "build", "chip_smoke_data", "deepfm")
+    paths, written, write_s = _deepfm_records(deepfm, root)
+    t0 = time.perf_counter()
+    read = sum(1 for _ in RecordReader(
+        paths, num_threads=DATASET_THREADS).samples())
+    read_s = time.perf_counter() - t0
+    ds = ptt.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_filelist(paths)
+    ds.set_batch_size(DEEPFM_BATCH)
+    ds.set_thread(DATASET_THREADS)
+    ds.set_use_var(use)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    load_s = time.perf_counter() - t0
+    ds.global_shuffle()
+    t0 = time.perf_counter()
+    batches = list(ds)
+    collate_s = time.perf_counter() - t0
+
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(startup, scope=scope)
+    losses = _losses_of(np, exe)
+
+    def train(**extra):
+        return exe.train_from_dataset(main, ds, scope=scope,
+                                      fetch_list=fetch_list, **extra)
+    feeds = {}
+
+    def record(name, seconds, launches, steps, last=None):
+        feeds[name] = {"seconds": seconds, "steps": steps,
+                       "examples_per_s": steps * DEEPFM_BATCH / seconds,
+                       "launches": launches, "losses": losses[:],
+                       "last": None if last is None else
+                       [float(np.asarray(v).reshape(-1)[0]) for v in last]}
+        del losses[:]
+    s, n, (steps, last) = _pass(torch, counters, train)
+    record("train_from_dataset_warm", s, n, steps, last)
+    start = _snapshot(torch, scope)
+    s, n, (steps, step_last) = _pass(torch, counters, train)
+    record("train_from_dataset", s, n, steps, step_last)
+    per_step_state = _snapshot(torch, scope)
+    _restore(torch, scope, start)
+    s, n, (steps, win_last) = _pass(torch, counters, lambda: train(
+        steps_per_dispatch=DATASET_WINDOW))
+    record("train_from_dataset_windowed", s, n, steps, win_last)
+    unequal = [k for k, v in per_step_state.items()
+               if isinstance(v, torch.Tensor) and
+               not torch.equal(v, scope.find_var(k))]
+    windowed_equal = not unequal and feeds["train_from_dataset"][
+        "losses"] == feeds["train_from_dataset_windowed"]["losses"] and \
+        all(np.array_equal(a, b) for a, b in zip(step_last, win_last))
+
+    loader = ptt.reader.DataLoader.from_generator(feed_list=use,
+                                                   capacity=4)
+    loader.set_batch_generator(lambda: (
+        (b["dense_input"], b["sparse_input"], b["label"]) for b in ds))
+
+    def fed(feed_iter):
+        n = 0
+        for feed in feed_iter:
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+            n += 1
+        return n
+    s, n, steps = _pass(torch, counters, lambda: fed(loader()))
+    record("dataloader", s, n, steps)
+    s, n, steps = _pass(torch, counters, lambda: fed(
+        [batches[0]] * DATASET_BATCHES))
+    record("pre_staged", s, n, steps)
+
+    with ptt.unique_name.guard():
+        imain, _, _, ifetch = deepfm.deepfm_train_program(is_test=True,
+                                                          **kw)
+    s, n, (steps, last) = _pass(torch, counters, lambda: (
+        exe.infer_from_dataset(imain, ds, scope=scope, fetch_list=[
+            ifetch["loss"], ifetch["auc"]])))
+    record("infer_from_dataset", s, n, steps, last)
+    found = _profiled(torch, train)
+    found.pop("kernel_names")
+    del losses[:]
+
+    train_feeds = [k for k in feeds if k != "infer_from_dataset"]
+    want = _no_launches(counters, fused_adam=DEEPFM_PER_STEP["fused_adam"]
+                        * DATASET_BATCHES)
+    launches_ok = all(feeds[k]["launches"] == want for k in train_feeds) \
+        and feeds["infer_from_dataset"]["launches"] == _no_launches(counters)
+    steps_ok = all(f["steps"] == DATASET_BATCHES for f in feeds.values())
+    all_losses = [v for k in train_feeds for v in feeds[k]["losses"]]
+    finite = bool(np.isfinite(all_losses).all()) and all(
+        np.isfinite(v) for f in feeds.values() for v in (f["last"] or []))
+    falling = statistics.mean(feeds["train_from_dataset"]["losses"]) < \
+        statistics.mean(feeds["train_from_dataset_warm"]["losses"])
+    total = DATASET_BATCHES * DEEPFM_BATCH
+    plane_ok = plane.native_available() and read == written == total \
+        and ds.get_memory_data_size() == total
+    ok = plane_ok and launches_ok and steps_ok and windowed_equal and \
+        finite and falling
+    emit({"phase": "dataset_deepfm", "ok": ok, "model": "deepfm",
+          "feature_dim": DEEPFM_FEATURES, "embedding": DEEPFM_EMBEDDING,
+          "batch": DEEPFM_BATCH, "batches": DATASET_BATCHES,
+          "files": DATASET_FILES, "threads": DATASET_THREADS,
+          "window": DATASET_WINDOW,
+          "examples_per_s": {k: f["examples_per_s"]
+                             for k, f in feeds.items()},
+          "feeds": feeds,
+          "dataplane": {"native": plane.native_available(),
+                        "library": plane.library_path(),
+                        "build_s": plane.build_seconds, "load_s": plane_s,
+                        "records_written": written, "write_s": write_s,
+                        "records_read": read, "read_samples_per_s":
+                        read / read_s, "load_into_memory_samples_per_s":
+                        total / load_s, "collate_samples_per_s":
+                        total / collate_s, "ok": plane_ok},
+          "windowed_equals_per_step": windowed_equal,
+          "unequal": unequal[:8], "launches_ok": launches_ok,
+          "steps_ok": steps_ok, "finite": finite, "falling": falling,
+          "graph_runs": exe.graph_runs, "captures": _capture_record(exe),
+          "profile_train_from_dataset_pass": found})
+    close_executor(torch, "dataset_deepfm", exe)
+    if not ok:
+        raise AssertionError("dataset_deepfm checks failed (see the line "
+                             "above)")
+    return _sum_launches(*[feeds[k]["launches"] for k in feeds])
+
+
+def _bucketed_program(ptt):
+    """bench.py's bench_bucketed_training model at BUCKETED:
+    (main, startup, [ids, label], loss)."""
+    layers, c = ptt.layers, BUCKETED
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        ids = layers.data("ids", [-1], dtype="int64")
+        label = layers.data("label", [1], dtype="int64")
+        emb = layers.embedding(ids, size=[c["vocab"], c["hidden"]])
+        mask = layers.cast(
+            layers.not_equal(ids, layers.zeros_like(ids)), "float32")
+        h = emb
+        for _ in range(c["n_layers"]):
+            h = layers.fc(h, c["hidden"], num_flatten_dims=2, act="gelu")
+        pooled = layers.reduce_sum(h * layers.unsqueeze(mask, [2]), dim=1)
+        logits = layers.fc(pooled, size=2)
+        loss = layers.reduce_mean(
+            layers.softmax_with_cross_entropy(logits, label))
+        ptt.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = SEED
+    return main, startup, [ids, label], loss
+
+
+def _bucketed_text(np, root):
+    """bench.py:755-760's samples (seed 0) written as MultiSlot text by
+    the port's data generator: (path, lengths, seconds)."""
+    from paddle_tpu_torch.incubate.data_generator import \
+        MultiSlotDataGenerator
+    c = BUCKETED
+    rng = np.random.RandomState(0)
+    lengths = []
+
+    class Gen(MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            def it():
+                for _ in range(c["batch"] * c["n_batches"]):
+                    ln = int(np.clip(rng.geometric(
+                        1.0 / (c["max_len"] // 8)), 4, c["max_len"]))
+                    lengths.append(ln)
+                    ids = rng.randint(1, c["vocab"], (ln,))
+                    label = rng.randint(0, 2, (1,))
+                    yield [("ids", ids.tolist()), ("label", label.tolist())]
+            return it
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "bucketed.txt")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        Gen().run_from_memory(write=f.write)
+    return path, lengths, time.perf_counter() - t0
+
+
+def bucketed_train(torch, np, ptt, counters):
+    """bench.py's bucketed-training metric at its on-chip settings
+    (BUCKETED): MultiSlot text through a QueueDataset with length
+    buckets (the C++ parse), run_pass's warm pass and best of
+    BUCKETED_TIMED train_from_dataset passes, bucketed and at
+    (max_len,); the bucketed / max-len samples/s ratio with both rates,
+    each pass's graph keys and how many of its steps ran op by op, were
+    captured or replayed, and one more pass profiled (device time by
+    kernel family, idle share). Checks: every pass ran every batch,
+    losses finite, 11 Adam launches a step, no captured step holds the
+    unread ``ids__lens`` feed."""
+    c = BUCKETED
+    root = os.path.join(_ROOT, "build", "chip_smoke_data", "bucketed")
+    path, lengths, write_s = _bucketed_text(np, root)
+    n_samples = len(lengths)
+    results, launches, ok = {}, [], True
+    for label, bucket_list in (("bucketed", c["buckets"]),
+                               ("max_len", (c["max_len"],))):
+        main, startup, use, loss = _bucketed_program(ptt)
+        ds = ptt.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_filelist([path])
+        ds.set_batch_size(c["batch"])
+        ds.set_use_var(use)
+        ds.set_length_buckets(bucket_list, by="ids")
+        widths = {}
+        for b in ds:
+            w = (b["ids"].shape[1], b["ids"].shape[0])
+            widths[w] = widths.get(w, 0) + 1
+        scope, exe = ptt.Scope(), ptt.Executor()
+        exe.run(startup, scope=scope)
+        passes = []
+        for _ in range(1 + BUCKETED_TIMED):
+            before = dict(exe.graph_runs)
+            s, n, (steps, last) = _pass(torch, counters, lambda: (
+                exe.train_from_dataset(main, ds, scope=scope,
+                                       fetch_list=[loss])))
+            launches.append(n)
+            runs = {k: exe.graph_runs[k] - before[k] for k in before}
+            passes.append({
+                "seconds": s, "steps": steps,
+                "samples_per_s": n_samples / s,
+                "loss": float(np.asarray(last[0]).reshape(())),
+                "graph_runs": runs,
+                "graph_share": (runs["capture"] + runs["replay"]) / steps,
+                "graph_keys": len(exe._graphs),
+                "launches_ok": n == _no_launches(
+                    counters, fused_adam=BUCKETED_PER_STEP["fused_adam"]
+                    * steps)})
+        feeds_ok = all(set(cap["feeds"]) == {"ids", "label"}
+                       for cap in exe.capture_log)
+        found = _profiled(torch, lambda: exe.train_from_dataset(
+            main, ds, scope=scope, fetch_list=[loss]))
+        found["kernel_names"] = len(found["kernel_names"])
+        best = min(p["seconds"] for p in passes[1:])
+        case_ok = feeds_ok and all(
+            p["steps"] == sum(widths.values()) and p["launches_ok"] and
+            np.isfinite(p["loss"]) for p in passes)
+        ok = ok and case_ok
+        results[label] = {
+            "ok": case_ok, "buckets": list(bucket_list),
+            "samples_per_s": n_samples / best,
+            "batches_by_width_and_size": {
+                "%dx%d" % (sz, w): k for (w, sz), k in sorted(
+                    widths.items())},
+            "passes": passes, "captured_feeds_lack_lens": feeds_ok,
+            "captures": _capture_record(exe), "profile_pass": found}
+        close_executor(torch, "bucketed_train " + label, exe)
+    ratio = results["bucketed"]["samples_per_s"] / \
+        results["max_len"]["samples_per_s"]
+    emit({"phase": "bucketed_train", "ok": ok,
+          "metric": "length-bucketed training speedup vs max-len padding",
+          "value": ratio, "unit": "x",
+          "bucketed_sps": results["bucketed"]["samples_per_s"],
+          "maxlen_sps": results["max_len"]["samples_per_s"],
+          "settings": c, "samples": n_samples,
+          "mean_length": float(np.mean(lengths)), "write_s": write_s,
+          "runs": results})
+    if not ok:
+        raise AssertionError("bucketed_train checks failed (see the line "
+                             "above)")
+    return _sum_launches(*launches)
+
+
+def py_reader_bert(torch, np, ptt, counters):
+    """BERT-base pretraining at train_bf16's settings fed by a py_reader
+    (create_py_reader_by_data over the program's feeds,
+    decorate_tensor_provider over PY_READER_BATCHES batches, start;
+    exe.run with no feed until EOFException; reset; a second epoch),
+    graphed; against the same batches fed (graphed) and one epoch op by
+    op from the same start. Checks: EOF after exactly
+    PY_READER_BATCHES runs an epoch; every fetch of both epochs and the
+    final state equal to the fed run's bit for bit (no batch lost, stale
+    or out of order across the reset); the first epoch equal to op by op
+    bit for bit; train_bf16's launches every step. Reports the replayed
+    step's ms beside the fed one's."""
+    from paddle_tpu_torch.models import bert
+    t0 = time.perf_counter()
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  BF16_TRAIN_BATCH)
+    batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                    TRAIN_PREDS, seed=k)
+               for k in range(PY_READER_BATCHES)]
+    names = sorted(batches[0])
+    with ptt.program_guard(main, startup):
+        reader = ptt.layers.create_py_reader_by_data(
+            PY_READER_CAPACITY, [main.global_block().var(n) for n in names])
+    reader.decorate_tensor_provider(lambda: (
+        tuple(b[n] for n in names) for b in batches))
+    start = ptt.Scope()
+    ptt.Executor().run(startup, scope=start)   # no fetch list: no graph
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    persist = [v.name for v in main.list_vars() if v.persistable]
+
+    def drive(epochs, fed=False, cache=True):
+        scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+        fetched, step_ms, per_step, per_epoch = [], [], [], []
+        counters.zero()                      # the main path starts here
+        for _ in range(epochs):
+            if not fed:
+                reader.start()
+            n = 0
+            while not fed or n < len(batches):
+                before = counters.read()
+                t1 = time.perf_counter()
+                try:
+                    out = exe.run(main, feed=batches[n] if fed else None,
+                                  fetch_list=fetch_list, scope=scope,
+                                  use_program_cache=cache)
+                except ptt.layers.EOFException:
+                    break
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                after = counters.read()
+                per_step.append({k: after[k] - before[k] for k in after})
+                fetched.append(out)
+                n += 1
+            per_epoch.append(n)
+            if not fed:
+                reader.reset()
+        return {"exe": exe, "scope": scope, "fetched": fetched,
+                "step_ms": step_ms, "per_step": per_step,
+                "runs_per_epoch": per_epoch, "launches": counters.read()}
+    ways = {"py_reader": drive(2), "fed": drive(2, fed=True)}
+    a, b = ways["py_reader"], ways["fed"]
+    fed_equal = len(a["fetched"]) == len(b["fetched"]) and all(
+        np.array_equal(x, y) for fa, fb in zip(a["fetched"], b["fetched"])
+        for x, y in zip(fa, fb))
+    state_unequal = [n for n in persist if not torch.equal(
+        a["scope"].find_var(n), b["scope"].find_var(n))]
+    for way in ("py_reader", "fed"):
+        close_executor(torch, "py_reader_bert " + way, ways[way].pop("exe"))
+        ways[way].pop("scope")
+    ways["op_by_op"] = c = drive(1, cache=False)
+    close_executor(torch, "py_reader_bert op_by_op", c.pop("exe"))
+    c.pop("scope")
+    op_equal = all(np.array_equal(x, y) for fa, fc in zip(
+        a["fetched"], c["fetched"]) for x, y in zip(fa, fc))
+    eof_ok = a["runs_per_epoch"] == [PY_READER_BATCHES] * 2 and \
+        c["runs_per_epoch"] == [PY_READER_BATCHES]
+    counts_ok = all(s == TRAIN_PER_STEP for w in ways.values()
+                    for s in w["per_step"])
+    losses = {w: [float(np.asarray(f[0]).reshape(())) for f in v["fetched"]]
+              for w, v in ways.items()}
+    finite = all(np.isfinite(v) for ls in losses.values() for v in ls)
+    ok = fed_equal and not state_unequal and op_equal and eof_ok and \
+        counts_ok and finite
+    replays = {w: statistics.median(ways[w]["step_ms"][2:])
+               for w in ("py_reader", "fed")}
+    emit({"phase": "py_reader_bert", "ok": ok, "model": "bert_base",
+          "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "batches_per_epoch": PY_READER_BATCHES,
+          "capacity": PY_READER_CAPACITY, "setup_s": setup_s,
+          "replay_ms_median": replays,
+          "py_reader_over_fed": replays["py_reader"] / replays["fed"],
+          "step_ms": {w: v["step_ms"] for w, v in ways.items()},
+          "runs_per_epoch": {w: v["runs_per_epoch"]
+                             for w, v in ways.items()},
+          "eof_ok": eof_ok, "equal_to_fed_bit_for_bit": fed_equal,
+          "state_unequal": state_unequal[:8],
+          "first_epoch_equal_to_op_by_op": op_equal,
+          "launches_per_step": {w: v["per_step"][-1]
+                                for w, v in ways.items()},
+          "launches_per_step_ok": counts_ok, "losses": losses,
+          "finite": finite})
+    if not ok:
+        raise AssertionError("py_reader_bert checks failed (see the line "
+                             "above)")
+    return _sum_launches(a["launches"], b["launches"], c["launches"])
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -4911,6 +5428,16 @@ def main():
     finish("ocr_train", phase("ocr_train")(ocr_train)(
         torch, np, ptt, counters), "ocr train step", host=True)
     phase("ocr_parity")(ocr_parity)(torch, np, ptt)
+    data_root = os.path.join(_ROOT, "build", "chip_smoke_data")
+    try:
+        by_path["dataset_deepfm"] = phase("dataset_deepfm")(
+            dataset_deepfm)(torch, np, ptt, counters)
+        by_path["bucketed_train"] = phase("bucketed_train")(
+            bucketed_train)(torch, np, ptt, counters)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
+    by_path["py_reader_bert"] = phase("py_reader_bert")(py_reader_bert)(
+        torch, np, ptt, counters)
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

@@ -23,8 +23,14 @@ and comes back through ``io.save_checkpoint``/``io.load_checkpoint``
 ``LookaheadOptimizer`` wrap the update. The recurrent sequence models
 train the same way (``models.sequence_labeling.bigru_crf_program``,
 LAC's BiGRU-CRF with its Viterbi decode, and ``models.ocr.
-crnn_ctc_program``, CRNN-CTC), on ``contrib.layers.basic_gru``. The
-other models are later slices (see ROADMAP.md).
+crnn_ctc_program``, CRNN-CTC), on ``contrib.layers.basic_gru``.
+Training is fed three more ways, as Paddle 1.6 scripts feed it: a
+``dataset`` (``DatasetFactory().create_dataset("InMemoryDataset")`` over
+record files or MultiSlot text, read by the C++ data plane in
+``native``, with ``set_length_buckets``) through
+``Executor.train_from_dataset``; a started ``layers.py_reader`` with
+``Executor.run`` and no feed; or ``reader.DataLoader.from_generator``.
+The other models are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -46,5 +52,14 @@ from .io import (save_params, save_persistables, load_params,
                  load_persistables, save_inference_model,
                  load_inference_model, set_params_from_numpy)
 from . import inference
+from . import native
+from . import reader
+from .reader.decorator import batch  # paddle.batch
+from .data_feeder import DataFeeder
+from . import dataset
+from .dataset import DatasetFactory
+from . import incubate
+from .data import data  # fluid.data: the full shape, None dims
+from .data_feed_desc import DataFeedDesc
 
 __version__ = "0.1.0"

@@ -229,6 +229,27 @@ def _fetch_names(fetch_list):
     return [f.name if hasattr(f, "name") else f for f in fetch_list]
 
 
+def _pull_readers(program, feed):
+    """``feed`` with the next batch of each started py_reader of
+    ``program`` whose variables it does not name (paddle_tpu's
+    ``Executor.run``, the reference's create_py_reader_op). Two phases: a
+    reader's EOF (or error) pushes the batches its siblings already gave
+    back to them, so no data is lost; a fed name is never overwritten."""
+    pulled = []
+    try:
+        for rdr in getattr(program, "_py_readers", ()):
+            if rdr._started and any(n not in feed for n in rdr._names):
+                pulled.append((rdr, rdr._next_feed()))
+    except Exception:
+        for rdr, batch in pulled:
+            rdr._push_back(batch)
+        raise
+    for rdr, batch in pulled:
+        for n, v in batch.items():
+            feed.setdefault(n, v)
+    return feed
+
+
 def _fetch(env, names, state=None):
     """The fetches' tensors: from ``state`` (a replayed step's persistables,
     written back) where it has the name, else from ``env``."""
@@ -251,7 +272,7 @@ class _RunPlan(object):
     card it also holds the random ops' generators and the constants of a
     step that may be captured."""
     __slots__ = ("key", "program", "persistable", "want", "last_grad",
-                 "drop", "rng", "constants")
+                 "drop", "rng", "constants", "reads")
 
     def __init__(self, key, program, fetch_names, device):
         _check_runnable(program)
@@ -266,6 +287,11 @@ class _RunPlan(object):
         self.rng = _Generators(device, program.random_seed) \
             if device.type == "cuda" else None
         self.constants = {}
+        # the names some op of some block reads, and the fetches: a fed
+        # name outside these and the program's vars is read by nothing
+        self.reads = set(fetch_names).union(
+            n for b in program.blocks for op in b.ops
+            for n in op.input_names())
 
 
 def _graph_key(plan, feeds, state, scope):
@@ -284,7 +310,10 @@ class Executor(object):
     NoCUDADeviceError without a CUDA device; pass CPUPlace() to run on the
     CPU. ``capture_log`` lists each capture: its feeds' shapes, its
     time, the memory the pool grew by, and the launches of each kernel
-    a replay is credited (in ``ops.kernels.LAUNCH_COUNTERS`` order)."""
+    a replay is credited (in ``ops.kernels.LAUNCH_COUNTERS`` order).
+    ``graph_runs`` counts the runs of CUDA keys: ``warm`` (a key's first
+    run, op by op), ``capture`` (its second, captured and replayed) and
+    ``replay``."""
 
     def __init__(self, place=None):
         self.place = place if place is not None else _current_expected_place()
@@ -295,6 +324,7 @@ class Executor(object):
         self._pool = None
         self._stream = None
         self.capture_log = []
+        self.graph_runs = {"warm": 0, "capture": 0, "replay": 0}
         set_precision()
 
     def close(self):
@@ -321,13 +351,20 @@ class Executor(object):
                 self._plans[key] = plan
         return plan
 
-    def _feed_tensors(self, program, feed):
+    def _feed_tensors(self, program, feed, plan):
         """{name: (tensor as given, dtype it runs in)}, each checked against
-        the shape the program declares."""
+        the shape the program declares. A feed the program neither
+        declares nor reads (``plan.reads``; a dataset's ``<slot>__lens``
+        beside a model that reads only the padded slot) is dropped, so it
+        is no part of a graph's key and no static buffer copies it each
+        replay; paddle_tpu passes it into its jitted step, where nothing
+        reads it either."""
         out = {}
         blk = program.global_block()
         for name, val in feed.items():
             var = blk._find_var_recursive(name)
+            if var is None and name not in plan.reads:
+                continue
             if isinstance(val, torch.Tensor):
                 t = val
             else:
@@ -355,11 +392,15 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
             return_numpy=True, use_program_cache=True):
+        """One step of ``program``. A started py_reader of the program
+        (``layers.py_reader``) feeds its variables unless ``feed`` names
+        them; an exhausted one raises ``layers.EOFException``."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
+        feed = _pull_readers(program, dict(feed or {}))
         fetch_names = _fetch_names(fetch_list or [])
         plan = self._plan(program, fetch_names, use_program_cache)
-        feeds = self._feed_tensors(program, dict(feed or {}))
+        feeds = self._feed_tensors(program, feed, plan)
         if self._graphed(fetch_names, use_program_cache):
             fetches = self._run_graphed(program, plan, feeds, fetch_names,
                                         scope, copy=not return_numpy)
@@ -369,6 +410,50 @@ class Executor(object):
         if return_numpy:
             return [to_numpy(t) for t in fetches]
         return fetches
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           steps_per_dispatch=1):
+        """Every batch of ``dataset`` through ``program``'s step (paddle_tpu's
+        ``train_from_dataset``; reference executor.py / MultiTrainer): a
+        host thread collates the next batches while this one runs the
+        step. ``steps_per_dispatch`` = W runs each W like-shaped batches
+        as one ``run_steps`` window. Returns (steps run, the last step's
+        fetches as numpy arrays)."""
+        from ..trainer_factory import TrainerFactory
+        if dataset is None:
+            raise ValueError("dataset is required")
+        program = program if program is not None else default_main_program()
+        trainer_cls = TrainerFactory()._create_trainer(
+            getattr(program, "_fleet_opt", None))
+        trainer = trainer_cls(self, program)
+        return trainer.run(dataset, fetch_list=fetch_list,
+                           fetch_info=fetch_info,
+                           print_period=print_period, debug=debug,
+                           scope=scope,
+                           steps_per_dispatch=steps_per_dispatch)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """The same loop over an inference program. A program holding
+        parameter-update or learning-rate-schedule ops is refused, as
+        paddle_tpu refuses it: inference on a training program would
+        train."""
+        program = program if program is not None else default_main_program()
+        update_ops = sorted({
+            op.type for blk in program.blocks for op in blk.ops
+            if op.attrs.get("op_role") in ("optimize", "lr_sched")})
+        if update_ops:
+            raise ValueError(
+                "infer_from_dataset got a program containing parameter-"
+                "update ops %s; pass the inference program (e.g. "
+                "program.clone(for_test=True) taken BEFORE minimize(), or "
+                "use train_from_dataset to train)" % (update_ops,))
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
 
     def run_steps(self, program=None, feed=None, fetch_list=None,
                   scope=None, return_numpy=True, use_program_cache=True):
@@ -387,6 +472,9 @@ class Executor(object):
         of a stacked output, and the host waits once, at the end (and at
         a capture). On the CPU it is N op-by-op steps."""
         program = program if program is not None else default_main_program()
+        if any(r._started for r in getattr(program, "_py_readers", ())):
+            raise ValueError("run_steps needs explicit stacked feeds, not "
+                             "started py_readers")
         scope = scope if scope is not None else global_scope()
         feed = dict(feed or {})
         fetch_names = _fetch_names(fetch_list or [])
@@ -407,9 +495,9 @@ class Executor(object):
         window = {n: v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(np.asarray(v))) for n, v in feed.items()}
         dtypes = {n: d for n, (_, d) in self._feed_tensors(
-            program, {n: w[0] for n, w in window.items()}).items()}
-        window = {n: w.to(device=self.device, dtype=dtypes[n])
-                  for n, w in window.items()}
+            program, {n: w[0] for n, w in window.items()}, plan).items()}
+        window = {n: window[n].to(device=self.device, dtype=d)
+                  for n, d in dtypes.items()}
         graphed = self._graphed(fetch_names, use_program_cache)
         stacked = None
         for i in range(n_steps):
@@ -474,14 +562,17 @@ class Executor(object):
                 out = self._run_ops(program, plan, feeds, fetch_names,
                                     scope, graphable=True)
                 self._warm.add(key)
+                self.graph_runs["warm"] += 1
             else:
                 salt = _next_salt(scope)
                 if step is None:
                     step = self._capture(program, plan, feeds, fetch_names,
                                          scope, state, salt)
                     self._graphs[key] = step
+                    self.graph_runs["capture"] += 1
                 else:
                     step.load(feeds, scope)
+                    self.graph_runs["replay"] += 1
                 plan.rng.seat(salt)
                 step.replay()
                 out = [t.clone() for t in step.outputs] if copy \

@@ -1,10 +1,12 @@
 """paddle_tpu_torch.layers — the fluid.layers surface the port has so far."""
 from .tensor import (create_parameter, cast, concat,  # noqa: F401
-                     sums, assign, fill_constant, ones_like,
+                     sums, assign, fill_constant, zeros_like, ones_like,
                      fill_constant_batch_size_like, argmax)
 from .ops import *           # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
-from .io import data  # noqa: F401
+from .io import (data, py_reader, read_file,  # noqa: F401
+                 double_buffer, EOFException, create_py_reader_by_data,
+                 load)
 from .attention import *     # noqa: F401,F403
 from .loss import *          # noqa: F401,F403
 from .metric_op import *     # noqa: F401,F403

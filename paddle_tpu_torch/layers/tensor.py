@@ -1,5 +1,5 @@
 """Tensor layers: create_parameter, cast, concat, sums, assign,
-fill_constant, fill_constant_batch_size_like, argmax, ones_like
+fill_constant, fill_constant_batch_size_like, argmax, zeros_like, ones_like
 (counterparts in paddle_tpu/layers/tensor.py)."""
 import numpy as np
 
@@ -111,6 +111,15 @@ def argmax(x, axis=0):
     helper.append_op("arg_max", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]}, attrs={"axis": axis})
     out.stop_gradient = True
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("fill_zeros_like", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
     return out
 
 

@@ -31,6 +31,14 @@ def _fill_any_like(ctx, ins, attrs):
                               device=x.device)}
 
 
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    """Zeros of X's shape and dtype; no gradient reaches X (paddle_tpu's
+    ``jnp.zeros_like`` has none)."""
+    x = _x(ins)
+    return {"Out": torch.zeros(x.shape, dtype=x.dtype, device=x.device)}
+
+
 @register_op("fill_constant_batch_size_like", nondiff=("Input",))
 def _fill_constant_batch_size_like(ctx, ins, attrs):
     """``shape`` filled with ``value``, its ``output_dim_idx`` dim taken

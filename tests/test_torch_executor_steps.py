@@ -336,7 +336,8 @@ def test_the_graph_key_holds_each_state_tensors_shape():
     exe = ptt.Executor(ptt.CPUPlace())
     exe.run(startup, scope=scope)
     plan = exe._plan(main, [loss.name], True)
-    feeds = exe._feed_tensors(main, dict(zip("xy", (a[0] for a in _xy(1)))))
+    feeds = exe._feed_tensors(main, dict(zip("xy", (a[0] for a in _xy(1)))),
+                              plan)
 
     def key():
         state = [(n, scope.find_var(n)) for n in plan.persistable]

@@ -103,6 +103,22 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.contrib.layers.rnn_impl\n"
             "import paddle_tpu_torch.models.sequence_labeling\n"
             "import paddle_tpu_torch.models.ocr\n"
+            "import paddle_tpu_torch.native, paddle_tpu_torch.native.build\n"
+            "import paddle_tpu_torch.native.recordio\n"
+            "import paddle_tpu_torch.native.multislot\n"
+            "import paddle_tpu_torch.dataset, paddle_tpu_torch.dataset."
+            "dataset_api\n"
+            "import paddle_tpu_torch.reader, paddle_tpu_torch.reader."
+            "decorator\n"
+            "import paddle_tpu_torch.reader.dataloader\n"
+            "import paddle_tpu_torch.incubate.data_generator\n"
+            "import paddle_tpu_torch.trainer_factory\n"
+            "import paddle_tpu_torch.trainer_desc\n"
+            "import paddle_tpu_torch.device_worker\n"
+            "import paddle_tpu_torch.data_feed_desc\n"
+            "import paddle_tpu_torch.data_feeder\n"
+            "import paddle_tpu_torch.batch, paddle_tpu_torch.data\n"
+            "import paddle_tpu_torch.layers.io\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
