@@ -218,6 +218,30 @@ GPT with recompute, and the recipe's AdamW and LAMB steps), each a
 replay, and ``host_ops`` the host's time issuing each op type of the
 bf16 BERT steps run op by op.
 
+Then the control-flow layers and the RNN API: an LSTM seq2seq built
+from ``layers.rnn`` and ``dynamic_decode(BeamSearchDecoder)`` (no model
+module; ``_seq2seq_programs``) at PaddleNLP seq2seq's IWSLT'15 en->vi
+settings, and the functional control flow on CUDA tensors:
+
+- ``seq2seq_train``: 2 + 2 LSTM layers of width 512, vocabularies 17191
+  and 7709, batch 128 x 50 source and 50 target tokens, Adam(1e-3) with
+  a global-norm clip of 5, six steps graphed from the third: losses
+  finite and falling, 11 fused-Adam launches a step, no capture refused;
+  target tokens/s, an op-by-op step's device time by op type.
+- ``seq2seq_serve``: the trained beam decode (beam 10, 50 unrolled
+  steps) saved with save_inference_model and served through
+  create_predictor at batches 128 and 16, each cold (op by op), captured
+  and replayed: a replay equal to the cold run bit for bit, ids in range,
+  an ended beam emitting only the end token, beams best first, no
+  hand-written kernel launched; sentences/s.
+- ``control_flow``: ``cond``, ``switch_case`` and ``while_loop`` on CUDA
+  tensors (a program the Executor never captures: each run op by op,
+  the refusal recorded naming the op, the answers equal to the CPU's);
+  and ``bounded_while``, ``StaticRNN`` and ``select_input`` in a
+  training step (Adam), op by op against graphed, bit for bit.
+- ``seq2seq_parity``: the seq2seq at narrow widths, three Adam steps and
+  a beam decode, card graphed against the CPU.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -565,6 +589,47 @@ BUCKETED_PER_STEP = {"fused_adam": 11}
 # fed (graphed) and one epoch op by op: every fetch bit for bit, and
 # train_bf16's launches a step.
 PY_READER_BATCHES, PY_READER_CAPACITY = 3 + 3, 4
+# seq2seq_train: PaddlePaddle/models PaddleNLP/seq2seq/seq2seq's base
+# model at its IWSLT'15 en->vi settings (run.sh and args.py: 2 LSTM
+# layers, hidden 512, source vocabulary 17191, target 7709, batch 128,
+# Adam 1e-3, max_grad_norm 5, init_scale 0.1 (U(-0.1, 0.1)), beam 10),
+# sentences padded to 50 tokens, dropout 0.2 between layers in training
+# (0 in the decode and parity programs), f32, one seq2seq_batch
+# (seed 0). A step: 2 layers x 50 encoder and 50 decoder LSTM steps (two
+# recurrent_scan ops), the 7709-way projection and a masked
+# softmax_with_cross_entropy (7709 columns do not tile into the CE
+# kernel's blocks: the JAX package's plain lowering), the global-norm
+# clip and one fused-Adam launch per parameter (2 embeddings, 4 LSTM
+# weights and biases, the projection). Served: the beam decode (50
+# unrolled steps over batch x 10 rows) saved with save_inference_model
+# and served through create_predictor at SEQ2SEQ_SERVE_BATCHES.
+SEQ2SEQ = dict(src_vocab=17191, trg_vocab=7709, hidden=512, n_layers=2,
+               batch=128, src_len=50, trg_len=50, beam=10, max_decode=50)
+SEQ2SEQ_LR, SEQ2SEQ_CLIP, SEQ2SEQ_INIT = 1e-3, 5.0, 0.1
+SEQ2SEQ_BOS, SEQ2SEQ_EOS = 1, 2
+SEQ2SEQ_PER_STEP = {"fused_adam": 11}
+SEQ2SEQ_SERVE_BATCHES = (128, 16) * 5
+# seq2seq_parity: the seq2seq's layers at narrow widths (below),
+# PARITY_STEPS Adam(PARITY_LR) steps on one batch of 8, the card graphed
+# against the CPU: losses rtol 1e-5, logits rtol 1e-4 atol 1e-5, every
+# persistable rtol 1e-4, atol 1e-5 (f32 through 2 x 12 + 2 x 10 LSTM steps
+# summed in other orders; tests/test_torch_seq2seq.py holds the port to
+# the JAX package there); then the beam decode from the same weights,
+# card graphed against the CPU (``_compare_decodes``).
+SEQ2SEQ_PARITY = dict(src_vocab=1000, trg_vocab=800, hidden=64, n_layers=2,
+                      batch=8, src_len=12, trg_len=10, beam=4, max_decode=10)
+SEQ2SEQ_PARITY_RTOL, SEQ2SEQ_PARITY_ATOL = 1e-4, 1e-5
+# control_flow: CONTROL_FLOW_FEEDS runs of a program holding cond,
+# switch_case and an unbounded while_loop over CONTROL_FLOW_WIDTH
+# elements (each a flag, a branch index and a trip count), card against
+# CPU; the device loops' training step at CONTROL_FLOW_RNN (time, batch,
+# width) with a bounded_while of CONTROL_FLOW_TRIPS iterations, checked
+# by _both_ways with 2 fused-Adam launches a step (its two parameters).
+CONTROL_FLOW_WIDTH = 1 << 20
+CONTROL_FLOW_FEEDS = ((1.0, 0, 3), (0.0, 1, 7), (1.0, 2, 0), (0.0, 5, 12),
+                      (1.0, 0, 3))
+CONTROL_FLOW_RNN, CONTROL_FLOW_TRIPS = (16, 64, 256), 8
+CONTROL_FLOW_PER_STEP = {"fused_adam": 2}
 SERVE_FAMILIES = ("flash_attention_fwd", "layer_norm_fwd")
 TRAIN_FAMILIES = SERVE_FAMILIES + ("flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq",
@@ -1162,9 +1227,9 @@ def ln_bwd_cases(torch, ln):
 
 def adam_cases(torch, fad):
     """Adam and AdamW (the same kernel, coeff > 0) against the plain
-    version at BERT's shapes, each timed beside torch's fused Adam/AdamW;
-    for each AdamW case, coeff = 0 must give the bits of the call Adam
-    makes (no coeff) on the same inputs."""
+    version at the shapes of the main paths' parameters, each timed
+    beside torch's fused Adam/AdamW; for each AdamW case, coeff = 0 must
+    give the bits of the call Adam makes (no coeff) on the same inputs."""
     f32, bf16 = torch.float32, torch.bfloat16
     # (name, elements, dtype, parameter centre and spread, gradient dtype,
     # coeff): BERT's weights start N(0, 0.02^2) and LayerNorm scales at 1;
@@ -1203,7 +1268,28 @@ def adam_cases(torch, fad):
               LAC["num_labels"], f32, 0.0, 0.23, f32, 0.0),
              ("ocr_conv_filter", 128 * 64 * 3 * 3, f32, 0.0, 0.03, f32,
               0.0),
-             ("ocr_gru_projection", 768 * 600, f32, 0.0, 0.06, f32, 0.0)]
+             ("ocr_gru_projection", 768 * 600, f32, 0.0, 0.06, f32, 0.0),
+             # the seq2seq's parameters (U(-0.1, 0.1), spread 0.1 / sqrt
+             # 3): the source embedding (17191 x 512), the target
+             # embedding and output projection (7709 x 512), an LSTM
+             # weight ((512 + 512) x 2048) and bias (2048)
+             ("seq2seq_src_embedding", SEQ2SEQ["src_vocab"] *
+              SEQ2SEQ["hidden"], f32, 0.0, SEQ2SEQ_INIT / 3 ** 0.5, f32,
+              0.0),
+             ("seq2seq_trg_embedding", SEQ2SEQ["trg_vocab"] *
+              SEQ2SEQ["hidden"], f32, 0.0, SEQ2SEQ_INIT / 3 ** 0.5, f32,
+              0.0),
+             ("seq2seq_lstm_weight", 2 * SEQ2SEQ["hidden"] * 4 *
+              SEQ2SEQ["hidden"], f32, 0.0, SEQ2SEQ_INIT / 3 ** 0.5, f32,
+              0.0),
+             ("seq2seq_lstm_bias", 4 * SEQ2SEQ["hidden"], f32, 0.0,
+              SEQ2SEQ_INIT / 3 ** 0.5, f32, 0.0),
+             # control_flow's two parameters: cf_w (256 x 256, N(0,
+             # 0.05^2)) and cf_u (256, constant 0.9)
+             ("control_flow_w", CONTROL_FLOW_RNN[2] ** 2, f32, 0.0, 0.05,
+              f32, 0.0),
+             ("control_flow_u", CONTROL_FLOW_RNN[2], f32, 0.9, 0.0, f32,
+              0.0)]
     dev = torch.device("cuda", 0)
     lr = torch.tensor([1e-4], device=dev)
     b1p = torch.tensor([0.9 ** 3], device=dev)
@@ -1704,8 +1790,9 @@ def _steps(torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
 
 
 def _op_counts(main):
-    """Op types of the global block; a recomputed program's segment ops
-    (its sub-blocks, run twice a step) apart under "segments"."""
+    """Op types of the global block; the ops of the program's sub-blocks
+    (a recomputed segment, run twice a step; a loop's or branch's body,
+    run once a trip) apart under "segments"."""
     ops = {}
     for op in main.global_block().ops:
         ops[op.type] = ops.get(op.type, 0) + 1
@@ -5087,6 +5174,433 @@ def py_reader_bert(torch, np, ptt, counters):
     return _sum_launches(a["launches"], b["launches"], c["launches"])
 
 
+def _stacked_cell(ptt, n_layers, hidden, name, dropout=0.0):
+    """The recipe's encoder/decoder cell: ``n_layers`` LSTMCells (weights
+    U(-SEQ2SEQ_INIT, SEQ2SEQ_INIT)), each layer's output (after an
+    upscale-in-train dropout where ``dropout`` > 0) the next one's input;
+    states [[h, c], ...]."""
+    class Stacked(ptt.layers.RNNCell):
+        def __init__(self):
+            attr = ptt.ParamAttr(initializer=ptt.initializer.Uniform(
+                -SEQ2SEQ_INIT, SEQ2SEQ_INIT, seed=SEED))
+            self.cells = [ptt.layers.LSTMCell(hidden, param_attr=attr,
+                                              name="%s_l%d" % (name, i))
+                          for i in range(n_layers)]
+
+        @property
+        def state_shape(self):
+            return [c.state_shape for c in self.cells]
+
+        def call(self, inputs, states):
+            new = []
+            for cell, state in zip(self.cells, states):
+                inputs, s = cell(inputs, state)
+                if dropout > 0:
+                    inputs = ptt.layers.dropout(
+                        inputs, dropout,
+                        dropout_implementation="upscale_in_train")
+                new.append(s)
+            return inputs, new
+    return Stacked()
+
+
+def _seq2seq_programs(ptt, w, lr=SEQ2SEQ_LR, dropout=0.0):
+    """PaddleNLP seq2seq's base model from the port's user API: (train
+    main, its startup, [loss, logits], the beam decode program (batch
+    -1), [ids (N, beam, T), scores (N, beam)]); the two programs share
+    every parameter name. tests/test_torch_seq2seq.py builds the same
+    (dropout 0) in both packages."""
+    L = ptt.layers
+
+    def emb(ids, vocab, name):
+        return L.embedding(ids, size=[vocab, w["hidden"]],
+                           param_attr=ptt.ParamAttr(
+                               name=name, initializer=ptt.initializer.Uniform(
+                                   -SEQ2SEQ_INIT, SEQ2SEQ_INIT, seed=SEED)))
+
+    def proj(x, flatten):
+        return L.fc(x, w["trg_vocab"], num_flatten_dims=flatten,
+                    bias_attr=False, param_attr=ptt.ParamAttr(
+                        name="out_w", initializer=ptt.initializer.Uniform(
+                            -SEQ2SEQ_INIT, SEQ2SEQ_INIT, seed=SEED)))
+
+    def encoder(batch):
+        src = L.data("src", [batch, w["src_len"]], "int64",
+                     append_batch_size=False)
+        src_len = L.data("src_len", [batch], "int64",
+                         append_batch_size=False)
+        x = emb(src, w["src_vocab"], "src_emb")
+        zero = [[L.fill_constant_batch_size_like(x, [-1, w["hidden"]],
+                                                 "float32", 0.0)
+                 for _ in range(2)] for _ in range(w["n_layers"])]
+        _, final = L.rnn(_stacked_cell(ptt, w["n_layers"], w["hidden"], "enc",
+                                       dropout), x, initial_states=zero,
+                         sequence_length=src_len)
+        return final
+
+    train, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(train, startup):
+        final = encoder(w["batch"])
+        trg = L.data("trg", [w["batch"], w["trg_len"]], "int64",
+                     append_batch_size=False)
+        trg_len = L.data("trg_len", [w["batch"]], "int64",
+                         append_batch_size=False)
+        label = L.data("label", [w["batch"], w["trg_len"], 1], "int64",
+                       append_batch_size=False)
+        out, _ = L.rnn(_stacked_cell(ptt, w["n_layers"], w["hidden"], "dec",
+                                     dropout),
+                       emb(trg, w["trg_vocab"], "trg_emb"),
+                       initial_states=final)
+        logits = proj(out, 2)
+        ce = L.softmax_with_cross_entropy(logits, label)
+        mask = L.unsqueeze(L.sequence_mask(trg_len, maxlen=w["trg_len"],
+                                           dtype="float32"), [2])
+        loss = L.reduce_sum(L.reduce_mean(L.elementwise_mul(ce, mask),
+                                          dim=[0]))
+        ptt.optimizer.Adam(lr, grad_clip=ptt.clip.GradientClipByGlobalNorm(
+            SEQ2SEQ_CLIP)).minimize(loss)
+    startup.random_seed = SEED
+    decode = ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(decode, ptt.Program()):
+        final = encoder(-1)
+        decoder = L.BeamSearchDecoder(
+            _stacked_cell(ptt, w["n_layers"], w["hidden"], "dec"),
+            start_token=SEQ2SEQ_BOS, end_token=SEQ2SEQ_EOS,
+            beam_size=w["beam"], embedding_fn=lambda ids: L.reshape(
+                emb(ids, w["trg_vocab"], "trg_emb"), [-1, w["hidden"]]),
+            output_fn=lambda h: proj(h, 1))
+        ids, states = L.dynamic_decode(decoder, inits=final,
+                                       max_step_num=w["max_decode"])
+    return train, startup, [loss, logits], decode, [ids, states.log_probs]
+
+
+def _seq2seq_batch(np, w, seed=0, n=None):
+    """Token ids in [3, vocab) (0 pad, 1 bos, 2 eos) and lengths in
+    [1, len], the target fed from bos and labelled up to eos."""
+    rng = np.random.RandomState(seed)
+    n = w["batch"] if n is None else n
+    s, t = w["src_len"], w["trg_len"]
+    src_len, trg_len = rng.randint(1, s + 1, n), rng.randint(1, t + 1, n)
+    src = rng.randint(3, w["src_vocab"], (n, s))
+    src[np.arange(s)[None, :] >= src_len[:, None]] = 0
+    trg = rng.randint(3, w["trg_vocab"], (n, t))
+    trg[:, 0] = SEQ2SEQ_BOS
+    label = np.concatenate([trg[:, 1:], np.full((n, 1), SEQ2SEQ_EOS)], 1)
+    return {"src": src.astype(np.int64), "src_len": src_len.astype(np.int64),
+            "trg": trg.astype(np.int64), "trg_len": trg_len.astype(np.int64),
+            "label": label[..., None].astype(np.int64)}
+
+
+def _beams_ok(np, ids, scores, vocab):
+    """Beam decode output (N, beam, T) ids, (N, beam) scores: ids in
+    range, an ended beam emitting only the end token, beams best first,
+    scores finite."""
+    ended = np.cumsum(ids == SEQ2SEQ_EOS, axis=2) > 0
+    return bool(ids.min() >= 0 and ids.max() < vocab and
+                (ids[:, :, 1:][ended[:, :, :-1]] == SEQ2SEQ_EOS).all() and
+                np.isfinite(scores).all() and
+                (np.diff(scores, axis=1) <= 0).all())
+
+
+def seq2seq_train(torch, np, ptt, counters):
+    """The seq2seq at SEQ2SEQ (dropout 0.2 between layers, as published),
+    TRAIN_STEPS steps on one batch through Executor.run (graphed from the
+    second, no refusal): losses finite and falling, SEQ2SEQ_PER_STEP
+    launches a step; target tokens/s over the replays, the first run's
+    host time, an op-by-op step's device time and kernels by op type."""
+    t0 = time.perf_counter()
+    main, startup, fetch_list, _, _ = _seq2seq_programs(ptt, SEQ2SEQ,
+                                                        dropout=0.2)
+    fetch_list = fetch_list[:1]
+    feed = _seq2seq_batch(np, SEQ2SEQ)
+    scope, exe = ptt.Scope(), ptt.Executor()      # CUDAPlace(0)
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, fetched, per_step, launches = _fetch_steps(
+        torch, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(f[0].reshape(())) for f in fetched]
+    finite = all(np.isfinite(losses))
+    falling = losses[-1] < losses[0]
+    graph_runs = dict(exe.graph_runs)
+    graphed = graph_runs["capture"] == 1 and not exe.refusals
+    counts_ok, record = _train_record(
+        torch, np, exe, main, scope, feed, fetch_list, step_ms, per_step,
+        _no_launches(counters, **SEQ2SEQ_PER_STEP), resident, peak)
+    replay_s = record["replay_ms_median"] / 1e3
+    tokens = SEQ2SEQ["batch"] * SEQ2SEQ["trg_len"]
+    ok = finite and falling and graphed and counts_ok
+    emit(dict({"phase": "seq2seq_train", "ok": ok,
+               "model": "seq2seq_lstm_iwslt15_en_vi", "dtype": "float32",
+               "dropout": 0.2, "optimizer": "Adam(%g), global-norm clip %g"
+               % (SEQ2SEQ_LR, SEQ2SEQ_CLIP), "setup_s": setup_s,
+               "target_tokens_per_s_replays": tokens / replay_s,
+               "valid_target_tokens_per_s_replays": int(
+                   feed["trg_len"].sum()) / replay_s,
+               "losses": losses, "finite": finite, "falling": falling,
+               "graph_runs": graph_runs,
+               "refusals": list(exe.refusals.values()),
+               "launches": launches}, **dict(SEQ2SEQ, **record)))
+    if not ok:
+        raise AssertionError("seq2seq_train checks failed (see the line "
+                             "above)")
+    return launches, (exe, main, scope, feed, fetch_list)
+
+
+def seq2seq_serve(torch, np, ptt, counters, model_dir, trained_scope):
+    """seq2seq_train's weights in the beam decode (SEQ2SEQ's beam and
+    max_decode), saved with save_inference_model and served through
+    create_predictor on the card at SEQ2SEQ_SERVE_BATCHES (one request a
+    batch, sent five times: cold, captured, then replayed):
+    every answer equal to its batch's cold, op-by-op answer bit for bit,
+    the beams well formed, no hand-written kernel launched, no refusal;
+    request ms and sentences/s over the replays, a replay profiled."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    _, _, _, decode, fetch = _seq2seq_programs(ptt, SEQ2SEQ)
+    with ptt.scope_guard(trained_scope):
+        ptt.save_inference_model(model_dir, ["src", "src_len"], fetch,
+                                 ptt.Executor(), main_program=decode)
+    pred = create_predictor(Config(model_dir))
+    requests = {}
+    for n in sorted(set(SEQ2SEQ_SERVE_BATCHES)):
+        f = _seq2seq_batch(np, SEQ2SEQ, seed=n, n=n)
+        requests[n] = {"src": f["src"], "src_len": f["src_len"]}
+    counters.zero()                          # the main path starts here
+    lat, served, equal = {}, {}, True
+    for n in SEQ2SEQ_SERVE_BATCHES:
+        t1 = time.perf_counter()
+        out = pred.run(requests[n])          # numpy: synchronised
+        lat.setdefault(n, []).append((time.perf_counter() - t1) * 1e3)
+        if n in served:
+            equal = equal and all(np.array_equal(a, b)
+                                  for a, b in zip(out, served[n]))
+        else:
+            served[n] = out
+    launches = counters.read()
+    beams_ok = all(out[0].shape == (n, SEQ2SEQ["beam"],
+                                    SEQ2SEQ["max_decode"]) and
+                   _beams_ok(np, out[0], out[1], SEQ2SEQ["trg_vocab"])
+                   for n, out in served.items())
+    exe = pred._exe
+    graph_runs = dict(exe.graph_runs)
+    big = max(SEQ2SEQ_SERVE_BATCHES)
+    found = _profiled(torch, lambda: pred.run(requests[big]))
+    found.pop("kernel_names")
+    replay_ms = {n: statistics.median(ms[2:]) for n, ms in lat.items()}
+    ok = equal and beams_ok and not exe.refusals and \
+        graph_runs["capture"] == len(served) and \
+        launches == _no_launches(counters)
+    emit({"phase": "seq2seq_serve", "ok": ok,
+          "model": "seq2seq_lstm_iwslt15_en_vi", "beam": SEQ2SEQ["beam"],
+          "max_decode": SEQ2SEQ["max_decode"],
+          "request_batches": list(SEQ2SEQ_SERVE_BATCHES),
+          "request_ms": lat, "replay_ms": replay_ms,
+          "sentences_per_s_replays": {n: n / (ms / 1e3)
+                                      for n, ms in replay_ms.items()},
+          "replays_equal_cold": equal, "beams_ok": beams_ok,
+          "served_ops": len(pred._program.global_block().ops),
+          "graph_runs": graph_runs,
+          "refusals": list(exe.refusals.values()),
+          "launches": launches, "captures": _capture_record(exe),
+          "profile_batch_%d" % big: found})
+    close_executor(torch, "seq2seq_serve", exe)
+    if not ok:
+        raise AssertionError("seq2seq_serve checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _host_choice_program(ptt):
+    """cond, switch_case and an unbounded while_loop over a vector:
+    (main, feed names, fetch list)."""
+    L = ptt.layers
+    main = ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, ptt.Program()):
+        x = L.data("x", [CONTROL_FLOW_WIDTH], "float32",
+                   append_batch_size=False)
+        flag = L.data("flag", [1], "float32", append_batch_size=False)
+        idx = L.data("idx", [1], "int64", append_batch_size=False)
+        n = L.data("n", [1], "int64", append_batch_size=False)
+        a = L.cond(L.greater_than(L.reduce_sum(flag), 0.5),
+                   lambda: L.tanh(x), lambda: L.scale(x, 2.0, bias=1.0))
+        b = L.switch_case(idx, {0: lambda: L.exp(L.scale(x, 0.1)),
+                                1: lambda: L.elementwise_mul(x, a),
+                                2: lambda: L.sigmoid(a)},
+                          default=lambda: L.scale(a, -1.0))
+        c0 = L.fill_constant([1], "int64", 0)
+        c, v = L.while_loop(
+            lambda c, v: L.less_than(c, n),
+            lambda c, v: [L.increment(c, 1, in_place=False),
+                          L.scale(v, 0.5, bias=1.0)], [c0, b])
+    return main, [a, b, c, v]
+
+
+def _device_loop_program(ptt):
+    """A training step whose control flow stays on the device: a
+    StaticRNN over CONTROL_FLOW_RNN, a bounded_while of
+    CONTROL_FLOW_TRIPS iterations whose predicate turns false half way,
+    select_input between two branches; Adam(1e-3). (main, startup,
+    [loss])."""
+    L = ptt.layers
+    t, b, d = CONTROL_FLOW_RNN
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        x = L.data("x", [t, b, d], "float32", append_batch_size=False)
+        pick = L.data("pick", [1], "int32", append_batch_size=False)
+        w = L.create_parameter([d, d], "float32", name="cf_w",
+                               default_initializer=ptt.initializer.Normal(
+                                   0.0, 0.05, seed=SEED))
+        u = L.create_parameter([d], "float32", name="cf_u",
+                               default_initializer=ptt.initializer.Constant(
+                                   0.9))
+        rnn = L.StaticRNN()
+        with rnn.step():
+            x_t = rnn.step_input(x)
+            h_prev = rnn.memory(shape=[-1, d], batch_ref=x_t)
+            h = L.tanh(L.elementwise_add(L.matmul(x_t, w), h_prev))
+            rnn.update_memory(h_prev, h)
+            rnn.step_output(h)
+        hs = rnn()
+        i0 = L.fill_constant([1], "float32", 0.0)
+        _, v = L.while_loop(
+            lambda i, v: L.less_than(L.reduce_sum(i),
+                                     CONTROL_FLOW_TRIPS / 2 - 0.5),
+            lambda i, v: (L.scale(i, bias=1.0), L.sqrt(
+                L.elementwise_add(L.square(L.elementwise_mul(v, u)),
+                                  L.fill_constant([1], "float32", 1e-3)))),
+            [i0, L.reduce_mean(hs, dim=[0])],
+            maximum_trip_count=CONTROL_FLOW_TRIPS)
+        helper = ptt.layer_helper.LayerHelper("select_input")
+        sel = helper.create_variable_for_type_inference("float32", (b, d))
+        helper.append_op("select_input", inputs={
+            "X": [v.name, L.scale(v, -2.0).name], "Mask": [pick.name]},
+            outputs={"Out": [sel.name]})
+        loss = L.reduce_mean(L.square(sel))
+        ptt.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = SEED
+    return main, startup, [loss]
+
+
+def control_flow(torch, np, ptt, counters):
+    """The functional control flow on CUDA tensors. cond, switch_case
+    and while_loop: each of CONTROL_FLOW_FEEDS through Executor.run with
+    the program cache (the graphed path's entry), which must refuse
+    capture, record the refusal once naming the op, and run op by op
+    (no capture, no replay), the answers equal to the CPU's (rtol 1e-6:
+    tanh, exp and sigmoid are the library's on each side) and the trip
+    counts exact; host ms a run. Then the device loops' training step
+    (bounded_while, StaticRNN, select_input) op by op against graphed
+    (_both_ways): fetches and state bit for bit, 2 Adam launches a step;
+    its capture is not refused."""
+    main, fetch = _host_choice_program(ptt)
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(CONTROL_FLOW_WIDTH).astype(np.float32)
+    gexe, cexe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    gscope, cscope = ptt.Scope(), ptt.Scope()
+    counters.zero()                          # the main path starts here
+    runs, ms, agree, trips_ok = [], [], True, True
+    for flag, idx, n in CONTROL_FLOW_FEEDS:
+        feed = {"x": x, "flag": np.array([flag], np.float32),
+                "idx": np.array([idx], np.int64), "n": np.array([n])}
+        t0 = time.perf_counter()
+        got = gexe.run(main, feed=feed, fetch_list=fetch, scope=gscope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope)
+        agree = agree and all(np.allclose(g, w, rtol=1e-6, atol=0.0)
+                              for g, w in zip(got, want))
+        trips_ok = trips_ok and int(got[2][0]) == n
+        runs.append({"flag": flag, "idx": idx, "trips": n,
+                     "max_abs_err": max(float(np.abs(g - w).max())
+                                        for g, w in zip(got, want))})
+    launches = counters.read()
+    refusals = list(gexe.refusals.values())
+    graph_runs = dict(gexe.graph_runs)
+    refused_ok = len(refusals) == 1 and "{cond}" in refusals[0] \
+        and graph_runs == {"warm": 0, "capture": 0, "replay": 0,
+                           "refused": len(CONTROL_FLOW_FEEDS)} and \
+        not gexe.capture_log
+    close_executor(torch, "control_flow host", gexe)
+    dmain, dstart, dfetch = _device_loop_program(ptt)
+    t, b, d = CONTROL_FLOW_RNN
+    feeds = [{"x": np.random.RandomState(s).randn(t, b, d).astype(
+        np.float32), "pick": np.array([s % 2], np.int32)}
+        for s in range(GRAPH_STEPS)]
+    record, loops_ok, _, _, loop_launches = _both_ways(
+        torch, np, ptt, counters, "control_flow", dmain, dstart, feeds,
+        dfetch, _no_launches(counters, **CONTROL_FLOW_PER_STEP),
+        ("fused_adam",), mask=False)
+    ok = agree and trips_ok and refused_ok and loops_ok and \
+        launches == _no_launches(counters)
+    emit({"phase": "control_flow", "ok": ok, "width": CONTROL_FLOW_WIDTH,
+          "host_choice": {"runs": runs, "run_ms": ms,
+                          "equal_cpu_rtol_1e-6": agree,
+                          "trip_counts_exact": trips_ok,
+                          "refusals": refusals, "graph_runs": graph_runs,
+                          "refused_op_by_op_ok": refused_ok,
+                          "launches": launches},
+          "device_loops": dict(record, rnn_time_batch_width=list(
+              CONTROL_FLOW_RNN), bounded_trips=CONTROL_FLOW_TRIPS)})
+    if not ok:
+        raise AssertionError("control_flow checks failed (see the line "
+                             "above)")
+    return _sum_launches(launches, loop_launches)
+
+
+def seq2seq_parity(torch, np, ptt):
+    """The seq2seq at SEQ2SEQ_PARITY, PARITY_STEPS Adam(PARITY_LR) steps
+    on one batch, the card graphed (and op by op) against the CPU
+    (``_card_vs_cpu_all``); then the beam decode from the startup's
+    weights, three runs on the card (op by op, captured, replayed: equal
+    bit for bit) against the CPU (``_compare_decodes``)."""
+    w = SEQ2SEQ_PARITY
+    main, startup, fetch, decode, dfetch = _seq2seq_programs(
+        ptt, w, lr=PARITY_LR)
+    feed = _seq2seq_batch(np, w, seed=5)
+    train, train_ok = _card_vs_cpu_all(
+        np, ptt, main, startup, fetch, feed, [(1e-5, 0.0), (1e-4, 1e-5)],
+        SEQ2SEQ_PARITY_RTOL, SEQ2SEQ_PARITY_ATOL)
+    init = ptt.Scope()
+    ptt.Executor().run(startup, scope=init)
+    arrays = {p.name: init.find_var(p.name).cpu()
+              for p in decode.all_parameters()}
+    dfeed = {k: feed[k] for k in ("src", "src_len")}
+    runs = {}
+    for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+        scope, exe = ptt.Scope(), ptt.Executor(place)
+        ptt.set_params_from_numpy(arrays, decode, scope, place)
+        got = [exe.run(decode, feed=dfeed, fetch_list=dfetch, scope=scope)
+               for _ in range(3)]              # op by op, capture, replay
+        runs[label] = (got, scope, exe)
+    (gpu, gscope, gexe), (cpu, _, cexe) = runs["gpu"], runs["cpu"]
+    replays_equal = all(np.array_equal(a, b) for run in gpu[1:]
+                        for a, b in zip(run, gpu[0]))
+
+    def with_bos(out):
+        """(ids with a leading bos column, as _compare_decodes reads a
+        decode whose position 0 is no choice; scores)."""
+        ids = out[0]
+        bos = np.full(ids.shape[:2] + (1,), SEQ2SEQ_BOS, ids.dtype)
+        return [np.concatenate([bos, ids], 2)[..., None], out[1]]
+    decoded, decode_ok = _compare_decodes(
+        np, decode, with_bos(gpu[-1]), with_bos(cpu[-1]),
+        lambda name: gexe.run(decode, feed=dfeed, fetch_list=[name],
+                              scope=gscope)[0])
+    beams_ok = _beams_ok(np, gpu[-1][0], gpu[-1][1], w["trg_vocab"])
+    gexe.close()
+    cexe.close()
+    ok = train_ok and decode_ok and replays_equal and beams_ok
+    emit({"phase": "seq2seq_parity", "ok": ok, "widths": w, "train": train,
+          "decode": dict(decoded, graphed_equals_op_by_op=replays_equal,
+                         beams_ok=beams_ok)})
+    if not ok:
+        raise AssertionError("seq2seq_parity checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -5438,6 +5952,20 @@ def main():
         shutil.rmtree(data_root, ignore_errors=True)
     by_path["py_reader_bert"] = phase("py_reader_bert")(py_reader_bert)(
         torch, np, ptt, counters)
+    s2s_done = phase("seq2seq_train")(seq2seq_train)(torch, np, ptt,
+                                                     counters)
+    finish("seq2seq_train", s2s_done, "seq2seq train step", host=True)
+    s2s_dir = os.path.join(_ROOT, "build", "chip_smoke_seq2seq")
+    try:
+        by_path["seq2seq_serve"] = phase("seq2seq_serve")(seq2seq_serve)(
+            torch, np, ptt, counters, s2s_dir,
+            None if s2s_done is None else s2s_done[1][2])
+    finally:
+        shutil.rmtree(s2s_dir, ignore_errors=True)
+    del s2s_done
+    by_path["control_flow"] = phase("control_flow")(control_flow)(
+        torch, np, ptt, counters)
+    phase("seq2seq_parity")(seq2seq_parity)(torch, np, ptt)
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

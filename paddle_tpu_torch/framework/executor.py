@@ -31,6 +31,13 @@ replayed, runs on the Executor's own stream, which waits for the
 caller's stream first and which the caller's stream waits for after.
 Startup programs (no fetch list), ``use_program_cache=False`` and a CPU
 place always run op by op. A capture that fails raises, naming the op.
+A program holding an op that reads a device value on the host
+(``cond`` and ``while_loop`` choose on the host, ``print`` prints there;
+``OpDef.syncs_host``), in any block, is never captured: its CUDA runs go
+op by op and ``Executor.refusals`` records the op and why. The loops
+whose trip count the program fixes (``bounded_while``,
+``recurrent_scan``: ``StaticRNN``, ``DynamicRNN``, ``layers.rnn``) keep
+their predicates on the device and are captured like any other op.
 ``run_steps`` runs a window of steps from stacked feeds with one host
 sync, at its end. ``close()`` drops the graphs and their memory pool.
 
@@ -211,6 +218,18 @@ def _check_runnable(program):
                     % (op.type, op.attrs.get("op_role")))
 
 
+def _host_sync(program):
+    """Why a step of ``program`` cannot be captured into a CUDA graph: the
+    first op, in any block, that reads a device value on the host
+    (``OpDef.syncs_host``), or None."""
+    for blk in program.blocks:
+        for i, op in enumerate(blk.ops):
+            if op.type != GRAD_OP_TYPE and get_op(op.type).syncs_host:
+                return ("op {%s} (block %d, op %d) reads a device value on "
+                        "the host" % (op.type, blk.idx, i))
+    return None
+
+
 def _last_uses(ops, keep):
     """{op index: [var names whose value no later op reads]}, sparing
     ``keep``."""
@@ -272,7 +291,7 @@ class _RunPlan(object):
     card it also holds the random ops' generators and the constants of a
     step that may be captured."""
     __slots__ = ("key", "program", "persistable", "want", "last_grad",
-                 "drop", "rng", "constants", "reads")
+                 "drop", "rng", "constants", "reads", "syncs_host")
 
     def __init__(self, key, program, fetch_names, device):
         _check_runnable(program)
@@ -292,6 +311,7 @@ class _RunPlan(object):
         self.reads = set(fetch_names).union(
             n for b in program.blocks for op in b.ops
             for n in op.input_names())
+        self.syncs_host = _host_sync(program)
 
 
 def _graph_key(plan, feeds, state, scope):
@@ -312,8 +332,10 @@ class Executor(object):
     time, the memory the pool grew by, and the launches of each kernel
     a replay is credited (in ``ops.kernels.LAUNCH_COUNTERS`` order).
     ``graph_runs`` counts the runs of CUDA keys: ``warm`` (a key's first
-    run, op by op), ``capture`` (its second, captured and replayed) and
-    ``replay``."""
+    run, op by op), ``capture`` (its second, captured and replayed),
+    ``replay``, and ``refused`` (a ``run`` or ``run_steps`` call of a
+    program that is never captured, which goes op by op). ``refusals``
+    maps each such program's plan key to the reason (``_host_sync``)."""
 
     def __init__(self, place=None):
         self.place = place if place is not None else _current_expected_place()
@@ -324,7 +346,9 @@ class Executor(object):
         self._pool = None
         self._stream = None
         self.capture_log = []
-        self.graph_runs = {"warm": 0, "capture": 0, "replay": 0}
+        self.refusals = {}
+        self.graph_runs = {"warm": 0, "capture": 0, "replay": 0,
+                           "refused": 0}
         set_precision()
 
     def close(self):
@@ -334,6 +358,7 @@ class Executor(object):
         self._graphs.clear()
         self._warm.clear()
         self._plans.clear()
+        self.refusals.clear()
         self._pool = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -385,9 +410,18 @@ class Executor(object):
                          else t.dtype)
         return out
 
-    def _graphed(self, fetch_names, use_program_cache):
-        return bool(fetch_names) and use_program_cache and \
-            self.device.type == "cuda"
+    def _graphed(self, plan, fetch_names, use_program_cache):
+        """Whether this run goes through the compiled step; a program that
+        reads a device value on the host is refused, and the refusal
+        recorded under its plan's key."""
+        if not (fetch_names and use_program_cache and
+                self.device.type == "cuda"):
+            return False
+        if plan.syncs_host is None:
+            return True
+        self.graph_runs["refused"] += 1
+        self.refusals[plan.key] = plan.syncs_host
+        return False
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
@@ -401,7 +435,7 @@ class Executor(object):
         fetch_names = _fetch_names(fetch_list or [])
         plan = self._plan(program, fetch_names, use_program_cache)
         feeds = self._feed_tensors(program, feed, plan)
-        if self._graphed(fetch_names, use_program_cache):
+        if self._graphed(plan, fetch_names, use_program_cache):
             fetches = self._run_graphed(program, plan, feeds, fetch_names,
                                         scope, copy=not return_numpy)
         else:
@@ -498,7 +532,7 @@ class Executor(object):
             program, {n: w[0] for n, w in window.items()}, plan).items()}
         window = {n: window[n].to(device=self.device, dtype=d)
                   for n, d in dtypes.items()}
-        graphed = self._graphed(fetch_names, use_program_cache)
+        graphed = self._graphed(plan, fetch_names, use_program_cache)
         stacked = None
         for i in range(n_steps):
             feeds = {n: (w[i], dtypes[n]) for n, w in window.items()}

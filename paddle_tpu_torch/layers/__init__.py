@@ -1,7 +1,8 @@
 """paddle_tpu_torch.layers — the fluid.layers surface the port has so far."""
 from .tensor import (create_parameter, cast, concat,  # noqa: F401
                      sums, assign, fill_constant, zeros_like, ones_like,
-                     fill_constant_batch_size_like, argmax)
+                     fill_constant_batch_size_like, argmax, reverse,
+                     tensor_array_to_tensor)
 from .ops import *           # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .io import (data, py_reader, read_file,  # noqa: F401
@@ -18,3 +19,9 @@ from . import learning_rate_scheduler  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     noam_decay, exponential_decay, natural_exp_decay, inverse_time_decay,
     polynomial_decay, piecewise_decay, cosine_decay, linear_lr_warmup)
+# the ``rnn`` function shadows the layers.rnn submodule, as in the JAX
+# package and fluid 1.6
+from .rnn_api import (RNNCell, GRUCell, LSTMCell, rnn, lstm,  # noqa: F401
+                      dynamic_lstmp, Decoder, BeamSearchDecoder,
+                      dynamic_decode, beam_search, beam_search_decode)
+from . import rnn_api  # noqa: F401

@@ -10,8 +10,8 @@ def sequence_reverse(x, lengths=None, name=None):
     padding stays in place."""
     if lengths is None:
         raise NotPortedError(
-            "sequence_reverse without lengths is layers.reverse, which "
-            "arrives with the sequence-op slice of paddle_tpu_torch")
+            "sequence_reverse without lengths arrives with the sequence-op "
+            "slice of paddle_tpu_torch; layers.reverse flips a whole axis")
     helper = LayerHelper("sequence_reverse", name=name)
     out = helper.create_variable_for_type_inference(x.dtype, x.shape)
     helper.append_op("sequence_reverse",

@@ -1,6 +1,7 @@
 """Tensor layers: create_parameter, cast, concat, sums, assign,
-fill_constant, fill_constant_batch_size_like, argmax, zeros_like, ones_like
-(counterparts in paddle_tpu/layers/tensor.py)."""
+fill_constant, fill_constant_batch_size_like, argmax, zeros_like,
+ones_like, reverse, tensor_array_to_tensor (counterparts in
+paddle_tpu/layers/tensor.py)."""
 import numpy as np
 
 from ..framework.dtypes import normalize_dtype
@@ -130,3 +131,30 @@ def ones_like(x, out=None):
     helper.append_op("fill_any_like", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]}, attrs={"value": 1.0})
     return out
+
+
+def reverse(x, axis):
+    """``x`` flipped along ``axis`` (an int or a list)."""
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    axis = [axis] if isinstance(axis, int) else list(axis)
+    helper.append_op("flip", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """A tensor array (``layers.create_array``'s build-time list) stacked
+    or concatenated into one tensor, and each entry's size along ``axis``
+    as an int32 vector."""
+    from .nn import stack
+    entries = [v for v in input if v is not None]
+    if not entries:
+        raise ValueError("tensor_array_to_tensor: empty array")
+    if use_stack:
+        out = stack(entries, axis=axis)
+        sizes = [1] * len(entries)
+    else:
+        out = concat(entries, axis=axis)
+        sizes = [int(v.shape[axis]) for v in entries]
+    return out, assign(np.asarray(sizes, np.int32))

@@ -364,3 +364,13 @@ for _name, _fn in (("less_than", torch.lt), ("less_equal", torch.le),
                    ("greater_than", torch.gt), ("greater_equal", torch.ge),
                    ("equal", torch.eq), ("not_equal", torch.ne)):
     register_op(_name)(_compare(_fn))
+
+for _name, _fn in (("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    register_op(_name)(_compare(_fn))
+
+
+@register_op("logical_not")
+def _logical_not(ctx, ins, attrs):
+    return {"Out": torch.logical_not(_x(ins))}

@@ -11,7 +11,10 @@ Counterpart of paddle_tpu/ops/registry.py, with the same kernel contract::
 
 ``OpDef.nondiff`` names input slots that never get a gradient (the
 backward and the Executor's grad pairing read it); ``differentiable=False``
-ops get no ``grad_of`` at all.
+ops get no ``grad_of`` at all. ``syncs_host=True`` marks an op that reads
+a device value on the host (``cond``'s predicate, ``while_loop``'s,
+``print``'s tensor): the Executor never captures a step that holds one
+into a CUDA graph and runs it op by op (framework/executor.py).
 """
 
 _REGISTRY = {}
@@ -23,22 +26,26 @@ class NotPortedError(NotImplementedError):
 
 
 class OpDef(object):
-    __slots__ = ("type", "fn", "nondiff", "uses_rng", "differentiable")
+    __slots__ = ("type", "fn", "nondiff", "uses_rng", "differentiable",
+                 "syncs_host")
 
     def __init__(self, type, fn, nondiff=(), uses_rng=False,
-                 differentiable=True):
+                 differentiable=True, syncs_host=False):
         self.type = type
         self.fn = fn
         self.nondiff = tuple(nondiff)
         self.uses_rng = uses_rng
         self.differentiable = differentiable
+        self.syncs_host = syncs_host
 
 
-def register_op(type, nondiff=(), uses_rng=False, differentiable=True):
+def register_op(type, nondiff=(), uses_rng=False, differentiable=True,
+                syncs_host=False):
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError("op %r already registered" % type)
-        _REGISTRY[type] = OpDef(type, fn, nondiff, uses_rng, differentiable)
+        _REGISTRY[type] = OpDef(type, fn, nondiff, uses_rng, differentiable,
+                                syncs_host)
         return fn
     return deco
 

@@ -1,7 +1,8 @@
 """Sequence op kernels (counterparts in paddle_tpu/ops/sequence_ops.py):
 dense (N, T, ...) tensors with an (N,) length vector in place of the
-reference's ragged LoD rows. Only ``sequence_reverse`` so far, which the
-bidirectional RNNs of ``contrib.layers.basic_gru`` run."""
+reference's ragged LoD rows. ``sequence_reverse``, which the
+bidirectional RNNs of ``contrib.layers.basic_gru`` and ``layers.rnn``
+run, and ``reorder_by_rank`` (``layers.reorder_lod_tensor_by_rank``)."""
 import torch
 
 from .registry import register_op
@@ -26,3 +27,12 @@ def _sequence_reverse(ctx, ins, attrs):
     idx = torch.where(pos < lens[:, None], lens[:, None] - 1 - pos, pos)
     idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(x.shape)
     return {"Y": torch.gather(x, 1, idx)}
+
+
+@register_op("reorder_by_rank", nondiff=("RankTable",))
+def _reorder_by_rank(ctx, ins, attrs):
+    """Rows stably sorted by descending length (reference
+    reorder_lod_tensor_by_rank_op); the rank table is the (N,) lengths."""
+    lens = ins["RankTable"][0].reshape(-1)
+    order = torch.argsort(-lens.long(), stable=True)
+    return {"Out": ins["X"][0].index_select(0, order)}

@@ -77,6 +77,11 @@ def _increment(ctx, ins, attrs):
     return {"Out": x + (step if x.is_floating_point() else int(step))}
 
 
+@register_op("flip")
+def _flip(ctx, ins, attrs):
+    return {"Out": torch.flip(_x(ins), tuple(attrs["axis"]))}
+
+
 @register_op("where")
 def _where(ctx, ins, attrs):
     cond, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]

@@ -119,6 +119,9 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.data_feeder\n"
             "import paddle_tpu_torch.batch, paddle_tpu_torch.data\n"
             "import paddle_tpu_torch.layers.io\n"
+            "import paddle_tpu_torch.layers.rnn_api\n"
+            "import paddle_tpu_torch.contrib.decoder\n"
+            "import paddle_tpu_torch.contrib.decoder.beam_search_decoder\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
@@ -195,3 +198,31 @@ def test_recipe_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     out, = exe.run(main, feed={"x": torch.ones(2, 4).numpy()},
                    fetch_list=[lr], scope=scope)
     assert out.shape == (1,)
+
+
+def test_control_flow_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    """The control-flow slice's layers only build ops: a program with a
+    cond, a bounded while_loop and an rnn runs where its Executor runs,
+    CUDAPlace(0) unless CPUPlace() is given."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        L = ptt.layers
+        x = L.data("x", [2, 3, 4], append_batch_size=False)
+        out, _ = L.rnn(L.GRUCell(4), x)
+        s = L.reduce_sum(out)
+        y = L.cond(L.greater_than(s, 0.0), lambda: L.scale(s, 2.0),
+                   lambda: s)
+        i0 = L.fill_constant([1], "float32", 0.0)
+        _, z = L.while_loop(lambda i, v: L.less_than(i, 2.0),
+                            lambda i, v: (L.scale(i, bias=1.0),
+                                          L.scale(v, 0.5)),
+                            [i0, y], maximum_trip_count=4)
+    with pytest.raises(ptt.NoCUDADeviceError):
+        ptt.Executor().run(startup, scope=ptt.Scope())
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope)
+    got, = exe.run(main, feed={"x": torch.ones(2, 3, 4).numpy()},
+                   fetch_list=[z], scope=scope)
+    assert got.shape == (1,)
