@@ -13,8 +13,12 @@ sub-block's ops for the op that owns it (``remat_block`` runs its segment
 once in the forward and again in the backward). A var's value is dropped
 after the last op that reads it, unless it is persistable or fetched.
 Optimizer ops may update parameters and moments in place (the fused-Adam
-kernel does). What a run derives from the program alone (the check that
-every op is ported, the forward/grad pairing, each value's last reader,
+kernel does); a gradient that runs after such an op and needs the old
+value reads a copy its forward op's record kept (the in-place rule,
+framework/trace.py ``overwritten_inputs``: decided once per plan, and a
+program whose gradients all run before its updates copies nothing).
+What a run derives from the program alone (the check that every op is
+ported, the forward/grad pairing, each value's last reader,
 the random ops' generators) is made once per program version and fetch
 list and reused.
 
@@ -291,7 +295,7 @@ class _RunPlan(object):
     card it also holds the random ops' generators and the constants of a
     step that may be captured."""
     __slots__ = ("key", "program", "persistable", "want", "last_grad",
-                 "drop", "rng", "constants", "reads", "syncs_host")
+                 "keep", "drop", "rng", "constants", "reads", "syncs_host")
 
     def __init__(self, key, program, fetch_names, device):
         _check_runnable(program)
@@ -301,6 +305,7 @@ class _RunPlan(object):
         self.persistable = sorted({v.name for v in program.list_vars()
                                    if v.persistable})
         self.want, self.last_grad = trace.wanted_grads(blk)
+        self.keep = trace.overwritten_inputs(blk, self.last_grad)
         self.drop = _last_uses(blk.ops,
                                set(self.persistable) | set(fetch_names))
         self.rng = _Generators(device, program.random_seed) \
@@ -572,7 +577,7 @@ class Executor(object):
         ctx = self._context(program, plan, _next_salt(scope), graphable)
         with torch.no_grad():
             run_block(program.global_block(), env, ctx, plan.want,
-                      plan.last_grad, plan.drop)
+                      plan.last_grad, plan.drop, plan.keep)
         for n in plan.persistable:
             if n in env:
                 scope.set_var(n, env[n])
@@ -632,7 +637,7 @@ class Executor(object):
         def run(env):
             with torch.no_grad():
                 run_block(program.global_block(), env, ctx, plan.want,
-                          plan.last_grad, plan.drop)
+                          plan.last_grad, plan.drop, plan.keep)
             stray = [n for n in plan.persistable
                      if n in env and n not in static]
             if stray:
@@ -658,11 +663,14 @@ class Executor(object):
         return step
 
 
-def run_block(block, env, ctx, want=None, last_grad=None, drop=None):
+def run_block(block, env, ctx, want=None, last_grad=None, drop=None,
+              keep=None):
     """Run ``block``'s ops in order on ``env`` ({var name: tensor}).
 
     ``want``/``last_grad`` (``trace.wanted_grads``) pair each forward op
-    a ``grad_of`` names with that ``grad_of``; ``drop`` ({op index: var
+    a ``grad_of`` names with that ``grad_of``; ``keep``
+    (``trace.overwritten_inputs``) names the inputs a record copies
+    because a later op overwrites them in place; ``drop`` ({op index: var
     names}) frees values after their last reader. Under ``no_grad`` (the
     Executor's step, a segment's forward) an output that carries an
     autograd graph is stored detached: the graph stays with its record.
@@ -675,13 +683,13 @@ def run_block(block, env, ctx, want=None, last_grad=None, drop=None):
             outs = trace.run_grad_op(op, env, records, ctx,
                                      last_grad[op.attrs["fwd_id"]] == i)
         else:
-            outs = _run_fwd_op(op, env, ctx, want, records)
+            outs = _run_fwd_op(op, env, ctx, want, records, keep)
         _bind(op, outs, env)
         for n in (drop or {}).get(i, ()):
             env.pop(n, None)
 
 
-def _run_fwd_op(op, env, ctx, want, records):
+def _run_fwd_op(op, env, ctx, want, records, keep=None):
     ins = {}
     for slot, names in op.inputs.items():
         vals = []
@@ -698,7 +706,8 @@ def _run_fwd_op(op, env, ctx, want, records):
     opdef = get_op(op.type)
     if op.desc_id in want and opdef.differentiable:
         outs, records[op.desc_id] = trace.run_recorded(
-            opdef, ins, op.attrs, ctx, want[op.desc_id])
+            opdef, ins, op.attrs, ctx, want[op.desc_id],
+            (keep or {}).get(op.desc_id))
         return outs
     return opdef.fn(ctx, ins, op.attrs)
 

@@ -13,6 +13,18 @@ A custom ``torch.autograd.Function`` inside an op (the flash-attention and
 LayerNorm kernels) brings its hand-written backward kernel into this
 call.
 
+The in-place rule: an op may update an input in place (``OpDef.inplace``:
+the fused-Adam kernel writes a parameter and its moments on the card),
+and autograd's saved tensors are views of the scope's own tensors, whose
+version a write through a raw pointer does not bump. So where a forward
+op's record is still live (a later ``grad_of`` names it) when such an op
+overwrites one of its inputs (DCGAN: the generator's backward runs
+through the discriminator after the discriminator's Adam), the record
+keeps a copy of that input, made when the forward runs
+(``overwritten_inputs``, decided once per plan from the block). A
+program without that order copies nothing. The JAX package needs no
+rule: its values are immutable, so its gradient reads the old value.
+
 A ``grad_of`` whose forward op did not run in the same Executor.run (a
 pruned program) re-runs that forward from the ``X:`` inputs and
 ``fwd_attrs`` it carries, under autograd, as the JAX package's
@@ -60,16 +72,47 @@ def wanted_grads(block):
     return want, last
 
 
+def overwritten_inputs(block, last_grad):
+    """{forward desc_id: {slot: input indices}}: for each forward op with a
+    record (``last_grad``, from ``wanted_grads``), the inputs (their
+    positions among the slot's non-empty names, as the op receives them)
+    that an op with ``OpDef.inplace`` slots overwrites after the forward
+    op and before its last ``grad_of``. Empty for a program without that
+    order."""
+    writes, pos = [], {}
+    for i, op in enumerate(block.ops):
+        if op.type == GRAD_OP_TYPE:
+            continue
+        pos[op.desc_id] = i
+        for slot in get_op(op.type).inplace:
+            writes.extend((i, n) for n in op.inputs.get(slot, ()))
+    keep = {}
+    for fid, last in last_grad.items():
+        i = pos.get(fid)
+        hit = {n for j, n in writes if i is not None and i < j < last}
+        if not hit:
+            continue
+        for slot, names in block.ops[i].inputs.items():
+            names = [n for n in names if n != EMPTY_VAR]
+            idx = {k for k, n in enumerate(names) if n in hit}
+            if idx:
+                keep.setdefault(fid, {})[slot] = idx
+    return keep
+
+
 def _as_list(vals):
     return list(vals) if isinstance(vals, (list, tuple)) else [vals]
 
 
-def run_recorded(opdef, ins, attrs, ctx, want):
+def run_recorded(opdef, ins, attrs, ctx, want, keep=None):
     """Run one forward op with autograd on the inputs ``want`` names
-    ({slot: indices}); returns (outputs, GradRecord)."""
+    ({slot: indices}), on copies of the inputs ``keep`` names (the
+    in-place rule); returns (outputs, GradRecord)."""
     leaves, ins2 = [], {}
     for slot, vals in ins.items():
         vals = list(vals)
+        for i in (keep or {}).get(slot, ()):
+            vals[i] = vals[i].detach().clone()
         if slot not in opdef.nondiff:
             for i in sorted(want.get(slot, ())):
                 if i < len(vals) and vals[i].is_floating_point():
@@ -148,4 +191,4 @@ def run_grad_op(op, env, records, ctx, last):
 
 
 __all__ = ["EMPTY_VAR", "GRAD_OP_TYPE", "GradRecord", "wanted_grads",
-           "run_recorded", "run_grad_op"]
+           "overwritten_inputs", "run_recorded", "run_grad_op"]

@@ -15,6 +15,8 @@ from .control_flow import *  # noqa: F401,F403
 from .rnn import *           # noqa: F401,F403
 from .sequence_lod import *  # noqa: F401,F403
 from .vision import *        # noqa: F401,F403
+from . import detection  # noqa: F401
+from .detection import yolov3_loss, yolo_box, multiclass_nms  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     noam_decay, exponential_decay, natural_exp_decay, inverse_time_decay,

@@ -1,6 +1,18 @@
 """Loss layers (counterpart of paddle_tpu/layers/loss.py) for the losses
-BERT, GPT, ResNet, DeepFM and CRNN-CTC use."""
+BERT, GPT, ResNet, DeepFM, CRNN-CTC and the vision classifiers use."""
 from ..layer_helper import LayerHelper
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    shape = tuple(input.shape[:-1]) + (1,) if input.shape else None
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -79,5 +91,6 @@ def warpctc(input, label, blank=0, norm_by_times=False,
     return out
 
 
-__all__ = ["softmax_with_cross_entropy", "fused_mlm_head_loss",
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "fused_mlm_head_loss",
            "sigmoid_cross_entropy_with_logits", "warpctc"]

@@ -1,5 +1,5 @@
-"""Neural network layers BERT, GPT, ResNet, DeepFM, the Transformer and
-the recurrent sequence models use.
+"""Neural network layers BERT, GPT, ResNet, DeepFM, the Transformer, the
+recurrent sequence models and the vision, DCGAN and YOLOv3 models use.
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -135,6 +135,47 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         outputs={"Output": [pre_bias.name]},
         attrs={"strides": stride, "paddings": padding, "dilations": dilation,
                "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act,
+                         name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    stride, padding = _pair_list(stride), _pair_list(padding)
+    dilation = _pair_list(dilation)
+    filter_shape = [num_channels, num_filters // groups] + list(filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out_shape = None
+    osz = None
+    if output_size is not None:
+        osz = _pair_list(output_size)
+        out_shape = (input.shape[0], num_filters, osz[0], osz[1])
+    elif input.shape is not None and filter_size is not None and \
+            None not in input.shape[2:]:
+        spatial = [
+            (input.shape[2 + i] - 1) * stride[i] - 2 * padding[i] +
+            dilation[i] * (filter_size[i] - 1) + 1
+            if input.shape[2 + i] != -1 else -1
+            for i in range(2)]
+        out_shape = (input.shape[0], num_filters) + tuple(spatial)
+    pre_bias = helper.create_variable_for_type_inference(dtype, out_shape)
+    helper.append_op(
+        "conv2d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "output_size": osz})
     pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
     return helper.append_activation(pre_act)
 
@@ -548,6 +589,34 @@ def where(condition, x=None, y=None):
     return out
 
 
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1):
+    helper = LayerHelper("image_resize", name=name)
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    op = "interp_bilinear" if resample.upper() == "BILINEAR" \
+        else "interp_nearest"
+    out = helper.create_variable_for_type_inference(
+        input.dtype, (input.shape[0], input.shape[1]) + tuple(out_shape))
+    helper.append_op(op, inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"out_h": int(out_shape[0]),
+                            "out_w": int(out_shape[1]),
+                            "align_corners": bool(align_corners),
+                            "align_mode": int(align_mode)})
+    return out
+
+
+resize_bilinear = image_resize
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        align_corners=align_corners)
+
+
 def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     """A persistable int64 counter, made at ``begin - step`` in the
     startup program, and an ``increment`` op (role ``lr_sched``) that adds
@@ -574,7 +643,9 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     return out
 
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "adaptive_pool2d",
+__all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
+           "adaptive_pool2d", "image_resize", "resize_bilinear",
+           "resize_nearest",
            "batch_norm", "layer_norm", "dropout", "softmax", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_pow",

@@ -1,5 +1,5 @@
 """Op kernels of the port; importing this package registers them."""
 from . import registry  # noqa: F401
 from . import (attention_ops, control_flow_ops, crf_ops,  # noqa: F401
-               math_ops, metric_ops, nn_ops, optimizer_ops, random_ops,
-               rnn_ops, sequence_ops, tensor_ops)
+               detection_ops, math_ops, metric_ops, nn_ops, optimizer_ops,
+               random_ops, rnn_ops, sequence_ops, tensor_ops)

@@ -1,9 +1,10 @@
-"""Neural-net op kernels BERT, GPT, ResNet, DeepFM and the Transformer
-run: conv2d, depthwise_conv2d, pool2d, batch_norm, lookup_table, dropout,
-layer_norm, softmax, log_softmax, label_smooth, one_hot,
-add_position_encoding, softmax_with_cross_entropy,
-sigmoid_cross_entropy_with_logits, fused_mlm_head_loss (counterparts in
-paddle_tpu/ops/nn_ops.py).
+"""Neural-net op kernels BERT, GPT, ResNet, DeepFM, the Transformer and
+the vision, DCGAN and YOLOv3 models run: conv2d, depthwise_conv2d,
+conv2d_transpose, pool2d, batch_norm, lookup_table, dropout, layer_norm,
+softmax, log_softmax, label_smooth, one_hot, add_position_encoding,
+softmax_with_cross_entropy, cross_entropy,
+sigmoid_cross_entropy_with_logits, fused_mlm_head_loss, interp_nearest,
+interp_bilinear (counterparts in paddle_tpu/ops/nn_ops.py).
 
 Convolution, pooling and batch norm have no Pallas kernel in the JAX
 package (``lax.conv_general_dilated``, ``lax.reduce_window`` and jnp
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
 from .registry import register_op
+from .tensor_ops import fill_taken, take_fill
 from ..framework.dtypes import to_torch_dtype
 
 # the JAX package's blockwise-CE / fused-head kernel defaults
@@ -152,14 +154,16 @@ def _batch_norm(ctx, ins, attrs):
 
 @register_op("lookup_table", nondiff=("Ids",))
 def _lookup_table(ctx, ins, attrs):
-    """``w[ids]``; its gradient scatters rows with atomics on a CUDA card
-    (index_put with accumulate), so repeated ids sum in no fixed order
-    there."""
+    """``w[ids]`` read as ``jnp.take(w, ids, axis=0)``: an id in [-V, 0)
+    wraps, one out of range gives a row of NaN (``take_fill``); rows of
+    ``padding_idx`` are zeros. Its gradient scatters rows with index_put
+    (accumulate) on a CUDA card."""
     w, ids = ins["W"][0], ins["Ids"][0]
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     ids = ids.long()
-    out = w[ids]
+    safe, ok = take_fill(ids, w.shape[0])
+    out = fill_taken(w[safe], ok, 0, ids.dim())
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out.masked_fill((ids == padding_idx).unsqueeze(-1), 0.0)
@@ -398,3 +402,119 @@ def _fused_mlm_head_loss(ctx, ins, attrs):
         logits = logits + bias.float()
     logp = torch.log_softmax(logits, dim=-1)
     return {"Loss": _label_loss(logits, logp, lbl[..., None].long(), -1)}
+
+
+@register_op("cross_entropy", nondiff=("Label",))
+def _cross_entropy(ctx, ins, attrs):
+    """-log(max(p, 1e-20)) of probabilities X at the labels (hard), or
+    -sum(label * log(max(X, 1e-20))) over the last axis (``soft_label``).
+    A hard label in [-C, 0) wraps and one out of range picks NaN, as
+    ``jnp.take_along_axis`` does; ``ignore_index`` rows give 0."""
+    x, label = ins["X"][0], ins["Label"][0]
+    floor = torch.full((), 1e-20, dtype=x.dtype, device=x.device)
+    if attrs.get("soft_label", False):
+        return {"Y": -(label * torch.log(torch.maximum(x, floor))).sum(
+            dim=-1, keepdim=True)}
+    lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+        else label
+    idx = lbl[..., None]
+    safe, ok = take_fill(idx, x.shape[-1])
+    picked = fill_taken(torch.take_along_dim(x, safe, dim=-1), ok, 0,
+                        ok.dim())
+    loss = -torch.log(torch.maximum(picked, floor))
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    return {"Y": torch.where(idx == attrs.get("ignore_index", -100), zero,
+                             loss)}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    """The input gradient of the forward convolution, as the JAX package
+    builds it (its vjp): ``F.conv_transpose2d`` with the same (in_c,
+    out_c / g, kh, kw) filter; the ``output_size`` attr becomes the
+    output padding past the derived size. A bf16 input is widened on the
+    CPU, as for conv2d."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    stride = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    dil = _pair(attrs.get("dilations", [1, 1]))
+    out_sp = attrs.get("output_size") or None
+    extra = (0, 0)
+    if out_sp is not None:
+        extra = tuple(
+            int(out_sp[i]) - ((x.shape[2 + i] - 1) * stride[i] - 2 * pads[i]
+                              + dil[i] * (w.shape[2 + i] - 1) + 1)
+            for i in range(2))
+    args = dict(stride=stride, padding=pads, output_padding=extra,
+                groups=attrs.get("groups", 1) or 1, dilation=dil)
+    if x.dtype == torch.bfloat16 and x.device.type != "cuda":
+        return {"Output": F.conv_transpose2d(x.float(), w.float(),
+                                             **args).to(x.dtype)}
+    return {"Output": F.conv_transpose2d(x, w, **args)}
+
+
+def _interp_src(out_size, in_size, align_corners, align_mode, device):
+    """Source coordinates of one axis in f32, in the JAX package's order of
+    operations (an f32 ``arange`` times the ratio rounded to f32):
+    align_corners the corner-pinned (in-1)/(out-1) ratio; else ratio
+    in/out with align_mode 0 half-pixel centres, 1 src = ratio * dst."""
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    if align_corners:
+        ratio = (in_size - 1) / max(out_size - 1, 1)
+        return i * torch.full((), ratio, dtype=torch.float32, device=device)
+    ratio = torch.full((), in_size / out_size, dtype=torch.float32,
+                       device=device)
+    if align_mode == 0:
+        return torch.clamp((i + 0.5) * ratio - 0.5, 0.0, in_size - 1.0)
+    return i * ratio
+
+
+def _take_axis(x, idx, axis):
+    """``x`` rows ``idx`` along ``axis`` 2 or 3 by advanced indexing, whose
+    gradient on a CUDA card sums repeated rows in a fixed order (a sorted
+    index_put), not with atomics."""
+    return x[:, :, idx] if axis == 2 else x[:, :, :, idx]
+
+
+def _lin_axis(x, out_size, axis, align_corners, align_mode):
+    in_size = x.shape[axis]
+    src = _interp_src(out_size, in_size, align_corners, align_mode,
+                      x.device)
+    lo = torch.floor(src).long().clamp(0, in_size - 1)
+    hi = torch.clamp(lo + 1, max=in_size - 1)
+    ft = x.dtype if x.is_floating_point() else torch.float32
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    d = (src - lo).to(ft).reshape(shape)
+    out = _take_axis(x, lo, axis).to(ft) * (1 - d) + \
+        _take_axis(x, hi, axis).to(ft) * d
+    return out.to(x.dtype)
+
+
+@register_op("interp_nearest")
+def _interp_nearest(ctx, ins, attrs):
+    """Nearest resize of H and W to (out_h, out_w): align_corners picks
+    floor(ratio * dst + 0.5) with the corner-pinned ratio, else
+    floor(ratio * dst) (the JAX package's rule, not ``F.interpolate``'s),
+    the indices computed in f32 exactly as the JAX package computes
+    them."""
+    out = ins["X"][0]
+    ac = attrs.get("align_corners", True)
+    for axis, osz in ((2, attrs["out_h"]), (3, attrs["out_w"])):
+        in_size = out.shape[axis]
+        src = _interp_src(osz, in_size, ac, 1, out.device)
+        idx = torch.floor(src + 0.5 if ac else src).long()
+        out = _take_axis(out, idx.clamp(0, in_size - 1), axis)
+    return {"Out": out}
+
+
+@register_op("interp_bilinear")
+def _interp_bilinear(ctx, ins, attrs):
+    """Bilinear resize, one axis after the other (H, then W), each a
+    blend of the floor and next rows in float (an integer X blends in
+    f32 and is cast back)."""
+    x = ins["X"][0]
+    ac = attrs.get("align_corners", True)
+    am = attrs.get("align_mode", 1)
+    out = _lin_axis(x, attrs["out_h"], 2, ac, am)
+    return {"Out": _lin_axis(out, attrs["out_w"], 3, ac, am)}

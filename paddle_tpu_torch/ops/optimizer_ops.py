@@ -123,12 +123,15 @@ def _adam_outs(ins, attrs, coeff):
                 Moment1Out=m1n, Moment2Out=m2n)
 
 
-@register_op("adam")
+_ADAM_INPLACE = ("Param", "Moment1", "Moment2")
+
+
+@register_op("adam", inplace=_ADAM_INPLACE)
 def _adam(ctx, ins, attrs):
     return _adam_outs(ins, attrs, 0.0)
 
 
-@register_op("adamw")
+@register_op("adamw", inplace=_ADAM_INPLACE)
 def _adamw(ctx, ins, attrs):
     """Adam, then ``p' = p' - lr * coeff * p`` from the parameter before
     the step and the raw learning rate, each result rounded to the

@@ -15,6 +15,10 @@ ops get no ``grad_of`` at all. ``syncs_host=True`` marks an op that reads
 a device value on the host (``cond``'s predicate, ``while_loop``'s,
 ``print``'s tensor): the Executor never captures a step that holds one
 into a CUDA graph and runs it op by op (framework/executor.py).
+``inplace`` names input slots the op may overwrite in place (the
+fused-Adam kernel writes Param, Moment1 and Moment2 on the card); the
+Executor keeps a copy of such an input for a gradient that still needs
+its old value (``trace.overwritten_inputs``).
 """
 
 _REGISTRY = {}
@@ -27,25 +31,26 @@ class NotPortedError(NotImplementedError):
 
 class OpDef(object):
     __slots__ = ("type", "fn", "nondiff", "uses_rng", "differentiable",
-                 "syncs_host")
+                 "syncs_host", "inplace")
 
     def __init__(self, type, fn, nondiff=(), uses_rng=False,
-                 differentiable=True, syncs_host=False):
+                 differentiable=True, syncs_host=False, inplace=()):
         self.type = type
         self.fn = fn
         self.nondiff = tuple(nondiff)
         self.uses_rng = uses_rng
         self.differentiable = differentiable
         self.syncs_host = syncs_host
+        self.inplace = tuple(inplace)
 
 
 def register_op(type, nondiff=(), uses_rng=False, differentiable=True,
-                syncs_host=False):
+                syncs_host=False, inplace=()):
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError("op %r already registered" % type)
         _REGISTRY[type] = OpDef(type, fn, nondiff, uses_rng, differentiable,
-                                syncs_host)
+                                syncs_host, inplace)
         return fn
     return deco
 

@@ -2,7 +2,9 @@
 paddle_tpu/ops/tensor_ops.py). Views stay views: transpose2 hands a
 strided tensor on, and the kernel wrappers make their inputs dense.
 ``gather``'s gradient scatters with atomics on a CUDA card (index_add),
-so its sums arrive in no fixed order there."""
+so its sums arrive in no fixed order there. ``gather`` (and
+``lookup_table``) answer an index out of range as ``jnp.take``'s default
+mode does (``take_fill``)."""
 import torch
 
 from .registry import register_op
@@ -88,12 +90,53 @@ def _where(ctx, ins, attrs):
     return {"Out": torch.where(cond, x, y)}
 
 
+def _fill_value(dtype):
+    """``jnp.take``'s fill for an index out of range: NaN for floats, the
+    minimum of a signed integer, the maximum of an unsigned one, True.
+    An int64 tensor is the JAX package's int32 (no x64), so it takes
+    int32's minimum."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(torch.int32 if dtype == torch.int64 else dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take_fill(index, n):
+    """(clamped int64 index, in-range mask) of ``index`` into an axis of
+    ``n``, as ``jnp.take``'s default mode reads it: an index in [-n, 0)
+    wraps, one past either end reads the clamped row, which the caller
+    fills (``fill_taken``). No value reaches the host and nothing asserts
+    on the device, so a captured step holds it."""
+    idx = index.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    return idx.clamp(0, n - 1), ok
+
+
+def fill_taken(out, ok, axis, ndim_index):
+    """``out`` (rows read at a clamped index) with each row whose index was
+    out of range filled with ``_fill_value``; the filled rows' gradient is
+    zero, as JAX's drop-mode scatter gives it."""
+    shape = [1] * out.dim()
+    shape[axis:axis + ndim_index] = ok.shape
+    fill = torch.full((), _fill_value(out.dtype), dtype=out.dtype,
+                      device=out.device)
+    return torch.where(ok.reshape(shape), out, fill)
+
+
 @register_op("gather", nondiff=("Index",))
 def _gather(ctx, ins, attrs):
+    """``jnp.take(x, index, axis)``: an index in [-n, 0) wraps, one out of
+    range gives NaN (or an integer's fill, ``_fill_value``)."""
     x, index = ins["X"][0], ins["Index"][0]
     if index.dim() == 2 and index.shape[1] == 1:
         index = index.reshape(-1)
-    return {"Out": x.index_select(attrs.get("axis", 0) or 0, index.long())}
+    axis = attrs.get("axis", 0) or 0
+    axis = axis + x.dim() if axis < 0 else axis
+    safe, ok = take_fill(index, x.shape[axis])
+    return {"Out": fill_taken(x.index_select(axis, safe), ok, axis, 1)}
 
 
 def _float_order_key(x):

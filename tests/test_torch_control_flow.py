@@ -211,25 +211,60 @@ def _gather_loop(p, clamp):
 
 
 def test_bounded_while_body_must_be_total_at_its_fixpoint():
-    """A known difference: the port runs a bounded body on every trip and
-    keeps the old carry where the predicate is false, while the JAX
-    package's ``lax.cond`` skips it. A body total at its fixpoint (the
-    clamped gather) agrees exactly; a gather at i = 3 past the end
-    answers in the JAX package and raises in the port."""
+    """The port runs a bounded body on every trip and keeps the old carry
+    where the predicate is false, while the JAX package's ``lax.cond``
+    skips it. A gather at the fixpoint i = 3, past the end, reads
+    ``jnp.take``'s fill in the port (no IndexError, no device assert) and
+    the carry keeps 7, so both packages answer 7.0; the clamped gather
+    agrees exactly too."""
     xv = np.array([1.0, 2.0, 4.0], np.float32)
-    tout, _, _ = run_pair(lambda p: _gather_loop(p, True), [{"x": xv}],
-                          exact=True)
-    np.testing.assert_array_equal(tout[0], [7.0])
-    jmain, jstart, jfetch = _build(pt, lambda p: _gather_loop(p, False))
-    with pt.scope_guard(pt.Scope()):
-        jexe = pt.Executor(pt.CPUPlace())
-        jexe.run(jstart)
-        jout, = jexe.run(jmain, feed={"x": xv}, fetch_list=jfetch)
-    np.testing.assert_array_equal(np.asarray(jout), [7.0])
-    tmain, _, tfetch = _build(ptt, lambda p: _gather_loop(p, False))
-    with pytest.raises(IndexError):
-        ptt.Executor(ptt.CPUPlace()).run(
-            tmain, feed={"x": xv}, fetch_list=tfetch, scope=ptt.Scope())
+    for clamp in (True, False):
+        tout, _, _ = run_pair(lambda p: _gather_loop(p, clamp),
+                              [{"x": xv}], exact=True)
+        np.testing.assert_array_equal(tout[0], [7.0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int64"])
+def test_gather_out_of_range_reads_jnp_takes_fill(dtype):
+    """An index in [-n, 0) wraps, one past either end reads NaN (an
+    integer: int32's minimum, the JAX package's int without x64), as
+    ``jnp.take``'s default mode; a float gather's gradient into a filled
+    row is zero."""
+    idx = np.array([3, -1, -4, 0, 2, 7], np.int64)
+    xv = np.array([1.0, 2.0, 4.0], np.float32)
+
+    def build(p):
+        i = p.layers.data("i", [6], dtype="int64", append_batch_size=False)
+        if dtype == "int64":
+            return [p.layers.gather(_data(p, "x", (3,), "int64"), i)]
+        x = _grad_data(p, "x", (3,))
+        return _with_grads(p, [p.layers.gather(x, i)], [x])
+    feed = {"x": xv.astype(dtype), "i": idx}
+    tout, _, _ = run_pair(build, [dict(feed, **_cots(6))], exact=True)
+    want = [np.nan, 4, np.nan, 1, 4, np.nan] if dtype == "float32" else \
+        [-2 ** 31, 4, -2 ** 31, 1, 4, -2 ** 31]
+    np.testing.assert_array_equal(tout[0], want)
+
+
+@pytest.mark.parametrize("padding_idx", [None, 1])
+def test_lookup_table_out_of_range_reads_jnp_takes_fill(padding_idx):
+    """Ids past either end give rows of NaN and wrap in [-V, 0); the
+    padding row stays zeros; the table's gradient skips the filled
+    rows."""
+    ids = np.array([[0], [5], [-1], [-6], [1], [4]], np.int64)
+
+    def build(p):
+        out = p.layers.embedding(
+            p.layers.data("ids", [6, 1], dtype="int64",
+                          append_batch_size=False), [5, 3],
+            padding_idx=padding_idx, param_attr=p.ParamAttr(name="emb_w"))
+        w = p.default_main_program().global_block().var("emb_w")
+        return _with_grads(p, [out], [w])
+    tout, _, _ = run_pair(build, [dict({"ids": ids}, **_cots(18))],
+                          tol=TOL)
+    assert np.isnan(tout[0][[1, 3]]).all()
+    assert np.isfinite(tout[0][[0, 2, 4, 5]]).all()
+    assert np.isfinite(tout[1]).all()
 
 
 def test_gradient_reaches_captures_through_nested_control_flow():

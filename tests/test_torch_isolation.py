@@ -122,6 +122,13 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.layers.rnn_api\n"
             "import paddle_tpu_torch.contrib.decoder\n"
             "import paddle_tpu_torch.contrib.decoder.beam_search_decoder\n"
+            "import paddle_tpu_torch.ops.detection_ops\n"
+            "import paddle_tpu_torch.layers.detection\n"
+            "import paddle_tpu_torch.layers.loss\n"
+            "import paddle_tpu_torch.models.simple\n"
+            "import paddle_tpu_torch.models.vision\n"
+            "import paddle_tpu_torch.models.dcgan\n"
+            "import paddle_tpu_torch.models.yolov3\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
@@ -226,3 +233,40 @@ def test_control_flow_entry_points_default_to_cuda_and_raise_without_it(
     got, = exe.run(main, feed={"x": torch.ones(2, 3, 4).numpy()},
                    fetch_list=[z], scope=scope)
     assert got.shape == (1,)
+
+
+@pytest.mark.parametrize("model", ["yolov3_infer", "dcgan", "vision", "mlp"])
+def test_zoo_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
+                                                                model):
+    """The zoo's builders only build programs: each runs where its
+    Executor runs, CUDAPlace(0) unless CPUPlace() is given."""
+    from paddle_tpu_torch.models import dcgan, simple, vision, yolov3
+    if model == "yolov3_infer":
+        main, startup, _, fetch = yolov3.yolov3_infer_program(
+            class_num=2, image_size=32)
+        feed = {"image": torch.ones(1, 3, 32, 32).numpy(),
+                "im_size": torch.full((1, 2), 32, dtype=torch.int32).numpy()}
+        fetch = [fetch["pred"]]
+    elif model == "dcgan":
+        cfg = dcgan.DCGANConfig(noise_dim=4, base_channels=2, image_size=4)
+        main, startup, _, fetch = dcgan.dcgan_train_program(cfg)
+        feed = dcgan.synthetic_batch(cfg, 2)
+        fetch = [fetch["g_loss"]]
+    elif model == "vision":
+        main, startup, _, fetch = vision.classification_train_program(
+            "mobilenet", class_dim=3, image_shape=(3, 32, 32))
+        feed = vision.synthetic_image_batch(2, (3, 32, 32), 3)
+        fetch = [fetch["loss"]]
+    else:
+        main, startup, _, fetch = simple.mlp_classifier_program(
+            input_dim=4, hidden=(3,), classes=2)
+        feed = {"x": torch.ones(2, 4).numpy(),
+                "y": torch.zeros(2, 1, dtype=torch.int64).numpy()}
+        fetch = [fetch["loss"]]
+    with pytest.raises(ptt.NoCUDADeviceError):
+        ptt.Executor().run(startup, scope=ptt.Scope())
+    scope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(startup, scope=scope)
+    got, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    assert torch.isfinite(torch.from_numpy(got)).all()
