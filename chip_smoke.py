@@ -6,7 +6,9 @@
 run from the root of a checkout, on a machine with an NVIDIA H100 (any
 sm_90 card), ``nvcc`` and PyTorch built for CUDA. It builds the port's
 CUDA kernels from ``paddle_tpu_torch/ops/kernels/csrc/`` and holds each
-of the eleven against its plain PyTorch version at the main paths' shapes
+of the thirteen (the eleven of the JAX package's Pallas sites and the
+numeric guard's two) against its plain PyTorch version at the main
+paths' shapes
 (the flash, LayerNorm and head kernels and the CE backward also against
 themselves: two runs must give equal bits; the flash backward pair, with
 its delta pass, and the head backward pair also timed beside the
@@ -276,6 +278,34 @@ op-by-op step bit for bit:
   the in-place rule on the card (its generator's backward runs after the
   discriminator's in-place Adam).
 
+Then training that survives faults (the recipe step of train_recipe,
+its decay over GUARD_DECAY_STEPS runs):
+
+- ``compiled_recipe``: the recipe through ``CompiledProgram(main)
+  .with_data_parallel(loss_name=, build_strategy=BuildStrategy(),
+  exec_strategy=ExecutionStrategy())``, through ``ParallelExecutor`` and
+  with ``check_numerics=True``, six steps each, equal to
+  ``Executor.run``'s fetches and persistables bit for bit, the launches
+  of train_recipe a step (and one finite check with the guard); the
+  guard's replay ms, device ms, launches and pool bytes.
+- ``numeric_skip``: ``numeric_policy="skip"`` with the failpoint
+  ``executor.step:corrupt=input_mask@3``: the poisoned run leaves every
+  persistable and the run counter as they were, the later runs equal a
+  clean run without that batch bit for bit; the same inside a six-step
+  ``run_steps`` window poisoned at step 2; the skip budget; "raise"
+  naming its culprit, graphed equal to op by op.
+- ``resilient_recipe``: ResilientTrainer over eight batches
+  (checkpoint_every=3, keep_last=2), each run bit-equal to its
+  uninterrupted reference: (a) ``step:preempt@6`` at 12 layers; at 2
+  layers of the same width (b) numeric_policy="rewind" with batch 4
+  poisoned, (c) run_steps windows, (d) a torn checkpoint
+  (``io.manifest_write:raise@2``), (e) a stalled card under
+  collective_timeout_s; checkpoint and restore seconds and bytes, steps
+  replayed.
+- ``compiled_parity``: 2-layer BERT under numeric_policy="skip", card
+  graphed against CPU with the same batch poisoned: the same step
+  skipped on both, the rest within PARITY_*.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -350,6 +380,37 @@ RECIPE_WEIGHT_DECAY, RECIPE_CLIP = 0.01, 1.0
 RECIPE_STEPS, RECIPE_LAMB_STEPS = 6, 3
 RECIPE_LAMB_PER_STEP = dict(TRAIN_PER_STEP, fused_adam=0)
 RECIPE_LR_RTOL = 1e-6
+# compiled_recipe / numeric_skip / resilient_recipe (the compiled front
+# door, the numeric guard, resilient training): train_recipe's program
+# (BERT-base bf16, batch 128 x 128, dropout 0.1, AdamW, the warmup over
+# the polynomial decay, the global-norm clip) with the decay over
+# GUARD_DECAY_STEPS runs, so the rate stays above 0 over every run of
+# these phases (train_recipe's 6 reaches 0 at run 3, after which a
+# skipped or replayed step would move no parameter). numeric_skip: the
+# failpoint executor.step:corrupt=input_mask@GUARD_POISON_RUN NaN-poisons
+# one element of that run's float feed (models/bert.py input_mask); the
+# window poisons step GUARD_WINDOW_POISON of GUARD_WINDOW; the skip guard
+# launches the finite check once and the guarded copy twice (backup,
+# gated restore) a replayed step; the check alone (check_numerics=True,
+# "raise") launches the finite check once.
+GUARD_DECAY_STEPS = 100
+GUARD_STEPS = 6
+GUARD_POISON_RUN = 3
+GUARD_WINDOW, GUARD_WINDOW_POISON = 6, 2
+GUARD_SKIP_BUDGET = 2
+GUARD_SKIP_PER_STEP = {"finite_flags": 1, "guarded_copy": 2}
+# resilient_recipe: RESILIENT_BATCHES batches, a checkpoint every
+# RESILIENT_CKPT_EVERY steps, the newest RESILIENT_KEEP kept; run (a) at
+# 12 layers, (b)-(e) at RESILIENT_LAYERS layers of the same width (the
+# phases' time budget); (b) poisons batch RESILIENT_REWIND_POISON; (e)
+# stalls the card RESILIENT_STALL_S (a sleep kernel) before run
+# RESILIENT_STALL_RUN under collective_timeout_s=RESILIENT_TIMEOUT_S,
+# above a 2-layer step's ~20 ms and below the stalled step's time.
+RESILIENT_BATCHES, RESILIENT_CKPT_EVERY, RESILIENT_KEEP = 8, 3, 2
+RESILIENT_LAYERS = 2
+RESILIENT_REWIND_POISON = 4
+RESILIENT_STALL_RUN = 5
+RESILIENT_STALL_S, RESILIENT_TIMEOUT_S = 3.0, 1.0
 # optimizer_parity: the PARITY_* comparison of train_parity (2-layer
 # BERT-base-width, PARITY_BATCH x 128, three steps) for each optimizer
 # under the recipe's schedule and clip and an L2Decay(PARITY_L2)
@@ -966,6 +1027,55 @@ def _ring(torch, tensors):
 
 def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def nan_cases(torch, fa, bce):
+    """NaN propagation, kernel against plain version: the flash forward
+    with a NaN in the key mask (batch 0, key 0) and in one query element,
+    f32 and bf16, and the CE forward with a NaN logit, must put NaN where
+    the plain version does (the JAX package's arithmetic) and agree
+    elsewhere: a kernel that turned a NaN into a finite value would hide
+    a poisoned step from the numeric guard."""
+    dev = torch.device("cuda", 0)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(SEED + 950)
+        q, k, v = (torch.randn(2, 2, 128, 64, generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        mask = torch.zeros(2, 1, 1, 128, device=dev, dtype=dtype)
+        mask[0, 0, 0, 0] = float("nan")
+        q[1, 0, 5, 3] = float("nan")
+        got, lse = fa.flash_attention(q, k, v, mask)
+        want, want_lse = fa.flash_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        same = torch.equal(torch.isnan(got), torch.isnan(want)) and \
+            torch.equal(torch.isnan(lse), torch.isnan(want_lse))
+        keep = ~torch.isnan(want)
+        err = _max_err(got[keep], want[keep])
+        tol = TOL[("flash", str(dtype).split(".")[1])]
+        out.append(dict(name="nan_mask_and_query_" + str(dtype).split(".")[1],
+                        shape=[2, 2, 128, 128, 64], ok=same and err <= tol,
+                        nan_positions_equal=same,
+                        kernel_nans=int(torch.isnan(got).sum()),
+                        plain_nans=int(torch.isnan(want).sum()),
+                        max_abs_err=err, tol=tol))
+    g = torch.Generator(device=dev).manual_seed(SEED + 951)
+    x = torch.randn(256, 32000, generator=g, device=dev)
+    x[3, 17] = float("nan")
+    lab = torch.randint(0, 32000, (256,), generator=g, device=dev)
+    loss, lse = bce.softmax_ce(x, lab)
+    want_loss, want_lse = bce.softmax_ce_plain(x, lab)
+    torch.cuda.synchronize()
+    same = torch.equal(torch.isnan(loss), torch.isnan(want_loss)) and \
+        torch.equal(torch.isnan(lse), torch.isnan(want_lse))
+    keep = ~torch.isnan(want_loss)
+    err = _max_err(loss[keep], want_loss[keep])
+    ce = [dict(name="nan_logit", shape=[256, 32000],
+               ok=same and err <= 1e-4, nan_positions_equal=same,
+               kernel_nans=int(torch.isnan(loss).sum()),
+               plain_nans=int(torch.isnan(want_loss).sum()),
+               max_abs_err=err, tol=1e-4)]
+    return out, ce
 
 
 def flash_cases(torch, fa, F):
@@ -1748,9 +1858,13 @@ def serve(torch, np, ptt, counters, model_dir):
 
 
 class Counters(object):
-    """The eleven kernels' launch counters, read and zeroed together."""
+    """The kernels' launch counters, zeroed together. ``read`` gives the
+    eleven kernels' of the Pallas sites, ``read_all`` also the numeric
+    guard's two (``finite_flags``, ``guarded_copy``)."""
 
-    def __init__(self, fa, ln, fad, bce):
+    def __init__(self, fa, ln, fad, bce, ng):
+        self._guard = {"finite_flags": (ng, "launches"),
+                       "guarded_copy": (ng, "copy_launches")}
         self._fields = {
             "flash_attention_fwd": (fa, "launches"),
             "flash_attention_bwd_dkv": (fa, "dkv_launches"),
@@ -1765,12 +1879,18 @@ class Counters(object):
             "ce_bwd": (bce, "ce_bwd_launches")}
 
     def zero(self):
-        for mod, attr in self._fields.values():
+        for mod, attr in list(self._fields.values()) + list(
+                self._guard.values()):
             setattr(mod, attr, 0)
 
     def read(self):
         return {k: getattr(mod, attr)
                 for k, (mod, attr) in self._fields.items()}
+
+    def read_all(self):
+        return dict(self.read(), **{k: getattr(mod, attr)
+                                    for k, (mod, attr) in
+                                    self._guard.items()})
 
 
 def _pretrain_program(ptt, bert, cfg, batch, optimizer_fn=None):
@@ -1792,11 +1912,11 @@ def _no_weight_decay(param):
     return param.name.endswith(("_ln_s", "_ln_b", ".b_0"))
 
 
-def _recipe_schedule(ptt, base):
+def _recipe_schedule(ptt, base, decay_steps=RECIPE_DECAY_STEPS):
     """The recipe's rate: a linear warmup over a polynomial decay."""
     layers = ptt.layers
     return layers.linear_lr_warmup(
-        layers.polynomial_decay(base, decay_steps=RECIPE_DECAY_STEPS,
+        layers.polynomial_decay(base, decay_steps=decay_steps,
                                 end_learning_rate=0.0),
         warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=base)
 
@@ -1812,14 +1932,16 @@ def _recipe_rate(run, base):
 
 
 def _recipe_optimizer(ptt, make, base, regularization=None, fetch=None,
-                      scheduled=True, wrap=None):
+                      scheduled=True, wrap=None,
+                      decay_steps=RECIPE_DECAY_STEPS):
     """optimizer_fn: ``make(optimizer module, rate)`` under the recipe's
     schedule (else at the constant ``base``) and global-norm clip; the
     rate and the global norm land in ``fetch``. ``wrap(optimizer module,
     inner optimizer, loss)`` minimizes through a wrapper (EMA, Lookahead,
     ModelAverage) and returns it, kept in ``fetch["wrapper"]``."""
     def fn(loss):
-        lr = _recipe_schedule(ptt, base) if scheduled else base
+        lr = _recipe_schedule(ptt, base, decay_steps) if scheduled \
+            else base
         opt = make(ptt.optimizer, lr)
         opt.regularization = regularization
         clip = ptt.clip.GradientClipByGlobalNorm(RECIPE_CLIP)
@@ -2043,15 +2165,20 @@ def train_recipe_lamb(torch, np, ptt, counters):
                               exclude_from_weight_decay_fn=_no_weight_decay)))
 
 
-def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
+def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
+                 skip_step=None):
     """PARITY_STEPS runs of a training program on the card and on the CPU
     (plain versions) from the same startup weights, held to PARITY_*; on
     the card also op by op, which must give the graphed runs' bits: (the
     comparison's numbers, whether it passed). ``feed``: one feed, or a
-    list of PARITY_STEPS feeds, one a run. A wrapper's state
-    (``_wrapper_state``) is held as the parameters are, its integer
-    counters exactly."""
+    list of feeds, one a run. A wrapper's state (``_wrapper_state``) is
+    held as the parameters are, its integer counters exactly. ``target``:
+    what the Executor runs (a CompiledProgram of ``main``); ``skip_step``:
+    the run its numeric guard must skip on every device (a non-finite
+    loss, one "skip" numeric_fault event naming the same culprit), left
+    out of the loss comparison."""
     feeds = feed if isinstance(feed, list) else [feed] * PARITY_STEPS
+    from paddle_tpu_torch.framework import resilience
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
     init = ptt.Scope()
@@ -2060,29 +2187,42 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
     # tensors, not numpy: bf16 weights keep their dtype
     arrays = {v.name: init.find_var(v.name).cpu()
               for v in main.list_vars() if v.persistable}
-    runs = {}
+    runs, faults = {}, {}
     for label, place, cache in (("gpu", ptt.CUDAPlace(0), True),
                                 ("gpu_op_by_op", ptt.CUDAPlace(0), False),
                                 ("cpu", ptt.CPUPlace(), True)):
         scope = ptt.Scope()
         set_params_from_numpy(arrays, main, scope, place)
         exe = ptt.Executor(place)
+        resilience.clear_events()
         t0 = time.perf_counter()
         with ptt.scope_guard(scope):
             losses = [float(np.asarray(exe.run(
-                main, feed=step_feed, fetch_list=fetch_list,
+                main if target is None else target, feed=step_feed,
+                fetch_list=fetch_list,
                 use_program_cache=cache)[0]).reshape(()))
                 for step_feed in feeds]
         runs[label] = (losses, scope, (time.perf_counter() - t0) * 1e3)
+        faults[label] = [(e["policy"], e.get("culprit"))
+                         for e in resilience.events("numeric_fault")]
         exe.close()
     # the card's graphed runs (a warm run, a capture, a replay) against
     # its op-by-op runs: equal bits
     op_scope = runs["gpu_op_by_op"][1]
-    graphed_equal = runs["gpu"][0] == runs["gpu_op_by_op"][0] and all(
+    graphed_equal = np.array_equal(runs["gpu"][0], runs["gpu_op_by_op"][0],
+                                   equal_nan=True) and all(
         np.array_equal(to_numpy(runs["gpu"][1].find_var(v.name)),
                        to_numpy(op_scope.find_var(v.name)))
         for v in main.list_vars() if v.persistable)
     (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
+    skipped_ok = True
+    if skip_step is not None:
+        skipped_ok = all(
+            not np.isfinite(runs[k][0][skip_step]) and len(faults[k]) == 1
+            and faults[k][0][0] == "skip" and faults[k][0][1] and
+            faults[k][0] == faults["cpu"][0] for k in runs)
+        gl = [v for i, v in enumerate(gl) if i != skip_step]
+        cl = [v for i, v in enumerate(cl) if i != skip_step]
     dtype = ("bfloat16" if any(p.dtype == "bfloat16"
                                for p in main.all_parameters()) else "float32")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
@@ -2120,8 +2260,11 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
           and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
           and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
           and moved >= 10 * PARITY_PARAM_ATOL and graphed_equal
-          and counters_equal)
-    return {"steps": PARITY_STEPS, "dropout": 0.0, "dtype": dtype,
+          and counters_equal and skipped_ok)
+    extra = {} if skip_step is None else {
+        "skipped_step": skip_step, "skipped_on_every_device": skipped_ok,
+        "numeric_faults": faults}
+    return dict({"steps": len(feeds), "dropout": 0.0, "dtype": dtype,
             "wrapper_state": len(wrapper), "wrapper_counters": counters[:4],
             "wrapper_counters_equal": counters_equal,
             "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
@@ -2135,7 +2278,7 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed):
             "moved_rel_err_largest": moved_errs[:4],
             "moved_rtol": PARITY_MOVED_RTOL,
             "param_max_moved": moved, "gpu_ms": g_ms, "cpu_ms": c_ms,
-            "graphed_bit_equal_op_by_op": graphed_equal}, ok
+            "graphed_bit_equal_op_by_op": graphed_equal}, **extra), ok
 
 
 def train_parity(torch, np, ptt):
@@ -3707,7 +3850,7 @@ def _card_vs_cpu_all(np, ptt, main, startup, fetch_list, feed, fetch_tols,
     ptt.Executor().run(startup, scope=init)
     persist = sorted(v.name for v in main.list_vars() if v.persistable)
     arrays = {n: init.find_var(n).cpu() for n in persist}
-    runs = {}
+    runs, faults = {}, {}
     for label, place, cache in (("gpu", ptt.CUDAPlace(0), True),
                                 ("gpu_op_by_op", ptt.CUDAPlace(0), False),
                                 ("cpu", ptt.CPUPlace(), True)):
@@ -6251,6 +6394,791 @@ def zoo_parity(torch, np, ptt, counters, model_dir):
                              "above)")
 
 
+# -- the compiled front door, the numeric guard, resilient training ------
+
+def _bits(torch, t):
+    """``t``'s raw bits (a float tensor viewed as integers), so that two
+    NaNs of one pattern compare equal."""
+    t = t.detach().contiguous()
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def _same_bits(torch, a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            torch.equal(_bits(torch, a), _bits(torch, b.to(a.device)))
+    return a == b
+
+
+def _unequal_state(torch, names, a, b):
+    """The names (and the run counter) whose values differ in bits
+    between scopes (or snapshots) ``a`` and ``b``."""
+    from paddle_tpu_torch.framework.executor import _SALT_VAR
+    get_a = a.find_var if hasattr(a, "find_var") else a.get
+    get_b = b.find_var if hasattr(b, "find_var") else b.get
+    out = [n for n in names if not _same_bits(torch, get_a(n), get_b(n))]
+    if (get_a(_SALT_VAR) or 0) != (get_b(_SALT_VAR) or 0):
+        out.append(_SALT_VAR)
+    return out
+
+
+def _guard_program(ptt, bert, cfg, batch):
+    """train_recipe's program (AdamW, the schedule, the clip) with the
+    schedule's decay over GUARD_DECAY_STEPS: (main, startup, [loss,
+    mlm_loss, nsp_loss])."""
+    return _pretrain_program(ptt, bert, cfg, batch, _recipe_optimizer(
+        ptt, lambda o, lr: o.AdamW(lr, weight_decay=RECIPE_WEIGHT_DECAY),
+        RECIPE_LR, decay_steps=GUARD_DECAY_STEPS))
+
+
+def _started(ptt, startup):
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    return scope
+
+
+def _guard_family_ms(found):
+    fams = found["device_ms_by_family"]
+    return {k: fams.get(k, 0.0) for k in ("finite_flags", "guarded_copy")}
+
+
+def compiled_recipe(torch, np, ptt, counters):
+    """The recipe step (BERT-base bf16, batch 128 x 128, dropout 0.1,
+    AdamW, the schedule and the clip) through a fluid script's front
+    door: GUARD_STEPS runs each of ``Executor.run(main)``,
+    ``Executor.run(CompiledProgram(main).with_data_parallel(loss_name=,
+    build_strategy=BuildStrategy(), exec_strategy=ExecutionStrategy()))``,
+    ``ParallelExecutor(use_cuda=True, loss_name=)`` and the compiled
+    program with ``check_numerics=True``, each on its own copy of one
+    started scope: every fetch and persistable equal to the Executor's
+    bit for bit, TRAIN_PER_STEP launches a step (and one finite-check
+    launch with the guard); replay ms with and without the guard, the
+    guard's device ms in a profiled replay, its launches and pool
+    bytes."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(dtype="bfloat16")
+    t0 = time.perf_counter()
+    main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                               BF16_TRAIN_BATCH)
+    loss = fetch_list[0]
+    feeds = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                  TRAIN_PREDS, seed=s)
+             for s in range(GUARD_STEPS)]
+    start = _started(ptt, startup)
+    setup_s = time.perf_counter() - t0
+    persist = [v.name for v in main.list_vars() if v.persistable]
+
+    def compiled(**kw):
+        return ptt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=ptt.BuildStrategy(**kw),
+            exec_strategy=ptt.ExecutionStrategy())
+    ways = {}
+    for way in ("executor", "compiled", "parallel_executor", "guarded"):
+        scope = _copy_scope(torch, ptt, start)
+        if way == "parallel_executor":
+            pe = ptt.ParallelExecutor(use_cuda=True, loss_name=loss.name,
+                                      main_program=main, scope=scope)
+            exe = pe._exe
+
+            def run(f, pe=pe):
+                return pe.run(fetch_list, feed=f, return_numpy=False)
+            mesh = pe._compiled._build_strategy.mesh_axes
+        else:
+            exe = ptt.Executor()
+            target = {"executor": main, "compiled": compiled(),
+                      "guarded": compiled(check_numerics=True)}[way]
+            mesh = None if way == "executor" else \
+                target._build_strategy.mesh_axes
+
+            def run(f, exe=exe, target=target, scope=scope):
+                return exe.run(target, feed=f, fetch_list=fetch_list,
+                               scope=scope, return_numpy=False)
+        step_ms, fetched, per_step = [], [], []
+        counters.zero()                      # the main path starts here
+        for f in feeds:
+            before = counters.read_all()
+            t1 = time.perf_counter()
+            fetched.append(run(f))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            after = counters.read_all()
+            per_step.append({k: after[k] - before[k] for k in after})
+        ways[way] = {"exe": exe, "scope": scope, "run": run,
+                     "fetched": fetched, "step_ms": step_ms,
+                     "per_step": per_step, "mesh_axes": mesh,
+                     "launches": counters.read_all()}
+    ref = ways["executor"]
+    record, ok = {}, True
+    for way, w in ways.items():
+        fetch_equal = all(_same_bits(torch, a, b)
+                          for x, y in zip(w["fetched"], ref["fetched"])
+                          for a, b in zip(x, y))
+        unequal = _unequal_state(torch, persist, w["scope"], ref["scope"])
+        want = dict(TRAIN_PER_STEP, finite_flags=int(way == "guarded"),
+                    guarded_copy=0)
+        counts_ok = all(c == want for c in w["per_step"])
+        finite = all(np.isfinite(float(f[0].reshape(())))
+                     for f in w["fetched"])
+        ok = ok and fetch_equal and not unequal and counts_ok and finite
+        record[way] = {
+            "mesh_axes": w["mesh_axes"], "fetches_bit_equal": fetch_equal,
+            "state_unequal": unequal[:8], "launches_per_step": w["per_step"][-1],
+            "launches_ok": counts_ok, "step_ms": w["step_ms"],
+            "replay_ms_median": statistics.median(w["step_ms"][2:]),
+            "losses": [float(f[0].reshape(())) for f in w["fetched"]],
+            "captures": [dict(c, launches=None) for c in w["exe"].capture_log]}
+    g = ways["guarded"]
+    found = {w: _profiled(torch, lambda w=w: ways[w]["run"](feeds[-1]))
+             for w in ("compiled", "guarded")}
+    guard_ms = _guard_family_ms(found["guarded"])
+    plain_replay = record["compiled"]["replay_ms_median"]
+    guard_replay = record["guarded"]["replay_ms_median"]
+    cap = g["exe"].capture_log[-1]
+    emit({"phase": "compiled_recipe", "ok": ok, "model": "bert_base",
+          "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "dropout": cfg.hidden_dropout,
+          "decay_steps": GUARD_DECAY_STEPS, "setup_s": setup_s,
+          "ways": record, "state_tensors": len(persist),
+          "guard": {"policy": "raise (check_numerics=True)",
+                    "replay_ms": guard_replay, "unguarded_replay_ms":
+                    plain_replay, "step_share": guard_replay / plain_replay
+                    - 1, "device_ms": guard_ms,
+                    "device_busy_ms": {w: found[w]["device_busy_ms"]
+                                       for w in found},
+                    "launches_per_step": {"finite_flags": 1,
+                                          "guarded_copy": 0},
+                    "checked_tensors": len(next(iter(
+                        g["exe"]._guards.values())).names),
+                    "capture_pool_bytes": cap["pool_bytes"],
+                    "unguarded_capture_pool_bytes":
+                        ways["compiled"]["exe"].capture_log[-1]["pool_bytes"]},
+          "profile": {w: {k: v for k, v in found[w].items()
+                          if k != "kernel_names"} for w in found}})
+    launches = _sum_launches(*[w["launches"] for w in ways.values()])
+    for way, w in ways.items():
+        close_executor(torch, "compiled_recipe %s" % way, w["exe"])
+    if not ok:
+        raise AssertionError("compiled_recipe checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def numeric_skip(torch, np, ptt, counters):
+    """numeric_policy="skip" on the recipe step at full width, graphed:
+    GUARD_STEPS runs with ``executor.step:corrupt=input_mask@3`` poisoning
+    the third run's batch (a non-finite loss; every persistable and the
+    run counter equal to their values before it, bit for bit; one
+    numeric_fault event naming a culprit), the later runs equal to a clean
+    run of the same batches without the poisoned one bit for bit; then a
+    GUARD_WINDOW-step run_steps window with step GUARD_WINDOW_POISON
+    poisoned, equal to the window without that batch (the event's step
+    is GUARD_WINDOW_POISON); the skip budget (GUARD_SKIP_BUDGET with
+    ``@1+``: the third consecutive skip raises SkipBudgetExceededError, a
+    clean step ends the streak); and "raise" naming a culprit, its
+    poisoned state written back, graphed equal to op by op. Replay ms
+    with the skip guard and without, its device ms, launches and pool
+    bytes."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.framework import faultinject, resilience
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                               BF16_TRAIN_BATCH)
+    loss = fetch_list[0]
+    persist = [v.name for v in main.list_vars() if v.persistable]
+
+    def batch(seed):
+        return bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                    TRAIN_PREDS, seed=seed)
+    start = _started(ptt, startup)
+    guarded, clean = _copy_scope(torch, ptt, start), \
+        _copy_scope(torch, ptt, start)
+    exe = ptt.Executor()
+    skip = ptt.CompiledProgram(main, ptt.BuildStrategy(
+        numeric_policy="skip", numeric_skip_budget=GUARD_SKIP_BUDGET)
+    ).with_data_parallel(loss_name=loss.name)
+    feeds = [batch(100 + s) for s in range(GUARD_STEPS)]
+    poisoned = GUARD_POISON_RUN - 1
+    resilience.clear_events()
+    got, step_ms, per_step = [], [], []
+    counters.zero()                          # the main path starts here
+    with faultinject.failpoints(["executor.step:corrupt=input_mask@%d"
+                                 % GUARD_POISON_RUN]):
+        for i, f in enumerate(feeds):
+            if i == poisoned:
+                pre = _snapshot(torch, guarded)
+            before = counters.read_all()
+            t1 = time.perf_counter()
+            got.append(exe.run(skip, feed=f, fetch_list=fetch_list,
+                               scope=guarded, return_numpy=False))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            after = counters.read_all()
+            per_step.append({k: after[k] - before[k] for k in after})
+            if i == poisoned:
+                reverted = _unequal_state(torch, persist, pre, guarded)
+                del pre
+    launches = counters.read_all()
+    faults = resilience.events("numeric_fault")
+    clean_ms, ref = [], []
+    for i, f in enumerate(feeds):
+        if i == poisoned:
+            continue
+        t1 = time.perf_counter()
+        ref.append(exe.run(main, feed=f, fetch_list=fetch_list, scope=clean,
+                           return_numpy=False))
+        torch.cuda.synchronize()
+        clean_ms.append((time.perf_counter() - t1) * 1e3)
+    kept = [o for i, o in enumerate(got) if i != poisoned]
+    run_equal = all(_same_bits(torch, a, b) for x, y in zip(kept, ref)
+                    for a, b in zip(x, y))
+    run_state = _unequal_state(torch, persist, guarded, clean)
+    poisoned_loss = float(got[poisoned][0].reshape(()))
+    want = dict(TRAIN_PER_STEP, **GUARD_SKIP_PER_STEP)
+    run_ok = (not reverted and run_equal and not run_state
+              and not np.isfinite(poisoned_loss)
+              and len(faults) == 1 and faults[0]["policy"] == "skip"
+              and bool(faults[0].get("culprit"))
+              and all(c == want for c in per_step[1:]))
+    # the window: run_steps with step GUARD_WINDOW_POISON poisoned,
+    # against the clean window without that batch
+    wfeeds = [batch(200 + s) for s in range(GUARD_WINDOW)]
+    stacked = {k: np.stack([f[k] for f in wfeeds]) for k in wfeeds[0]}
+    stacked["input_mask"][GUARD_WINDOW_POISON].reshape(-1)[0] = np.nan
+    rest = [f for i, f in enumerate(wfeeds) if i != GUARD_WINDOW_POISON]
+    resilience.clear_events()
+    t1 = time.perf_counter()
+    wgot = exe.run_steps(skip, feed=stacked, fetch_list=fetch_list,
+                         scope=guarded, return_numpy=False)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t1) * 1e3
+    wfaults = resilience.events("numeric_fault")
+    wref = exe.run_steps(main, feed={k: np.stack([f[k] for f in rest])
+                                     for k in rest[0]},
+                         fetch_list=fetch_list, scope=clean,
+                         return_numpy=False)
+    keep = [i for i in range(GUARD_WINDOW) if i != GUARD_WINDOW_POISON]
+    window_equal = all(_same_bits(torch, g[keep], r)
+                       for g, r in zip(wgot, wref))
+    window_state = _unequal_state(torch, persist, guarded, clean)
+    window_ok = (window_equal and not window_state
+                 and not np.isfinite(float(wgot[0][GUARD_WINDOW_POISON]))
+                 and [(e["policy"], e["step"]) for e in wfaults]
+                 == [("skip", GUARD_WINDOW_POISON)]
+                 and bool(wfaults[0].get("culprit")))
+    # the skip guard's cost: a profiled replay of each key
+    found = {"skip_guard": _profiled(torch, lambda: exe.run(
+        skip, feed=feeds[0], fetch_list=fetch_list, scope=guarded)),
+        "unguarded": _profiled(torch, lambda: exe.run(
+            main, feed=feeds[0], fetch_list=fetch_list, scope=clean))}
+    guard = next(gd for gd in exe._guards.values() if gd.policy == "skip")
+    # the budget: every run poisoned from the first on
+    resilience.clear_events()
+    budget_error = None
+    with faultinject.failpoints(["executor.step:corrupt=input_mask@1+"]):
+        try:
+            for _ in range(GUARD_SKIP_BUDGET + 1):
+                exe.run(skip, feed=feeds[0], fetch_list=fetch_list,
+                        scope=guarded)
+        except resilience.SkipBudgetExceededError as e:
+            budget_error = "%s: %s" % (type(e).__name__, e)
+    exe.run(skip, feed=feeds[1], fetch_list=fetch_list, scope=guarded)
+    streak_ended = exe._numeric_skips == 0
+    with faultinject.failpoints(["executor.step:corrupt=input_mask@1"]):
+        exe.run(skip, feed=feeds[2], fetch_list=fetch_list, scope=guarded)
+    budget_ok = (budget_error is not None and streak_ended
+                 and exe._numeric_skips == 1
+                 and len(resilience.events("numeric_fault"))
+                 == GUARD_SKIP_BUDGET + 2)
+    # "raise": graphed (a warm run, a capture, then the poisoned replay)
+    # against op by op from a copy of the scope before the poisoned step
+    check = ptt.CompiledProgram(main, ptt.BuildStrategy(
+        check_numerics=True)).with_data_parallel(loss_name=loss.name)
+    for f in feeds[3:5]:
+        exe.run(check, feed=f, fetch_list=fetch_list, scope=guarded)
+    op_scope = _copy_scope(torch, ptt, guarded)
+    bad = dict(feeds[5])
+    bad["input_mask"] = bad["input_mask"].copy()
+    bad["input_mask"].reshape(-1)[0] = np.nan
+    raised = {}
+    for way, scope, cache in (("graphed", guarded, True),
+                              ("op_by_op", op_scope, False)):
+        try:
+            exe.run(check, feed=bad, fetch_list=fetch_list, scope=scope,
+                    use_program_cache=cache)
+        except FloatingPointError as e:
+            raised[way] = "%s: %s" % (type(e).__name__, e)
+    raise_state = _unequal_state(torch, persist, guarded, op_scope)
+    poisoned_state = any(not bool(torch.isfinite(guarded.find_var(n)).all())
+                         for n in persist
+                         if guarded.find_var(n).is_floating_point())
+    raise_ok = (len(raised) == 2 and "var '" in raised["graphed"]
+                and not raise_state and poisoned_state)
+    ok = run_ok and window_ok and budget_ok and raise_ok
+    skip_replay = statistics.median(step_ms[GUARD_POISON_RUN:])
+    clean_replay = statistics.median(clean_ms[2:])
+    emit({"phase": "numeric_skip", "ok": ok, "model": "bert_base",
+          "dtype": cfg.dtype, "batch": BF16_TRAIN_BATCH,
+          "dropout": cfg.hidden_dropout,
+          "failpoint": "executor.step:corrupt=input_mask@%d"
+          % GUARD_POISON_RUN,
+          "run": {"ok": run_ok, "poisoned_run": GUARD_POISON_RUN,
+                  "poisoned_loss": poisoned_loss,
+                  "state_after_skip_unequal_pre": reverted[:8],
+                  "later_runs_equal_clean": run_equal,
+                  "state_unequal_clean": run_state[:8],
+                  "events": [{k: v for k, v in e.items() if k != "time"}
+                             for e in faults],
+                  "launches_per_step": per_step, "step_ms": step_ms,
+                  "clean_step_ms": clean_ms},
+          "window": {"ok": window_ok, "steps": GUARD_WINDOW,
+                     "poisoned_step": GUARD_WINDOW_POISON,
+                     "equal_clean_window": window_equal,
+                     "state_unequal_clean": window_state[:8],
+                     "events": [{k: v for k, v in e.items() if k != "time"}
+                                for e in wfaults],
+                     "window_ms": window_ms},
+          "budget": {"ok": budget_ok, "budget": GUARD_SKIP_BUDGET,
+                     "error": budget_error, "streak_ended": streak_ended},
+          "raise": {"ok": raise_ok, "errors": raised,
+                    "graphed_state_unequal_op_by_op": raise_state[:8],
+                    "poisoned_state_written_back": poisoned_state},
+          "guard": {"policy": "skip", "replay_ms": skip_replay,
+                    "unguarded_replay_ms": clean_replay,
+                    "step_share": skip_replay / clean_replay - 1,
+                    "device_ms": _guard_family_ms(found["skip_guard"]),
+                    "device_busy_ms": {k: v["device_busy_ms"]
+                                       for k, v in found.items()},
+                    "launches_per_step": GUARD_SKIP_PER_STEP,
+                    "written_tensors": len(guard.writes),
+                    "checked_tensors": len(guard.names),
+                    "copies_bytes": guard.pool_bytes,
+                    "captures": [dict(c, launches=None)
+                                 for c in exe.capture_log]},
+          "profile": {k: {kk: vv for kk, vv in v.items()
+                          if kk != "kernel_names"}
+                      for k, v in found.items()}})
+    close_executor(torch, "numeric_skip", exe)
+    if not ok:
+        raise AssertionError("numeric_skip checks failed (see the line "
+                             "above)")
+    return launches
+
+
+class _Timed(object):
+    """Seconds of each call of a trainer's ``_save``."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args)
+        finally:
+            self.seconds.append(time.perf_counter() - t0)
+
+
+def _uninterrupted(torch, ptt, main, start, batches, fetch_list):
+    """The batches run one by one on a copy of ``start``: (each run's
+    fetches as numpy arrays, the scope)."""
+    scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+    out = [exe.run(main, feed=b, fetch_list=fetch_list, scope=scope)
+           for b in batches]
+    exe.close()
+    return out, scope
+
+
+def _resilient(torch, np, ptt, label, exe, target, main, start, batches,
+               fetch_list, root, want, persist, **kw):
+    """One ResilientTrainer run on a copy of ``start`` against ``want``
+    ((fetches, scope) of the uninterrupted run; a None fetch is a batch
+    that must be skipped): its record and whether it ended bit-equal."""
+    from paddle_tpu_torch.framework import resilience
+    scope = _copy_scope(torch, ptt, start)
+    ckpt = os.path.join(root, label)
+    runs = [0]
+    run, run_steps = exe.run, exe.run_steps
+
+    def counted(*a, **k):
+        runs[0] += 1
+        return run(*a, **k)
+
+    def counted_steps(*a, **k):
+        runs[0] += len(next(iter(k["feed"].values())))
+        return run_steps(*a, **k)
+    exe.run, exe.run_steps = counted, counted_steps
+    trainer = resilience.ResilientTrainer(
+        exe, target, ckpt, fetch_list=fetch_list,
+        checkpoint_every=RESILIENT_CKPT_EVERY, keep_last=RESILIENT_KEEP,
+        retry_policy=resilience.RetryPolicy(base_delay_s=0.0, jitter=0.0,
+                                            sleep=lambda s: None),
+        scope=scope, **kw)
+    trainer._save = _Timed(trainer._save)
+    restore, scrubbed = trainer._restore, []
+
+    def scrub_then_restore(*a):
+        # what a restore finds on disk, before it reads anything
+        report = ptt.io.scrub_checkpoint(ckpt)
+        scrubbed.append({n: st["status"]
+                         for n, st in sorted(report["steps"].items())})
+        return restore(*a)
+    trainer._restore = scrub_then_restore
+    resilience.clear_events()
+    t0 = time.perf_counter()
+    fetched = trainer.run(batches)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want_fetches, want_scope = want
+    skipped = [i for i, f in enumerate(want_fetches) if f is None]
+    fetch_equal = all(
+        (g is None) if w is None else
+        (g is not None and all(np.array_equal(a, b)
+                               for a, b in zip(g, w)))
+        for g, w in zip(fetched, want_fetches))
+    unequal = _unequal_state(torch, persist, scope, want_scope)
+    evs = {k: [{kk: vv for kk, vv in e.items() if kk != "time"}
+               for e in resilience.events(k)]
+           for k in ("fault", "failpoint", "restart", "restore",
+                     "numeric_fault", "poison_batch", "watchdog_timeout",
+                     "ckpt_quarantine", "scrub")}
+    ckpt_bytes = resilience.bytes_totals().get("ckpt", {})
+    report = ptt.io.scrub_checkpoint(ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ok = fetch_equal and not unequal and len(evs["restart"]) == 1
+    return {"ok": ok, "fetches_bit_equal": fetch_equal,
+            "state_unequal": unequal[:8], "batches": len(batches),
+            "skipped_batches": skipped, "runs_dispatched": runs[0],
+            # runs beyond one a kept batch, less those a fault stopped
+            # before they ran and the poisoned runs
+            "steps_replayed": runs[0] - (len(batches) - len(skipped))
+            - len(evs["fault"]) - len(evs["numeric_fault"]),
+            "seconds": seconds,
+            "checkpoint_seconds": trainer._save.seconds,
+            "checkpoint_bytes": ckpt_bytes,
+            "restore_seconds": [e["latency_s"] for e in evs["restore"]],
+            "scrub_at_restore": scrubbed,
+            "scrub_after": {"valid": report["valid_steps"],
+                            "quarantined": report["quarantined"]},
+            "events": evs}, ok
+
+
+def resilient_recipe(torch, np, ptt, counters):
+    """ResilientTrainer over RESILIENT_BATCHES batches of the recipe step
+    (checkpoint_every=RESILIENT_CKPT_EVERY, keep_last=RESILIENT_KEEP),
+    each run ending bit-equal to its uninterrupted reference: (a)
+    ``step:preempt@6`` at the full 12 layers (one restore to step 3); at
+    RESILIENT_LAYERS layers of the same width: (b) numeric_policy=
+    "rewind" with batch RESILIENT_REWIND_POISON poisoned (against the
+    uninterrupted run of the other batches; a poison_batch event); (c)
+    steps_per_dispatch=2, the windows through run_steps, preempted at the
+    4th dispatch; (d) a torn checkpoint (``io.manifest_write:raise@2``:
+    the step-3 shards on disk, no manifest; the restore falls back to
+    step 0); (e) collective_timeout_s=RESILIENT_TIMEOUT_S with the card
+    stalled RESILIENT_STALL_S before run RESILIENT_STALL_RUN: a
+    CollectiveTimeoutError, classified transient, recovered.
+    Checkpoint seconds and bytes, restore seconds, steps replayed."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.framework import faultinject, resilience
+    root = os.path.join(_ROOT, "build", "chip_smoke_resilient")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, ok = {}, True
+    counters.zero()                          # the main path starts here
+    try:
+        cfg = bert.bert_base(dtype="bfloat16")
+        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                                   BF16_TRAIN_BATCH)
+        persist = [v.name for v in main.list_vars() if v.persistable]
+        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                        TRAIN_PREDS, seed=300 + s)
+                   for s in range(RESILIENT_BATCHES)]
+        start = _started(ptt, startup)
+        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
+        exe = ptt.Executor()
+        with resilience.inject("step:preempt@6"):
+            out["a_preempt"], done = _resilient(
+                torch, np, ptt, "a", exe, main, main, start, batches,
+                fetch_list, root, want, persist)
+        done = done and out["a_preempt"]["events"]["restore"][-1][
+            "step"] == RESILIENT_CKPT_EVERY
+        out["a_preempt"].update(layers=cfg.num_layers, ok=done)
+        ok = ok and done
+        close_executor(torch, "resilient_recipe a", exe)
+        del start, want
+        # (b)-(e) at RESILIENT_LAYERS layers of the same width
+        cfg = bert.bert_base(dtype="bfloat16", num_layers=RESILIENT_LAYERS)
+        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                                   BF16_TRAIN_BATCH)
+        loss = fetch_list[0]
+        persist = [v.name for v in main.list_vars() if v.persistable]
+        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                        TRAIN_PREDS, seed=400 + s)
+                   for s in range(RESILIENT_BATCHES)]
+        start = _started(ptt, startup)
+        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
+        clean = [b for i, b in enumerate(batches)
+                 if i != RESILIENT_REWIND_POISON]
+        fetches7, scope7 = _uninterrupted(torch, ptt, main, start, clean,
+                                          fetch_list)
+        want7 = (fetches7[:RESILIENT_REWIND_POISON] + [None]
+                 + fetches7[RESILIENT_REWIND_POISON:], scope7)
+        poisoned = list(batches)
+        poisoned[RESILIENT_REWIND_POISON] = dict(
+            batches[RESILIENT_REWIND_POISON])
+        mask = poisoned[RESILIENT_REWIND_POISON]["input_mask"].copy()
+        mask.reshape(-1)[0] = np.nan
+        poisoned[RESILIENT_REWIND_POISON]["input_mask"] = mask
+
+        def compiled(**kw):
+            return ptt.CompiledProgram(main, ptt.BuildStrategy(
+                **kw)).with_data_parallel(loss_name=loss.name)
+        exe = ptt.Executor()
+        out["b_rewind"], done = _resilient(
+            torch, np, ptt, "b", exe, compiled(numeric_policy="rewind"),
+            main, start, poisoned, fetch_list, root, want7, persist)
+        done = done and [e["batch"] for e in out["b_rewind"]["events"][
+            "poison_batch"]] == [RESILIENT_REWIND_POISON]
+        out["b_rewind"]["ok"] = done
+        ok = ok and done
+        with resilience.inject("step:preempt@4"):
+            out["c_windows"], done = _resilient(
+                torch, np, ptt, "c", exe, main, main, start, batches,
+                fetch_list, root, want, persist, steps_per_dispatch=2)
+        out["c_windows"]["steps_per_dispatch"] = 2
+        ok = ok and done
+        with faultinject.failpoints(["io.manifest_write:raise@2"]):
+            out["d_torn_write"], done = _resilient(
+                torch, np, ptt, "d", exe, main, main, start, batches,
+                fetch_list, root, want, persist)
+        done = done and out["d_torn_write"]["events"]["restore"][-1][
+            "step"] == 0
+        out["d_torn_write"]["ok"] = done
+        ok = ok and done
+        close_executor(torch, "resilient_recipe b-d", exe)
+
+        class Stalled(ptt.Executor):
+            """An Executor whose card stalls before one run: a sleep
+            kernel queued on the caller's stream, which the step waits
+            for."""
+            calls = 0
+
+            def run(self, *a, **k):
+                Stalled.calls += 1
+                if Stalled.calls == RESILIENT_STALL_RUN:
+                    torch.cuda._sleep(int(RESILIENT_STALL_S * 1e3
+                                          * _cycles_per_ms(torch)))
+                return super().run(*a, **k)
+        exe = Stalled()
+        out["e_timeout"], done = _resilient(
+            torch, np, ptt, "e", exe,
+            compiled(collective_timeout_s=RESILIENT_TIMEOUT_S), main, start,
+            batches, fetch_list, root, want, persist)
+        evs = out["e_timeout"]["events"]
+        done = done and len(evs["watchdog_timeout"]) == 1 and \
+            evs["restart"][0]["error"] == "CollectiveTimeoutError"
+        out["e_timeout"].update(
+            ok=done, timeout_s=RESILIENT_TIMEOUT_S,
+            stall_s=RESILIENT_STALL_S, stall_before_run=RESILIENT_STALL_RUN,
+            classified=resilience.classify(
+                resilience.CollectiveTimeoutError("a timed-out step")))
+        ok = ok and done
+        close_executor(torch, "resilient_recipe e", exe)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counters.read_all()
+    emit({"phase": "resilient_recipe", "ok": ok, "model": "bert_base",
+          "dtype": "bfloat16", "batch": BF16_TRAIN_BATCH,
+          "layers": {"a": 12, "b-e": RESILIENT_LAYERS},
+          "checkpoint_every": RESILIENT_CKPT_EVERY,
+          "keep_last": RESILIENT_KEEP, "runs": out})
+    if not ok:
+        raise AssertionError("resilient_recipe checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _cycles_per_ms(torch):
+    """Cycles of torch.cuda._sleep a millisecond on this card (timed)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n = 50_000_000
+    start.record()
+    torch.cuda._sleep(n)
+    end.record()
+    end.synchronize()
+    return n / start.elapsed_time(end)
+
+
+def compiled_parity(torch, np, ptt):
+    """A 2-layer BERT-base-width model (dropout 0) under
+    numeric_policy="skip", graphed on the card against the CPU from the
+    same weights, PARITY_STEPS + 1 runs with the second batch poisoned:
+    the same step skipped on both (one numeric_fault event each, the same
+    culprit), the other losses and every persistable within PARITY_*."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(num_layers=PARITY_LAYERS, hidden_dropout=0.0,
+                         attn_dropout=0.0)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  PARITY_BATCH)
+    feeds = [bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                  seed=1 + s)
+             for s in range(PARITY_STEPS + 1)]
+    feeds[1] = dict(feeds[1])
+    feeds[1]["input_mask"] = feeds[1]["input_mask"].copy()
+    feeds[1]["input_mask"].reshape(-1)[0] = np.nan
+    target = ptt.CompiledProgram(main, ptt.BuildStrategy(
+        numeric_policy="skip")).with_data_parallel(
+            loss_name=fetch_list[0].name)
+    result, ok = _card_vs_cpu(np, ptt, main, startup, fetch_list, feeds,
+                              target=target, skip_step=1)
+    emit(dict({"phase": "compiled_parity", "ok": ok,
+               "layers": PARITY_LAYERS, "hidden": cfg.hidden_size,
+               "batch": PARITY_BATCH, "seq_len": TRAIN_SEQ,
+               "policy": "skip", "poisoned_step": 1}, **result))
+    if not ok:
+        raise AssertionError("compiled_parity checks failed (see the line "
+                             "above)")
+
+
+def _recipe_state(torch, ptt, ng):
+    """Random tensors of the recipe step's float persistables (BERT-base
+    bf16 with AdamW, the schedule and the clip: parameters, moments, beta
+    powers, the rate), in name order: the numeric guard's state."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.framework.dtypes import to_torch_dtype
+    main, _, _ = _guard_program(ptt, bert, bert.bert_base(dtype="bfloat16"),
+                                BF16_TRAIN_BATCH)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 900)
+    state = []
+    for v in sorted(main.list_vars(), key=lambda v: v.name):
+        dt = to_torch_dtype(v.dtype)
+        if v.persistable and ng.is_guarded_dtype(dt):
+            state.append(torch.randn([int(d) for d in v.shape], generator=g,
+                                     device=dev).to(dt))
+    return state
+
+
+def _replay_ms(torch, fn, tables):
+    """time_ms of ``fn`` captured once into a CUDA graph and replayed: the
+    guard's kernels run so inside a captured step, their pointer tables
+    written once (``tables`` flushed after the capture), where a direct
+    call rebuilds and uploads its table each time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # reserves the tables
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for t in tables:
+        t.flush()
+    return time_ms(torch, graph.replay)
+
+
+def guard_cases(torch, ng, ptt):
+    """The numeric guard's two kernels against their plain versions at
+    the recipe step's state (~620 tensors, 1.1 GB): ``finite_flags``
+    clean, with a NaN, +Inf and -Inf in three tensors (a bf16 parameter's
+    last element, an f32 moment's middle, a one-element tensor), and on
+    f16 / f64 / odd-sized / unaligned tensors; flags equal byte for byte
+    (``max_abs_err`` counts differing bytes). ``guarded_copy`` as the
+    backup (no gate), the restore of a clean step (gate 0: nothing
+    written) and of a poisoned one (gate 1), equal bit for bit
+    (``max_abs_err`` counts unequal tensors); the backup beside
+    ``torch._foreach_copy_``. Bytes bound both. Each kernel is timed as
+    it runs in a captured step (``_replay_ms``)."""
+    dev = torch.device("cuda", 0)
+    state = _recipe_state(torch, ptt, ng)
+    n_bytes = sum(t.numel() * t.element_size() for t in state)
+    n_elems = sum(t.numel() for t in state)
+    poisoned = list(state)
+    bf16 = next(i for i, t in enumerate(state)
+                if t.dtype == torch.bfloat16 and t.numel() > 1000)
+    f32 = next(i for i, t in enumerate(state)
+               if t.dtype == torch.float32 and t.numel() > 1000)
+    one = next(i for i, t in enumerate(state) if t.numel() == 1)
+    for i, pos, val in ((bf16, -1, float("nan")),
+                        (f32, state[f32].numel() // 2, float("inf")),
+                        (one, 0, float("-inf"))):
+        t = state[i].clone()
+        t.view(-1)[pos] = val
+        poisoned[i] = t
+    base16 = torch.randn(1000004, device=dev).half()
+    base64 = torch.randn(77, device=dev).double()
+    mixed = [base16[1:1000004], base64[3:70].clone(), base64[1:8],
+             torch.randn(1, device=dev), torch.randn(5, 3, device=dev)]
+    mixed[0].view(-1)[999001] = float("nan")
+    mixed[2][6] = float("inf")
+    finite = []
+    for name, tensors in (("recipe_state", state),
+                          ("recipe_state_poisoned", poisoned),
+                          ("mixed_dtypes_unaligned", mixed)):
+        table = ng.TensorTable(dev)
+        got = torch.zeros(len(tensors) + 2, dtype=torch.uint8, device=dev)
+        want = torch.zeros_like(got)
+        ng.finite_flags(tensors, got, table)
+        ng.finite_flags_plain(tensors, want)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        nb = sum(t.numel() * t.element_size() for t in tensors)
+        ne = sum(t.numel() for t in tensors)
+        flags = [i for i, b in enumerate(got[:-2].tolist()) if b]
+        finite.append(dict(
+            name=name, tensors=len(tensors), numel=ne, max_abs_err=diff,
+            flagged=flags, any=int(got[-2]), ok=diff == 0 and (
+                bool(flags) == (name != "recipe_state")),
+            kernel_ms=_replay_ms(torch, lambda: ng.finite_flags(
+                tensors, got, table), [table]),
+            plain_ms=time_ms(torch, lambda: ng.finite_flags_plain(
+                tensors, want), reps=3, inner=2),
+            library_ms=None, **_bound(float(ne), float(nb), "float32")))
+    table = ng.TensorTable(dev)
+    dst = [torch.empty_like(t) for t in state]
+    lib_dst = [torch.empty_like(t) for t in state]
+    pairs = list(zip(state, dst))
+    ng.guarded_copy(pairs, table)
+    torch.cuda.synchronize()
+    unequal = sum(not _same_bits(torch, a, b) for a, b in pairs)
+    copy = [dict(
+        name="recipe_backup", tensors=len(pairs), numel=n_elems,
+        max_abs_err=unequal, ok=unequal == 0,
+        kernel_ms=_replay_ms(torch, lambda: ng.guarded_copy(pairs, table),
+                             [table]),
+        plain_ms=time_ms(torch, lambda: ng.guarded_copy_plain(pairs),
+                         reps=3, inner=2),
+        library_ms=time_ms(torch, lambda: torch._foreach_copy_(lib_dst,
+                                                               state)),
+        **_bound(0.0, 2.0 * n_bytes, "float32"))]
+    for name, gate_value in (("recipe_restore_clean", 0),
+                             ("recipe_restore_poisoned", 1)):
+        gate = torch.full((1,), gate_value, dtype=torch.uint8, device=dev)
+        dst = [torch.randn(t.shape, device=dev).to(t.dtype) for t in state]
+        before = [t.clone() for t in dst]
+        gpairs = list(zip(state, dst))
+        ng.guarded_copy(gpairs, table, gate=gate)
+        torch.cuda.synchronize()
+        expect = state if gate_value else before
+        unequal = sum(not _same_bits(torch, a, b)
+                      for a, b in zip(dst, expect))
+        copy.append(dict(
+            name=name, tensors=len(gpairs), numel=n_elems, gate=gate_value,
+            max_abs_err=unequal, ok=unequal == 0,
+            kernel_ms=_replay_ms(torch, lambda: ng.guarded_copy(
+                gpairs, table, gate=gate), [table]),
+            plain_ms=time_ms(torch, lambda: ng.guarded_copy_plain(
+                gpairs, gate=gate), reps=3, inner=2),
+            library_ms=None,
+            **_bound(0.0, 2.0 * n_bytes if gate_value else 1.0,
+                     "float32")))
+    return finite, copy
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -6264,6 +7192,10 @@ def _family(kernel):
                      ("head_dw_kernel", "fused_head_dw"),
                      ("ce_fwd_kernel", "ce_fwd"),
                      ("ce_bwd_kernel", "ce_bwd"),
+                     ("finite_kernel(", "finite_flags"),
+                     ("finite_kernelepkx", "finite_flags"),
+                     ("::copy_kernel(long long", "guarded_copy"),
+                     ("11copy_kernelepkx", "guarded_copy"),
                      ("fprop", "conv (cuDNN)"), ("dgrad", "conv (cuDNN)"),
                      ("wgrad", "conv (cuDNN)"), ("conv", "conv (cuDNN)"),
                      ("cudnn", "conv (cuDNN)"),
@@ -6407,6 +7339,12 @@ _KERNELS = (
      "paddle_tpu/ops/pallas/blockwise_ce.py:383"),
     ("ce_fwd", "blockwise_ce.cu", "paddle_tpu/ops/pallas/blockwise_ce.py:147"),
     ("ce_bwd", "blockwise_ce.cu", "paddle_tpu/ops/pallas/blockwise_ce.py:184"),
+    # the numeric guard: XLA code in the JAX package (its per-var finite
+    # mask and its skip revert), no Pallas site
+    ("finite_flags", "numeric_guard.cu",
+     "paddle_tpu/framework/executor.py:707"),
+    ("guarded_copy", "numeric_guard.cu",
+     "paddle_tpu/framework/executor.py:101"),
 )
 
 
@@ -6425,6 +7363,7 @@ def main():
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
         from paddle_tpu_torch.ops.kernels import fused_adam as fad
         from paddle_tpu_torch.ops.kernels import layer_norm as ln
+        from paddle_tpu_torch.ops.kernels import numeric_guard as ng
     except ImportError as e:
         print("chip_smoke: run it from a checkout of the repository "
               "(%s)" % e, file=sys.stderr)
@@ -6432,7 +7371,7 @@ def main():
     import torch.nn.functional as F
     from paddle_tpu_torch.framework.executor import set_precision
     set_precision()                          # no TF32 anywhere
-    counters = Counters(fa, ln, fad, bce)
+    counters = Counters(fa, ln, fad, bce, ng)
     os.makedirs(os.path.dirname(_LOG), exist_ok=True)
     open(_LOG, "w").close()
 
@@ -6464,6 +7403,11 @@ def main():
         (found["fused_head_fwd"], found["fused_head_dh"],
          found["fused_head_dw"]) = head_cases(torch, bce, F)
         found["ce_fwd"], found["ce_bwd"] = ce_cases(torch, bce, F)
+        found["finite_flags"], found["guarded_copy"] = guard_cases(
+            torch, ng, ptt)
+        nan_flash, nan_ce = nan_cases(torch, fa, bce)
+        found["flash_attention_fwd"] += nan_flash
+        found["ce_fwd"] += nan_ce
         ok = all(c["ok"] for cs in found.values() for c in cs)
         emit(dict({"phase": "kernels", "ok": ok}, **found))
         if not ok:
@@ -6636,13 +7580,21 @@ def main():
     finally:
         shutil.rmtree(zoo_dir, ignore_errors=True)
 
+    by_path["compiled_recipe"] = phase("compiled_recipe")(compiled_recipe)(
+        torch, np, ptt, counters)
+    by_path["numeric_skip"] = phase("numeric_skip")(numeric_skip)(
+        torch, np, ptt, counters)
+    by_path["resilient_recipe"] = phase("resilient_recipe")(
+        resilient_recipe)(torch, np, ptt, counters)
+    phase("compiled_parity")(compiled_parity)(torch, np, ptt)
+
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
         return 1
     summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
-                 {path: n[name] for path, n in by_path.items()},
+                 {path: n.get(name, 0) for path, n in by_path.items()},
                  cases[name])
         for name, src, replaces in _KERNELS]
     idle = [k["name"] for k in summary if k["launches"] < 1]

@@ -30,13 +30,22 @@ record files or MultiSlot text, read by the C++ data plane in
 ``native``, with ``set_length_buckets``) through
 ``Executor.train_from_dataset``; a started ``layers.py_reader`` with
 ``Executor.run`` and no feed; or ``reader.DataLoader.from_generator``.
-The other models are later slices (see ROADMAP.md).
+A fluid script's front door, ``CompiledProgram(main).with_data_parallel(
+loss_name=..., build_strategy=BuildStrategy(...))`` (and
+``ParallelExecutor``), runs on one card with the numeric guard
+(``check_numerics``, ``numeric_policy`` raise / skip / rewind); training
+survives faults through ``framework.resilience.ResilientTrainer``
+(checkpoint, restore, replay) with the failpoint plane
+(``framework.faultinject``) and the step watchdog
+(``framework.watchdog``). ``paddle_tpu_torch.fluid`` aliases the
+package. The other models are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
                         default_startup_program, program_guard, CUDAPlace,
                         CPUPlace, NoCUDADeviceError, Scope, global_scope,
-                        scope_guard, Executor, unique_name,
+                        scope_guard, Executor, CompiledProgram,
+                        BuildStrategy, ExecutionStrategy, unique_name,
                         is_compiled_with_cuda)
 from .ops.registry import NotPortedError
 from .param_attr import ParamAttr
@@ -61,5 +70,7 @@ from .dataset import DatasetFactory
 from . import incubate
 from .data import data  # fluid.data: the full shape, None dims
 from .data_feed_desc import DataFeedDesc
+from .parallel_executor import ParallelExecutor
+from . import compiler
 
 __version__ = "0.1.0"

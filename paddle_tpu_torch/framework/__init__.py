@@ -6,4 +6,6 @@ from .place import (CUDAPlace, CPUPlace, NoCUDADeviceError,  # noqa
                     _current_expected_place, is_compiled_with_cuda)
 from .scope import Scope, global_scope, scope_guard  # noqa
 from .executor import Executor  # noqa
+from .compiler import (CompiledProgram, BuildStrategy,  # noqa
+                       ExecutionStrategy)
 from . import unique_name  # noqa

@@ -45,6 +45,17 @@ their predicates on the device and are captured like any other op.
 ``run_steps`` runs a window of steps from stacked feeds with one host
 sync, at its end. ``close()`` drops the graphs and their memory pool.
 
+A CompiledProgram (framework/compiler.py) runs the same way on one card:
+``_unwrap`` checks its strategy against the Executor's device, and its
+numeric guard (``check_numerics``, ``numeric_policy``; framework/guard.py)
+is part of the key: the finite check and, under "skip", the revert run
+inside the captured step, and the host reads the verdict once a run or
+once a ``run_steps`` window (``_settle_run``, ``_run_window``). A run with
+a fetch list is a step for the fault hooks: the legacy injector's
+``step`` point, the ``executor.step`` failpoint (which may poison a feed)
+and, when armed, the straggler detector and the collective timeout
+(``_await_pending``, ``_after_dispatch``).
+
 Random draws: each random op draws from a generator seeded from
 (program.random_seed, the scope's run counter, the op's block and
 position), so run k draws other numbers than run k - 1 and a fresh
@@ -59,14 +70,16 @@ switched off where the Executor is made
 in f32, and cuDNN runs deterministic algorithms (``set_precision``).
 """
 import hashlib
+import time
 
 import numpy as np
 import torch
 
 from ..ops.registry import NotPortedError, get_op, has_op
-from . import trace
+from . import faultinject, resilience, trace, watchdog
 from .compiled_step import CompiledStep, GraphCaptureError
 from .dtypes import to_torch_dtype
+from .guard import StepGuard
 from .place import _current_expected_place
 from .program import default_main_program
 from .scope import global_scope, to_numpy
@@ -94,6 +107,30 @@ def _next_salt(scope):
     salt = scope.find_var(_SALT_VAR) or 0
     scope.set_var(_SALT_VAR, salt + 1)
     return salt
+
+
+def _numeric_config(program, strategy):
+    """(check_numerics, policy, skip_budget) of one run (paddle_tpu's
+    ``_numeric_config``): a numeric_policy other than "raise" implies the
+    finite guard even when check_numerics was left False."""
+    policy, budget = "raise", 3
+    if strategy is not None:
+        bs = strategy._build_strategy
+        policy = getattr(bs, "numeric_policy", "raise") or "raise"
+        budget = int(getattr(bs, "numeric_skip_budget", 3) or 1)
+    check = bool(
+        getattr(program, "_check_numerics", False)
+        or (strategy is not None and
+            getattr(strategy._build_strategy, "check_numerics", False))
+        or policy != "raise")
+    return check, policy, budget
+
+
+def _hit_step_feed(feed):
+    """The executor.step failpoint: a chaos schedule may NaN-poison or
+    bit-flip a named feed array (or raise, or delay) at a chosen step."""
+    out = faultinject.hit("executor.step", feed)
+    return feed if out is faultinject.DROP else out
 
 
 def _draw_seed(attr_seed, random_seed, salt, pos):
@@ -295,7 +332,8 @@ class _RunPlan(object):
     card it also holds the random ops' generators and the constants of a
     step that may be captured."""
     __slots__ = ("key", "program", "persistable", "want", "last_grad",
-                 "keep", "drop", "rng", "constants", "reads", "syncs_host")
+                 "keep", "drop", "rng", "constants", "reads", "syncs_host",
+                 "writes", "uses_rng")
 
     def __init__(self, key, program, fetch_names, device):
         _check_runnable(program)
@@ -317,17 +355,34 @@ class _RunPlan(object):
             n for b in program.blocks for op in b.ops
             for n in op.input_names())
         self.syncs_host = _host_sync(program)
+        # the persistables a step writes (some op of some block outputs
+        # them): what the numeric guard's "skip" keeps and reverts
+        kept = set(self.persistable)
+        self.writes = sorted({n for b in program.blocks for op in b.ops
+                              for n in op.output_names() if n in kept})
+        self.uses_rng = any(
+            op.type != GRAD_OP_TYPE and get_op(op.type).uses_rng
+            for b in program.blocks for op in b.ops)
 
 
-def _graph_key(plan, feeds, state, scope):
+def _graph_key(plan, feeds, state, scope, guard=None):
     """The key of a CUDA run's captured step: the plan's key, each feed's
-    name, shape and dtype, each state tensor's name, shape and dtype, and
-    the scope. A persistable of a new shape is a new key (its first run
-    goes op by op, as ``jax.jit`` traces again on a new shape), never a
-    copy into the captured shape."""
+    name, shape and dtype, each state tensor's name, shape and dtype, the
+    scope, and the numeric guard's policy (None: no guard; as
+    paddle_tpu's step cache holds check_numerics and the policy). A
+    persistable of a new shape is a new key (its first run goes op by op,
+    as ``jax.jit`` traces again on a new shape), never a copy into the
+    captured shape."""
     return (plan.key, tuple(sorted((n, tuple(t.shape), d)
                                    for n, (t, d) in feeds.items())),
-            tuple((n, tuple(v.shape), v.dtype) for n, v in state), id(scope))
+            tuple((n, tuple(v.shape), v.dtype) for n, v in state), id(scope),
+            guard)
+
+
+def _checked(fetch_names, fetches, state):
+    """The numeric guard's mask order: the fetches, then the state
+    ([(name, tensor)] in name order)."""
+    return list(zip(fetch_names, fetches)) + list(state)
 
 
 class Executor(object):
@@ -354,6 +409,13 @@ class Executor(object):
         self.refusals = {}
         self.graph_runs = {"warm": 0, "capture": 0, "replay": 0,
                            "refused": 0}
+        self._guards = {}
+        # numeric_policy="skip": consecutive steps discarded; a clean step
+        # resets it, crossing the budget escalates
+        self._numeric_skips = 0
+        # the last dispatch's end (a CUDA event), when a collective
+        # timeout is armed and that call did not wait for it
+        self._pending = None
         set_precision()
 
     def close(self):
@@ -363,7 +425,9 @@ class Executor(object):
         self._graphs.clear()
         self._warm.clear()
         self._plans.clear()
+        self._guards.clear()
         self.refusals.clear()
+        self._pending = None
         self._pool = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -431,24 +495,49 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
             return_numpy=True, use_program_cache=True):
-        """One step of ``program``. A started py_reader of the program
-        (``layers.py_reader``) feeds its variables unless ``feed`` names
-        them; an exhausted one raises ``layers.EOFException``."""
-        program = program if program is not None else default_main_program()
+        """One step of ``program`` (a Program or a CompiledProgram). A
+        started py_reader of the program (``layers.py_reader``) feeds its
+        variables unless ``feed`` names them; an exhausted one raises
+        ``layers.EOFException``.
+
+        A run with a fetch list is a step: the legacy injector's ``step``
+        point and the ``executor.step`` failpoint fire first, the
+        straggler detector (when armed) observes it, and a
+        CompiledProgram's numeric guard and collective timeout apply
+        (``_settle_run``, ``_after_dispatch``)."""
+        program, strategy = self._unwrap(program)
         scope = scope if scope is not None else global_scope()
         feed = _pull_readers(program, dict(feed or {}))
         fetch_names = _fetch_names(fetch_list or [])
+        if not fetch_names:          # a startup program: not a step
+            plan = self._plan(program, fetch_names, use_program_cache)
+            self._run_ops(program, plan, self._feed_tensors(
+                program, feed, plan), fetch_names, scope)
+            return []
+        resilience.fire("step", what="Executor.run")
+        feed = _hit_step_feed(feed)
+        t0 = time.perf_counter()
+        timeout = self._await_pending(strategy)
+        check, policy, budget = _numeric_config(program, strategy)
         plan = self._plan(program, fetch_names, use_program_cache)
         feeds = self._feed_tensors(program, feed, plan)
-        if self._graphed(plan, fetch_names, use_program_cache):
-            fetches = self._run_graphed(program, plan, feeds, fetch_names,
-                                        scope, copy=not return_numpy)
-        else:
-            fetches = self._run_ops(program, plan, feeds, fetch_names,
-                                    scope)
-        if return_numpy:
-            return [to_numpy(t) for t in fetches]
-        return fetches
+        salt = scope.find_var(_SALT_VAR) or 0
+        fetches, guard = self._step(
+            program, plan, feeds, fetch_names, scope,
+            self._graphed(plan, fetch_names, use_program_cache),
+            policy if check else None, fresh=True, copy=not return_numpy)
+        resilience.observe_executor_step("execute",
+                                         time.perf_counter() - t0)
+        self._after_dispatch(timeout, return_numpy or guard is not None,
+                             "Executor.run step")
+        if guard is not None:
+            self._settle_run(guard, guard.flags.cpu().numpy(), policy,
+                             budget, scope, salt, plan.uses_rng)
+        out = [to_numpy(t) for t in fetches] if return_numpy else fetches
+        resilience.observe_executor_step("total", time.perf_counter() - t0)
+        watchdog.observe_step_latency(time.perf_counter() - t0,
+                                      what="Executor.run")
+        return out
 
     def train_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
@@ -496,21 +585,25 @@ class Executor(object):
 
     def run_steps(self, program=None, feed=None, fetch_list=None,
                   scope=None, return_numpy=True, use_program_cache=True):
-        """Run N consecutive steps of ``program``: ``feed`` maps each feed
-        name to an array with a leading steps axis, and step i consumes
-        ``feed[name][i]``. Returns the fetches of every step, stacked on a
-        leading axis of length N; step i draws what the i-th of N ``run``
-        calls would draw, and the state moves as N runs move it.
+        """Run N consecutive steps of ``program`` (a Program or a
+        CompiledProgram): ``feed`` maps each feed name to an array with a
+        leading steps axis, and step i consumes ``feed[name][i]``. Returns
+        the fetches of every step, stacked on a leading axis of length N;
+        step i draws what the i-th of N ``run`` calls would draw, and the
+        state moves as N runs move it.
 
         Counterpart of paddle_tpu's ``Executor.run_steps`` (one
-        ``lax.scan`` device program) without its pipeline and
-        ``CompiledProgram`` branches. On a CUDA card the window is copied
-        to the device once, each step is one replay of the key's graph
-        (the key's first run and capture as in ``run``) fed by a
-        device-to-device copy of its slice, each fetch goes into a slot
-        of a stacked output, and the host waits once, at the end (and at
-        a capture). On the CPU it is N op-by-op steps."""
-        program = program if program is not None else default_main_program()
+        ``lax.scan`` device program) without its pipeline branch. On a
+        CUDA card the window is copied to the device once, each step is
+        one replay of the key's graph (the key's first run and capture as
+        in ``run``) fed by a device-to-device copy of its slice, each
+        fetch goes into a slot of a stacked output, and the host waits
+        once, at the end (and at a capture). On the CPU it is N op-by-op
+        steps. A window is one dispatch for the ``step`` injection point
+        and the ``executor.step`` failpoint; the numeric guard's
+        per-step verdicts are read once, at the window's end
+        (``_run_window``)."""
+        program, strategy = self._unwrap(program)
         if any(r._started for r in getattr(program, "_py_readers", ())):
             raise ValueError("run_steps needs explicit stacked feeds, not "
                              "started py_readers")
@@ -530,6 +623,11 @@ class Executor(object):
         if n_steps == 0:
             raise ValueError("run_steps needs at least one step; the "
                              "stacked feeds have a leading axis of 0")
+        resilience.fire("step", what="Executor.run_steps")
+        feed = _hit_step_feed(feed)
+        t0 = time.perf_counter()
+        timeout = self._await_pending(strategy)
+        check, policy, budget = _numeric_config(program, strategy)
         plan = self._plan(program, fetch_names, use_program_cache)
         window = {n: v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(np.asarray(v))) for n, v in feed.items()}
@@ -537,25 +635,205 @@ class Executor(object):
             program, {n: w[0] for n, w in window.items()}, plan).items()}
         window = {n: window[n].to(device=self.device, dtype=d)
                   for n, d in dtypes.items()}
-        graphed = self._graphed(plan, fetch_names, use_program_cache)
-        stacked = None
-        for i in range(n_steps):
-            feeds = {n: (w[i], dtypes[n]) for n, w in window.items()}
-            if graphed:
-                outs = self._run_graphed(program, plan, feeds, fetch_names,
-                                         scope, copy=False)
-            else:
-                outs = self._run_ops(program, plan, feeds, fetch_names,
-                                     scope)
-            if stacked is None:
-                stacked = [torch.empty((n_steps,) + tuple(o.shape),
-                                       dtype=o.dtype, device=o.device)
-                           for o in outs]
-            for s, o in zip(stacked, outs):
-                s[i].copy_(o)
-        if return_numpy:
-            return [to_numpy(s) for s in stacked]
-        return stacked
+        stacked = self._run_window(
+            program, plan, window, dtypes, fetch_names, scope,
+            self._graphed(plan, fetch_names, use_program_cache),
+            policy if check else None, budget, n_steps, timeout,
+            return_numpy)
+        out = [to_numpy(s) for s in stacked] if return_numpy else stacked
+        resilience.observe_executor_step("total", time.perf_counter() - t0)
+        watchdog.observe_step_latency((time.perf_counter() - t0) / n_steps,
+                                      what="Executor.run_steps")
+        return out
+
+    # -- a step, a window, the guard's verdicts and the watchdog ---------
+    def _unwrap(self, program):
+        """(Program, CompiledProgram or None); a CompiledProgram is
+        checked against this Executor's device first."""
+        from .compiler import CompiledProgram
+        if isinstance(program, CompiledProgram):
+            program.compile_plan(self.device)
+            return program._program, program
+        return (program if program is not None else default_main_program(),
+                None)
+
+    def _guard_for(self, key, policy, plan):
+        guard = self._guards.get(key)
+        if guard is None:
+            guard = self._guards[key] = StepGuard(self.device, policy,
+                                                  plan.writes)
+        return guard
+
+    def _step(self, program, plan, feeds, fetch_names, scope, graphed,
+              policy, fresh, copy):
+        """One step, graphed or op by op: (fetch tensors, its StepGuard
+        or None). ``policy``: the numeric guard's (None: no guard);
+        ``fresh``: clear the guard's sticky flag first."""
+        if graphed:
+            return self._run_graphed(program, plan, feeds, fetch_names,
+                                     scope, copy, policy, fresh)
+        guard = None
+        if policy is not None:
+            guard = self._guard_for((plan.key, policy), policy, plan)
+            if fresh:
+                guard.reset()
+        return self._run_ops(program, plan, feeds, fetch_names, scope,
+                             guard=guard), guard
+
+    def _run_window(self, program, plan, window, dtypes, fetch_names, scope,
+                    graphed, policy, budget, n_steps, timeout, sync):
+        """The steps of a ``run_steps`` window: the fetches stacked.
+
+        With the numeric guard each step's flags go into a row of a
+        stacked buffer and the host reads them once, at the end. Under
+        "skip" a poisoned step k is reverted on the device and so is
+        every later step of the window (the sticky flag); the run counter
+        goes back to step k's, so the window's remaining batches run
+        again from step k + 1 with the draws the JAX package's reverted
+        counter gives them (step k + 1 draws what step k drew). "raise"
+        and "rewind" raise at the first poisoned step, naming its
+        ``window_offset``, with the window's final state written back,
+        as paddle_tpu's scan does."""
+        stacked = rows = None
+        start = 0
+        while True:
+            salt0 = scope.find_var(_SALT_VAR) or 0
+            guard = None
+            for i in range(start, n_steps):
+                feeds = {n: (w[i], dtypes[n]) for n, w in window.items()}
+                outs, guard = self._step(program, plan, feeds, fetch_names,
+                                         scope, graphed, policy,
+                                         fresh=i == start, copy=False)
+                if stacked is None:
+                    stacked = [torch.empty((n_steps,) + tuple(o.shape),
+                                           dtype=o.dtype, device=o.device)
+                               for o in outs]
+                for s, o in zip(stacked, outs):
+                    s[i].copy_(o)
+                if guard is not None:
+                    if rows is None:
+                        rows = torch.zeros((n_steps, guard.flags.numel()),
+                                           dtype=torch.uint8,
+                                           device=guard.flags.device)
+                    rows[i].copy_(guard.flags)
+            self._after_dispatch(timeout, sync or guard is not None,
+                                 "Executor.run_steps window")
+            if guard is None:
+                return stacked
+            got = rows.cpu().numpy()
+            m = len(guard.names)
+            bad = [i for i in range(start, n_steps) if got[i][m]]
+            if not bad:
+                if policy == "skip" and start < n_steps:
+                    self._numeric_skips = 0
+                return stacked
+            k = bad[0]
+            culprit = guard.offender(got[k])
+            resilience.record_event(
+                "numeric_fault", policy=policy, step=k,
+                **({} if culprit is None else {"culprit": culprit}))
+            tail = "" if culprit is None \
+                else " (first offender: %r)" % culprit
+            if policy == "skip":
+                self._numeric_skips = 1 if k > start \
+                    else self._numeric_skips + 1
+                if self._numeric_skips > budget:
+                    raise resilience.SkipBudgetExceededError(
+                        "numeric_policy='skip' discarded %d consecutive "
+                        "steps (budget %d) inside one run_steps window%s"
+                        % (self._numeric_skips, budget, tail),
+                        step=k, culprit=culprit, window_offset=k)
+                scope.set_var(_SALT_VAR, salt0 + (k - start))
+                start = k + 1
+                if start == n_steps:
+                    return stacked
+                continue
+            if policy == "rewind":
+                raise resilience.NumericFaultError(
+                    "numeric fault: non-finite value first detected at "
+                    "step %d of this run_steps window%s — rewinding with "
+                    "the poison batch skipped on replay" % (k, tail),
+                    step=k, culprit=culprit, window_offset=k)
+            raise FloatingPointError(
+                "check_numerics: non-finite value (NaN/Inf) first "
+                "detected at step %d of this run_steps window%s"
+                % (k, tail))
+
+    def _settle_run(self, guard, row, policy, budget, scope, salt,
+                    uses_rng):
+        """A run's numeric verdict (paddle_tpu's ``_numeric_fault``):
+        nothing on a clean step (which ends a skip streak); else a
+        ``numeric_fault`` event naming the first offender and the
+        policy's tail. "skip": the device already reverted the state and
+        the run counter steps back, so the next run draws this one's
+        numbers; past the budget, SkipBudgetExceededError. "rewind" /
+        "raise": the poisoned state is in the scope already;
+        NumericFaultError / FloatingPointError. The event's ``step`` is
+        the run counter after the step, for a program with random ops."""
+        m = len(guard.names)
+        if not row[m]:
+            if policy == "skip":
+                self._numeric_skips = 0
+            return
+        culprit = guard.offender(row)
+        if policy == "skip":
+            scope.set_var(_SALT_VAR, salt)
+        step_no = (salt if policy == "skip" else salt + 1) if uses_rng \
+            else None
+        evt = {"policy": policy}
+        if culprit is not None:
+            evt["culprit"] = culprit
+        if step_no is not None:
+            evt["step"] = step_no
+        resilience.record_event("numeric_fault", **evt)
+        where = "var %r" % culprit if culprit is not None \
+            else "fetches or updated state"
+        if policy == "skip":
+            self._numeric_skips += 1
+            if self._numeric_skips > budget:
+                raise resilience.SkipBudgetExceededError(
+                    "numeric_policy='skip' discarded %d consecutive "
+                    "steps (budget %d); last offender: %s — the fault "
+                    "is persistent, not a poison batch"
+                    % (self._numeric_skips, budget, where),
+                    step=step_no, culprit=culprit)
+            return
+        if policy == "rewind":
+            raise resilience.NumericFaultError(
+                "numeric fault: non-finite value (NaN/Inf) in %s of "
+                "this step — rewinding to the last checkpoint with the "
+                "poison batch skipped on replay" % where,
+                step=step_no, culprit=culprit)
+        raise FloatingPointError(
+            "check_numerics: non-finite value (NaN/Inf) detected in "
+            "%s of this step (reference parity: check_nan_inf)" % where)
+
+    def _await_pending(self, strategy):
+        """A CompiledProgram's collective_timeout_s (None: no guard), after
+        a bounded wait for the previous dispatch that nothing waited for
+        (one step late, as paddle_tpu's compiled step waits)."""
+        timeout = None if strategy is None else getattr(
+            strategy._build_strategy, "collective_timeout_s", None)
+        ev, self._pending = self._pending, None
+        if timeout is not None and ev is not None:
+            watchdog.wait_with_timeout(ev, timeout,
+                                       what="the previous step")
+        return timeout
+
+    def _after_dispatch(self, timeout, sync, what):
+        """With a timeout armed on the card: the dispatch's end, as a CUDA
+        event on the caller's stream; waited for now, bounded, when this
+        call syncs anyway (``sync``: fetches to numpy, the guard's
+        verdict), else at the next call's entry. No timeout: nothing, and
+        no sync is added."""
+        if timeout is None or self.device.type != "cuda":
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        if sync:
+            watchdog.wait_with_timeout(ev, timeout, what=what)
+        else:
+            self._pending = ev
 
     def _context(self, program, plan, salt, graphable, capturing=False):
         if plan.rng is not None and not capturing:
@@ -564,9 +842,12 @@ class Executor(object):
                           plan.constants if graphable else None, capturing)
 
     def _run_ops(self, program, plan, feeds, fetch_names, scope,
-                 graphable=False):
+                 graphable=False, guard=None):
         """One op-by-op run: the scope's persistables and the feeds in,
-        the persistables back to the scope; returns the fetch tensors."""
+        the persistables back to the scope; returns the fetch tensors.
+        ``guard``: the step's StepGuard (save, check, and under "skip" the
+        revert on the host, which rebinds the written names to their
+        copies, so a fetch keeps the step's value)."""
         env = {}
         for n in plan.persistable:
             v = scope.find_var(n)
@@ -575,38 +856,51 @@ class Executor(object):
         env.update({n: t.to(device=self.device, dtype=d)
                     for n, (t, d) in feeds.items()})
         ctx = self._context(program, plan, _next_salt(scope), graphable)
+        saved = guard.save(env) if guard is not None else None
         with torch.no_grad():
             run_block(program.global_block(), env, ctx, plan.want,
                       plan.last_grad, plan.drop, plan.keep)
+        fetches = _fetch(env, fetch_names)
+        if guard is not None:
+            guard.settle(_checked(fetch_names, fetches, [
+                (n, env[n]) for n in plan.persistable
+                if n in env and n not in feeds]), env, saved)
         for n in plan.persistable:
             if n in env:
                 scope.set_var(n, env[n])
-        return _fetch(env, fetch_names)
+        return fetches
 
-    def _run_graphed(self, program, plan, feeds, fetch_names, scope, copy):
+    def _run_graphed(self, program, plan, feeds, fetch_names, scope, copy,
+                     policy=None, fresh=True):
         """A run of a CUDA key on the Executor's stream: op by op the first
         time, captured and replayed the second, replayed after. ``copy``:
         return clones of a replay's outputs (the next replay overwrites
-        them)."""
+        them). ``policy``: the numeric guard's (part of the key), and
+        ``fresh``: clear its sticky flag first. Returns (outputs, the
+        key's StepGuard or None)."""
         state = [(n, v) for n in plan.persistable
                  for v in (scope.find_var(n),) if v is not None]
-        key = _graph_key(plan, feeds, state, scope)
+        key = _graph_key(plan, feeds, state, scope, policy)
+        guard = None if policy is None else self._guard_for(key, policy,
+                                                            plan)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         caller = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(caller)
         with torch.cuda.stream(self._stream):
+            if guard is not None and fresh:
+                guard.reset()
             step = self._graphs.get(key)
             if step is None and key not in self._warm:
                 out = self._run_ops(program, plan, feeds, fetch_names,
-                                    scope, graphable=True)
+                                    scope, graphable=True, guard=guard)
                 self._warm.add(key)
                 self.graph_runs["warm"] += 1
             else:
                 salt = _next_salt(scope)
                 if step is None:
                     step = self._capture(program, plan, feeds, fetch_names,
-                                         scope, state, salt)
+                                         scope, state, salt, guard)
                     self._graphs[key] = step
                     self.graph_runs["capture"] += 1
                 else:
@@ -617,12 +911,14 @@ class Executor(object):
                 out = [t.clone() for t in step.outputs] if copy \
                     else step.outputs
         caller.wait_stream(self._stream)
-        return out
+        return out, guard
 
     def _capture(self, program, plan, feeds, fetch_names, scope, state,
-                 salt):
+                 salt, guard=None):
         """The key's step captured into a CompiledStep (not replayed yet),
-        its feeds loaded."""
+        its feeds loaded. With a ``guard``, the captured step begins with
+        its backup (under "skip") and ends with its finite check and gated
+        revert."""
         static = {}
         for n, v in state:
             if v.device != self.device:
@@ -635,6 +931,8 @@ class Executor(object):
         ctx = self._context(program, plan, salt, True, capturing=True)
 
         def run(env):
+            if guard is not None:
+                guard.save_static(static)
             with torch.no_grad():
                 run_block(program.global_block(), env, ctx, plan.want,
                           plan.last_grad, plan.drop, plan.keep)
@@ -645,21 +943,38 @@ class Executor(object):
                     "the step writes persistables the scope had no value "
                     "for when it was captured: %s" % stray[:5])
 
+        def fetch(env):
+            outs = _fetch(env, fetch_names, static)
+            if guard is None:
+                return outs
+            # a fetched persistable shows the step's value, not a revert
+            outs = [o.clone() if n in static else o
+                    for n, o in zip(fetch_names, outs)]
+            guard.check(_checked(fetch_names, outs, [
+                (n, v) for n, v in static.items() if n not in feeds]))
+            guard.restore_static(static)
+            return outs
+
+        if guard is not None:
+            guard.reserve(static)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         try:
-            step.capture(run, lambda env: _fetch(env, fetch_names, static),
-                         plan.rng.generators(), self._pool)
+            step.capture(run, fetch, plan.rng.generators(), self._pool)
         except Exception as e:
             op = ctx.op
             raise GraphCaptureError(
                 "capturing the step of program %d failed at op {%s} (%s): "
                 "%s: %s" % (id(program), op.type if op is not None else
                             "none", ctx._op_pos, type(e).__name__, e)) from e
+        if guard is not None:
+            guard.flush()
         self.capture_log.append({
             "feeds": {n: list(t.shape) for n, (t, _) in feeds.items()},
             "capture_ms": step.capture_ms, "pool_bytes": step.pool_bytes,
-            "launches": step.launches})
+            "launches": step.launches,
+            "guard": None if guard is None else guard.policy,
+            "guard_bytes": 0 if guard is None else guard.pool_bytes})
         return step
 
 

@@ -49,10 +49,15 @@ Training state (the other half of paddle_tpu/io.py):
   seed of every random draw) is written as a 0-d int64 and comes back as
   a Python int from a checkpoint the port wrote (manifest ``"writer"``);
   the counter in a JAX package's checkpoint counts that package's eager
-  runs, so the port ignores it and the scope keeps its own. The
-  reference's fault-injection and resilience hooks, its multi-host
-  barriers and ``shardings=`` (NotPortedError) and the buddy tier's
-  state blobs come with later slices.
+  runs, so the port ignores it and the scope keeps its own. The commit
+  carries the reference's fault hooks (:580-615): the
+  ``io.member_write`` and ``io.manifest_write`` failpoints, the
+  ``ckpt_write`` injection point between the shards and the manifest,
+  and ``record_bytes("ckpt", raw, wire)``; ``scrub_checkpoint`` records
+  a ``scrub`` event and a quarantine a ``ckpt_quarantine`` event
+  (:894, :921). Its multi-host barriers and ``shardings=``
+  (NotPortedError) and the buddy tier's state blobs come with later
+  slices.
 """
 import io
 import json
@@ -68,6 +73,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from .framework import faultinject, resilience
 from .framework.dtypes import normalize_dtype, to_torch_dtype
 from .framework.executor import _SALT_VAR
 from .framework.place import resolve_device
@@ -583,9 +589,16 @@ def save_checkpoint(executor, dirname, main_program=None, step=None,
                         "file": "shards_p0.npz", "key": key}]}
 
     def commit():
-        _write_npz(os.path.join(full_dir, "shards_p0.npz"),
-                   _encode_payload(own, compress),
+        raw_bytes = sum(int(a.nbytes) for a in own.values())
+        shard_path = os.path.join(full_dir, "shards_p0.npz")
+        faultinject.hit("io.member_write", host=0)
+        _write_npz(shard_path, _encode_payload(own, compress),
                    compressed=compress is not None)
+        resilience.record_bytes("ckpt", raw_bytes,
+                                os.path.getsize(shard_path))
+        # an I/O fault here (shards written, no manifest) is a torn step
+        # dir that load_checkpoint quarantines, never restores from
+        resilience.fire("ckpt_write", what=step_dir)
         manifest = {"format_version": 2 if compress == "q8" else 1,
                     "step": step_no, "process_count": 1,
                     "vars": manifest_vars, "writer": CKPT_WRITER}
@@ -594,6 +607,7 @@ def save_checkpoint(executor, dirname, main_program=None, step=None,
         if feed_state is not None:
             manifest["feed_state"] = feed_state
         # the manifest is the commit record: the shards are durable first
+        faultinject.hit("io.manifest_write", host=0)
         _write_text(os.path.join(full_dir, MANIFEST_FILE),
                     json.dumps(manifest))
         _write_text(os.path.join(dirname, "latest"), step_dir)
@@ -785,6 +799,11 @@ def scrub_checkpoint(dirname):
                 # a valid dir with a reason is of a newer format
                 report["valid_steps"].append(_step_no(d))
     report["valid_steps"].sort()
+    statuses = [st["status"] for st in report["steps"].values()]
+    resilience.record_event("scrub", dirname=dirname,
+                            valid=statuses.count("valid"),
+                            corrupt=statuses.count("corrupt"),
+                            incomplete=statuses.count("incomplete"))
     return report
 
 
@@ -803,6 +822,8 @@ def _quarantine_step_dir(dirname, step_dir, reason):
         return
     _LOG.warning("checkpoint %s is corrupt (%s): quarantined as %s", src,
                  reason, os.path.basename(dst))
+    resilience.record_event("ckpt_quarantine", step_dir=step_dir,
+                            reason=str(reason))
 
 
 def _load_step_dir(dirname, step_dir):

@@ -8,7 +8,7 @@ csrc/ at first use.
 happen on the device when its graph replays, with no wrapper called, so
 the Executor credits each replay with what its capture counted."""
 from . import (blockwise_ce, build, flash_attention, fused_adam,  # noqa: F401
-               layer_norm)
+               layer_norm, numeric_guard)
 
 # (module, counter) of each kernel, in a fixed order
 LAUNCH_COUNTERS = (
@@ -17,7 +17,8 @@ LAUNCH_COUNTERS = (
     (layer_norm, "bwd_launches"), (fused_adam, "launches"),
     (blockwise_ce, "head_launches"), (blockwise_ce, "head_dh_launches"),
     (blockwise_ce, "head_dw_launches"), (blockwise_ce, "ce_launches"),
-    (blockwise_ce, "ce_bwd_launches"))
+    (blockwise_ce, "ce_bwd_launches"), (numeric_guard, "launches"),
+    (numeric_guard, "copy_launches"))
 
 
 def launch_counts():

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "ptt_fused_head_max_d": ([], _i),
     "ptt_ce_fwd": ([_vp] * 4 + [_i] * 3 + [_vp], _i),
     "ptt_ce_bwd": ([_vp] * 5 + [_i] * 3 + [_vp], _i),
+    "ptt_finite_chunk": ([], _ll),
+    "ptt_copy_chunk": ([], _ll),
+    "ptt_finite_flags": ([_vp, _i, _ll, _vp, _vp], _i),
+    "ptt_guarded_copy": ([_vp, _i, _ll, _vp, _vp], _i),
     "ptt_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 

@@ -77,8 +77,10 @@ __device__ __forceinline__ float ce_ds(float s, float lse, float dloss,
   return (expf(s - lse) - (hit ? 1.f : 0.f)) * dloss;
 }
 
+// a NaN sum (a NaN logit) stays NaN, as jnp.maximum keeps it in the
+// Pallas kernel's max(l, 1e-30); fmaxf alone would drop it
 __device__ __forceinline__ float finalize_lse(float m, float l) {
-  return m + logf(fmaxf(l, 1e-30f));
+  return m + logf(l != l ? l : fmaxf(l, 1e-30f));
 }
 
 // Reductions over the `lanes` consecutive lanes that share a row (a power

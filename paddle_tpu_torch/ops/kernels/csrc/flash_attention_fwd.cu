@@ -388,7 +388,10 @@ flash_fwd_kernel(const Args a) {
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float lc = fmaxf(row_sum4(l[h]), 1e-30f);
+    // a NaN row sum (a NaN logit or mask value) stays NaN, as in the
+    // plain version: fmaxf alone would replace it by the floor
+    const float ls = row_sum4(l[h]);
+    const float lc = ls != ls ? ls : fmaxf(ls, 1e-30f);
     if (qrow[h] >= a.Tq) continue;
     T* orow = reinterpret_cast<T*>(a.out) + ((size_t)bh * a.Tq + qrow[h]) * D;
     const float inv = 1.f / lc;

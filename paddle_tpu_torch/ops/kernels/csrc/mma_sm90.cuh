@@ -57,8 +57,21 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// tf32(x) that keeps the card's canonical NaN (0x7fffffff, what its
+// arithmetic produces): the add would carry it into the sign bit, giving
+// -0, and the NaN would vanish from the product. Clamped below the carry
+// first (a min as signed ints, which leaves every finite, infinite and
+// negative value as it is): one instruction more. Only a NaN with the sign
+// bit and high payload bits set (a sign flip of that NaN) still rounds to
+// 0.
+__device__ __forceinline__ uint32_t tf32_keep_nan(float x) {
+  const int b = min(__float_as_int(x), 0x7fffefff);
+  return (static_cast<uint32_t>(b) + 0x1000u) & 0xffffe000u;
+}
+
+// hi carries x's NaN into the products; lo of a NaN is then irrelevant
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
+  hi = tf32_keep_nan(x);
   lo = tf32(x - __uint_as_float(hi));
 }
 

@@ -311,12 +311,13 @@ def test_accuracy_and_assign_value_keep_their_values():
 
 def test_launch_counters_are_read_and_credited_together():
     """The Executor credits a replay with what its capture counted: the
-    eleven counters in one fixed order, read and moved as one."""
+    thirteen counters (the eleven kernels' and the numeric guard's two)
+    in one fixed order, read and moved as one."""
     from paddle_tpu_torch.ops import kernels
-    assert len(kernels.LAUNCH_COUNTERS) == 11
-    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 11
+    assert len(kernels.LAUNCH_COUNTERS) == 13
+    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 13
     before = kernels.launch_counts()
-    delta = tuple(range(1, 12))
+    delta = tuple(range(1, 14))
     kernels.credit_launches(delta)
     try:
         assert kernels.launch_counts() == tuple(

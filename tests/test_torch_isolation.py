@@ -129,6 +129,15 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.models.vision\n"
             "import paddle_tpu_torch.models.dcgan\n"
             "import paddle_tpu_torch.models.yolov3\n"
+            "import paddle_tpu_torch.framework.compiler\n"
+            "import paddle_tpu_torch.framework.watchdog\n"
+            "import paddle_tpu_torch.framework.faultinject\n"
+            "import paddle_tpu_torch.framework.resilience\n"
+            "import paddle_tpu_torch.framework.guard\n"
+            "import paddle_tpu_torch.ops.kernels.numeric_guard\n"
+            "import paddle_tpu_torch.compiler\n"
+            "import paddle_tpu_torch.parallel_executor\n"
+            "import paddle_tpu_torch.fluid, paddle_tpu_torch.fluid.compiler\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
