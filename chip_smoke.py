@@ -306,6 +306,37 @@ its decay over GUARD_DECAY_STEPS runs):
   graphed against CPU with the same batch poisoned: the same step
   skipped on both, the rest within PARITY_*.
 
+Then dygraph (eager mode), the hand-written kernels launched outside the
+Executor (no trace record, no CUDA graph), with GPT-base built from
+``dygraph.nn`` Layers and the static layer functions run eagerly (no
+model module in the JAX package: ``_dygraph_gpt``):
+
+- ``dygraph_gpt``: GPT-base at 2 x 4096 f32 (bench.py:596-601's widths,
+  dropout 0), DYGRAPH_STEPS steps of ``loss.backward();
+  opt.minimize(loss)`` with ``dygraph.optimizers.Adam(1e-4)`` on one
+  batch: losses finite and falling, GPT_PER_STEP's launches a step (12
+  flash forward, 12/12 flash backward, 25/25 LayerNorm, 148 fused Adam,
+  1/1/1 head), step ms (median of the last DYGRAPH_TIMED) against this
+  run's graphed static step and the recorded one, tokens/s, peak memory
+  above resident; one more step profiled (idle share, the path's kernel
+  families, no library kernel).
+- ``dygraph_traced``: ``TracedLayer`` over the trained model at batch 1
+  (one CUDA graph): the replay equal to the eager forward bit for bit
+  (the loss and every token's), eager and replayed ms, no wrapper launch
+  on a replay; after one more ``minimize`` the replay equal to the new
+  eager forward bit for bit. Then a Conv2D + BatchNorm and a Linear
+  through a SpectralNorm'd weight (state the forward updates), traced in
+  eval mode, a training step between replays: each replay equal to the
+  eager forward from the same state, buffers included; a Linear re-loaded
+  by ``set_dict`` at another width captured again.
+- ``dygraph_parity``: 2 layers at GPT-base width, 2 x 128 tokens, the
+  static program's startup weights copied in name for name, three Adam
+  steps: the card's dygraph against the card's static ``Executor.run``
+  and the CPU's dygraph, held to PARITY_*.
+- ``dygraph_zoo``: every ``dygraph.nn`` layer and the ``rnn_impl`` units
+  forward and backward, card against CPU (ZOO_TOL); Dropout and NCE's
+  sampling by their statistics.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -921,6 +952,34 @@ GPT_PARITY_DECODE_PROMPT = 16
 # attention, and the differences pass through 12 layers of values of
 # order 1.
 SERVE_ATOL = 1e-3
+
+# dygraph (eager mode): GPT-base at GPT_BATCH x GPT_SEQ f32 built
+# from dygraph.nn Layers and the static layer functions run eagerly (no
+# model module in the JAX package: _dygraph_gpt), Adam(DYGRAPH_LR),
+# DYGRAPH_STEPS steps on one batch, the step's ms the median of the last
+# DYGRAPH_TIMED; its launches a step are GPT_PER_STEP's (the graphed
+# static step's). DYGRAPH_YARDSTICK_MS: the graphed static f32 GPT step at
+# the same settings as PERF.md records it (an NVIDIA H100 80GB HBM3 at
+# 700.00 W); the phase also takes this run's gpt_train step.
+# dygraph_traced: TracedLayer over the trained model at batch 1,
+# DYGRAPH_TRACED_REPS timed calls eager and replayed; then layers with
+# state (BatchNorm, SpectralNorm) and a set_dict at another width at
+# batch DYGRAPH_STATE_BATCH. dygraph_parity: the
+# PARITY_* comparison at PARITY_LAYERS layers and GPT_PARITY_BATCH x
+# GPT_PARITY_SEQ tokens, card dygraph against the card's static
+# Executor.run and the CPU's dygraph, from the static startup's weights.
+# dygraph_zoo: each dygraph.nn layer and the two rnn_impl units at small
+# sizes, forward and backward, card against CPU within ZOO_TOL of the
+# CPU's largest magnitude (f32 both sides, no TF32; sums in another
+# order); Dropout (ZOO_DROPOUT_N elements) and NCE's noise classes
+# (ZOO_NCE_DRAWS) by their statistics, within 5 standard errors.
+DYGRAPH_LR, DYGRAPH_STEPS, DYGRAPH_TIMED = 1e-4, 5, 3
+DYGRAPH_YARDSTICK_MS = (197.6, 198.3)
+DYGRAPH_TRACED_REPS = 10
+DYGRAPH_STATE_BATCH = 8
+ZOO_TOL = 1e-4
+ZOO_DROPOUT_N = 1 << 20
+ZOO_NCE_DRAWS = 1 << 14
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -2226,41 +2285,19 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
     dtype = ("bfloat16" if any(p.dtype == "bfloat16"
                                for p in main.all_parameters()) else "float32")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
-    beyond = elements = capped = 0
-    param_err = moved = 0.0
-    moved_errs = []
     block = main.global_block()
     wrapper = [block.var(n) for n in _wrapper_state(main)]
     counters = [v.name for v in wrapper if v.dtype.startswith("int")]
     counters_equal = all(np.array_equal(to_numpy(gs.find_var(n)),
                                         to_numpy(cs.find_var(n)))
                          for n in counters)
-    for p in main.all_parameters() + [v for v in wrapper
-                                      if v.name not in counters]:
-        start = to_numpy(arrays[p.name]).astype(np.float32)
-        got = to_numpy(gs.find_var(p.name)).astype(np.float32)
-        want = to_numpy(cs.find_var(p.name)).astype(np.float32)
-        diff = np.abs(got - want)
-        # the spacing of p's own dtype at each element of the CPU's result
-        _, exp = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
-        ulps = PARITY_PARAM_ULPS[p.dtype] * np.ldexp(
-            1.0, exp - 1 - MANTISSA_BITS[p.dtype])
-        param_err = max(param_err, float(diff.max()))
-        beyond += int((diff > PARITY_PARAM_ATOL + ulps).sum())
-        capped += int((diff > PARITY_SIGN_FLIP_ATOL + ulps).sum())
-        elements += diff.size
-        on_card, on_cpu = np.abs(got - start), np.abs(want - start)
-        moved = max(moved, float(on_card.max()))
-        if on_cpu.max() >= PARITY_LR:
-            moved_errs.append((abs(float(on_card.sum()) / float(
-                on_cpu.sum()) - 1.0), p.name))
-    moved_errs.sort(reverse=True)
+    agreement, params_ok = _param_agreement(np, dtype, (
+        (p.name, p.dtype, to_numpy(arrays[p.name]),
+         to_numpy(gs.find_var(p.name)), to_numpy(cs.find_var(p.name)))
+        for p in main.all_parameters() + [v for v in wrapper
+                                          if v.name not in counters]))
     ok = (loss_rel <= PARITY_LOSS_RTOL[dtype] and all(np.isfinite(gl))
-          and capped == 0
-          and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
-          and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
-          and moved >= 10 * PARITY_PARAM_ATOL and graphed_equal
-          and counters_equal and skipped_ok)
+          and params_ok and graphed_equal and counters_equal and skipped_ok)
     extra = {} if skip_step is None else {
         "skipped_step": skip_step, "skipped_on_every_device": skipped_ok,
         "numeric_faults": faults}
@@ -2268,8 +2305,45 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
             "wrapper_state": len(wrapper), "wrapper_counters": counters[:4],
             "wrapper_counters_equal": counters_equal,
             "gpu_losses": gl, "cpu_losses": cl, "loss_max_rel_err": loss_rel,
-            "loss_rtol": PARITY_LOSS_RTOL[dtype],
-            "param_max_abs_err": param_err, "param_atol": PARITY_PARAM_ATOL,
+            "loss_rtol": PARITY_LOSS_RTOL[dtype]}, **agreement,
+            gpu_ms=g_ms, cpu_ms=c_ms,
+            graphed_bit_equal_op_by_op=graphed_equal, **extra), ok
+
+
+def _param_agreement(np, dtype, tensors):
+    """PARITY_* agreement of two devices' final tensors, each from the
+    same start: ``tensors`` yields (name, the tensor's dtype, start, got,
+    want) with arrays; ``dtype`` the model's (its sign-flip share). Each
+    element within PARITY_PARAM_ATOL plus the tensor's own ulps but for
+    a PARITY_SIGN_FLIP_SHARE of them, none beyond PARITY_SIGN_FLIP_ATOL;
+    each tensor that moved at least PARITY_LR on ``want``'s side moved as
+    far on ``got``'s within PARITY_MOVED_RTOL; the largest move at least
+    10 PARITY_PARAM_ATOL. (the numbers, whether they pass)."""
+    beyond = elements = capped = 0
+    param_err = moved = 0.0
+    moved_errs = []
+    for name, p_dtype, start, got, want in tensors:
+        start, got, want = (np.asarray(a).astype(np.float32)
+                            for a in (start, got, want))
+        diff = np.abs(got - want)
+        # the spacing of the tensor's own dtype at each element of want
+        _, exp = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
+        ulps = PARITY_PARAM_ULPS[p_dtype] * np.ldexp(
+            1.0, exp - 1 - MANTISSA_BITS[p_dtype])
+        param_err = max(param_err, float(diff.max()))
+        beyond += int((diff > PARITY_PARAM_ATOL + ulps).sum())
+        capped += int((diff > PARITY_SIGN_FLIP_ATOL + ulps).sum())
+        elements += diff.size
+        on_got, on_want = np.abs(got - start), np.abs(want - start)
+        moved = max(moved, float(on_got.max()))
+        if on_want.max() >= PARITY_LR:
+            moved_errs.append((abs(float(on_got.sum()) / float(
+                on_want.sum()) - 1.0), name))
+    moved_errs.sort(reverse=True)
+    ok = (capped == 0 and beyond <= PARITY_SIGN_FLIP_SHARE[dtype] * elements
+          and bool(moved_errs) and moved_errs[0][0] <= PARITY_MOVED_RTOL
+          and moved >= 10 * PARITY_PARAM_ATOL)
+    return {"param_max_abs_err": param_err, "param_atol": PARITY_PARAM_ATOL,
             "param_ulps": PARITY_PARAM_ULPS, "param_elements": elements,
             "param_beyond_atol": beyond,
             "param_beyond_sign_flip_atol": capped,
@@ -2277,8 +2351,7 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
             "sign_flip_share": PARITY_SIGN_FLIP_SHARE[dtype],
             "moved_rel_err_largest": moved_errs[:4],
             "moved_rtol": PARITY_MOVED_RTOL,
-            "param_max_moved": moved, "gpu_ms": g_ms, "cpu_ms": c_ms,
-            "graphed_bit_equal_op_by_op": graphed_equal}, **extra), ok
+            "param_max_moved": moved}, ok
 
 
 def train_parity(torch, np, ptt):
@@ -2363,6 +2436,8 @@ def gpt_train(torch, np, ptt, counters):
     cfg = _gpt_cfg(gpt)
     run, ok, trained = _gpt_run(torch, np, ptt, counters, cfg, GPT_STEPS,
                                 GPT_PER_STEP)
+    _measured["gpt_train_step_ms"] = statistics.median(
+        run["step_ms"][-DYGRAPH_TIMED:])
     emit(dict({"phase": "gpt_train", "ok": ok, "model": "gpt_base",
                "hidden": cfg.hidden_size, "layers": cfg.num_layers,
                "heads": cfg.num_heads, "vocab": cfg.vocab_size,
@@ -7179,6 +7254,593 @@ def guard_cases(torch, ng, ptt):
     return finite, copy
 
 
+_GPT_FEEDS = ("token_ids", "pos_ids", "labels", "loss_mask")
+# this run's numbers other phases compare with (gpt_train's step ms)
+_measured = {}
+
+
+def _dygraph_gpt(pkg, cfg):
+    """GPT of ``cfg`` as a dygraph Layer of package ``pkg``, block for
+    block models/gpt.py's (pre-LN, fused causal attention, tied-embedding
+    fused head; dropout 0): ``dygraph.Embedding``, ``LayerNorm`` and
+    ``Linear`` with ``layers.split``, ``reshape``, ``transpose``,
+    ``fused_attention``, ``fused_mlm_head_loss`` and the masked mean run
+    eagerly. forward(token_ids, pos_ids, labels, loss_mask) -> (loss, the
+    per-token loss (N * T, 1)). tests/test_torch_dygraph_gpt.py builds
+    its narrow model with this function, in the port and in the JAX
+    package."""
+    dy, L = pkg.dygraph, pkg.layers
+    d, nh = cfg.hidden_size, cfg.num_heads
+    dh = d // nh
+
+    def heads(x):
+        return L.transpose(L.reshape(x, [0, 0, nh, dh]), [0, 2, 1, 3])
+
+    class Block(dy.Layer):
+        def __init__(self):
+            super(Block, self).__init__()
+            self.ln1 = dy.LayerNorm(d)
+            self.qkv = dy.Linear(d, 3 * d)
+            self.proj = dy.Linear(d, d)
+            self.ln2 = dy.LayerNorm(d)
+            self.ffn0 = dy.Linear(d, cfg.ff_size, act="gelu")
+            self.ffn1 = dy.Linear(cfg.ff_size, d)
+
+        def forward(self, x):
+            q, k, v = L.split(self.qkv(self.ln1(x)), 3, dim=2)
+            ctx = L.fused_attention(heads(q), heads(k), heads(v),
+                                    scale=1.0 / math.sqrt(dh), causal=True)
+            ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]), [0, 0, d])
+            x = L.elementwise_add(x, self.proj(ctx))
+            return L.elementwise_add(x, self.ffn1(self.ffn0(self.ln2(x))))
+
+    class GPT(dy.Layer):
+        def __init__(self):
+            super(GPT, self).__init__()
+            self.word_emb = dy.Embedding([cfg.vocab_size, d])
+            self.pos_emb = dy.Embedding([cfg.max_position, d])
+            self.blocks = dy.LayerList([Block()
+                                        for _ in range(cfg.num_layers)])
+            self.lnf = dy.LayerNorm(d)
+
+        def forward(self, tok, pos, lbl, mask):
+            x = L.elementwise_add(self.word_emb(tok), self.pos_emb(pos))
+            for block in self.blocks:
+                x = block(x)
+            h = L.reshape(self.lnf(x), [-1, d])
+            ce = L.fused_mlm_head_loss(h, self.word_emb.weight,
+                                       L.reshape(lbl, [-1, 1]))
+            m = L.reshape(mask, [-1, 1])
+            loss = L.elementwise_div(
+                L.reduce_sum(L.elementwise_mul(ce, m)),
+                L.elementwise_add(L.reduce_sum(m),
+                                  L.fill_constant([1], "float32", 1e-8)))
+            return loss, ce
+
+    return GPT()
+
+
+def _dygraph_static_names(n_layers):
+    """_dygraph_gpt's parameter names -> gpt_pretrain_program's."""
+    names = {"word_emb.weight": "gpt_word_embedding",
+             "pos_emb.weight": "gpt_pos_embedding",
+             "lnf.weight": "gpt_lnf_s", "lnf.bias": "gpt_lnf_b"}
+    for i in range(n_layers):
+        pre = "gpt_layer_%d" % i
+        for sub in ("ln1", "ln2"):
+            names["blocks.%d.%s.weight" % (i, sub)] = "%s_%s_s" % (pre, sub)
+            names["blocks.%d.%s.bias" % (i, sub)] = "%s_%s_b" % (pre, sub)
+        for sub in ("qkv", "proj", "ffn0", "ffn1"):
+            names["blocks.%d.%s.weight" % (i, sub)] = "%s_%s.w_0" % (pre,
+                                                                     sub)
+            names["blocks.%d.%s.bias" % (i, sub)] = "%s_%s.b_0" % (pre, sub)
+    return names
+
+
+def _dygraph_inputs(pkg, feed):
+    """The batch as eager variables; the mask wants no gradient."""
+    ins = [pkg.dygraph.to_variable(feed[k]) for k in _GPT_FEEDS]
+    ins[-1].stop_gradient = True
+    return ins
+
+
+def _dygraph_step(model, opt, ins):
+    """One fluid dygraph training step: (the loss as a Python float)."""
+    loss, _ = model(*ins)
+    loss.backward()
+    opt.minimize(loss)
+    model.clear_gradients()
+    return float(loss.numpy().reshape(()))
+
+
+def dygraph_gpt(torch, np, ptt, counters):
+    """GPT-base at GPT_BATCH x GPT_SEQ f32 trained in dygraph mode on the
+    card: DYGRAPH_STEPS Adam steps of loss.backward(); opt.minimize(loss)
+    on one batch, every kernel launched eagerly (no Executor, no CUDA
+    graph): losses finite and falling, GPT_PER_STEP's launches a step,
+    step ms against the graphed static step, tokens/s, peak memory above
+    resident; one more step profiled (idle share, the path's kernels, no
+    library kernel)."""
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt)
+    t0 = time.perf_counter()
+    with ptt.dygraph.guard():                # CUDAPlace(0)
+        np.random.seed(SEED)
+        model = _dygraph_gpt(ptt, cfg)
+        opt = ptt.dygraph.optimizers.Adam(
+            DYGRAPH_LR, parameter_list=model.parameters())
+        feed = gpt.synthetic_batch(cfg, GPT_BATCH, GPT_SEQ, seed=0)
+        ins = _dygraph_inputs(ptt, feed)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        n_params = sum(p.value.numel() for p in model.parameters())
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()                      # the main path starts here
+        step_ms, losses, per_step = [], [], []
+        for _ in range(DYGRAPH_STEPS):
+            before = counters.read()
+            t1 = time.perf_counter()
+            losses.append(_dygraph_step(model, opt, ins))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            after = counters.read()
+            per_step.append({k: after[k] - before[k] for k in after})
+        launches = counters.read()
+        peak = torch.cuda.max_memory_allocated()
+        found = _profiled(torch, lambda: _dygraph_step(model, opt, ins))
+    missing, library = _kernel_check(found, GPT_FAMILIES)
+    found.pop("kernel_names")
+    ms = statistics.median(step_ms[-DYGRAPH_TIMED:])
+    static_ms = _measured.get("gpt_train_step_ms")
+    finite = all(np.isfinite(losses))
+    falling = losses[-1] < losses[0]
+    counts_ok = all(c == GPT_PER_STEP for c in per_step)
+    ok = finite and falling and counts_ok and not missing and not library
+    emit({"phase": "dygraph_gpt", "ok": ok, "model": "gpt_base",
+          "mode": "dygraph", "hidden": cfg.hidden_size,
+          "layers": cfg.num_layers, "heads": cfg.num_heads,
+          "vocab": cfg.vocab_size, "batch": GPT_BATCH, "seq_len": GPT_SEQ,
+          "dtype": "float32", "dropout": 0.0,
+          "optimizer": "Adam(%g)" % DYGRAPH_LR, "parameters": n_params,
+          "setup_s": setup_s, "step_ms": step_ms,
+          "step_ms_median_last": ms, "timed_steps": DYGRAPH_TIMED,
+          "tokens_per_s": GPT_BATCH * GPT_SEQ / (ms / 1e3),
+          "static_graphed_step_ms_this_run": static_ms,
+          "ratio_to_static_this_run":
+          None if not static_ms else ms / static_ms,
+          "static_graphed_step_ms_recorded": DYGRAPH_YARDSTICK_MS,
+          "ratio_to_static_recorded": [ms / y for y in DYGRAPH_YARDSTICK_MS],
+          "losses": losses, "finite": finite, "falling": falling,
+          "launches_per_step": per_step, "launches_per_step_ok": counts_ok,
+          "launches": launches, "peak_mem_gb": peak / 2 ** 30,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30,
+          "profile": found, "families_missing": missing,
+          "library_kernels": library})
+    if not ok:
+        raise AssertionError("dygraph_gpt checks failed (see the line "
+                             "above)")
+    return launches, (model, opt, ins, feed)
+
+
+def dygraph_traced(torch, np, ptt, counters, trained):
+    """TracedLayer over the trained dygraph GPT-base's forward at batch 1
+    (eval mode): the capture's launches, the replay equal to the eager
+    forward bit for bit (loss and every token's loss), eager and replayed
+    ms; then one more training step (minimize) on the training batch,
+    after which the replay must equal the new eager forward bit for bit."""
+    model, opt, ins, feed = trained
+    with ptt.dygraph.guard():
+        one = [ptt.dygraph.to_variable(feed[k][:1]) for k in _GPT_FEEDS]
+
+        def eager():
+            with ptt.dygraph.no_grad():
+                loss, ce = model(*one)
+            return loss.value, ce.value
+
+        def same(outs, ref):
+            return all(torch.equal(o.value, r) for o, r in zip(outs, ref))
+
+        model.eval()
+        ref = eager()
+        counters.zero()
+        t0 = time.perf_counter()
+        outs, traced = ptt.dygraph.TracedLayer.trace(model, one)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches = counters.read()
+        replay_equal = same(outs, ref) and same(traced(one), ref)
+        before = counters.read()
+        eager_ms = _timed_runs(torch, eager, DYGRAPH_TRACED_REPS)
+        replay_ms = _timed_runs(torch, lambda: traced(one),
+                                DYGRAPH_TRACED_REPS)
+        after = counters.read()
+        model.train()
+        _dygraph_step(model, opt, ins)
+        model.eval()
+        new_ref = eager()
+        follows = same(traced(one), new_ref)
+        moved = not torch.equal(new_ref[1], ref[1])
+        model.train()
+    replay_launches = (after["flash_attention_fwd"] -
+                       before["flash_attention_fwd"]) - DYGRAPH_TRACED_REPS \
+        * GPT_PER_STEP["flash_attention_fwd"]
+    state = _traced_state_cases(torch, np, ptt)
+    ok = replay_equal and follows and moved and traced.captures == 1 and \
+        replay_launches == 0 and all(c["ok"] for c in state.values())
+    emit({"phase": "dygraph_traced", "ok": ok, "batch": 1,
+          "seq_len": GPT_SEQ, "capture_s": capture_s,
+          "capture_launches": launches, "captures": traced.captures,
+          "replay_bit_equal_eager": replay_equal,
+          "eager_ms": eager_ms, "replay_ms": replay_ms,
+          "eager_ms_median": statistics.median(eager_ms),
+          "replay_ms_median": statistics.median(replay_ms),
+          "replays_launch_no_wrapper": replay_launches == 0,
+          "follows_minimize_bit_equal": follows,
+          "weights_moved": moved, "state_cases": state})
+    if not ok:
+        raise AssertionError("dygraph_traced checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _traced_state_cases(torch, np, ptt):
+    """TracedLayer over layers with state the forward itself updates, or
+    a tensor set_dict moves (DYGRAPH_STATE_BATCH, f32, eval mode): a
+    Conv2D + BatchNorm (its moving statistics) and a Linear through a
+    SpectralNorm'd weight (its U/V advance at every call), each traced
+    after one training step, then trained one more step (Adam 1e-2) and
+    replayed again; each replay equal bit for bit to the eager forward
+    from the same state, buffers included (the replay's state kept, the
+    state before it restored for the eager call); a Linear re-loaded by
+    set_dict at another width: the next call captures again and equals
+    the eager forward. {case: its numbers and ok}."""
+    dy = ptt.dygraph
+    rng = np.random.RandomState(SEED)
+
+    class SNLinear(dy.Layer):
+        def __init__(self, n_in, n_out):
+            super(SNLinear, self).__init__()
+            self.w = self.add_parameter(
+                "w", self.create_parameter([n_in, n_out]))
+            self.sn = dy.SpectralNorm([n_in, n_out], dim=1, power_iters=2)
+
+        def forward(self, x):
+            return ptt.layers.matmul(x, self.sn(self.w))
+
+    def buffers(net):
+        return [v for l in [net] + net.sublayers() for k, v in
+                sorted(vars(l).items()) if k in ("_mean", "_variance",
+                                                  "_u", "_v")]
+
+    def replay_equals_eager(net, traced, x):
+        bufs = [b.value for b in buffers(net)]
+        before = [b.clone() for b in bufs]
+        got = traced([x]).value
+        replayed = [b.clone() for b in bufs]
+        with torch.no_grad():
+            for b, v in zip(bufs, before):
+                b.copy_(v)
+        with dy.no_grad():
+            want = net(x).value
+        return torch.equal(got, want) and all(
+            torch.equal(a, b) for a, b in zip(replayed, bufs)), got
+
+    def train_step(net, opt, x):
+        net.train()
+        loss = ptt.layers.reduce_mean(net(x))
+        loss.backward()
+        opt.minimize(loss)
+        net.clear_gradients()
+        net.eval()
+
+    n, c, hw, d = DYGRAPH_STATE_BATCH, 16, 32, 256
+    cases = {}
+    with dy.guard():
+        np.random.seed(SEED)
+        for name, net, x in (
+                ("conv_batch_norm",
+                 dy.Sequential(dy.Conv2D(c, c, 3, padding=1),
+                               dy.BatchNorm(c, act="relu")),
+                 rng.standard_normal((n, c, hw, hw))),
+                ("spectral_norm", SNLinear(d, d),
+                 rng.standard_normal((n, d)))):
+            x = dy.to_variable(x.astype(np.float32))
+            opt = dy.optimizers.Adam(1e-2, parameter_list=net.parameters())
+            train_step(net, opt, x)
+            traced = dy.TracedLayer(net)
+            first, out0 = replay_equals_eager(net, traced, x)
+            again, _ = replay_equals_eager(net, traced, x)
+            train_step(net, opt, x)
+            after, out1 = replay_equals_eager(net, traced, x)
+            moved = not torch.equal(out0, out1)
+            cases[name] = {"buffers": len(buffers(net)),
+                           "replay_bit_equal_eager": [first, again],
+                           "after_a_step_bit_equal_eager": after,
+                           "output_moved": moved,
+                           "captures": traced.captures,
+                           "ok": first and again and after and moved and
+                           traced.captures == 1}
+        net = dy.Linear(d, d)
+        x = dy.to_variable(rng.standard_normal((n, d)).astype(np.float32))
+        traced = dy.TracedLayer(net)
+        with dy.no_grad():
+            first = torch.equal(traced([x]).value, net(x).value)
+        net.set_dict({"weight": rng.standard_normal((d, d // 2)).astype(
+            np.float32), "bias": np.zeros(d // 2, np.float32)})
+        got = traced([x]).value
+        with dy.no_grad():
+            want = net(x).value
+        cases["set_dict_other_width"] = {
+            "shape": list(got.shape), "captures": traced.captures,
+            "bit_equal_eager": [first, torch.equal(got, want)],
+            "ok": first and torch.equal(got, want) and
+            traced.captures == 2 and tuple(got.shape) == (n, d // 2)}
+    return cases
+
+
+def dygraph_parity(torch, np, ptt):
+    """A PARITY_LAYERS-layer GPT-base-width model at GPT_PARITY_BATCH x
+    GPT_PARITY_SEQ: the static gpt_pretrain_program's startup weights
+    copied into the dygraph model name for name, PARITY_STEPS Adam steps
+    on one batch in dygraph mode on the card, against the card's static
+    Executor.run (graphed) and the CPU's dygraph (plain versions), held
+    to PARITY_*."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.models import gpt
+    cfg = _gpt_cfg(gpt, num_layers=PARITY_LAYERS)
+    main, startup, fetch_list = _gpt_train_program(
+        ptt, gpt, cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ)
+    feed = gpt.synthetic_batch(cfg, GPT_PARITY_BATCH, GPT_PARITY_SEQ,
+                               seed=1)
+    names = _dygraph_static_names(cfg.num_layers)
+    scope = ptt.Scope()
+    exe = ptt.Executor()
+    exe.run(startup, scope=scope)
+    start = {k: to_numpy(scope.find_var(v)) for k, v in names.items()}
+    static_losses = [float(np.asarray(exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope)[0]).reshape(()))
+        for _ in range(PARITY_STEPS)]
+    static = {k: to_numpy(scope.find_var(v)) for k, v in names.items()}
+    exe.close()
+    runs = {}
+    for label, place in (("gpu", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+        t0 = time.perf_counter()
+        with ptt.dygraph.guard(place):
+            model = _dygraph_gpt(ptt, cfg)
+            model.set_dict(start)
+            opt = ptt.dygraph.optimizers.Adam(
+                PARITY_LR, parameter_list=model.parameters())
+            ins = _dygraph_inputs(ptt, feed)
+            losses = [_dygraph_step(model, opt, ins)
+                      for _ in range(PARITY_STEPS)]
+            runs[label] = (losses, model.state_dict(),
+                           (time.perf_counter() - t0) * 1e3)
+        del model, opt
+    (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    vs_static, static_ok = _param_agreement(np, "float32", (
+        (k, "float32", start[k], gs[k], static[k]) for k in static))
+    vs_cpu, cpu_ok = _param_agreement(np, "float32", (
+        (k, "float32", start[k], gs[k], cs[k]) for k in static))
+    bit_equal = gl == static_losses and all(
+        np.array_equal(gs[k], static[k]) for k in static)
+    loss_ok = rel(gl, static_losses) <= PARITY_LOSS_RTOL["float32"] and \
+        rel(gl, cl) <= PARITY_LOSS_RTOL["float32"] and \
+        all(np.isfinite(gl))
+    ok = loss_ok and static_ok and cpu_ok
+    emit({"phase": "dygraph_parity", "ok": ok, "layers": PARITY_LAYERS,
+          "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+          "batch": GPT_PARITY_BATCH, "seq_len": GPT_PARITY_SEQ,
+          "steps": PARITY_STEPS, "lr": PARITY_LR,
+          "gpu_dygraph_losses": gl, "gpu_static_losses": static_losses,
+          "cpu_dygraph_losses": cl,
+          "loss_max_rel_err_vs_static": rel(gl, static_losses),
+          "loss_max_rel_err_vs_cpu": rel(gl, cl),
+          "loss_rtol": PARITY_LOSS_RTOL["float32"],
+          "vs_static": vs_static, "vs_cpu": vs_cpu,
+          "bit_equal_static": bit_equal, "gpu_ms": g_ms, "cpu_ms": c_ms})
+    if not ok:
+        raise AssertionError("dygraph_parity checks failed (see the line "
+                             "above)")
+
+
+def _zoo_layers(np, ptt, rng):
+    """(name, factory, numpy inputs) of every dygraph.nn layer but Dropout
+    and NCE (dygraph_zoo checks those by statistics) and the two
+    rnn_impl units, at small sizes."""
+    from paddle_tpu_torch.contrib.layers import rnn_impl
+    dy = ptt.dygraph
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    edges = np.array([[[0, 1], [0, 2], [1, 3], [-1, -1]]], np.int64)
+    return [
+        ("Linear", lambda: dy.Linear(16, 8, act="relu"), [f(4, 16)]),
+        ("Conv2D", lambda: dy.Conv2D(3, 8, 3, padding=1, act="relu"),
+         [f(2, 3, 16, 16)]),
+        ("Pool2D", lambda: dy.Pool2D(pool_size=2, pool_stride=2,
+                                     pool_type="avg"), [f(2, 3, 8, 8)]),
+        ("BatchNorm", lambda: dy.BatchNorm(8), [f(4, 8, 6, 6)]),
+        ("Embedding", lambda: dy.Embedding([100, 16]),
+         [rng.randint(0, 100, (4, 5, 1)).astype(np.int64)]),
+        ("LayerNorm", lambda: dy.LayerNorm(32), [f(4, 6, 32)]),
+        ("GRUUnit", lambda: dy.GRUUnit(48), [f(4, 48), f(4, 16)]),
+        ("FC", lambda: dy.FC("fc", 7, num_flatten_dims=2),
+         [f(2, 3, 4, 5)]),
+        ("Conv2DTranspose", lambda: dy.Conv2DTranspose(3, 5, 3, stride=2),
+         [f(2, 3, 8, 8)]),
+        ("Conv3D", lambda: dy.Conv3D(3, 4, 3, padding=1),
+         [f(2, 3, 4, 6, 6)]),
+        ("Conv3DTranspose", lambda: dy.Conv3DTranspose(3, 4, 2, stride=2),
+         [f(2, 3, 4, 6, 6)]),
+        ("GroupNorm", lambda: dy.GroupNorm(8, 4), [f(2, 8, 5, 5)]),
+        ("SpectralNorm", lambda: dy.SpectralNorm([6, 4], power_iters=5),
+         [f(6, 4)]),
+        ("PRelu", lambda: dy.PRelu("channel", input_shape=[2, 3, 8, 8]),
+         [f(2, 3, 8, 8)]),
+        ("BilinearTensorProduct",
+         lambda: dy.BilinearTensorProduct(4, 5, 6), [f(3, 4), f(3, 5)]),
+        ("RowConv", lambda: dy.RowConv("rc", 2), [f(2, 7, 5)]),
+        ("SequenceConv", lambda: dy.SequenceConv("sc", 6, 3),
+         [f(2, 7, 5)]),
+        ("TreeConv", lambda: dy.TreeConv("tc", 6, 2), [f(1, 5, 4), edges]),
+        ("BasicGRUUnit", lambda: rnn_impl.BasicGRUUnit("gru", 16),
+         [f(4, 8), f(4, 16)]),
+        ("BasicLSTMUnit", lambda: rnn_impl.BasicLSTMUnit("lstm", 16),
+         [f(4, 8), f(4, 16), f(4, 16)]),
+    ]
+
+
+def _zoo_run(np, ptt, place, make, arrays, seed):
+    """One layer's forward and backward (the float outputs against fixed
+    random cotangents) on ``place``: {name: array} of its outputs, its
+    parameters' and float inputs' gradients and its buffers."""
+    L = ptt.layers
+    with ptt.dygraph.guard(place):
+        np.random.seed(seed)
+        layer = make()
+        ins = [ptt.dygraph.to_variable(a) for a in arrays]
+        out = layer(*ins)
+        outs = [o for o in (out if isinstance(out, (tuple, list))
+                            else [out]) if o.dtype.startswith("float")]
+        cots = np.random.RandomState(seed + 1)
+        total = None
+        for o in outs:
+            cot = ptt.dygraph.to_variable(
+                cots.standard_normal(o.shape).astype(np.float32))
+            cot.stop_gradient = True
+            term = L.reduce_sum(L.elementwise_mul(o, cot))
+            total = term if total is None else L.elementwise_add(total, term)
+        total.backward()
+        got = {"out%d" % i: o.numpy() for i, o in enumerate(outs)}
+        got.update({"grad:" + n: p.gradient()
+                    for n, p in layer.named_parameters()
+                    if p.gradient() is not None})
+        got.update({"dx%d" % i: v.gradient() for i, v in enumerate(ins)
+                    if v.gradient() is not None})
+        for buf in ("_mean", "_variance", "_u", "_v"):
+            if hasattr(layer, buf):
+                got[buf] = getattr(layer, buf).numpy()
+    return got
+
+
+def _zoo_dropout(torch, np, ptt):
+    """Dropout on the card by its statistics: the kept share within 5
+    standard errors of 1 - p, kept values x (downgrade_in_infer) or x / (1
+    - p) (upscale_in_train), the gradient the same mask, eval mode x * (1 -
+    p) or x."""
+    p, n = 0.3, ZOO_DROPOUT_N
+    out = {}
+    ok = True
+    with ptt.dygraph.guard():
+        for mode, kept_value, eval_scale in (
+                ("downgrade_in_infer", 1.0, 1.0 - p),
+                ("upscale_in_train", 1.0 / (1.0 - p), 1.0)):
+            layer = ptt.dygraph.Dropout(p, mode)
+            x = ptt.dygraph.to_variable(np.ones(n, np.float32))
+            y = layer(x)
+            ptt.layers.reduce_sum(y).backward()
+            yv, gv = y.numpy(), x.gradient()
+            keep = yv != 0
+            share = float(keep.mean())
+            se = math.sqrt(p * (1 - p) / n)
+            layer.eval()
+            ev = layer(x).numpy()
+            case_ok = bool(abs(share - (1 - p)) <= 5 * se and
+                           np.allclose(yv[keep], kept_value, rtol=1e-6) and
+                           np.array_equal(gv != 0, keep) and
+                           np.allclose(ev, eval_scale, rtol=1e-6))
+            out[mode] = {"kept_share": share, "expected": 1 - p,
+                         "standard_error": se, "ok": case_ok}
+            ok = ok and case_ok
+    return out, ok
+
+
+def _zoo_nce(torch, np, ptt):
+    """NCE: the layer forward and backward on the card (finite cost (N,
+    1), a weight gradient); its noise classes by their statistics
+    (uniform and log-uniform counts over ZOO_NCE_DRAWS draws, each within
+    5 standard errors of its expectation); its cost given the same noise
+    classes on the card and on the CPU (within ZOO_TOL)."""
+    from paddle_tpu_torch.ops import loss_extra_ops as lx
+    rng = np.random.RandomState(3)
+    c, d, n, k = 20, 8, 4, 5
+    feats = rng.standard_normal((n, d)).astype(np.float32)
+    labels = rng.randint(0, c, (n, 1)).astype(np.int64)
+    with ptt.dygraph.guard():
+        np.random.seed(5)
+        layer = ptt.dygraph.NCE(num_total_classes=c, dim=d,
+                                num_neg_samples=k)
+        cost = layer(ptt.dygraph.to_variable(feats),
+                     ptt.dygraph.to_variable(labels))
+        ptt.layers.reduce_sum(cost).backward()
+        layer_ok = (cost.shape == (n, 1) and
+                    bool(np.isfinite(cost.numpy()).all()) and
+                    float(np.abs(layer.weight.gradient()).sum()) > 0)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    stats = {}
+    for sampler in ("uniform", "log_uniform"):
+        drawn = lx.sample_classes(g, c, ZOO_NCE_DRAWS, sampler, dev)
+        counts = np.bincount(drawn.cpu().numpy(), minlength=c)
+        q = lx._sampler_prob(torch.arange(c), c, sampler).numpy()
+        se = np.sqrt(ZOO_NCE_DRAWS * q * (1 - q))
+        worst = float((np.abs(counts - ZOO_NCE_DRAWS * q) / se).max())
+        stats[sampler] = {"worst_standard_errors": worst,
+                          "ok": bool(worst <= 5.0 and counts.sum() ==
+                                     ZOO_NCE_DRAWS)}
+    neg = torch.as_tensor(rng.randint(0, c, k))
+    w = torch.as_tensor(rng.standard_normal((c, d)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal(c).astype(np.float32))
+    args = [torch.as_tensor(feats), torch.as_tensor(labels.reshape(-1)), w,
+            b, neg]
+    want = lx.nce_cost(*args, c, "log_uniform").numpy()
+    got = lx.nce_cost(*[a.to(dev) for a in args], c,
+                      "log_uniform").cpu().numpy()
+    cost_err = float(np.abs(got - want).max())
+    ok = layer_ok and all(s["ok"] for s in stats.values()) and \
+        cost_err <= ZOO_TOL * float(np.abs(want).max())
+    return {"layer_ok": layer_ok, "samplers": stats,
+            "cost_max_abs_err": cost_err}, ok
+
+
+def dygraph_zoo(torch, np, ptt):
+    """Every dygraph.nn layer and the two rnn_impl units forward and
+    backward on the card against the CPU at small sizes (outputs,
+    parameter and input gradients, buffers within ZOO_TOL of the CPU's
+    largest magnitude); Dropout and NCE by their statistics."""
+    rng = np.random.RandomState(SEED)
+    cases, ok = {}, True
+    for i, (name, make, arrays) in enumerate(_zoo_layers(np, ptt, rng)):
+        gpu = _zoo_run(np, ptt, ptt.CUDAPlace(0), make, arrays, 100 + i)
+        cpu = _zoo_run(np, ptt, ptt.CPUPlace(), make, arrays, 100 + i)
+        errs = {}
+        case_ok = set(gpu) == set(cpu)
+        for key, want in cpu.items():
+            got = gpu.get(key)
+            if got is None or got.shape != want.shape:
+                case_ok = False
+                continue
+            err = float(np.abs(got - want).max())
+            errs[key] = err
+            case_ok = case_ok and err <= ZOO_TOL * max(
+                float(np.abs(want).max()), 1e-6)
+        cases[name] = {"ok": case_ok, "checked": sorted(errs),
+                       "max_abs_err": max(errs.values()) if errs else None}
+        ok = ok and case_ok
+    cases["Dropout"], drop_ok = _zoo_dropout(torch, np, ptt)
+    cases["NCE"], nce_ok = _zoo_nce(torch, np, ptt)
+    ok = ok and drop_ok and nce_ok
+    emit({"phase": "dygraph_zoo", "ok": ok, "tol": ZOO_TOL,
+          "layers": len(cases), "cases": cases})
+    if not ok:
+        raise AssertionError("dygraph_zoo checks failed (see the line "
+                             "above)")
+
+
 def _family(kernel):
     k = kernel.lower()
     for key, fam in (("flash_fwd_kernel", "flash_attention_fwd"),
@@ -7587,6 +8249,16 @@ def main():
     by_path["resilient_recipe"] = phase("resilient_recipe")(
         resilient_recipe)(torch, np, ptt, counters)
     phase("compiled_parity")(compiled_parity)(torch, np, ptt)
+
+    dy_done = phase("dygraph_gpt")(dygraph_gpt)(torch, np, ptt, counters)
+    by_path["dygraph_gpt"] = None if dy_done is None else dy_done[0]
+    by_path["dygraph_traced"] = None
+    if dy_done is not None:
+        by_path["dygraph_traced"] = phase("dygraph_traced")(
+            dygraph_traced)(torch, np, ptt, counters, dy_done[1])
+    del dy_done
+    phase("dygraph_parity")(dygraph_parity)(torch, np, ptt)
+    phase("dygraph_zoo")(dygraph_zoo)(torch, np, ptt)
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

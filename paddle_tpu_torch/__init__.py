@@ -38,7 +38,12 @@ survives faults through ``framework.resilience.ResilientTrainer``
 (checkpoint, restore, replay) with the failpoint plane
 (``framework.faultinject``) and the step watchdog
 (``framework.watchdog``). ``paddle_tpu_torch.fluid`` aliases the
-package. The other models are later slices (see ROADMAP.md).
+package. Dygraph (eager) mode is ``dygraph``: under ``dygraph.guard()``
+(``CUDAPlace(0)`` unless ``CPUPlace()`` is passed) the ``dygraph.nn``
+Layers and the static layer functions run at once, ``loss.backward()``
+is torch's autograd and ``dygraph.optimizers`` update in place (fused
+Adam on the card); ``dygraph.TracedLayer`` replays a forward from a CUDA
+graph. The other models are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -72,5 +77,12 @@ from .data import data  # fluid.data: the full shape, None dims
 from .data_feed_desc import DataFeedDesc
 from .parallel_executor import ParallelExecutor
 from . import compiler
+from . import dygraph
+
+
+def in_dygraph_mode():
+    """ref framework.in_dygraph_mode."""
+    return dygraph.enabled()
+
 
 __version__ = "0.1.0"

@@ -13,16 +13,112 @@ so its last state is zeros.
 The last-state chain (a ``one_hot``, a ``matmul`` and a ``squeeze`` per
 direction and the final ``stack``) is always built, as in the JAX
 package, even where no head reads it; the Executor runs it (XLA drops
-it in the JAX package). The dygraph units ``BasicGRUUnit`` and
-``BasicLSTMUnit`` wait for the dygraph slice of the port.
+it in the JAX package). ``BasicGRUUnit`` and ``BasicLSTMUnit`` are
+the dygraph cells (one step, ``apply_eager`` over plain torch ops, as the
+JAX package's are jnp).
 
 Returns match the reference: basic_gru -> (rnn_out, last_hidden);
 basic_lstm -> (rnn_out, last_hidden, last_cell); last states have shape
 (num_layers * num_directions, batch, hidden).
 """
-from ... import layers
+import torch
 
-__all__ = ["basic_gru", "basic_lstm"]
+from ... import layers
+from ...dygraph.base import apply_eager
+from ...dygraph.layers import Layer
+
+__all__ = ["BasicGRUUnit", "basic_gru", "BasicLSTMUnit", "basic_lstm"]
+
+
+def _sigmoid(v):
+    return 1.0 / (1.0 + torch.exp(-v))
+
+
+class BasicGRUUnit(Layer):
+    """Single-step GRU cell for dygraph (paddle_tpu's :23, ref
+    rnn_impl.py:22). forward(input (N, D), pre_hidden (N, H)) ->
+    new_hidden."""
+
+    def __init__(self, name_scope, hidden_size, param_attr=None,
+                 bias_attr=None, gate_activation=None, activation=None,
+                 dtype="float32"):
+        super(BasicGRUUnit, self).__init__(dtype=dtype)
+        self._hidden_size = hidden_size
+        self._gate_act = gate_activation or "sigmoid"
+        self._act = activation or "tanh"
+        self._dtype = dtype
+        self._built = False
+
+    def _build_once(self, input):
+        d = input.shape[-1]
+        h = self._hidden_size
+        self._gate_weight = self.add_parameter(
+            "gate_weight", self.create_parameter([d + h, 2 * h]))
+        self._candidate_weight = self.add_parameter(
+            "candidate_weight", self.create_parameter([d + h, h]))
+        self._gate_bias = self.add_parameter(
+            "gate_bias", self.create_parameter([2 * h], is_bias=True))
+        self._candidate_bias = self.add_parameter(
+            "candidate_bias", self.create_parameter([h], is_bias=True))
+        self._built = True
+
+    def forward(self, input, pre_hidden):
+        if not self._built:
+            self._build_once(input)
+        h = self._hidden_size
+
+        def step(x, hp, gw, gb, cw, cb):
+            gates = torch.matmul(torch.cat([x, hp], dim=-1), gw) + gb
+            gates = _sigmoid(gates) if self._gate_act == "sigmoid" \
+                else torch.tanh(gates)
+            u, r = gates[..., :h], gates[..., h:]
+            c = torch.matmul(torch.cat([x, r * hp], dim=-1), cw) + cb
+            c = torch.tanh(c) if self._act == "tanh" else _sigmoid(c)
+            return u * hp + (1.0 - u) * c
+
+        return apply_eager(step, input, pre_hidden, self._gate_weight,
+                           self._gate_bias, self._candidate_weight,
+                           self._candidate_bias)
+
+
+class BasicLSTMUnit(Layer):
+    """Single-step LSTM cell for dygraph (paddle_tpu's :76, ref
+    rnn_impl.py:632). forward(input, pre_hidden, pre_cell) ->
+    (new_hidden, new_cell)."""
+
+    def __init__(self, name_scope, hidden_size, param_attr=None,
+                 bias_attr=None, gate_activation=None, activation=None,
+                 forget_bias=1.0, dtype="float32"):
+        super(BasicLSTMUnit, self).__init__(dtype=dtype)
+        self._hidden_size = hidden_size
+        self._forget_bias = forget_bias
+        self._built = False
+
+    def _build_once(self, input):
+        d = input.shape[-1]
+        h = self._hidden_size
+        self._weight = self.add_parameter(
+            "weight", self.create_parameter([d + h, 4 * h]))
+        self._bias = self.add_parameter(
+            "bias", self.create_parameter([4 * h], is_bias=True))
+        self._built = True
+
+    def forward(self, input, pre_hidden, pre_cell):
+        if not self._built:
+            self._build_once(input)
+        h = self._hidden_size
+        fb = self._forget_bias
+
+        def step(x, hp, cp, w, b):
+            gates = torch.matmul(torch.cat([x, hp], dim=-1), w) + b
+            i, f, c, o = (gates[..., :h], gates[..., h:2 * h],
+                          gates[..., 2 * h:3 * h], gates[..., 3 * h:])
+            new_c = cp * _sigmoid(f + fb) + _sigmoid(i) * torch.tanh(c)
+            new_h = torch.tanh(new_c) * _sigmoid(o)
+            return new_h, new_c
+
+        return apply_eager(step, input, pre_hidden, pre_cell,
+                           self._weight, self._bias)
 
 
 def _slice_init(init, idx, batch, hidden):

@@ -1,9 +1,14 @@
 """LayerHelper — shared machinery for layer functions.
 
-Counterpart of paddle_tpu/layer_helper.py (static graph only: the port
-has no dygraph mode yet). Creates parameters in the startup and main
-programs, temp variables, ops, biases and activations with the same names
-and attrs as the JAX package.
+Counterpart of paddle_tpu/layer_helper.py. Creates parameters in the
+startup and main programs, temp variables, ops, biases and activations
+with the same names and attrs as the JAX package. In dygraph mode
+(paddle_tpu's :36-60, :144-147) a temp variable is an eager placeholder
+and ``append_op`` runs the op at once on the eager values its input
+names resolve to, binding the results onto the placeholders its outputs
+name; a static layer that creates parameters (``fc``, ``conv2d``) finds
+no eager value for them and raises ``KeyError`` (use the dygraph.nn
+modules), as in the JAX package.
 """
 import copy
 
@@ -34,7 +39,29 @@ class LayerHelper(object):
         return default_startup_program()
 
     def append_op(self, *args, **kwargs):
+        from .dygraph import base as _dy
+        if _dy.enabled():
+            return self._append_op_eager(*args, **kwargs)
         return self.main_program.current_block().append_op(*args, **kwargs)
+
+    def _append_op_eager(self, type, inputs=None, outputs=None, attrs=None,
+                         **_ignored):
+        """Dygraph branch (reference layer_helper_base.py in_dygraph_mode):
+        resolve input names to eager values, run the kernel now, bind the
+        results onto the placeholder variables the layer already created."""
+        from .dygraph import base as _dy
+        from .dygraph.nn import run_op
+
+        def _names(v):
+            return [v] if not isinstance(v, (list, tuple)) else list(v)
+
+        ins = {slot: [_dy.lookup_eager(getattr(n, "name", n))
+                      for n in _names(names)]
+               for slot, names in (inputs or {}).items()}
+        binding = {slot: [_dy.lookup_eager(getattr(n, "name", n))
+                          for n in _names(names)]
+                   for slot, names in (outputs or {}).items()}
+        return run_op(type, ins, attrs or {}, out_binding=binding)
 
     # ---- inputs ----------------------------------------------------------
     def multiple_input(self, input_param_name="input"):
@@ -103,6 +130,9 @@ class LayerHelper(object):
 
     def create_variable_for_type_inference(self, dtype, shape=None,
                                            stop_gradient=False):
+        from .dygraph import base as _dy
+        if _dy.enabled():
+            return _dy.EagerVariable(None, stop_gradient=stop_gradient)
         return self.main_program.current_block().create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, shape=shape, persistable=False,

@@ -1,6 +1,7 @@
-"""Neural-net op kernels BERT, GPT, ResNet, DeepFM, the Transformer and
-the vision, DCGAN and YOLOv3 models run: conv2d, depthwise_conv2d,
-conv2d_transpose, pool2d, batch_norm, lookup_table, dropout, layer_norm,
+"""Neural-net op kernels BERT, GPT, ResNet, DeepFM, the Transformer,
+the vision, DCGAN and YOLOv3 models and the dygraph layers run: conv2d,
+depthwise_conv2d, conv2d_transpose, conv3d, pool2d, batch_norm,
+group_norm, lookup_table, dropout, layer_norm,
 softmax, log_softmax, label_smooth, one_hot, add_position_encoding,
 softmax_with_cross_entropy, cross_entropy,
 sigmoid_cross_entropy_with_logits, fused_mlm_head_loss, interp_nearest,
@@ -38,27 +39,42 @@ from ..framework.dtypes import to_torch_dtype
 _CE_BLOCK_T, _CE_BLOCK_V = 128, 512
 
 
-def _pair(v):
+def _ntuple(v, n):
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
-    return (int(v), int(v))
+    return (int(v),) * n
 
 
-@register_op("conv2d")
-def _conv2d(ctx, ins, attrs):
-    """NCHW input, OIHW filter, symmetric padding, dilation, groups. A bf16
+def _conv(conv, x, w, **args):
+    """``conv`` (F.conv2d, F.conv3d, or their transposes); a bf16
     convolution sums in f32 and rounds once to bf16 (the JAX package's
     ``preferred_element_type=f32``): cuDNN's bf16 convolution on the card
     accumulates in f32; on the CPU the operands are widened first (a bf16
     product is exact in f32)."""
-    x, w = ins["Input"][0], ins["Filter"][0]
-    args = dict(stride=_pair(attrs.get("strides", [1, 1])),
-                padding=_pair(attrs.get("paddings", [0, 0])),
-                dilation=_pair(attrs.get("dilations", [1, 1])),
-                groups=attrs.get("groups", 1) or 1)
     if x.dtype == torch.bfloat16 and x.device.type != "cuda":
-        return {"Output": F.conv2d(x.float(), w.float(), **args).to(x.dtype)}
-    return {"Output": F.conv2d(x, w, **args)}
+        return conv(x.float(), w.float(), **args).to(x.dtype)
+    return conv(x, w, **args)
+
+
+def _conv_args(attrs, nd):
+    return dict(stride=_ntuple(attrs.get("strides", 1), nd),
+                padding=_ntuple(attrs.get("paddings", 0), nd),
+                dilation=_ntuple(attrs.get("dilations", 1), nd),
+                groups=attrs.get("groups", 1) or 1)
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW input, OIHW filter, symmetric padding, dilation, groups."""
+    return {"Output": _conv(F.conv2d, ins["Input"][0], ins["Filter"][0],
+                            **_conv_args(attrs, 2))}
+
+
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    """NCDHW input, OIDHW filter (paddle_tpu/ops/nn_ops.py:99)."""
+    return {"Output": _conv(F.conv3d, ins["Input"][0], ins["Filter"][0],
+                            **_conv_args(attrs, 3))}
 
 
 @register_op("depthwise_conv2d")
@@ -96,11 +112,11 @@ def _pool2d(ctx, ins, attrs):
     ptype = attrs.get("pooling_type", "max")
     if attrs.get("global_pooling", False) or (
             attrs.get("adaptive", False) and
-            _pair(attrs.get("ksize", [1, 1])) == (1, 1)):
+            _ntuple(attrs.get("ksize", [1, 1]), 2) == (1, 1)):
         if ptype == "max":
             return {"Out": x.amax(dim=(2, 3), keepdim=True)}
         return {"Out": x.mean(dim=(2, 3), keepdim=True)}
-    ks = _pair(attrs.get("ksize", [2, 2]))
+    ks = _ntuple(attrs.get("ksize", [2, 2]), 2)
     if attrs.get("adaptive", False):
         oh, ow = ks
         h, w = x.shape[2], x.shape[3]
@@ -113,8 +129,8 @@ def _pool2d(ctx, ins, attrs):
             return {"Out": x6.amax(dim=(3, 5))}
         return {"Out": x6.mean(dim=(3, 5))}
     return {"Out": _window_pool(
-        x, ptype, ks, _pair(attrs.get("strides", ks)),
-        _pair(attrs.get("paddings", [0, 0])), attrs.get("exclusive", True))}
+        x, ptype, ks, _ntuple(attrs.get("strides", ks), 2),
+        _ntuple(attrs.get("paddings", [0, 0]), 2), attrs.get("exclusive", True))}
 
 
 @register_op("batch_norm", nondiff=("Mean", "Variance"))
@@ -150,6 +166,27 @@ def _batch_norm(ctx, ins, attrs):
         (inv * scale.float()).reshape(bshape) + bias.float().reshape(bshape)
     return {"Y": y.to(x.dtype), "MeanOut": mean_out, "VarianceOut": var_out,
             "SavedMean": saved_mean, "SavedVariance": saved_var}
+
+
+@register_op("group_norm")
+def _group_norm(ctx, ins, attrs):
+    """NC... input normalised over each group of channels and the spatial
+    axes (biased variance), then Scale and Bias per channel; Mean and
+    Variance (N, groups) (paddle_tpu/ops/nn_ops.py:251)."""
+    x = ins["X"][0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    var, mean = torch.var_mean(xg, dim=axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = [1, c] + [1] * (x.dim() - 2)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": y, "Mean": mean.reshape(n, g), "Variance": var.reshape(n, g)}
 
 
 @register_op("lookup_table", nondiff=("Ids",))
@@ -427,30 +464,28 @@ def _cross_entropy(ctx, ins, attrs):
                              loss)}
 
 
-@register_op("conv2d_transpose")
-def _conv2d_transpose(ctx, ins, attrs):
+def conv_transpose(ins, attrs, nd):
     """The input gradient of the forward convolution, as the JAX package
-    builds it (its vjp): ``F.conv_transpose2d`` with the same (in_c,
-    out_c / g, kh, kw) filter; the ``output_size`` attr becomes the
-    output padding past the derived size. A bf16 input is widened on the
-    CPU, as for conv2d."""
+    builds it (its vjp): ``F.conv_transpose{nd}d`` with the same (in_c,
+    out_c / g, k...) filter; the ``output_size`` attr becomes the output
+    padding past the derived size."""
     x, w = ins["Input"][0], ins["Filter"][0]
-    stride = _pair(attrs.get("strides", [1, 1]))
-    pads = _pair(attrs.get("paddings", [0, 0]))
-    dil = _pair(attrs.get("dilations", [1, 1]))
+    args = _conv_args(attrs, nd)
     out_sp = attrs.get("output_size") or None
-    extra = (0, 0)
+    extra = (0,) * nd
     if out_sp is not None:
         extra = tuple(
-            int(out_sp[i]) - ((x.shape[2 + i] - 1) * stride[i] - 2 * pads[i]
-                              + dil[i] * (w.shape[2 + i] - 1) + 1)
-            for i in range(2))
-    args = dict(stride=stride, padding=pads, output_padding=extra,
-                groups=attrs.get("groups", 1) or 1, dilation=dil)
-    if x.dtype == torch.bfloat16 and x.device.type != "cuda":
-        return {"Output": F.conv_transpose2d(x.float(), w.float(),
-                                             **args).to(x.dtype)}
-    return {"Output": F.conv_transpose2d(x, w, **args)}
+            int(out_sp[i]) - ((x.shape[2 + i] - 1) * args["stride"][i] -
+                              2 * args["padding"][i] + args["dilation"][i] *
+                              (w.shape[2 + i] - 1) + 1)
+            for i in range(nd))
+    conv = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    return {"Output": _conv(conv, x, w, output_padding=extra, **args)}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    return conv_transpose(ins, attrs, 2)
 
 
 def _interp_src(out_size, in_size, align_corners, align_mode, device):

@@ -138,6 +138,30 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.compiler\n"
             "import paddle_tpu_torch.parallel_executor\n"
             "import paddle_tpu_torch.fluid, paddle_tpu_torch.fluid.compiler\n"
+            "import paddle_tpu_torch.dygraph, paddle_tpu_torch.dygraph.base\n"
+            "import paddle_tpu_torch.dygraph.layers\n"
+            "import paddle_tpu_torch.dygraph.container\n"
+            "import paddle_tpu_torch.dygraph.nn\n"
+            "import paddle_tpu_torch.dygraph.optimizers\n"
+            "import paddle_tpu_torch.dygraph.grad_clip\n"
+            "import paddle_tpu_torch.dygraph.learning_rate_scheduler\n"
+            "import paddle_tpu_torch.dygraph.checkpoint\n"
+            "import paddle_tpu_torch.dygraph.jit\n"
+            "import paddle_tpu_torch.dygraph.parallel\n"
+            "import paddle_tpu_torch.dygraph.parallel_helper\n"
+            "import paddle_tpu_torch.dygraph.backward_strategy\n"
+            "import paddle_tpu_torch.dygraph.tracer\n"
+            "import paddle_tpu_torch.dygraph.dygraph_utils\n"
+            "import paddle_tpu_torch.dygraph.layer_object_helper\n"
+            "import paddle_tpu_torch.dygraph.math_op_patch\n"
+            "import paddle_tpu_torch.dygraph.varbase_patch_methods\n"
+            "import paddle_tpu_torch.dygraph.profiler\n"
+            "import paddle_tpu_torch.dygraph_grad_clip\n"
+            "import paddle_tpu_torch.fluid.dygraph\n"
+            "import paddle_tpu_torch.ops.vision_ops\n"
+            "import paddle_tpu_torch.ops.misc_ops\n"
+            "import paddle_tpu_torch.ops.loss_extra_ops\n"
+            "import paddle_tpu_torch.ops.contrib_ops\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
