@@ -43,7 +43,12 @@ package. Dygraph (eager) mode is ``dygraph``: under ``dygraph.guard()``
 Layers and the static layer functions run at once, ``loss.backward()``
 is torch's autograd and ``dygraph.optimizers`` update in place (fused
 Adam on the card); ``dygraph.TracedLayer`` replays a forward from a CUDA
-graph. The other models are later slices (see ROADMAP.md).
+graph. The dense op library (reductions, gathers and scatters, the
+losses, the sequence ops), the static layers over it and ``nets`` build
+the Paddle Book's chapters, fed from ``dataset``'s corpora
+(``uci_housing``, ``mnist``, ``cifar``, ``imikolov``, ``imdb``,
+``movielens``, ``conll05``, ``wmt14``). The other models are later
+slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -56,6 +61,7 @@ from .ops.registry import NotPortedError
 from .param_attr import ParamAttr
 from . import initializer
 from . import layers
+from . import nets
 from . import contrib
 from . import regularizer
 from . import clip

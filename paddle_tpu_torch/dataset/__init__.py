@@ -1,9 +1,31 @@
-"""The fluid Dataset API (counterpart of paddle_tpu/dataset):
-DatasetFactory, InMemoryDataset and QueueDataset over the C++ data
-plane. The corpus modules of the JAX package (mnist, cifar, wmt16, ...)
-are not ported yet; ROADMAP.md lists them."""
+"""Dataset package (counterpart of paddle_tpu/dataset). Two namespaces
+merge here, as there:
+
+  * the corpus modules the Paddle Book reads (ref
+    python/paddle/dataset/): ``uci_housing``, ``mnist``, ``cifar``,
+    ``imikolov``, ``imdb``, ``movielens``, ``conll05`` and ``wmt14``,
+    with ``common`` and ``synthetic``: deterministic synthetic payloads
+    in the reference's record schemas, numpy only, equal to the JAX
+    package's sample for sample. ``flowers``, ``image``, ``mq2007``,
+    ``sentiment``, ``voc2012`` and ``wmt16`` are not ported yet
+    (ROADMAP.md);
+  * the fluid Dataset API: DatasetFactory, InMemoryDataset and
+    QueueDataset over the C++ data plane.
+"""
 from .dataset_api import (DatasetFactory, DatasetBase,  # noqa: F401
                           QueueDataset, InMemoryDataset)
+from . import common  # noqa: F401
+from . import synthetic  # noqa: F401
+from . import mnist  # noqa: F401
+from . import cifar  # noqa: F401
+from . import uci_housing  # noqa: F401
+from . import imdb  # noqa: F401
+from . import imikolov  # noqa: F401
+from . import movielens  # noqa: F401
+from . import conll05  # noqa: F401
+from . import wmt14  # noqa: F401
 
-__all__ = ['DatasetFactory', 'DatasetBase', 'QueueDataset',
+__all__ = ['mnist', 'imikolov', 'imdb', 'cifar', 'movielens', 'conll05',
+           'uci_housing', 'wmt14', 'common', 'synthetic',
+           'DatasetFactory', 'DatasetBase', 'QueueDataset',
            'InMemoryDataset']

@@ -2,7 +2,9 @@
 from .tensor import (create_parameter, cast, concat,  # noqa: F401
                      sums, assign, fill_constant, zeros_like, ones_like,
                      fill_constant_batch_size_like, argmax, reverse,
-                     tensor_array_to_tensor)
+                     tensor_array_to_tensor, argmin, argsort,
+                     create_global_var, create_tensor, diag, eye, has_inf,
+                     has_nan, isfinite, linspace, ones, range, zeros)
 from .ops import *           # noqa: F401,F403
 from .nn import *            # noqa: F401,F403
 from .io import (data, py_reader, read_file,  # noqa: F401
@@ -18,6 +20,9 @@ from .vision import *        # noqa: F401,F403
 from . import detection  # noqa: F401
 from .detection import yolov3_loss, yolo_box, multiclass_nms  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
+from .distributions import (Normal, Uniform, Categorical,  # noqa: F401
+                            MultivariateNormalDiag)
+from . import utils  # noqa: F401
 from .learning_rate_scheduler import (  # noqa: F401
     noam_decay, exponential_decay, natural_exp_decay, inverse_time_decay,
     polynomial_decay, piecewise_decay, cosine_decay, linear_lr_warmup)

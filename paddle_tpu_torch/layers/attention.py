@@ -94,4 +94,27 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
               bias_attr=_attr("_output_fc.b_0"))
 
 
-__all__ = ["fused_attention", "mha_kv_projection", "multi_head_attention"]
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0, is_test=False):
+    """queries/keys/values: (N, T, D). Multi-head fused attention."""
+    helper = LayerHelper("sdpa")
+    n, tq, d = queries.shape
+    dh = d // num_heads
+    q = transpose(reshape(queries, [0, -1 if tq == -1 else tq, num_heads,
+                                    dh]), [0, 2, 1, 3])
+    k = transpose(reshape(keys, [0, -1 if keys.shape[1] == -1
+                                 else keys.shape[1], num_heads, dh]),
+                  [0, 2, 1, 3])
+    v = transpose(reshape(values, [0, -1 if values.shape[1] == -1
+                                   else values.shape[1], num_heads, dh]),
+                  [0, 2, 1, 3])
+    out = fused_attention(q, k, v)
+    out = reshape(transpose(out, [0, 2, 1, 3]), [0, -1 if tq == -1 else tq,
+                                                 d])
+    if dropout_rate:
+        out = dropout(out, dropout_rate, is_test=is_test)
+    return out
+
+
+__all__ = ["fused_attention", "mha_kv_projection", "multi_head_attention",
+           "scaled_dot_product_attention"]

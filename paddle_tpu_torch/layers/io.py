@@ -1,5 +1,5 @@
-"""Input layers (counterpart of paddle_tpu/layers/io.py): ``data`` and
-the in-graph reader, ``py_reader``.
+"""Input layers (counterpart of paddle_tpu/layers/io.py): ``data``,
+the in-graph reader, ``py_reader``, and ``load`` (the ``load_tensor`` op).
 
 A started ``PyReader`` feeds its variables to ``Executor.run`` when the
 caller does not: the run-without-feed training loop of fluid scripts
@@ -17,7 +17,6 @@ import numpy as np
 
 from ..framework import unique_name
 from ..framework.program import default_main_program
-from ..ops.registry import NotPortedError
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
@@ -188,8 +187,12 @@ def create_py_reader_by_data(capacity, feed_list, name=None,
 
 
 def load(out, file_path, load_as_fp16=False):
-    """layers.load appends a ``load_tensor`` op, which the port's op
-    library does not have yet."""
-    raise NotPortedError(
-        "layers.load (the load_tensor op) is not ported to "
-        "paddle_tpu_torch yet; ROADMAP.md lists it")
+    """Load one saved tensor into ``out`` (ref layers/io.py load /
+    load_op): a ``load_tensor`` op that reads a ``.npy`` on the host, so
+    a program holding it runs op by op on the card."""
+    prog = default_main_program()
+    prog.current_block().append_op(
+        "load_tensor", inputs={}, outputs={"Out": [out.name]},
+        attrs={"file_path": str(file_path),
+               "load_as_fp16": bool(load_as_fp16)})
+    return out

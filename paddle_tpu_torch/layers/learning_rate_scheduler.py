@@ -26,7 +26,11 @@ def _decay_step_counter(begin=0):
     return tensor.cast(counter, "float32")
 
 
-def _scale_lr(lr, factor):
+def elementwise_min_var(a, b):
+    return elementwise_min(a, b)
+
+
+def scale_lr(lr, factor):
     if factor == 1.0:
         return lr
     return scale(lr, scale=float(factor))
@@ -36,8 +40,8 @@ def noam_decay(d_model, warmup_steps, learning_rate=1.0):
     step = _decay_step_counter(begin=1)
     a = ops.pow(step, -0.5)
     b = step * (warmup_steps ** -1.5)
-    lr = (d_model ** -0.5) * elementwise_min(a, b)
-    return _scale_lr(lr, learning_rate)
+    lr = (d_model ** -0.5) * elementwise_min_var(a, b)
+    return scale_lr(lr, learning_rate)
 
 
 def exponential_decay(learning_rate, decay_steps, decay_rate, staircase=False):
@@ -45,7 +49,7 @@ def exponential_decay(learning_rate, decay_steps, decay_rate, staircase=False):
     div = step / float(decay_steps)
     if staircase:
         div = ops.floor(div)
-    return _scale_lr(ops.exp(div * math.log(decay_rate)), learning_rate)
+    return scale_lr(ops.exp(div * math.log(decay_rate)), learning_rate)
 
 
 def natural_exp_decay(learning_rate, decay_steps, decay_rate,
@@ -54,7 +58,7 @@ def natural_exp_decay(learning_rate, decay_steps, decay_rate,
     div = step / float(decay_steps)
     if staircase:
         div = ops.floor(div)
-    return _scale_lr(ops.exp(div * (-decay_rate)), learning_rate)
+    return scale_lr(ops.exp(div * (-decay_rate)), learning_rate)
 
 
 def inverse_time_decay(learning_rate, decay_steps, decay_rate,
@@ -65,7 +69,7 @@ def inverse_time_decay(learning_rate, decay_steps, decay_rate,
         div = ops.floor(div)
     denom = div * decay_rate + 1.0
     one = tensor.fill_constant([1], "float32", 1.0)
-    return _scale_lr(elementwise_div(one, denom), learning_rate)
+    return scale_lr(elementwise_div(one, denom), learning_rate)
 
 
 def polynomial_decay(learning_rate, decay_steps, end_learning_rate=0.0001,
@@ -118,4 +122,5 @@ def linear_lr_warmup(learning_rate, warmup_steps, start_lr, end_lr):
 
 __all__ = ["noam_decay", "exponential_decay", "natural_exp_decay",
            "inverse_time_decay", "polynomial_decay", "piecewise_decay",
-           "cosine_decay", "linear_lr_warmup"]
+           "cosine_decay", "linear_lr_warmup", "elementwise_min_var",
+           "scale_lr"]

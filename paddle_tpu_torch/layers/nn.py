@@ -1,5 +1,5 @@
-"""Neural network layers BERT, GPT, ResNet, DeepFM, the Transformer, the
-recurrent sequence models and the vision, DCGAN and YOLOv3 models use.
+"""Neural network layers (the whole of paddle_tpu/layers/nn.py since the
+op library's slice).
 
 Counterpart of paddle_tpu/layers/nn.py: same signatures, and the op
 types, attrs and var names each layer emits equal the JAX package's.
@@ -37,12 +37,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
             outputs={"Out": [tmp.name]},
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the 'sum' op, which "
-            "paddle_tpu_torch does not have yet")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            dtype, mul_results[0].shape)
+        helper.append_op("sum", inputs={"X": [m.name for m in mul_results]},
+                         outputs={"Out": [pre_bias.name]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -473,6 +475,11 @@ def _reduce_layer(op_type):
 
 reduce_sum = _reduce_layer("reduce_sum")
 reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+reduce_all = _reduce_layer("reduce_all")
+reduce_any = _reduce_layer("reduce_any")
 
 
 def squeeze(input, axes, name=None):
@@ -643,6 +650,263 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
     return out
 
 
+# ---- the op library's layers (paddle_tpu/layers/nn.py) ----
+
+def embedding_bag(input, size, mode="sum", padding_idx=None,
+                  param_attr=None, dtype="float32"):
+    """Bagged embedding lookup: ids (N, bag) -> (N, D) reduced over the
+    bag axis (lookup_table, then the reduction)."""
+    emb = embedding(input, size, padding_idx=padding_idx,
+                    param_attr=param_attr, dtype=dtype)   # (N, bag, D)
+    if mode == "sum":
+        return reduce_sum(emb, dim=1)
+    if mode == "mean":
+        return reduce_mean(emb, dim=1)
+    if mode == "max":
+        return reduce_max(emb, dim=1)
+    raise ValueError("embedding_bag mode must be sum/mean/max")
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    shape = None
+    if x.shape is not None and all(s != -1 for s in x.shape[axis:]):
+        lead = x.shape[:axis]
+        shape = ((-1 if any(s == -1 for s in lead)
+                  else int(math.prod(lead or (1,)))),
+                 int(math.prod(x.shape[axis:])))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("flatten2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", inputs={"X": [input.name],
+                                          "Index": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1]
+    inputs = {"X": [input.name]}
+    if param_attr is not False:
+        s = helper.create_parameter(
+            helper.param_attr, shape=[c], dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s.name]
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, shape=[c],
+                                    dtype="float32", is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    mean = helper.create_variable_for_type_inference("float32")
+    var = helper.create_variable_for_type_inference("float32")
+    helper.append_op("group_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    c = input.shape[1]
+    inputs = {"X": [input.name]}
+    if param_attr is not False:
+        s = helper.create_parameter(
+            helper.param_attr, shape=[c], dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s.name]
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, shape=[c],
+                                    dtype="float32", is_bias=True)
+        inputs["Bias"] = [b.name]
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    sm = helper.create_variable_for_type_inference("float32")
+    sv = helper.create_variable_for_type_inference("float32")
+    helper.append_op("instance_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "SavedMean": [sm.name],
+                              "SavedVariance": [sv.name]},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("l2_normalize", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Norm": [norm.name]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    n, c, h, w = x.shape
+    r = reshape(x, [-1 if n == -1 else n, c // groups, groups, h, w])
+    return reduce_max(r, dim=2)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    shape = None
+    if x.shape is not None and len(paddings) >= 2 * len(x.shape):
+        shape = tuple(
+            d if d == -1 else d + paddings[2 * i] + paddings[2 * i + 1]
+            for i, d in enumerate(x.shape))
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("pad", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pad2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "all":
+        shape = [1]
+    elif mode == "channel":
+        shape = [x.shape[1]]
+    else:
+        shape = [int(s) for s in x.shape[1:]]
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    pos = _single(LayerHelper("relu"), "relu", x, shape=x.shape)
+    neg_in = elementwise_min(x, tensor_layers.zeros([1], x.dtype))
+    if mode == "channel":
+        neg = elementwise_mul(neg_in, alpha, axis=1)
+    else:
+        neg = elementwise_mul(neg_in, alpha)
+    return elementwise_add(pos, neg)
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None, name=None):
+    """A host Python function as an op (reference layers/nn.py:12369
+    py_func): ``func`` runs on numpy copies of ``x`` and fills ``out``,
+    which must be Variables with static shapes; ``backward_func(*inputs,
+    *outputs, *out_grads)`` returns each input's gradient (None: zeros).
+    A program holding it runs op by op on the card (the op reads its
+    inputs on the host). The functions live in a process-local table,
+    so the program runs in the process that built it."""
+    from ..ops.misc_ops import register_py_func
+    if skip_vars_in_backward_input:
+        raise NotImplementedError(
+            "py_func skip_vars_in_backward_input is not supported — the "
+            "backward callback always receives (*inputs, *outputs, "
+            "*out_grads); drop the skip list and index accordingly")
+    helper = LayerHelper("py_func", name=name)
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    for o in outs:
+        if o.shape is None or any(s in (None, -1) for s in o.shape):
+            raise ValueError(
+                "py_func outputs need fully static shapes; got %r "
+                "for %s" % (o.shape, o.name))
+    fid = register_py_func(func, backward_func)
+    helper.append_op(
+        "py_func",
+        inputs={"X": [v.name for v in xs]},
+        outputs={"Out": [o.name for o in outs]},
+        attrs={"func_id": fid,
+               "out_meta": [[list(o.shape), str(o.dtype)] for o in outs]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("scatter",
+                     inputs={"X": [input.name], "Ids": [index.name],
+                             "Updates": [updates.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"overwrite": overwrite})
+    return out
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    helper = LayerHelper("scatter_nd_add", name=name)
+    out = helper.create_variable_for_type_inference(ref.dtype, ref.shape)
+    helper.append_op("scatter_nd_add",
+                     inputs={"X": [ref.name], "Index": [index.name],
+                             "Updates": [updates.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(
+        "int32", (len(input.shape),) if input.shape else None)
+    helper.append_op("shape", inputs={"Input": [input.name]},
+                     outputs={"Out": [out.name]})
+    out.stop_gradient = True
+    return out
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """Ref nn.py:3156 / spectral_norm_op.h: weight / sigma_max via power
+    iteration; U and V iterates persist across steps (batch_norm-style
+    running state)."""
+    helper = LayerHelper("spectral_norm", name=name)
+    shape = weight.shape
+    perm_h = shape[dim]
+    perm_w = int(math.prod(shape)) // perm_h
+    from ..framework import unique_name as _un
+    from ..initializer import NormalInitializer
+    u = helper.create_or_get_global_variable(
+        name=_un.generate(helper.name + ".u"), dtype="float32",
+        shape=(perm_h,), persistable=True)
+    helper.set_variable_initializer(u, NormalInitializer(0.0, 1.0))
+    v = helper.create_or_get_global_variable(
+        name=_un.generate(helper.name + ".v"), dtype="float32",
+        shape=(perm_w,), persistable=True)
+    helper.set_variable_initializer(v, NormalInitializer(0.0, 1.0))
+    out = helper.create_variable_for_type_inference(weight.dtype,
+                                                    weight.shape)
+    helper.append_op(
+        "spectral_norm",
+        inputs={"Weight": [weight.name], "U": [u.name], "V": [v.name]},
+        outputs={"Out": [out.name], "UOut": [u.name], "VOut": [v.name]},
+        attrs={"dim": int(dim), "power_iters": int(power_iters),
+               "eps": float(eps)})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    num = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": [x.name]},
+                     outputs={"Y": [o.name for o in outs]},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
 __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "adaptive_pool2d", "image_resize", "resize_bilinear",
            "resize_nearest",
@@ -654,4 +918,9 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "transpose", "slice", "cast", "mean", "gather", "split",
            "reduce_sum", "reduce_mean", "squeeze", "stack", "sequence_mask",
            "topk", "where", "autoincreased_step_counter",
-           "expand", "log_softmax", "one_hot", "label_smooth", "cumsum"]
+           "expand", "log_softmax", "one_hot", "label_smooth", "cumsum",
+           "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+           "reduce_any", "embedding_bag", "flatten", "gather_nd",
+           "group_norm", "instance_norm", "l2_normalize", "maxout", "pad",
+           "pad2d", "prelu", "py_func", "scatter", "scatter_nd_add", "shape",
+           "spectral_norm", "unstack"]

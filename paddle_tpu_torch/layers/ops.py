@@ -1,6 +1,7 @@
 """Activation layers (counterpart of paddle_tpu/layers/ops.py): one
 layer per unary op of the activation table, the attr-taking ones with
-the JAX package's attr names and defaults, and ``pow``."""
+the JAX package's attr names and defaults, ``pow``, and the random
+layers ``uniform_random``, ``gaussian_random`` and ``sampling_id``."""
 import sys
 
 from ..layer_helper import LayerHelper
@@ -76,4 +77,34 @@ def pow(x, factor=1.0, name=None):
     return out
 
 
-__all__ = list(_UNARY_OPS) + list(_ATTR_OPS) + ["pow"]
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype, tuple(shape))
+    helper.append_op("uniform_random", outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "min": min, "max": max, "seed": seed})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype, tuple(shape))
+    helper.append_op("gaussian_random", outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "mean": mean, "std": std, "seed": seed})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("sampling_id", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"seed": seed})
+    out.stop_gradient = True
+    return out
+
+
+
+__all__ = list(_UNARY_OPS) + list(_ATTR_OPS) + ["pow", "uniform_random",
+                                                 "gaussian_random",
+                                                 "sampling_id"]

@@ -1,11 +1,12 @@
-"""Tensor layers: create_parameter, cast, concat, sums, assign,
-fill_constant, fill_constant_batch_size_like, argmax, zeros_like,
-ones_like, reverse, tensor_array_to_tensor (counterparts in
-paddle_tpu/layers/tensor.py)."""
+"""Tensor layers (counterparts in paddle_tpu/layers/tensor.py, the whole
+file since the op library's slice). As there, ``range`` shadows the
+builtin in this module."""
 import numpy as np
 
+from ..framework import unique_name
 from ..framework.dtypes import normalize_dtype
 from ..framework.program import Variable
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -158,3 +159,132 @@ def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
         out = concat(entries, axis=axis)
         sizes = [int(v.shape[axis]) for v in entries]
     return out, assign(np.asarray(sizes, np.int32))
+
+
+# ---- the op library's layers (paddle_tpu/layers/tensor.py) ----
+
+def _argminmax_shape(x, axis):
+    if x.shape is None:
+        return None
+    nd = len(x.shape)
+    return tuple(s for i, s in enumerate(x.shape) if i != axis % nd)
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("argmin")
+    out = helper.create_variable_for_type_inference(
+        "int64", _argminmax_shape(x, axis))
+    helper.append_op("arg_min", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    out.stop_gradient = True
+    return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    ids = helper.create_variable_for_type_inference("int64", input.shape)
+    helper.append_op("argsort", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "Indices": [ids.name]},
+                     attrs={"axis": axis, "descending": descending})
+    ids.stop_gradient = True
+    return out, ids
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        dtype=dtype, shape=shape, persistable=persistable,
+        name=name or unique_name.generate("global_var"))
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=dtype,
+                                  persistable=persistable)
+
+
+def diag(diagonal):
+    helper = LayerHelper("diag")
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op("diag", inputs={"Diagonal": [diagonal.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype="float32"):
+    helper = LayerHelper("eye")
+    num_columns = num_columns or num_rows
+    out = helper.create_variable_for_type_inference(
+        dtype, (num_rows, num_columns))
+    helper.append_op("eye", outputs={"Out": [out.name]},
+                     attrs={"num_rows": num_rows, "num_columns": num_columns,
+                            "dtype": dtype})
+    return out
+
+
+def has_inf(x):
+    helper = LayerHelper("isinf")
+    out = helper.create_variable_for_type_inference("bool", (1,))
+    helper.append_op("isinf", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def has_nan(x):
+    helper = LayerHelper("isnan")
+    out = helper.create_variable_for_type_inference("bool", (1,))
+    helper.append_op("isnan", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def isfinite(x):
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool", (1,))
+    helper.append_op("isfinite", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def linspace(start, stop, num, dtype="float32"):
+    helper = LayerHelper("linspace")
+    if not isinstance(start, Variable):
+        start = fill_constant([1], dtype, start)
+    if not isinstance(stop, Variable):
+        stop = fill_constant([1], dtype, stop)
+    if not isinstance(num, Variable):
+        num = fill_constant([1], "int32", num)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("linspace", inputs={"Start": [start.name],
+                                         "Stop": [stop.name],
+                                         "Num": [num.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def ones(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def range(start, end, step, dtype):
+    helper = LayerHelper("range")
+    if not isinstance(start, Variable):
+        start = fill_constant([1], dtype, start)
+    if not isinstance(end, Variable):
+        end = fill_constant([1], dtype, end)
+    if not isinstance(step, Variable):
+        step = fill_constant([1], dtype, step)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("range", inputs={"Start": [start.name],
+                                      "End": [end.name],
+                                      "Step": [step.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def zeros(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)

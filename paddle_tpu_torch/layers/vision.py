@@ -1,6 +1,12 @@
-"""The linear-chain CRF layers (counterparts in
-paddle_tpu/layers/vision.py, where they sit beside the vision layers,
-which the port has in layers/nn.py). Kernels: ops/crf_ops.py."""
+"""Layers of paddle_tpu/layers/vision.py whose ops the port has: the
+linear-chain CRF layers (kernels in ops/crf_ops.py), the 3-D
+convolutions, ``bilinear_tensor_product``, ``row_conv`` and the misc
+tensor layers (``cos_sim``, ``chunk_eval``, ``crop``, ``data_norm``,
+``mean_iou``, ``multiplex``, ``unique``; kernels in ops/misc_ops.py).
+``lrn``, ``pool3d``, ``pixel_shuffle``, ``temporal_shift``, ``unfold``,
+``affine_grid``, ``grid_sampler`` and the deformable and RoI poolings
+come with the vision ops."""
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 
@@ -52,4 +58,304 @@ def crf_decoding(input, param_attr, label=None, length=None):
     return path
 
 
-__all__ = ["linear_chain_crf", "crf_decoding"]
+def _triple(v):
+    return [v, v, v] if isinstance(v, int) else list(v)
+
+
+def _conv3_out(i, k, p, s, d=1, ceil=False):
+    if i in (None, -1):
+        return -1
+    num = i + 2 * p - (d * (k - 1) + 1)
+    out = (-(-num // s) if ceil else num // s) + 1
+    if ceil and (out - 1) * s >= i + p:
+        out -= 1  # last window must start inside input+left-pad (ref/torch)
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCDHW"):
+    helper = LayerHelper("conv3d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    filter_size = _triple(filter_size)
+    stride = _triple(stride)
+    padding = _triple(padding)
+    dilation = _triple(dilation)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan = filter_size[0] * filter_size[1] * filter_size[2] * num_channels
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan) ** 0.5))
+    out_sp = [_conv3_out(input.shape[2 + i], filter_size[i], padding[i],
+                         stride[i], dilation[i]) for i in range(3)]
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, (input.shape[0], num_filters) + tuple(out_sp))
+    helper.append_op(
+        "conv3d", inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCDHW"):
+    helper = LayerHelper("conv3d_transpose", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    num_channels = input.shape[1]
+    stride = _triple(stride)
+    padding = _triple(padding)
+    dilation = _triple(dilation)
+    if output_size is not None:
+        output_size = _triple(output_size)
+    if filter_size is None:
+        # Reference conv_transpose derives the kernel from output_size:
+        # out = (in-1)*s - 2p + d*(k-1) + 1  =>  k.
+        if output_size is None:
+            raise ValueError(
+                "conv3d_transpose needs filter_size or output_size")
+        if any(input.shape[2 + i] in (None, -1) for i in range(3)):
+            raise ValueError(
+                "conv3d_transpose cannot derive filter_size from "
+                "output_size when input spatial dims are dynamic — pass "
+                "filter_size explicitly")
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i] +
+             2 * padding[i] - 1) // dilation[i] + 1 for i in range(3)]
+        if any(k <= 0 for k in filter_size):
+            raise ValueError(
+                "conv3d_transpose: output_size %s too small for "
+                "input/stride/padding (derived filter_size %s)"
+                % (list(output_size), filter_size))
+    else:
+        filter_size = _triple(filter_size)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out_sp = []
+    for i in range(3):
+        s_in = input.shape[2 + i]
+        derived = (-1 if s_in in (None, -1) else
+                   (s_in - 1) * stride[i] - 2 * padding[i] +
+                   dilation[i] * (filter_size[i] - 1) + 1)
+        if output_size is not None:
+            # Any size in [derived, derived + stride - 1] maps back to the
+            # same input extent (same check as ref conv_transpose_op.cc).
+            if derived != -1 and not (
+                    derived <= output_size[i] < derived + stride[i]):
+                raise ValueError(
+                    "conv3d_transpose output_size[%d]=%d incompatible with "
+                    "input/stride/padding (valid range [%d, %d))"
+                    % (i, output_size[i], derived, derived + stride[i]))
+            out_sp.append(output_size[i])
+        else:
+            out_sp.append(derived)
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, (input.shape[0], num_filters) + tuple(out_sp))
+    attrs = {"strides": stride, "paddings": padding, "dilations": dilation,
+             "groups": groups}
+    if output_size is not None:
+        attrs["output_size"] = list(output_size)
+    helper.append_op(
+        "conv3d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [pre_bias.name]},
+        attrs=attrs)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = x.dtype
+    w = helper.create_parameter(
+        helper.param_attr, shape=[size, x.shape[1], y.shape[1]], dtype=dtype)
+    inputs = {"X": [x.name], "Y": [y.name], "Weight": [w.name]}
+    bias = helper.create_parameter(helper.bias_attr, shape=[1, size],
+                                   dtype=dtype, is_bias=True)
+    if bias is not None:
+        inputs["Bias"] = [bias.name]
+    out = helper.create_variable_for_type_inference(dtype, (x.shape[0], size))
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    return helper.append_activation(out)
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    helper = LayerHelper("chunk_eval")
+    names = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"]
+    dts = ["float32"] * 3 + ["int32"] * 3
+    outs = [helper.create_variable_for_type_inference(dt, (1,))
+            for dt in dts]
+    inputs = {"Inference": [input.name], "Label": [label.name]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length.name]
+    helper.append_op(
+        "chunk_eval", inputs=inputs,
+        outputs={s: [v.name] for s, v in zip(names, outs)},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": int(num_chunk_types),
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    for v in outs:
+        v.stop_gradient = True
+    return tuple(outs)
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype, (X.shape[0], 1))
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", inputs={"X": [X.name], "Y": [Y.name]},
+                     outputs={"Out": [out.name], "XNorm": [xn.name],
+                              "YNorm": [yn.name]})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop", name=name)
+    attrs = {}
+    inputs = {"X": [x.name]}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = [int(s) for s in shape]
+        out_shape = tuple(int(s) for s in shape)
+    else:                                   # Variable: take its static shape
+        inputs["Y"] = [shape.name]
+        out_shape = tuple(shape.shape)
+    if offsets is not None:
+        attrs["offsets"] = [int(o) for o in offsets]
+    out = helper.create_variable_for_type_inference(x.dtype, out_shape)
+    helper.append_op("crop", inputs=inputs, outputs={"Out": [out.name]},
+                     attrs=attrs)
+    return out
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    return crop(x, shape=shape, offsets=offsets, name=name)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=False):
+    helper = LayerHelper("data_norm", param_attr=param_attr, act=act,
+                         name=name)
+    c = input.shape[1]
+    from ..framework import unique_name as _un
+    bsize = helper.create_or_get_global_variable(
+        name=_un.generate(helper.name + ".batch_size"), dtype="float32",
+        shape=(c,), persistable=True)
+    helper.set_variable_initializer(bsize, ConstantInitializer(1e4))
+    bsum = helper.create_or_get_global_variable(
+        name=_un.generate(helper.name + ".batch_sum"), dtype="float32",
+        shape=(c,), persistable=True)
+    helper.set_variable_initializer(bsum, ConstantInitializer(0.0))
+    bsq = helper.create_or_get_global_variable(
+        name=_un.generate(helper.name + ".batch_square_sum"),
+        dtype="float32", shape=(c,), persistable=True)
+    helper.set_variable_initializer(bsq, ConstantInitializer(1e4))
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    means = helper.create_variable_for_type_inference("float32", (c,))
+    scales = helper.create_variable_for_type_inference("float32", (c,))
+    helper.append_op(
+        "data_norm",
+        inputs={"X": [input.name], "BatchSize": [bsize.name],
+                "BatchSum": [bsum.name], "BatchSquareSum": [bsq.name]},
+        outputs={"Y": [out.name], "Means": [means.name],
+                 "Scales": [scales.name], "BatchSizeOut": [bsize.name],
+                 "BatchSumOut": [bsum.name], "BatchSquareSumOut": [bsq.name]},
+        attrs={"epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def mean_iou(input, label, num_classes):
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32", ())
+    wrong = helper.create_variable_for_type_inference("int32", (num_classes,))
+    correct = helper.create_variable_for_type_inference(
+        "int32", (num_classes,))
+    helper.append_op("mean_iou",
+                     inputs={"Predictions": [input.name],
+                             "Labels": [label.name]},
+                     outputs={"OutMeanIou": [miou.name],
+                              "OutWrong": [wrong.name],
+                              "OutCorrect": [correct.name]},
+                     attrs={"num_classes": int(num_classes)})
+    for v in (miou, wrong, correct):
+        v.stop_gradient = True
+    return miou, wrong, correct
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(
+        inputs[0].dtype, inputs[0].shape)
+    helper.append_op("multiplex",
+                     inputs={"X": [v.name for v in inputs],
+                             "Ids": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", input=input, param_attr=param_attr,
+                         act=act)
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype, input.shape)
+    helper.append_op("row_conv",
+                     inputs={"X": [input.name], "Filter": [w.name]},
+                     outputs={"Out": [out.name]})
+    return helper.append_activation(out)
+
+
+def unique(x, dtype="int32"):
+    """Static shapes, as in the JAX package: Out is sorted and padded to
+    len(x); the number of valid leading entries is the 3rd value."""
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    index = helper.create_variable_for_type_inference(dtype, x.shape)
+    count = helper.create_variable_for_type_inference("int32", ())
+    helper.append_op("unique", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Index": [index.name],
+                              "Count": [count.name]})
+    for v in (out, index, count):
+        v.stop_gradient = True
+    return out, index, count
+
+
+def unique_with_counts(x, dtype="int32"):
+    helper = LayerHelper("unique_with_counts")
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    index = helper.create_variable_for_type_inference(dtype, x.shape)
+    counts = helper.create_variable_for_type_inference(dtype, x.shape)
+    count = helper.create_variable_for_type_inference("int32", ())
+    helper.append_op("unique_with_counts", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Index": [index.name],
+                              "Counts": [counts.name],
+                              "Count": [count.name]})
+    for v in (out, index, counts, count):
+        v.stop_gradient = True
+    return out, index, counts
+
+
+
+__all__ = ["linear_chain_crf", "crf_decoding", "conv3d", "conv3d_transpose",
+           "bilinear_tensor_product", "chunk_eval", "cos_sim", "crop",
+           "crop_tensor", "data_norm", "mean_iou", "multiplex", "row_conv",
+           "unique", "unique_with_counts"]

@@ -1,9 +1,10 @@
 """Math / elementwise / reduction / activation / compare op kernels.
 
-Counterparts of the ops of paddle_tpu/ops/math_ops.py that BERT and GPT
-serving and pretraining, the learning-rate schedules, the regularizers
-and the gradient clips run, and the JAX package's whole activation
-table. ``mul`` and ``matmul`` are plain
+Counterparts of every op of paddle_tpu/ops/math_ops.py: the elementwise
+and compare ops, the JAX package's whole activation table, the
+reductions (max and min split a tied gradient evenly, as JAX's do),
+``logsumexp``, the finite checks, ``maximum``/``minimum`` (JAX's
+gradient rule, ``_Extremum``) and ``dot``. ``mul`` and ``matmul`` are plain
 ``torch.matmul`` (``matmul(out_dtype)`` one widened cuBLAS product): XLA
 computes them outside any Pallas kernel in the JAX package.
 
@@ -349,8 +350,32 @@ def _reduce(fn):
     return kernel
 
 
-register_op("reduce_sum")(_reduce(torch.sum))
-register_op("reduce_mean")(_reduce(torch.mean))
+def _prod(x, dim, keepdim):
+    """``jnp.prod`` over several axes (``torch.prod`` takes one)."""
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+# max and min split the gradient evenly among tied maxima, as JAX's
+# reduce_max does (torch.amax/amin, not torch.max)
+for _name, _fn in (("reduce_sum", torch.sum), ("reduce_mean", torch.mean),
+                   ("reduce_max", torch.amax), ("reduce_min", torch.amin),
+                   ("reduce_prod", _prod), ("reduce_all", torch.all),
+                   ("reduce_any", torch.any)):
+    register_op(_name)(_reduce(_fn))
+
+
+@register_op("logsumexp")
+def _logsumexp(ctx, ins, attrs):
+    """log(sum(exp(x))) over ``dim`` (no ``dim``: every axis, a 0-d
+    result)."""
+    x = _x(ins)
+    dims = attrs.get("dim", None)
+    axes = tuple(d % x.dim() for d in dims) if dims else \
+        tuple(range(x.dim()))
+    return {"Out": torch.logsumexp(x, dim=axes,
+                                   keepdim=attrs.get("keep_dim", False))}
 
 
 def _compare(fn):
@@ -374,3 +399,61 @@ for _name, _fn in (("logical_and", torch.logical_and),
 @register_op("logical_not")
 def _logical_not(ctx, ins, attrs):
     return {"Out": torch.logical_not(_x(ins))}
+
+
+@register_op("isfinite")
+def _isfinite(ctx, ins, attrs):
+    """One bool, (1,): every element of X finite."""
+    return {"Out": torch.isfinite(_x(ins)).all().reshape((1,))}
+
+
+@register_op("isnan")
+def _isnan(ctx, ins, attrs):
+    return {"Out": torch.isnan(_x(ins))}
+
+
+@register_op("isinf")
+def _isinf(ctx, ins, attrs):
+    return {"Out": torch.isinf(_x(ins))}
+
+
+class _Extremum(torch.autograd.Function):
+    """``jnp.maximum``/``jnp.minimum`` with JAX's gradient rule: the
+    chosen operand takes the cotangent, a tie gives each half, and a NaN
+    comparison (neither chosen) gives neither any (torch's own rule sends
+    it to the NaN operand)."""
+
+    @staticmethod
+    def forward(ctx, x, y, take_max):
+        ctx.save_for_backward(x, y)
+        ctx.take_max = take_max
+        return torch.maximum(x, y) if take_max else torch.minimum(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        wins = (x > y) if ctx.take_max else (x < y)
+        loses = (x < y) if ctx.take_max else (x > y)
+        half = (x == y).to(g.dtype) * 0.5
+        gx = g * (wins.to(g.dtype) + half)
+        gy = g * (loses.to(g.dtype) + half)
+        return gx.sum_to_size(x.shape), gy.sum_to_size(y.shape), None
+
+
+@register_op("maximum")
+def _maximum(ctx, ins, attrs):
+    return {"Out": _Extremum.apply(*_promote(ins["X"][0], ins["Y"][0]),
+                                   True)}
+
+
+@register_op("minimum")
+def _minimum(ctx, ins, attrs):
+    return {"Out": _Extremum.apply(*_promote(ins["X"][0], ins["Y"][0]),
+                                   False)}
+
+
+@register_op("dot")
+def _dot(ctx, ins, attrs):
+    """Row-wise inner product over the last axis, kept as size 1."""
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": torch.sum(x * y, dim=-1, keepdim=True)}

@@ -1,11 +1,9 @@
-"""Neural-net op kernels BERT, GPT, ResNet, DeepFM, the Transformer,
-the vision, DCGAN and YOLOv3 models and the dygraph layers run: conv2d,
-depthwise_conv2d, conv2d_transpose, conv3d, pool2d, batch_norm,
-group_norm, lookup_table, dropout, layer_norm,
-softmax, log_softmax, label_smooth, one_hot, add_position_encoding,
-softmax_with_cross_entropy, cross_entropy,
-sigmoid_cross_entropy_with_logits, fused_mlm_head_loss, interp_nearest,
-interp_bilinear (counterparts in paddle_tpu/ops/nn_ops.py).
+"""Neural-net op kernels (counterparts of every op of
+paddle_tpu/ops/nn_ops.py): the convolutions, pool2d, the norms,
+lookup_table(_v2), dropout, the softmaxes and cross-entropies, the
+regression and ranking losses, one_hot, label_smooth, pad and pad2d
+(``reflect`` and ``edge`` read at mirrored or clamped indices),
+add_position_encoding and the two resizes.
 
 Convolution, pooling and batch norm have no Pallas kernel in the JAX
 package (``lax.conv_general_dilated``, ``lax.reduce_window`` and jnp
@@ -553,3 +551,176 @@ def _interp_bilinear(ctx, ins, attrs):
     am = attrs.get("align_mode", 1)
     out = _lin_axis(x, attrs["out_h"], 2, ac, am)
     return {"Out": _lin_axis(out, attrs["out_w"], 3, ac, am)}
+
+
+# ---- the op library's nn ops (paddle_tpu/ops/nn_ops.py) ------------------
+
+@register_op("lookup_table_v2", nondiff=("Ids",))
+def _lookup_table_v2(ctx, ins, attrs):
+    return _lookup_table(ctx, ins, attrs)
+
+
+@register_op("instance_norm")
+def _instance_norm(ctx, ins, attrs):
+    """Each (sample, channel) normalised over its spatial axes (biased
+    variance), then Scale and Bias per channel; SavedMean and
+    SavedVariance keep the reduced axes (paddle_tpu's :270)."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, unbiased=False, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    bshape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": y, "SavedMean": mean, "SavedVariance": var}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True))
+    return {"Out": x / torch.clamp(norm, min=attrs.get("epsilon", 1e-10)),
+            "Norm": norm}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    return {"Out": torch.square(ins["X"][0] - ins["Y"][0])}
+
+
+@register_op("mse_loss", nondiff=("Label",))
+def _mse(ctx, ins, attrs):
+    return {"Out": torch.square(ins["Input"][0] - ins["Label"][0])}
+
+
+@register_op("smooth_l1_loss", nondiff=("Y",))
+def _smooth_l1(ctx, ins, attrs):
+    """Per sample, the sum over the other axes of 0.5 s^2 d^2 (|d| < 1/s^2)
+    or |d| - 0.5/s^2, d = (X - Y) * InsideWeight, each term times
+    OutsideWeight; Out (N, 1), Diff the weighted d."""
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    if ins.get("InsideWeight"):
+        d = d * ins["InsideWeight"][0]
+    ad = torch.abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if ins.get("OutsideWeight"):
+        loss = loss * ins["OutsideWeight"][0]
+    return {"Out": torch.sum(loss, dim=tuple(range(1, x.dim())))[..., None],
+            "Diff": d}
+
+
+@register_op("huber_loss", nondiff=("Y",))
+def _huber(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    delta = attrs.get("delta", 1.0)
+    d = y - x
+    ad = torch.abs(d)
+    return {"Out": torch.where(ad <= delta, 0.5 * d * d,
+                               delta * (ad - 0.5 * delta)),
+            "Residual": d}
+
+
+@register_op("log_loss", nondiff=("Labels",))
+def _log_loss(ctx, ins, attrs):
+    p, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": -label * torch.log(p + eps) -
+            (1 - label) * torch.log(1 - p + eps)}
+
+
+@register_op("kldiv_loss", nondiff=("Target",))
+def _kldiv(ctx, ins, attrs):
+    """target * (log target - x), 0 where target <= 0; reduced by
+    ``reduction`` (mean, sum, batchmean: the sum over N, or none)."""
+    x, target = ins["X"][0], ins["Target"][0]
+    loss = target * (torch.log(torch.clamp(target, min=1e-20)) - x)
+    loss = torch.where(target <= 0, torch.zeros((), dtype=loss.dtype,
+                                                device=loss.device), loss)
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    return {"Loss": loss}
+
+
+def _log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -torch.logaddexp(-x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+@register_op("bpr_loss", nondiff=("Label",))
+def _bpr_loss(ctx, ins, attrs):
+    """-(1/(C-1)) sum over the negatives j of log sigmoid(x_pos - x_j)
+    (paddle_tpu's :522). The positive logit is read as
+    ``jnp.take_along_axis`` reads it: a label out of range gives NaN."""
+    x, label = ins["X"][0], ins["Label"][0]
+    n, c = x.shape
+    safe, ok = take_fill(label.reshape(n), c)
+    pos = fill_taken(x[torch.arange(n, device=x.device), safe], ok, 0, 1)
+    logsig = _log_sigmoid(pos[:, None] - x)
+    # the negatives' mask is 1 - one_hot(label): a label outside [0, C)
+    # excludes no column
+    neg = label.reshape(n, 1).long() != torch.arange(c, device=x.device)
+    return {"Y": -torch.sum(logsig * neg.to(x.dtype), dim=1,
+                            keepdim=True) / (c - 1)}
+
+
+@register_op("margin_rank_loss", nondiff=("Label",))
+def _margin_rank(ctx, ins, attrs):
+    x1, x2, label = ins["X1"][0], ins["X2"][0], ins["Label"][0]
+    out = torch.relu(-label * (x1 - x2) + attrs.get("margin", 0.0))
+    return {"Out": out, "Activated": (out > 0).to(x1.dtype)}
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    """``paddings`` [before_0, after_0, before_1, ...] filled with
+    ``pad_value``."""
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    flat = []
+    for i in reversed(range(x.dim())):
+        flat += [p[2 * i], p[2 * i + 1]]
+    return {"Out": F.pad(x, flat, value=attrs.get("pad_value", 0.0))}
+
+
+def _pad_index(n, before, after, mode, device):
+    """Source index of each padded position of an axis of ``n``:
+    ``reflect`` mirrors without repeating the edge, ``edge`` repeats it
+    (numpy's modes, as ``jnp.pad``)."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period) if period else torch.zeros_like(i)
+    return torch.where(i >= n, period - i, i)
+
+
+@register_op("pad2d")
+def _pad2d(ctx, ins, attrs):
+    """NCHW padded by [top, bottom, left, right]: ``constant`` with
+    ``pad_value``; ``reflect`` and ``edge`` read X at mirrored or clamped
+    indices, so the gradient adds in a fixed order (ops/tensor_ops.py's
+    note) where the library's reflection-pad backward uses atomics."""
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": F.pad(x, [p[2], p[3], p[0], p[1]],
+                             value=attrs.get("pad_value", 0.0))}
+    if mode not in ("reflect", "edge"):
+        raise KeyError(mode)
+    rows = _pad_index(x.shape[2], p[0], p[1], mode, x.device)
+    cols = _pad_index(x.shape[3], p[2], p[3], mode, x.device)
+    return {"Out": x[:, :, rows[:, None], cols[None, :]]}

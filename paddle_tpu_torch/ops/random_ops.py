@@ -1,4 +1,5 @@
-"""Random init op kernels (counterparts in paddle_tpu/ops/random_ops.py).
+"""Random op kernels (counterparts of every op of
+paddle_tpu/ops/random_ops.py).
 
 Each draws from the seeded ``torch.Generator`` that ``ctx.generator``
 hands it: the op's own ``seed`` attr when non-zero, else one derived from
@@ -37,3 +38,44 @@ def _uniform_random(ctx, ins, attrs):
     out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
                  generator=ctx.generator(attrs))
     return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("randint", uses_rng=True)
+def _randint(ctx, ins, attrs):
+    """Integers uniform in [low, high)."""
+    out = torch.randint(attrs.get("low", 0), attrs.get("high", 100),
+                        tuple(attrs["shape"]), generator=ctx.generator(attrs),
+                        device=ctx.device)
+    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "int64")))}
+
+
+@register_op("randperm", uses_rng=True)
+def _randperm(ctx, ins, attrs):
+    """A permutation of 0 .. n-1: a stable argsort of int64 keys drawn on
+    the device, so a captured step draws a new one at every replay."""
+    n = attrs["n"]
+    keys = torch.randint(0, 2 ** 62, (n,), generator=ctx.generator(attrs),
+                         device=ctx.device)
+    perm = torch.sort(keys, stable=True).indices
+    return {"Out": perm.to(to_torch_dtype(attrs.get("dtype", "int64")))}
+
+
+@register_op("bernoulli", uses_rng=True)
+def _bernoulli(ctx, ins, attrs):
+    """1 with probability X (uniform < X, as ``jax.random.bernoulli``)."""
+    x = ins["X"][0]
+    u = torch.rand(x.shape, generator=ctx.generator(attrs), device=x.device)
+    return {"Out": (u < x).to(x.dtype)}
+
+
+@register_op("sampling_id", uses_rng=True, nondiff=("X",))
+def _sampling_id(ctx, ins, attrs):
+    """One class a row, drawn in proportion to X's row (unnormalised
+    probabilities), by the Gumbel-max rule ``jax.random.categorical``
+    uses on log(max(x, 1e-20)); int64."""
+    x = ins["X"][0]
+    u = torch.rand(x.shape, generator=ctx.generator(attrs), device=x.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    return {"Out": torch.argmax(torch.log(torch.clamp(x.float(), min=1e-20))
+                                + gumbel, dim=-1)}

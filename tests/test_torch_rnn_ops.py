@@ -112,11 +112,14 @@ def test_sequence_reverse_forward_and_grad():
 
 
 def test_sequence_reverse_without_lengths_waits_for_its_slice():
-    main, startup = ptt.Program(), ptt.Program()
-    with ptt.program_guard(main, startup):
-        x = _data(ptt, "x", (2, 3, 4), "float32")
-        with pytest.raises(ptt.NotPortedError, match="sequence-op slice"):
-            ptt.layers.sequence_reverse(x)
+    """Its slice (the op library) has come: without lengths the layer
+    flips the whole time axis, as the JAX package's does, values and
+    gradient."""
+    def build(p):
+        x = _grad_data(p, "x", (2, 3, 4))
+        return _with_grads(p, [p.layers.sequence_reverse(x)], [x])
+    tout, _, _ = run_pair(build, [dict({"x": _x((2, 3, 4))}, **_cots(24))])
+    np.testing.assert_array_equal(tout[0], _x((2, 3, 4))[:, ::-1])
 
 
 @pytest.mark.parametrize("is_reverse,with_h0", [(False, False),
