@@ -362,6 +362,30 @@ Then the op library's slice: the Paddle Book's eight chapters built from
   in a fixed order); the random ops by their statistics; programs
   holding where_index, range, py_func or load_tensor refused capture.
 
+Then the Program verifier, serving on one host and the spans:
+
+- ``verifier`` (before ``serving_artifact``, whose corrupted program
+  must not count): ``analysis_totals()`` over every program the run
+  verified so far under the default mode; the recipe step and the
+  GPT-base bf16 step, one run each under ``verify_program="strict"``.
+- ``serving_artifact``: BERT-base (serve's model) exported by
+  ``save_inference_model(format="stablehlo")`` as ``torch.export``
+  programs (plain at buckets 1 and 8, q8 at bucket 1): export seconds
+  and bytes, 12 flash_attention_fwd and 25 layer_norm_fwd custom ops in
+  every graph and no plain attention; ``load_serving_artifact`` with
+  ``max_in_flight=2``, ``warmup()`` (each bucket's first call launches
+  12 flash and 25 LayerNorm forward kernels, then is captured) and
+  ``health()``; the serve phase's requests against the in-process
+  Predictor on the card and the CPU (SERVE_ATOL), replays bit-equal to
+  the exported program run eagerly, latency beside the Predictor's; a
+  deadline miss, shedding past max_in_flight, a degraded serve from a
+  warm bucket while the orphaned worker captures the cold one, health's
+  counters; q8 against plain (Q8_SERVE_ATOL) and bit-equal to the codec's
+  oracle; a corrupted shipped program refused at load.
+- ``spans``: with ``obs.enable()``, three graphed recipe steps and three
+  served requests: the exec.step labels and parents, valid Chrome-trace
+  JSON, and the replay's ms with the engine off and on.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -1048,6 +1072,31 @@ BOOK = {
     "machine_translation": dict(batch=2, seq=32, dict=30000, word=16,
                                 hidden=32, lr=1e-4, l2=0.1, cycle=False),
 }
+
+# serving on one host (the serving slice): BERT-base as ``serve`` builds
+# it, exported by save_inference_model(format="stablehlo") at
+# ARTIFACT_BUCKETS (plain layout) and ARTIFACT_Q8_BUCKETS (q8 layout) and
+# served by load_serving_artifact(max_in_flight=ARTIFACT_IN_FLIGHT);
+# every bucket's graph holds FLASH_PER_REQUEST flash_attention_fwd and
+# LN_PER_REQUEST layer_norm_fwd custom ops. A robustness case sleeps
+# ARTIFACT_SLOW_S inside the request (fire("serve")) against a deadline
+# of ARTIFACT_DEADLINE_S. q8 against plain: int8 blocks of 256 with a
+# scale each, through 12 layers of values of order 1-4 (a 2-layer cut at
+# hidden 768, T = 64, differed by 0.026 on the CPU); the q8 artifact must
+# also equal the plain artifact serving the q8 payload's dequantized
+# weights bit for bit (the codec's oracle). verifier: the recipe step and
+# the GPT bf16 step, one run each through CompiledProgram under
+# verify_program="strict". spans: SPAN_STEPS graphed recipe steps and
+# served requests with obs enabled, then SPAN_TIMED replays each way.
+ARTIFACT_BUCKETS = (1, 8)
+ARTIFACT_Q8_BUCKETS = (1,)
+ARTIFACT_IN_FLIGHT = 2
+ARTIFACT_SLOW_S = 0.3
+ARTIFACT_DEADLINE_S = 0.15
+ARTIFACT_WAIT_S = 120.0
+Q8_SERVE_ATOL = 0.25
+SPAN_STEPS = 3
+SPAN_TIMED = 5
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -9103,6 +9152,448 @@ _KERNELS = (
 )
 
 
+def _graph_ops(text):
+    """The custom ops and the plain attention ops an exported graph's
+    text names."""
+    return {"flash_attention_fwd": text.count(
+        "target=torch.ops.paddle_tpu_torch.flash_attention_fwd.default"),
+        "layer_norm_fwd": text.count(
+            "target=torch.ops.paddle_tpu_torch.layer_norm_fwd.default"),
+        "plain_attention": sorted({op for op in (
+            "aten._softmax", "aten.softmax", "aten._safe_softmax",
+            "aten.logsumexp", "aten.special_logsumexp") if op in text})}
+
+
+def _wait_until(cond, what, timeout_s=ARTIFACT_WAIT_S, poll=None):
+    end = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError("timed out waiting for %s" % what)
+        if poll is not None:
+            poll()
+        else:
+            time.sleep(0.005)
+
+
+def _eager_bucket(torch, np, pred, b, feed):
+    """The exported program of bucket ``b`` run eagerly (no graph) on
+    ``feed`` (already at the bucket's batch), on the bucket's stream."""
+    fn = pred._fns[b]
+    args = [torch.from_numpy(np.asarray(feed[n], dtype=dt)).cuda()
+            for n, (_, dt) in zip(pred.get_input_names(), fn.specs)]
+    with torch.no_grad(), torch.cuda.stream(fn.stream):
+        outs = [o.cpu().numpy() for o in fn.module(*fn.weights, *args)]
+    return outs
+
+
+def serving_artifact(torch, np, ptt, counters, art_dir):
+    """BERT-base (serve's model, T=512, f32) exported by
+    ``save_inference_model(format="stablehlo")`` (plain at
+    ARTIFACT_BUCKETS, q8 at ARTIFACT_Q8_BUCKETS) and served by
+    ``load_serving_artifact``: export seconds and bytes, each graph's
+    custom ops; warmup (each bucket's first call: 12 flash and 25
+    LayerNorm forward launches, then the capture) and health; the serve
+    phase's requests, answers against the in-process Predictor on the
+    card and the CPU's (SERVE_ATOL), replays bit-equal to the exported
+    program run eagerly; latency beside the in-process Predictor's;
+    deadline, shedding, degraded mode with the orphaned worker's capture,
+    health's counters; q8 against plain (Q8_SERVE_ATOL) and the codec's
+    oracle; a corrupted shipped program refused at load."""
+    from paddle_tpu_torch import layers, serving
+    from paddle_tpu_torch.framework import resilience
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.bert_base()
+    plain_dir = os.path.join(art_dir, "plain")
+    q8_dir = os.path.join(art_dir, "q8")
+    t0 = time.perf_counter()
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        feeds = [layers.data(n, [SEQ_LEN, 1], dtype=dt) for n, dt in (
+            ("src_ids", "int64"), ("pos_ids", "int64"),
+            ("sent_ids", "int64"), ("input_mask", "float32"))]
+        seq_out, pooled = bert.bert_encoder(*feeds, cfg, is_test=True)
+    with ptt.scope_guard(ptt.Scope()):
+        exe = ptt.Executor()                 # CUDAPlace(0)
+        exe.run(startup)
+        export_s = {}
+        for d, kw in ((plain_dir, dict(batch_sizes=ARTIFACT_BUCKETS)),
+                      (q8_dir, dict(batch_sizes=ARTIFACT_Q8_BUCKETS,
+                                    weight_compress="q8"))):
+            t1 = time.perf_counter()
+            ptt.save_inference_model(d, [f.name for f in feeds],
+                                     [seq_out, pooled], exe,
+                                     main_program=main, format="stablehlo",
+                                     **kw)
+            export_s[os.path.basename(d)] = time.perf_counter() - t1
+        exe.close()
+    setup_s = time.perf_counter() - t0
+    artifacts, graphs_ok = {}, True
+    for label, d in (("plain", plain_dir), ("q8", q8_dir)):
+        sdir = os.path.join(d, "serving")
+        with open(os.path.join(sdir, "meta.json")) as f:
+            meta = json.load(f)
+        graphs = {}
+        for b in meta["buckets"]:
+            with open(os.path.join(sdir, "module_b%s.txt" % b)) as f:
+                graphs[b] = _graph_ops(f.read())
+            graphs_ok = graphs_ok and graphs[b] == {
+                "flash_attention_fwd": FLASH_PER_REQUEST,
+                "layer_norm_fwd": LN_PER_REQUEST, "plain_attention": []}
+        artifacts[label] = {
+            "save_s": export_s[label],
+            "export_s_per_bucket": meta["export_seconds"],
+            "pt2_bytes": {b: os.path.getsize(os.path.join(
+                sdir, "export_b%s.pt2" % b)) for b in meta["buckets"]},
+            "weights_file": meta["weight_file"],
+            "weights_bytes": os.path.getsize(os.path.join(
+                sdir, meta["weight_file"])),
+            "format_version": meta["format_version"],
+            "device": meta["device"], "runtime": meta["runtime"],
+            "graph_ops": graphs}
+    shrink = artifacts["plain"]["weights_bytes"] / \
+        artifacts["q8"]["weights_bytes"]
+
+    # serve: load, warm up (the first call of each bucket), the requests
+    t1 = time.perf_counter()
+    pred = serving.load_serving_artifact(plain_dir,
+                                         max_in_flight=ARTIFACT_IN_FLIGHT)
+    load_s = time.perf_counter() - t1
+    health_cold = pred.health()
+    counters.zero()                          # the main path starts here
+    first = {}
+    for b in ARTIFACT_BUCKETS:
+        before = counters.read()
+        t1 = time.perf_counter()
+        pred.warmup([b])
+        ms = (time.perf_counter() - t1) * 1e3
+        after = counters.read()
+        first[b] = {"ms": ms, "capture_ms": pred._fns[b].capture_ms,
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}}
+    health_warm = pred.health()
+    rng = np.random.RandomState(SEED)
+    requests = [bert_feeds(np, rng, n, cfg.vocab_size)
+                for n in REQUEST_BATCHES]
+    lat, per_request, answers = [], [], []
+    for feed in requests:
+        before = counters.read()
+        t1 = time.perf_counter()
+        answers.append(pred.run(feed))
+        lat.append((time.perf_counter() - t1) * 1e3)
+        after = counters.read()
+        per_request.append({k: after[k] - before[k] for k in after
+                            if after[k] != before[k]})
+    launches = counters.read()
+    want = {"flash_attention_fwd": FLASH_PER_REQUEST,
+            "layer_norm_fwd": LN_PER_REQUEST}
+    counts_ok = all(f["launches"] == want for f in first.values()) and \
+        all(c == want for c in per_request)
+    shapes_ok = all(
+        o[0].shape == (len(f["src_ids"]), SEQ_LEN, cfg.hidden_size) and
+        o[1].shape == (len(f["src_ids"]), cfg.hidden_size) and
+        all(np.isfinite(a).all() for a in o)
+        for f, o in zip(requests, answers))
+    # replays bit-equal to the exported program run eagerly
+    replay_equal = {}
+    for b in ARTIFACT_BUCKETS:
+        i = REQUEST_BATCHES.index(b)
+        eager = _eager_bucket(torch, np, pred, b, requests[i])
+        replay_equal[b] = all(np.array_equal(e, a)
+                              for e, a in zip(eager, answers[i]))
+    # the in-process Predictor on the same directory, on the card and the
+    # CPU; its latency beside the artifact's, in turns
+    config = Config(plain_dir)
+    config.batch_buckets = BUCKETS
+    inproc = create_predictor(config)
+    inproc_errs = []
+    for feed, got in zip(requests, answers):
+        for g, w in zip(got, inproc.run(feed)):
+            inproc_errs.append(float(np.abs(g - w).max()))
+    cpu_config = Config(plain_dir)
+    cpu_config.place = ptt.CPUPlace()
+    cpu_outs = create_predictor(cpu_config).run(requests[0])
+    cpu_errs = [float(np.abs(g - c).max())
+                for g, c in zip(answers[0], cpu_outs)]
+    request_ms = {}
+    for b in ARTIFACT_BUCKETS:
+        feed = requests[REQUEST_BATCHES.index(b)]
+        inproc.run(feed)
+        ms = {"artifact": [], "predictor": []}
+        for _ in range(GRAPH_SERVE_REPS):
+            for way, fn in (("artifact", pred.run), ("predictor",
+                                                      inproc.run)):
+                t1 = time.perf_counter()
+                fn(feed)
+                ms[way].append((time.perf_counter() - t1) * 1e3)
+        request_ms[b] = {w: statistics.median(v) for w, v in ms.items()}
+    close_executor(torch, "serving_artifact predictor", inproc._exe)
+    del inproc
+
+    # robustness on the warm predictor: a deadline miss, shedding
+    resilience.clear_events()
+    slow = "serve:slow=%g" % ARTIFACT_SLOW_S
+    with resilience.inject(slow + "@1"):
+        try:
+            pred.run(requests[0], deadline_s=ARTIFACT_DEADLINE_S)
+            deadline_raised = False
+        except resilience.DeadlineExceededError:
+            deadline_raised = True
+        _wait_until(lambda: pred.in_flight == 0, "the orphaned worker")
+    box = []
+    with resilience.inject("%s@1,%s@2" % (slow, slow)):
+        threads = [threading.Thread(
+            target=lambda: box.append(pred.run(requests[1])))
+            for _ in range(ARTIFACT_IN_FLIGHT)]
+        for t in threads:
+            t.start()
+        _wait_until(lambda: pred.in_flight == ARTIFACT_IN_FLIGHT,
+                    "two requests in flight")
+        saturated = pred.health()["status"]
+        try:
+            pred.run(requests[1])
+            shed = False
+        except resilience.ServerOverloadedError:
+            shed = True
+        for t in threads:
+            t.join(ARTIFACT_WAIT_S)
+    shed_equal = len(box) == ARTIFACT_IN_FLIGHT and all(
+        np.array_equal(a, b) for out in box for a, b in zip(out,
+                                                            answers[1]))
+    health = pred.health()
+    # the requests, the timed ones, the deadline case and the shed case
+    want_health = {"requests": len(REQUEST_BATCHES) + len(ARTIFACT_BUCKETS)
+                   * GRAPH_SERVE_REPS + 1 + ARTIFACT_IN_FLIGHT + 1,
+                   "deadline_misses": 1, "sheds": 1,
+                   "degraded_serves": 0, "errors": 0, "in_flight": 0,
+                   "ready": True, "status": "degraded"}
+    health_ok = {k: health[k] for k in want_health} == want_health
+    # degraded mode: a fresh predictor with bucket 8 warm only; the cold
+    # bucket-1 request blows its deadline and is served from bucket 8
+    # while its orphaned worker runs and captures bucket 1, and this
+    # thread keeps serving bucket 8
+    pred2 = serving.load_serving_artifact(
+        plain_dir, max_in_flight=ARTIFACT_IN_FLIGHT)
+    pred2.warmup([8])
+    resilience.clear_events()
+    served_during = []
+    with resilience.inject(slow + "@1"):
+        degraded = pred2.run(requests[0], deadline_s=ARTIFACT_DEADLINE_S)
+        _wait_until(lambda: 1 in pred2.health()["warm_buckets"] and
+                    pred2.in_flight == 0, "the orphaned bucket-1 capture",
+                    poll=lambda: served_during.append(
+                        pred2.run(requests[2])))
+    events = [e["kind"] for e in resilience.events()]
+    after = [pred2.run(requests[0]) for _ in range(2)]
+    degraded_errs = [float(np.abs(g - w).max())
+                     for g, w in zip(degraded, answers[0])]
+    orphan_equal = all(np.array_equal(a, b) for run in after
+                       for a, b in zip(run, answers[0]))
+    during_equal = all(np.array_equal(a, b) for out in served_during
+                       for a, b in zip(out, answers[2]))
+    health2 = pred2.health()
+    want_health2 = {"requests": 3 + len(served_during),
+                    "deadline_misses": 1, "degraded_serves": 1,
+                    "sheds": 0, "errors": 0, "ready": True}
+    health2_ok = {k: health2[k] for k in want_health2} == want_health2
+    del pred2
+
+    # q8: against plain, then the codec's oracle (the q8 payload's
+    # dequantized weights served by the plain artifact, in place)
+    pq8 = serving.load_serving_artifact(q8_dir)
+    q8_out = pq8.run(requests[0])
+    q8_errs = [float(np.abs(g - w).max()) for g, w in zip(q8_out,
+                                                         answers[0])]
+    same_names = pq8._meta["weight_names"] == pred._meta["weight_names"]
+    with torch.no_grad():
+        for w, w8 in zip(pred._weights, pq8._weights):
+            w.copy_(w8)
+    oracle = pred.run(requests[0])
+    oracle_equal = same_names and all(
+        np.array_equal(a, b) for a, b in zip(q8_out, oracle))
+    del pq8
+
+    # a corrupted shipped program is refused at load
+    model_path = os.path.join(plain_dir, "__model__.json")
+    with open(model_path) as f:
+        model = json.load(f)
+    ops = model["program"]["blocks"][0]["ops"]
+    ops[0]["inputs"] = {k: ["gone_var"] for k in ops[0]["inputs"]}
+    with open(model_path, "w") as f:
+        json.dump(model, f)
+    try:
+        serving.load_serving_artifact(plain_dir)
+        corrupt_refused = False
+    except ValueError as e:
+        corrupt_refused = "program verification" in str(e)
+
+    ok = (graphs_ok and counts_ok and shapes_ok and
+          all(replay_equal.values()) and
+          max(inproc_errs) <= SERVE_ATOL and max(cpu_errs) <= SERVE_ATOL and
+          health_cold["status"] == "cold" and health_warm["ready"] and
+          health_warm["status"] == "ok" and deadline_raised and
+          saturated == "saturated" and shed and shed_equal and health_ok and
+          "degraded" in events and max(degraded_errs) <= SERVE_ATOL and
+          orphan_equal and during_equal and health2_ok and
+          max(q8_errs) <= Q8_SERVE_ATOL and oracle_equal and
+          corrupt_refused and
+          all(launches[k] == 0 for k in launches if k not in want))
+    emit({"phase": "serving_artifact", "ok": ok, "model": "bert_base",
+          "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+          "heads": cfg.num_heads, "seq_len": SEQ_LEN, "dtype": "float32",
+          "setup_s": setup_s, "artifacts": artifacts,
+          "q8_weight_shrink": shrink, "graphs_ok": graphs_ok,
+          "load_s": load_s, "health_cold": health_cold,
+          "first_call": first, "health_warm": health_warm,
+          "request_batches": list(REQUEST_BATCHES), "latency_ms": lat,
+          "launches_per_request": per_request, "launches": launches,
+          "shapes_finite_ok": shapes_ok,
+          "replay_equals_eager": replay_equal,
+          "vs_predictor_max_abs_err": max(inproc_errs),
+          "vs_cpu_max_abs_err": cpu_errs, "atol": SERVE_ATOL,
+          "request_ms_median": request_ms,
+          "deadline_raised": deadline_raised,
+          "saturated_status": saturated, "shed": shed,
+          "shed_answers_equal": shed_equal, "health": health,
+          "health_ok": health_ok, "degraded_events": events,
+          "degraded_max_abs_err": degraded_errs,
+          "served_during_orphan": len(served_during),
+          "orphan_bucket_replays_equal": orphan_equal,
+          "during_orphan_equal": during_equal, "health_degraded": health2,
+          "health_degraded_ok": health2_ok,
+          "q8_vs_plain_max_abs_err": q8_errs, "q8_atol": Q8_SERVE_ATOL,
+          "q8_equals_codec_oracle": oracle_equal,
+          "corrupt_program_refused": corrupt_refused,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if not ok:
+        raise AssertionError("serving_artifact checks failed (see the line "
+                             "above)")
+    # the predictor (serving the q8 oracle's weights now) serves the spans
+    # phase, which reads only its spans
+    return launches, pred, requests
+
+
+def verifier(torch, np, ptt):
+    """The verifier at the compile seam: the recipe step (BERT-base bf16,
+    batch 128 x 128, AdamW, the schedule and the clip) and the GPT-base
+    bf16 step with recompute (2 x 4096), one run each through
+    ``CompiledProgram(BuildStrategy(verify_program="strict"))``; their
+    diagnostics by pass and severity; and analysis_totals() over every
+    program this run verified before, under the default mode ("warn").
+    Returns the recipe's (main, started scope, feed, fetch_list)."""
+    from paddle_tpu_torch.framework import analysis, resilience
+    from paddle_tpu_torch.models import bert, gpt
+    totals = {"%s/%s" % k: v
+              for k, v in sorted(resilience.analysis_totals().items())}
+    cfg = bert.bert_base(dtype="bfloat16")
+    main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                               BF16_TRAIN_BATCH)
+    feed = bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_PREDS, seed=0)
+    gcfg = _gpt_cfg(gpt, dtype="bfloat16", recompute=True)
+    gmain, gstartup, gfetch = _gpt_train_program(ptt, gpt, gcfg, GPT_BATCH,
+                                                 GPT_SEQ)
+    gfeed = gpt.synthetic_batch(gcfg, GPT_BATCH, GPT_SEQ, seed=0)
+    runs, ok, recipe = {}, True, None
+    for label, prog, start, f, fetch in (
+            ("recipe", main, startup, feed, fetch_list),
+            ("gpt_bf16", gmain, gstartup, gfeed, gfetch)):
+        scope = _started(ptt, start)
+        exe = ptt.Executor()
+        comp = ptt.CompiledProgram(prog, ptt.BuildStrategy(
+            verify_program="strict")).with_data_parallel(
+                loss_name=fetch[0].name)
+        t0 = time.perf_counter()
+        loss = float(np.asarray(exe.run(comp, feed=f, fetch_list=fetch[:1],
+                                        scope=scope)[0]).reshape(()))
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result = analysis.verify_program(
+            prog, feeds={k: np.shape(v) for k, v in f.items()},
+            fetch_list=fetch[:1])
+        walk_ms = (time.perf_counter() - t0) * 1e3
+        counts = {}
+        for d in result:
+            key = "%s/%s" % (d.pass_name, d.severity)
+            counts[key] = counts.get(key, 0) + 1
+        runs[label] = {"ops": sum(len(b.ops) for b in prog.blocks),
+                       "loss": loss, "run_s": run_s, "walk_ms": walk_ms,
+                       "diagnostics": counts,
+                       "errors": len(result.errors())}
+        ok = ok and np.isfinite(loss) and not result.errors()
+        close_executor(torch, "verifier " + label, exe)
+        if label == "recipe":
+            recipe = (main, _started(ptt, startup), feed, fetch_list)
+    errors = sum(v for k, v in totals.items() if k.endswith("/error"))
+    emit({"phase": "verifier", "ok": ok, "strict_runs": runs,
+          "analysis_totals_default_mode": totals,
+          "error_diagnostics_default_mode": errors})
+    if not ok:
+        raise AssertionError("verifier checks failed (see the line above)")
+    return recipe
+
+
+def spans(torch, np, ptt, pred, requests, recipe):
+    """obs enabled: SPAN_STEPS graphed recipe steps (the key's first run,
+    its capture, a replay) and SPAN_STEPS served requests; the exec.step
+    labels (miss, miss, hit), each phase's parent, the serve.request /
+    serve.call pairs, chrome_trace() as valid JSON; then the replay's ms
+    with the engine off and on, SPAN_TIMED runs each in turns."""
+    from paddle_tpu_torch.framework import obs
+    main, start, feed, fetch_list = recipe
+    scope = _copy_scope(torch, ptt, start)
+    exe = ptt.Executor()
+    obs.clear()
+    obs.enable("chip_smoke")
+    try:
+        for _ in range(SPAN_STEPS):
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+        for feed_ in requests[:SPAN_STEPS]:
+            pred.run(feed_)
+        got = obs.spans()
+        trace = json.loads(json.dumps(obs.chrome_trace()))
+    finally:
+        obs.disable()
+    steps = [s for s in got if s["name"] == "exec.step"]
+    ids = {s["id"]: i for i, s in enumerate(steps)}
+
+    def parents(name):
+        return [ids.get(s["parent"]) for s in got if s["name"] == name]
+    calls = [s for s in got if s["name"] == "serve.call"]
+    reqs = {s["id"] for s in got if s["name"] == "serve.request"}
+    labels = [s["labels"].get("cache") for s in steps]
+    checks = {
+        "cache_labels": labels == ["miss", "miss", "hit"],
+        "compile_parents": parents("exec.compile") == [0, 1],
+        "execute_parents": parents("exec.execute") == [0, 1, 2],
+        "writeback_parents": parents("exec.writeback") == [0, 1, 2],
+        "serve_pairs": len(reqs) == SPAN_STEPS and len(calls) ==
+        SPAN_STEPS and all(c["parent"] in reqs for c in calls),
+        "chrome_trace": len([e for e in trace["traceEvents"]
+                             if e["ph"] == "X"]) == len(got)}
+    ms = {"off": [], "on": []}
+    for _ in range(SPAN_TIMED):
+        for way in ("off", "on"):
+            (obs.enable if way == "on" else obs.disable)()
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+            ms[way].append((time.perf_counter() - t0) * 1e3)
+    obs.disable()
+    obs.clear()
+    close_executor(torch, "spans", exe)
+    ok = all(checks.values())
+    emit({"phase": "spans", "ok": ok, "checks": checks,
+          "cache_labels": labels, "spans": len(got),
+          "span_names": sorted({s["name"] for s in got}),
+          "replay_ms": ms,
+          "replay_ms_median": {w: statistics.median(v)
+                               for w, v in ms.items()}})
+    if not ok:
+        raise AssertionError("spans checks failed (see the line above)")
+
+
 def main():
     import numpy as np
     import torch
@@ -9356,6 +9847,18 @@ def main():
     by_path["book"] = phase("book")(book)(torch, np, ptt, counters)
     phase("book_parity")(book_parity)(torch, np, ptt, counters)
     phase("op_library")(op_library)(torch, np, ptt, counters)
+
+    recipe = phase("verifier")(verifier)(torch, np, ptt)
+    art_dir = os.path.join(_ROOT, "build", "chip_smoke_artifact")
+    try:
+        art = phase("serving_artifact")(serving_artifact)(
+            torch, np, ptt, counters, art_dir)
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
+    by_path["serving_artifact"] = None if art is None else art[0]
+    if art is not None and recipe is not None:
+        phase("spans")(spans)(torch, np, ptt, art[1], art[2], recipe)
+    del art, recipe
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

@@ -9,3 +9,13 @@ from .executor import Executor  # noqa
 from .compiler import (CompiledProgram, BuildStrategy,  # noqa
                        ExecutionStrategy)
 from . import unique_name  # noqa
+from . import analysis  # noqa
+from . import obs  # noqa
+from . import resilience  # noqa
+from . import watchdog  # noqa
+from .watchdog import (CollectiveTimeoutError, wait_with_timeout,  # noqa
+                       StragglerDetector)
+from .resilience import (FaultInjector, RetryPolicy,  # noqa
+                         ResilientTrainer, SimulatedPreemptionError,
+                         ServerOverloadedError, DeadlineExceededError,
+                         RestartBudgetExceededError)

@@ -25,17 +25,24 @@ What one card means:
   ``"xla"`` on a CUDA place raises NotPortedError: the port has no
   second lowering, and a plain version never runs on the card. On the
   CPU every op runs its plain version whatever the policy;
-- ``verify_program="strict"`` raises NotPortedError (the Program
-  verifier arrives with the op library's shape rules); "warn" and "off"
-  are accepted: in the JAX package they only log;
+- ``verify_program`` runs the Program verifier (framework/analysis.py)
+  through ``verify_for_compile``, as the JAX package does: "strict"
+  raises ProgramVerificationError listing every error, "warn" logs and
+  counts, "off" skips it. A pipeline strategy raises NotPortedError
+  before the verifier runs (the verifier's pipeline pass comes with the
+  multi-GPU slice);
 - the JAX package's parity no-ops (``fuse_all_reduce_ops``,
   ``memory_optimize``, ...) are accepted and change nothing.
 """
+import logging
 import os
 
+import numpy as np
 import torch
 
 from ..ops.registry import NotPortedError
+from . import analysis
+from .place import _current_expected_place
 
 # kernel_policy values BuildStrategy accepts (paddle_tpu/ops/
 # pallas_dispatch.py KERNEL_POLICIES)
@@ -47,11 +54,69 @@ PALLAS_OPS = ("softmax_with_cross_entropy", "adam", "layer_norm",
 VERIFY_MODES = ("strict", "warn", "off")
 
 
-def _env_verify_default():
-    """BuildStrategy.verify_program's default: PADDLE_TPU_VERIFY
-    ("strict" | "warn" | "off"; unset or unknown = "warn")."""
-    raw = os.environ.get("PADDLE_TPU_VERIFY", "").strip().lower()
-    return raw if raw in VERIFY_MODES else "warn"
+def verify_for_compile(program, build_strategy=None, feeds=None,
+                       fetch_names=None, source="compile"):
+    """Run the Program verifier at a compile seam (framework/analysis.py;
+    paddle_tpu/framework/compiler.py's function of the same name).
+
+    The mode is BuildStrategy.verify_program (PADDLE_TPU_VERIFY for the
+    plain Executor): "off" returns at once; "warn" logs errors and
+    warnings and records the analysis metrics; "strict" raises
+    ProgramVerificationError when any error-severity diagnostic
+    survives, listing all of them.
+
+    Memoized per (program version, mode, mesh, strategy knobs, feed and
+    fetch signature) on the program object, as the JAX package keys it,
+    so only compile-cache misses pay the walk and a repeat costs one
+    dict probe."""
+    mode = getattr(build_strategy, "verify_program", None) \
+        if build_strategy is not None else None
+    if mode is None:
+        mode = analysis.env_verify_mode()
+    if mode == "off":
+        return None
+    feed_sig = None if feeds is None else tuple(
+        sorted((k, tuple(np.shape(v)) if not isinstance(v, tuple)
+                else v) for k, v in feeds.items()))
+    bs = build_strategy
+    if bs is None:
+        mesh, strat_sig = None, None
+    else:
+        mesh = getattr(bs, "mesh_axes", None)
+        # every strategy knob a pass reads joins the memo key: two
+        # strategies sharing one Program never share a verdict
+        strat_sig = (getattr(bs, "data_axis", "dp"),
+                     getattr(bs, "quantize_collectives", False),
+                     getattr(bs, "pp_stages", None),
+                     getattr(bs, "pp_micro_batches", 1),
+                     getattr(bs, "pp_schedule", "1f1b"),
+                     getattr(bs, "pp_recut_slots", None))
+    key = (program._version, mode,
+           None if mesh is None else tuple(sorted(mesh.items())),
+           strat_sig, feed_sig,
+           None if fetch_names is None else tuple(fetch_names))
+    cache = getattr(program, "_verify_cache", None)
+    if cache is None:
+        cache = program._verify_cache = {}
+    if key in cache:
+        result = cache[key]
+    else:
+        # evict verdicts of older program versions: a mutate-run loop
+        # must not keep one AnalysisResult per historical version
+        for k in [k for k in cache if k[0] != program._version]:
+            del cache[k]
+        result = analysis.verify_program(
+            program, feeds=feeds, fetch_list=fetch_names,
+            build_strategy=build_strategy)
+        analysis.report(result, mode=mode, source=source)
+        cache[key] = result
+        if result.errors() or result.warnings():
+            logging.getLogger("paddle_tpu_torch").warning(
+                "program verification (%s mode): %s", mode,
+                result.summary())
+    if mode == "strict" and result.errors():
+        raise analysis.ProgramVerificationError(result)
+    return result
 
 
 def _env_timeout_default():
@@ -124,7 +189,7 @@ class BuildStrategy(object):
         self.pp_micro_batches = 1
         self.pp_schedule = "1f1b"
         self.pp_recut_slots = None
-        self.verify_program = _env_verify_default()
+        self.verify_program = analysis.env_verify_mode()
         self.quantize_merge_sync = False
         # parity no-ops
         self.fuse_all_reduce_ops = True
@@ -290,22 +355,18 @@ class CompiledProgram(object):
 
     def compile_plan(self, device=None):
         """The route of this (program, strategy) pair on ``device``
-        (default: the first visible device): kind "single_jit". Raises
-        what the card cannot run (see the module docstring)."""
+        (default: CUDAPlace(0)'s device, NoCUDADeviceError without a
+        card): kind "single_jit". Raises what the card cannot run (see
+        the module docstring), then runs the Program verifier unless
+        this program version was verified already (the Executor verifies
+        with the real feeds at its compile-cache misses)."""
         bs = self._build_strategy
         if device is None:
-            device = torch.device("cuda", 0) if torch.cuda.is_available() \
-                else torch.device("cpu")
+            device = _current_expected_place().torch_device()
         mode = getattr(bs, "verify_program", "warn")
         if mode not in VERIFY_MODES:
             raise ValueError("verify_program must be one of %r, got %r"
                              % (list(VERIFY_MODES), mode))
-        if mode == "strict":
-            raise NotPortedError(
-                "verify_program='strict' runs the Program verifier "
-                "(paddle_tpu/framework/analysis.py), which arrives with "
-                "the op library's shape rules; 'warn' and 'off' only log "
-                "in paddle_tpu and are accepted")
         if self._pp_enabled():
             if getattr(bs, "numeric_policy", "raise") != "raise":
                 raise ValueError(
@@ -325,8 +386,13 @@ class CompiledProgram(object):
                    len(self._devices) if self._devices
                    else visible_devices(device))
         self._check_kernels(device)
+        cache = getattr(self._program, "_verify_cache", None)
+        if not cache or all(k[0] != self._program._version
+                            for k in cache):
+            verify_for_compile(self._program, bs, source="compile_plan")
         return CompilePlan("single_jit", self._cache_token())
 
 
 __all__ = ["BuildStrategy", "ExecutionStrategy", "CompilePlan",
-           "CompiledProgram", "check_mesh", "visible_devices"]
+           "CompiledProgram", "check_mesh", "verify_for_compile",
+           "visible_devices"]

@@ -45,6 +45,19 @@ their predicates on the device and are captured like any other op.
 ``run_steps`` runs a window of steps from stacked feeds with one host
 sync, at its end. ``close()`` drops the graphs and their memory pool.
 
+The compile seam (the JAX package's compile-cache miss): a step whose
+(plan key, feed shapes, strategy token) this Executor has not run, or any
+step under ``use_program_cache=False``, first runs the Program verifier
+(``compiler.verify_for_compile`` with the feeds' shapes and the fetch
+roots; "strict" raises ProgramVerificationError before any op runs) and
+builds its plan. A hit costs one dict probe. Every step is an
+``exec.step`` span (framework/obs.py; labels ``entry`` and ``cache``)
+over ``exec.compile`` (the seam on a miss; on the card also the run that
+captures the graph, which labels its step a miss too), ``exec.execute``
+and ``exec.writeback``, and each phase is observed in the
+``executor_step_seconds{kind=}`` histogram ("compile", "execute",
+"writeback", "total").
+
 A CompiledProgram (framework/compiler.py) runs the same way on one card:
 ``_unwrap`` checks its strategy against the Executor's device, and its
 numeric guard (``check_numerics``, ``numeric_policy``; framework/guard.py)
@@ -76,8 +89,9 @@ import numpy as np
 import torch
 
 from ..ops.registry import NotPortedError, get_op, has_op
-from . import faultinject, resilience, trace, watchdog
+from . import faultinject, obs, resilience, trace, watchdog
 from .compiled_step import CompiledStep, GraphCaptureError
+from .compiler import verify_for_compile
 from .dtypes import to_torch_dtype
 from .guard import StepGuard
 from .place import _current_expected_place
@@ -365,6 +379,38 @@ class _RunPlan(object):
             for b in program.blocks for op in b.ops)
 
 
+def _plan_key(program, fetch_names):
+    # the key holds the var count too: creating a var bumps no version
+    return (id(program), program._version,
+            sum(len(b.vars) for b in program.blocks), tuple(fetch_names),
+            program.random_seed)
+
+
+def _feed_shapes(feed, lead=0):
+    """((name, shape), ...) of a feed dict, sorted, each shape without its
+    first ``lead`` dims (a ``run_steps`` window's steps axis); a shape is
+    read without a copy or a device sync."""
+    return tuple(sorted(
+        (n, tuple(v.shape if hasattr(v, "shape") else np.shape(v))[lead:])
+        for n, v in feed.items()))
+
+
+def _check_feed_shape(name, got, var):
+    """Raise ValueError when a feed of shape ``got`` does not fit the
+    shape its variable ``var`` declares (a -1 dim fits any size)."""
+    if var is None or var.shape is None:
+        return
+    want = var.shape
+    if len(want) != len(got):
+        raise ValueError(
+            "feed %r has rank %d (shape %s) but the program declares rank "
+            "%d (shape %s)" % (name, len(got), got, len(want), tuple(want)))
+    for w, g in zip(want, got):
+        if w not in (-1, g):
+            raise ValueError("feed %r shape %s incompatible with declared "
+                             "%s" % (name, got, tuple(want)))
+
+
 def _graph_key(plan, feeds, state, scope, guard=None):
     """The key of a CUDA run's captured step: the plan's key, each feed's
     name, shape and dtype, each state tensor's name, shape and dtype, the
@@ -409,6 +455,10 @@ class Executor(object):
         self.refusals = {}
         self.graph_runs = {"warm": 0, "capture": 0, "replay": 0,
                            "refused": 0}
+        # the compile seam's cache: (plan key, feed shapes, strategy
+        # token) -> plan; and the last capture's (wall t0, t1, seconds)
+        self._compiled = {}
+        self._last_capture = None
         self._guards = {}
         # numeric_policy="skip": consecutive steps discarded; a clean step
         # resets it, crossing the budget escalates
@@ -425,6 +475,7 @@ class Executor(object):
         self._graphs.clear()
         self._warm.clear()
         self._plans.clear()
+        self._compiled.clear()
         self._guards.clear()
         self.refusals.clear()
         self._pending = None
@@ -434,16 +485,59 @@ class Executor(object):
             torch.cuda.empty_cache()
 
     def _plan(self, program, fetch_names, use_program_cache):
-        # the key holds the var count too: creating a var bumps no version
-        key = (id(program), program._version,
-               sum(len(b.vars) for b in program.blocks), tuple(fetch_names),
-               program.random_seed)
+        key = _plan_key(program, fetch_names)
         plan = self._plans.get(key) if use_program_cache else None
         if plan is None or plan.program is not program:
             plan = _RunPlan(key, program, fetch_names, self.device)
             if use_program_cache:
                 self._plans[key] = plan
         return plan
+
+    def _compile(self, program, strategy, shapes, fetch_names,
+                 use_program_cache, sp):
+        """The step's plan. On a compile-cache miss (see the module
+        docstring), under an ``exec.compile`` span: the verifier with the
+        feeds' ``shapes`` and the fetch roots, then the plan; the step's
+        span is labelled "miss" and the "compile" histogram observes the
+        seam. A hit is one probe of ``_compiled``."""
+        key = (_plan_key(program, fetch_names), shapes,
+               None if strategy is None else strategy._cache_token())
+        plan = self._compiled.get(key) if use_program_cache else None
+        if plan is not None and plan.program is program:
+            sp.set(cache="hit")
+            return plan
+        sp.set(cache="miss")
+        t0 = time.perf_counter()
+        with obs.span("exec.compile"):
+            # a feed that does not fit its declaration is the caller's
+            # error, named before the verifier sees its shape
+            blk = program.global_block()
+            for name, shape in shapes:
+                _check_feed_shape(name, shape, blk._find_var_recursive(name))
+            verify_for_compile(
+                program,
+                None if strategy is None else strategy._build_strategy,
+                feeds=dict(shapes), fetch_names=fetch_names,
+                source="compile")
+            plan = self._plan(program, fetch_names, use_program_cache)
+        if use_program_cache:
+            self._compiled[key] = plan
+        resilience.observe_executor_step("compile",
+                                         time.perf_counter() - t0)
+        return plan
+
+    def _note_capture(self, captures, sp):
+        """After a step: when it captured a graph (``graph_runs``'
+        capture count moved past ``captures``), label its span a miss,
+        record the capture as an ``exec.compile`` span under it and
+        observe it in the "compile" histogram."""
+        if self.graph_runs["capture"] == captures:
+            return
+        w0, w1, seconds = self._last_capture
+        sp.set(cache="miss")
+        obs.record("exec.compile", w0, w1, trace_id=sp.trace,
+                   parent=sp.id, what="capture")
+        resilience.observe_executor_step("compile", seconds)
 
     def _feed_tensors(self, program, feed, plan):
         """{name: (tensor as given, dtype it runs in)}, each checked against
@@ -463,18 +557,7 @@ class Executor(object):
                 t = val
             else:
                 t = torch.from_numpy(np.ascontiguousarray(np.asarray(val)))
-            if var is not None and var.shape is not None:
-                want, got = var.shape, tuple(t.shape)
-                if len(want) != len(got):
-                    raise ValueError(
-                        "feed %r has rank %d (shape %s) but the program "
-                        "declares rank %d (shape %s)"
-                        % (name, len(got), got, len(want), tuple(want)))
-                for w, g in zip(want, got):
-                    if w not in (-1, g):
-                        raise ValueError(
-                            "feed %r shape %s incompatible with declared %s"
-                            % (name, got, tuple(want)))
+            _check_feed_shape(name, tuple(t.shape), var)
             out[name] = (t, to_torch_dtype(var.dtype) if var is not None
                          else t.dtype)
         return out
@@ -517,23 +600,37 @@ class Executor(object):
         resilience.fire("step", what="Executor.run")
         feed = _hit_step_feed(feed)
         t0 = time.perf_counter()
-        timeout = self._await_pending(strategy)
-        check, policy, budget = _numeric_config(program, strategy)
-        plan = self._plan(program, fetch_names, use_program_cache)
-        feeds = self._feed_tensors(program, feed, plan)
-        salt = scope.find_var(_SALT_VAR) or 0
-        fetches, guard = self._step(
-            program, plan, feeds, fetch_names, scope,
-            self._graphed(plan, fetch_names, use_program_cache),
-            policy if check else None, fresh=True, copy=not return_numpy)
-        resilience.observe_executor_step("execute",
-                                         time.perf_counter() - t0)
-        self._after_dispatch(timeout, return_numpy or guard is not None,
-                             "Executor.run step")
-        if guard is not None:
-            self._settle_run(guard, guard.flags.cpu().numpy(), policy,
-                             budget, scope, salt, plan.uses_rng)
-        out = [to_numpy(t) for t in fetches] if return_numpy else fetches
+        with obs.span("exec.step", entry="run") as sp:
+            timeout = self._await_pending(strategy)
+            check, policy, budget = _numeric_config(program, strategy)
+            plan = self._compile(program, strategy, _feed_shapes(feed),
+                                 fetch_names, use_program_cache, sp)
+            feeds = self._feed_tensors(program, feed, plan)
+            salt = scope.find_var(_SALT_VAR) or 0
+            captures = self.graph_runs["capture"]
+            t1 = time.perf_counter()
+            with obs.span("exec.execute"):
+                fetches, guard = self._step(
+                    program, plan, feeds, fetch_names, scope,
+                    self._graphed(plan, fetch_names, use_program_cache),
+                    policy if check else None, fresh=True,
+                    copy=not return_numpy)
+                self._after_dispatch(timeout,
+                                     return_numpy or guard is not None,
+                                     "Executor.run step")
+            resilience.observe_executor_step("execute",
+                                             time.perf_counter() - t1)
+            self._note_capture(captures, sp)
+            t1 = time.perf_counter()
+            with obs.span("exec.writeback"):
+                if guard is not None:
+                    self._settle_run(guard, guard.flags.cpu().numpy(),
+                                     policy, budget, scope, salt,
+                                     plan.uses_rng)
+                out = [to_numpy(t) for t in fetches] if return_numpy \
+                    else fetches
+            resilience.observe_executor_step("writeback",
+                                             time.perf_counter() - t1)
         resilience.observe_executor_step("total", time.perf_counter() - t0)
         watchdog.observe_step_latency(time.perf_counter() - t0,
                                       what="Executor.run")
@@ -626,21 +723,36 @@ class Executor(object):
         resilience.fire("step", what="Executor.run_steps")
         feed = _hit_step_feed(feed)
         t0 = time.perf_counter()
-        timeout = self._await_pending(strategy)
-        check, policy, budget = _numeric_config(program, strategy)
-        plan = self._plan(program, fetch_names, use_program_cache)
-        window = {n: v if isinstance(v, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(np.asarray(v))) for n, v in feed.items()}
-        dtypes = {n: d for n, (_, d) in self._feed_tensors(
-            program, {n: w[0] for n, w in window.items()}, plan).items()}
-        window = {n: window[n].to(device=self.device, dtype=d)
-                  for n, d in dtypes.items()}
-        stacked = self._run_window(
-            program, plan, window, dtypes, fetch_names, scope,
-            self._graphed(plan, fetch_names, use_program_cache),
-            policy if check else None, budget, n_steps, timeout,
-            return_numpy)
-        out = [to_numpy(s) for s in stacked] if return_numpy else stacked
+        with obs.span("exec.step", entry="run_steps", steps=n_steps) as sp:
+            timeout = self._await_pending(strategy)
+            check, policy, budget = _numeric_config(program, strategy)
+            plan = self._compile(program, strategy, _feed_shapes(feed, 1),
+                                 fetch_names, use_program_cache, sp)
+            window = {n: v if isinstance(v, torch.Tensor) else
+                      torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+                      for n, v in feed.items()}
+            dtypes = {n: d for n, (_, d) in self._feed_tensors(
+                program, {n: w[0] for n, w in window.items()},
+                plan).items()}
+            window = {n: window[n].to(device=self.device, dtype=d)
+                      for n, d in dtypes.items()}
+            captures = self.graph_runs["capture"]
+            t1 = time.perf_counter()
+            with obs.span("exec.execute"):
+                stacked = self._run_window(
+                    program, plan, window, dtypes, fetch_names, scope,
+                    self._graphed(plan, fetch_names, use_program_cache),
+                    policy if check else None, budget, n_steps, timeout,
+                    return_numpy)
+            resilience.observe_executor_step("execute",
+                                             time.perf_counter() - t1)
+            self._note_capture(captures, sp)
+            t1 = time.perf_counter()
+            with obs.span("exec.writeback"):
+                out = [to_numpy(s) for s in stacked] if return_numpy \
+                    else stacked
+            resilience.observe_executor_step("writeback",
+                                             time.perf_counter() - t1)
         resilience.observe_executor_step("total", time.perf_counter() - t0)
         watchdog.observe_step_latency((time.perf_counter() - t0) / n_steps,
                                       what="Executor.run_steps")
@@ -899,8 +1011,11 @@ class Executor(object):
             else:
                 salt = _next_salt(scope)
                 if step is None:
+                    w0, t0 = obs.now(), time.perf_counter()
                     step = self._capture(program, plan, feeds, fetch_names,
                                          scope, state, salt, guard)
+                    self._last_capture = (w0, obs.now(),
+                                          time.perf_counter() - t0)
                     self._graphs[key] = step
                     self.graph_runs["capture"] += 1
                 else:

@@ -335,8 +335,14 @@ class Program(object):
 
     def clone(self, for_test=False):
         """Deep copy. ``for_test=True`` drops backward/optimize/lr_sched
-        ops and sets every ``is_test`` attr (fluid Program.clone)."""
+        ops and sets every ``is_test`` attr (fluid Program.clone). The
+        verifier's allowlist (``analysis.allowlist``) is a property of the
+        graph and goes with it, to eval clones and ``_prune`` results
+        too."""
         p = self._empty_like()
+        allow = getattr(self, "_analysis_allowlist", None)
+        if allow:
+            p._analysis_allowlist = dict(allow)
         for blk in self.blocks:
             nb = Block(p, blk.idx, blk.parent_idx)
             for v in blk.vars.values():

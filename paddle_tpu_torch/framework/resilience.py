@@ -55,6 +55,7 @@ __all__ = [
     "metrics", "metrics_text", "parse_metrics_text",
     "record_bytes", "bytes_totals", "clear_bytes",
     "observe_executor_step", "executor_step_totals", "clear_exec",
+    "record_analysis", "analysis_totals", "clear_analysis",
 ]
 
 INJECTION_POINTS = ("step", "ckpt_write", "serve")
@@ -293,6 +294,33 @@ def clear_exec():
         _EXEC.clear()
 
 
+# Program-verifier accounting (framework/analysis.py): one increment per
+# diagnostic, at the rate of compile-cache misses, kept as cumulative
+# counters keyed (pass, severity); each verification's summary rides the
+# event log as a ``program_analysis`` event (analysis.report).
+_ANALYSIS = {}
+_ANALYSIS_LOCK = threading.Lock()
+
+
+def record_analysis(pass_name, severity, n=1):
+    """Count verifier diagnostics: exported by :func:`metrics` as
+    ``<prefix>_analysis_diagnostics_total{pass=,severity=}``."""
+    with _ANALYSIS_LOCK:
+        k = (str(pass_name), str(severity))
+        _ANALYSIS[k] = _ANALYSIS.get(k, 0) + int(n)
+
+
+def analysis_totals():
+    """Snapshot ``{(pass, severity): count}``."""
+    with _ANALYSIS_LOCK:
+        return dict(_ANALYSIS)
+
+
+def clear_analysis():
+    with _ANALYSIS_LOCK:
+        _ANALYSIS.clear()
+
+
 def _counts_histogram(name, buckets, counts, total, hsum,
                       labels=None):
     """Prometheus histogram dict from PRE-BUCKETED per-bucket counts.
@@ -351,6 +379,13 @@ def metrics(event_list=None, by_host=False):
                                              when anything armed or
                                              fired)
       <prefix>_numeric_fault_total{policy=,culprit=}  numeric faults
+      <prefix>_analysis_diagnostics_total{pass=,severity=}  Program
+                                             verifier diagnostics
+                                             (emitted once any was
+                                             counted)
+      <prefix>_trace_spans_dropped_total     spans the obs ring evicted
+                                             (emitted while tracing is
+                                             on or once any dropped)
 
     Pass ``event_list`` to aggregate a snapshot instead of the live log.
     ``by_host=True`` labels the event counters with the host tag that
@@ -415,6 +450,17 @@ def metrics(event_list=None, by_host=False):
         {"name": METRIC_PREFIX + "_numeric_fault_total",
          "labels": {"policy": p, "culprit": c}, "value": n}
         for (p, c), n in sorted(nf_counts.items())]
+    for (pass_name, severity), n in sorted(analysis_totals().items()):
+        counters.append(
+            {"name": METRIC_PREFIX + "_analysis_diagnostics_total",
+             "labels": {"pass": pass_name, "severity": severity},
+             "value": n})
+    # a dropped span means a timeline that is missing part of the run
+    from . import obs
+    if obs.enabled() or obs.dropped_total():
+        counters.append(
+            {"name": METRIC_PREFIX + "_trace_spans_dropped_total",
+             "labels": {}, "value": obs.dropped_total()})
     return {"counters": counters, "gauges": gauges,
             "histograms": histograms}
 

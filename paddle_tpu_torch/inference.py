@@ -14,49 +14,7 @@ from .framework.executor import Executor
 from .framework.place import _current_expected_place
 from .framework.scope import Scope, scope_guard
 from .io import load_inference_model
-
-
-def infer_batch_factors(dyn_dims, overrides=None):
-    """Batch-factor inference (copy of paddle_tpu/serving.py's):
-    ``dyn_dims`` is [(name, dim0)] for the batch-dynamic feeds. A feed's
-    dim0 = factor * batch; the smallest dim0 is taken as the batch unless
-    ``overrides`` ({name: factor}) pins a feed — then the batch derives
-    from the overridden feeds (they must agree). Returns
-    ({name: factor}, batch). batch 0 (empty request) gives factor 1 to
-    every non-overridden feed."""
-    overrides = overrides or {}
-    if not dyn_dims:
-        return {}, None
-    base = None
-    for name, d0 in dyn_dims:
-        if name in overrides:
-            f = int(overrides[name])
-            if f <= 0 or d0 % f:
-                raise ValueError(
-                    "feed %r dim0 %d is not a multiple of its declared "
-                    "batch factor %r" % (name, d0, overrides[name]))
-            b2 = d0 // f
-            if base is None:
-                base = b2
-            elif b2 != base:
-                raise ValueError(
-                    "overridden feeds disagree on the batch: %r implies "
-                    "%d, earlier feeds %d" % (name, b2, base))
-    if base is None:
-        base = min(d0 for _, d0 in dyn_dims)
-    factors = {}
-    for name, d0 in dyn_dims:
-        if name in overrides:
-            factors[name] = int(overrides[name])
-        elif base == 0:
-            factors[name] = 1
-        else:
-            if d0 % base:
-                raise ValueError(
-                    "feed %r leading dim %d is not a multiple of the "
-                    "batch %d" % (name, d0, base))
-            factors[name] = d0 // base
-    return factors, base
+from .serving import infer_batch_factors
 
 
 class Config(object):

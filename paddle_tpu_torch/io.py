@@ -322,20 +322,30 @@ def _set_decoded(scope, arrays, variables, device):
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
-                         params_filename=None, program_only=False,
-                         format="default"):
+                         params_filename=None, export_for_deployment=True,
+                         program_only=False, format="default",
+                         batch_sizes=(1, 8, 32), example_feed=None,
+                         feed_batch_factors=None, weight_compress=None):
     """Freeze: clone for_test, prune to feeds/targets, save IR + params.
-    ``format="stablehlo"`` (the JAX package's compiled serving artifact)
-    raises NotPortedError: its torch counterpart is a ``torch.export``
-    artifact of the serving slice."""
-    if format == "stablehlo":
-        raise NotPortedError(
-            "save_inference_model(format='stablehlo') writes a compiled "
-            "serving artifact; its torch.export counterpart arrives with "
-            "the serving slice of paddle_tpu_torch")
-    if format != "default":
+
+    ``format="stablehlo"`` (the JAX package's name, kept for API parity)
+    also writes the deployable serving artifact under dirname/serving/:
+    one ``torch.export`` program per batch bucket in ``batch_sizes``,
+    exported on ``executor``'s place, with the weights beside them (see
+    serving.export_serving_artifact; load with
+    ``serving.load_serving_artifact``). ``weight_compress="q8"`` ships
+    those weights block-quantized; ``example_feed`` and
+    ``feed_batch_factors`` say which feeds scale as a multiple of the
+    batch. ``export_for_deployment`` is accepted and changes nothing, as
+    in the JAX package."""
+    if format not in ("default", "stablehlo"):
+        # validate before writing anything: a mistyped format must not
+        # leave a half-configured artifact directory behind
         raise ValueError("save_inference_model format must be 'default' "
                          "or 'stablehlo', got %r" % (format,))
+    if format == "stablehlo" and not batch_sizes:
+        raise ValueError("format='stablehlo' needs at least one "
+                         "batch_sizes entry")
     program = main_program or default_main_program()
     target_names = [v.name for v in target_vars]
     pruned = program.clone(for_test=True)._prune(list(feeded_var_names),
@@ -354,6 +364,14 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     if not program_only:
         _write_npz(os.path.join(dirname, params_filename or PARAMS_FILE),
                    arrays)
+    if format == "stablehlo":
+        from .serving import export_serving_artifact
+        export_serving_artifact(dirname, feeded_var_names, target_vars,
+                                executor, batch_sizes=batch_sizes,
+                                pruned_program=pruned,
+                                example_feed=example_feed,
+                                feed_batch_factors=feed_batch_factors,
+                                weight_compress=weight_compress)
     return target_names
 
 
@@ -506,10 +524,10 @@ def _encode_payload(own, compress, block_size=quant_ops.DEFAULT_BLOCK_SIZE):
 
 
 def _decode_member(z, key):
-    """One npz member, dequantized if it is a q8 one (its ##q8s companion
-    is the marker)."""
+    """One member of ``z`` (an open npz or a payload dict), dequantized if
+    it is a q8 one (its ##q8s companion is the marker)."""
     arr = z[key]
-    if key + _Q8_SCALE in z.files:
+    if key + _Q8_SCALE in z:
         return quant_ops.np_block_dequantize(
             arr, z[key + _Q8_SCALE],
             tuple(int(d) for d in z[key + _Q8_SHAPE]),

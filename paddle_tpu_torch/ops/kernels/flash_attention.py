@@ -16,6 +16,14 @@ never fall back from one to the other. ``launches``, ``dkv_launches`` and
 both backward kernels from the forward's lse; the mask's cotangent is
 the plain ``flash_attention_dmask`` and is computed only when asked for.
 
+The forward is also the operator ``paddle_tpu_torch::flash_attention_fwd``
+(``flash_attention_fwd``, ``torch.ops.paddle_tpu_torch.flash_attention_fwd``;
+``scale`` a float), which ``FlashAttention`` calls: its fake
+implementation gives the output shapes, so ``torch.export`` records the
+op in the graph in place of tracing into the launch, and the dispatcher
+picks the kernel (CUDA) or the plain version (CPU) by the tensors'
+device when the exported program runs.
+
 Layout (the JAX package's): q (B, H, Tq, D), k/v (B, H, Tk, D), f32 or
 bf16; additive mask broadcastable as (B, 1, 1, Tk) or (B, 1, Tq, Tk);
 causal is bottom-right aligned (query i sees keys j <= i + Tk - Tq).
@@ -274,6 +282,27 @@ def flash_attention_bwd(q, k, v, mask, out, lse, dout, scale=None,
     return _launch_dq(operands, scale, causal), dk, dv
 
 
+# the op's schema, its kernels by dispatch key and its fake implementation
+# (torch.library.Library: unlike torch.library.custom_op, a call does not
+# go through torch._dynamo, whose import on the first call costs seconds
+# and its dispatch tens of microseconds)
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, "
+            "float scale, bool causal) -> (Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("flash_attention_fwd", flash_attention, _key)
+
+
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd",
+                             lib=_LIB)
+def _flash_attention_fwd_fake(q, k, v, mask, scale, causal):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:-1], dtype=torch.float32))
+
+
+flash_attention_fwd = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
+
+
 class FlashAttention(torch.autograd.Function):
     """``FlashAttention.apply(q, k, v, mask, scale, causal) -> out``: the
     forward kernel, and in backward the two backward kernels from the
@@ -283,7 +312,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, scale, causal):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_attention(q, k, v, mask, scale, causal)
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        out, lse = flash_attention_fwd(q, k, v, mask, float(scale),
+                                       bool(causal))
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.scale, ctx.causal = scale, causal
         return out

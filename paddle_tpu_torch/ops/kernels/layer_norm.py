@@ -12,7 +12,10 @@ and the plain version for a CPU tensor; they never fall back from one to
 the other. ``launches`` and ``bwd_launches`` count the kernels' launches
 (the backward's row pass and column sum count as one launch of one
 kernel). ``LayerNorm`` (a ``torch.autograd.Function``) pairs them; its
-mean and rstd outputs are not differentiable.
+mean and rstd outputs are not differentiable. The forward is also the
+operator ``paddle_tpu_torch::layer_norm_fwd`` (``layer_norm_fwd``; ``eps``
+a float), which ``LayerNorm`` calls, so that ``torch.export`` records it
+in the graph (see flash_attention.py).
 
 x is (rows, cols) f32 or bf16, normalised over cols; scale and bias are
 optional (cols,). The forward returns (y like x, mean (rows,) f32,
@@ -228,6 +231,25 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
     return dx, dscale, dbias
 
 
+# the op's schema, kernels and fake implementation (see flash_attention.py)
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("layer_norm_fwd(Tensor x, Tensor? scale, Tensor? bias, "
+            "float eps) -> (Tensor, Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("layer_norm_fwd", layer_norm, _key)
+
+
+@torch.library.register_fake("paddle_tpu_torch::layer_norm_fwd", lib=_LIB)
+def _layer_norm_fwd_fake(x, scale, bias, eps):
+    rows = x.shape[0]
+    return (torch.empty_like(x),
+            x.new_empty((rows,), dtype=torch.float32),
+            x.new_empty((rows,), dtype=torch.float32))
+
+
+layer_norm_fwd = torch.ops.paddle_tpu_torch.layer_norm_fwd.default
+
+
 class LayerNorm(torch.autograd.Function):
     """``LayerNorm.apply(x, scale, bias, eps) -> (y, mean, rstd)`` over
     the last axis of 2-D x: the forward kernel, and in backward the
@@ -235,7 +257,7 @@ class LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        y, mean, rstd = layer_norm(x, scale, bias, eps)
+        y, mean, rstd = layer_norm_fwd(x, scale, bias, float(eps))
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.mark_non_differentiable(mean, rstd)
         if bias is not None:

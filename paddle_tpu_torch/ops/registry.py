@@ -65,3 +65,31 @@ def get_op(type):
 
 def has_op(type):
     return type in _REGISTRY
+
+
+# ---------------------------------------------------------------------------
+# static shape/dtype rules (framework/analysis.py's shape pass), as in
+# paddle_tpu/ops/registry.py: a rule is the kernel's static twin,
+# fn(op, ins, attrs) -> {out_slot: [TensorMeta, ...]} over abstract
+# (shape, dtype) metadata, raising ops.shape_rules.ShapeError on a
+# violation. An op without a rule infers unknown and never produces a
+# diagnostic.
+# ---------------------------------------------------------------------------
+
+_SHAPE_RULES = {}
+
+
+def register_shape_rule(*types):
+    def deco(fn):
+        for t in types:
+            if t in _SHAPE_RULES:
+                raise ValueError("shape rule for %r already registered" % t)
+            _SHAPE_RULES[t] = fn
+        return fn
+    return deco
+
+
+def get_shape_rule(type):
+    """The op's static shape/dtype rule, or None (infer unknown)."""
+    from . import shape_rules  # noqa: F401  (registers the rule set)
+    return _SHAPE_RULES.get(type)

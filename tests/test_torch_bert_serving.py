@@ -179,14 +179,28 @@ def test_load_refuses_params_that_disagree_with_the_manifest(tmp_path):
 
 
 def test_stablehlo_export_waits_for_the_serving_slice(tmp_path):
+    """format="stablehlo" (the name kept for API parity) writes the
+    serving artifact beside the model directory: a torch.export program
+    per bucket, which load_serving_artifact serves with the answers of
+    the Predictor on the same directory (the same kernels' plain
+    versions on the CPU: equal within TOL)."""
+    from paddle_tpu_torch import serving
     main, startup, fetch = _build(ptt, tbert)
     with ptt.scope_guard(ptt.Scope()):
         exe = ptt.Executor(ptt.CPUPlace())
         exe.run(startup)
-        with pytest.raises(ptt.NotPortedError, match="serving slice"):
-            ptt.save_inference_model(str(tmp_path), FEEDS, fetch, exe,
-                                     main_program=main, format="stablehlo")
-    assert not os.listdir(str(tmp_path))
+        ptt.save_inference_model(str(tmp_path), FEEDS, fetch, exe,
+                                 main_program=main, format="stablehlo",
+                                 batch_sizes=(1, 4))
+    assert sorted(os.listdir(os.path.join(str(tmp_path), "serving"))) == [
+        "export_b1.pt2", "export_b4.pt2", "meta.json", "module_b1.txt",
+        "module_b4.txt", "weights.npz"]
+    feed = _request(3, seed=4)
+    got = serving.load_serving_artifact(str(tmp_path),
+                                        place=ptt.CPUPlace()).run(feed)
+    want = _port_predictor(str(tmp_path), (1, 4)).run(feed)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **TOL)
 
 
 def test_bf16_encoder_matches_jax_with_copied_weights(tmp_path):

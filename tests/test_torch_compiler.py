@@ -14,14 +14,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 from paddle_tpu.framework import compiler as jcomp
 from paddle_tpu_torch.framework import compiler as tcomp
-
-
-@pytest.fixture(autouse=True)
-def _verify_warn(monkeypatch):
-    """BuildStrategy's verify_program defaults to PADDLE_TPU_VERIFY,
-    which the suite pins to "strict"; the port refuses "strict" (its
-    verifier is a later slice), so these runs take the default "warn"."""
-    monkeypatch.setenv("PADDLE_TPU_VERIFY", "warn")
+from paddle_tpu_torch.framework.analysis import ProgramVerificationError
 
 
 def _toy(pkg, lr=0.1, dropout=False):
@@ -196,10 +189,19 @@ def test_what_one_card_cannot_run_raises():
         run(pp_stages=2, mesh_axes={"pp": 1}, numeric_policy="skip")
     with pytest.raises(ptt.NotPortedError, match="quantize_collectives"):
         run(quantize_collectives=True)
-    with pytest.raises(ptt.NotPortedError, match="verifier"):
-        run(verify_program="strict")
-    for mode in ("warn", "off"):
+    # the verifier: every mode runs a sound program (the suite's default
+    # is "strict"); "strict" refuses a malformed one with every error
+    for mode in ("strict", "warn", "off"):
         run(verify_program=mode)
+    bad = main.clone()
+    bad.global_block().append_op(
+        "scale", inputs={"X": ["no_such_var"]},
+        outputs={"Out": [loss.name]}, attrs={"scale": 1.0})
+    with pytest.raises(ProgramVerificationError, match="no_such_var"):
+        exe.run(ptt.CompiledProgram(bad, ptt.BuildStrategy(
+            verify_program="strict")).with_data_parallel(
+                loss_name=loss.name),
+            feed=feed, fetch_list=[loss], scope=scope)
     # kernel_policy: "xla" has no second lowering on the card; on the CPU
     # every op runs its plain version whatever the policy
     comp = ptt.CompiledProgram(main, ptt.BuildStrategy(kernel_policy="xla"))
@@ -227,3 +229,15 @@ def test_compiled_entry_points_default_to_cuda_and_raise_without_it(
     exe.run(startup, scope=scope)
     out, = exe.run(comp, feed=_feeds(1)[0], fetch_list=[loss], scope=scope)
     assert out.shape == (1,)
+
+
+def test_compile_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """compile_plan() with no device plans for CUDAPlace(0), like every
+    entry point of the port: without a card it raises NoCUDADeviceError
+    (it once planned for the CPU quietly); an explicit CPU device plans."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main, _, loss = _toy(ptt)
+    comp = ptt.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+    with pytest.raises(ptt.NoCUDADeviceError):
+        comp.compile_plan()
+    assert comp.compile_plan(torch.device("cpu")).kind == "single_jit"

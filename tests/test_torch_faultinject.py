@@ -32,10 +32,7 @@ PACKAGES = [(jfi, jres), (tfi, tres)]
 
 
 @pytest.fixture(autouse=True)
-def _clean(monkeypatch):
-    # the port refuses the suite's "strict" verify_program (a later
-    # slice); both packages run with "warn"
-    monkeypatch.setenv("PADDLE_TPU_VERIFY", "warn")
+def _clean():
     for fi, res in PACKAGES:
         fi.disarm()
         fi.reset_counters()
