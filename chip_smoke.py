@@ -386,6 +386,38 @@ Then the Program verifier, serving on one host and the spans:
   served requests: the exec.step labels and parents, valid Chrome-trace
   JSON, and the replay's ms with the engine off and on.
 
+Then mixed precision and the training contribs (the kernels phase also
+holds the flash kernels in fp16: forward at BERT-base's (8, 12, 512,
+512, 64) with its key mask, GPT-base's causal T = 4096 and amp_bert's
+(128, 12, 128, 128, 64) with its fp16 key mask, dK/dV and dQ there too
+and at a dO that carries a 2^16 loss scale, FP16_REL_TOL):
+
+- ``amp_bert``: f32 BERT-base at bench.py:388-389's shapes trained
+  through ``contrib.mixed_precision.decorate(Adam(1e-4))``, bf16 and
+  fp16 with dynamic loss scaling from 2^15, each GRAPH_STEPS runs op by
+  op and graphed (bit for bit equal; the train step's launches, every
+  flash launch of the fp16 runs counted as the fp16 instantiation's and
+  none of the bf16 runs'); fp16 with an overflow first (parameters
+  bit-equal after it) and one replayed last (Adam's moments decayed by
+  beta1 / beta2 exactly, as the zero gradient the reference hands the
+  optimizer gives), each multiplying the scale by decr_ratio; step ms
+  beside train_bf16's and train's, the cast ops, the loss-scale and
+  good-steps sequences, the device ms of the finiteness chain.
+- ``amp_parity``: a narrow BERT (AMP_PARITY: 2 layers, hidden 128; 4 x
+  128 tokens) decorated bf16 and fp16, three steps card against CPU
+  (bf16's PARITY_*, fp16's no looser).
+- ``amp_resnet``: ResNet-50 at bench.py:472-486 decorated bf16, six
+  steps graphed, beside resnet_train's and graph_resnet's f32 replays.
+- ``grad_merge``: BERT-base (bf16) at batch 32 under
+  ``GradientMergeOptimizer(Adam(1e-4), k_steps=4)``, eight runs op by op
+  and graphed (bit for bit), the reference's rule held at each run.
+- ``contrib_surface``: ``ctr_metric_bundle`` on DeepFM at
+  bench.py:565-578 against numpy; ``profiler.profiler`` around three
+  replays of amp_bert's fp16 step (its table names the flash and
+  LayerNorm kernels); ``contrib.Trainer`` on fit_a_line two epochs and
+  ``Inferencer`` from its saved parameters; ``summary``,
+  ``memory_usage`` and ``op_freq_statistic`` of BERT-base.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -903,7 +935,7 @@ EVAL_LOSS_RTOL = 1e-5
 # above the 67 TFLOP/s of f32 FFMA.
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2 ** 20
-PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # f32: both sum in f32, in another order -> a few ulps of values of
@@ -924,6 +956,16 @@ TOL = {("flash", "float32"): 2e-5, ("flash", "bfloat16"): 1e-2,
 BWD_TOL = {("flash", "float32"): 1e-4, ("flash", "bfloat16"): 3.2e-2,
            ("ln", "float32"): 1e-4, ("ln", "bfloat16"): 1.6e-2,
            "ln_cols_rel": 5e-5}
+# fp16 flash kernels (forward, dK/dV, dQ) against the plain version, which
+# computes in f32 from the same fp16 inputs, as the JAX kernel does: both
+# round an f32 result to fp16 (11 significant bits), so an element may
+# land one fp16 ulp apart, at most 2^-10 of its magnitude. Held relative
+# to each output's largest magnitude, which also covers a gradient carrying
+# a loss scale (FP16_LOSS_SCALE: dO = 2^16 * g with g ~ N(0, 2^-8), so
+# dS = P (dP - delta) passes fp16's 65504 inside the kernel).
+FP16_REL_TOL = 2.0 ** -10
+FP16_LOSS_SCALE = 2.0 ** 16
+FP16_GRAD_STD = 2.0 ** -4
 # Adam: each output (p', m1', m2') is held apart, against the plain
 # version, relative to its own change in the step:
 #   max|got - want| <= ADAM_REL_TOL * max|want - old| + eps(dtype) * max|want|
@@ -978,13 +1020,14 @@ HEAD_TOL = {"loss": 1e-4, ("grad_rel", "float32"): 5e-5,
 # wrong scale, misses by its whole change. (An f32 key bias moves by
 # ~1e-8 and is not held.)
 PARITY_LR = 1e-4
-PARITY_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+PARITY_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3, "float16": 1e-3}
 PARITY_PARAM_ATOL = 2e-5
-PARITY_PARAM_ULPS = {"float32": 0, "bfloat16": 2}
+PARITY_PARAM_ULPS = {"float32": 0, "bfloat16": 2, "float16": 2}
 PARITY_SIGN_FLIP_ATOL = 6e-4                 # 2 * steps * lr
-PARITY_SIGN_FLIP_SHARE = {"float32": 1e-6, "bfloat16": 1e-3}
+PARITY_SIGN_FLIP_SHARE = {"float32": 1e-6, "bfloat16": 1e-3,
+                          "float16": 1e-3}
 PARITY_MOVED_RTOL = 0.25
-MANTISSA_BITS = {"float32": 23, "bfloat16": 7}
+MANTISSA_BITS = {"float32": 23, "bfloat16": 7, "float16": 10}
 # bf16 decode, card against CPU: the final hidden states are bf16 and may
 # differ by a bf16 ulp (2^-8 relative, values up to ~4) in some elements;
 # each such element moves a logit by its ulp times a tied-embedding
@@ -1097,6 +1140,16 @@ ARTIFACT_WAIT_S = 120.0
 Q8_SERVE_ATOL = 0.25
 SPAN_STEPS = 3
 SPAN_TIMED = 5
+# mixed precision and the contribs: fp16's first loss scale (amp_bert,
+# amp_parity) and decorate's default decr_ratio; GradientMerge's window
+# and runs (two windows); ctr_metric_bundle's f32 sums over DeepFM's 2048
+# predictions against numpy's f64 ones (random-walk rounding of 2048 f32
+# terms ~1e-6 of the sum)
+AMP_FP16_INIT_SCALE = 2.0 ** 15
+AMP_DECR_RATIO = 0.8
+AMP_PARITY = dict(num_layers=2, hidden_size=128, num_heads=2, ff_size=512)
+GRAD_MERGE_K, GRAD_MERGE_STEPS = 4, 8
+CTR_RTOL = 1e-5
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -1106,6 +1159,9 @@ _failed = []
 # wall seconds of each phase (summed over its calls), for the run's
 # time budget
 _seconds = {}
+# replay-median step ms of the training phases, read by the phases that
+# print a step beside them (amp_bert, amp_resnet)
+_STEP_MS = {}
 
 
 def emit(obj):
@@ -1256,7 +1312,7 @@ def nan_cases(torch, fa, bce):
 
 def flash_cases(torch, fa, F):
     """(name, b, h, tq, tk, d, dtype, mask mode, causal) on the card."""
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [
         ("bert_base_k_mask_f32", 8, 12, 512, 512, 64, f32, "k", False),
         ("bert_train_k_mask_f32", 32, 12, 128, 128, 64, f32, "k", False),
@@ -1285,6 +1341,15 @@ def flash_cases(torch, fa, F):
          False),
         ("transformer_train_k_mask_causal_f32", 64, 8, 64, 64, 64, f32, "k",
          True),
+        # fp16 (an fp16-decorated BERT or GPT): BERT-base serving's shape
+        # with its key mask, GPT-base training's causal shape, and
+        # amp_bert's fp16 step (batch 128 x 128; decorate casts the key
+        # mask to fp16 with Q, K, V)
+        ("bert_base_k_mask_f16", 8, 12, 512, 512, 64, f16, "k", False),
+        ("gpt_train_causal_t4096_f16", 2, 12, 4096, 4096, 64, f16, None,
+         True),
+        ("bert_train_b128_k_mask_f16", 128, 12, 128, 128, 64, f16, "k16",
+         False),
     ]
     dev = torch.device("cuda", 0)
     out = []
@@ -1302,7 +1367,7 @@ def flash_cases(torch, fa, F):
         torch.cuda.synchronize()
         err, lse_err = _max_err(got, want), _max_err(lse, want_lse)
         same = torch.equal(got, again) and torch.equal(lse, again_lse)
-        tol = TOL[("flash", str(dtype).split(".")[1])]
+        tol = _flash_tol(TOL, dtype, want)
         library_ms = None
         if not causal or tq == tk:
             lib_mask, lib_causal = _sdpa_mask(torch, fa, mask, causal, tq,
@@ -1419,6 +1484,14 @@ def ln_cases(torch, ln, F):
     return out
 
 
+def _flash_tol(table, dtype, want):
+    """A flash output's tolerance: the table's for f32 and bf16; for fp16
+    FP16_REL_TOL of the output's largest magnitude."""
+    if str(dtype) == "torch.float16":
+        return FP16_REL_TOL * float(want.float().abs().max())
+    return table[("flash", str(dtype).split(".")[1])]
+
+
 def _sdpa_mask(torch, fa, mask, causal, tq, tk, dtype):
     """(attn_mask, is_causal) for SDPA to compute the kernel's function:
     a key mask with ``causal`` becomes one additive mask with the causal
@@ -1467,8 +1540,10 @@ def flash_bwd_cases(torch, fa, F):
     kernel's out and lse (themselves held against the plain forward on
     the same inputs), and against themselves (equal bits on a second
     run). ``pair_ms`` is dK/dV + dQ + the delta pass rowsum(dO * O), the
-    work SDPA's backward (``library_ms``) does in one call."""
-    f32, bf16 = torch.float32, torch.bfloat16
+    work SDPA's backward (``library_ms``) does in one call. A case's
+    optional last field scales dO (the fp16 loss-scale cases)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    ls = FP16_LOSS_SCALE * FP16_GRAD_STD
     cases = [
         ("bert_train_k_mask_f32", 32, 12, 128, 128, 64, f32, "k", False),
         ("bert_serve_k_mask_f32", 8, 12, 512, 512, 64, f32, "k", False),
@@ -1490,20 +1565,39 @@ def flash_bwd_cases(torch, fa, F):
         ("transformer_train_k_mask_f32", 64, 8, 64, 64, 64, f32, "k", False),
         ("transformer_train_k_mask_causal_f32", 64, 8, 64, 64, 64, f32, "k",
          True),
+        # fp16 (an fp16-decorated model): BERT-base at T = 512 with its key
+        # mask and GPT-base's causal T = 4096, each also with a dO that
+        # carries the 2^16 loss scale
+        ("bert_serve_k_mask_f16", 8, 12, 512, 512, 64, f16, "k", False),
+        ("bert_serve_k_mask_f16_scaled", 8, 12, 512, 512, 64, f16, "k",
+         False, ls),
+        ("gpt_train_causal_t4096_f16", 2, 12, 4096, 4096, 64, f16, None,
+         True),
+        ("gpt_train_causal_t4096_f16_scaled", 2, 12, 4096, 4096, 64, f16,
+         None, True, ls),
+        # amp_bert's fp16 step: batch 128 x 128, the key mask in fp16,
+        # plain and at the loss scale
+        ("bert_train_b128_k_mask_f16", 128, 12, 128, 128, 64, f16, "k16",
+         False),
+        ("bert_train_b128_k_mask_f16_scaled", 128, 12, 128, 128, 64, f16,
+         "k16", False, ls),
     ]
     dev = torch.device("cuda", 0)
     dkv, dq = [], []
-    for i, (name, b, h, tq, tk, d, dtype, mode, causal) in enumerate(cases):
+    for i, (name, b, h, tq, tk, d, dtype, mode, causal, *do_scale) in \
+            enumerate(cases):
         clock = _clock(tq >= 4096)
         q, k, v, do, mask = _flash_inputs(torch, dev, SEED + 200 + i, b, h,
                                           tq, tk, d, dtype, mode)
+        if do_scale:
+            do = (do.float() * do_scale[0]).to(dtype)
         scale = d ** -0.5
         out, lse = fa.flash_attention(q, k, v, mask, scale, causal)
         want_out, want_lse = fa.flash_attention_plain(q, k, v, mask, scale,
                                                       causal)
         fwd_err = _max_err(out, want_out)
         fwd_lse_err = _max_err(lse, want_lse)
-        fwd_tol = TOL[("flash", str(dtype).split(".")[1])]
+        fwd_tol = _flash_tol(TOL, dtype, want_out)
         fwd_ok = fwd_err <= fwd_tol and fwd_lse_err <= TOL["stat"]
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, lse, delta, do, scale, causal)
@@ -1513,9 +1607,13 @@ def flash_bwd_cases(torch, fa, F):
         again_q = fa.flash_attention_bwd_dq(*args)
         want_q, want_k, want_v = fa.flash_attention_bwd_plain(*args)
         torch.cuda.synchronize()
-        tol = BWD_TOL[("flash", str(dtype).split(".")[1])]
+        tol = _flash_tol(BWD_TOL, dtype, want_q)
+        tol_kv = max(_flash_tol(BWD_TOL, dtype, want_k),
+                     _flash_tol(BWD_TOL, dtype, want_v))
         err_kv = max(_max_err(got_k, want_k), _max_err(got_v, want_v))
         err_q = _max_err(got_q, want_q)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (got_k, got_v, got_q))
         same_kv = torch.equal(got_k, again_k) and torch.equal(got_v, again_v)
         same_q = torch.equal(got_q, again_q)
         plain_ms = clock(lambda: fa.flash_attention_bwd_plain(*args))
@@ -1546,7 +1644,8 @@ def flash_bwd_cases(torch, fa, F):
         # no key adds 2*D per key (dv only). Reads q,k,v,dO, writes dk,dv.
         dkv.append(dict(
             name=name, max_abs_err=err_kv,
-            ok=err_kv <= tol and same_kv and fwd_ok,
+            tol_kv=tol_kv, do_scale=do_scale[0] if do_scale else 1.0,
+            ok=err_kv <= tol_kv and same_kv and fwd_ok and finite,
             bitwise_repeat=same_kv, kernel_ms=dkv_ms,
             **common, **_bound(8.0 * b * h * d * pairs +
                                2.0 * b * h * d * tk * no_key,
@@ -1556,7 +1655,7 @@ def flash_bwd_cases(torch, fa, F):
         # writes dq.
         dq.append(dict(
             name=name, max_abs_err=err_q,
-            ok=err_q <= tol and same_q and fwd_ok,
+            ok=err_q <= tol and same_q and fwd_ok and finite,
             bitwise_repeat=same_q, kernel_ms=dq_ms,
             **common, **_bound(6.0 * b * h * d * pairs,
                                (3 * q.numel() + 2 * k.numel()) * el + side,
@@ -2036,11 +2135,15 @@ def serve(torch, np, ptt, counters, model_dir):
 class Counters(object):
     """The kernels' launch counters, zeroed together. ``read`` gives the
     eleven kernels' of the Pallas sites, ``read_all`` also the numeric
-    guard's two (``finite_flags``, ``guarded_copy``)."""
+    guard's two (``finite_flags``, ``guarded_copy``), ``read_f16`` the
+    flash kernels' launches of their fp16 instantiation."""
 
     def __init__(self, fa, ln, fad, bce, ng):
         self._guard = {"finite_flags": (ng, "launches"),
                        "guarded_copy": (ng, "copy_launches")}
+        self._f16 = {"flash_attention_fwd": (fa, "f16_launches"),
+                     "flash_attention_bwd_dkv": (fa, "f16_dkv_launches"),
+                     "flash_attention_bwd_dq": (fa, "f16_dq_launches")}
         self._fields = {
             "flash_attention_fwd": (fa, "launches"),
             "flash_attention_bwd_dkv": (fa, "dkv_launches"),
@@ -2056,7 +2159,7 @@ class Counters(object):
 
     def zero(self):
         for mod, attr in list(self._fields.values()) + list(
-                self._guard.values()):
+                self._guard.values()) + list(self._f16.values()):
             setattr(mod, attr, 0)
 
     def read(self):
@@ -2067,6 +2170,9 @@ class Counters(object):
         return dict(self.read(), **{k: getattr(mod, attr)
                                     for k, (mod, attr) in
                                     self._guard.items()})
+
+    def read_f16(self):
+        return {k: getattr(mod, attr) for k, (mod, attr) in self._f16.items()}
 
 
 def _pretrain_program(ptt, bert, cfg, batch, optimizer_fn=None):
@@ -2262,6 +2368,7 @@ def _train_bert(torch, np, ptt, counters, label, cfg, batch, want,
     counts_ok = all(c == want for c in per_step)
     tokens = batch * TRAIN_SEQ
     warm = step_ms[1:]
+    _STEP_MS[label] = statistics.median(step_ms[2:])
     ok = finite and falling and counts_ok
     extra = {"optimizer": "Adam(1e-4)"}
     if recipe:
@@ -2342,7 +2449,7 @@ def train_recipe_lamb(torch, np, ptt, counters):
 
 
 def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
-                 skip_step=None):
+                 skip_step=None, dtype=None):
     """PARITY_STEPS runs of a training program on the card and on the CPU
     (plain versions) from the same startup weights, held to PARITY_*; on
     the card also op by op, which must give the graphed runs' bits: (the
@@ -2352,7 +2459,11 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
     what the Executor runs (a CompiledProgram of ``main``); ``skip_step``:
     the run its numeric guard must skip on every device (a non-finite
     loss, one "skip" numeric_fault event naming the same culprit), left
-    out of the loss comparison."""
+    out of the loss comparison. ``dtype``: the compute dtype whose
+    tolerances apply, to the loss, the sign-flip share and each
+    parameter element's ulps (a decorated program's, whose f32 master
+    weights take their updates from gradients computed in ``dtype``;
+    default the parameters' own)."""
     feeds = feed if isinstance(feed, list) else [feed] * PARITY_STEPS
     from paddle_tpu_torch.framework import resilience
     from paddle_tpu_torch.io import set_params_from_numpy
@@ -2399,8 +2510,10 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
             faults[k][0] == faults["cpu"][0] for k in runs)
         gl = [v for i, v in enumerate(gl) if i != skip_step]
         cl = [v for i, v in enumerate(cl) if i != skip_step]
-    dtype = ("bfloat16" if any(p.dtype == "bfloat16"
-                               for p in main.all_parameters()) else "float32")
+    amp = dtype
+    dtype = dtype or ("bfloat16" if any(p.dtype == "bfloat16"
+                                        for p in main.all_parameters())
+                      else "float32")
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
     block = main.global_block()
     wrapper = [block.var(n) for n in _wrapper_state(main)]
@@ -2409,7 +2522,7 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
                                         to_numpy(cs.find_var(n)))
                          for n in counters)
     agreement, params_ok = _param_agreement(np, dtype, (
-        (p.name, p.dtype, to_numpy(arrays[p.name]),
+        (p.name, p.dtype if amp is None else amp, to_numpy(arrays[p.name]),
          to_numpy(gs.find_var(p.name)), to_numpy(cs.find_var(p.name)))
         for p in main.all_parameters() + [v for v in wrapper
                                           if v.name not in counters]))
@@ -3090,14 +3203,19 @@ def graph_serve(torch, np, ptt, counters, pred, requests):
 
 
 def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
-               fetch_list, want, families, mask=True):
+               fetch_list, want, families, mask=True, nonfinite=(),
+               watch=None, on_run=None):
     """GRAPH_STEPS runs of ``main`` op by op and graphed, each way on its
     own copy of one started scope (the run counter included), then one
     run each way profiled: (the record, ok, the graphed way's fetches and
-    state after GRAPH_STEPS runs, the started scope). ``feed``: one feed
-    for every run, or a list of GRAPH_STEPS feeds, one a run (a replay
+    state after its runs, the started scope). ``feed``: one feed
+    for every run, or a list of feeds, one a run (a replay
     reads each from its static feeds). With ``mask`` the last fetch is a
-    dropout Mask, which must differ from step to step."""
+    dropout Mask, which must differ from step to step. ``nonfinite``: the
+    runs whose loss may be non-finite (a loss-scale overflow).
+    ``on_run(k, before, scope, exe)`` is called on the graphed way after
+    its run k (from 1), ``before`` holding the tensors that ``watch(k)``
+    names as they were before that run."""
     feeds = feed if isinstance(feed, list) else [feed] * GRAPH_STEPS
     feed = feeds[-1]
     start = ptt.Scope()
@@ -3107,8 +3225,11 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
     for way, cache in (("op_by_op", False), ("graphed", True)):
         scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
         step_ms, fetched, per_step = [], [], []
+        hook = cache and on_run is not None
         counters.zero()                      # the main path starts here
-        for step_feed in feeds:
+        for k, step_feed in enumerate(feeds, 1):
+            if hook:
+                held = {n: scope.find_var(n).clone() for n in watch(k)}
             before = counters.read()
             t0 = time.perf_counter()
             fetched.append(exe.run(main, feed=step_feed,
@@ -3118,15 +3239,22 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             after = counters.read()
-            per_step.append({k: after[k] - before[k] for k in after})
+            per_step.append({c: after[c] - before[c] for c in after})
+            if hook:
+                on_run(k, held, scope, exe)
+                del held
         ways[way] = {"exe": exe, "scope": scope, "step_ms": step_ms,
                      "fetched": fetched, "per_step": per_step,
-                     "launches": counters.read()}
+                     "launches": counters.read(),
+                     "float16_launches": counters.read_f16()}
     a, b = ways["op_by_op"], ways["graphed"]
+
+    def same(x, y):       # equal, or the same bits (a NaN of an overflow)
+        return torch.equal(x, y) or _same_bits(torch, x, y)
     unequal = [fetch_list[i].name for i in range(len(fetch_list))
-               if not all(torch.equal(x[i], y[i])
+               if not all(same(x[i], y[i])
                           for x, y in zip(a["fetched"], b["fetched"]))]
-    unequal += [n for n in persist if not torch.equal(
+    unequal += [n for n in persist if not same(
         a["scope"].find_var(n), b["scope"].find_var(n))]
     masks = [f[-1] for f in b["fetched"]] if mask else []
     masks_differ = all(not torch.equal(x, y)
@@ -3144,9 +3272,10 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
     missing, library = _kernel_check(found["graphed"], families)
     ok = not unequal and masks_differ and counts_ok and not missing and \
         not library and all(np.isfinite(float(f[0].reshape(())))
-                            for f in b["fetched"])
+                            for i, f in enumerate(b["fetched"])
+                            if i not in nonfinite)
     record = {
-        "steps": GRAPH_STEPS, "bit_equal": not unequal,
+        "steps": len(feeds), "bit_equal": not unequal,
         "unequal": unequal[:8], "masks_differ_step_to_step": masks_differ,
         "losses": {w: [float(f[0].reshape(())) for f in ways[w]["fetched"]]
                    for w in ways},
@@ -3155,6 +3284,9 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
         "op_by_op_ms_median": statistics.median(a["step_ms"][1:]),
         "launches_per_step": {w: ways[w]["per_step"][-1] for w in ways},
         "launches_per_step_ok": counts_ok,
+        "launches_by_way": {w: ways[w]["launches"] for w in ways},
+        "float16_launches_by_way": {w: ways[w]["float16_launches"]
+                                    for w in ways},
         "captures": _capture_record(b["exe"]),
         "missing_kernel_families": missing, "library_kernels": library,
         "profile": found}
@@ -3659,15 +3791,18 @@ def _no_launches(counters, **launched):
     return dict({k: 0 for k in counters.read()}, **launched)
 
 
-def _resnet_program(np, ptt, resnet, batch):
-    """bench.py:472-486: ResNet-50 training with Momentum(0.1, 0.9) and its
-    batch (RandomState(0): uniform images, random labels): (main, startup,
-    [loss, acc1, acc5], feed)."""
+def _resnet_program(np, ptt, resnet, batch, wrap=None):
+    """bench.py:472-486: ResNet-50 training with Momentum(0.1, 0.9) (or
+    ``wrap`` of it: a decorated optimizer) and its batch (RandomState(0):
+    uniform images, random labels): (main, startup, [loss, acc1, acc5],
+    feed)."""
+    def opt_fn(loss):
+        opt = ptt.optimizer.Momentum(0.1, 0.9)
+        (wrap(opt) if wrap else opt).minimize(loss)
     with ptt.unique_name.guard():
         main, startup, _, fetch = resnet.resnet_train_program(
             depth=50, class_dim=RESNET_CLASSES, image_shape=(3, 224, 224),
-            optimizer_fn=lambda loss: ptt.optimizer.Momentum(
-                0.1, 0.9).minimize(loss))
+            optimizer_fn=opt_fn)
     startup.random_seed = SEED
     rng = np.random.RandomState(0)
     feed = {"image": rng.rand(batch, 3, 224, 224).astype(np.float32),
@@ -3844,6 +3979,7 @@ def resnet_train(torch, np, ptt, counters):
     descends = losses[1][0] < losses[0][0]
     counts_ok = all(c == _no_launches(counters) for c in per_step)
     replay_ms = statistics.median(step_ms[2:])
+    _STEP_MS["resnet_train"] = replay_ms
     flops = _step_flops(main, RESNET_BATCH)
     by_op = _device_ms_by_op_type(torch, lambda: exe.run(
         main, feed=feed, fetch_list=fetch_list, scope=scope,
@@ -3914,6 +4050,7 @@ def graph_resnet(torch, np, ptt, counters):
         fetch_list, _no_launches(counters), (), mask=False)
     nondeterministic = _deterministic_warnings(torch, ptt, main, start, feed,
                                                fetch_list)
+    _STEP_MS["graph_resnet"] = record["replay_ms_median"]
     emit(dict({"phase": "graph_resnet", "ok": ok, "model": "resnet50",
                "batch": RESNET_BATCH,
                "cudnn_deterministic": torch.backends.cudnn.deterministic,
@@ -9594,6 +9731,464 @@ def spans(torch, np, ptt, pred, requests, recipe):
         raise AssertionError("spans checks failed (see the line above)")
 
 
+# ---- mixed precision and the training contribs ------------------------------
+
+def _amp_program(ptt, bert, cfg, batch, amp):
+    """BERT pretraining under ``decorate(Adam(1e-4), **amp)``: (main,
+    startup, fetch list: [loss, mlm_loss, nsp_loss] and, with loss
+    scaling, the scale and the good-steps counter, the optimizer)."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    held = {}
+
+    def opt_fn(loss):
+        held["opt"] = mixed_precision.decorate(ptt.optimizer.Adam(1e-4),
+                                               **amp)
+        held["opt"].minimize(loss)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg, batch,
+                                                  opt_fn)
+    opt = held["opt"]
+    if opt.get_loss_scaling() is not None:
+        fetch_list = fetch_list + [opt.get_loss_scaling()]
+        if opt._good_steps is not None:
+            fetch_list.append(opt._good_steps)
+    return main, startup, fetch_list, opt
+
+
+def _overflow_feed(feed):
+    """``feed`` with one input-mask element at 1e36: its attention bias
+    (mask * 1e4 - 1e4) is Inf, so the step's loss and gradients are not
+    finite."""
+    bad = dict(feed)
+    bad["input_mask"] = feed["input_mask"].copy()
+    bad["input_mask"][0, 0, 0] = 1e36
+    return bad
+
+
+def _adam_moment_betas(main):
+    """{each Adam moment of ``main``'s parameters: the beta that decays it
+    (moment1 0.9, moment2 0.999)}."""
+    names = {v.name for v in main.list_vars() if v.persistable}
+    return {"%s_%s_0" % (p.name, which): beta
+            for which, beta in (("moment1", 0.9), ("moment2", 0.999))
+            for p in main.all_parameters()
+            if "%s_%s_0" % (p.name, which) in names}
+
+
+def _amp_isfinite_ms(torch, ptt, main, start, feed, fetch_list):
+    """Device ms of an op-by-op step's finiteness chain (each gradient's
+    isfinite and the logical_and that joins it), and of the whole step,
+    on a copy of ``start``."""
+    scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+    found = _device_ms_by_op_type(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope,
+        use_program_cache=False))
+    close_executor(torch, "amp isfinite profile", exe)
+    chain = {k: v for k, v in found["by_op_type"].items()
+             if k in ("isfinite", "logical_and")}
+    return {"ops": chain, "device_ms": sum(v[1] for v in chain.values()),
+            "step_device_busy_ms": found["device_busy_ms"]}
+
+
+def amp_bert(torch, np, ptt, counters):
+    """BERT-base (f32) at bench.py:388-389's shapes (batch 128 x 128, 20
+    masked positions, dropout 0.1) trained with ``decorate(Adam(1e-4))``:
+    bf16, then fp16 with dynamic loss scaling from 2^15. Each dtype runs
+    GRAPH_STEPS steps op by op and graphed from one startup (``_both_ways``:
+    fetches and every persistable bit for bit equal, the train step's
+    launches a step, the profile naming the hand-written kernels and no
+    library attention); every flash launch of the fp16 runs is of the
+    kernels' fp16 instantiation, none of the bf16 runs'. fp16's runs: an
+    overflow first (Adam's moments still 0: every parameter bit-equal
+    after it), four clean, an overflow replayed from the graph; each
+    overflow multiplies the scale by decr_ratio and zeroes good steps, and
+    the replayed one decays Adam's moments by beta1 / beta2 exactly (the
+    zero gradient the reference hands the optimizer); both read on the
+    graphed way's own runs. Step ms beside train_bf16's and train's; the
+    cast ops; peak above resident (fp16's includes the copies of the
+    watched tensors, ``watched_gb``); the device ms of fp16's finiteness
+    chain. Returns ({dtype: launches}, the fp16 way's handles for
+    contrib_surface, the fp16 graphed way's fp16 flash launches)."""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base()                       # f32, dropout 0.1
+    feed = bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                TRAIN_PREDS, seed=0)
+    bad = _overflow_feed(feed)
+    out, launches, ok, handles, f16_launches = {}, {}, True, None, None
+    for label, amp, feeds in (
+            ("bf16", dict(dtype="bfloat16"), [feed] * GRAPH_STEPS),
+            ("fp16", dict(dtype="float16",
+                          init_loss_scaling=AMP_FP16_INIT_SCALE,
+                          use_dynamic_loss_scaling=True),
+             [bad] + [feed] * (GRAPH_STEPS - 2) + [bad])):
+        main, startup, fetch_list, opt = _amp_program(
+            ptt, bert, cfg, BF16_TRAIN_BATCH, amp)
+        casts = sum(op.type == "cast" and op.attrs.get("op_role") == "amp"
+                    for op in main.global_block().ops)
+        params = [p.name for p in main.all_parameters()]
+        betas = _adam_moment_betas(main)
+        seen = {}
+
+        def watch(k):
+            return params if k == 1 else list(betas) \
+                if k == len(feeds) else ()
+
+        def on_run(k, before, scope, exe):
+            # run 1 leaves the parameters, the last run decays the moments
+            seen[k] = {"replays": exe.graph_runs["replay"], "unequal": [
+                n for n in before if not torch.equal(
+                    scope.find_var(n), before[n] * betas.get(n, 1.0))],
+                "gb": sum(t.numel() * t.element_size()
+                          for t in before.values()) / 2 ** 30}
+        hooks = dict(watch=watch, on_run=on_run) if label == "fp16" else {}
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        record, both_ok, ref, start, n = _both_ways(
+            torch, np, ptt, counters, "amp_bert_" + label, main, startup,
+            feeds, fetch_list, TRAIN_PER_STEP, TRAIN_FAMILIES, mask=False,
+            nonfinite=[i for i, f in enumerate(feeds) if f is bad], **hooks)
+        peak = torch.cuda.max_memory_allocated()
+        fetched, state = ref
+        losses = [float(f[0].reshape(())) for f in fetched]
+        clean = [v for v, f in zip(losses, feeds) if f is feed]
+        # the flash launches of each way against their fp16 share
+        dtype_ok = all(
+            f16[k] == (record["launches_by_way"][w][k]
+                       if label == "fp16" else 0) and
+            record["launches_by_way"][w][k] > 0
+            for w, f16 in record["float16_launches_by_way"].items()
+            for k in f16)
+        row = dict(record, casts=casts, program_ops=_n_ops(_op_counts(main)),
+                   clean_losses=clean, flash_dtype_ok=dtype_ok,
+                   step_peak_above_resident_gb=(peak - resident) / 2 ** 30)
+        finite = all(np.isfinite(clean))
+        falling = clean[-1] < clean[0]
+        checks = both_ok and finite and falling and dtype_ok
+        if label == "fp16":
+            last = len(feeds)
+            scales = [float(f[3].reshape(())) for f in fetched]
+            goods = [float(f[4].reshape(())) for f in fetched]
+            init = np.float32(AMP_FP16_INIT_SCALE)
+            decr = np.float32(AMP_DECR_RATIO)
+            still = seen[1]["unequal"]
+            decayed = (bool(betas) and not seen[last]["unequal"] and
+                       seen[last]["replays"] > seen[last - 1]["replays"])
+            scale_ok = (scales[0] == float(init * decr) and goods[0] == 0.0
+                        and scales[-1] == float(np.float32(scales[-2]) *
+                                                decr)
+                        and goods[-1] == 0.0 and
+                        goods[1:-1] == [float(i) for i in
+                                        range(1, GRAPH_STEPS - 1)])
+            checks = checks and scale_ok and not still and decayed
+            row.update(loss_scale=scales, good_steps=goods,
+                       loss_scale_ok=scale_ok,
+                       overflow_first_params_changed=still[:4],
+                       overflow_replayed_moments_decayed=decayed,
+                       overflow_replayed_moments_unequal=seen[last][
+                           "unequal"][:4],
+                       watched_gb=max(v["gb"] for v in seen.values()),
+                       decr_ratio=AMP_DECR_RATIO,
+                       isfinite_chain=_amp_isfinite_ms(
+                           torch, ptt, main, start, feed, fetch_list))
+            handles = (main, start, feed, fetch_list)
+            f16_launches = record["float16_launches_by_way"]["graphed"]
+        row.update(finite=finite, falling=falling, ok=checks)
+        ok = ok and checks
+        out[label] = row
+        launches[label] = n
+    emit({"phase": "amp_bert", "ok": ok, "model": "bert_base",
+          "dtype_params": "float32", "batch": BF16_TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "max_preds": TRAIN_PREDS,
+          "dropout": cfg.hidden_dropout, "optimizer": "Adam(1e-4)",
+          "fp16_init_loss_scaling": AMP_FP16_INIT_SCALE,
+          "beside_ms": {k: _STEP_MS.get(k) for k in ("train_bf16", "train")},
+          "beside_note": "train_bf16: bf16 weights, batch 128; train: f32, "
+                         "batch 32 (replay medians of this run)",
+          "dtypes": out})
+    if not ok:
+        raise AssertionError("amp_bert checks failed (see the line above)")
+    return launches, handles, f16_launches
+
+
+def amp_parity(torch, np, ptt):
+    """A narrow BERT (AMP_PARITY: 2 layers, hidden 128, two 64-wide heads;
+    4 x 128 tokens) decorated in bf16 and in fp16 (dynamic loss scaling
+    from 2^15), three steps card against CPU from the same weights, by the
+    bf16 PARITY_* comparison with each f32 master weight's elements held
+    at the compute dtype's ulps (two bf16 ulps; two fp16 ulps, 8x
+    tighter), graphed against op by op on the card. (At BERT-base width
+    the CPU's fp16 matmuls took 58 s for the three steps.)"""
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(hidden_dropout=0.0, attn_dropout=0.0,
+                         **AMP_PARITY)
+    feed = bert.synthetic_batch(cfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=1)
+    rows, ok = {}, True
+    for label, amp in (("bf16", dict(dtype="bfloat16")),
+                       ("fp16", dict(dtype="float16",
+                                     init_loss_scaling=AMP_FP16_INIT_SCALE,
+                                     use_dynamic_loss_scaling=True))):
+        main, startup, fetch_list, _ = _amp_program(ptt, bert, cfg,
+                                                    PARITY_BATCH, amp)
+        rows[label], good = _card_vs_cpu(np, ptt, main, startup, fetch_list,
+                                         feed, dtype=amp["dtype"])
+        ok = ok and good
+    emit({"phase": "amp_parity", "ok": ok, "config": AMP_PARITY,
+          "batch": PARITY_BATCH, "seq_len": TRAIN_SEQ, "dtypes": rows})
+    if not ok:
+        raise AssertionError("amp_parity checks failed (see the line above)")
+
+
+def amp_resnet(torch, np, ptt, counters):
+    """ResNet-50 at bench.py:472-486 (batch 128 x 3 x 224 x 224,
+    Momentum(0.1, 0.9)) decorated in bf16, TRAIN_STEPS steps graphed from
+    the second: losses finite and the first update lowering the loss (the
+    f32 run's criterion: at lr 0.1 from scratch the loss climbs again by
+    the sixth step); the step beside resnet_train's f32 replays and
+    graph_resnet's; no hand-written kernel."""
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import resnet
+    main, startup, fetch_list, feed = _resnet_program(
+        np, ptt, resnet, RESNET_BATCH,
+        lambda opt: mixed_precision.decorate(opt, dtype="bfloat16"))
+    scope, exe = ptt.Scope(), ptt.Executor()
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    descends = losses[1][0] < losses[0][0]
+    counts_ok = all(c == _no_launches(counters) for c in per_step)
+    replay_ms = statistics.median(step_ms[2:])
+    ok = finite and descends and counts_ok
+    casts = sum(op.type == "cast" and op.attrs.get("op_role") == "amp"
+                for op in main.global_block().ops)
+    emit({"phase": "amp_resnet", "ok": ok, "model": "resnet50",
+          "batch": RESNET_BATCH, "dtype": "bfloat16 (decorate)",
+          "optimizer": "Momentum(0.1, 0.9)", "casts": casts,
+          "step_ms": step_ms, "replay_ms_median": replay_ms,
+          "images_per_s_replays": RESNET_BATCH / (replay_ms / 1e3),
+          "f32_replay_ms": {k: _STEP_MS.get(k) for k in
+                            ("resnet_train", "graph_resnet")},
+          "losses": losses, "finite": finite,
+          "first_update_descends": descends,
+          "launches_per_step_ok": counts_ok, "launches": launches,
+          "step_peak_above_resident_gb": (peak - resident) / 2 ** 30})
+    close_executor(torch, "amp_resnet", exe)
+    if not ok:
+        raise AssertionError("amp_resnet checks failed (see the line above)")
+    return launches
+
+
+def grad_merge(torch, np, ptt, counters):
+    """BERT-base (bf16 config, dropout 0.1) at batch 32 x 128 under
+    ``GradientMergeOptimizer(Adam(1e-4), k_steps=4)``: GRAD_MERGE_STEPS runs
+    (two windows) op by op and graphed from one startup (``_both_ways``),
+    fetches and every persistable bit for bit equal; on the graphed way,
+    the reference's rule at each run: off an apply run Adam gets a zero
+    gradient (its moments times beta1 / beta2 bit for bit; the parameters
+    unchanged while the moments are 0, in the first window), on an apply
+    run (4, 8) the parameters move and the accumulators restart at 0."""
+    from paddle_tpu_torch.contrib.extend_optimizer import (
+        GradientMergeOptimizer)
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(dtype="bfloat16")
+
+    def opt_fn(loss):
+        GradientMergeOptimizer(ptt.optimizer.Adam(1e-4),
+                               k_steps=GRAD_MERGE_K).minimize(loss)
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg,
+                                                  TRAIN_BATCH, opt_fn)
+    feed = bert.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=0)
+    params = [p.name for p in main.all_parameters()]
+    betas = _adam_moment_betas(main)
+    accs = [v.name for v in main.list_vars()
+            if v.persistable and ".grad_acc" in v.name]
+    rule = []
+
+    def on_run(k, before, scope, exe):
+        apply = k % GRAD_MERGE_K == 0
+        moved = sum(not torch.equal(scope.find_var(p), before[p])
+                    for p in params)
+        if apply:
+            good = all(not bool(scope.find_var(a).any()) for a in accs) \
+                and moved >= len(params) // 2
+        else:
+            decayed = all(torch.equal(scope.find_var(n), before[n] * beta)
+                          for n, beta in betas.items())
+            good = bool(betas) and decayed and (k > GRAD_MERGE_K or
+                                                moved == 0)
+        rule.append({"run": k, "apply": apply, "parameters_moved": moved,
+                     "ok": good})
+    record, both_ok, (_, state), _, launches = _both_ways(
+        torch, np, ptt, counters, "grad_merge", main, startup,
+        [feed] * GRAD_MERGE_STEPS, fetch_list, TRAIN_PER_STEP,
+        TRAIN_FAMILIES, mask=False, watch=lambda k: params + list(betas),
+        on_run=on_run)
+    ok = (both_ok and len(rule) == GRAD_MERGE_STEPS and
+          all(r["ok"] for r in rule) and "@GRAD_MERGE_STEP@" in state)
+    plain = _plain_step_ms(torch, np, ptt, cfg, TRAIN_BATCH, feed)
+    emit(dict({"phase": "grad_merge", "ok": ok, "model": "bert_base",
+               "dtype": "bfloat16", "batch": TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "k_steps": GRAD_MERGE_K,
+               "accumulators": len(accs), "rule": rule,
+               "plain_adam_replay_ms": plain}, **record))
+    if not ok:
+        raise AssertionError("grad_merge checks failed (see the line above)")
+    return launches
+
+
+def _plain_step_ms(torch, np, ptt, cfg, batch, feed, runs=5):
+    """The replay ms (median of the runs from the third) of ``cfg``'s
+    pretraining step under plain Adam(1e-4): a yardstick beside a
+    wrapped optimizer's step."""
+    from paddle_tpu_torch.models import bert
+    main, startup, fetch_list = _pretrain_program(ptt, bert, cfg, batch)
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(startup, scope=scope)
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    close_executor(torch, "plain step", exe)
+    return statistics.median(ms[2:])
+
+
+def _ctr_bundle_on_card(torch, np, ptt):
+    """DeepFM at bench.py:565-578 with ``ctr_metric_bundle`` of its
+    prediction: three graphed steps; each step's six aggregates against
+    numpy's of the fetched predictions and the feed's labels (f32 sums of
+    2048 terms in another order: rtol CTR_RTOL)."""
+    from paddle_tpu_torch.contrib.layers import ctr_metric_bundle
+    from paddle_tpu_torch.models import deepfm
+    kw = dict(feature_dim=DEEPFM_FEATURES, embedding_size=DEEPFM_EMBEDDING)
+    main, startup, fetch_list, feed, _ = _deepfm_program(
+        np, ptt, deepfm, DEEPFM_BATCH, **kw)
+    predict = fetch_list[2]
+    with ptt.program_guard(main, startup):
+        bundle = ctr_metric_bundle(predict,
+                                   main.global_block().var("label"))
+    scope, exe = ptt.Scope(), ptt.Executor()
+    with ptt.scope_guard(scope):
+        exe.run(startup)
+        runs = [exe.run(main, feed=feed, fetch_list=[predict] + list(bundle))
+                for _ in range(3)]
+    close_executor(torch, "ctr_metric_bundle", exe)
+    label = np.asarray(feed["label"], np.float64).reshape(-1)
+    errs = []
+    for out in runs:
+        p = np.asarray(out[0], np.float64).reshape(-1)
+        want = [((p - label) ** 2).sum(), np.abs(p - label).sum(), p.sum(),
+                (p * p).sum(), label.sum(), float(len(p))]
+        errs.append(max(abs(float(np.asarray(g).reshape(-1)[0]) - w) /
+                        max(abs(w), 1e-12)
+                        for g, w in zip(out[1:], want)))
+    return {"steps": 3, "max_rel_err": max(errs), "rtol": CTR_RTOL,
+            "replays": exe.graph_runs["replay"]}, max(errs) <= CTR_RTOL
+
+
+def _trainer_on_card(np, ptt, root):
+    """``contrib.Trainer`` training fit_a_line (uci_housing, batch 20) two
+    epochs on the card, its events counted, the parameters saved;
+    ``contrib.Inferencer`` serving the saved parameters: its answers
+    against the trained program's own prediction of the same rows."""
+    from paddle_tpu_torch.contrib import Inferencer, Trainer
+    from paddle_tpu_torch.dataset import uci_housing
+    L = ptt.layers
+
+    def predict():
+        x = L.data("x", [13], dtype="float32")
+        return L.fc(x, 1, param_attr=ptt.ParamAttr(name="fit_w"),
+                    bias_attr=ptt.ParamAttr(name="fit_b"))
+
+    def train_func():
+        y = L.data("y", [1], dtype="float32")
+        return [L.mean(L.square_error_cost(predict(), y))]
+    events, losses = {}, []
+
+    def handler(e):
+        events[type(e).__name__] = events.get(type(e).__name__, 0) + 1
+        if type(e).__name__ == "EndStepEvent" and e.metrics:
+            losses.append(float(np.asarray(e.metrics[0]).reshape(-1)[0]))
+    trainer = Trainer(train_func,
+                      lambda: ptt.optimizer.SGD(learning_rate=0.01))
+    reader = ptt.batch(uci_housing.train(), batch_size=20, drop_last=True)
+    trainer.train(2, handler, reader=reader, feed_order=["x", "y"])
+    params = os.path.join(root, "fit_a_line")
+    trainer.save_params(params)
+    rows = np.stack([s[0] for s, _ in zip(uci_housing.test()(), range(8))])
+    inf = Inferencer(predict, params)
+    got = inf.infer({"x": rows.astype(np.float32)})[0]
+    w = trainer.scope.find_var("fit_w").cpu().numpy()
+    b = trainer.scope.find_var("fit_b").cpu().numpy()
+    want = rows.astype(np.float32) @ w + b
+    err = float(np.abs(np.asarray(got) - want).max())
+    ok = (losses[-1] < losses[0] and np.isfinite(losses).all() and
+          events.get("EndEpochEvent") == 2 and err <= 1e-4)
+    return {"events": events, "first_loss": losses[0],
+            "last_loss": losses[-1], "infer_max_abs_err": err,
+            "infer_device": str(inf.exe.device)}, ok
+
+
+def contrib_surface(torch, np, ptt, counters, amp_handles, root):
+    """The contribs on the card: ``ctr_metric_bundle`` on DeepFM,
+    ``profiler.profiler`` around three replays of amp_bert's fp16 step
+    (its table must name the flash and LayerNorm kernels), the Book's
+    ``Trainer``/``Inferencer`` on fit_a_line, and ``summary`` /
+    ``memory_usage`` / ``op_freq_statistic`` of BERT-base."""
+    import contextlib
+    import io
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.contrib import (memory_usage, op_freq_statistic,
+                                          summary)
+    from paddle_tpu_torch.models import bert
+    ctr, ctr_ok = _ctr_bundle_on_card(torch, np, ptt)
+    prof_ok, families, launches, rows = False, [], None, []
+    if amp_handles is not None:
+        main, start, feed, fetch_list = amp_handles
+        scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+        for _ in range(2):                   # warm run, capture
+            exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+        counters.zero()                      # the main path starts here
+        with contextlib.redirect_stdout(io.StringIO()):
+            with profiler.profiler("All", "total") as p:
+                for _ in range(3):
+                    exe.run(main, feed=feed, fetch_list=fetch_list,
+                            scope=scope)
+        launches = counters.read()
+        close_executor(torch, "contrib_surface profiler", exe)
+        rows = p.rows
+        families = sorted({_family(r[0]) for r in rows})
+        prof_ok = set(TRAIN_FAMILIES) <= set(families)
+    fit, fit_ok = _trainer_on_card(np, ptt, root)
+    cfg = bert.bert_base()
+    main, _, _ = _pretrain_program(ptt, bert, cfg, TRAIN_BATCH)
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        _, (n_params, flops) = summary(main)
+    uni, adj = op_freq_statistic(main)
+    low, high = memory_usage(main, TRAIN_BATCH)
+    ok = ctr_ok and prof_ok and fit_ok
+    emit({"phase": "contrib_surface", "ok": ok, "ctr_metric_bundle": ctr,
+          "profiler_families": families, "profiler_ok": prof_ok,
+          "profiler_rows": [list(r) for r in rows[:6]],
+          "trainer": fit, "summary_params": n_params,
+          "summary_flops": flops,
+          "summary_tail": text.getvalue().splitlines()[-2:],
+          "op_freq_top": list(uni.items())[:6],
+          "op_pairs_top": list(adj.items())[:4],
+          "memory_usage_mb": [low, high]})
+    if not ok:
+        raise AssertionError("contrib_surface checks failed (see the line "
+                             "above)")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -9860,6 +10455,24 @@ def main():
         phase("spans")(spans)(torch, np, ptt, art[1], art[2], recipe)
     del art, recipe
 
+    amp = phase("amp_bert")(amp_bert)(torch, np, ptt, counters)
+    by_path["amp_bert_bf16"] = None if amp is None else amp[0]["bf16"]
+    by_path["amp_bert_fp16"] = None if amp is None else amp[0]["fp16"]
+    f16_launches = {} if amp is None else amp[2]
+    phase("amp_parity")(amp_parity)(torch, np, ptt)
+    by_path["amp_resnet"] = phase("amp_resnet")(amp_resnet)(
+        torch, np, ptt, counters)
+    by_path["grad_merge"] = phase("grad_merge")(grad_merge)(
+        torch, np, ptt, counters)
+    contrib_dir = os.path.join(_ROOT, "build", "chip_smoke_contrib")
+    try:
+        by_path["contrib_surface"] = phase("contrib_surface")(
+            contrib_surface)(torch, np, ptt, counters,
+                             None if amp is None else amp[1], contrib_dir)
+    finally:
+        shutil.rmtree(contrib_dir, ignore_errors=True)
+    del amp
+
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():
         print("chip_smoke: failed phases: %s" % _failed, file=sys.stderr)
@@ -9867,7 +10480,7 @@ def main():
     summary = [
         _summary(name, "paddle_tpu_torch/ops/kernels/csrc/" + src, replaces,
                  {path: n.get(name, 0) for path, n in by_path.items()},
-                 cases[name])
+                 cases[name], f16_launches.get(name))
         for name, src, replaces in _KERNELS]
     idle = [k["name"] for k in summary if k["launches"] < 1]
     if idle:
@@ -9880,13 +10493,18 @@ def main():
     return 0
 
 
-def _summary(name, source, replaces, launches_by_path, cases):
+def _summary(name, source, replaces, launches_by_path, cases,
+             f16_launches=None):
     """A kernel's line: its numbers at the main path's shape (the first
     case: BERT-base serving at the largest bucket for the flash and
     LayerNorm forward kernels, the BERT-base training step's shapes for
     their backward kernels and Adam, GPT-base's head and logits for the
     head and CE kernels), every case beside them. ``launches`` sums the
-    main paths' runs. The fused-Adam line also gives its first AdamW
+    main paths' runs. A flash line also gives its fp16 cases' numbers
+    (``float16``; the first at amp_bert's fp16 step's shape) with
+    ``f16_launches``, the launches of its fp16 instantiation on amp_bert's
+    fp16 path. The
+    fused-Adam line also gives its first AdamW
     case's numbers (``adamw``: coeff > 0, the same kernel) beside Adam's,
     with the AdamW launches of the recipe's path, and its DeepFM case's
     (``deepfm_embedding``: the 1,000,000 x 10 table) with the launches
@@ -9906,6 +10524,13 @@ def _summary(name, source, replaces, launches_by_path, cases):
     if adamw:
         line["adamw"] = dict({k: adamw[0][k] for k in keys + ("coeff",)},
                              launches=launches_by_path.get("train_recipe"))
+    f16 = sorted((c for c in cases if c.get("dtype") == "float16"),
+                 key=lambda c: not c["name"].startswith("bert_train_b128"))
+    if f16:
+        line["float16"] = dict(
+            cases=[dict({k: c[k] for k in keys}, shape=c["shape"])
+                   for c in f16],
+            launches=f16_launches)
     deepfm = [c for c in cases if c["name"] == "deepfm_embedding"]
     if deepfm:
         line["deepfm_embedding"] = dict(

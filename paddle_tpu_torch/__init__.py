@@ -47,8 +47,13 @@ graph. The dense op library (reductions, gathers and scatters, the
 losses, the sequence ops), the static layers over it and ``nets`` build
 the Paddle Book's chapters, fed from ``dataset``'s corpora
 (``uci_housing``, ``mnist``, ``cifar``, ``imikolov``, ``imdb``,
-``movielens``, ``conll05``, ``wmt14``). The other models are later
-slices (see ROADMAP.md).
+``movielens``, ``conll05``, ``wmt14``). An f32 program trains in bf16, or
+in fp16 with dynamic loss scaling, through
+``contrib.mixed_precision.decorate(optimizer, dtype=...)``; ``metrics``,
+``evaluator``, ``average``, ``profiler``, ``contrib.Trainer`` /
+``Inferencer`` and the ``contrib`` statistics (``summary``,
+``memory_usage``, ``op_freq_statistic``) follow fluid's. The other models
+are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -84,6 +89,10 @@ from .data_feed_desc import DataFeedDesc
 from .parallel_executor import ParallelExecutor
 from . import compiler
 from . import dygraph
+from . import metrics
+from . import evaluator
+from . import average
+from . import profiler
 
 
 def in_dygraph_mode():

@@ -1,7 +1,9 @@
 """Contrib layers (counterpart of paddle_tpu/contrib/layers/):
-``basic_gru`` and ``basic_lstm`` so far."""
+``basic_gru``, ``basic_lstm`` and ``ctr_metric_bundle``."""
 from .rnn_impl import *  # noqa: F401,F403
+from .metric_op import *  # noqa: F401,F403
 
 from . import rnn_impl
+from . import metric_op
 
-__all__ = list(rnn_impl.__all__)
+__all__ = list(rnn_impl.__all__) + list(metric_op.__all__)

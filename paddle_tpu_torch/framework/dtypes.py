@@ -63,3 +63,8 @@ FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
 def is_float(dtype):
     return normalize_dtype(dtype) in FLOAT_DTYPES
+
+
+def dtype_size(dtype):
+    """Bytes per element of *dtype* (bfloat16 -> 2)."""
+    return torch.empty((), dtype=to_torch_dtype(dtype)).element_size()

@@ -104,14 +104,15 @@ _SALT_VAR = "@EAGER_SALT@"
 
 def set_precision():
     """Full-f32 math on the card: no TF32 in matmuls or convolutions, and
-    bf16 matmuls sum in f32 to the end (no split-K partial sums rounded
-    to bf16). cuDNN picks deterministic convolution algorithms by its
-    heuristics, never by timing (a filter gradient summed with atomics
-    would make two runs of a step, or a replay and an op-by-op run,
-    differ in their last bits)."""
+    bf16 and fp16 matmuls sum in f32 to the end (no split-K partial sums
+    rounded to bf16 or fp16). cuDNN picks deterministic convolution
+    algorithms by its heuristics, never by timing (a filter gradient
+    summed with atomics would make two runs of a step, or a replay and an
+    op-by-op run, differ in their last bits)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
@@ -986,10 +987,10 @@ class Executor(object):
                      policy=None, fresh=True):
         """A run of a CUDA key on the Executor's stream: op by op the first
         time, captured and replayed the second, replayed after. ``copy``:
-        return clones of a replay's outputs (the next replay overwrites
-        them). ``policy``: the numeric guard's (part of the key), and
-        ``fresh``: clear its sticky flag first. Returns (outputs, the
-        key's StepGuard or None)."""
+        return clones of a replay's outputs, and of a first run's fetched
+        persistables (the next replay overwrites them). ``policy``: the
+        numeric guard's (part of the key), and ``fresh``: clear its sticky
+        flag first. Returns (outputs, the key's StepGuard or None)."""
         state = [(n, v) for n in plan.persistable
                  for v in (scope.find_var(n),) if v is not None]
         key = _graph_key(plan, feeds, state, scope, policy)
@@ -1006,6 +1007,12 @@ class Executor(object):
             if step is None and key not in self._warm:
                 out = self._run_ops(program, plan, feeds, fetch_names,
                                     scope, graphable=True, guard=guard)
+                if copy:
+                    # a fetched persistable is the scope's tensor, which
+                    # the key's capture takes as a static input and every
+                    # replay overwrites
+                    held = {id(scope.find_var(n)) for n in plan.persistable}
+                    out = [t.clone() if id(t) in held else t for t in out]
                 self._warm.add(key)
                 self.graph_runs["warm"] += 1
             else:

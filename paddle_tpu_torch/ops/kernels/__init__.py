@@ -18,7 +18,9 @@ LAUNCH_COUNTERS = (
     (blockwise_ce, "head_launches"), (blockwise_ce, "head_dh_launches"),
     (blockwise_ce, "head_dw_launches"), (blockwise_ce, "ce_launches"),
     (blockwise_ce, "ce_bwd_launches"), (numeric_guard, "launches"),
-    (numeric_guard, "copy_launches"))
+    (numeric_guard, "copy_launches"), (flash_attention, "f16_launches"),
+    (flash_attention, "f16_dkv_launches"),
+    (flash_attention, "f16_dq_launches"))
 
 
 def launch_counts():

@@ -26,17 +26,18 @@
 // 0.469 ms: the operations bound it. At BERT-base training ((32, 12, 128,
 // 128, 64) f32) 1.9 + 1.4 GFLOP take 0.012 + 0.009 ms against 75.5 MB
 // moved (q, k, v, dO read, dq, dk, dv written, mask, lse, delta), 0.0225
-// ms at 3.35 TB/s: the bytes bound it there. bf16 runs at 989 TFLOP/s.
+// ms at 3.35 TB/s: the bytes bound it there. bf16 and fp16 run at 989
+// TFLOP/s.
 //
 // Design, against that bound:
 // - All five products (s, dp, dv, dk, dq) are warp-level mma.sync on the
 //   tensor cores with f32 accumulation: m16n8k8 tf32 for f32 inputs,
-//   m16n8k16 bf16 for bf16 inputs. mma.sync rather than wgmma: s and dp
-//   stay in registers through the softmax-gradient step and enter the dv,
-//   dk and dq products straight from there as A fragments, with no round
-//   trip through shared memory, and a 128-thread block keeps the shared
-//   memory of two blocks per SM (wgmma's B operand would need separate hi
-//   and lo tiles of every operand in shared memory).
+//   m16n8k16 bf16 / fp16 for bf16 / fp16 inputs. mma.sync rather than wgmma:
+//   s and dp stay in registers through the softmax-gradient step and enter
+//   the dv, dk and dq products straight from there as A fragments, with no
+//   round trip through shared memory, and a 128-thread block keeps the
+//   shared memory of two blocks per SM (wgmma's B operand would need
+//   separate hi and lo tiles of every operand in shared memory).
 // - 3xTF32 (f32 inputs): hi = tf32(x), lo = tf32(x - hi), rounded to
 //   nearest with ties away from zero on the low 13 bits (the rounding of
 //   cvt.rna.tf32.f32); each product is lo*hi + hi*lo + hi*hi, three
@@ -47,6 +48,18 @@
 //   cvt.rna.tf32.f32 into a longer sequence with NaN/Inf handling, which
 //   dominated the split's cost. bf16 inputs: p and ds are rounded to bf16 (to
 //   nearest) as they enter the bf16 products; every sum is f32.
+// - fp16 inputs: the reference computes them in f32 (HIGHEST), so s and dp
+//   (products of fp16 inputs, exact in one f16 mma) are f32-exact, and p
+//   and ds enter dv, dk and dq as fp16 hi/lo pairs (~22 bits, two mma).
+//   ds grows with the loss scale that dO carries: at 2^16 it passes fp16's
+//   65504 where f32 does not, and a small p or ds would fall into fp16's
+//   subnormals. So each row of a warp's p or ds tile (a row is shared by
+//   four lanes) is first scaled by the power of two that puts its largest
+//   magnitude in [2^14, 2^15) (scale_rows: two shuffles, exact), and the
+//   tile's sum is scaled back before it joins the running sum. Chosen over
+//   3xTF32 products with ds (the f32 path's split): those would need f32
+//   copies of the resident and streamed fp16 tiles in shared memory and
+//   three mma a k-step where the pair takes two.
 // - Split once, not once per warp: at f32 and D = 64 each streamed tile is
 //   split by the block as it arrives, hi in place and lo into a second
 //   plane, and the four warps read both planes (ldmatrix where the
@@ -103,6 +116,9 @@ struct Problem {
 };
 
 // ---- tile shapes ---------------------------------------------------------
+
+template <typename T> constexpr bool kF16 = false;
+template <> constexpr bool kF16<__half> = true;
 
 template <typename T, int D>
 struct Cfg {
@@ -175,7 +191,7 @@ __device__ __forceinline__ auto resident(const T* p) {
   if constexpr (sizeof(T) == 4)
     return V32{p, Cfg<T, D>::LD};
   else
-    return V16{p, Cfg<T, D>::LD};
+    return V16T<T>{p, Cfg<T, D>::LD};
 }
 
 // ... and of a streamed one (lo: its second plane, if it has one)
@@ -214,13 +230,42 @@ template <int D> struct Sums<D, true> {      // shared memory, conflict-free
   }
 };
 
+// fp16: each of the thread's two rows (g, g + 8) of the accumulator tiles
+// c scaled by the power of two that puts the row's largest magnitude in
+// [2^14, 2^15) (a row is spread over the four lanes 4g..4g + 3); inv gets
+// the inverse scales. A row holding an Inf or NaN is left as it is.
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&c)[N][4],
+                                           float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      mx = fmaxf(mx, fmaxf(fabsf(c[j][2 * r]), fabsf(c[j][2 * r + 1])));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const int ex = (__float_as_int(mx) >> 23) & 0xff;   // biased exponent
+    const int k = ex == 0xff ? 0 : max(-126, min(126, 141 - ex));
+    const float up = __int_as_float((127 + k) << 23);
+    inv[r] = __int_as_float((127 - k) << 23);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      c[j][2 * r] *= up;
+      c[j][2 * r + 1] *= up;
+    }
+  }
+}
+
 // sums += A X over the streamed tile's rows, A from the accumulator tiles
 // c (p or ds, 16 x 8*NKT), X the tile (rows x D, k-major). NC output tiles
 // at a time are summed from zero in registers (in P partial sums over
-// alternate k-steps), then added to the sums.
+// alternate k-steps), then added to the sums (fp16: times inv, the rows'
+// inverse scales from scale_rows).
 template <typename T, int D, int NKT, typename S, typename View>
 __device__ __forceinline__ void accumulate(S& sums, const float (&c)[NKT][4],
-                                           const View& x) {
+                                           const View& x,
+                                           const float (&inv)[2]) {
   using C = Cfg<T, D>;
   constexpr int P = C::P;
 #pragma unroll
@@ -247,6 +292,7 @@ __device__ __forceinline__ void accumulate(S& sums, const float (&c)[NKT][4],
         float t = part[0][n][e];
 #pragma unroll
         for (int i = 1; i < P; ++i) t += part[i][n][e];
+        if constexpr (kF16<T>) t *= inv[e >> 1];
         sums.at(c0 + n, e) += t;
       }
   }
@@ -480,11 +526,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
     // dV += p^T dO, dK += ds^T Q
+    float inv_p[2] = {1.f, 1.f}, inv_ds[2] = {1.f, 1.f};
+    if constexpr (kF16<T>) {
+      scale_rows(st, inv_p);
+      scale_rows(dpt, inv_ds);
+    }
     if constexpr (C::PAIRED) {
       accumulate2<T, D>(dv_sum, st, dOv, dk_sum, dpt, Qv);
     } else {
-      accumulate<T, D>(dv_sum, st, dOv);
-      accumulate<T, D>(dk_sum, dpt, Qv);
+      accumulate<T, D>(dv_sum, st, dOv, inv_p);
+      accumulate<T, D>(dk_sum, dpt, Qv, inv_ds);
     }
     __syncthreads();   // this stage is refilled in the next iteration
     cur ^= 1;
@@ -620,7 +671,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
     // dQ += ds K
-    accumulate<T, D>(dq_sum, dp, Kv);
+    float inv_ds[2] = {1.f, 1.f};
+    if constexpr (kF16<T>) scale_rows(dp, inv_ds);
+    accumulate<T, D>(dq_sum, dp, Kv, inv_ds);
     __syncthreads();   // this stage is refilled in the next iteration
     cur ^= 1;
   }
@@ -675,10 +728,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q/k/v/dout/dk/dv in that dtype, dense
-// (B, H, T, D). lse and delta are float32 (B, H, Tq); mask is float32 or
-// null with the forward's strides (see ptt_flash_attention_fwd). Returns a
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; q/k/v/dout/dk/dv in that
+// dtype, dense (B, H, T, D). lse and delta are float32 (B, H, Tq); mask is
+// float32 or null with the forward's strides (see ptt_flash_attention_fwd).
+// Returns a cudaError_t.
 extern "C" int ptt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* mask, void* dk, void* dv,
@@ -698,6 +751,12 @@ extern "C" int ptt_flash_attention_bwd_dkv(
   if (dtype == 1 && D == 128)
     return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask,
                                           dk, dv, B, pr, s);
+  if (dtype == 2 && D == 64)
+    return launch_dkv<__half, 64>(q, k, v, dout, lse, delta, mask, dk, dv, B,
+                                  pr, s);
+  if (dtype == 2 && D == 128)
+    return launch_dkv<__half, 128>(q, k, v, dout, lse, delta, mask, dk, dv,
+                                   B, pr, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -719,5 +778,11 @@ extern "C" int ptt_flash_attention_bwd_dq(
   if (dtype == 1 && D == 128)
     return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, mask, dq,
                                          B, pr, s);
+  if (dtype == 2 && D == 64)
+    return launch_dq<__half, 64>(q, k, v, dout, lse, delta, mask, dq, B, pr,
+                                 s);
+  if (dtype == 2 && D == 128)
+    return launch_dq<__half, 128>(q, k, v, dout, lse, delta, mask, dq, B, pr,
+                                  s);
   return (int)cudaErrorInvalidValue;
 }

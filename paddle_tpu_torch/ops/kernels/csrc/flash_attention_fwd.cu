@@ -13,31 +13,33 @@
 // TFLOP/s of f32-accurate tensor-core work (3xTF32), against ~50 MB, 15 us
 // at 3.35 TB/s: the operations bound it. Both products run on wgmma
 // (wgmma_sm90.cuh): f32 by 3xTF32 (hi = tf32(x), lo = tf32(x - hi); lo*hi +
-// hi*lo + hi*hi, never one tf32 pass), bf16 exactly into f32 sums.
+// hi*lo + hi*hi, never one tf32 pass), bf16 and fp16 exactly into f32 sums.
 //
-// Design: one block per (b*h, BM-row query tile), one consumer warpgroup
-// per 64 query rows. q is split once into K-major operand planes in shared
-// memory (f32: tf32 hi and lo planes; bf16: the values). Each key tile is
-// staged raw by cp.async, each thread copying and then converting the same
-// 16-byte pieces (no barrier between copy and conversion), into a second
-// pair of plane buffers while the previous tile's S = q k^T runs on the
-// tensor cores: k as K-major planes, v transposed (tf32 wgmma takes K-major
-// B only), its keys inside each 8-deep step in perm8 order so that P's
-// accumulator registers enter P v as register A without a shuffle.
-// S = q k^T (m64nBNk8 by descriptor), then scale, mask, causal fill and the
-// online softmax in registers (a row is shared by four lanes). P is split
-// (f32) or taken as a bf16 pair (bf16 inputs: hi = bf16(p), lo = bf16(p -
-// hi); one bf16 P, the reference's DEFAULT precision, moves the output of a
-// causal row that sees a few keys by a bf16 ulp of up to 2^-6 against the
-// plain version's f32 P) in registers, and each tile's P v goes into a fresh
-// accumulator that joins the running output as acc = acc * corr + tile:
-// the tensor cores truncate their f32 sums, so no chain runs longer than a
-// tile. Tile shapes: f32 D = 64 and bf16 take 128 query rows and 64-key
-// tiles (f32 D = 64: 225 KB of shared memory with both plane buffers);
-// f32 D = 128 takes 64 query rows and 32-key tiles, the largest that keep
-// two plane buffers in shared memory and the sums in registers. (One
-// warpgroup a block and two blocks an SM, 32-key f32 tiles, measured
-// slower on the H100.)
+// Design: one block per (b*h, BM-row query tile), one consumer warpgroup per
+// 64 query rows. q is split once into K-major operand planes in shared memory
+// (f32: tf32 hi and lo planes; bf16: the values). Each key tile is staged raw
+// by cp.async, each thread copying and then converting the same 16-byte
+// pieces (no barrier between copy and conversion), into a second pair of
+// plane buffers while the previous tile's S = q k^T runs on the tensor cores:
+// k as K-major planes, v transposed (tf32 wgmma takes K-major B only), its
+// keys inside each 8-deep step in perm8 order so that P's accumulator
+// registers enter P v as register A without a shuffle. S = q k^T (m64nBNk8 by
+// descriptor), then scale, mask, causal fill and the online softmax in
+// registers (a row is shared by four lanes). P is split (f32) or taken as a
+// bf16 pair (bf16 inputs: hi = bf16(p), lo = bf16(p - hi); one bf16 P, the
+// reference's DEFAULT precision, moves the output of a causal row that sees a
+// few keys by a bf16 ulp of up to 2^-6 against the plain version's f32 P;
+// fp16 inputs: the same pair in fp16, of P scaled by 2^14 (exact; P <= 1, so
+// the pair neither overflows nor loses a small P to fp16's subnormals; the
+// reference computes fp16 in f32, HIGHEST) and the output unscaled with 1 /
+// l) in registers, and each tile's P v goes into a fresh accumulator that
+// joins the running output as acc = acc * corr + tile: the tensor cores
+// truncate their f32 sums, so no chain runs longer than a tile. Tile shapes:
+// f32 D = 64 and bf16 take 128 query rows and 64-key tiles (f32 D = 64: 225
+// KB of shared memory with both plane buffers; fp16 takes bf16's shapes); f32
+// D = 128 takes 64 query rows and 32-key tiles, the largest that keep two
+// plane buffers in shared memory and the sums in registers. (One warpgroup a
+// block and two blocks an SM, 32-key f32 tiles, measured slower on the H100.)
 // Key tiles above the causal diagonal are skipped unless the query tile
 // holds a row that sees no key at all (causal with Tq > Tk): those rows
 // need every key to come out uniform, as the reference defines them. Ragged
@@ -51,7 +53,10 @@
 // one ex2.approx.ftz.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "wgmma_sm90.cuh"
 
@@ -60,6 +65,7 @@ namespace {
 namespace wg = ptt_wgmma;
 
 constexpr float kNegInf = -1e30f;  // paddle_tpu's _NEG_INF
+constexpr float kPScale = 16384.f;  // fp16: P enters P v as P * 2^14
 
 // e^x for x <= 0 by the hardware's exp2 (ex2.approx.ftz, ~2^-22
 // relative; results below 2^-126 flush to 0): exact 1 at 0, 0 at -inf
@@ -82,6 +88,7 @@ __device__ __forceinline__ float row_sum4(float v) {
 template <typename T, int D>
 struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr bool kF16 = std::is_same<T, __half>::value;
   static constexpr int BM = kF32 && D == 128 ? 64 : 128;   // query rows
   static constexpr int BN = BM / 2;                         // keys a tile
   static constexpr int kThreads = BM * 2;                   // BM / 64 WGs
@@ -261,6 +268,8 @@ flash_fwd_kernel(const Args a) {
         wg::mma_tf32_ss<BN>(s, dql, dk, ks > 0);
         wg::mma_tf32_ss<BN>(s, dq, dkl, 1);
         wg::mma_tf32_ss<BN>(s, dq, dk, 1);
+      } else if constexpr (C::kF16) {
+        wg::mma_f16_ss<BN>(s, dq, dk, ks > 0);
       } else {
         wg::mma_bf16_ss<BN>(s, dq, dk, ks > 0);
       }
@@ -350,6 +359,29 @@ flash_fwd_kernel(const Args a) {
         wg::fence_operand(hi[kc]);
         wg::fence_operand(lo[kc]);
       }
+    } else if constexpr (C::kF16) {
+      // P * 2^14 as an fp16 pair (see the header); o stays scaled until
+      // the end
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) s[e] *= kPScale;
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc)
+        wg::a_from_acc_f16(ph[kc], pl[kc], &s[8 * kc], &s[8 * kc + 4]);
+      wg::fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        const uint64_t dv = wg::desc_k(v_plane(buf, 0), D, 32 * kc);
+        wg::mma_f16_rs<D>(ot, pl[kc], dv, kc > 0);
+        wg::mma_f16_rs<D>(ot, ph[kc], dv, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc) {
+        wg::fence_operand(ph[kc]);
+        wg::fence_operand(pl[kc]);
+      }
     } else {
       // P as a bf16 pair, hi = bf16(p), lo = bf16(p - hi): one bf16 P
       // moves a row that sees a few keys (|out| up to ~4) by a bf16 ulp
@@ -394,7 +426,7 @@ flash_fwd_kernel(const Args a) {
     const float lc = ls != ls ? ls : fmaxf(ls, 1e-30f);
     if (qrow[h] >= a.Tq) continue;
     T* orow = reinterpret_cast<T*>(a.out) + ((size_t)bh * a.Tq + qrow[h]) * D;
-    const float inv = 1.f / lc;
+    const float inv = (C::kF16 ? 1.f / kPScale : 1.f) / lc;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       ptt_mma::store2(orow + 8 * j + 2 * q4, o[4 * j + 2 * h] * inv,
@@ -417,8 +449,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. mask is float32 or null; its element
-// for (batch b, query i, key j) is mask[b * mask_stride_b + i *
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. mask is float32 or null; its
+// element for (batch b, query i, key j) is mask[b * mask_stride_b + i *
 // mask_stride_q + j] (mask_stride_q = 0 for a (B,1,1,Tk) key mask,
 // mask_stride_b = 0 for a mask shared by the batch). Returns a cudaError_t.
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
@@ -437,6 +469,8 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0 && D == 128) return launch<float, 128>(a, B, s);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(a, B, s);
   if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(a, B, s);
+  if (dtype == 2 && D == 64) return launch<__half, 64>(a, B, s);
+  if (dtype == 2 && D == 128) return launch<__half, 128>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,10 @@
 // Warpgroup-level building blocks of the port's wgmma kernels on Hopper
 // (sm_90a): shared-memory matrix descriptors with the 128-byte swizzle,
-// the wgmma fence / commit / wait, m64nNk8 tf32 and m64nNk16 bf16
+// the wgmma fence / commit / wait, m64nNk8 tf32 and m64nNk16 bf16 / fp16
 // mma_async with A from shared memory (ss) or from registers (rs), and the
 // writers that put a staged tile into swizzled operand planes (f32 split
-// into tf32 hi / lo planes, bf16 copied), K-major as stored or transposed.
+// into tf32 hi / lo planes, bf16 and fp16 copied), K-major as stored or
+// transposed.
 // Shared by flash_attention_fwd.cu and fused_head_fwd.cu; the 3xTF32 split
 // itself is mma_sm90.cuh's (hi = tf32(x), lo = tf32(x - hi)).
 //
@@ -91,10 +92,11 @@ __device__ __forceinline__ void fence_operand(uint32_t (&r)[N]) {
 }
 
 // ---- mma_async: d (64 x N, f32) += a (64 x K) * b (K x N) ------------------
-// scale_d = 0 starts d from zero. tf32: K = 8; bf16: K = 16. ss: a by
-// descriptor; rs: a from registers (four 32-bit words, layout above).
-// Defined for the widths in use: tf32 ss N = 8 (tools/wgmma_rate.cu's
-// descriptor check), 32, 64, 128; tf32 rs and bf16 ss / rs N = 64, 128.
+// scale_d = 0 starts d from zero. tf32: K = 8; bf16, fp16: K = 16. ss: a
+// by descriptor; rs: a from registers (four 32-bit words, layout above;
+// fp16 as bf16). Defined for the widths in use: tf32 ss N = 8
+// (tools/wgmma_rate.cu's descriptor check), 32, 64, 128; tf32 rs and bf16
+// ss / rs N = 64, 128; fp16 ss N = 64, rs N = 64, 128.
 
 template <int N>
 __device__ void mma_tf32_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
@@ -108,6 +110,13 @@ __device__ void mma_bf16_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
 template <int N>
 __device__ void mma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                             uint64_t b, int scale_d);
+
+template <int N>
+__device__ void mma_f16_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                           int scale_d);
+template <int N>
+__device__ void mma_f16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                           uint64_t b, int scale_d);
 
 template <>
 __device__ __forceinline__ void mma_tf32_ss<8>(float (&d)[4], uint64_t a,
@@ -321,6 +330,71 @@ __device__ __forceinline__ void mma_bf16_rs<128>(float (&d)[64], const uint32_t 
       : "memory");
 }
 
+template <>
+__device__ __forceinline__ void mma_f16_ss<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_f16_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 }, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_f16_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 }, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 // ---- operand planes ---------------------------------------------------------
 
 // Byte offset of byte `kbyte` (along K) of row `row` in a tile of `rows`
@@ -363,13 +437,15 @@ __device__ __forceinline__ void put_t_split(char* hi, char* lo, int rows,
   *reinterpret_cast<uint32_t*>(lo + off) = l;
 }
 
-// bf16: eight values (16 bytes) at (row, k .. k + 7), k a multiple of 8
+// bf16 or fp16: eight values (16 bytes) at (row, k .. k + 7), k a
+// multiple of 8
 __device__ __forceinline__ void put8(char* p, int rows, int row, int k,
                                      uint4 x) {
   *reinterpret_cast<uint4*>(p + sw128(rows, row, 2 * k)) = x;
 }
 
-// bf16 x at (k, n), stored transposed (row n, K-major, natural k order)
+// bf16 x (or fp16 x, by its bits) at (k, n), stored transposed (row n,
+// K-major, natural k order)
 __device__ __forceinline__ void put_t(char* p, int rows, int n, int k,
                                       __nv_bfloat16 x) {
   *reinterpret_cast<__nv_bfloat16*>(p + sw128(rows, n, 2 * k)) = x;
@@ -378,7 +454,8 @@ __device__ __forceinline__ void put_t(char* p, int rows, int n, int k,
 // ---- A from an accumulator --------------------------------------------------
 // The k-step of a product whose A is an accumulator's columns: tf32 takes
 // one 8-column block c (in perm8's k order), split; bf16 two blocks c, e
-// (16 columns), rounded to bf16.
+// (16 columns), rounded to bf16; fp16 the same two blocks as an fp16
+// hi / lo pair.
 
 __device__ __forceinline__ void a_from_acc(uint32_t (&hi)[4],
                                            uint32_t (&lo)[4], float c0,
@@ -395,6 +472,16 @@ __device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float* c,
   a[1] = ptt_mma::pack_bf16(c[2], c[3]);
   a[2] = ptt_mma::pack_bf16(e[0], e[1]);
   a[3] = ptt_mma::pack_bf16(e[2], e[3]);
+}
+
+__device__ __forceinline__ void a_from_acc_f16(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float* c,
+                                               const float* e) {
+  ptt_mma::split_h2(c[0], c[1], hi[0], lo[0]);
+  ptt_mma::split_h2(c[2], c[3], hi[1], lo[1]);
+  ptt_mma::split_h2(e[0], e[1], hi[2], lo[2]);
+  ptt_mma::split_h2(e[2], e[3], hi[3], lo[3]);
 }
 
 // p moved up to the next 1024-byte boundary of shared memory (the caller

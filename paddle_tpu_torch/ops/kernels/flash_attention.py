@@ -11,7 +11,9 @@ design meets that.
 ``flash_attention`` and ``flash_attention_bwd_dkv`` / ``_dq`` run their
 kernel for a CUDA tensor and the plain version for a CPU tensor; they
 never fall back from one to the other. ``launches``, ``dkv_launches`` and
-``dq_launches`` count the three kernels' launches. ``FlashAttention``
+``dq_launches`` count the three kernels' launches; ``f16_launches``,
+``f16_dkv_launches`` and ``f16_dq_launches`` count those of them that ran
+the fp16 instantiation. ``FlashAttention``
 (a ``torch.autograd.Function``) runs the forward kernel and, in backward,
 both backward kernels from the forward's lse; the mask's cotangent is
 the plain ``flash_attention_dmask`` and is computed only when asked for.
@@ -24,8 +26,9 @@ op in the graph in place of tracing into the launch, and the dispatcher
 picks the kernel (CUDA) or the plain version (CPU) by the tensors'
 device when the exported program runs.
 
-Layout (the JAX package's): q (B, H, Tq, D), k/v (B, H, Tk, D), f32 or
-bf16; additive mask broadcastable as (B, 1, 1, Tk) or (B, 1, Tq, Tk);
+Layout (the JAX package's): q (B, H, Tq, D), k/v (B, H, Tk, D), f32,
+bf16 or fp16 (the kernels compute fp16 as the JAX kernel does, in f32 from
+the fp16 values; each source's header says how); additive mask broadcastable as (B, 1, 1, Tk) or (B, 1, Tq, Tk);
 causal is bottom-right aligned (query i sees keys j <= i + Tk - Tq).
 Returns (out like q, lse (B, H, Tq) f32). A causal row that sees no key
 (Tq > Tk) comes out uniform over all keys, and its gradient is the one
@@ -37,11 +40,14 @@ from . import build
 
 NEG_INF = -1e30          # the masked-logit fill of the TPU kernel
 HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 launches = 0
 dkv_launches = 0
 dq_launches = 0
+f16_launches = 0
+f16_dkv_launches = 0
+f16_dq_launches = 0
 
 
 def flash_attention_plain(q, k, v, mask=None, scale=None, causal=False):
@@ -142,8 +148,8 @@ def _check_kernel_operands(q, k, v):
         raise ValueError("flash_attention kernel takes head dim %s, got %d"
                          % (HEAD_DIMS, d))
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention kernel takes float32 or bfloat16 "
-                         "q/k/v of one dtype, got %s/%s/%s"
+        raise ValueError("flash_attention kernel takes float32, bfloat16 or "
+                         "float16 q/k/v of one dtype, got %s/%s/%s"
                          % (q.dtype, k.dtype, v.dtype))
     if b * h > 65535:
         raise ValueError("flash_attention kernel: B*H=%d exceeds the grid's "
@@ -155,7 +161,7 @@ def _check_kernel_operands(q, k, v):
 
 def flash_attention(q, k, v, mask=None, scale=None, causal=False):
     """Flash-attention forward; see the module docstring."""
-    global launches
+    global launches, f16_launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, scale, causal)
     b, h, tq, tk, d = _check_kernel_operands(q, k, v)
@@ -181,6 +187,7 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False):
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "flash_attention_fwd")
     launches += 1
+    f16_launches += q.dtype == torch.float16
     return out, lse
 
 
@@ -215,7 +222,7 @@ def flash_attention_bwd_dkv(q, k, v, mask, lse, delta, dout, scale=None,
 
 
 def _launch_dkv(operands, scale, causal):
-    global dkv_launches
+    global dkv_launches, f16_dkv_launches
     (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = operands
     if scale is None:
         scale = d ** -0.5
@@ -233,6 +240,7 @@ def _launch_dkv(operands, scale, causal):
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "flash_attention_bwd_dkv")
     dkv_launches += 1
+    f16_dkv_launches += q.dtype == torch.float16
     return dk, dv
 
 
@@ -247,7 +255,7 @@ def flash_attention_bwd_dq(q, k, v, mask, lse, delta, dout, scale=None,
 
 
 def _launch_dq(operands, scale, causal):
-    global dq_launches
+    global dq_launches, f16_dq_launches
     (q, k, v, dout, lse, delta), m, sb, sq, (b, h, tq, tk, d) = operands
     if scale is None:
         scale = d ** -0.5
@@ -264,6 +272,7 @@ def _launch_dq(operands, scale, causal):
             int(bool(causal)), torch.cuda.current_stream().cuda_stream)
     build.check(rc, "flash_attention_bwd_dq")
     dq_launches += 1
+    f16_dq_launches += q.dtype == torch.float16
     return dq
 
 

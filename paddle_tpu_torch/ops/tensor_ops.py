@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .registry import register_op
+from .math_ops import _promote
 from ..framework.dtypes import to_torch_dtype
 
 
@@ -93,8 +94,10 @@ def _flip(ctx, ins, attrs):
 
 @register_op("where")
 def _where(ctx, ins, attrs):
+    """``jnp.where``'s result dtype: a 0-d operand of another dtype is
+    promoted, not ranked below the other (math_ops._promote)."""
     cond, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]
-    return {"Out": torch.where(cond, x, y)}
+    return {"Out": torch.where(cond, *_promote(x, y))}
 
 
 def _fill_value(dtype):

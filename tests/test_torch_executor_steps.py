@@ -311,13 +311,14 @@ def test_accuracy_and_assign_value_keep_their_values():
 
 def test_launch_counters_are_read_and_credited_together():
     """The Executor credits a replay with what its capture counted: the
-    thirteen counters (the eleven kernels' and the numeric guard's two)
-    in one fixed order, read and moved as one."""
+    sixteen counters (the eleven kernels', the numeric guard's two and
+    the flash kernels' fp16 launches) in one fixed order, read and moved
+    as one."""
     from paddle_tpu_torch.ops import kernels
-    assert len(kernels.LAUNCH_COUNTERS) == 13
-    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 13
+    assert len(kernels.LAUNCH_COUNTERS) == 16
+    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 16
     before = kernels.launch_counts()
-    delta = tuple(range(1, 14))
+    delta = tuple(range(1, 17))
     kernels.credit_launches(delta)
     try:
         assert kernels.launch_counts() == tuple(

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -162,6 +163,17 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.ops.misc_ops\n"
             "import paddle_tpu_torch.ops.loss_extra_ops\n"
             "import paddle_tpu_torch.ops.contrib_ops\n"
+            "import paddle_tpu_torch.contrib.mixed_precision\n"
+            "import paddle_tpu_torch.contrib.extend_optimizer\n"
+            "import paddle_tpu_torch.contrib.layers.metric_op\n"
+            "import paddle_tpu_torch.contrib.trainer\n"
+            "import paddle_tpu_torch.contrib.inferencer\n"
+            "import paddle_tpu_torch.contrib.reader\n"
+            "import paddle_tpu_torch.contrib.model_stat\n"
+            "import paddle_tpu_torch.contrib.memory_usage_calc\n"
+            "import paddle_tpu_torch.contrib.op_frequence\n"
+            "import paddle_tpu_torch.metrics, paddle_tpu_torch.evaluator\n"
+            "import paddle_tpu_torch.average, paddle_tpu_torch.profiler\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
@@ -303,3 +315,44 @@ def test_zoo_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
     exe.run(startup, scope=scope)
     got, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     assert torch.isfinite(torch.from_numpy(got)).all()
+
+
+def test_trainer_and_inferencer_default_to_cuda_and_raise_without_it(
+        no_cuda, tmp_path):
+    from paddle_tpu_torch.contrib import Inferencer, Trainer
+
+    def predict():
+        return ptt.layers.fc(ptt.layers.data("x", [4]), 1)
+
+    def train_func():
+        y = ptt.layers.data("y", [1])
+        return [ptt.layers.mean(ptt.layers.square_error_cost(predict(), y))]
+    with pytest.raises(ptt.NoCUDADeviceError):
+        Trainer(train_func, lambda: ptt.optimizer.SGD(0.1))
+    t = Trainer(train_func, lambda: ptt.optimizer.SGD(0.1),
+                place=ptt.CPUPlace())
+    assert t.exe.device == torch.device("cpu")
+    t.save_params(str(tmp_path))
+    with pytest.raises(ptt.NoCUDADeviceError):
+        Inferencer(predict, str(tmp_path))
+    inf = Inferencer(predict, str(tmp_path), place=ptt.CPUPlace())
+    assert inf.exe.device == torch.device("cpu")
+
+
+def test_a_decorated_program_defaults_to_cuda_and_raises_without_it(
+        no_cuda):
+    from paddle_tpu_torch.contrib import mixed_precision
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = ptt.layers.data("x", [4])
+        loss = ptt.layers.mean(ptt.layers.fc(x, 3))
+        mixed_precision.decorate(ptt.optimizer.SGD(0.1),
+                                 dtype="float16").minimize(loss)
+    with pytest.raises(ptt.NoCUDADeviceError):
+        ptt.Executor().run(startup)
+    with ptt.scope_guard(ptt.Scope()):
+        exe = ptt.Executor(ptt.CPUPlace())
+        exe.run(startup)
+        out, = exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
+                       fetch_list=[loss])
+    assert np.isfinite(out).all()
