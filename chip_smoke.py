@@ -418,6 +418,30 @@ and at a dO that carries a 2^16 loss scale, FP16_REL_TOL):
   ``Inferencer`` from its saved parameters; ``summary``,
   ``memory_usage`` and ``op_freq_statistic`` of BERT-base.
 
+Then the rest of the fluid surface and the vision and extras ops:
+
+- ``fluid_surface`` (inside the serving_artifact block, on its BERT-base
+  plain artifact): ``install_check.run_check()`` on the card, ``core``'s
+  places and ``cuda_places`` against torch's device count; the two CLIs
+  as subprocesses (``python -m paddle_tpu_torch.tools.progcheck DIR
+  --json``: exit 0, and 2 on a copy with an op's input renamed;
+  ``python -m paddle_tpu_torch.tools.serving_probe DIR --warmup
+  --strict``: exit 0, every bucket warm, its own request served, and 2
+  on a copy with its program cut in half), each one's seconds, the
+  kernels not built again; the probe once more in this process, its
+  flash and LayerNorm launches counted.
+- ``vision_extras``: the 22 vision and extras op types, each through its
+  layers function into its own program with append_backward of its
+  outputs against seeded random cotangents, at a published model's shape (TSM, DCNv2, R-FCN,
+  Deformable R-FCN, PrRoI pooling, C3D, the Spatial Transformer,
+  AlexNet's LRN, EDSR, ResNet-50's im2col, YOLOv2, ShuffleNet, 3D U-Net,
+  BERT-base's embedding table, the beam, CRNN-CTC, DeepFM, an
+  interaction map, the ImageNet crop): graphed replays equal to op-by-op
+  runs bit for bit, two runs bit-equal, card against the CPU within
+  OP_LIB_TOL (exactly for what moves or chooses data; pool3d at a cut
+  batch, VX_CUT), random_crop by its draws, each kernel's
+  forward and backward ms; no launch of a hand-written kernel.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -1150,6 +1174,17 @@ AMP_DECR_RATIO = 0.8
 AMP_PARITY = dict(num_layers=2, hidden_size=128, num_heads=2, ff_size=512)
 GRAD_MERGE_K, GRAD_MERGE_STEPS = 4, 8
 CTR_RTOL = 1e-5
+# the fluid surface and the vision and extras ops: vision_extras runs
+# each op type at the published shape of _vx_feeds on the card and holds
+# it against the CPU there, but for pool3d: its CPU side took 1.50 s at
+# batch 2 on the H100's host (so about 6 s at the full batch of 8), so
+# its comparison cuts the batch to VX_CUT's, never a width. The
+# differentiated loss is the sum of each float output times a seeded
+# N(0, 1) cotangent of its shape, so every gradient is of order one
+# against OP_LIB_TOL's atol. random_crop is held by VX_CROP_DRAWS draws
+# (33 offsets a dim: about 10 a value).
+VX_CUT = {"pool3d": 2}
+VX_CROP_DRAWS = 330
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -9552,10 +9587,12 @@ def serving_artifact(torch, np, ptt, counters, art_dir):
         np.array_equal(a, b) for a, b in zip(q8_out, oracle))
     del pq8
 
-    # a corrupted shipped program is refused at load
+    # a corrupted shipped program is refused at load (the file is put
+    # back after: fluid_surface vets the artifact next)
     model_path = os.path.join(plain_dir, "__model__.json")
     with open(model_path) as f:
-        model = json.load(f)
+        shipped = f.read()
+    model = json.loads(shipped)
     ops = model["program"]["blocks"][0]["ops"]
     ops[0]["inputs"] = {k: ["gone_var"] for k in ops[0]["inputs"]}
     with open(model_path, "w") as f:
@@ -9565,6 +9602,8 @@ def serving_artifact(torch, np, ptt, counters, art_dir):
         corrupt_refused = False
     except ValueError as e:
         corrupt_refused = "program verification" in str(e)
+    with open(model_path, "w") as f:
+        f.write(shipped)
 
     ok = (graphs_ok and counts_ok and shapes_ok and
           all(replay_equal.values()) and
@@ -10189,6 +10228,551 @@ def contrib_surface(torch, np, ptt, counters, amp_handles, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fluid surface and the vision and extras ops (fluid_surface,
+# vision_extras)
+# ---------------------------------------------------------------------------
+
+def _clis(commands):
+    """Each ``python -m <args>`` of ``commands`` ({label: args}) from the
+    checkout, all at once: {label: (exit code, stdout, stderr, its own
+    wall seconds)}."""
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    done = {}
+
+    def run(label, args):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m"] + args, cwd=_ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        done[label] = (p.returncode, p.stdout, p.stderr,
+                       time.perf_counter() - t0)
+    threads = [threading.Thread(target=run, args=item)
+               for item in commands.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return done
+
+
+def _broken_artifact(src, dst, how):
+    """A copy of the exported model directory ``src`` with its program
+    broken: one op's input renamed to a var nobody declares, or the
+    ``__model__.json`` cut in half."""
+    shutil.copytree(src, dst)
+    path = os.path.join(dst, "__model__.json")
+    with open(path) as f:
+        text = f.read()
+    if how == "truncate":
+        text = text[:len(text) // 2]
+    else:
+        model = json.loads(text)
+        op = model["program"]["blocks"][0]["ops"][0]
+        op["inputs"][sorted(op["inputs"])[0]] = ["renamed_by_corruption"]
+        text = json.dumps(model)
+    with open(path, "w") as f:
+        f.write(text)
+    return dst
+
+
+def fluid_surface(torch, np, ptt, counters, art_dir):
+    """The top-level fluid surface on the card: ``install_check.run_check``
+    (CUDAPlace(0) by default), ``core``'s places and ``cuda_places``
+    against torch's device count; the two CLIs as subprocesses on the
+    serving_artifact phase's BERT-base plain artifact (progcheck --json:
+    exit 0, and 2 on a copy with an op's input renamed; serving_probe
+    --warmup --strict: exit 0, every bucket warm and its own request
+    served, and 2 on a copy with its program cut in half), each one's
+    seconds, and whether a subprocess built the kernels again (it
+    should find serving_artifact's build under build/); then the probe in
+    this process, its launches counted."""
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.layers import device as ldevice
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.tools import serving_probe
+    import warnings
+
+    plain_dir = os.path.join(art_dir, "plain")
+    t0 = time.perf_counter()
+    checked = ptt.run_check()
+    check_s = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        get_places = ldevice.get_places()
+    places = {"device_count": n, "cuda_places": repr(ptt.cuda_places()),
+              "core_device_count": core.get_cuda_device_count(),
+              "compiled_with_cuda": core.is_compiled_with_cuda(),
+              "get_places": repr(get_places)}
+    places_ok = (ptt.cuda_places() == [ptt.CUDAPlace(i) for i in range(n)]
+                 and core.get_cuda_device_count() == n and n >= 1 and
+                 core.is_compiled_with_cuda() and
+                 core.CUDAPlace is ptt.CUDAPlace and
+                 get_places == ptt.cuda_places())
+    renamed = _broken_artifact(plain_dir, os.path.join(art_dir, "renamed"),
+                               "rename")
+    truncated = _broken_artifact(plain_dir, os.path.join(art_dir, "cut"),
+                                 "truncate")
+    lib = os.path.join(build.library_dir(), build.LIB_NAME)
+    lib_stat = os.stat(lib).st_mtime_ns
+    progcheck = "paddle_tpu_torch.tools.progcheck"
+    probe = "paddle_tpu_torch.tools.serving_probe"
+    want = {"progcheck": 0, "progcheck_renamed": 2, "probe": 0,
+            "probe_cut": 2}
+    done = _clis({"progcheck": [progcheck, plain_dir, "--json"],
+                  "progcheck_renamed": [progcheck, renamed, "--json"],
+                  "probe": [probe, plain_dir, "--warmup", "--strict"],
+                  "probe_cut": [probe, truncated]})
+    runs = {}
+    for label, (rc, out, err, seconds) in sorted(done.items()):
+        lines = out.strip().splitlines()
+        runs[label] = {"rc": rc, "want": want[label], "seconds": seconds,
+                       "json": json.loads(lines[-1]) if lines else None}
+        if rc != want[label]:
+            runs[label]["stderr"] = err[-3000:]
+    rebuilt = os.stat(lib).st_mtime_ns != lib_stat
+    for label in ("progcheck", "progcheck_renamed"):
+        doc = runs[label]["json"] or {}
+        runs[label]["json"] = {"exit_code": doc.get("exit_code"),
+                               "counts": [p.get("counts", p.get(
+                                   "load_error")) for p in
+                                   doc.get("programs", [])]}
+    health = runs["probe"]["json"] or {}
+    buckets = list(ARTIFACT_BUCKETS)
+    probe_ok = (health.get("ready") is True and
+                health.get("status") == "ok" and
+                health.get("buckets") == buckets and
+                health.get("warm_buckets") == buckets and
+                health.get("requests") == 1 and health.get("errors") == 0)
+    cut = runs["probe_cut"]["json"] or {}
+    # the same probe in this process, its launches counted
+    counters.zero()
+    t1 = time.perf_counter()
+    health_in = serving_probe.probe(plain_dir, warmup=True)
+    in_process_s = time.perf_counter() - t1
+    launches = counters.read_all()
+    launched = {k: v for k, v in launches.items() if v}
+    launches_ok = set(launched) == set(SERVE_FAMILIES) and \
+        launched["flash_attention_fwd"] * LN_PER_REQUEST == \
+        launched["layer_norm_fwd"] * FLASH_PER_REQUEST
+    ok = (checked is True and places_ok and probe_ok and not rebuilt and
+          all(r["rc"] == r["want"] for r in runs.values()) and
+          cut.get("status") == "broken" and health_in["ready"] and
+          health_in["requests"] == 1 and launches_ok)
+    emit({"phase": "fluid_surface", "ok": ok, "run_check": checked,
+          "run_check_s": check_s, "places": places, "places_ok": places_ok,
+          "cli": runs, "probe_health_ok": probe_ok,
+          "kernels_built_again": rebuilt, "in_process_probe_s": in_process_s,
+          "in_process_health": health_in, "launches": launches})
+    if not ok:
+        raise AssertionError("fluid_surface checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _vx_feeds(np, rng):
+    """(op type, feeds {name: numpy}, layer call (L, vars) -> outputs,
+    differentiable feeds, outputs held exactly) for each of the 22 op
+    types at a published model's shape."""
+    def f(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def rois(r, img_h, img_w, with_index=False):
+        x1 = rng.uniform(0, img_w * 0.8, r)
+        y1 = rng.uniform(0, img_h * 0.8, r)
+        box = np.stack([x1, y1, x1 + rng.uniform(16, img_w * 0.5, r),
+                        y1 + rng.uniform(16, img_h * 0.5, r)], 1)
+        if with_index:
+            box = np.concatenate([np.zeros((r, 1)), box], 1)
+        return box.astype(np.float32)
+
+    n_dc = 2
+    offset = f(n_dc, 18, 25, 42, scale=2.0)
+    offset[:, ::3] = np.round(offset[:, ::3])       # taps on integers
+    n_gs = 32
+    ang = rng.uniform(-0.3, 0.3, n_gs)
+    sc = rng.uniform(0.6, 1.2, n_gs)
+    theta = np.stack([np.stack([sc * np.cos(ang), -sc * np.sin(ang),
+                                rng.uniform(-0.2, 0.2, n_gs)], 1),
+                      np.stack([sc * np.sin(ang), sc * np.cos(ang),
+                                rng.uniform(-0.2, 0.2, n_gs)], 1)], 1)
+    ys, xs = np.meshgrid(np.linspace(-1, 1, 224), np.linspace(-1, 1, 224),
+                         indexing="ij")
+    base = np.stack([xs, ys, np.ones_like(xs)], -1)
+    grid = np.einsum("hwk,njk->nhwj", base, theta).astype(np.float32)
+    deepfm = 2048 * 26                       # DeepFM's batch x its slots
+    ids = rng.randint(0, 30522, 4096).astype(np.int64)
+    ids[::4] = 101                           # a hot id ([CLS])
+    probs = np.exp(f(32, 512, 96))
+    img = (np.arange(256)[:, None] * 256 + np.arange(256)[None, :]).astype(
+        np.float32)
+    parents = rng.randint(0, 4, (32, 16, 4)).astype(np.int64)
+    return [
+        ("temporal_shift", {"x": f(128, 256, 56, 56)},
+         lambda L, v: [L.temporal_shift(v["x"], 8, 0.125)], ["x"], (0,)),
+        ("deformable_conv", {"x": f(n_dc, 512, 25, 42), "offset": offset,
+                             "mask": rng.uniform(0, 1, (n_dc, 9, 25, 42))
+                             .astype(np.float32)},
+         lambda L, v: [L.deformable_conv(v["x"], v["offset"], v["mask"],
+                                         512, 3, padding=1)],
+         ["x", "offset", "mask"], ()),
+        ("psroi_pool", {"x": f(1, 1029, 38, 63), "rois": rois(300, 600,
+                                                               1000)},
+         lambda L, v: [L.psroi_pool(v["x"], v["rois"], 21, 1 / 16.0, 7, 7)],
+         ["x"], ()),
+        ("deformable_roi_pooling",
+         {"x": f(1, 1029, 38, 63), "rois": rois(300, 600, 1000, True),
+          "trans": f(300, 2, 7, 7)},
+         lambda L, v: [L.deformable_roi_pooling(
+             v["x"], v["rois"], v["trans"], spatial_scale=1 / 16.0,
+             pooled_height=7, pooled_width=7, trans_std=0.1,
+             position_sensitive=True)], ["x", "trans"], ()),
+        ("prroi_pool", {"x": f(1, 1024, 38, 63),
+                        "rois": rois(300, 600, 1000)},
+         lambda L, v: [L.prroi_pool(v["x"], v["rois"], 1 / 16.0, 7, 7)],
+         ["x"], ()),
+        ("pool3d", {"x": f(8, 128, 16, 56, 56)},
+         lambda L, v: [L.pool3d(v["x"], 2, "max", 2),
+                       L.pool3d(v["x"], 3, "avg", 2, 1, ceil_mode=True),
+                       L.adaptive_pool3d(v["x"], [4, 7, 7], "avg")],
+         ["x"], (0,)),
+        ("affine_grid", {"theta": theta[:32].astype(np.float32)},
+         lambda L, v: [L.affine_grid(v["theta"], [theta.shape[0], 3, 224,
+                                                  224])], ["theta"], ()),
+        ("grid_sampler", {"x": f(n_gs, 3, 448, 448), "grid": grid},
+         lambda L, v: [L.grid_sampler(v["x"], v["grid"])], ["x", "grid"],
+         ()),
+        ("lrn", {"x": f(128, 96, 55, 55)},
+         lambda L, v: [L.lrn(v["x"], n=5, k=2.0, alpha=1e-4, beta=0.75)],
+         ["x"], ()),
+        ("pixel_shuffle", {"x": f(16, 256, 48, 48)},
+         lambda L, v: [L.pixel_shuffle(v["x"], 2)], ["x"], (0,)),
+        ("unfold", {"x": f(32, 128, 28, 28)},
+         lambda L, v: [L.unfold(v["x"], 3, paddings=1)], ["x"], (0,)),
+        ("space_to_depth", {"x": f(16, 64, 26, 26)},
+         lambda L, v: [L.space_to_depth(v["x"], 2)], ["x"], (0,)),
+        ("shuffle_channel", {"x": f(128, 240, 28, 28)},
+         lambda L, v: [L.shuffle_channel(v["x"], 3)], ["x"], (0,)),
+        ("resize_trilinear", {"up": f(2, 128, 16, 32, 32),
+                              "down": f(2, 64, 32, 64, 64)},
+         lambda L, v: [L.resize_trilinear(v["up"], [32, 64, 64]),
+                       L.resize_trilinear(v["down"], [16, 32, 32])],
+         ["up", "down"], ()),
+        ("scatter_nd", {"index": ids.reshape(-1, 1), "updates": f(4096,
+                                                                   768)},
+         lambda L, v: [L.scatter_nd(v["index"], v["updates"], [30522,
+                                                                768])],
+         ["updates"], ()),
+        ("gather_tree", {"ids": rng.randint(0, 32000, (32, 16, 4)).astype(
+            np.int64), "parents": parents},
+         lambda L, v: [L.gather_tree(v["ids"], v["parents"])], [], (0,)),
+        ("ctc_greedy_decoder",
+         {"probs": probs / probs.sum(-1, keepdims=True),
+          "lens": rng.randint(256, 513, 32).astype(np.int64)},
+         lambda L, v: list(L.ctc_greedy_decoder(v["probs"], 95,
+                                                v["lens"])), [], (0, 1)),
+        ("cvm", {"x": f(deepfm, 11), "cvm": rng.randint(
+            0, 1000, (deepfm, 2)).astype(np.float32)},
+         lambda L, v: [L.continuous_value_model(v["x"], v["cvm"])],
+         ["x", "cvm"], ()),
+        ("filter_by_instag", {"ins": f(2048, 26 * 9), "tags": rng.randint(
+            0, 64, (2048, 4)).astype(np.int64), "filter": rng.choice(
+                64, 8, replace=False).astype(np.int64)},
+         lambda L, v: list(L.filter_by_instag(v["ins"], v["tags"],
+                                              v["filter"])), [], (0, 1, 2)),
+        ("hash", {"ids": rng.randint(-2 ** 40, 2 ** 40, (deepfm, 2)).astype(
+            np.int64)},
+         lambda L, v: [L.hash(v["ids"], 10 ** 6, 4)], [], (0,)),
+        ("similarity_focus", {"x": rng.randint(0, 50, (32, 8, 64, 64))
+                              .astype(np.float32)},
+         lambda L, v: [L.similarity_focus(v["x"], 1, [0, 3])], [], (0,)),
+        ("random_crop", {"x": np.broadcast_to(img, (128, 3, 256, 256))
+                         .copy()},
+         lambda L, v: [L.random_crop(v["x"], [3, 224, 224])], [], (0,)),
+    ]
+
+
+def _vx_out_shapes(torch, ptt, feed, call):
+    """The shapes of the layer call's outputs on ``feed``, from one
+    op-by-op forward run on the card (several of these layers leave
+    their output's static shape unknown)."""
+    main, start = ptt.Program(), ptt.Program()
+    main.random_seed = start.random_seed = SEED
+    with ptt.unique_name.guard(), ptt.program_guard(main, start):
+        v = {n: ptt.layers.data(n, list(a.shape), dtype=str(a.dtype),
+                                append_batch_size=False)
+             for n, a in feed.items()}
+        outs = call(ptt.layers, v)
+    exe = ptt.Executor()
+    scope = ptt.Scope()
+    exe.run(start, scope=scope)
+    got = exe.run(main, feed={k: torch.from_numpy(a).cuda()
+                              for k, a in feed.items()},
+                  fetch_list=outs, scope=scope, return_numpy=False,
+                  use_program_cache=False)
+    exe.close()
+    return [list(t.shape) for t in got]
+
+
+def _vx_program(np, ptt, feed, call, diff, shapes=None):
+    """The op's program: a data var per feed (differentiable where
+    ``diff`` names it), the layer call, and where anything is
+    differentiable the sum over its float outputs of each output times
+    a cotangent fed beside it (``cot_<i>``, of the output's shape in
+    ``shapes``, N(0, 1) from the seed) and append_backward of it to the
+    differentiable feeds and the parameters. Returns (main, startup,
+    fetch vars, the number of outputs, the feed with the
+    cotangents)."""
+    main, start = ptt.Program(), ptt.Program()
+    main.random_seed = start.random_seed = SEED
+    feed = dict(feed)
+    rng = np.random.RandomState(SEED + 1)
+    with ptt.unique_name.guard(), ptt.program_guard(main, start):
+        L = ptt.layers
+        v = {n: L.data(n, list(a.shape), dtype=str(a.dtype),
+                       append_batch_size=False, stop_gradient=n not in diff)
+             for n, a in feed.items()}
+        outs = call(L, v)
+        fetch = list(outs)
+        if diff:
+            terms = []
+            for i, o in enumerate(outs):
+                if o.dtype not in ("float32", "float64"):
+                    continue
+                shape = shapes[i]
+                name = "cot_%d" % i
+                feed[name] = rng.standard_normal(shape).astype(o.dtype)
+                w = L.data(name, shape, dtype=o.dtype,
+                           append_batch_size=False)
+                terms.append(L.reduce_sum(L.elementwise_mul(o, w)))
+            loss = L.sums(terms)
+            roots = [v[n] for n in diff] + main.all_parameters()
+            fetch += [g for _, g in ptt.append_backward(
+                loss, parameter_list=roots)]
+    return main, start, fetch, len(outs), feed
+
+
+def _vx_runs(torch, ptt, main, start, feed, fetch, runs=4):
+    """On the card: ``runs`` graphed runs (the first op by op, the second
+    captured, then replays) and two op-by-op runs on one scope, fetches
+    kept on the device; returns (graphed, op by op, the scope, the
+    Executor, the device feed)."""
+    dev = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    scope = ptt.Scope()
+    exe = ptt.Executor()
+    exe.run(start, scope=scope)
+    graphed = [exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
+                       return_numpy=False) for _ in range(runs)]
+    plain = [exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
+                     return_numpy=False, use_program_cache=False)
+             for _ in range(2)]
+    return graphed, plain, scope, exe, dev
+
+
+def _vx_on_cpu(torch, ptt, main, start, feed, fetch, scope):
+    """The program on the CPU from the card scope's parameters."""
+    params = {p.name: scope.find_var(p.name).cpu().numpy()
+              for p in main.all_parameters()}
+    cscope = ptt.Scope()
+    exe = ptt.Executor(ptt.CPUPlace())
+    exe.run(start, scope=cscope)
+    ptt.set_params_from_numpy(params, main, cscope, ptt.CPUPlace())
+    t0 = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=cscope,
+                  return_numpy=False)
+    return out, time.perf_counter() - t0
+
+
+def _vx_op_ms(torch, np, op, feed, diff, prog):
+    """Device ms of the op's kernel, forward and backward of the mean of
+    its float outputs (time_ms), on the program's own inputs and
+    attributes (parameters from its startup's shapes). (The mean's
+    cotangent costs the backward what the program's fed one does.)"""
+    from paddle_tpu_torch.ops.registry import get_op
+    desc = [o for o in prog.global_block().ops if o.type == op]
+    ctx = _OpCtx(torch, "cuda", SEED)
+    blk = prog.global_block()
+
+    def value(name):
+        if name in feed:
+            return feed[name]
+        var = blk.var(name)
+        g = torch.Generator(device=ctx.device).manual_seed(SEED)
+        return torch.randn(tuple(var.shape), device=ctx.device, generator=g)
+
+    calls = []
+    for d in desc:
+        ins = {slot: [value(n) for n in names]
+               for slot, names in d.inputs.items()}
+        leaves = []
+        for slot, vs in ins.items():
+            names = d.inputs[slot]
+            for i, n in enumerate(names):
+                if n in diff or (n not in feed and blk.var(n).persistable):
+                    vs[i] = vs[i].detach().clone().requires_grad_()
+                    leaves.append(vs[i])
+        calls.append((get_op(op).fn, ins, dict(d.attrs), leaves))
+
+    def run():
+        with torch.enable_grad():
+            for fn, ins, attrs, leaves in calls:
+                outs = fn(ctx, ins, attrs)
+                vals = [o for vs in outs.values()
+                        for o in (vs if isinstance(vs, list) else [vs])
+                        if o.is_floating_point() and o.requires_grad]
+                if leaves and vals:
+                    loss = sum(o.mean() for o in vals)
+                    torch.autograd.grad(loss, leaves)
+    return time_ms(torch, run, reps=3, inner=3)
+
+
+def _vx_random_crop(torch, np, ptt, feed, call):
+    """random_crop by its draws: VX_CROP_DRAWS graphed replays of the
+    crop's corner (the image codes each pixel y * 256 + x), one offset
+    for all 128 x 3 planes of a draw, offsets uniform over their 33
+    values (each count within 5 standard errors), a fresh Executor
+    drawing the same offsets run for run and op by op the same as
+    graphed; three full crops equal to the image's window; the kernel's
+    forward ms."""
+    main, start = ptt.Program(), ptt.Program()
+    main.random_seed = start.random_seed = SEED
+    with ptt.unique_name.guard(), ptt.program_guard(main, start):
+        L = ptt.layers
+        x = L.data("x", list(feed["x"].shape), append_batch_size=False)
+        crop = call(L, {"x": x})[0]
+        corner = L.slice(crop, [2, 3], [0, 0], [1, 1])
+    dev = torch.from_numpy(feed["x"]).cuda()
+
+    def draws(n, cache=True, fetch=corner):
+        exe = ptt.Executor()
+        scope = ptt.Scope()
+        out = [exe.run(main, feed={"x": dev}, fetch_list=[fetch],
+                       scope=scope, return_numpy=False,
+                       use_program_cache=cache)[0] for _ in range(n)]
+        exe.close()
+        return out
+    t0 = time.perf_counter()
+    corners = draws(VX_CROP_DRAWS)
+    one_offset = all(bool((c == c.reshape(-1)[0]).all()) for c in corners)
+    codes = np.array([int(c.reshape(-1)[0]) for c in corners])
+    y0, x0 = codes // 256, codes % 256
+    again = draws(3)
+    by_op = draws(3, cache=False)
+    repeat = all(_same_bits(torch, a, b) for a, b in zip(corners, again))
+    op_by_op = all(_same_bits(torch, a, b) for a, b in zip(corners, by_op))
+    k = 256 - 224 + 1
+    n = len(codes)
+    se = math.sqrt(n / k * (1 - 1 / k))
+    counts = [np.bincount(y0, minlength=k), np.bincount(x0, minlength=k)]
+    uniform = all(c.size == k and np.all(np.abs(c - n / k) <= 5 * se)
+                  for c in counts)
+    windows = True
+    for full in draws(3, fetch=crop):
+        yy, xx = divmod(int(full.reshape(-1)[0]), 256)
+        windows = windows and bool(torch.equal(
+            full, dev[:, :, yy:yy + 224, xx:xx + 224]))
+    ms = _vx_op_ms(torch, np, "random_crop", {"x": dev}, [], main)
+    good = one_offset and uniform and repeat and op_by_op and windows
+    return {"ok": good, "fwd_ms": ms, "draws": n,
+            "one_offset_per_batch": one_offset,
+            "offset_counts_y": counts[0].tolist(),
+            "offset_counts_x": counts[1].tolist(), "uniform": uniform,
+            "fresh_executor_repeats": repeat,
+            "op_by_op_equals_graphed": op_by_op, "windows_equal": windows,
+            "seconds": time.perf_counter() - t0}
+
+
+def vision_extras(torch, np, ptt, counters):
+    """The 22 vision and extras op types on the card, each through its
+    layers function into its own program (_vx_feeds: a published model's
+    shape; append_backward of its float outputs against seeded random
+    cotangents where it is differentiable, _vx_program): graphed replays
+    equal to op-by-op runs bit for bit, two runs of each kind bit-equal,
+    outputs finite; the card against the CPU (within OP_LIB_TOL, what
+    moves or chooses data exactly: outputs and the gradients of every
+    differentiable input and parameter) at the full shape or, for pool3d,
+    whose CPU side would take about 6 s at it, at VX_CUT's batch;
+    random_crop by its draws (_vx_random_crop); each op's kernel timed
+    forward and backward at its shape (_vx_op_ms). No op reaches a
+    hand-written kernel: the launch counters stay at 0."""
+    counters.zero()
+    results, ok = {}, True
+    for op, feed, call, diff, exact in _vx_feeds(
+            np, np.random.RandomState(SEED)):
+        t0 = time.perf_counter()
+        if op == "random_crop":
+            results[op] = _vx_random_crop(torch, np, ptt, feed, call)
+            ok = ok and results[op]["ok"]
+            continue
+        shapes = _vx_out_shapes(torch, ptt, feed, call) if diff else None
+        main, start, fetch, n_out, feed = _vx_program(np, ptt, feed, call,
+                                                      diff, shapes)
+        graphed, plain, scope, exe, dev = _vx_runs(torch, ptt, main, start,
+                                                   feed, fetch)
+        replay_equal = all(_same_bits(torch, a, b) for a, b in
+                           zip(graphed[2], plain[0]))
+        replays_equal = all(_same_bits(torch, a, b) for a, b in
+                            zip(graphed[2], graphed[3]))
+        plain_equal = all(_same_bits(torch, a, b) for a, b in
+                          zip(plain[0], plain[1]))
+        finite = all(bool(torch.isfinite(t).all()) for t in graphed[3]
+                     if t.is_floating_point())
+        ms = _vx_op_ms(torch, np, op, dev, diff, main)
+        if op in VX_CUT:
+            cfeed = {k: v[:VX_CUT[op]] for k, v in feed.items()
+                     if not k.startswith("cot_")}
+            cmain, cstart, cfetch, _, cfeed = _vx_program(
+                np, ptt, cfeed, call, diff,
+                _vx_out_shapes(torch, ptt, cfeed, call))
+            cgraphed, _, cscope, cexe, _ = _vx_runs(torch, ptt, cmain,
+                                                    cstart, cfeed, cfetch,
+                                                    runs=3)
+            card, want_main, want_start, want_feed, want_fetch = \
+                cgraphed[2], cmain, cstart, cfeed, cfetch
+            card_scope = cscope
+            cexe.close()
+        else:
+            card, want_main, want_start, want_feed, want_fetch = \
+                graphed[2], main, start, feed, fetch
+            card_scope = scope
+        want, cpu_s = _vx_on_cpu(torch, ptt, want_main, want_start,
+                                 want_feed, want_fetch, card_scope)
+        errs, scales, close = [], [], True
+        for i, (g, w) in enumerate(zip(card, want)):
+            e, good = _close_to(torch, g.cpu(), w, i in exact)
+            errs.append(e)
+            scales.append(float(w.double().abs().max()) if w.numel()
+                          else 0.0)
+            close = close and good
+        runs = dict(exe.graph_runs)
+        exe.close()
+        good = (replay_equal and replays_equal and plain_equal and finite
+                and close and runs["replay"] >= 2)
+        results[op] = {
+            "ok": good, "shapes": {k: list(v.shape) for k, v in feed.items()},
+            "cpu_shapes": ({k: list(v.shape) for k, v in want_feed.items()}
+                           if op in VX_CUT else "full"),
+            "outputs": n_out, "grads": len(fetch) - n_out,
+            "replay_equals_op_by_op": replay_equal,
+            "replays_equal": replays_equal,
+            "op_by_op_runs_equal": plain_equal, "finite": finite,
+            "graph_runs": runs, "max_abs_err_vs_cpu": errs,
+            "max_abs_cpu": scales,
+            "exact": list(exact), "cpu_s": cpu_s, "fwd_bwd_ms": ms,
+            "seconds": time.perf_counter() - t0}
+        ok = ok and good
+        del graphed, plain, scope, dev
+    launches = counters.read_all()
+    ok = ok and len(results) == 22 and not any(launches.values())
+    emit({"phase": "vision_extras", "ok": ok, "op_types": len(results),
+          "tol": OP_LIB_TOL, "cut_for_cpu": VX_CUT,
+          "launches": launches, "ops": results})
+    if not ok:
+        raise AssertionError("vision_extras checks failed (see the line "
+                             "above)")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -10445,9 +11029,13 @@ def main():
 
     recipe = phase("verifier")(verifier)(torch, np, ptt)
     art_dir = os.path.join(_ROOT, "build", "chip_smoke_artifact")
+    by_path["fluid_surface"] = None
     try:
         art = phase("serving_artifact")(serving_artifact)(
             torch, np, ptt, counters, art_dir)
+        if art is not None:
+            by_path["fluid_surface"] = phase("fluid_surface")(
+                fluid_surface)(torch, np, ptt, counters, art_dir)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
     by_path["serving_artifact"] = None if art is None else art[0]
@@ -10472,6 +11060,8 @@ def main():
     finally:
         shutil.rmtree(contrib_dir, ignore_errors=True)
     del amp
+    by_path["vision_extras"] = phase("vision_extras")(vision_extras)(
+        torch, np, ptt, counters)
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

@@ -52,18 +52,25 @@ in fp16 with dynamic loss scaling, through
 ``contrib.mixed_precision.decorate(optimizer, dtype=...)``; ``metrics``,
 ``evaluator``, ``average``, ``profiler``, ``contrib.Trainer`` /
 ``Inferencer`` and the ``contrib`` statistics (``summary``,
-``memory_usage``, ``op_freq_statistic``) follow fluid's. The other models
-are later slices (see ROADMAP.md).
+``memory_usage``, ``op_freq_statistic``) follow fluid's. The rest of
+fluid's top-level surface is here too: ``core``, the place helpers
+(``cuda_places`` lists torch's CUDA devices), ``lod_tensor``,
+``debugger``, ``install_check.run_check``, the module-path aliases
+(``backward``, ``executor``, ``unique_name``, ``op``, ``graphviz``,
+``inferencer``) and ``utils``; ``tools.progcheck`` and
+``tools.serving_probe`` vet a saved model and a serving artifact from
+the command line. The distributed paths (``distributed``,
+``transpiler``, ``make_mesh``) are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
-                        default_startup_program, program_guard, CUDAPlace,
-                        CPUPlace, NoCUDADeviceError, Scope, global_scope,
-                        scope_guard, Executor, CompiledProgram,
-                        BuildStrategy, ExecutionStrategy, unique_name,
-                        is_compiled_with_cuda)
+                        default_startup_program, program_guard, name_scope,
+                        CUDAPlace, CPUPlace, NoCUDADeviceError, Scope,
+                        global_scope, scope_guard, Executor,
+                        CompiledProgram, BuildStrategy, ExecutionStrategy,
+                        unique_name, is_compiled_with_cuda)
 from .ops.registry import NotPortedError
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import initializer
 from . import layers
 from . import nets
@@ -93,6 +100,44 @@ from . import metrics
 from . import evaluator
 from . import average
 from . import profiler
+from . import utils
+from . import debugger
+from . import lod_tensor as lod_tensor_mod
+from .lod_tensor import (LoDTensor, create_lod_tensor,  # noqa: F401
+                         create_random_int_lodtensor)
+from .input import one_hot, embedding  # noqa: F401
+from . import core
+from .core import CUDAPinnedPlace  # noqa: F401
+
+# the JAX package's accelerator place; the port's accelerator is a CUDA
+# card (tpu_places below lists the same places)
+TPUPlace = CUDAPlace
+from .install_check import run_check  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def cuda_places(device_ids=None):
+    """ref framework.cuda_places: ``CUDAPlace(i)`` for each of torch's
+    CUDA devices (or ``device_ids``); NoCUDADeviceError when torch sees
+    none (pass ``cpu_places()`` for the CPU)."""
+    n = core.get_cuda_device_count()
+    if n == 0:
+        raise NoCUDADeviceError(
+            "cuda_places: torch sees no CUDA device; use cpu_places() to "
+            "run on the CPU")
+    ids = range(n) if device_ids is None else device_ids
+    return [CUDAPlace(i) for i in ids]
+
+
+def tpu_places(device_ids=None):
+    """The JAX package's accelerator places; the port's accelerator is a
+    CUDA card, so these are ``cuda_places``."""
+    return cuda_places(device_ids)
+
+
+def cpu_places(device_count=None):
+    return [CPUPlace()]
 
 
 def in_dygraph_mode():
@@ -100,4 +145,42 @@ def in_dygraph_mode():
     return dygraph.enabled()
 
 
-__version__ = "0.1.0"
+def cuda_pinned_places(device_count=None):
+    """ref framework.cuda_pinned_places — host staging is plain host
+    memory; returns CPU places."""
+    return [CPUPlace()] * (device_count or 1)
+
+
+def require_version(min_version, max_version=None):
+    """ref framework.require_version, against paddle_tpu_torch's
+    version."""
+    def parse(v):
+        return [int(x) for x in str(v).split(".") if x.isdigit()]
+    cur = parse(__version__)
+    if parse(min_version) > cur:
+        raise Exception(
+            "paddle_tpu_torch version %s is below required %s" %
+            (__version__, min_version))
+    if max_version is not None and parse(max_version) < cur:
+        raise Exception(
+            "paddle_tpu_torch version %s is above allowed %s" %
+            (__version__, max_version))
+
+
+def load_op_library(lib_path):
+    """ref framework.load_op_library (a custom C++/CUDA op .so). A custom
+    op here is a torch kernel: register it with
+    paddle_tpu_torch.ops.registry.register_op instead."""
+    raise NotImplementedError(
+        "load_op_library loads a compiled op library; on paddle_tpu_torch "
+        "register a torch kernel via paddle_tpu_torch.ops.registry."
+        "register_op (see ops/registry.py's docstring)")
+
+
+# `import paddle_tpu_torch; paddle_tpu_torch.fluid.layers...` — the
+# reference's paddle.fluid spelling, aliased onto this package
+from . import fluid  # noqa: E402,F401
+
+# deep reference module paths registered as virtual re-export modules
+from . import _compat_submodules  # noqa: E402
+_compat_submodules.install()

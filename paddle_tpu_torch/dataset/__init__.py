@@ -1,14 +1,13 @@
 """Dataset package (counterpart of paddle_tpu/dataset). Two namespaces
 merge here, as there:
 
-  * the corpus modules the Paddle Book reads (ref
-    python/paddle/dataset/): ``uci_housing``, ``mnist``, ``cifar``,
-    ``imikolov``, ``imdb``, ``movielens``, ``conll05`` and ``wmt14``,
-    with ``common`` and ``synthetic``: deterministic synthetic payloads
-    in the reference's record schemas, numpy only, equal to the JAX
-    package's sample for sample. ``flowers``, ``image``, ``mq2007``,
-    ``sentiment``, ``voc2012`` and ``wmt16`` are not ported yet
-    (ROADMAP.md);
+  * the corpus modules (ref python/paddle/dataset/): ``uci_housing``,
+    ``mnist``, ``cifar``, ``imikolov``, ``imdb``, ``movielens``,
+    ``conll05``, ``wmt14``, ``wmt16``, ``sentiment``, ``flowers`` and
+    ``mq2007``, with ``image``, ``common`` and ``synthetic``:
+    deterministic synthetic payloads in the reference's record schemas,
+    numpy only, equal to the JAX package's sample for sample.
+    ``voc2012`` comes with the detection ops (ROADMAP.md);
   * the fluid Dataset API: DatasetFactory, InMemoryDataset and
     QueueDataset over the C++ data plane.
 """
@@ -24,8 +23,14 @@ from . import imikolov  # noqa: F401
 from . import movielens  # noqa: F401
 from . import conll05  # noqa: F401
 from . import wmt14  # noqa: F401
+from . import sentiment  # noqa: F401
+from . import wmt16  # noqa: F401
+from . import mq2007  # noqa: F401
+from . import flowers  # noqa: F401
+from . import image  # noqa: F401
 
 __all__ = ['mnist', 'imikolov', 'imdb', 'cifar', 'movielens', 'conll05',
-           'uci_housing', 'wmt14', 'common', 'synthetic',
+           'sentiment', 'uci_housing', 'wmt14', 'wmt16', 'mq2007',
+           'flowers', 'image', 'common', 'synthetic',
            'DatasetFactory', 'DatasetBase', 'QueueDataset',
            'InMemoryDataset']

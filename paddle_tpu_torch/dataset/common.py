@@ -70,7 +70,8 @@ def fetch_all():
     reference's paddle.dataset.common.fetch_all crawler)."""
     import importlib
     for name in ('mnist', 'cifar', 'uci_housing', 'imdb', 'imikolov',
-                 'movielens', 'conll05', 'wmt14'):
+                 'movielens', 'conll05', 'sentiment', 'wmt14', 'wmt16',
+                 'flowers', 'mq2007'):
         mod = importlib.import_module('paddle_tpu_torch.dataset.' + name)
         if hasattr(mod, 'fetch'):
             mod.fetch()

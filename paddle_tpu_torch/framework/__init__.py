@@ -1,6 +1,6 @@
 from .program import (Program, Block, Operator, Variable, Parameter,  # noqa
                       default_main_program, default_startup_program,
-                      program_guard, switch_main_program,
+                      program_guard, name_scope, switch_main_program,
                       switch_startup_program)
 from .place import (CUDAPlace, CPUPlace, NoCUDADeviceError,  # noqa
                     _current_expected_place, is_compiled_with_cuda)

@@ -469,3 +469,17 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """ref framework.name_scope: marks a block of layer calls with a
+    prefix, as paddle_tpu's does (a marker; names are unchanged)."""
+    _name_scope_stack.append(prefix or "")
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()

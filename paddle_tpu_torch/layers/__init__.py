@@ -17,6 +17,7 @@ from .control_flow import *  # noqa: F401,F403
 from .rnn import *           # noqa: F401,F403
 from .sequence_lod import *  # noqa: F401,F403
 from .vision import *        # noqa: F401,F403
+from .extras import *        # noqa: F401,F403
 from . import detection  # noqa: F401
 from .detection import yolov3_loss, yolo_box, multiclass_nms  # noqa: F401
 from . import learning_rate_scheduler  # noqa: F401
@@ -32,3 +33,6 @@ from .rnn_api import (RNNCell, GRUCell, LSTMCell, rnn, lstm,  # noqa: F401
                       dynamic_lstmp, Decoder, BeamSearchDecoder,
                       dynamic_decode, beam_search, beam_search_decode)
 from . import rnn_api  # noqa: F401
+from .layer_function_generator import (generate_layer_fn,  # noqa: F401
+    generate_activation_fn, deprecated, autodoc, templatedoc)
+from . import layer_function_generator  # noqa: F401

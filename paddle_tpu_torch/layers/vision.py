@@ -1,11 +1,12 @@
-"""Layers of paddle_tpu/layers/vision.py whose ops the port has: the
-linear-chain CRF layers (kernels in ops/crf_ops.py), the 3-D
-convolutions, ``bilinear_tensor_product``, ``row_conv`` and the misc
-tensor layers (``cos_sim``, ``chunk_eval``, ``crop``, ``data_norm``,
-``mean_iou``, ``multiplex``, ``unique``; kernels in ops/misc_ops.py).
-``lrn``, ``pool3d``, ``pixel_shuffle``, ``temporal_shift``, ``unfold``,
-``affine_grid``, ``grid_sampler`` and the deformable and RoI poolings
-come with the vision ops."""
+"""The layers of paddle_tpu/layers/vision.py, with the same signatures:
+the linear-chain CRF layers (kernels in ops/crf_ops.py), the 3-D
+convolutions and pools, the sampling grids, ``pixel_shuffle``, ``lrn``,
+``unfold``, ``temporal_shift``, deformable convolution and the
+position-sensitive and precise RoI poolings (kernels in
+ops/vision_ops.py), ``bilinear_tensor_product``, ``row_conv`` and the
+misc tensor layers (``cos_sim``, ``chunk_eval``, ``crop``,
+``data_norm``, ``mean_iou``, ``multiplex``, ``unique``; kernels in
+ops/misc_ops.py)."""
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
@@ -172,6 +173,190 @@ def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
         attrs=attrs)
     pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
     return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCDHW"):
+    helper = LayerHelper("pool3d", name=name)
+    pool_size = _triple(pool_size)
+    pool_stride = _triple(pool_stride)
+    pool_padding = _triple(pool_padding)
+    if global_pooling:
+        shape = (input.shape[0], input.shape[1], 1, 1, 1)
+    else:
+        sp = [_conv3_out(input.shape[2 + i], pool_size[i], pool_padding[i],
+                         pool_stride[i], ceil=ceil_mode) for i in range(3)]
+        shape = (input.shape[0], input.shape[1]) + tuple(sp)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(
+        "pool3d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "strides": pool_stride, "paddings": pool_padding,
+               "global_pooling": global_pooling, "exclusive": exclusive,
+               "ceil_mode": ceil_mode})
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    if require_index:
+        raise NotImplementedError("require_index is not supported: the "
+                                  "pool3d op returns no argmax indices "
+                                  "(nor does the JAX package's)")
+    helper = LayerHelper("adaptive_pool3d", name=name)
+    pool_size = _triple(pool_size)
+    shape = (input.shape[0], input.shape[1]) + tuple(pool_size)
+    out = helper.create_variable_for_type_inference(input.dtype, shape)
+    helper.append_op(
+        "pool3d", inputs={"X": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"pooling_type": pool_type, "ksize": pool_size,
+               "adaptive": True})
+    return out
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", name=name)
+    if not isinstance(out_shape, (list, tuple)):
+        raise ValueError(
+            "affine_grid needs out_shape as a static list/tuple "
+            "[N, C, H, W]: shapes are fixed when the program is built, so "
+            "a Variable out_shape (reference affine_grid_op OutputShape "
+            "input) cannot be read here")
+    out = helper.create_variable_for_type_inference(
+        theta.dtype, (theta.shape[0], out_shape[2], out_shape[3], 2))
+    helper.append_op("affine_grid", inputs={"Theta": [theta.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"output_shape": [int(s) for s in out_shape]})
+    return out
+
+
+def grid_sampler(x, grid, name=None):
+    helper = LayerHelper("grid_sampler", name=name)
+    shape = (x.shape[0], x.shape[1], grid.shape[1], grid.shape[2])
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    helper.append_op("grid_sampler",
+                     inputs={"X": [x.name], "Grid": [grid.name]},
+                     outputs={"Output": [out.name]})
+    return out
+
+
+def pixel_shuffle(x, upscale_factor):
+    helper = LayerHelper("pixel_shuffle")
+    r = int(upscale_factor)
+    n, c, h, w = x.shape
+    out = helper.create_variable_for_type_inference(
+        x.dtype, (n, c // (r * r), h * r, w * r))
+    helper.append_op("pixel_shuffle", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"upscale_factor": r})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None,
+        data_format="NCHW"):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    mid = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("lrn", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "MidOut": [mid.name]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    helper = LayerHelper("unfold", name=name)
+    ks = [kernel_sizes] * 2 if isinstance(kernel_sizes, int) \
+        else list(kernel_sizes)
+    st = [strides] * 2 if isinstance(strides, int) else list(strides)
+    pd = [paddings] * 2 if isinstance(paddings, int) else list(paddings)
+    dl = [dilations] * 2 if isinstance(dilations, int) else list(dilations)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("unfold", inputs={"X": [x.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"kernel_sizes": ks, "strides": st,
+                            "paddings": pd, "dilations": dl})
+    return out
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    helper = LayerHelper("temporal_shift", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("temporal_shift", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"seg_num": int(seg_num),
+                            "shift_ratio": float(shift_ratio)})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None, modulated=True,
+                    name=None):
+    helper = LayerHelper("deformable_conv", input=input,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    deformable_groups = deformable_groups or 1
+    num_channels = input.shape[1]
+    fs = [filter_size] * 2 if isinstance(filter_size, int) \
+        else list(filter_size)
+    stride = [stride] * 2 if isinstance(stride, int) else list(stride)
+    padding = [padding] * 2 if isinstance(padding, int) else list(padding)
+    dilation = [dilation] * 2 if isinstance(dilation, int) \
+        else list(dilation)
+    filter_shape = [num_filters, num_channels // groups] + fs
+    fan = fs[0] * fs[1] * num_channels
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, (2.0 / fan) ** 0.5))
+    inputs = {"Input": [input.name], "Offset": [offset.name],
+              "Filter": [w.name]}
+    if modulated:
+        if mask is None:
+            raise ValueError("modulated deformable_conv (v2) requires mask")
+        inputs["Mask"] = [mask.name]
+    oh = _conv3_out(input.shape[2], fs[0], padding[0], stride[0], dilation[0])
+    ow = _conv3_out(input.shape[3], fs[1], padding[1], stride[1], dilation[1])
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, (input.shape[0], num_filters, oh, ow))
+    helper.append_op(
+        "deformable_conv", inputs=inputs,
+        outputs={"Output": [pre_bias.name]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "deformable_groups": deformable_groups})
+    return helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, name=None):
+    helper = LayerHelper("psroi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "psroi_pool", inputs={"X": [input.name], "ROIs": [rois.name]},
+        outputs={"Out": [out.name]},
+        attrs={"output_channels": int(output_channels),
+               "spatial_scale": float(spatial_scale),
+               "pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width)})
+    return out
+
+
+def prroi_pool(input, rois, spatial_scale=1.0, pooled_height=1,
+               pooled_width=1, batch_roi_nums=None, name=None):
+    helper = LayerHelper("prroi_pool", name=name)
+    inputs = {"X": [input.name], "ROIs": [rois.name]}
+    if batch_roi_nums is not None:
+        inputs["BatchRoINums"] = [batch_roi_nums.name]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "prroi_pool", inputs=inputs, outputs={"Out": [out.name]},
+        attrs={"spatial_scale": float(spatial_scale),
+               "pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width)})
+    return out
 
 
 def bilinear_tensor_product(x, y, size, act=None, name=None,
@@ -354,8 +539,10 @@ def unique_with_counts(x, dtype="int32"):
     return out, index, counts
 
 
-
 __all__ = ["linear_chain_crf", "crf_decoding", "conv3d", "conv3d_transpose",
+           "pool3d", "adaptive_pool3d", "affine_grid", "grid_sampler",
+           "pixel_shuffle", "lrn", "unfold", "temporal_shift",
+           "deformable_conv", "psroi_pool", "prroi_pool",
            "bilinear_tensor_product", "chunk_eval", "cos_sim", "crop",
            "crop_tensor", "data_norm", "mean_iou", "multiplex", "row_conv",
            "unique", "unique_with_counts"]

@@ -50,3 +50,8 @@ class ParamAttr(object):
         if with_initializer:
             kwargs["initializer"] = self.initializer
         return kwargs
+
+
+# the weight-norm reparameterisation is not applied: the JAX package's
+# WeightNormParamAttr is this same alias (paddle_tpu/param_attr.py:56)
+WeightNormParamAttr = ParamAttr

@@ -26,13 +26,6 @@ DEFERRED = {
         "locality_aware_nms", "retinanet_detection_output",
         "retinanet_target_assign", "roi_perspective_transform",
         "rpn_target_assign"],
-    "the vision and extras ops, with layers/extras.py": [
-        "affine_grid", "deformable_conv", "grid_sampler", "lrn",
-        "pixel_shuffle", "pool3d", "prroi_pool", "psroi_pool",
-        "temporal_shift", "unfold", "ctc_greedy_decoder", "cvm",
-        "deformable_roi_pooling", "filter_by_instag", "gather_tree", "hash",
-        "random_crop", "resize_trilinear", "scatter_nd", "shuffle_channel",
-        "similarity_focus", "space_to_depth"],
     "the text-matching contrib (contrib_ops)": [
         "match_matrix_tensor", "sequence_topk_avg_pooling",
         "shuffle_batch", "var_conv_2d"],
@@ -47,9 +40,9 @@ def _deferred():
     return [op for ops in DEFERRED.values() for op in ops]
 
 
-def test_deferred_list_is_65_distinct_op_types():
+def test_deferred_list_is_43_distinct_op_types():
     ops = _deferred()
-    assert len(ops) == len(set(ops)) == 65
+    assert len(ops) == len(set(ops)) == 43
 
 
 def test_port_registry_is_the_jax_registry_minus_the_deferred():
@@ -62,4 +55,4 @@ def test_port_registry_is_the_jax_registry_minus_the_deferred():
         "ported but not in the JAX package: %s; in the JAX package, "
         "neither ported nor deferred: %s"
         % (sorted(port_ops - jax_ops), sorted(jax_ops - deferred - port_ops)))
-    assert len(port_ops) == 236 and len(jax_ops) == 301
+    assert len(port_ops) == 258 and len(jax_ops) == 301
