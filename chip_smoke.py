@@ -449,6 +449,7 @@ and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the ``ok`` line; so does a machine without a CUDA device, or a
 directory without the package.
 """
+import importlib
 import json
 import math
 import os
@@ -1185,6 +1186,67 @@ CTR_RTOL = 1e-5
 # (33 offsets a dim: about 10 a value).
 VX_CUT = {"pool3d": 2}
 VX_CROP_DRAWS = 330
+# The detection phases. detection_ssd: PaddleCV ssd/mobilenet_ssd.py's
+# MobileNet-v1 SSD300 on VOC (21 classes; multi_box_head over the 19, 10,
+# 5, 3, 2 and 1 maps with its sizes and ratios: SSD_PRIORS priors), its
+# training batch 64, ground truth padded to 50 boxes an image, ssd_loss at
+# its defaults summed, RMSProp(1e-3) with L2Decay(5e-5); served by
+# detection_output (softmaxed scores, NMS 0.45, keep_top_k 200) at
+# SSD_SERVE_BATCHES, the NMS's inputs (decoded boxes, scores) within
+# SSD_SERVE_TOL of the CPU's and the NMS on the card's inputs equal on
+# the CPU.
+SSD = dict(batch=64, image=300, classes=21, max_box=50, gt=6, scale=1.0,
+           lr=1e-3, l2=5e-5,
+           min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+           max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0],
+           aspect_ratios=[[2.0]] + [[2.0, 3.0]] * 5, nms=0.45,
+           keep_top_k=200)
+SSD_PRIORS = 1917
+SSD_STEPS = 6
+SSD_SERVE_BATCHES = (1, 8)
+SSD_SERVE_TOL = 1e-4
+# detection_rcnn: Faster R-CNN ResNet-50-C4 at PaddleCV rcnn's COCO
+# training settings (one 800 x 1333 image, 81 classes; anchors 32-512 at
+# ratios 0.5/1/2, stride 16, variances 1; rpn_target_assign 256 an image,
+# fg 0.5, 0.7/0.3; generate_proposals 12000 -> 2000 at NMS 0.7;
+# generate_proposal_labels 512, fg 0.25, bbox_reg_weights 0.1/0.1/0.2/0.2;
+# roi_align 14 x 14 at 1/16, res5, a global average pool, the class and
+# box fc layers; Momentum(0.01, 0.9)); eight ground truths padded to 50.
+# The sampled RoIs (at most 512 of the 2000) are gathered in front of the
+# box head, as the reference hands it 512. Its heads are held card
+# against CPU on a fed res4 map of the full (1, 1024, 50, 84) shape with
+# use_random=False: the RPN part whole, the box head on the card's first
+# RCNN_CPU_ROIS sampled RoIs (the CPU side cut in the head's batch).
+RCNN = dict(image=(800, 1333), feat=(50, 84), classes=81, max_box=50, gt=8,
+            anchor_sizes=[32.0, 64.0, 128.0, 256.0, 512.0],
+            ratios=[0.5, 1.0, 2.0], rpn_batch=256, rpn_fg=0.5, rpn_pos=0.7,
+            rpn_neg=0.3, pre_nms=12000, post_nms=2000, nms=0.7,
+            roi_batch=512, roi_fg=0.25, reg_weights=[0.1, 0.1, 0.2, 0.2],
+            roi_res=14, lr=0.01, momentum=0.9, trunk="c4", head="res5",
+            width=1024)
+RCNN_STEPS = 3
+RCNN_CPU_ROIS = 64
+RCNN_TOL = dict(rtol=1e-4, atol=1e-4)
+# the heads' gradients, held by their relative L2 error: a relu whose
+# input is within rounding of 0 passes its gradient on one side only, and
+# res5's ~29M units at 64 RoIs hold a few such; on the CPU alone a 1e-7
+# relative change of the res4 map moves res5's gradients by up to 7e-3 of
+# their largest magnitude elementwise and 5.3e-4 in L2 (measured with
+# _rcnn_program's "box" part at 320 x 448)
+RCNN_GRAD_L2 = 1e-2
+# detection_ops: each op type at a published model's shape (_dx_feeds).
+# Where the CPU side would take seconds at that shape, the comparison
+# cuts it in batch (images, or a RoI head's RoIs) and only there: DX_CUT,
+# an int for every feed's first axis or {feed: rows}. The ops whose greedy
+# loop launches a few kernels a candidate (DX_LOOP_OPS) are timed once,
+# op by op and replayed, with their launches (_op_case's ``loop``).
+DX_CUT = {"sigmoid_focal_loss": 200700, "roi_align": {"rois": 128},
+          "roi_pool": {"x": 1, "rois": 16, "nums": 1},
+          "retinanet_target_assign": {"gt": 1, "label": 1},
+          "generate_mask_labels": 1}
+DX_LOOP_OPS = ("generate_proposals", "locality_aware_nms",
+               "retinanet_detection_output")
+DX_SHUFFLE_DRAWS = 2000
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -8681,7 +8743,7 @@ class _OpCtx(object):
         self._torch = torch
         self._seed = seed
 
-    def generator(self, attrs=None):
+    def generator(self, attrs=None, flagged=True):
         g = self._torch.Generator(device=self.device)
         g.manual_seed(self._seed)
         return g
@@ -10556,27 +10618,41 @@ def _vx_runs(torch, ptt, main, start, feed, fetch, runs=4):
     """On the card: ``runs`` graphed runs (the first op by op, the second
     captured, then replays) and two op-by-op runs on one scope, fetches
     kept on the device; returns (graphed, op by op, the scope, the
-    Executor, the device feed)."""
+    Executor, the device feed, the wall ms of the first op-by-op run, of
+    the capturing run and of the last replay)."""
     dev = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
     scope = ptt.Scope()
     exe = ptt.Executor()
     exe.run(start, scope=scope)
-    graphed = [exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
-                       return_numpy=False) for _ in range(runs)]
-    plain = [exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
-                     return_numpy=False, use_program_cache=False)
-             for _ in range(2)]
-    return graphed, plain, scope, exe, dev
+    walls, graphed, plain = [], [], []
+    for cache in [True] * runs + [False] * 2:
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
+                      return_numpy=False, use_program_cache=cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        (graphed if cache else plain).append(out)
+    return graphed, plain, scope, exe, dev, {
+        "op_by_op": walls[runs], "capture": walls[1],
+        "replay": walls[runs - 1]}
 
 
-def _vx_on_cpu(torch, ptt, main, start, feed, fetch, scope):
-    """The program on the CPU from the card scope's parameters."""
-    params = {p.name: scope.find_var(p.name).cpu().numpy()
-              for p in main.all_parameters()}
+def _to_cpu_scope(torch, ptt, main, start, scope):
+    """A CPU scope holding ``main``'s persistables copied from the card's
+    ``scope``."""
+    values = {v.name: scope.find_var(v.name).cpu().numpy()
+              for v in main.list_vars() if v.persistable
+              and scope.find_var(v.name) is not None}
     cscope = ptt.Scope()
     exe = ptt.Executor(ptt.CPUPlace())
     exe.run(start, scope=cscope)
-    ptt.set_params_from_numpy(params, main, cscope, ptt.CPUPlace())
+    ptt.set_params_from_numpy(values, main, cscope, ptt.CPUPlace())
+    return cscope, exe
+
+
+def _vx_on_cpu(torch, ptt, main, start, feed, fetch, scope):
+    """The program on the CPU from the card scope's persistables."""
+    cscope, exe = _to_cpu_scope(torch, ptt, main, start, scope)
     t0 = time.perf_counter()
     out = exe.run(main, feed=feed, fetch_list=fetch, scope=cscope,
                   return_numpy=False)
@@ -10682,86 +10758,117 @@ def _vx_random_crop(torch, np, ptt, feed, call):
             "seconds": time.perf_counter() - t0}
 
 
+def _op_case(torch, np, ptt, op, feed, call, diff, exact, cut=None,
+             loop=False):
+    """One op type of vision_extras or detection_ops through its layers
+    function into its own program (_vx_program): graphed replays equal
+    to op-by-op runs bit for bit, two runs of each kind bit-equal,
+    outputs finite (_vx_runs); the card against the CPU within
+    OP_LIB_TOL (what moves or chooses data exactly: ``exact``) at the
+    full shape, or at ``cut``'s batch on the CPU side only (_cut_feed);
+    the kernel's device ms forward and backward (_vx_op_ms), or for a
+    ``loop`` op (its greedy loop a launch group a step) a replay's wall
+    ms, its device kernels (_profiled), the op-by-op run's ms and the
+    capture. Returns its result record."""
+    t0 = time.perf_counter()
+    shapes = _vx_out_shapes(torch, ptt, feed, call) if diff else None
+    main, start, fetch, n_out, feed = _vx_program(np, ptt, feed, call,
+                                                  diff, shapes)
+    graphed, plain, scope, exe, dev, walls = _vx_runs(torch, ptt, main,
+                                                      start, feed, fetch)
+    replay_equal = all(_same_bits(torch, a, b) for a, b in
+                       zip(graphed[2], plain[0]))
+    replays_equal = all(_same_bits(torch, a, b) for a, b in
+                        zip(graphed[2], graphed[3]))
+    plain_equal = all(_same_bits(torch, a, b) for a, b in
+                      zip(plain[0], plain[1]))
+    finite = all(bool(torch.isfinite(t).all()) for t in graphed[3]
+                 if t.is_floating_point())
+    runs = dict(exe.graph_runs)
+    extra = {}
+    if loop:
+        prof = _profiled(torch, lambda: exe.run(
+            main, feed=dev, fetch_list=fetch, scope=scope,
+            return_numpy=False))
+        ms = walls["replay"]
+        extra["loop"] = {
+            "op_by_op_ms": walls["op_by_op"],
+            "capture_run_ms": walls["capture"], "replay_ms": ms,
+            "capture": _capture_record(exe),
+            "replay_device_kernels": prof["device_kernels"],
+            "replay_device_busy_ms": prof["device_busy_ms"]}
+    else:
+        ms = _vx_op_ms(torch, np, op, dev, diff, main)
+    if cut is not None:
+        cfeed = _cut_feed(feed, cut)
+        cmain, cstart, cfetch, _, cfeed = _vx_program(
+            np, ptt, cfeed, call, diff,
+            _vx_out_shapes(torch, ptt, cfeed, call) if diff else None)
+        cgraphed, _, cscope, cexe, _, _ = _vx_runs(torch, ptt, cmain,
+                                                   cstart, cfeed, cfetch,
+                                                   runs=3)
+        card, want_main, want_start, want_feed, want_fetch = \
+            cgraphed[2], cmain, cstart, cfeed, cfetch
+        card_scope = cscope
+        cexe.close()
+    else:
+        card, want_main, want_start, want_feed, want_fetch = \
+            graphed[2], main, start, feed, fetch
+        card_scope = scope
+    want, cpu_s = _vx_on_cpu(torch, ptt, want_main, want_start, want_feed,
+                             want_fetch, card_scope)
+    errs, scales, close = [], [], True
+    for i, (g, w) in enumerate(zip(card, want)):
+        e, good = _close_to(torch, g.cpu(), w, i in exact)
+        errs.append(e)
+        scales.append(float(w.double().abs().max()) if w.numel()
+                      else 0.0)
+        close = close and good
+    exe.close()
+    good = (replay_equal and replays_equal and plain_equal and finite and
+            close and runs["replay"] >= 2)
+    return dict({
+        "ok": good, "shapes": {k: list(v.shape) for k, v in feed.items()
+                               if not k.startswith("cot_")},
+        "cpu_shapes": ({k: list(v.shape) for k, v in want_feed.items()
+                        if not k.startswith("cot_")}
+                       if cut is not None else "full"),
+        "outputs": n_out, "grads": len(fetch) - n_out,
+        "replay_equals_op_by_op": replay_equal,
+        "replays_equal": replays_equal, "op_by_op_runs_equal": plain_equal,
+        "finite": finite, "graph_runs": runs,
+        "max_abs_err_vs_cpu": errs, "max_abs_cpu": scales,
+        "exact": list(exact), "cpu_s": cpu_s, "fwd_bwd_ms": ms,
+        "seconds": time.perf_counter() - t0}, **extra)
+
+
+def _cut_feed(feed, cut):
+    """The CPU side's feed cut in batch: ``cut`` an int (every feed's
+    first axis) or {name: rows}; the cotangents are made again."""
+    if isinstance(cut, int):
+        return {k: v[:cut] for k, v in feed.items()
+                if not k.startswith("cot_")}
+    return {k: (v[:cut[k]] if k in cut else v) for k, v in feed.items()
+            if not k.startswith("cot_")}
+
+
 def vision_extras(torch, np, ptt, counters):
-    """The 22 vision and extras op types on the card, each through its
-    layers function into its own program (_vx_feeds: a published model's
-    shape; append_backward of its float outputs against seeded random
-    cotangents where it is differentiable, _vx_program): graphed replays
-    equal to op-by-op runs bit for bit, two runs of each kind bit-equal,
-    outputs finite; the card against the CPU (within OP_LIB_TOL, what
-    moves or chooses data exactly: outputs and the gradients of every
-    differentiable input and parameter) at the full shape or, for pool3d,
-    whose CPU side would take about 6 s at it, at VX_CUT's batch;
-    random_crop by its draws (_vx_random_crop); each op's kernel timed
-    forward and backward at its shape (_vx_op_ms). No op reaches a
-    hand-written kernel: the launch counters stay at 0."""
+    """The 22 vision and extras op types on the card, each at a published
+    model's shape (_vx_feeds) through _op_case: graphed replays equal to
+    op-by-op runs bit for bit, the card against the CPU at the full shape
+    or, for pool3d, whose CPU side would take about 6 s at it, at
+    VX_CUT's batch; random_crop by its draws (_vx_random_crop). No op
+    reaches a hand-written kernel: the launch counters stay at 0."""
     counters.zero()
     results, ok = {}, True
     for op, feed, call, diff, exact in _vx_feeds(
             np, np.random.RandomState(SEED)):
-        t0 = time.perf_counter()
         if op == "random_crop":
             results[op] = _vx_random_crop(torch, np, ptt, feed, call)
-            ok = ok and results[op]["ok"]
-            continue
-        shapes = _vx_out_shapes(torch, ptt, feed, call) if diff else None
-        main, start, fetch, n_out, feed = _vx_program(np, ptt, feed, call,
-                                                      diff, shapes)
-        graphed, plain, scope, exe, dev = _vx_runs(torch, ptt, main, start,
-                                                   feed, fetch)
-        replay_equal = all(_same_bits(torch, a, b) for a, b in
-                           zip(graphed[2], plain[0]))
-        replays_equal = all(_same_bits(torch, a, b) for a, b in
-                            zip(graphed[2], graphed[3]))
-        plain_equal = all(_same_bits(torch, a, b) for a, b in
-                          zip(plain[0], plain[1]))
-        finite = all(bool(torch.isfinite(t).all()) for t in graphed[3]
-                     if t.is_floating_point())
-        ms = _vx_op_ms(torch, np, op, dev, diff, main)
-        if op in VX_CUT:
-            cfeed = {k: v[:VX_CUT[op]] for k, v in feed.items()
-                     if not k.startswith("cot_")}
-            cmain, cstart, cfetch, _, cfeed = _vx_program(
-                np, ptt, cfeed, call, diff,
-                _vx_out_shapes(torch, ptt, cfeed, call))
-            cgraphed, _, cscope, cexe, _ = _vx_runs(torch, ptt, cmain,
-                                                    cstart, cfeed, cfetch,
-                                                    runs=3)
-            card, want_main, want_start, want_feed, want_fetch = \
-                cgraphed[2], cmain, cstart, cfeed, cfetch
-            card_scope = cscope
-            cexe.close()
         else:
-            card, want_main, want_start, want_feed, want_fetch = \
-                graphed[2], main, start, feed, fetch
-            card_scope = scope
-        want, cpu_s = _vx_on_cpu(torch, ptt, want_main, want_start,
-                                 want_feed, want_fetch, card_scope)
-        errs, scales, close = [], [], True
-        for i, (g, w) in enumerate(zip(card, want)):
-            e, good = _close_to(torch, g.cpu(), w, i in exact)
-            errs.append(e)
-            scales.append(float(w.double().abs().max()) if w.numel()
-                          else 0.0)
-            close = close and good
-        runs = dict(exe.graph_runs)
-        exe.close()
-        good = (replay_equal and replays_equal and plain_equal and finite
-                and close and runs["replay"] >= 2)
-        results[op] = {
-            "ok": good, "shapes": {k: list(v.shape) for k, v in feed.items()},
-            "cpu_shapes": ({k: list(v.shape) for k, v in want_feed.items()}
-                           if op in VX_CUT else "full"),
-            "outputs": n_out, "grads": len(fetch) - n_out,
-            "replay_equals_op_by_op": replay_equal,
-            "replays_equal": replays_equal,
-            "op_by_op_runs_equal": plain_equal, "finite": finite,
-            "graph_runs": runs, "max_abs_err_vs_cpu": errs,
-            "max_abs_cpu": scales,
-            "exact": list(exact), "cpu_s": cpu_s, "fwd_bwd_ms": ms,
-            "seconds": time.perf_counter() - t0}
-        ok = ok and good
-        del graphed, plain, scope, dev
+            results[op] = _op_case(torch, np, ptt, op, feed, call, diff,
+                                   exact, VX_CUT.get(op))
+        ok = ok and results[op]["ok"]
     launches = counters.read_all()
     ok = ok and len(results) == 22 and not any(launches.values())
     emit({"phase": "vision_extras", "ok": ok, "op_types": len(results),
@@ -10772,6 +10879,918 @@ def vision_extras(torch, np, ptt, counters):
                              "above)")
     return launches
 
+def _ssd_maps(pkg, img, w, is_test=False):
+    """The feature maps multi_box_head reads: PaddleCV mobilenet_ssd's
+    module11, module13 and the four extra blocks (19, 10, 5, 3, 2, 1 at
+    300 x 300), or with ``narrow`` two maps of a conv and two blocks."""
+    vis = importlib.import_module(pkg.__name__ + ".models.vision")
+
+    def conv_bn(x, c, k, stride=1):
+        return vis._conv_bn(x, c, k, stride=stride, is_test=is_test)
+
+    def dw_sep(x, cin, cout, stride, s=1.0):
+        return vis._depthwise_separable(x, cin, cout, stride, s,
+                                        is_test=is_test)
+
+    def extra(x, c1, c2):
+        # PaddleCV mobilenet_ssd's extra_block: 1x1, then 3x3 stride 2
+        return conv_bn(conv_bn(x, c1, 1), c2, 3, stride=2)
+    if w.get("narrow"):
+        m1 = dw_sep(conv_bn(img, 8, 3, stride=2), 8, 16, 2)
+        return [m1, extra(m1, 8, 16)]
+    s = w["scale"]
+    h = conv_bn(img, int(32 * s), 3, stride=2)
+    for cin, cout, st in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                          (128, 256, 2), (256, 256, 1), (256, 512, 2)) + \
+            ((512, 512, 1),) * 5:
+        h = dw_sep(h, cin, cout, st, s)
+    maps = [h]
+    h = dw_sep(h, 512, 1024, 2, s)
+    maps.append(dw_sep(h, 1024, 1024, 1, s))
+    for c1, c2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+        maps.append(extra(maps[-1], int(c1 * s), int(c2 * s)))
+    return maps
+
+
+def _ssd_program(pkg, w, serve=False, batch=None):
+    """MobileNet-v1 SSD (SSD's keys) built with ``pkg``'s layers (the
+    port, or the JAX package in tests/test_torch_detection_layers.py):
+    (main, startup, fetch). Training: [summed ssd_loss, the priors] with
+    RMSProp and L2Decay; ``serve``: [detection_output's rows (N,
+    keep_top_k, 6), the priors] at ``batch``, the batch norms in test
+    mode. Both build the same parameters in the same order, so the names
+    match."""
+    L = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    b = batch or w["batch"]
+    im = w["image"]
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        img = L.data("image", [b, 3, im, im], append_batch_size=False)
+        locs, confs, box, var = L.multi_box_head(
+            _ssd_maps(pkg, img, w, is_test=serve), img, base_size=im,
+            num_classes=w["classes"], aspect_ratios=w["aspect_ratios"],
+            min_sizes=w["min_sizes"], max_sizes=w["max_sizes"], offset=0.5,
+            flip=True)
+        if serve:
+            fetch = [L.detection_output(locs, L.softmax(confs), box, var,
+                                        nms_threshold=w["nms"],
+                                        keep_top_k=w["keep_top_k"]), box]
+        else:
+            g = w["max_box"]
+            gt_box = L.data("gt_box", [b, g, 4], append_batch_size=False)
+            gt_label = L.data("gt_label", [b, g, 1], "int32",
+                              append_batch_size=False)
+            loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label,
+                                           box, var))
+            pkg.optimizer.RMSProp(
+                w["lr"], regularization=pkg.regularizer.L2Decay(w["l2"])
+            ).minimize(loss)
+            fetch = [loss, box]
+    startup.random_seed = SEED
+    return main, startup, fetch
+
+
+def _ssd_feed(np, w, seed=0, batch=None):
+    """Images in [0, 1) and each image's ``gt`` ground truths (the rest
+    of max_box zero), normalized xyxy boxes of a tenth to a half of the
+    image, classes 1..classes-1."""
+    rng = np.random.RandomState(seed)
+    b = batch or w["batch"]
+    feed = {"image": rng.rand(b, 3, w["image"], w["image"]).astype(
+        np.float32)}
+    if batch is not None:
+        return feed
+    g, k = w["max_box"], w["gt"]
+    lo = rng.uniform(0.0, 0.5, (b, k, 2))
+    box = np.concatenate([lo, lo + rng.uniform(0.1, 0.5, (b, k, 2))], -1)
+    feed["gt_box"] = np.zeros((b, g, 4), np.float32)
+    feed["gt_box"][:, :k] = np.minimum(box, 1.0)
+    feed["gt_label"] = np.zeros((b, g, 1), np.int32)
+    feed["gt_label"][:, :k, 0] = rng.randint(1, w["classes"], (b, k))
+    return feed
+
+
+def _c4_trunk(pkg, res, img, w):
+    """ResNet-50 through res4 (stride 16, 1024 channels) from
+    ``models/resnet.py``'s layers, or with trunk "tiny" two stride-4
+    conv_bns to ``width`` channels."""
+    L = pkg.layers
+    if w["trunk"] == "tiny":
+        h = res.conv_bn_layer(img, 8, 3, stride=4, act="relu", name="t1")
+        return res.conv_bn_layer(h, w["width"], 3, stride=4, act="relu",
+                                 name="t2")
+    h = res.conv_bn_layer(img, 64, 7, stride=2, act="relu", name="conv1")
+    h = L.pool2d(h, 3, "max", 2, 1)
+    for stage, (n, f, st) in enumerate(((3, 64, 1), (4, 128, 2),
+                                        (6, 256, 2))):
+        for i in range(n):
+            h = res.bottleneck_block(h, f, st if i == 0 else 1,
+                                     "res%d%s" % (stage + 2, chr(97 + i)))
+    return h
+
+
+def _normal(pkg, name, std):
+    return pkg.ParamAttr(name=name,
+                         initializer=pkg.initializer.Normal(0.0, std))
+
+
+def _per_sampled(L, total, mask):
+    """``total`` over the count of ``mask``'s ones (at least 1)."""
+    count = L.clip(L.reduce_sum(mask), 1.0, 1e30)
+    count.stop_gradient = True
+    return L.elementwise_div(L.reduce_sum(total), count)
+
+
+def _rcnn_rpn(pkg, L, feat, gt_box, is_crowd, im_info, w, use_random):
+    """The RPN head (a 3x3 conv, the objectness and box 1x1 convs), its
+    anchors, rpn_target_assign and the two RPN losses (sigmoid CE over
+    the sampled anchors, smooth-L1 at sigma 3 over the foreground, both
+    per sampled anchor): (cls loss, box loss, objectness logits map, box
+    map, anchors, variances)."""
+    na = len(w["anchor_sizes"]) * len(w["ratios"])
+    conv = L.conv2d(feat, w["width"], 3, padding=1, act="relu",
+                    param_attr=_normal(pkg, "conv_rpn_w", 0.01),
+                    bias_attr=pkg.ParamAttr(name="conv_rpn_b"))
+    cls = L.conv2d(conv, na, 1, param_attr=_normal(pkg, "rpn_cls_w", 0.01),
+                   bias_attr=pkg.ParamAttr(name="rpn_cls_b"))
+    bbox = L.conv2d(conv, 4 * na, 1,
+                    param_attr=_normal(pkg, "rpn_bbox_w", 0.01),
+                    bias_attr=pkg.ParamAttr(name="rpn_bbox_b"))
+    anchor, var = L.anchor_generator(
+        feat, anchor_sizes=w["anchor_sizes"], aspect_ratios=w["ratios"],
+        variance=[1.0, 1.0, 1.0, 1.0], stride=[16.0, 16.0])
+    # the anchors are (H, W, A, 4): the maps go to that order
+    cls_t = L.reshape(L.transpose(cls, [0, 2, 3, 1]), [1, -1])
+    box_t = L.reshape(L.transpose(bbox, [0, 2, 3, 1]), [1, -1, 4])
+    _, _, labels, tgt, inw = L.rpn_target_assign(
+        box_t, cls_t, L.reshape(anchor, [-1, 4]), L.reshape(var, [-1, 4]),
+        gt_box, is_crowd, im_info, rpn_batch_size_per_im=w["rpn_batch"],
+        rpn_straddle_thresh=0.0, rpn_fg_fraction=w["rpn_fg"],
+        rpn_positive_overlap=w["rpn_pos"],
+        rpn_negative_overlap=w["rpn_neg"], use_random=use_random)
+    labf = L.cast(labels, "float32")
+    sampled = L.clip(L.scale(labf, bias=1.0), 0.0, 1.0)
+    target = L.relu(labf)
+    cls_loss = _per_sampled(L, L.elementwise_mul(
+        L.sigmoid_cross_entropy_with_logits(cls_t, target), sampled),
+        sampled)
+    box_loss = _per_sampled(L, L.smooth_l1(box_t, tgt, inw, inw, sigma=3.0),
+                            sampled)
+    return cls_loss, box_loss, cls, bbox, anchor, var
+
+
+def _rcnn_sampled(pkg, L, rois, labels, tgt, inw, n):
+    """The ``n`` RoIs generate_proposal_labels sampled (label >= 0; the
+    first in top_k's order of a 0/1 key, so every sampled one while there
+    are at most ``n``), gathered: (rois, labels, targets, weights, 0/1
+    sampled)."""
+    key = L.clip(L.scale(L.cast(labels, "float32"), bias=1.0), 0.0, 1.0)
+    _, idx = L.topk(key, n)
+    idx = L.reshape(idx, [-1])
+
+    def pick(v, k):
+        out = L.gather(L.reshape(v, [-1, k]), idx)
+        out.stop_gradient = True
+        return out
+    return (pick(rois, 4), pick(labels, 1), pick(tgt, 4), pick(inw, 4),
+            pick(key, 1))
+
+
+def _rcnn_box_head(pkg, L, res, feat, rois, labels, tgt, inw, sampled, w):
+    """roi_align 14 x 14 at 1/16 (sampling_ratio 0), res5 (or with head
+    "tiny" one conv_bn), a global average pool, the class and
+    class-specific box fc layers; softmax CE over the sampled RoIs and
+    smooth-L1 of the label's box over the foreground, both per sampled
+    RoI: (cls loss, box loss)."""
+    c = w["classes"]
+    h = L.reshape(L.roi_align(feat, rois, w["roi_res"], w["roi_res"],
+                              1.0 / 16.0, sampling_ratio=0),
+                  [-1, w["width"], w["roi_res"], w["roi_res"]])
+    if w["head"] == "tiny":
+        h = res.conv_bn_layer(h, 16, 3, stride=2, act="relu", name="h5")
+    else:
+        for i, st in enumerate((2, 1, 1)):
+            h = res.bottleneck_block(h, 512, st, "res5%s" % chr(97 + i))
+    h = L.pool2d(h, pool_type="avg", global_pooling=True)
+    score = L.fc(h, c, param_attr=_normal(pkg, "cls_score_w", 0.01),
+                 bias_attr=pkg.ParamAttr(name="cls_score_b"))
+    pred = L.fc(h, 4 * c, param_attr=_normal(pkg, "bbox_pred_w", 0.001),
+                bias_attr=pkg.ParamAttr(name="bbox_pred_b"))
+    lab = L.cast(L.relu(L.cast(labels, "float32")), "int64")
+    cls_loss = _per_sampled(L, L.elementwise_mul(
+        L.softmax_with_cross_entropy(score, lab), sampled), sampled)
+    hot = L.one_hot(lab, c)
+    hot.stop_gradient = True
+    mine = L.reduce_sum(L.elementwise_mul(
+        L.reshape(pred, [-1, c, 4]), L.unsqueeze(hot, [2])), dim=1)
+    box_loss = _per_sampled(L, L.smooth_l1(mine, tgt, inw, inw, sigma=1.0),
+                            sampled)
+    return cls_loss, box_loss
+
+
+def _rcnn_program(pkg, w, part="train", use_random=True, rois=None):
+    """Faster R-CNN ResNet-50-C4 (RCNN's keys) built with ``pkg``'s
+    layers: (main, startup, fetch). ``part`` "train": the image through
+    the trunk, the RPN (its losses; generate_proposals, then
+    generate_proposal_labels), the sampled RoIs' box head; fetch the four
+    losses, their sum first, then the box head's gathered inputs (RoIs,
+    labels, targets, weights, sampled mask); Momentum. "rpn": the RPN's two losses from a
+    fed ``res4`` map; "box": the box head's two from a fed ``res4`` and
+    ``rois`` fed RoIs with their labels, targets, weights and sampled
+    mask; both fetch the gradients of the sum to the map and every
+    parameter after the losses. Parameters are named, so the parts share
+    the train program's."""
+    L = pkg.layers
+    res = importlib.import_module(pkg.__name__ + ".models.resnet")
+    main, startup = pkg.Program(), pkg.Program()
+    g = w["max_box"]
+
+    def data(name, shape, dtype="float32", grad=False):
+        return L.data(name, list(shape), dtype, append_batch_size=False,
+                      stop_gradient=not grad)
+    with pkg.unique_name.guard(), pkg.program_guard(main, startup):
+        gt_box = data("gt_box", (1, g, 4))
+        gt_class = data("gt_class", (1, g, 1), "int32")
+        is_crowd = data("is_crowd", (1, g, 1), "int32")
+        im_info = data("im_info", (1, 3))
+        if part == "train":
+            feat = _c4_trunk(pkg, res, data("image", (1, 3) + tuple(
+                w["image"])), w)
+        else:
+            feat = data("res4", (1, w["width"]) + tuple(w["feat"]),
+                        grad=True)
+        losses = []
+        if part in ("train", "rpn"):
+            rpn_cls, rpn_box, cls, bbox, anchor, var = _rcnn_rpn(
+                pkg, L, feat, gt_box, is_crowd, im_info, w, use_random)
+            losses += [rpn_cls, rpn_box]
+        if part == "train":
+            props, _ = L.generate_proposals(
+                L.sigmoid(cls), bbox, im_info, anchor, var,
+                pre_nms_top_n=w["pre_nms"], post_nms_top_n=w["post_nms"],
+                nms_thresh=w["nms"], min_size=0.0, eta=1.0)
+            # the reference's generate_proposal_labels samples from the
+            # proposals and the ground truths: they go in after the
+            # proposals here (padding gts are empty boxes, background)
+            props = L.concat([L.reshape(props, [1, w["post_nms"], 4]),
+                              gt_box], axis=1)
+            props.stop_gradient = True
+            rois_all, labels, tgt, inw, _ = L.generate_proposal_labels(
+                props, gt_class, is_crowd, gt_box, im_info,
+                batch_size_per_im=w["roi_batch"], fg_fraction=w["roi_fg"],
+                fg_thresh=0.5, bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+                bbox_reg_weights=w["reg_weights"], class_nums=w["classes"],
+                use_random=use_random)
+            head_in = _rcnn_sampled(pkg, L, rois_all, labels, tgt, inw,
+                                    w["roi_batch"])
+        elif part == "box":
+            head_in = (data("rois", (rois, 4)),
+                       data("labels", (rois, 1), "int32"),
+                       data("tgt", (rois, 4)), data("inw", (rois, 4)),
+                       data("sampled", (rois, 1)))
+        if part in ("train", "box"):
+            losses += list(_rcnn_box_head(pkg, L, res, feat, *head_in,
+                                          w=w))
+        total = L.sums(losses)
+        fetch = [total] + losses
+        if part == "train":
+            pkg.optimizer.Momentum(w["lr"], w["momentum"]).minimize(total)
+            fetch += list(head_in)
+        else:
+            fetch += [gv for _, gv in pkg.append_backward(
+                total, parameter_list=[feat] + main.all_parameters())]
+    startup.random_seed = SEED
+    return main, startup, fetch
+
+
+def _rcnn_feed(np, w, seed=0, part="train"):
+    """One image's feed: ``gt`` ground-truth boxes of 48 to 400 pixels
+    (the rest of max_box zero), classes 1..80, none crowd; the image in
+    [0, 1) (train) or a res4 map of N(0, 1) values (the parts)."""
+    rng = np.random.RandomState(seed)
+    hh, ww = w["image"]
+    g, k = w["max_box"], w["gt"]
+    x1 = rng.uniform(0, ww * 0.6, k)
+    y1 = rng.uniform(0, hh * 0.6, k)
+    side = rng.uniform(48, 400, (k, 2)) * np.array([ww, hh]) / 1333.0
+    box = np.stack([x1, y1, np.minimum(x1 + side[:, 0], ww - 1),
+                    np.minimum(y1 + side[:, 1], hh - 1)], 1)
+    feed = {"gt_box": np.zeros((1, g, 4), np.float32),
+            "gt_class": np.zeros((1, g, 1), np.int32),
+            "is_crowd": np.zeros((1, g, 1), np.int32),
+            "im_info": np.float32([[hh, ww, 1.0]])}
+    feed["gt_box"][0, :k] = box
+    feed["gt_class"][0, :k, 0] = rng.randint(1, w["classes"], k)
+    if part == "train":
+        feed["image"] = rng.rand(1, 3, hh, ww).astype(np.float32)
+    else:
+        feed["res4"] = rng.standard_normal(
+            (1, w["width"]) + tuple(w["feat"])).astype(np.float32)
+    return feed
+
+
+def _detections_match(np, got, want, tol):
+    """Rows of detection_output (N, K, 6) [label, score, box] held card
+    against CPU: each image's kept rows (label >= 0) matched one to one,
+    a card row to an unmatched CPU row of the same label whose score and
+    box agree within ``tol`` (rows whose scores agree within it may come
+    in either order); the padding rows equal. Returns (ok, kept rows,
+    unmatched rows)."""
+    kept, unmatched = 0, 0
+    for g, w_ in zip(got, want):
+        gk, wk = g[g[:, 0] >= 0], w_[w_[:, 0] >= 0]
+        kept += len(wk)
+        if len(gk) != len(wk) or not np.array_equal(g[g[:, 0] < 0],
+                                                    w_[w_[:, 0] < 0]):
+            unmatched += abs(len(gk) - len(wk)) or 1
+            continue
+        free = np.ones(len(wk), bool)
+        for row in gk:
+            hit = np.flatnonzero(free & (wk[:, 0] == row[0]) & np.all(
+                np.abs(wk[:, 1:] - row[1:]) <= tol, axis=1))
+            if hit.size:
+                free[hit[0]] = False
+            else:
+                unmatched += 1
+    return unmatched == 0, kept, unmatched
+
+
+def detection_ssd(torch, np, ptt, counters):
+    """MobileNet-v1 SSD300 at PaddleCV ssd's VOC settings (SSD,
+    _ssd_program): the priors (SSD_PRIORS, their values against the
+    CPU's exactly); SSD_STEPS training steps graphed from the second
+    (losses finite, the last below the first, a replay equal to an
+    op-by-op step bit for bit, ms a step, peak memory, no hand-written
+    kernel launched); then detection_output from the trained weights at
+    SSD_SERVE_BATCHES: graphed replays equal to an op-by-op request bit
+    for bit, the card's answers against the CPU's (below), a replayed
+    request's ms, its device kernels and busy
+    time (torch.profiler), no hand-written kernel launched. The card's
+    answers are held through the NMS's inputs: the decoded boxes and the
+    softmaxed scores within SSD_SERVE_TOL of the CPU's, and the NMS run
+    on the CPU from the card's own inputs giving the card's rows bit for
+    bit. End to end, the rows are matched too (_detections_match) and
+    the unmatched counted, not failed: a suppression whose IoU sits
+    within rounding of the threshold goes either way, and the rest of
+    that class's greedy pass follows it."""
+    w = SSD
+    main, start, fetch = _ssd_program(ptt, w)
+    feed = _ssd_feed(np, w)
+    record, ok, launches, (exe, scope) = _train_zoo(
+        torch, np, ptt, counters, main, start, feed, fetch[:1], SSD_STEPS,
+        _no_launches(counters))
+    losses = [row[0] for row in record["losses"]]
+    falling = losses[-1] < losses[0]
+    serve = {}
+    priors_ok = False
+    from paddle_tpu_torch.ops.registry import get_op
+    for b in SSD_SERVE_BATCHES:
+        imain, istart, ifetch = _ssd_program(ptt, w, serve=True, batch=b)
+        nms = next(op for op in imain.global_block().ops
+                   if op.type == "multiclass_nms")
+        ifetch = ifetch + [imain.global_block().var(nms.input(slot)[0])
+                           for slot in ("BBoxes", "Scores")]
+        ifeed = _ssd_feed(np, w, seed=1, batch=b)
+        dev = {k: torch.from_numpy(v).cuda() for k, v in ifeed.items()}
+        counters.zero()
+        runs = [exe.run(imain, feed=dev, fetch_list=ifetch, scope=scope,
+                        return_numpy=False) for _ in range(4)]
+        plain = exe.run(imain, feed=dev, fetch_list=ifetch, scope=scope,
+                        return_numpy=False, use_program_cache=False)
+        served = counters.read()
+        equal = all(_same_bits(torch, a, p) for a, p in zip(runs[3], plain))
+        times = []
+        for _ in range(GRAPH_SERVE_REPS):
+            t0 = time.perf_counter()
+            exe.run(imain, feed=dev, fetch_list=ifetch, scope=scope,
+                    return_numpy=False)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof = _profiled(torch, lambda: exe.run(
+            imain, feed=dev, fetch_list=ifetch, scope=scope,
+            return_numpy=False))
+        cscope, cexe = _to_cpu_scope(torch, ptt, imain, istart, scope)
+        want = cexe.run(imain, feed=ifeed, fetch_list=ifetch, scope=cscope)
+        got = runs[3][0].cpu().numpy()
+        match, kept, unmatched = _detections_match(np, got, want[0],
+                                                   SSD_SERVE_TOL)
+        pre_err = [float(np.abs(runs[3][i].cpu().numpy() - want[i]).max())
+                   for i in (2, 3)]
+        pre_ok = max(pre_err) <= SSD_SERVE_TOL
+        on_cpu = get_op("multiclass_nms").fn(
+            _OpCtx(torch, "cpu"), {"BBoxes": [runs[3][2].cpu()],
+                                   "Scores": [runs[3][3].cpu()]},
+            dict(nms.attrs))["Out"]
+        nms_same = bool(torch.equal(on_cpu, runs[3][0].cpu()))
+        priors = runs[3][1]
+        priors_ok = priors.shape[0] == SSD_PRIORS and bool(torch.equal(
+            priors.cpu(), torch.from_numpy(np.asarray(want[1]))))
+        good = equal and pre_ok and nms_same and priors_ok and \
+            not any(served.values())
+        serve[str(b)] = {
+            "ok": good, "replay_equals_op_by_op": equal,
+            "nms_inputs_max_err_vs_cpu": pre_err,
+            "nms_on_cpu_from_card_inputs_equal": nms_same,
+            "rows_match_cpu_end_to_end": match, "kept_rows": kept,
+            "unmatched_rows_end_to_end": unmatched, "request_ms": times,
+            "request_ms_median": statistics.median(times),
+            "device_kernels": prof["device_kernels"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "idle_share_unprofiled": prof["idle_share_unprofiled"],
+            "launches": served, "priors": int(priors.shape[0]),
+            "priors_equal_cpu": priors_ok}
+        ok = ok and good
+    ok = ok and falling
+    close_executor(torch, "detection_ssd", exe)
+    emit(dict({"phase": "detection_ssd", "ok": ok, "model": "mobilenet_ssd",
+               "widths": w, "priors": SSD_PRIORS, "losses_fall": falling,
+               "optimizer": "RMSProp(1e-3), L2Decay(5e-5)",
+               "serve": serve, "serve_tol": SSD_SERVE_TOL}, **record))
+    if not ok:
+        raise AssertionError("detection_ssd checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _both_ways_runs(torch, ptt, main, start, feed, fetch, runs):
+    """``runs`` graphed runs of ``main`` on the card (the first op by op,
+    the second captured, then replays) and as many op-by-op runs from a
+    copy of the started scope: (graphed fetches, op-by-op fetches, the
+    graphed step ms, the scope, the Executor)."""
+    dev = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(start, scope=scope)
+    twin = _copy_scope(torch, ptt, scope)
+    graphed, step_ms = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        graphed.append(exe.run(main, feed=dev, fetch_list=fetch,
+                               scope=scope, return_numpy=False))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    plain = [exe.run(main, feed=dev, fetch_list=fetch, scope=twin,
+                     return_numpy=False, use_program_cache=False)
+             for _ in range(runs)]
+    return graphed, plain, step_ms, scope, exe
+
+
+def _part_vs_cpu(torch, np, ptt, w, part, feed, rois=None):
+    """An RCNN part on the card (graphed and op by op, _vx_runs) and
+    on the CPU from the card's parameters, its losses within RCNN_TOL
+    (atol times the largest magnitude) and its gradients within
+    RCNN_GRAD_L2 in relative L2: (record, ok)."""
+    main, start, fetch = _rcnn_program(ptt, w, part=part, use_random=False,
+                                       rois=rois)
+    graphed, plain, scope, exe, _, walls = _vx_runs(torch, ptt, main, start,
+                                                    feed, fetch)
+    equal = all(_same_bits(torch, a, b) for g in graphed[2:] + plain[1:]
+                for a, b in zip(g, plain[0]))
+    cscope, cexe = _to_cpu_scope(torch, ptt, main, start, scope)
+    t0 = time.perf_counter()
+    want = cexe.run(main, feed=feed, fetch_list=fetch, scope=cscope,
+                    return_numpy=False)
+    cpu_s = time.perf_counter() - t0
+    errs, l2s, close = [], [], True
+    for i, (g, c) in enumerate(zip(graphed[0], want)):
+        g, c = g.cpu().double(), c.double()
+        scale = max(float(c.abs().max()), 1e-30)
+        errs.append(float((g - c).abs().max()) / scale)
+        l2s.append(float((g - c).norm() / max(float(c.norm()), 1e-30)))
+        if i < 3:
+            close = close and bool(((g - c).abs() <= RCNN_TOL["atol"] *
+                                    scale + RCNN_TOL["rtol"] *
+                                    c.abs()).all())
+        else:
+            close = close and l2s[-1] <= RCNN_GRAD_L2
+    exe.close()
+    record = {"ok": equal and close, "replay_equals_op_by_op": equal,
+              "close_to_cpu": close,
+              "losses": [float(v) for v in graphed[0][:3]],
+              "grads": len(fetch) - 3, "max_err_over_scale": errs,
+              "l2_rel_err": l2s, "walls_ms": walls, "cpu_s": cpu_s}
+    return record, equal and close
+
+
+def detection_rcnn(torch, np, ptt, counters):
+    """A Faster R-CNN ResNet-50-C4 training step at PaddleCV rcnn's COCO
+    settings (RCNN, _rcnn_program): RCNN_STEPS steps graphed from the
+    second and as many op by op from the same start, bit for bit equal
+    (the sampling ops draw the same at every run: no op of the program is
+    flagged uses_rng); losses finite; ms a step, peak memory, the
+    capture; no hand-written kernel. Its heads card against CPU on a fed
+    res4 map of the full shape, use_random=False (_part_vs_cpu): the
+    RPN part (losses, the gradients to the map and its parameters) and
+    the box head on RCNN_CPU_ROIS of the last step's sampled RoIs, its
+    foreground first (_part_vs_cpu)."""
+    w = RCNN
+    main, start, fetch = _rcnn_program(ptt, w)
+    feed = _rcnn_feed(np, w)
+    counters.zero()
+    torch.cuda.reset_peak_memory_stats()
+    graphed, plain, step_ms, scope, exe = _both_ways_runs(
+        torch, ptt, main, start, feed, fetch, RCNN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    launches = counters.read()
+    equal = all(_same_bits(torch, a, b) for g, p in zip(graphed, plain)
+                for a, b in zip(g, p))
+    losses = [[float(v) for v in g[:5]] for g in graphed]
+    finite = all(np.isfinite(row).all() for row in losses)
+    captures = _capture_record(exe)
+    runs = dict(exe.graph_runs)
+    head = graphed[-1][5:]          # the last step's sampled RoIs etc.
+    exe.close()
+    part_feed = _rcnn_feed(np, w, part="rpn")
+    rpn, rpn_ok = _part_vs_cpu(torch, np, ptt, w, "rpn", part_feed)
+    k = RCNN_CPU_ROIS
+    # the foreground RoIs first, so the box loss has terms
+    pick = torch.argsort(-head[1][:, 0].float(), stable=True)[:k]
+    box_feed = dict(part_feed, **{
+        n: t[pick].cpu().numpy() for n, t in zip(
+            ("rois", "labels", "tgt", "inw", "sampled"), head)})
+    box_feed["labels"] = box_feed["labels"].astype(np.int32)
+    box, box_ok = _part_vs_cpu(torch, np, ptt, w, "box", box_feed, rois=k)
+    ok = equal and finite and rpn_ok and box_ok and \
+        not any(launches.values()) and runs["replay"] >= 1
+    emit({"phase": "detection_rcnn", "ok": ok,
+          "model": "faster_rcnn_resnet50_c4", "widths": w,
+          "optimizer": "Momentum(0.01, 0.9)", "losses": losses,
+          "loss_names": ["total", "rpn_cls", "rpn_box", "rcnn_cls",
+                         "rcnn_box"],
+          "finite": finite, "step_ms": step_ms,
+          "replay_equals_op_by_op": equal, "graph_runs": runs,
+          "peak_mem_gb": peak / 2 ** 30, "captures": captures,
+          "sampled_fg": int((head[1][:, 0] > 0).sum()),
+          "sampled": int(head[4].sum()), "launches": launches,
+          "heads_vs_cpu": {"tol": RCNN_TOL, "grad_l2": RCNN_GRAD_L2,
+                           "rpn": rpn, "box": box,
+                           "box_rois": k}})
+    if not ok:
+        raise AssertionError("detection_rcnn checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _dx_boxes(np, rng, r, img_h, img_w, lo=16.0, frac=0.5):
+    """r xyxy boxes inside an img_h x img_w image."""
+    x1 = rng.uniform(0, img_w * 0.8, r)
+    y1 = rng.uniform(0, img_h * 0.8, r)
+    return np.stack([x1, y1,
+                     np.minimum(x1 + rng.uniform(lo, img_w * frac, r),
+                                img_w - 1),
+                     np.minimum(y1 + rng.uniform(lo, img_h * frac, r),
+                                img_h - 1)], 1).astype(np.float32)
+
+
+def _dx_grid(np, h, w, a, stride, sizes):
+    """Anchors (h, w, a, 4) at ``stride`` with ``a`` square-ish sizes."""
+    out = np.zeros((h, w, a, 4), np.float32)
+    cx = (np.arange(w) + 0.5) * stride
+    cy = (np.arange(h) + 0.5) * stride
+    for k in range(a):
+        s = sizes[k % len(sizes)] * (0.7 + 0.3 * (k // len(sizes)))
+        out[..., k, 0] = cx[None, :] - s / 2
+        out[..., k, 1] = cy[:, None] - s / 2
+        out[..., k, 2] = cx[None, :] + s / 2
+        out[..., k, 3] = cy[:, None] + s / 2
+    return out
+
+
+def _dx_feeds(np, rng):
+    """(op type, feeds {name: numpy}, layer call (L, vars) -> outputs,
+    differentiable feeds, outputs held exactly) for the 28 deterministic
+    op types of the detection and text-matching slice at a published
+    model's shape (shuffle_batch apart: _dx_shuffle): SSD300's 1917
+    priors at batch 64 (ssd_loss, mine_hard_examples, bipartite_match,
+    target_assign, box_coder, iou_similarity, prior_box), Faster R-CNN's
+    res4 (50 x 84 x 15 anchors: anchor_generator, generate_proposals at
+    12000 -> 2000, rpn_target_assign, generate_proposal_labels, box_clip),
+    Mask R-CNN FPN's P2 (roi_align, 512 RoIs at 200 x 336 x 256),
+    generate_mask_labels, distribute/collect_fpn_proposals, RetinaNet
+    (200700 anchors, 80 classes: retinanet_target_assign,
+    sigmoid_focal_loss, retinanet_detection_output), EAST's 128 x 128
+    geometry map (polygon_box_transform, locality_aware_nms over 16384
+    boxes), PyramidBox's density priors, Fast R-CNN VGG16's roi_pool,
+    Cascade R-CNN's box_decoder_and_assign, a text-recognition crop
+    (roi_perspective_transform), and MM-DNN's text matching at batch
+    128 and lengths 64. The sampling ops run with use_random=False: the
+    card's Philox draws are not the CPU's."""
+    def f(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def u(*shape):
+        return rng.uniform(0, 1, shape).astype(np.float32)
+
+    def gts(b, g, k, h, w):
+        out = np.zeros((b, g, 4), np.float32)
+        for i in range(b):
+            out[i, :k] = _dx_boxes(np, rng, k, h, w, lo=32.0)
+        return out
+    ssd_prior = np.concatenate([_dx_boxes(np, rng, 1917, 1.0, 1.0, 0.02,
+                                          0.4)])
+    ssd_var = np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (1917, 1))
+    ssd_gt = gts(64, 50, 6, 1.0, 1.0) / 1.0
+    ssd_gt = np.where(ssd_gt > 0, np.clip(ssd_gt / 1.0, 0, 1), 0).astype(
+        np.float32)
+    ssd_lab = np.zeros((64, 50, 1), np.int32)
+    ssd_lab[:, :6, 0] = rng.randint(1, 21, (64, 6))
+    match = rng.randint(-1, 50, (64, 1917)).astype(np.int32)
+    match[rng.uniform(0, 1, (64, 1917)) < 0.9] = -1
+    rcnn_anc = _dx_grid(np, 50, 84, 15, 16.0, [32, 64, 128, 256, 512])
+    rcnn_var = np.ones_like(rcnn_anc)
+    rcnn_gt = gts(1, 50, 8, 800, 1333)
+    im_info = np.float32([[800, 1333, 1.0]])
+    retina_levels = [(100, 167, 8.0), (50, 84, 16.0), (25, 42, 32.0),
+                     (13, 21, 64.0), (7, 11, 128.0)]
+    retina_anc = [_dx_grid(np, h, w, 9, s, [4 * s]).reshape(-1, 4)
+                  for h, w, s in retina_levels]
+    retina_all = np.concatenate(retina_anc)
+    east = u(1, 16384, 4) * 8 + np.repeat(
+        (np.stack(np.meshgrid(np.arange(128), np.arange(128)), -1)
+         .reshape(1, -1, 2) * 4).astype(np.float32), 2, -1)
+    east[..., 2:] += 12.0
+    quads = np.zeros((1, 64, 8), np.float32)
+    for j in range(64):
+        x0, y0 = rng.uniform(0, 400), rng.uniform(0, 400)
+        dx, dy = rng.uniform(40, 100), rng.uniform(16, 40)
+        sk = rng.uniform(-6, 6, 4)
+        quads[0, j] = [x0 + sk[0], y0, x0 + dx, y0 + sk[1], x0 + dx + sk[2],
+                       y0 + dy, x0, y0 + dy + sk[3]]
+    fpn_rois = np.concatenate([_dx_boxes(np, rng, 1000, 800, 1333, 8, 0.1),
+                               _dx_boxes(np, rng, 1000, 800, 1333, 64, 0.6)])
+    mask_rois = np.stack([_dx_boxes(np, rng, 512, 800, 1333)
+                          for _ in range(2)])
+    mask_gt = gts(2, 50, 8, 800, 1333)
+    mask_lab = rng.randint(-1, 81, (2, 512)).astype(np.int32)
+    mm_x, mm_y = f(128, 64, 128), f(128, 64, 128)
+    lens = rng.randint(8, 65, 128).astype(np.int64)
+    lens2 = rng.randint(8, 65, 128).astype(np.int64)
+    return [
+        ("prior_box", {"feat": f(1, 512, 19, 19), "img": f(1, 3, 300, 300)},
+         lambda L, v: list(L.prior_box(v["feat"], v["img"], [60.0], [],
+                                       [2.0], flip=True, clip=True)),
+         [], (0, 1)),
+        ("density_prior_box", {"feat": f(1, 512, 80, 80),
+                               "img": f(1, 3, 640, 640)},
+         lambda L, v: list(L.density_prior_box(
+             v["feat"], v["img"], densities=[4, 2, 1],
+             fixed_sizes=[32.0, 64.0, 128.0], fixed_ratios=[1.0],
+             clip=True, flatten_to_2d=True)), [], (0, 1)),
+        ("anchor_generator", {"feat": f(1, 1024, 50, 84)},
+         lambda L, v: list(L.anchor_generator(
+             v["feat"], [32.0, 64.0, 128.0, 256.0, 512.0], [0.5, 1.0, 2.0],
+             [1.0, 1.0, 1.0, 1.0], [16.0, 16.0])), [], (0, 1)),
+        ("iou_similarity", {"prior": ssd_prior, "gt": ssd_gt[:8].reshape(
+            -1, 4)},
+         lambda L, v: [L.iou_similarity(v["gt"], v["prior"])], [], ()),
+        ("box_coder", {"prior": ssd_prior, "var": ssd_var,
+                       "loc": f(64, 1917, 4), "gt": ssd_gt[:8].reshape(-1,
+                                                                      4)},
+         lambda L, v: [L.box_coder(v["prior"], v["var"], v["loc"],
+                                   "decode_center_size"),
+                       L.box_coder(v["prior"], v["var"], v["gt"])], [], ()),
+        ("box_clip", {"boxes": _dx_boxes(np, rng, 4000, 900, 1500).reshape(
+            2, 2000, 4) - 50.0, "im_info": np.float32([[800, 1333, 1.0],
+                                                        [600, 1000, 0.75]])},
+         lambda L, v: [L.box_clip(v["boxes"], v["im_info"])], ["boxes"], ()),
+        ("bipartite_match", {"dist": u(64, 50, 1917)},
+         lambda L, v: list(L.bipartite_match(v["dist"], "per_prediction",
+                                             0.5)), [], (0, 1)),
+        ("target_assign", {"x": ssd_gt, "match": match,
+                           "neg": (rng.uniform(0, 1, (64, 1917, 1)) < 0.1)
+                           .astype(np.int32)},
+         lambda L, v: list(L.target_assign(v["x"], v["match"], v["neg"])),
+         [], (0, 1)),
+        ("mine_hard_examples", {"cls": u(64, 1917) * 3, "loc": u(64, 1917),
+                                "match": match, "dist": u(64, 1917)},
+         lambda L, v: _mine_hard_examples_layer(L, v), [], (0, 1)),
+        ("ssd_loss", {"loc": f(64, 1917, 4), "conf": f(64, 1917, 21),
+                      "gt": ssd_gt, "label": ssd_lab, "prior": ssd_prior,
+                      "var": ssd_var},
+         lambda L, v: [L.ssd_loss(v["loc"], v["conf"], v["gt"], v["label"],
+                                  v["prior"], v["var"])], ["loc", "conf"],
+         ()),
+        ("sigmoid_focal_loss", {"x": f(2 * 200700, 80),
+                                "label": rng.randint(-1, 81, (2 * 200700, 1))
+                                .astype(np.int32),
+                                "fg": np.int32([1200])},
+         lambda L, v: [L.sigmoid_focal_loss(v["x"], v["label"], v["fg"])],
+         ["x"], ()),
+        ("polygon_box_transform", {"geo": f(16, 8, 128, 128)},
+         lambda L, v: [L.polygon_box_transform(v["geo"])], [], ()),
+        ("roi_align", {"x": f(1, 256, 200, 336),
+                       "rois": _dx_boxes(np, rng, 512, 800, 1344)},
+         lambda L, v: [L.roi_align(v["x"], v["rois"], 14, 14, 0.25, 2)],
+         ["x"], ()),
+        ("roi_pool", {"x": f(2, 512, 38, 63),
+                      "rois": np.concatenate([_dx_boxes(np, rng, 64, 600,
+                                                         1000)] * 2),
+                      "nums": np.int32([64, 64])},
+         lambda L, v: [L.roi_pool(v["x"], v["rois"], 7, 7, 1 / 16.0,
+                                  rois_num=v["nums"])], ["x"], ()),
+        ("box_decoder_and_assign",
+         {"prior": _dx_boxes(np, rng, 512, 800, 1333),
+          "var": np.float32([0.1, 0.1, 0.2, 0.2]), "deltas": f(512, 324),
+          "score": u(512, 81)},
+         lambda L, v: list(L.box_decoder_and_assign(
+             v["prior"], v["var"], v["deltas"], v["score"], 4.135)), [], ()),
+        ("generate_proposals",
+         {"scores": u(1, 15, 50, 84), "deltas": f(1, 60, 50, 84, scale=0.3),
+          "im_info": im_info, "anchors": rcnn_anc, "var": rcnn_var},
+         lambda L, v: list(L.generate_proposals(
+             v["scores"], v["deltas"], v["im_info"], v["anchors"], v["var"],
+             12000, 2000, 0.7, 0.0, 1.0, return_rois_num=True)), [],
+         (1, 2)),
+        ("distribute_fpn_proposals", {"rois": fpn_rois,
+                                      "num": np.int32([1800])},
+         lambda L, v: _flatten(L.distribute_fpn_proposals(
+             v["rois"], 2, 5, 4, 224, rois_num=v["num"])), [],
+         tuple(range(9))),
+        ("collect_fpn_proposals",
+         dict({"r%d" % i: _dx_boxes(np, rng, 2000, 800, 1333)
+               for i in range(5)},
+              **{"s%d" % i: u(2000, 1) for i in range(5)},
+              **{"n%d" % i: np.int32([2000 - 300 * i]) for i in range(5)}),
+         lambda L, v: list(L.collect_fpn_proposals(
+             [v["r%d" % i] for i in range(5)],
+             [v["s%d" % i] for i in range(5)], 2, 6, 2000,
+             rois_num_per_level=[v["n%d" % i] for i in range(5)])), [],
+         (0, 1)),
+        ("rpn_target_assign", {"anc": rcnn_anc.reshape(-1, 4),
+                               "var": rcnn_var.reshape(-1, 4),
+                               "gt": rcnn_gt,
+                               "crowd": np.zeros((1, 50, 1), np.int32),
+                               "im_info": im_info},
+         lambda L, v: list(L.rpn_target_assign(
+             v["anc"], v["anc"], v["anc"], v["var"], v["gt"], v["crowd"],
+             v["im_info"], use_random=False)[2:]), [], (0, 2)),
+        ("retinanet_target_assign",
+         {"anc": retina_all, "gt": gts(2, 100, 12, 800, 1333),
+          "label": rng.randint(1, 81, (2, 100, 1)).astype(np.int32)},
+         lambda L, v: list(L.retinanet_target_assign(
+             v["anc"], v["anc"], v["anc"], v["anc"], v["gt"], v["label"],
+             num_classes=80)[2:]), [], (0, 2, 3)),
+        ("generate_proposal_labels",
+         {"rois": np.stack([_dx_boxes(np, rng, 2000, 800, 1333)]),
+          "cls": rng.randint(1, 81, (1, 50, 1)).astype(np.int32),
+          "crowd": np.zeros((1, 50, 1), np.int32), "gt": rcnn_gt,
+          "im_info": im_info},
+         lambda L, v: list(L.generate_proposal_labels(
+             v["rois"], v["cls"], v["crowd"], v["gt"], v["im_info"],
+             use_random=False)), [], (0, 1, 3, 4)),
+        ("locality_aware_nms", {"boxes": east, "scores": u(1, 1, 16384)},
+         lambda L, v: [L.locality_aware_nms(v["boxes"], v["scores"], 0.1,
+                                            -1, 100, 0.2)], [], ()),
+        ("retinanet_detection_output",
+         dict({"d%d" % i: f(1, a.shape[0], 4, scale=0.2)
+               for i, a in enumerate(retina_anc)},
+              **{"s%d" % i: u(1, a.shape[0], 80) * 0.2
+                 for i, a in enumerate(retina_anc)},
+              **{"a%d" % i: a for i, a in enumerate(retina_anc)},
+              im_info=im_info),
+         lambda L, v: [L.retinanet_detection_output(
+             [v["d%d" % i] for i in range(5)],
+             [v["s%d" % i] for i in range(5)],
+             [v["a%d" % i] for i in range(5)], v["im_info"],
+             score_threshold=0.05, nms_top_k=1000, keep_top_k=100,
+             nms_threshold=0.5)], [], ()),
+        ("roi_perspective_transform", {"x": f(1, 256, 128, 128),
+                                       "quads": quads},
+         lambda L, v: [L.roi_perspective_transform(v["x"], v["quads"], 8,
+                                                   64, 0.25)], ["x"], ()),
+        ("generate_mask_labels",
+         {"im_info": np.float32([[800, 1333, 1.0]] * 2),
+          "cls": rng.randint(1, 81, (2, 50, 1)).astype(np.int32),
+          "crowd": np.zeros((2, 50, 1), np.int32),
+          "segms": (rng.uniform(0, 1, (2, 50, 112, 112)) > 0.5)
+          .astype(np.int32), "rois": mask_rois, "labels": mask_lab,
+          "gt": mask_gt},
+         lambda L, v: list(L.generate_mask_labels(
+             v["im_info"], v["cls"], v["crowd"], v["segms"], v["rois"],
+             v["labels"], 81, 28, gt_boxes=v["gt"])), [], (0, 1, 2)),
+        ("match_matrix_tensor", {"x": mm_x, "y": mm_y},
+         lambda L, v: [_cl().match_matrix_tensor(
+             v["x"], v["y"], 5)[0]], ["x", "y"], ()),
+        ("sequence_topk_avg_pooling",
+         {"mm": f(128, 5, 64, 64), "rl": lens, "cl": lens2},
+         lambda L, v: [_cl().sequence_topk_avg_pooling(
+             v["mm"], v["rl"], v["cl"], [1, 3, 5, 10], 5)], ["mm"], ()),
+        ("var_conv_2d", {"mm": f(128, 5, 64, 64), "rl": lens, "cl": lens2},
+         lambda L, v: [_cl().var_conv_2d(
+             v["mm"], v["rl"], v["cl"], 5, 8, [3, 3], stride=[1, 1])],
+         ["mm"], ()),
+    ]
+
+
+def _cl():
+    return importlib.import_module("paddle_tpu_torch.contrib.layers")
+
+
+def _flatten(outs):
+    flat = []
+    for o in outs:
+        flat.extend(o if isinstance(o, (list, tuple)) else [o])
+    return flat
+
+
+def _mine_hard_examples_layer(L, v):
+    """mine_hard_examples appended by hand (no layers function calls it;
+    ssd_loss holds its ranking inside)."""
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    helper = LayerHelper("mine_hard_examples")
+    neg = helper.create_variable_for_type_inference("int32")
+    upd = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        "mine_hard_examples",
+        inputs={"ClsLoss": [v["cls"].name], "LocLoss": [v["loc"].name],
+                "MatchIndices": [v["match"].name],
+                "MatchDist": [v["dist"].name]},
+        outputs={"NegIndices": [neg.name], "UpdatedMatchIndices": [upd.name]},
+        attrs={"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+               "mining_type": "max_negative"})
+    return [neg, upd]
+
+
+def _dx_shuffle(torch, np, ptt):
+    """shuffle_batch at MM-DNN's batch (128 x 64 x 128): by its draws,
+    DX_SHUFFLE_DRAWS graphed replays of the permutation's first entry
+    uniform over the 128 rows (within 5 standard errors), each replay's
+    Out equal to X[ShuffleIdx] and a permutation, op by op drawing the
+    same as graphed run for run; startup_seed pinning the draw; the
+    kernel's forward and backward ms."""
+    x = np.random.RandomState(SEED).standard_normal((128, 64, 128)).astype(
+        np.float32)
+    dev = torch.from_numpy(x).cuda()
+
+    def program(seed=None):
+        main, start = ptt.Program(), ptt.Program()
+        main.random_seed = start.random_seed = SEED
+        with ptt.unique_name.guard(), ptt.program_guard(main, start):
+            xv = ptt.layers.data("x", [128, 64, 128],
+                                 append_batch_size=False)
+            out = _cl().shuffle_batch(xv, seed=seed)
+            idx = main.global_block().ops[-1].output("ShuffleIdx")[0]
+        return main, [out, main.global_block().var(idx)]
+
+    def draws(main, fetch, n, cache=True):
+        exe = ptt.Executor()
+        scope = ptt.Scope()
+        out = [exe.run(main, feed={"x": dev}, fetch_list=fetch, scope=scope,
+                       return_numpy=False, use_program_cache=cache)
+               for _ in range(n)]
+        exe.close()
+        return out
+    t0 = time.perf_counter()
+    main, fetch = program()
+    runs = draws(main, fetch, DX_SHUFFLE_DRAWS)
+    perm_ok = all(bool(torch.equal(torch.sort(i).values,
+                                   torch.arange(128, device=i.device)))
+                  and bool(torch.equal(o, dev[i])) for o, i in runs)
+    first = np.array([int(i[0]) for _, i in runs])
+    by_op = draws(main, fetch, 3, cache=False)
+    same = all(bool(torch.equal(a[1], b[1])) for a, b in zip(runs, by_op))
+    n = len(first)
+    se = math.sqrt(n / 128 * (1 - 1 / 128))
+    counts = np.bincount(first, minlength=128)
+    uniform = bool(np.all(np.abs(counts - n / 128) <= 5 * se))
+    pmain, pfetch = program(seed=7)
+    pinned = draws(pmain, pfetch, 2)
+    pin_ok = bool(torch.equal(pinned[0][1], pinned[1][1]))
+    ms = _vx_op_ms(torch, np, "shuffle_batch", {"x": dev}, ["x"], main)
+    good = perm_ok and same and uniform and pin_ok
+    return {"ok": good, "fwd_bwd_ms": ms, "draws": n,
+            "permutation_and_gather_ok": perm_ok, "uniform": uniform,
+            "first_index_counts_max": int(counts.max()),
+            "first_index_counts_min": int(counts.min()),
+            "op_by_op_equals_graphed": same, "startup_seed_pins": pin_ok,
+            "seconds": time.perf_counter() - t0}
+
+
+def detection_ops(torch, np, ptt, counters):
+    """The 29 detection and text-matching op types on the card, each at a
+    published model's shape (_dx_feeds) through _op_case: graphed replays
+    equal to op-by-op runs bit for bit, the card against the CPU (within
+    OP_LIB_TOL, what moves or chooses data exactly) at the full shape or,
+    where DX_CUT names the op, at a smaller batch on the CPU side only;
+    the loop ops DX_LOOP_OPS with their launches, op-by-op and replayed
+    ms and capture; shuffle_batch by its draws (_dx_shuffle). No op
+    reaches a hand-written kernel: the counters stay at 0."""
+    counters.zero()
+    results = {"shuffle_batch": _dx_shuffle(torch, np, ptt)}
+    ok = results["shuffle_batch"]["ok"]
+    for op, feed, call, diff, exact in _dx_feeds(
+            np, np.random.RandomState(SEED)):
+        results[op] = _op_case(torch, np, ptt, op, feed, call, diff, exact,
+                               DX_CUT.get(op), op in DX_LOOP_OPS)
+        ok = ok and results[op]["ok"]
+    launches = counters.read_all()
+    ok = ok and len(results) == 29 and not any(launches.values())
+    emit({"phase": "detection_ops", "ok": ok, "op_types": len(results),
+          "tol": OP_LIB_TOL, "cut_for_cpu": DX_CUT,
+          "launches": launches, "ops": results})
+    if not ok:
+        raise AssertionError("detection_ops checks failed (see the line "
+                             "above)")
+    return launches
 
 def main():
     import numpy as np
@@ -11061,6 +12080,12 @@ def main():
         shutil.rmtree(contrib_dir, ignore_errors=True)
     del amp
     by_path["vision_extras"] = phase("vision_extras")(vision_extras)(
+        torch, np, ptt, counters)
+    by_path["detection_ssd"] = phase("detection_ssd")(detection_ssd)(
+        torch, np, ptt, counters)
+    by_path["detection_rcnn"] = phase("detection_rcnn")(detection_rcnn)(
+        torch, np, ptt, counters)
+    by_path["detection_ops"] = phase("detection_ops")(detection_ops)(
         torch, np, ptt, counters)
 
     emit({"phase_seconds": _seconds})

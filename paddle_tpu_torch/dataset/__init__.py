@@ -3,11 +3,11 @@ merge here, as there:
 
   * the corpus modules (ref python/paddle/dataset/): ``uci_housing``,
     ``mnist``, ``cifar``, ``imikolov``, ``imdb``, ``movielens``,
-    ``conll05``, ``wmt14``, ``wmt16``, ``sentiment``, ``flowers`` and
-    ``mq2007``, with ``image``, ``common`` and ``synthetic``:
-    deterministic synthetic payloads in the reference's record schemas,
-    numpy only, equal to the JAX package's sample for sample.
-    ``voc2012`` comes with the detection ops (ROADMAP.md);
+    ``conll05``, ``wmt14``, ``wmt16``, ``sentiment``, ``flowers``,
+    ``mq2007`` and ``voc2012``, with ``image``, ``common`` and
+    ``synthetic``: deterministic synthetic payloads in the reference's
+    record schemas, numpy only, equal to the JAX package's sample for
+    sample;
   * the fluid Dataset API: DatasetFactory, InMemoryDataset and
     QueueDataset over the C++ data plane.
 """
@@ -27,10 +27,11 @@ from . import sentiment  # noqa: F401
 from . import wmt16  # noqa: F401
 from . import mq2007  # noqa: F401
 from . import flowers  # noqa: F401
+from . import voc2012  # noqa: F401
 from . import image  # noqa: F401
 
 __all__ = ['mnist', 'imikolov', 'imdb', 'cifar', 'movielens', 'conll05',
            'sentiment', 'uci_housing', 'wmt14', 'wmt16', 'mq2007',
-           'flowers', 'image', 'common', 'synthetic',
+           'flowers', 'voc2012', 'image', 'common', 'synthetic',
            'DatasetFactory', 'DatasetBase', 'QueueDataset',
            'InMemoryDataset']

@@ -37,7 +37,7 @@ class _EagerCtx(object):
                          if seed is None else seed)
         self._n = 0
 
-    def generator(self, attrs=None):
+    def generator(self, attrs=None, flagged=True):
         self._n += 1
         g = torch.Generator(device=self.device)
         g.manual_seed(self._seed * 1000003 + self._n)

@@ -170,24 +170,25 @@ class _Generators(object):
     run (a recomputed segment's op) takes a twin generator seeded alike,
     so it draws the forward's numbers again: inside a capture a
     generator's state cannot be set back, and the twin is how that state
-    is restored."""
+    is restored. A ``fixed`` generator is seated with run 0's salt at
+    every run (``RunContext.generator``'s unflagged draws)."""
 
     def __init__(self, device, random_seed):
         self._device = device
         self._random_seed = random_seed
-        self._gens = {}           # (position, n) -> (generator, seed attr)
+        self._gens = {}    # (position, n) -> (generator, seed attr, fixed)
         self._salt = 0
 
     def generators(self):
-        return [g for g, _ in self._gens.values()]
+        return [g for g, _, _ in self._gens.values()]
 
     def seat(self, salt):
         self._salt = salt
-        for (pos, _), (g, attr_seed) in self._gens.items():
-            g.manual_seed(_draw_seed(attr_seed, self._random_seed, salt,
-                                     pos))
+        for (pos, _), (g, attr_seed, fixed) in self._gens.items():
+            g.manual_seed(_draw_seed(attr_seed, self._random_seed,
+                                     0 if fixed else salt, pos))
 
-    def get(self, pos, n, attr_seed, capturing):
+    def get(self, pos, n, attr_seed, capturing, fixed=False):
         entry = self._gens.get((pos, n))
         if entry is None:
             if capturing:
@@ -196,8 +197,8 @@ class _Generators(object):
                     "not make" % pos)
             g = torch.Generator(device=self._device)
             g.manual_seed(_draw_seed(attr_seed, self._random_seed,
-                                     self._salt, pos))
-            entry = self._gens[(pos, n)] = (g, attr_seed)
+                                     0 if fixed else self._salt, pos))
+            entry = self._gens[(pos, n)] = (g, attr_seed, fixed)
         return entry[0]
 
 
@@ -208,11 +209,12 @@ class RunContext(object):
     sub-block's ops."""
 
     def __init__(self, device, program, salt, rng=None, constants=None,
-                 capturing=False):
+                 capturing=False, keyed=True):
         self.device = device
         self.program = program
         self.op = None
         self._salt = salt
+        self._keyed = keyed
         self._rng = rng
         self._constants = constants
         self._capturing = capturing
@@ -225,22 +227,32 @@ class RunContext(object):
             "%d.%d" % (block_idx, op_idx)
         self.op = op
 
-    def generator(self, attrs):
+    def generator(self, attrs, flagged=True):
         """A seeded torch.Generator on the run's device for the current
         op, seeded from the op's ``seed`` attr, else from
         (program.random_seed, run salt, the op's block and position)
         (``_draw_seed``): on a CUDA card the plan's generator of the op's
         position and draw (``_Generators``), on the CPU a new one. Either
         way an op run again in the same run (a recomputed segment) draws
-        what it drew the first time."""
+        what it drew the first time.
+
+        ``flagged=False`` is the draw of an op the registry does not flag
+        ``uses_rng`` (rpn_target_assign, generate_proposal_labels): the
+        JAX package keys its trace by the step counter only when a
+        flagged op is in the program, else by the program seed alone
+        (paddle_tpu/framework/executor.py:711-717), so such an op draws
+        from the run counter only beside a flagged op, else run 0's
+        numbers at every run."""
         seed = attrs.get("seed", 0)
+        fixed = not flagged and not self._keyed
         if self._rng is not None:
             n = self._draws.get(self._op_pos, 0)
             self._draws[self._op_pos] = n + 1
-            return self._rng.get(self._op_pos, n, seed, self._capturing)
+            return self._rng.get(self._op_pos, n, seed, self._capturing,
+                                 fixed)
         g = torch.Generator(device=self.device)
-        g.manual_seed(_draw_seed(seed, self.program.random_seed, self._salt,
-                                 self._op_pos))
+        g.manual_seed(_draw_seed(seed, self.program.random_seed,
+                                 0 if fixed else self._salt, self._op_pos))
         return g
 
     def constant(self, make):
@@ -952,7 +964,8 @@ class Executor(object):
         if plan.rng is not None and not capturing:
             plan.rng.seat(salt)
         return RunContext(self.device, program, salt, plan.rng,
-                          plan.constants if graphable else None, capturing)
+                          plan.constants if graphable else None, capturing,
+                          keyed=plan.uses_rng)
 
     def _run_ops(self, program, plan, feeds, fetch_names, scope,
                  graphable=False, guard=None):

@@ -19,7 +19,16 @@ from .sequence_lod import *  # noqa: F401,F403
 from .vision import *        # noqa: F401,F403
 from .extras import *        # noqa: F401,F403
 from . import detection  # noqa: F401
-from .detection import yolov3_loss, yolo_box, multiclass_nms  # noqa: F401
+from .detection import (  # noqa: F401
+    prior_box, density_prior_box, multi_box_head, anchor_generator,
+    bipartite_match, target_assign, detection_output, ssd_loss,
+    sigmoid_focal_loss, iou_similarity, box_coder, polygon_box_transform,
+    yolov3_loss, yolo_box, box_clip, multiclass_nms,
+    distribute_fpn_proposals, collect_fpn_proposals, box_decoder_and_assign,
+    generate_proposals, roi_align, roi_pool, rpn_target_assign,
+    retinanet_target_assign, generate_proposal_labels,
+    locality_aware_nms, retinanet_detection_output,
+    roi_perspective_transform, generate_mask_labels)
 from . import learning_rate_scheduler  # noqa: F401
 from .distributions import (Normal, Uniform, Categorical,  # noqa: F401
                             MultivariateNormalDiag)

@@ -15,13 +15,17 @@ import math
 
 import torch
 
+from .math_ops import jnp_abs
 from .registry import register_op
 from .tensor_ops import add_rows, fill_taken, take_fill
 
 
 def _softplus(x):
-    # max(x,0) + log1p(exp(-|x|)) — the reference's stable spelling
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """max(x, 0) + log1p(exp(-|x|)), the reference's stable spelling, with
+    ``jnp.maximum``'s and ``jnp.abs``'s gradients at 0 (1/2 and 1), as
+    the JAX package differentiates it."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.maximum(x, zero) + torch.log1p(torch.exp(-jnp_abs(x)))
 
 
 def sample_classes(generator, num_total, num_samples, sampler, device):

@@ -72,6 +72,14 @@ for _name, _fn in (("elementwise_add", torch.add),
     register_op(_name)(_elementwise(_fn))
 
 
+def jnp_abs(x):
+    """|x| with ``jnp.abs``'s gradient, whose rule is ``select(x >= 0, g,
+    -g)``: 1 at 0, where ``torch.abs``'s is 0. A logit of exactly 0 (a
+    dead relu map into a zero bias) takes the JAX package's gradient
+    through the log1p(exp(-|x|)) of the sigmoid losses."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _softplus(x):
     """log(1 + e^x) as ``jax.nn.softplus`` computes it (logaddexp(x, 0))."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -110,7 +118,7 @@ _ACTIVATIONS = {
     "sqrt": lambda x, a: torch.sqrt(x),
     "rsqrt": lambda x, a: torch.rsqrt(x),
     "square": lambda x, a: torch.square(x),
-    "abs": lambda x, a: torch.abs(x),
+    "abs": lambda x, a: jnp_abs(x),
     "ceil": lambda x, a: torch.ceil(x),
     "floor": lambda x, a: torch.floor(x),
     "round": lambda x, a: torch.round(x),       # half to even, as jnp

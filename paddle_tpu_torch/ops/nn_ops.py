@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
+from .math_ops import jnp_abs
 from .registry import register_op
 from .tensor_ops import fill_taken, take_fill
 from ..framework.dtypes import to_torch_dtype
@@ -334,11 +335,12 @@ def _sigmoid_ce(ctx, ins, attrs):
     """max(x, 0) - x * label + log1p(exp(-|x|)) (``torch.maximum``, whose
     gradient splits a tie in halves as ``jnp.maximum``'s does); elements
     whose label is ``ignore_index`` give 0; ``normalize`` divides by the
-    count of the others (at least 1)."""
+    count of the others (at least 1). |x| is ``jnp_abs``: at x = 0 the
+    gradient is the JAX package's, -label, not sigmoid(0) - label."""
     x, label = ins["X"][0], ins["Label"][0]
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     loss = torch.maximum(x, zero) - x * label + \
-        torch.log1p(torch.exp(-torch.abs(x)))
+        torch.log1p(torch.exp(-jnp_abs(x)))
     ignore = attrs.get("ignore_index", -100)
     kept = label != ignore
     loss = torch.where(kept, loss, zero)

@@ -28,7 +28,7 @@ class TorchCtx(object):
     def __init__(self, seed=0):
         self._seed = seed
 
-    def generator(self, attrs=None):
+    def generator(self, attrs=None, flagged=True):
         g = torch.Generator()
         g.manual_seed(self._seed)
         return g
@@ -72,11 +72,19 @@ def check(got, want, exact=False, what="", tol=TOL):
 
 
 def compare(op, ins, attrs, diff=(), outs=None, exact=(), grad_outs=None,
-            seed=0, tol=TOL, grad_tol=None):
+            seed=0, tol=TOL, grad_tol=None, jit=False, jax_ctx=None):
     """The two kernels of ``op`` on ``ins`` ({slot: [numpy arrays]});
     ``diff``: the (slot, index) inputs whose gradients are compared.
-    Returns (the port's outputs, the JAX package's outputs) as numpy."""
-    jfn, tfn = jget(op).fn, tget(op).fn
+    ``jit`` runs the JAX kernel (and its vjp) under ``jax.jit``: one
+    compile instead of one per eager op, for kernels of many small ops;
+    ``jax_ctx`` is the JAX kernel's ``ctx``. Returns (the port's outputs,
+    the JAX package's outputs) as numpy."""
+    raw, tfn = jget(op).fn, tget(op).fn
+    if jit:
+        jfn = _jitted(raw, jax_ctx, attrs)
+    else:
+        def jfn(_ctx, cur, at):
+            return raw(jax_ctx, cur, at)
     jout = jfn(None, _jax_ins(ins), attrs)
     names = list(outs or jout)
     tins = _torch_ins(ins)
@@ -121,6 +129,12 @@ def compare(op, ins, attrs, diff=(), outs=None, exact=(), grad_outs=None,
     return ({n: [t.detach().numpy() for t in _as_list(tout[n])]
              for n in names},
             {n: [np.asarray(j) for j in _as_list(jout[n])] for n in names})
+
+
+def _jitted(raw, ctx, attrs):
+    """``raw(ctx, ins, attrs)`` under ``jax.jit`` over ``ins``."""
+    fn = jax.jit(lambda cur: raw(ctx, cur, attrs))
+    return lambda _ctx, cur, _attrs: fn(cur)
 
 
 def registry_flags_match(ops):

@@ -124,6 +124,9 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.contrib.decoder\n"
             "import paddle_tpu_torch.contrib.decoder.beam_search_decoder\n"
             "import paddle_tpu_torch.ops.detection_ops\n"
+            "import paddle_tpu_torch.ops.detection_train_ops\n"
+            "import paddle_tpu_torch.contrib.layers.nn\n"
+            "import paddle_tpu_torch.dataset.voc2012\n"
             "import paddle_tpu_torch.layers.detection\n"
             "import paddle_tpu_torch.layers.loss\n"
             "import paddle_tpu_torch.models.simple\n"
