@@ -442,6 +442,31 @@ Then the rest of the fluid surface and the vision and extras ops:
   batch, VX_CUT), random_crop by its draws, each kernel's
   forward and backward ms; no launch of a hand-written kernel.
 
+Then model compression (contrib/slim, contrib/quantize; no kernel is new):
+
+- ``slim_bert``: BERT-base (f32, dropout 0.1) at batch 32 x 128 made
+  quant-aware (``slim.quant_aware``: 75 weight and 51 activation
+  fake-quant ops) under Adam(1e-4), GRAPH_STEPS runs op by op and
+  graphed (fetches and every persistable, the moving averages too, bit
+  for bit; the train step's launches a step); losses finite and falling;
+  the moving averages' state the closed form; the step beside the
+  unquantized one; the fake-quant ops' device ms and kernels. Then
+  ``convert`` of its test clone, served at batches 1 and 8 on the card
+  and the CPU, and saved as int8 (every parameter an ``.int8`` member,
+  each dequantized weight within scale / 2), loaded and run on both;
+  a narrow BERT (SLIM_PARITY) quant-aware, card against CPU.
+- ``slim_vision``: ResNet-50 at batch 32 quant-aware (per channel on its
+  53 conv filters and the fc), a warm run and four graphed steps beside
+  the unquantized model's; that model pruned by
+  ``StructurePruner(0.5, axis=0)`` over its filters with ``apply_masks``
+  after each replayed step (masks equal to numpy's, half of each
+  filter's channels zero), the sensitivity of three parameters (weights
+  restored bit for bit); a ResNet-50 teacher merged into a MobileNet v1
+  student and distilled by the ``Compressor`` (2 epochs x 2 steps, the
+  hooks in order, a checkpoint an epoch, the teacher unchanged); the
+  NAS ``ControllerServer`` on 127.0.0.1 with a ``SearchAgent``, token
+  for token an in-process ``SAController`` of the same seed.
+
 Each phase prints JSON lines, also kept whole in
 ``chiprun_out/chip_smoke.jsonl``. The last three lines are the card's
 ``nvidia-smi`` name and power limit, the ``{"kernels": [...]}`` summary
@@ -1247,6 +1272,48 @@ DX_CUT = {"sigmoid_focal_loss": 200700, "roi_align": {"rois": 128},
 DX_LOOP_OPS = ("generate_proposals", "locality_aware_nms",
                "retinanet_detection_output")
 DX_SHUFFLE_DRAWS = 2000
+# The slim phases (contrib/slim, contrib/quantize). slim_bert: BERT-base
+# (f32, dropout 0.1) at the train phase's batch made quant-aware
+# (quant_aware's defaults: 8-bit weights per channel, 8-bit activations
+# by a moving average at SLIM_RATE) under Adam(1e-4); its moving-average
+# state after n steps must be the closed form rate^n + (1 - rate^n) /
+# (1 - rate) from 1, within SLIM_STATE_RTOL (one f32 rounding an update);
+# the converted program served at SLIM_SERVE_BATCHES. slim_vision:
+# ResNet-50 at batch SLIM_RESNET_BATCH (224^2, 1000 classes,
+# Momentum(0.1, 0.9)) quant-aware, a warm run and SLIM_RESNET_GRAPHED
+# graphed steps; the unquantized ResNet-50 at that batch pruned by
+# StructurePruner(SLIM_PRUNE_RATIO, axis=0) over its conv filters; the
+# sensitivity of SLIM_SENSITIVITY_PARAMS filters at SLIM_SENSITIVITY_
+# RATIOS; a ResNet-50 teacher distilled into a MobileNet v1 student
+# (soft labels at SLIM_DISTILL_T) by the Compressor, SLIM_DISTILL_EPOCHS
+# x SLIM_DISTILL_STEPS; the NAS controller server on loopback for
+# SLIM_NAS_STEPS tokens.
+SLIM_RATE = 0.9
+SLIM_STATE_RTOL = 8 * 2.0 ** -24
+SLIM_SERVE_BATCHES = (1, 8)
+# the narrow quant-aware BERT card against CPU is held at bf16's PARITY_*
+# (_card_vs_cpu's compute dtype): its activations and weights run on
+# 8-bit levels (a step of 1/127 of a tensor's abs max), coarser than
+# bf16's 8-bit significand, and an activation that another summation
+# order moves by an ulp across a level moves by a whole step, so Adam's
+# first steps flip the sign of more near-zero gradients than f32's
+# 1e-6 share allows (a probe: 112 of 4.43M elements, none past
+# PARITY_SIGN_FLIP_ATOL)
+SLIM_PARITY = AMP_PARITY
+SLIM_PARITY_DTYPE = "bfloat16"
+SLIM_RESNET_BATCH = 32
+SLIM_RESNET_GRAPHED = 4
+SLIM_PRUNE_RATIO = 0.5
+SLIM_SENSITIVITY_PARAMS = 3
+SLIM_SENSITIVITY_RATIOS = (0.3, 0.7)
+SLIM_DISTILL_T = 2.0
+SLIM_DISTILL_EPOCHS, SLIM_DISTILL_STEPS = 2, 2
+SLIM_DISTILL_LR = 0.01
+SLIM_NAS_STEPS = 12
+SLIM_NAS_TABLE = (4, 4, 4, 4, 4)
+FAKE_QUANT_OPS = ("fake_quantize_dequantize_abs_max",
+                  "fake_quantize_dequantize_moving_average_abs_max",
+                  "fake_channel_wise_quantize_dequantize_abs_max")
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 # every emitted line is also kept here whole: a chip run's printed output
@@ -2546,7 +2613,7 @@ def train_recipe_lamb(torch, np, ptt, counters):
 
 
 def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
-                 skip_step=None, dtype=None):
+                 skip_step=None, dtype=None, state=None):
     """PARITY_STEPS runs of a training program on the card and on the CPU
     (plain versions) from the same startup weights, held to PARITY_*; on
     the card also op by op, which must give the graphed runs' bits: (the
@@ -2560,12 +2627,14 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
     tolerances apply, to the loss, the sign-flip share and each
     parameter element's ulps (a decorated program's, whose f32 master
     weights take their updates from gradients computed in ``dtype``;
-    default the parameters' own)."""
+    default the parameters' own). ``state``: a scope holding state the
+    startup does not make (quant-aware training's moving averages),
+    which the startup runs into."""
     feeds = feed if isinstance(feed, list) else [feed] * PARITY_STEPS
     from paddle_tpu_torch.framework import resilience
     from paddle_tpu_torch.io import set_params_from_numpy
     from paddle_tpu_torch.framework.scope import to_numpy
-    init = ptt.Scope()
+    init = ptt.Scope() if state is None else state
     with ptt.scope_guard(init):
         ptt.Executor().run(startup)
     # tensors, not numpy: bf16 weights keep their dtype
@@ -3301,7 +3370,7 @@ def graph_serve(torch, np, ptt, counters, pred, requests):
 
 def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
                fetch_list, want, families, mask=True, nonfinite=(),
-               watch=None, on_run=None):
+               watch=None, on_run=None, start=None):
     """GRAPH_STEPS runs of ``main`` op by op and graphed, each way on its
     own copy of one started scope (the run counter included), then one
     run each way profiled: (the record, ok, the graphed way's fetches and
@@ -3312,10 +3381,12 @@ def _both_ways(torch, np, ptt, counters, label, main, startup, feed,
     runs whose loss may be non-finite (a loss-scale overflow).
     ``on_run(k, before, scope, exe)`` is called on the graphed way after
     its run k (from 1), ``before`` holding the tensors that ``watch(k)``
-    names as they were before that run."""
+    names as they were before that run. ``start``: a scope already
+    holding state the startup does not make (quant-aware training's
+    moving averages), which the startup runs into."""
     feeds = feed if isinstance(feed, list) else [feed] * GRAPH_STEPS
     feed = feeds[-1]
-    start = ptt.Scope()
+    start = ptt.Scope() if start is None else start
     ptt.Executor().run(startup, scope=start)    # no fetch list: no graph
     persist = [v.name for v in main.list_vars() if v.persistable]
     ways = {}
@@ -3888,12 +3959,15 @@ def _no_launches(counters, **launched):
     return dict({k: 0 for k in counters.read()}, **launched)
 
 
-def _resnet_program(np, ptt, resnet, batch, wrap=None):
+def _resnet_program(np, ptt, resnet, batch, wrap=None, before=None):
     """bench.py:472-486: ResNet-50 training with Momentum(0.1, 0.9) (or
     ``wrap`` of it: a decorated optimizer) and its batch (RandomState(0):
     uniform images, random labels): (main, startup, [loss, acc1, acc5],
-    feed)."""
+    feed). ``before(loss)`` runs before the optimizer's ops are added (a
+    program pass: quant_aware)."""
     def opt_fn(loss):
+        if before is not None:
+            before(loss)
         opt = ptt.optimizer.Momentum(0.1, 0.9)
         (wrap(opt) if wrap else opt).minimize(loss)
     with ptt.unique_name.guard():
@@ -11792,6 +11866,539 @@ def detection_ops(torch, np, ptt, counters):
                              "above)")
     return launches
 
+def _qat_bert_program(ptt, bert, cfg, batch, scope):
+    """BERT pretraining under Adam(1e-4), made quant-aware in its
+    optimizer_fn (``slim.quant_aware`` at SLIM_RATE; the moving-average
+    state goes into ``scope``): (main, startup, [loss, mlm_loss,
+    nsp_loss])."""
+    from paddle_tpu_torch.contrib import slim
+
+    def opt_fn(loss):
+        slim.quant_aware(loss.block.program, moving_rate=SLIM_RATE,
+                         scope=scope)
+        ptt.optimizer.Adam(1e-4).minimize(loss)
+    return _pretrain_program(ptt, bert, cfg, batch, opt_fn)
+
+
+def _fake_quant_counts(main):
+    ops = main.global_block().ops
+    return {t: sum(op.type == t for op in ops) for t in FAKE_QUANT_OPS}
+
+
+def _moving_states(main):
+    """The moving averages' state counters of a quant-aware program."""
+    return sorted(v.name for v in main.list_vars() if v.persistable and
+                  v.name.endswith(".quantized.act.state"))
+
+
+def _states_closed_form(np, state, names, runs):
+    """The largest relative error of each name's value in ``state`` ({name:
+    tensor}) against rate^n + (1 - rate^n) / (1 - rate) after ``runs``
+    updates from 1 (f64)."""
+    closed = SLIM_RATE ** runs + (1 - SLIM_RATE ** runs) / (1 - SLIM_RATE)
+    got = [float(state[n].reshape(-1)[0]) for n in names]
+    return closed, max(abs(g - closed) / closed for g in got)
+
+
+def _fake_quant_ms(torch, ptt, main, start, feed, fetch_list):
+    """Device ms and kernels of an op-by-op step's fake-quant ops and of
+    their grad_of (``_device_ms_by_op_type``), on a copy of ``start``."""
+    scope, exe = _copy_scope(torch, ptt, start), ptt.Executor()
+    found = _device_ms_by_op_type(torch, lambda: exe.run(
+        main, feed=feed, fetch_list=fetch_list, scope=scope,
+        use_program_cache=False))
+    close_executor(torch, "fake-quant profile", exe)
+    ops = {k: v for k, v in found["by_op_type"].items() if "fake_" in k}
+    return {"ops": ops, "device_ms": sum(v[1] for v in ops.values()),
+            "kernels": sum(v[2] for v in ops.values()),
+            "step_device_busy_ms": found["device_busy_ms"]}
+
+
+def _encoder_targets(main):
+    """(the encoder's sequence output, the NSP logits) of a BERT
+    pretraining program: what its converted clone serves."""
+    ops = main.global_block().ops
+    flat = next(op for op in ops if op.type == "gather").input("X")[0]
+    seq = next(op for op in ops if flat in op.output_names()).input("X")[0]
+    logits = next(op for op in ops if op.type ==
+                  "softmax_with_cross_entropy").input("Logits")[0]
+    return [main.global_block().var(seq), main.global_block().var(logits)]
+
+
+_SERVE_FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask")
+
+
+def _answers_err(np, got, want):
+    return max(float(np.abs(np.asarray(g) - np.asarray(w)).max())
+               for g, w in zip(got, want))
+
+
+def _slim_serve(torch, np, ptt, infer, scope, cfg, root):
+    """The converted program ``infer`` with ``scope``'s trained weights:
+    saved by ``save_inference_model`` and served by the Predictor at
+    SLIM_SERVE_BATCHES on the card and on the CPU; saved by
+    ``save_quantized_inference_model``, loaded on the card and on the CPU
+    and run at the same batches. (the record, ok)."""
+    from paddle_tpu_torch.contrib import quantize
+    from paddle_tpu_torch.framework.scope import to_numpy
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import bert
+    targets = _encoder_targets(infer)
+    requests = [{k: v for k, v in bert.synthetic_batch(
+        cfg, n, TRAIN_SEQ, TRAIN_PREDS, seed=10 + n).items()
+        if k in _SERVE_FEEDS} for n in SLIM_SERVE_BATCHES]
+    plain_dir = os.path.join(root, "converted")
+    q_dir = os.path.join(root, "int8")
+    exe = ptt.Executor()
+    t0 = time.perf_counter()
+    with ptt.scope_guard(scope):
+        ptt.save_inference_model(plain_dir, list(_SERVE_FEEDS), targets,
+                                 exe, main_program=infer)
+        save_s = time.perf_counter() - t0
+        quantize.save_quantized_inference_model(
+            q_dir, list(_SERVE_FEEDS), targets, exe, main_program=infer)
+    q_save_s = time.perf_counter() - t0 - save_s
+    config = Config(plain_dir)
+    config.batch_buckets = SLIM_SERVE_BATCHES
+    pred = create_predictor(config)
+    cpu_config = Config(plain_dir)
+    cpu_config.place = ptt.CPUPlace()
+    cpu_pred = create_predictor(cpu_config)
+    served = []
+    for req in requests:
+        ms = []
+        for _ in range(3):         # a bucket's warm run, capture, replay
+            t1 = time.perf_counter()
+            got = pred.run(req)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        served.append({"batch": len(req["src_ids"]), "op_by_op_ms": ms[0],
+                       "capture_ms": ms[1], "ms": ms[2],
+                       "shapes": [list(g.shape) for g in got],
+                       "finite": all(np.isfinite(g).all() for g in got),
+                       "max_abs_err_vs_cpu": _answers_err(
+                           np, got, cpu_pred.run(req))})
+    close_executor(torch, "slim_bert serve", pred._exe)
+    with np.load(os.path.join(q_dir, "params.npz")) as z:
+        members = set(z.files)
+    with open(os.path.join(q_dir, "quant_scales.json")) as f:
+        scales = json.load(f)
+    params = [p.name for p in infer.all_parameters()]
+    int8_ok = all(p + ".int8" in members and p not in members
+                  for p in params)
+    others = sorted(m for m in members if not m.endswith(".int8"))
+    loaded, qexe = ptt.Scope(), ptt.Executor()
+    cpu_loaded, cexe = ptt.Scope(), ptt.Executor(ptt.CPUPlace())
+    with ptt.scope_guard(loaded):
+        qprog, _, qfetch = quantize.load_quantized_inference_model(
+            q_dir, qexe)
+    with ptt.scope_guard(cpu_loaded):
+        cprog, _, _ = quantize.load_quantized_inference_model(q_dir, cexe)
+    worst = 0.0                 # the largest error over its bound
+    for p in params:
+        trained, deq = scope.find_var(p), loaded.find_var(p)
+        bound = scales[p] / 2 + float(np.spacing(np.float32(
+            float(trained.abs().max()))))
+        worst = max(worst, float((deq - trained).abs().max()) / bound)
+    int8_runs = []
+    for req in requests:
+        with ptt.scope_guard(loaded):
+            got = qexe.run(qprog, feed=req, fetch_list=qfetch)
+        with ptt.scope_guard(cpu_loaded):
+            want = cexe.run(cprog, feed=req, fetch_list=qfetch)
+        int8_runs.append({"batch": len(req["src_ids"]),
+                          "finite": all(np.isfinite(g).all() for g in got),
+                          "max_abs_err_vs_cpu": _answers_err(np, got,
+                                                             want)})
+    close_executor(torch, "slim_bert int8", qexe)
+    del loaded, cpu_loaded
+    ok = (all(r["finite"] and r["max_abs_err_vs_cpu"] <= SERVE_ATOL
+              for r in served + int8_runs) and int8_ok and worst <= 1.0
+          and all(r["shapes"][1] == [r["batch"], 2] for r in served))
+    return {"save_s": save_s, "quantized_save_s": q_save_s,
+            "served": served, "int8_members_ok": int8_ok,
+            "int8_parameters": len(params),
+            "other_persistables_stored": len(others),
+            "dequantized_err_over_half_scale_max": worst,
+            "int8_runs": int8_runs, "atol": SERVE_ATOL}, ok
+
+
+def slim_bert(torch, np, ptt, counters, root):
+    """BERT-base (f32, dropout 0.1) at batch 32 x 128 made quant-aware
+    (contrib.slim.quant_aware) under Adam(1e-4): GRAPH_STEPS runs op by op
+    and graphed from one startup (``_both_ways``: fetches and every
+    persistable, the moving averages too, bit for bit; the train step's
+    launches a step: quant-aware training adds no attention, LayerNorm or
+    parameter); losses finite and falling; each moving average's state
+    the closed form; the step's replay ms beside the unquantized step's;
+    the fake-quant ops' device ms and kernels in an op-by-op step. Then
+    ``clone(for_test=True)`` and ``slim.convert``: no moving-average op
+    left, every weight's per-channel scale positive; served at
+    SLIM_SERVE_BATCHES and saved as int8 (``_slim_serve``). Last, a
+    narrow BERT (SLIM_PARITY) quant-aware, card against CPU (PARITY_*)."""
+    from paddle_tpu_torch.contrib import slim
+    from paddle_tpu_torch.models import bert
+    marks = [("start", time.perf_counter())]
+    cfg = bert.bert_base()
+    start = ptt.Scope()
+    main, startup, fetch_list = _qat_bert_program(ptt, bert, cfg,
+                                                  TRAIN_BATCH, start)
+    fq = _fake_quant_counts(main)
+    states = _moving_states(main)
+    feed = bert.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_PREDS,
+                                seed=0)
+    record, both_ok, (_, final), start, launches = _both_ways(
+        torch, np, ptt, counters, "slim_bert", main, startup, feed,
+        fetch_list + [_dropout_mask(main)], TRAIN_PER_STEP, TRAIN_FAMILIES,
+        start=start)
+    marks.append(("train_both_ways", time.perf_counter()))
+    losses = record["losses"]["graphed"]
+    falling = losses[-1] < losses[0]
+    closed, state_err = _states_closed_form(np, final, states, GRAPH_STEPS)
+    plain_ms = _plain_step_ms(torch, np, ptt, cfg, TRAIN_BATCH, feed)
+    marks.append(("plain_step", time.perf_counter()))
+    chain = _fake_quant_ms(torch, ptt, main, start, feed, fetch_list)
+    marks.append(("fake_quant_profile", time.perf_counter()))
+    scope = ptt.Scope()
+    for name, value in final.items():
+        scope.set_var(name, value)
+    infer = main.clone(for_test=True)
+    scales = slim.convert(infer, scope=scope)
+    left = _fake_quant_counts(infer)
+    w_scales = scales["weights"]
+    convert_ok = (left[FAKE_QUANT_OPS[1]] == 0 and
+                  left[FAKE_QUANT_OPS[2]] == fq[FAKE_QUANT_OPS[2]] and
+                  len(w_scales) == fq[FAKE_QUANT_OPS[2]] and
+                  all((np.asarray(s) > 0).all() for s in w_scales.values())
+                  and len(scales["activations"]) == fq[FAKE_QUANT_OPS[1]])
+    serve_rec, serve_ok = _slim_serve(torch, np, ptt, infer, scope, cfg,
+                                      root)
+    marks.append(("convert_serve_int8", time.perf_counter()))
+    del scope, final
+    pcfg = bert.bert_base(hidden_dropout=0.0, attn_dropout=0.0,
+                          **SLIM_PARITY)
+    pstate = ptt.Scope()
+    pmain, pstart, pfetch = _qat_bert_program(ptt, bert, pcfg, PARITY_BATCH,
+                                              pstate)
+    parity, parity_ok = _card_vs_cpu(
+        np, ptt, pmain, pstart, pfetch, bert.synthetic_batch(
+            pcfg, PARITY_BATCH, TRAIN_SEQ, TRAIN_PREDS, seed=1),
+        dtype=SLIM_PARITY_DTYPE, state=pstate)
+    marks.append(("parity", time.perf_counter()))
+    ok = (both_ok and falling and state_err <= SLIM_STATE_RTOL and
+          convert_ok and serve_ok and parity_ok)
+    emit(dict({"phase": "slim_bert", "ok": ok, "model": "bert_base",
+               "dtype": "float32", "batch": TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "dropout": cfg.hidden_dropout,
+               "optimizer": "Adam(1e-4)", "moving_rate": SLIM_RATE,
+               "fake_quant_ops": fq, "moving_averages": len(states),
+               "program_ops": len(main.global_block().ops),
+               "losses_falling": falling,
+               "state_closed_form": closed, "state_max_rel_err": state_err,
+               "state_rtol": SLIM_STATE_RTOL,
+               "plain_step_replay_ms": plain_ms,
+               "fake_quant_chain": chain, "convert_ok": convert_ok,
+               "ops_after_convert": left,
+               "activation_scales": len(scales["activations"]),
+               "serve": serve_rec, "parity_config": SLIM_PARITY,
+               "parity": parity,
+               "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks,
+                                                             marks[1:])}},
+              **record))
+    if not ok:
+        raise AssertionError("slim_bert checks failed (see the line above)")
+    return launches
+
+
+def _conv_filters(main):
+    return [op.input("Filter")[0] for op in main.global_block().ops
+            if op.type in ("conv2d", "depthwise_conv2d")]
+
+
+def _numpy_filter_mask(np, value, ratio):
+    """StructurePruner(ratio, axis=0)'s mask of a filter, by numpy alone:
+    the int(ratio * O) output channels of least L1 norm zeroed."""
+    norms = np.abs(value).sum(axis=tuple(range(1, value.ndim)))
+    keep = np.ones(value.shape[0], np.float32)
+    keep[np.argsort(norms)[:int(value.shape[0] * ratio)]] = 0.0
+    return np.broadcast_to(keep.reshape((-1,) + (1,) * (value.ndim - 1)),
+                           value.shape)
+
+
+def _slim_qat_resnet(torch, np, ptt, counters, resnet):
+    """ResNet-50 quant-aware at SLIM_RESNET_BATCH: a warm run and
+    SLIM_RESNET_GRAPHED graphed steps (_steps: the counters set to 0 just
+    before). (record, ok, launches)."""
+    from paddle_tpu_torch.contrib import slim
+    start = ptt.Scope()
+    main, startup, fetch_list, feed = _resnet_program(
+        np, ptt, resnet, SLIM_RESNET_BATCH,
+        before=lambda loss: slim.quant_aware(loss.block.program,
+                                             moving_rate=SLIM_RATE,
+                                             scope=start))
+    fq = _fake_quant_counts(main)
+    exe = ptt.Executor()
+    exe.run(startup, scope=start)
+    runs = 1 + SLIM_RESNET_GRAPHED
+    step_ms, losses, per_step, launches = _steps(
+        torch, np, ptt, counters, exe, main, start, feed, fetch_list, runs)
+    states = _moving_states(main)
+    closed, state_err = _states_closed_form(
+        np, {n: start.find_var(n) for n in states}, states, runs)
+    graphs = dict(exe.graph_runs)
+    close_executor(torch, "slim_vision qat", exe)
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    descends = losses[1][0] < losses[0][0]
+    counts_ok = all(c == _no_launches(counters) for c in per_step)
+    ok = (finite and counts_ok and state_err <= SLIM_STATE_RTOL
+          and graphs["capture"] == 1 and
+          graphs["replay"] == SLIM_RESNET_GRAPHED - 1 and
+          fq[FAKE_QUANT_OPS[2]] == len(_conv_filters(main)) + 1)
+    return {"fake_quant_ops": fq, "filters": len(_conv_filters(main)),
+            "step_ms": step_ms, "replay_ms_median":
+            statistics.median(step_ms[2:]), "losses": losses,
+            "finite": finite, "first_update_descends": descends,
+            "graph_runs": graphs, "launches_per_step_ok": counts_ok,
+            "state_max_rel_err": state_err, "state_closed_form": closed,
+            "ok": ok}, ok, launches
+
+
+def _slim_prune(torch, np, ptt, slim, resnet, exe, main, scope, feed,
+                fetch_list):
+    """StructurePruner(SLIM_PRUNE_RATIO, axis=0) over every conv filter of
+    the started ``main``, masks against ``_numpy_filter_mask`` of the
+    same host values, then SLIM_RESNET_GRAPHED replayed steps with
+    ``apply_masks`` after each; then the sensitivity sweep of three
+    parameters on the model's forward and loss, weights restored bit for
+    bit. (record, ok)."""
+    from paddle_tpu_torch.framework.scope import to_numpy
+    filters = _conv_filters(main)
+    host = {f: to_numpy(scope.find_var(f)) for f in filters}
+    helper = slim.PruneHelper(main, {f: SLIM_PRUNE_RATIO for f in filters},
+                              pruner_cls=slim.StructurePruner, scope=scope,
+                              axis=0)
+    masks = helper.compute_masks()
+    masks_equal = all(np.array_equal(
+        to_numpy(masks[f]), _numpy_filter_mask(np, host[f],
+                                               SLIM_PRUNE_RATIO))
+        for f in filters)
+    helper.apply_masks()
+    replays, ms = exe.graph_runs["replay"], []
+    for _ in range(SLIM_RESNET_GRAPHED):
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        helper.apply_masks()
+    replayed = exe.graph_runs["replay"] - replays
+    zeros = total = 0
+    live_ok = True
+    for f in filters:
+        w = to_numpy(scope.find_var(f))
+        zeros += int((w == 0).sum())
+        total += w.size
+        live = int((np.abs(w).reshape(w.shape[0], -1).sum(1) > 0).sum())
+        live_ok = live_ok and live == w.shape[0] - int(
+            w.shape[0] * SLIM_PRUNE_RATIO) and \
+            not w[to_numpy(masks[f]) == 0].any()
+    # the forward and loss alone (batch norm on batch statistics, as the
+    # steps ran it: after a few steps the moving ones are still far off)
+    with ptt.unique_name.guard():
+        fwd, _, _, fwd_fetch = resnet.resnet_train_program(
+            depth=50, class_dim=RESNET_CLASSES, image_shape=(3, 224, 224))
+    probed = [filters[0], filters[len(filters) // 2], "fc_0.w_0"]
+    before = {n: scope.find_var(n).clone() for n in probed}
+    t0 = time.perf_counter()
+    base, report = slim.sensitivity(
+        fwd, exe, feed, fwd_fetch["loss"], param_names=probed,
+        ratios=SLIM_SENSITIVITY_RATIOS, scope=scope)
+    sens_s = time.perf_counter() - t0
+    restored = all(torch.equal(scope.find_var(n), before[n]) for n in probed)
+    finite = np.isfinite(base) and all(
+        np.isfinite(v) for r in report.values() for v in r.values())
+    ok = (masks_equal and helper.sparsity() == SLIM_PRUNE_RATIO and
+          live_ok and replayed == SLIM_RESNET_GRAPHED and restored and
+          finite and len(report) == SLIM_SENSITIVITY_PARAMS)
+    return {"filters": len(filters), "masks_equal_numpy": masks_equal,
+            "sparsity": helper.sparsity(), "zero_share": zeros / total,
+            "live_channels_ok": live_ok, "step_ms": ms,
+            "replayed": replayed, "sensitivity_base": base,
+            "sensitivity": {n: {str(k): v for k, v in r.items()}
+                            for n, r in report.items()},
+            "sensitivity_s": sens_s, "weights_restored": restored,
+            "ok": ok}, ok
+
+
+def _distill_programs(ptt, slim, resnet, vision, scope):
+    """A ResNet-50 teacher (is_test, started in ``scope``) merged into a
+    MobileNet v1 student's program, whose loss is its cross-entropy plus
+    ``soft_label_loss`` of its logits against the teacher's at
+    SLIM_DISTILL_T, under Momentum(SLIM_DISTILL_LR, 0.9): (main, startup,
+    [loss, ce, soft], the teacher's parameters in the student)."""
+    layers = ptt.layers
+    image = [3, 224, 224]
+    teacher, t_start = ptt.Program(), ptt.Program()
+    t_start.random_seed = SEED
+    with ptt.unique_name.guard(), ptt.program_guard(teacher, t_start):
+        img = layers.data("image", image, "float32")
+        t_logits = resnet.resnet(img, RESNET_CLASSES, 50, is_test=True)
+    ptt.Executor().run(t_start, scope=scope)
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED + 1
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        img = layers.data("image", image, "float32")
+        label = layers.data("label", [1], "int64")
+        prob = vision.mobilenet_v1(img, RESNET_CLASSES)
+        softmax = main.global_block().ops[-1]
+        s_logits = main.global_block().var(softmax.input("X")[0])
+        ce = layers.reduce_mean(layers.cross_entropy(prob, label))
+        var_map = slim.merge(teacher, main, scope=scope)
+        soft = slim.soft_label_loss(s_logits, var_map[t_logits.name],
+                                    SLIM_DISTILL_T, SLIM_DISTILL_T)
+        loss = layers.elementwise_add(ce, soft)
+        ptt.optimizer.Momentum(SLIM_DISTILL_LR, 0.9).minimize(loss)
+    taught = ["teacher_" + p.name for p in teacher.all_parameters()]
+    return main, startup, [loss, ce, soft], taught
+
+
+def _slim_distill(torch, np, ptt, slim, resnet, vision, root):
+    """The Compressor over the distillation program: SLIM_DISTILL_EPOCHS
+    epochs of SLIM_DISTILL_STEPS steps on one batch, a recording strategy,
+    an eval of the test clone an epoch, a checkpoint an epoch. (record,
+    ok)."""
+    scope = ptt.Scope()
+    main, startup, fetch_list, taught = _distill_programs(
+        ptt, slim, resnet, vision, scope)
+    ptt.Executor().run(startup, scope=scope)
+    teacher = {n: scope.find_var(n).clone() for n in taught}
+    eval_prog = main.clone(for_test=True)
+    feed = {"image": np.random.RandomState(2).rand(
+        SLIM_RESNET_BATCH, 3, 224, 224).astype(np.float32),
+        "label": np.random.RandomState(3).randint(
+            0, RESNET_CLASSES, (SLIM_RESNET_BATCH, 1)).astype(np.int64)}
+    hooks, losses, step_ms = [], [], []
+
+    class Recorder(object):
+        def on_compression_begin(self, ctx):
+            hooks.append("begin")
+
+        def on_epoch_begin(self, ctx):
+            hooks.append("epoch_begin %d" % ctx.epoch_id)
+
+        def on_epoch_end(self, ctx):
+            hooks.append("epoch_end %d" % ctx.epoch_id)
+
+        def on_compression_end(self, ctx):
+            hooks.append("end")
+
+    def train_fn(exe):
+        for _ in range(SLIM_DISTILL_STEPS):
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch_list)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append([float(np.asarray(o).reshape(())) for o in out])
+
+    def eval_fn(exe):
+        out = exe.run(eval_prog, feed=feed, fetch_list=fetch_list)
+        return {"loss": float(np.asarray(out[0]).reshape(()))}
+    ck = os.path.join(root, "distill_ckpt")
+    t0 = time.perf_counter()
+    comp = slim.Compressor(ptt.CUDAPlace(0), scope, main,
+                           epoch=SLIM_DISTILL_EPOCHS, strategies=[Recorder()],
+                           train_fn=train_fn, eval_fn=eval_fn,
+                           checkpoint_path=ck)
+    ctx = comp.run()
+    seconds = time.perf_counter() - t0
+    close_executor(torch, "slim_vision distill", comp._exe)
+    want_hooks = ["begin"] + [h % e for e in range(SLIM_DISTILL_EPOCHS)
+                              for h in ("epoch_begin %d", "epoch_end %d")]
+    want_hooks.append("end")
+    unchanged = all(torch.equal(scope.find_var(n), t)
+                    for n, t in teacher.items())
+    steps = sorted(d for d in os.listdir(ck) if d.startswith("step_"))
+    finite = all(np.isfinite(v) for row in losses for v in row)
+    ok = (hooks == want_hooks and finite and losses[-1][0] < losses[0][0]
+          and unchanged and bool(teacher) and
+          os.path.exists(os.path.join(ck, "latest")) and
+          len(steps) == SLIM_DISTILL_EPOCHS and
+          len(ctx.eval_results["loss"]) == SLIM_DISTILL_EPOCHS)
+    return {"teacher": "resnet50", "student": "mobilenet_v1",
+            "batch": SLIM_RESNET_BATCH, "temperature": SLIM_DISTILL_T,
+            "teacher_parameters": len(teacher), "hooks": hooks,
+            "losses": losses, "step_ms": step_ms,
+            "eval_losses": ctx.eval_results["loss"],
+            "teacher_unchanged": unchanged, "checkpoints": steps,
+            "seconds": seconds, "ok": ok}, ok
+
+
+def _nas_round_trip():
+    """ControllerServer on 127.0.0.1 (port 0) with an SAController, a
+    SearchAgent asking it for SLIM_NAS_STEPS tokens and reporting
+    rewards, beside an in-process SAController of the same seed."""
+    from paddle_tpu_torch.contrib.slim.nas import (ControllerServer,
+                                                   SearchAgent)
+    from paddle_tpu_torch.contrib.slim.searcher import SAController
+    served, local = SAController(seed=SEED), SAController(seed=SEED)
+    for c in (served, local):
+        c.reset(SLIM_NAS_TABLE, [0] * len(SLIM_NAS_TABLE))
+    server = ControllerServer(served, address=("127.0.0.1", 0))
+    ip, port = server.start()
+    got, want = [], []
+    try:
+        agent = SearchAgent(ip, port)
+        for _ in range(SLIM_NAS_STEPS):
+            tokens, mine = agent.next_tokens(), local.next_tokens()
+            reward = float(-sum((t - 2) ** 2 for t in tokens))
+            agent.update(tokens, reward)
+            local.update(mine, reward)
+            got.append(tokens)
+            want.append(mine)
+    finally:
+        server.close()
+    return {"address": ip, "tokens": got, "equal": got == want,
+            "best": served.best_tokens, "ok": got == want}, got == want
+
+
+def slim_vision(torch, np, ptt, counters, root):
+    """ResNet-50 at SLIM_RESNET_BATCH x 3 x 224 x 224 quant-aware (per
+    channel on every conv filter, axis 0, and on the fc, axis 1): a warm
+    run and SLIM_RESNET_GRAPHED graphed steps, the step ms beside the
+    unquantized ResNet-50's at the same batch; that unquantized model
+    pruned (_slim_prune) and swept for sensitivity; a ResNet-50 teacher
+    distilled into MobileNet v1 by the Compressor (_slim_distill); the
+    NAS controller server on loopback (_nas_round_trip). No hand-written
+    kernel on these paths: the counters stay at 0."""
+    from paddle_tpu_torch.contrib import slim
+    from paddle_tpu_torch.models import resnet, vision
+    qat, qat_ok, launches = _slim_qat_resnet(torch, np, ptt, counters,
+                                             resnet)
+    main, startup, fetch_list, feed = _resnet_program(np, ptt, resnet,
+                                                      SLIM_RESNET_BATCH)
+    scope, exe = ptt.Scope(), ptt.Executor()
+    exe.run(startup, scope=scope)
+    plain_ms, plain_losses, _, _ = _steps(
+        torch, np, ptt, counters, exe, main, scope, feed, fetch_list,
+        1 + SLIM_RESNET_GRAPHED)
+    pruned, prune_ok = _slim_prune(torch, np, ptt, slim, resnet, exe, main,
+                                   scope, feed, fetch_list)
+    close_executor(torch, "slim_vision prune", exe)
+    del scope
+    distill, distill_ok = _slim_distill(torch, np, ptt, slim, resnet, vision,
+                                        root)
+    nas, nas_ok = _nas_round_trip()
+    ok = qat_ok and prune_ok and distill_ok and nas_ok and \
+        not any(launches.values())
+    emit({"phase": "slim_vision", "ok": ok, "model": "resnet50",
+          "batch": SLIM_RESNET_BATCH, "optimizer": "Momentum(0.1, 0.9)",
+          "quant_aware": qat, "plain_step_ms": plain_ms,
+          "plain_replay_ms_median": statistics.median(plain_ms[2:]),
+          "plain_losses": plain_losses, "prune": pruned,
+          "distill": distill, "nas": nas, "launches": launches})
+    if not ok:
+        raise AssertionError("slim_vision checks failed (see the line "
+                             "above)")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -12087,6 +12694,14 @@ def main():
         torch, np, ptt, counters)
     by_path["detection_ops"] = phase("detection_ops")(detection_ops)(
         torch, np, ptt, counters)
+    slim_dir = os.path.join(_ROOT, "build", "chip_smoke_slim")
+    try:
+        by_path["slim_bert"] = phase("slim_bert")(slim_bert)(
+            torch, np, ptt, counters, slim_dir)
+        by_path["slim_vision"] = phase("slim_vision")(slim_vision)(
+            torch, np, ptt, counters, slim_dir)
+    finally:
+        shutil.rmtree(slim_dir, ignore_errors=True)
 
     emit({"phase_seconds": _seconds})
     if _failed or cases is None or None in by_path.values():

@@ -52,7 +52,10 @@ in fp16 with dynamic loss scaling, through
 ``contrib.mixed_precision.decorate(optimizer, dtype=...)``; ``metrics``,
 ``evaluator``, ``average``, ``profiler``, ``contrib.Trainer`` /
 ``Inferencer`` and the ``contrib`` statistics (``summary``,
-``memory_usage``, ``op_freq_statistic``) follow fluid's. The rest of
+``memory_usage``, ``op_freq_statistic``) follow fluid's;
+``contrib.slim`` (quant-aware training, pruning, distillation, the
+Compressor, the NAS searcher) and ``contrib.quantize`` (int8 model files)
+compress a program. The rest of
 fluid's top-level surface is here too: ``core``, the place helpers
 (``cuda_places`` lists torch's CUDA devices), ``lod_tensor``,
 ``debugger``, ``install_check.run_check``, the module-path aliases

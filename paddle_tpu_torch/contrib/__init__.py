@@ -5,10 +5,15 @@ multi-layer RNN compositions and ``ctr_metric_bundle`` of
 ``contrib.layers``, the seq2seq decoders of ``contrib.decoder``, the
 Book's ``Trainer`` and ``Inferencer``, ``distributed_batch_reader`` and
 the program statistics (``summary``, ``memory_usage``,
-``op_freq_statistic``). ``quantize`` and ``slim`` belong to a later
-slice."""
+``op_freq_statistic``), post-training int8 weights (``quantize``), model
+compression (``slim``: quant-aware training, pruning, distillation, the
+Compressor, the NAS searcher) and ``utils`` (the HDFS and lookup-table
+helpers, which point at the port's own save and load)."""
 from . import mixed_precision  # noqa: F401
 from . import extend_optimizer  # noqa: F401
+from . import quantize  # noqa: F401
+from . import slim  # noqa: F401
+from . import utils  # noqa: F401
 from . import layers  # noqa: F401
 from . import decoder  # noqa: F401
 from . import trainer  # noqa: F401

@@ -256,6 +256,21 @@ class Block(object):
         self.program._version += 1
         return op
 
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        """A new op at position ``index`` (the program passes of
+        contrib/slim). Bumps the program's version, so the Executor's plan
+        and graph keys change and no step captured before it replays."""
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        self.program._version += 1
+        return op
+
+    def _remove_op(self, index):
+        """Drop the op at position ``index``; bumps the version as
+        ``_insert_op`` does."""
+        del self.ops[index]
+        self.program._version += 1
+
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 

@@ -33,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from .math_ops import jnp_abs
+from .math_ops import jnp_abs, recip_f32 as _recip
 from .registry import register_op
 from .tensor_ops import _float_order_key
 from .vision_ops import _batch_index, _rows
@@ -478,14 +478,6 @@ def _density_prior_box(ctx, ins, attrs):
 # ---------------------------------------------------------------------------
 # box arithmetic
 # ---------------------------------------------------------------------------
-
-def _recip(n):
-    """1 / n in f32, as XLA folds a division by a constant in the JAX
-    package's jitted step: the quotient is x times this reciprocal, which
-    torch computes alike on the CPU and the card (a division by a Python
-    number is exact on the CPU and a reciprocal product on the card)."""
-    return float(np.float32(1.0) / np.float32(n))
-
 
 def _clip(v, lo, hi):
     """``jnp.clip(v, lo, hi)``: maximum with ``lo``, then minimum with

@@ -72,6 +72,14 @@ for _name, _fn in (("elementwise_add", torch.add),
     register_op(_name)(_elementwise(_fn))
 
 
+def recip_f32(n):
+    """1 / n in f32, as XLA folds a division by a constant in the JAX
+    package's jitted step: the quotient is x times this reciprocal, which
+    torch computes alike on the CPU and the card (a division by a Python
+    number is exact on the CPU and a reciprocal product on the card)."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def jnp_abs(x):
     """|x| with ``jnp.abs``'s gradient, whose rule is ``select(x >= 0, g,
     -g)``: 1 at 0, where ``torch.abs``'s is 0. A logit of exactly 0 (a

@@ -1,6 +1,30 @@
-"""The block-quantization host codec (numpy), for checkpoint payloads.
+"""The three fake-quantization ops of contrib/slim and the block-
+quantization host codec (numpy).
 
-The port's own copy of paddle_tpu/ops/quant_ops.py:141-211
+The ops (counterparts of paddle_tpu/ops/quant_ops.py:44-76,212-226):
+simulated quantization, values quantized and dequantized in floating
+point so the matmuls and convolutions still run in f32, with a
+straight-through gradient: ``Out = X + (qdq(X) - X).detach()``, the JAX
+package's ``x + stop_gradient(qdq - x)`` (not bit-equal to ``qdq``).
+
+  * ``fake_quantize_dequantize_abs_max``: one abs-max scale a tensor;
+  * ``fake_quantize_dequantize_moving_average_abs_max``: the scale is
+    ``accum / state`` of an exponential moving average that the op
+    advances (``OutState``/``OutAccum``, written by ``quant_aware`` under
+    the names it reads), once a run: its backward reads its record;
+  * ``fake_channel_wise_quantize_dequantize_abs_max``: one scale a slice
+    along ``quant_axis``.
+
+Each scale is floored at 1e-8 (an all-zero tensor), levels are rounded
+half to even (``torch.round`` as ``jnp.round``) and clipped to
+``[-qmax - 1, qmax]`` (the ops' asymmetric range; the block codec's is
+symmetric). The arithmetic is the jitted JAX step's, so that the CPU
+and the card give its bits: ``x / scale * qmax``; then ``q * scale``
+times the f32 reciprocal of ``qmax`` (XLA's form of the division by a
+constant) minus ``x``, and the moving averages' ``rate * v + c``, each
+as the one fused multiply-add XLA's CPU code emits (``_fused``).
+
+The codec: the port's own copy of paddle_tpu/ops/quant_ops.py:141-211
 (``np_block_quantize``, ``np_block_dequantize``, ``encode_array``,
 ``decode_array``), so that ``io.save_checkpoint(compress="q8")`` writes
 and reads the JAX package's layout with the same arithmetic: int8 blocks
@@ -8,12 +32,15 @@ of ``block_size`` values, one f32 abs-max scale per block. The max-
 magnitude element of every block round-trips exactly, every other is
 within ``absmax_block / qmax / 2`` of its value, and a non-finite input
 poisons its whole block to NaN. ``mode="zlib"`` of ``encode_array`` is
-lossless. The fake-quantization ops (the traced halves) come with the
-slim slice.
+lossless.
 """
 import zlib
 
 import numpy as np
+import torch
+
+from .math_ops import recip_f32
+from .registry import register_op
 
 DEFAULT_BLOCK_SIZE = 256
 DEFAULT_BITS = 8
@@ -86,6 +113,87 @@ def decode_array(enc):
     raw = zlib.decompress(enc["data"])
     return np.frombuffer(raw, dtype=enc["dtype"]).reshape(
         enc["shape"]).copy()
+
+
+# ---------------------------------------------------------------------------
+# the fake-quantization ops (contrib/slim's quant-aware training)
+# ---------------------------------------------------------------------------
+
+_SCALE_MIN = 1e-8
+
+
+def _fused(a, b, c):
+    """``a * b + c`` rounded once to ``a``'s dtype, as the fused
+    multiply-add XLA's CPU code emits where a product feeds a sum: the
+    product of two f32 values is exact in f64, and the sum is too where
+    the terms' magnitudes are within 2^5 of each other (the qdq's and
+    the moving average's are; elsewhere a double rounding can differ
+    from the fused one, with odds of ~2^-29 an element)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).to(a.dtype)
+
+
+def _ste_qdq(x, scale, qmax):
+    """The straight-through output of ``x`` quantized at the floored
+    ``scale`` (a tensor that broadcasts) to the levels of ``qmax`` and
+    back: ``x + (qdq - x).detach()`` with ``qdq - x`` taken as the jitted
+    JAX op takes it, ``q * scale`` times 1 / qmax minus ``x`` in one fused
+    operation."""
+    with torch.no_grad():
+        q = torch.clamp(torch.round(x / scale * qmax), -qmax - 1, qmax)
+        diff = _fused(q * scale, recip_f32(qmax), -x)
+    return x + diff
+
+
+@register_op("fake_quantize_dequantize_abs_max")
+def _fake_qdq_abs_max(ctx, ins, attrs):
+    """Per-tensor abs-max (the reference fake_quantize_dequantize_abs_max
+    op)."""
+    x = ins["X"][0]
+    qmax = _qmax(attrs.get("bit_length", 8))
+    scale = torch.clamp_min(x.abs().amax(), _SCALE_MIN)
+    return {"Out": _ste_qdq(x, scale.detach(), qmax),
+            "OutScale": scale.reshape(1)}
+
+
+@register_op("fake_quantize_dequantize_moving_average_abs_max",
+             nondiff=("InScale", "InState", "InAccum"))
+def _fake_qdq_moving_avg(ctx, ins, attrs):
+    """Moving-average abs-max (the reference
+    fake_quantize_dequantize_moving_average_abs_max): state <- rate *
+    state + 1, accum <- rate * accum + abs_max(X), scale = accum /
+    state."""
+    x = ins["X"][0]
+    qmax = _qmax(attrs.get("bit_length", 8))
+    rate = float(np.float32(attrs.get("moving_rate", 0.9)))
+    state = ins["InState"][0] if ins.get("InState") else \
+        torch.ones(1, device=x.device)
+    accum = ins["InAccum"][0] if ins.get("InAccum") else \
+        torch.zeros(1, device=x.device)
+    new_state = _fused(state, rate, 1.0)
+    new_accum = _fused(accum, rate, x.abs().amax())
+    scale = new_accum / new_state
+    floored = torch.clamp_min(scale.reshape(()), _SCALE_MIN)
+    return {"Out": _ste_qdq(x, floored.detach(), qmax),
+            "OutScale": scale.reshape(1), "OutState": new_state,
+            "OutAccum": new_accum}
+
+
+@register_op("fake_channel_wise_quantize_dequantize_abs_max")
+def _fake_qdq_channel(ctx, ins, attrs):
+    """Per-channel abs-max (the reference
+    fake_channel_wise_quantize_abs_max): one scale a slice along
+    ``quant_axis`` (0 for a conv filter, OIHW; 1 for a (in, out)
+    weight)."""
+    x = ins["X"][0]
+    qmax = _qmax(attrs.get("bit_length", 8))
+    axis = int(attrs.get("quant_axis", 0)) % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    scale = torch.clamp_min(x.abs().amax(dim=red, keepdim=True),
+                            _SCALE_MIN)
+    return {"Out": _ste_qdq(x, scale.detach(), qmax),
+            "OutScale": scale.reshape(-1)}
 
 
 __all__ = ["DEFAULT_BLOCK_SIZE", "DEFAULT_BITS", "np_block_quantize",

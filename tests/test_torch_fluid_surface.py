@@ -304,9 +304,49 @@ def test_compat_submodules():
         .distributed_batch_reader
     import paddle_tpu_torch.fluid.contrib.mixed_precision.decorator as fd
     assert fd.decorate is mp.decorate
-    # the slim and parameter-server deep paths are later slices
+    # the slim and quantize deep paths resolve to the flat modules
+    from paddle_tpu_torch.contrib import quantize as cq
+    from paddle_tpu_torch.contrib import slim
+    from paddle_tpu_torch.contrib.slim.prune.pruner import Pruner
+    from paddle_tpu_torch.contrib.slim.prune.prune_strategy import (
+        PruneHelper)
+    from paddle_tpu_torch.contrib.slim.prune.auto_prune_strategy import (
+        sensitivity)
+    from paddle_tpu_torch.contrib.slim.core.compressor import (
+        Compressor, Context)
+    from paddle_tpu_torch.contrib.slim.core import strategy, config
+    from paddle_tpu_torch.contrib.slim.distillation.distiller import (
+        soft_label_loss)
+    from paddle_tpu_torch.contrib.slim.distillation.distillation_strategy \
+        import merge
+    from paddle_tpu_torch.contrib.quantize.quantize_transpiler import (
+        save_quantized_inference_model)
+    assert Pruner is slim.prune.Pruner and PruneHelper is slim.PruneHelper
+    assert sensitivity is slim.sensitivity and merge is slim.merge
+    assert Compressor is slim.Compressor and Context is slim.core.Context
+    assert strategy.Compressor is config.Compressor is Compressor
+    assert soft_label_loss is slim.soft_label_loss
+    assert save_quantized_inference_model is \
+        cq.save_quantized_inference_model
+    for child in ("quantization_pass", "quantization_strategy",
+                  "post_training_quantization"):
+        mod = __import__("paddle_tpu_torch.contrib.slim.quantization."
+                         + child, fromlist=["quant_aware"])
+        assert mod.quant_aware is slim.quant_aware
+        assert mod.convert is slim.convert
+    for child in ("quantization_mkldnn_pass",
+                  "mkldnn_post_training_strategy"):
+        mod = __import__("paddle_tpu_torch.contrib.slim.quantization."
+                         + child, fromlist=["x"])
+        with pytest.raises(NotImplementedError, match="quant_aware"):
+            mod.QuantInt8MkldnnPass
+    import paddle_tpu_torch.fluid.contrib.slim.prune.pruner as fpr
+    assert fpr.Pruner is Pruner
+    # the parameter-server deep paths come with the torch.distributed
+    # slice
     with pytest.raises(ImportError):
-        __import__("paddle_tpu_torch.contrib.slim.prune.pruner")
+        __import__("paddle_tpu_torch.incubate.fleet.parameter_server."
+                   "distribute_transpiler")
 
 
 def test_weight_norm_param_attr():

@@ -127,6 +127,15 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.ops.detection_train_ops\n"
             "import paddle_tpu_torch.contrib.layers.nn\n"
             "import paddle_tpu_torch.dataset.voc2012\n"
+            "import paddle_tpu_torch.contrib.slim.qat\n"
+            "import paddle_tpu_torch.contrib.slim.quantization\n"
+            "import paddle_tpu_torch.contrib.slim.distillation\n"
+            "import paddle_tpu_torch.contrib.slim.prune.pruner\n"
+            "import paddle_tpu_torch.contrib.slim.graph\n"
+            "import paddle_tpu_torch.contrib.slim.nas\n"
+            "import paddle_tpu_torch.contrib.slim.searcher\n"
+            "import paddle_tpu_torch.contrib.quantize\n"
+            "import paddle_tpu_torch.contrib.utils\n"
             "import paddle_tpu_torch.layers.detection\n"
             "import paddle_tpu_torch.layers.loss\n"
             "import paddle_tpu_torch.models.simple\n"

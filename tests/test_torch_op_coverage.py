@@ -1,10 +1,10 @@
 """The port's op registry against the JAX package's: every op type of
-paddle_tpu is ported but the deferred ones named here (14: the three
-slim fake-quant ops and the eleven collectives), each tagged with the
-slice that brings it (ROADMAP.md, Queue 1, lists the same). The port
-has 287 of the JAX package's 301. The test fails when either side
-drifts: an op type the JAX package gains, one the port adds or drops,
-or a deferred one ported without leaving this list.
+paddle_tpu is ported but the deferred ones named here (11: the
+collectives), each tagged with the slice that brings it (ROADMAP.md,
+Queue 1, lists the same). The port has 290 of the JAX package's 301.
+The test fails when either side drifts: an op type the JAX package
+gains, one the port adds or drops, or a deferred one ported without
+leaving this list.
 """
 import paddle_tpu.ops  # noqa: F401  (registers the JAX kernels)
 import paddle_tpu_torch.ops  # noqa: F401
@@ -16,10 +16,6 @@ DEFERRED = {
         "barrier", "c_allgather", "c_allreduce_max", "c_allreduce_min",
         "c_allreduce_prod", "c_allreduce_sum", "c_allreduce_sum_quant",
         "c_broadcast", "c_reducescatter", "c_sync_comm_stream", "ppermute"],
-    "contrib/slim (quant_ops' fake-quant ops)": [
-        "fake_channel_wise_quantize_dequantize_abs_max",
-        "fake_quantize_dequantize_abs_max",
-        "fake_quantize_dequantize_moving_average_abs_max"],
 }
 
 
@@ -27,12 +23,11 @@ def _deferred():
     return [op for ops in DEFERRED.values() for op in ops]
 
 
-def test_deferred_list_is_43_distinct_op_types():
-    """The deferred list's length, 14 op types since the detection and
-    text-matching ops were ported (the name keeps the count it was
-    written with)."""
+def test_deferred_list_is_11_distinct_op_types():
+    """The deferred list's length: the 11 collectives, since the slim
+    fake-quant ops were ported."""
     ops = _deferred()
-    assert len(ops) == len(set(ops)) == 14
+    assert len(ops) == len(set(ops)) == 11
 
 
 def test_port_registry_is_the_jax_registry_minus_the_deferred():
@@ -45,4 +40,4 @@ def test_port_registry_is_the_jax_registry_minus_the_deferred():
         "ported but not in the JAX package: %s; in the JAX package, "
         "neither ported nor deferred: %s"
         % (sorted(port_ops - jax_ops), sorted(jax_ops - deferred - port_ops)))
-    assert len(port_ops) == 287 and len(jax_ops) == 301
+    assert len(port_ops) == 290 and len(jax_ops) == 301
