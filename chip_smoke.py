@@ -296,12 +296,25 @@ its decay over GUARD_DECAY_STEPS runs):
   naming its culprit, graphed equal to op by op.
 - ``resilient_recipe``: ResilientTrainer over eight batches
   (checkpoint_every=3, keep_last=2), each run bit-equal to its
-  uninterrupted reference: (a) ``step:preempt@6`` at 12 layers; at 2
-  layers of the same width (b) numeric_policy="rewind" with batch 4
+  uninterrupted reference, at 2 layers of BERT-base's width: (a)
+  ``step:preempt@6``, (b) numeric_policy="rewind" with batch 4
   poisoned, (c) run_steps windows, (d) a torn checkpoint
   (``io.manifest_write:raise@2``), (e) a stalled card under
   collective_timeout_s; checkpoint and restore seconds and bytes, steps
   replayed.
+- ``pod_recipe``: the pod half of the robustness stack, its hosts
+  threads on one LocalCoordinator, each with its own Executor, Scope
+  and checkpoint dir, on the recipe step and the replicated feed; every
+  live host bit-equal to the uninterrupted one-host run: (a) 12 layers,
+  two hosts, PodResilientTrainer with the buddy tier (zlib, p2p,
+  delta), run_steps windows of 4, ``step:preempt@3`` restored from the
+  buddy mailboxes with no disk read; at 2 layers, four hosts: (b) a
+  torn checkpoint lowering the consensus to step 0, (c) ElasticTrainer
+  with a host dying (shrink at 3/4, no restore) and rejoining (grow at
+  4/4, its state shipped zlib), (d) numeric_policy="rewind" with one
+  batch NaN-poisoned and skipped by all; each host's launches a step
+  (train_recipe's, or derived from the 2-layer program), snapshot
+  encode seconds and bytes, restore seconds, steps replayed, peak.
 - ``compiled_parity``: 2-layer BERT under numeric_policy="skip", card
   graphed against CPU with the same batch poisoned: the same step
   skipped on both, the rest within PARITY_*.
@@ -368,13 +381,14 @@ Then the Program verifier, serving on one host and the spans:
   must not count): ``analysis_totals()`` over every program the run
   verified so far under the default mode; the recipe step and the
   GPT-base bf16 step, one run each under ``verify_program="strict"``.
-- ``serving_artifact``: BERT-base (serve's model) exported by
-  ``save_inference_model(format="stablehlo")`` as ``torch.export``
-  programs (plain at buckets 1 and 8, q8 at bucket 1): export seconds
-  and bytes, 12 flash_attention_fwd and 25 layer_norm_fwd custom ops in
-  every graph and no plain attention; ``load_serving_artifact`` with
-  ``max_in_flight=2``, ``warmup()`` (each bucket's first call launches
-  12 flash and 25 LayerNorm forward kernels, then is captured) and
+- ``serving_artifact``: BERT-base (serve's model, 2 layers deep)
+  exported by ``save_inference_model(format="stablehlo")`` as
+  ``torch.export`` programs (plain at buckets 1 and 8, q8 at bucket 1):
+  export seconds and bytes, 2 flash_attention_fwd and 5 layer_norm_fwd
+  custom ops in every graph and no plain attention;
+  ``load_serving_artifact`` with ``max_in_flight=2``, ``warmup()`` (each
+  bucket's first call launches 2 flash and 5 LayerNorm forward kernels,
+  then is captured) and
   ``health()``; the serve phase's requests against the in-process
   Predictor on the card and the CPU (SERVE_ATOL), replays bit-equal to
   the exported program run eagerly, latency beside the Predictor's; a
@@ -474,6 +488,7 @@ and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the ``ok`` line; so does a machine without a CUDA device, or a
 directory without the package.
 """
+import contextlib
 import importlib
 import json
 import math
@@ -562,9 +577,10 @@ GUARD_WINDOW, GUARD_WINDOW_POISON = 6, 2
 GUARD_SKIP_BUDGET = 2
 GUARD_SKIP_PER_STEP = {"finite_flags": 1, "guarded_copy": 2}
 # resilient_recipe: RESILIENT_BATCHES batches, a checkpoint every
-# RESILIENT_CKPT_EVERY steps, the newest RESILIENT_KEEP kept; run (a) at
-# 12 layers, (b)-(e) at RESILIENT_LAYERS layers of the same width (the
-# phases' time budget); (b) poisons batch RESILIENT_REWIND_POISON; (e)
+# RESILIENT_CKPT_EVERY steps, the newest RESILIENT_KEEP kept; every run
+# at RESILIENT_LAYERS layers of the same width (the smoke's time budget;
+# pod_recipe (a) runs the 12-layer ResilientTrainer); (b) poisons batch
+# RESILIENT_REWIND_POISON; (e)
 # stalls the card RESILIENT_STALL_S (a sleep kernel) before run
 # RESILIENT_STALL_RUN under collective_timeout_s=RESILIENT_TIMEOUT_S,
 # above a 2-layer step's ~20 ms and below the stalled step's time.
@@ -573,6 +589,27 @@ RESILIENT_LAYERS = 2
 RESILIENT_REWIND_POISON = 4
 RESILIENT_STALL_RUN = 5
 RESILIENT_STALL_S, RESILIENT_TIMEOUT_S = 3.0, 1.0
+# pod_recipe: a pod of simulated hosts (threads on one LocalCoordinator,
+# each with its own Executor, Scope and checkpoint dir) training the
+# recipe step on the replicated feed, POD_BATCHES batches. (a) 12 layers,
+# POD_A_HOSTS hosts, PodResilientTrainer with the buddy tier (zlib, p2p,
+# delta), windows of POD_A_WINDOW (run_steps) and a checkpoint at each
+# POD_A_CKPT_EVERY: ``step:preempt@POD_A_PREEMPT`` fires at the first
+# dispatch of window 2, and the pod restores the buddy generation at
+# step POD_A_WINDOW from memory. (b)-(d) RESILIENT_LAYERS layers,
+# POD_HOSTS hosts, windows of one step, a checkpoint every
+# POD_CKPT_EVERY (the run's end: two saves a host, the phase's time),
+# buddy tier off: (b) ``io.manifest_write:raise@POD_TORN_AT`` tears one
+# host's step-POD_CKPT_EVERY save (visits 1-4 are the step-0 baselines)
+# and the consensus falls to step 0; (c)
+# ElasticTrainer(rejoin=True), ``step:die@POD_DIE_AT`` (round 3's first
+# dispatch): shrink at 3/4, the host rejoins at 4/4 with its state
+# shipped zlib; (d) numeric_policy="rewind" on every host, batch
+# RESILIENT_REWIND_POISON NaN-poisoned in the shared feed. A coordinator
+# timeout of POD_TIMEOUT_S: no loss is meant to come from a slow host.
+POD_BATCHES, POD_KEEP, POD_TIMEOUT_S = 8, 2, 300.0
+POD_A_HOSTS, POD_A_WINDOW, POD_A_CKPT_EVERY, POD_A_PREEMPT = 2, 4, 8, 3
+POD_HOSTS, POD_CKPT_EVERY, POD_TORN_AT, POD_DIE_AT = 4, 8, 6, 9
 # optimizer_parity: the PARITY_* comparison of train_parity (2-layer
 # BERT-base-width, PARITY_BATCH x 128, three steps) for each optimizer
 # under the recipe's schedule and clip and an L2Decay(PARITY_L2)
@@ -1167,20 +1204,23 @@ BOOK = {
 }
 
 # serving on one host (the serving slice): BERT-base as ``serve`` builds
-# it, exported by save_inference_model(format="stablehlo") at
-# ARTIFACT_BUCKETS (plain layout) and ARTIFACT_Q8_BUCKETS (q8 layout) and
-# served by load_serving_artifact(max_in_flight=ARTIFACT_IN_FLIGHT);
-# every bucket's graph holds FLASH_PER_REQUEST flash_attention_fwd and
-# LN_PER_REQUEST layer_norm_fwd custom ops. A robustness case sleeps
+# it but ARTIFACT_LAYERS deep (cut from 12: the smoke's budget; export
+# time grows with depth), exported by save_inference_model(format=
+# "stablehlo") at ARTIFACT_BUCKETS (plain layout) and ARTIFACT_Q8_BUCKETS
+# (q8 layout) and served by load_serving_artifact(max_in_flight=
+# ARTIFACT_IN_FLIGHT); every bucket's graph holds one flash_attention_fwd
+# a layer and one layer_norm_fwd custom op for the embeddings and two a
+# layer (_artifact_launches). A robustness case sleeps
 # ARTIFACT_SLOW_S inside the request (fire("serve")) against a deadline
 # of ARTIFACT_DEADLINE_S. q8 against plain: int8 blocks of 256 with a
-# scale each, through 12 layers of values of order 1-4 (a 2-layer cut at
+# scale each, set for 12 layers of values of order 1-4 (a 2-layer cut at
 # hidden 768, T = 64, differed by 0.026 on the CPU); the q8 artifact must
 # also equal the plain artifact serving the q8 payload's dequantized
 # weights bit for bit (the codec's oracle). verifier: the recipe step and
 # the GPT bf16 step, one run each through CompiledProgram under
 # verify_program="strict". spans: SPAN_STEPS graphed recipe steps and
 # served requests with obs enabled, then SPAN_TIMED replays each way.
+ARTIFACT_LAYERS = 2
 ARTIFACT_BUCKETS = (1, 8)
 ARTIFACT_Q8_BUCKETS = (1,)
 ARTIFACT_IN_FLIGHT = 2
@@ -1364,24 +1404,53 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=7, inner=10):
-    """Median device time of one call of ``fn`` (CUDA events over
-    ``inner`` calls queued behind a sleep kernel, so the host's launch
-    cost stays off the clock)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
+# the sleep kernel a timing queues its calls behind: SLEEP_CYCLES for the
+# first repetition, then twice the host time those calls took to enqueue
+# (at least SLEEP_MIN_MS), so that the calls still run back to back
+SLEEP_CYCLES, SLEEP_MIN_MS = 20_000_000, 1.0
+_CYCLES_PER_MS = []
+
+
+def _sleep_cycles(torch, host_s):
+    """Cycles of a sleep that covers ``host_s`` seconds of enqueue twice
+    over, between SLEEP_MIN_MS and SLEEP_CYCLES; SLEEP_CYCLES for None."""
+    if host_s is None:
+        return SLEEP_CYCLES
+    if not _CYCLES_PER_MS:
+        _CYCLES_PER_MS.append(_cycles_per_ms(torch))
+    ms = max(SLEEP_MIN_MS, 2e3 * host_s)
+    return int(min(SLEEP_CYCLES, ms * _CYCLES_PER_MS[0]))
+
+
+def _timed_behind_sleep(torch, calls, reps, per):
+    """Median device time of ``calls()`` over ``per`` (CUDA events,
+    queued behind a sleep kernel, so the host's launch cost stays off the
+    clock)."""
+    times, host_s = [], None
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
+        torch.cuda._sleep(_sleep_cycles(torch, host_s))
         start.record()
-        for _ in range(inner):
-            fn()
+        t0 = time.perf_counter()
+        calls()
+        host_s = time.perf_counter() - t0
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def time_ms(torch, fn, reps=7, inner=10):
+    """Median device time of one call of ``fn`` (CUDA events over
+    ``inner`` calls queued behind a sleep kernel)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(inner):
+            fn()
+    return _timed_behind_sleep(torch, calls, reps, inner)
 
 
 def _clock(big):
@@ -1397,21 +1466,12 @@ def time_cold_ms(torch, fn, ring, reps=5):
     the calls cycle through ``ring``, input sets that together exceed
     twice the L2, so each call's inputs were evicted since their last
     use (CUDA events over one pass of the ring, behind a sleep kernel)."""
-    for inputs in ring:
-        fn(inputs)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
+    def calls():
         for inputs in ring:
             fn(inputs)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / len(ring))
-    return statistics.median(times)
+    calls()
+    torch.cuda.synchronize()
+    return _timed_behind_sleep(torch, calls, reps, len(ring))
 
 
 def _ring(torch, tensors):
@@ -2660,12 +2720,12 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
                          for e in resilience.events("numeric_fault")]
         exe.close()
     # the card's graphed runs (a warm run, a capture, a replay) against
-    # its op-by-op runs: equal bits
+    # its op-by-op runs: equal values, compared on the card
     op_scope = runs["gpu_op_by_op"][1]
     graphed_equal = np.array_equal(runs["gpu"][0], runs["gpu_op_by_op"][0],
                                    equal_nan=True) and all(
-        np.array_equal(to_numpy(runs["gpu"][1].find_var(v.name)),
-                       to_numpy(op_scope.find_var(v.name)))
+        _equal_on_card(runs["gpu"][1].find_var(v.name),
+                       op_scope.find_var(v.name))
         for v in main.list_vars() if v.persistable)
     (gl, gs, g_ms), (cl, cs, c_ms) = runs["gpu"], runs["cpu"]
     skipped_ok = True
@@ -2688,8 +2748,8 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
                                         to_numpy(cs.find_var(n)))
                          for n in counters)
     agreement, params_ok = _param_agreement(np, dtype, (
-        (p.name, p.dtype if amp is None else amp, to_numpy(arrays[p.name]),
-         to_numpy(gs.find_var(p.name)), to_numpy(cs.find_var(p.name)))
+        (p.name, p.dtype if amp is None else amp, arrays[p.name],
+         gs.find_var(p.name), cs.find_var(p.name))
         for p in main.all_parameters() + [v for v in wrapper
                                           if v.name not in counters]))
     ok = (loss_rel <= PARITY_LOSS_RTOL[dtype] and all(np.isfinite(gl))
@@ -2706,33 +2766,49 @@ def _card_vs_cpu(np, ptt, main, startup, fetch_list, feed, target=None,
             graphed_bit_equal_op_by_op=graphed_equal, **extra), ok
 
 
+def _equal_on_card(a, b):
+    """np.array_equal of two tensors' host copies, computed where ``a``
+    lies: same shape and dtype, equal values, NaN unequal to
+    everything."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a, b.to(a.device))
+
+
 def _param_agreement(np, dtype, tensors):
     """PARITY_* agreement of two devices' final tensors, each from the
     same start: ``tensors`` yields (name, the tensor's dtype, start, got,
-    want) with arrays; ``dtype`` the model's (its sign-flip share). Each
+    want) with arrays or tensors, compared as float32 on the card;
+    ``dtype`` the model's (its sign-flip share). Each
     element within PARITY_PARAM_ATOL plus the tensor's own ulps but for
     a PARITY_SIGN_FLIP_SHARE of them, none beyond PARITY_SIGN_FLIP_ATOL;
     each tensor that moved at least PARITY_LR on ``want``'s side moved as
     far on ``got``'s within PARITY_MOVED_RTOL; the largest move at least
     10 PARITY_PARAM_ATOL. (the numbers, whether they pass)."""
+    import torch
     beyond = elements = capped = 0
     param_err = moved = 0.0
     moved_errs = []
     for name, p_dtype, start, got, want in tensors:
-        start, got, want = (np.asarray(a).astype(np.float32)
-                            for a in (start, got, want))
-        diff = np.abs(got - want)
-        # the spacing of the tensor's own dtype at each element of want
-        _, exp = np.frexp(np.maximum(np.abs(want), 2.0 ** -126))
-        ulps = PARITY_PARAM_ULPS[p_dtype] * np.ldexp(
-            1.0, exp - 1 - MANTISSA_BITS[p_dtype])
+        start, got, want = (
+            (a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))).detach().to("cuda", torch.float32)
+            for a in (start, got, want))
+        diff = (got - want).abs()
+        # the spacing of the tensor's own dtype at each element of want,
+        # and the bounds, in float64
+        _, exp = torch.frexp(torch.clamp(want.abs(), min=2.0 ** -126))
+        ulps = PARITY_PARAM_ULPS[p_dtype] * torch.ldexp(
+            torch.ones((), dtype=torch.float64, device=exp.device),
+            (exp - 1 - MANTISSA_BITS[p_dtype]).double())
+        wide = diff.double()
         param_err = max(param_err, float(diff.max()))
-        beyond += int((diff > PARITY_PARAM_ATOL + ulps).sum())
-        capped += int((diff > PARITY_SIGN_FLIP_ATOL + ulps).sum())
-        elements += diff.size
-        on_got, on_want = np.abs(got - start), np.abs(want - start)
+        beyond += int((wide > PARITY_PARAM_ATOL + ulps).sum())
+        capped += int((wide > PARITY_SIGN_FLIP_ATOL + ulps).sum())
+        elements += diff.numel()
+        on_got, on_want = (got - start).abs(), (want - start).abs()
         moved = max(moved, float(on_got.max()))
-        if on_want.max() >= PARITY_LR:
+        if float(on_want.max()) >= PARITY_LR:
             moved_errs.append((abs(float(on_got.sum()) / float(
                 on_want.sum()) - 1.0), name))
     moved_errs.sort(reverse=True)
@@ -7374,9 +7450,9 @@ def _resilient(torch, np, ptt, label, exe, target, main, start, batches,
 def resilient_recipe(torch, np, ptt, counters):
     """ResilientTrainer over RESILIENT_BATCHES batches of the recipe step
     (checkpoint_every=RESILIENT_CKPT_EVERY, keep_last=RESILIENT_KEEP),
-    each run ending bit-equal to its uninterrupted reference: (a)
-    ``step:preempt@6`` at the full 12 layers (one restore to step 3); at
-    RESILIENT_LAYERS layers of the same width: (b) numeric_policy=
+    each run ending bit-equal to its uninterrupted reference, at
+    RESILIENT_LAYERS layers of BERT-base's width: (a) ``step:preempt@6``
+    (one restore to step 3); (b) numeric_policy=
     "rewind" with batch RESILIENT_REWIND_POISON poisoned (against the
     uninterrupted run of the other batches; a poison_batch event); (c)
     steps_per_dispatch=2, the windows through run_steps, preempted at the
@@ -7394,27 +7470,8 @@ def resilient_recipe(torch, np, ptt, counters):
     out, ok = {}, True
     counters.zero()                          # the main path starts here
     try:
-        cfg = bert.bert_base(dtype="bfloat16")
-        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
-                                                   BF16_TRAIN_BATCH)
-        persist = [v.name for v in main.list_vars() if v.persistable]
-        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
-                                        TRAIN_PREDS, seed=300 + s)
-                   for s in range(RESILIENT_BATCHES)]
-        start = _started(ptt, startup)
-        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
-        exe = ptt.Executor()
-        with resilience.inject("step:preempt@6"):
-            out["a_preempt"], done = _resilient(
-                torch, np, ptt, "a", exe, main, main, start, batches,
-                fetch_list, root, want, persist)
-        done = done and out["a_preempt"]["events"]["restore"][-1][
-            "step"] == RESILIENT_CKPT_EVERY
-        out["a_preempt"].update(layers=cfg.num_layers, ok=done)
-        ok = ok and done
-        close_executor(torch, "resilient_recipe a", exe)
-        del start, want
-        # (b)-(e) at RESILIENT_LAYERS layers of the same width
+        # RESILIENT_LAYERS layers of the same width (the 12-layer
+        # ResilientTrainer runs under the pod in pod_recipe (a))
         cfg = bert.bert_base(dtype="bfloat16", num_layers=RESILIENT_LAYERS)
         main, startup, fetch_list = _guard_program(ptt, bert, cfg,
                                                    BF16_TRAIN_BATCH)
@@ -7431,6 +7488,16 @@ def resilient_recipe(torch, np, ptt, counters):
                                           fetch_list)
         want7 = (fetches7[:RESILIENT_REWIND_POISON] + [None]
                  + fetches7[RESILIENT_REWIND_POISON:], scope7)
+        exe = ptt.Executor()
+        with resilience.inject("step:preempt@6"):
+            out["a_preempt"], done = _resilient(
+                torch, np, ptt, "a", exe, main, main, start, batches,
+                fetch_list, root, want, persist)
+        done = done and out["a_preempt"]["events"]["restore"][-1][
+            "step"] == RESILIENT_CKPT_EVERY
+        out["a_preempt"].update(layers=cfg.num_layers, ok=done)
+        ok = ok and done
+        close_executor(torch, "resilient_recipe a", exe)
         poisoned = list(batches)
         poisoned[RESILIENT_REWIND_POISON] = dict(
             batches[RESILIENT_REWIND_POISON])
@@ -7497,11 +7564,317 @@ def resilient_recipe(torch, np, ptt, counters):
     launches = counters.read_all()
     emit({"phase": "resilient_recipe", "ok": ok, "model": "bert_base",
           "dtype": "bfloat16", "batch": BF16_TRAIN_BATCH,
-          "layers": {"a": 12, "b-e": RESILIENT_LAYERS},
+          "layers": RESILIENT_LAYERS,
           "checkpoint_every": RESILIENT_CKPT_EVERY,
           "keep_last": RESILIENT_KEEP, "runs": out})
     if not ok:
         raise AssertionError("resilient_recipe checks failed (see the line "
+                             "above)")
+    return launches
+
+
+def _program_launches(main, guard=False):
+    """The kernels' launches a step of a BERT recipe program, derived from
+    its ops: one flash forward, dK/dV and dQ per attention op, one
+    LayerNorm forward and backward per layer_norm op, one fused Adam per
+    adamw op, and with ``guard`` (numeric_policy "rewind") one finite
+    check."""
+    ops = _op_counts(main)
+    att, ln_ = ops.get("scaled_dot_product_attention", 0), \
+        ops.get("layer_norm", 0)
+    want = dict({k: 0 for k in TRAIN_PER_STEP},
+                flash_attention_fwd=att, flash_attention_bwd_dkv=att,
+                flash_attention_bwd_dq=att, layer_norm_fwd=ln_,
+                layer_norm_bwd=ln_, fused_adam=ops.get("adamw", 0),
+                finite_flags=int(guard), guarded_copy=0)
+    return want
+
+
+def _host_calls(exe, counters):
+    """Wrap a pod host's Executor: each run / run_steps call recorded as
+    (steps it carried, the launches it made by name, the error it raised
+    or None), read from the kernels' counters before and after the call
+    under the Executors' step lock, so no other host's thread steps in
+    between."""
+    from paddle_tpu_torch.framework import executor
+    from paddle_tpu_torch.ops import kernels
+    by = {(id(m), a): n for n, (m, a) in list(counters._fields.items())
+          + list(counters._guard.items())}
+    names = [by.get((id(m), a)) for m, a in kernels.LAUNCH_COUNTERS]
+    calls = []
+    run, run_steps = exe.run, exe.run_steps
+
+    def record(fn, n, *a, **k):
+        with executor._STEP_LOCK:
+            before = kernels.launch_counts()
+            err = None
+            try:
+                return fn(*a, **k)
+            except Exception as e:
+                err = type(e).__name__
+                raise
+            finally:
+                delta = {nm: b - a_ for nm, a_, b in zip(
+                    names, before, kernels.launch_counts())
+                    if nm is not None}
+                calls.append((n, delta, err))
+    exe.run = lambda *a, **k: record(run, 1, *a, **k)
+    exe.run_steps = lambda *a, **k: record(
+        run_steps, len(next(iter(k["feed"].values()))), *a, **k)
+    return calls
+
+
+def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
+             fetch_list, root, want, persist, per_step, window, ckpt_every,
+             counters, elastic=False, fault=None, failpoint=None,
+             **pod_kw):
+    """One pod on POD_BATCHES batches: each host a thread with its own
+    Executor, a copy of ``start`` and its checkpoint dir. Its record (each
+    live host's fetches and persistables against ``want``, bit for bit;
+    every call's launches ``per_step`` times its steps, or none for a
+    call a fault stopped before it dispatched; a step without fetches
+    only on a host that a ``host_death`` event names; events by kind and
+    host; seconds, peak memory) and whether it passed."""
+    from paddle_tpu_torch.framework import (coordination, faultinject,
+                                            obs, resilience)
+    trainers, calls = [], []
+    for h in range(n_hosts):
+        exe = ptt.Executor()
+        calls.append(_host_calls(exe, counters))
+        trainers.append(resilience.ResilientTrainer(
+            exe, make_target(), os.path.join(root, label, "h%d" % h),
+            fetch_list=fetch_list, checkpoint_every=ckpt_every,
+            keep_last=POD_KEEP, steps_per_dispatch=window,
+            retry_policy=resilience.RetryPolicy(
+                base_delay_s=0.0, jitter=0.0, sleep=lambda s: None),
+            scope=_copy_scope(torch, ptt, start)))
+    cls = coordination.ElasticTrainer if elastic \
+        else coordination.PodResilientTrainer
+    co = coordination.LocalCoordinator(n_hosts, timeout_s=POD_TIMEOUT_S)
+    pod = cls(trainers, co, **pod_kw)
+    resilience.clear_events()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    obs.enable()
+    obs.clear()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as ctx:
+            if fault:
+                ctx.enter_context(resilience.inject(fault))
+            if failpoint:
+                ctx.enter_context(faultinject.failpoints([failpoint]))
+            out = pod.run(batches)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        spans = obs.spans()
+    finally:
+        obs.disable()
+        obs.clear()
+    peak = torch.cuda.max_memory_allocated()
+    want_fetches, want_scope = want
+    dead = {e.get("host") for e in resilience.events("host_death")}
+    hosts = []
+    for h, (trainer, got) in enumerate(zip(trainers, out)):
+        fetch_equal = all(
+            (g is None) if w is None else
+            (g is None or all(np.array_equal(a, b) for a, b in zip(g, w)))
+            for g, w in zip(got, want_fetches))
+        missed = [i for i, (g, w) in enumerate(zip(got, want_fetches))
+                  if g is None and w is not None]
+        unequal = _unequal_state(torch, persist, trainer._scope,
+                                 want_scope)
+        bad_calls = [(n, d, e) for n, d, e in calls[h]
+                     if d != {k: v * n for k, v in per_step.items()}
+                     and not (e is not None and not any(d.values()))]
+        hosts.append({"host": h, "fetches_bit_equal": fetch_equal,
+                      "steps_missed": missed,
+                      "steps_missed_ok": not missed or h in dead,
+                      "state_unequal": unequal[:8],
+                      "calls": len(calls[h]),
+                      "steps_dispatched": sum(
+                          n for n, d, e in calls[h] if any(d.values())),
+                      "launches_per_step_ok": not bad_calls,
+                      "bad_calls": bad_calls[:3]})
+        trainer._executor.close()
+    kinds = {}
+    for e in resilience.events():
+        if e["kind"] in ("ckpt", "program_analysis"):
+            continue
+        key = "%s/host%s" % (e["kind"], e.get("host"))
+        kinds[key] = kinds.get(key, 0) + 1
+    evs = {k: [{kk: vv for kk, vv in e.items() if kk != "time"}
+               for e in resilience.events(k)]
+           for k in ("pod_restore", "consensus", "buddy_restore",
+                     "elastic_shrink", "elastic_grow", "rejoin",
+                     "poison_batch", "buddy_adopt", "host_death")}
+    metrics = resilience.metrics()
+    buddy = {"gauges": [g for g in metrics["gauges"]
+                        if "buddy" in g["name"]],
+             "restores": [c for c in metrics["counters"]
+                          if "buddy_restore" in c["name"]],
+             "snapshot_bytes": resilience.bytes_totals().get(
+                 "buddy_snapshot"),
+             "stateship_bytes": resilience.bytes_totals().get(
+                 "stateship"),
+             "meta": {h: co.buddy_meta(h) for h in range(n_hosts)}}
+    sends = [s for s in spans if s["name"] == "buddy.send"]
+    restores = [s for s in spans if s["name"] == "buddy.restore"]
+    runs = sum(hh["steps_dispatched"] for hh in hosts)
+    kept = sum(1 for f in want_fetches if f is not None)
+    shutil.rmtree(os.path.join(root, label), ignore_errors=True)
+    ok = all(hh["fetches_bit_equal"] and hh["steps_missed_ok"]
+             and not hh["state_unequal"] and hh["launches_per_step_ok"]
+             for hh in hosts)
+    return {"hosts_n": n_hosts, "seconds": seconds,
+            "peak_mem_gb": peak / 2 ** 30,
+            "peak_above_resident_gb": (peak - resident) / 2 ** 30,
+            "hosts": hosts, "events_by_kind_and_host": kinds,
+            "events": evs, "buddy": buddy,
+            "snapshot_encode_s": [
+                {"host": sp["labels"].get("host"),
+                 "gen": sp["labels"].get("gen"),
+                 "seconds": sp["t1"] - sp["t0"]} for sp in sends],
+            "buddy_restore_s": [sp["t1"] - sp["t0"] for sp in restores],
+            "steps_replayed": runs - kept * n_hosts + sum(
+                len(hh["steps_missed"]) for hh in hosts),
+            "launches_per_step": per_step, "ok": ok}, ok
+
+
+def pod_recipe(torch, np, ptt, counters):
+    """The pod half of the robustness stack on one card: simulated hosts
+    (threads on one LocalCoordinator, each with its own Executor, Scope
+    and checkpoint dir) train the recipe step (BERT-base bf16, batch 128
+    x 128, dropout 0.1, AdamW, the warmup over the polynomial decay, the
+    global-norm clip) on the replicated feed, and every live host ends
+    bit-equal to the uninterrupted one-host run: (a) 12 layers, two
+    hosts, PodResilientTrainer with the buddy tier, preempted and
+    restored from the buddy mailboxes (no disk read); at
+    RESILIENT_LAYERS layers, four hosts: (b) a torn checkpoint lowers
+    the consensus to step 0, every host restores it from disk; (c)
+    ElasticTrainer: a host dies, the rest shrink to 3/4 and go on with
+    no restore, the host rejoins at 4/4 with the state shipped zlib; (d)
+    numeric_policy="rewind" on every host, one batch NaN-poisoned and
+    skipped by all. Each host's launches a step: train_recipe's at 12
+    layers, derived from the program at 2 (and one finite check under
+    (d))."""
+    from paddle_tpu_torch.models import bert
+    root = os.path.join(_ROOT, "build", "chip_smoke_pod")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, ok = {}, True
+    counters.zero()                          # the main path starts here
+    try:
+        cfg = bert.bert_base(dtype="bfloat16")
+        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                                   BF16_TRAIN_BATCH)
+        persist = [v.name for v in main.list_vars() if v.persistable]
+        per_step = _program_launches(main)
+        want_launch = dict(TRAIN_PER_STEP, finite_flags=0, guarded_copy=0)
+        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                        TRAIN_PREDS, seed=500 + s)
+                   for s in range(POD_BATCHES)]
+        start = _started(ptt, startup)
+        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
+        out["a_buddy"], done = _pod_run(
+            torch, np, ptt, "a", POD_A_HOSTS, lambda: main, start, batches,
+            fetch_list, root, want, persist, per_step, POD_A_WINDOW,
+            POD_A_CKPT_EVERY, counters,
+            fault="step:preempt@%d" % POD_A_PREEMPT, buddy=True,
+            buddy_compress="zlib", buddy_p2p=True, buddy_delta=True)
+        evs = out["a_buddy"]["events"]
+        done = (done and per_step == want_launch
+                and {e["step"] for e in evs["pod_restore"]} == {POD_A_WINDOW}
+                and {e["outcome"] for e in evs["buddy_restore"]} == {"ok"}
+                and len(evs["pod_restore"]) == POD_A_HOSTS
+                and not any(k.startswith("restore/") for k in
+                            out["a_buddy"]["events_by_kind_and_host"]))
+        out["a_buddy"].update(layers=cfg.num_layers, ok=done,
+                              preempt="step:preempt@%d" % POD_A_PREEMPT)
+        ok = ok and done
+        del start, want
+        # (b)-(d) at RESILIENT_LAYERS layers of the same width
+        cfg = bert.bert_base(dtype="bfloat16", num_layers=RESILIENT_LAYERS)
+        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
+                                                   BF16_TRAIN_BATCH)
+        loss = fetch_list[0]
+        persist = [v.name for v in main.list_vars() if v.persistable]
+        per_step = _program_launches(main)
+        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
+                                        TRAIN_PREDS, seed=600 + s)
+                   for s in range(POD_BATCHES)]
+        start = _started(ptt, startup)
+        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
+        out["b_torn"], done = _pod_run(
+            torch, np, ptt, "b", POD_HOSTS, lambda: main, start, batches,
+            fetch_list, root, want, persist, per_step, 1, POD_CKPT_EVERY,
+            counters, failpoint="io.manifest_write:raise@%d" % POD_TORN_AT,
+            buddy=False)
+        evs = out["b_torn"]["events"]
+        done = (done and {e["step"] for e in evs["consensus"]} == {0}
+                and [e["step"] for e in evs["pod_restore"]]
+                == [0] * POD_HOSTS)
+        out["b_torn"]["ok"] = done
+        ok = ok and done
+        out["c_elastic"], done = _pod_run(
+            torch, np, ptt, "c", POD_HOSTS, lambda: main, start, batches,
+            fetch_list, root, want, persist, per_step, 1, POD_CKPT_EVERY,
+            counters, elastic=True, fault="step:die@%d" % POD_DIE_AT,
+            rejoin=True, ship_compress="zlib", buddy=False)
+        evs = out["c_elastic"]["events"]
+        kinds = out["c_elastic"]["events_by_kind_and_host"]
+        done = (done and len(evs["host_death"]) == 1
+                and {e["capacity"] for e in evs["elastic_shrink"]}
+                == {"%d/%d" % (POD_HOSTS - 1, POD_HOSTS)}
+                and len(evs["elastic_shrink"]) == POD_HOSTS - 1
+                and {e["capacity"] for e in evs["elastic_grow"]}
+                == {"%d/%d" % (POD_HOSTS, POD_HOSTS)}
+                and len(evs["elastic_grow"]) == POD_HOSTS
+                and len(evs["rejoin"]) == 1
+                and not any(k.split("/")[0] in ("restore", "pod_restore")
+                            for k in kinds))
+        out["c_elastic"]["ok"] = done
+        ok = ok and done
+        clean = [b for i, b in enumerate(batches)
+                 if i != RESILIENT_REWIND_POISON]
+        fetches7, scope7 = _uninterrupted(torch, ptt, main, start, clean,
+                                          fetch_list)
+        want7 = (fetches7[:RESILIENT_REWIND_POISON] + [None]
+                 + fetches7[RESILIENT_REWIND_POISON:], scope7)
+        poisoned = list(batches)
+        poisoned[RESILIENT_REWIND_POISON] = dict(
+            batches[RESILIENT_REWIND_POISON])
+        mask = poisoned[RESILIENT_REWIND_POISON]["input_mask"].copy()
+        mask.reshape(-1)[0] = np.nan
+        poisoned[RESILIENT_REWIND_POISON]["input_mask"] = mask
+        out["d_rewind"], done = _pod_run(
+            torch, np, ptt, "d", POD_HOSTS,
+            lambda: ptt.CompiledProgram(main, ptt.BuildStrategy(
+                numeric_policy="rewind")).with_data_parallel(
+                    loss_name=loss.name),
+            start, poisoned, fetch_list, root, want7, persist,
+            _program_launches(main, guard=True), 1, POD_CKPT_EVERY,
+            counters, buddy=False)
+        evs = out["d_rewind"]["events"]
+        done = (done and {e["batch"] for e in evs["poison_batch"]}
+                == {RESILIENT_REWIND_POISON}
+                and len(evs["pod_restore"]) == POD_HOSTS)
+        out["d_rewind"]["ok"] = done
+        ok = ok and done
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counters.read_all()
+    emit({"phase": "pod_recipe", "ok": ok, "model": "bert_base",
+          "dtype": "bfloat16", "batch": BF16_TRAIN_BATCH,
+          "batches": POD_BATCHES, "layers": {"a": 12,
+                                             "b-d": RESILIENT_LAYERS},
+          "hosts": {"a": POD_A_HOSTS, "b-d": POD_HOSTS},
+          "windows": {"a": POD_A_WINDOW, "b-d": 1},
+          "checkpoint_every": {"a": POD_A_CKPT_EVERY, "b-d": POD_CKPT_EVERY},
+          "coordinator_timeout_s": POD_TIMEOUT_S, "runs": out})
+    if not ok:
+        raise AssertionError("pod_recipe checks failed (see the line "
                              "above)")
     return launches
 
@@ -9494,13 +9867,20 @@ def _eager_bucket(torch, np, pred, b, feed):
     return outs
 
 
+def _artifact_launches():
+    """One request's launches of the served artifact: a flash forward a
+    layer, a LayerNorm forward for the embeddings and two a layer."""
+    return {"flash_attention_fwd": ARTIFACT_LAYERS,
+            "layer_norm_fwd": 1 + 2 * ARTIFACT_LAYERS}
+
+
 def serving_artifact(torch, np, ptt, counters, art_dir):
-    """BERT-base (serve's model, T=512, f32) exported by
-    ``save_inference_model(format="stablehlo")`` (plain at
+    """BERT-base (serve's model, T=512, f32) at ARTIFACT_LAYERS layers
+    exported by ``save_inference_model(format="stablehlo")`` (plain at
     ARTIFACT_BUCKETS, q8 at ARTIFACT_Q8_BUCKETS) and served by
     ``load_serving_artifact``: export seconds and bytes, each graph's
-    custom ops; warmup (each bucket's first call: 12 flash and 25
-    LayerNorm forward launches, then the capture) and health; the serve
+    custom ops; warmup (each bucket's first call: _artifact_launches,
+    then the capture) and health; the serve
     phase's requests, answers against the in-process Predictor on the
     card and the CPU's (SERVE_ATOL), replays bit-equal to the exported
     program run eagerly; latency beside the in-process Predictor's;
@@ -9512,7 +9892,8 @@ def serving_artifact(torch, np, ptt, counters, art_dir):
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.models import bert
 
-    cfg = bert.bert_base()
+    cfg = bert.bert_base(num_layers=ARTIFACT_LAYERS)
+    want = _artifact_launches()
     plain_dir = os.path.join(art_dir, "plain")
     q8_dir = os.path.join(art_dir, "q8")
     t0 = time.perf_counter()
@@ -9547,9 +9928,8 @@ def serving_artifact(torch, np, ptt, counters, art_dir):
         for b in meta["buckets"]:
             with open(os.path.join(sdir, "module_b%s.txt" % b)) as f:
                 graphs[b] = _graph_ops(f.read())
-            graphs_ok = graphs_ok and graphs[b] == {
-                "flash_attention_fwd": FLASH_PER_REQUEST,
-                "layer_norm_fwd": LN_PER_REQUEST, "plain_attention": []}
+            graphs_ok = graphs_ok and graphs[b] == dict(
+                want, plain_attention=[])
         artifacts[label] = {
             "save_s": export_s[label],
             "export_s_per_bucket": meta["export_seconds"],
@@ -9595,8 +9975,6 @@ def serving_artifact(torch, np, ptt, counters, art_dir):
         per_request.append({k: after[k] - before[k] for k in after
                             if after[k] != before[k]})
     launches = counters.read()
-    want = {"flash_attention_fwd": FLASH_PER_REQUEST,
-            "layer_norm_fwd": LN_PER_REQUEST}
     counts_ok = all(f["launches"] == want for f in first.values()) and \
         all(c == want for c in per_request)
     shapes_ok = all(
@@ -10488,9 +10866,10 @@ def fluid_surface(torch, np, ptt, counters, art_dir):
     in_process_s = time.perf_counter() - t1
     launches = counters.read_all()
     launched = {k: v for k, v in launches.items() if v}
+    per_request = _artifact_launches()
     launches_ok = set(launched) == set(SERVE_FAMILIES) and \
-        launched["flash_attention_fwd"] * LN_PER_REQUEST == \
-        launched["layer_norm_fwd"] * FLASH_PER_REQUEST
+        launched["flash_attention_fwd"] * per_request["layer_norm_fwd"] == \
+        launched["layer_norm_fwd"] * per_request["flash_attention_fwd"]
     ok = (checked is True and places_ok and probe_ok and not rebuilt and
           all(r["rc"] == r["want"] for r in runs.values()) and
           cut.get("status") == "broken" and health_in["ready"] and
@@ -12149,7 +12528,8 @@ def _slim_qat_resnet(torch, np, ptt, counters, resnet):
     finite = all(np.isfinite(v) for row in losses for v in row)
     descends = losses[1][0] < losses[0][0]
     counts_ok = all(c == _no_launches(counters) for c in per_step)
-    ok = (finite and counts_ok and state_err <= SLIM_STATE_RTOL
+    ok = (finite and descends and counts_ok
+          and state_err <= SLIM_STATE_RTOL
           and graphs["capture"] == 1 and
           graphs["replay"] == SLIM_RESNET_GRAPHED - 1 and
           fq[FAKE_QUANT_OPS[2]] == len(_conv_filters(main)) + 1)
@@ -12637,6 +13017,8 @@ def main():
         torch, np, ptt, counters)
     by_path["resilient_recipe"] = phase("resilient_recipe")(
         resilient_recipe)(torch, np, ptt, counters)
+    by_path["pod_recipe"] = phase("pod_recipe")(pod_recipe)(
+        torch, np, ptt, counters)
     phase("compiled_parity")(compiled_parity)(torch, np, ptt)
 
     dy_done = phase("dygraph_gpt")(dygraph_gpt)(torch, np, ptt, counters)

@@ -62,8 +62,10 @@ fluid's top-level surface is here too: ``core``, the place helpers
 (``backward``, ``executor``, ``unique_name``, ``op``, ``graphviz``,
 ``inferencer``) and ``utils``; ``tools.progcheck`` and
 ``tools.serving_probe`` vet a saved model and a serving artifact from
-the command line. The distributed paths (``distributed``,
-``transpiler``, ``make_mesh``) are later slices (see ROADMAP.md).
+the command line. ``distributed`` holds the mesh's host bookkeeping
+that the pod coordinators (``framework.coordination``) drive on one
+card; multi-device meshes, the fleet API, ``transpiler`` and
+``make_mesh`` are later slices (see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -98,6 +100,7 @@ from .data import data  # fluid.data: the full shape, None dims
 from .data_feed_desc import DataFeedDesc
 from .parallel_executor import ParallelExecutor
 from . import compiler
+from . import distributed
 from . import dygraph
 from . import metrics
 from . import evaluator

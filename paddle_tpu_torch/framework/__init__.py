@@ -12,6 +12,7 @@ from . import unique_name  # noqa
 from . import analysis  # noqa
 from . import obs  # noqa
 from . import resilience  # noqa
+from . import coordination  # noqa
 from . import watchdog  # noqa
 from .watchdog import (CollectiveTimeoutError, wait_with_timeout,  # noqa
                        StragglerDetector)
@@ -19,3 +20,8 @@ from .resilience import (FaultInjector, RetryPolicy,  # noqa
                          ResilientTrainer, SimulatedPreemptionError,
                          ServerOverloadedError, DeadlineExceededError,
                          RestartBudgetExceededError)
+from .coordination import (Coordinator, LocalCoordinator,  # noqa
+                           FileCoordinator, SocketCoordinator,
+                           PodResilientTrainer,
+                           CoordinationError, HostLostError,
+                           NoQuorumError)

@@ -128,7 +128,10 @@ class CompiledStep(object):
         before = kernels.launch_counts()
         env = dict(self.state)
         env.update(self.feeds)
-        self.graph.capture_begin(pool=pool)
+        # thread_local: a CUDA call of another thread (a pod host's
+        # checkpoint copy) does not void this capture
+        self.graph.capture_begin(pool=pool,
+                                 capture_error_mode="thread_local")
         try:
             run(env)
             self._write_back(env)

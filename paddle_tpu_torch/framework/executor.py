@@ -81,8 +81,18 @@ Precision: f32 matmuls and convolutions run in full f32 — TF32 is
 switched off where the Executor is made
 (``torch.backends.cuda.matmul.allow_tf32 = False``) — bf16 matmuls sum
 in f32, and cuDNN runs deterministic algorithms (``set_precision``).
+
+Threads: the Executors of one process take their steps one at a time
+(``run``, ``run_steps`` and ``close`` hold one process-wide re-entrant
+lock, ``_STEP_LOCK``), so a pod of simulated hosts on one card
+(framework/coordination.py) never has another host's kernels, mallocs
+or syncs inside a capture window, and a capture's launch count is its
+own. A caller that holds the lock around a step reads the kernels'
+launch counters before and after it as that step's own.
 """
+import functools
 import hashlib
+import threading
 import time
 
 import numpy as np
@@ -100,6 +110,18 @@ from .scope import global_scope, to_numpy
 from .trace import EMPTY_VAR, GRAD_OP_TYPE
 
 _SALT_VAR = "@EAGER_SALT@"
+
+# one Executor step at a time in the process (see the module docstring)
+_STEP_LOCK = threading.RLock()
+
+
+def _one_step_at_a_time(fn):
+    """``fn`` (an Executor method) under the process-wide step lock."""
+    @functools.wraps(fn)
+    def locked(self, *args, **kwargs):
+        with _STEP_LOCK:
+            return fn(self, *args, **kwargs)
+    return locked
 
 
 def set_precision():
@@ -481,6 +503,7 @@ class Executor(object):
         self._pending = None
         set_precision()
 
+    @_one_step_at_a_time
     def close(self):
         """Drop the captured graphs, their memory pool and the plans (the
         counterpart of paddle_tpu's ``Executor.close``); the scope keeps
@@ -588,6 +611,7 @@ class Executor(object):
         self.refusals[plan.key] = plan.syncs_host
         return False
 
+    @_one_step_at_a_time
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
             return_numpy=True, use_program_cache=True):
@@ -693,6 +717,7 @@ class Executor(object):
                                        debug, fetch_list, fetch_info,
                                        print_period)
 
+    @_one_step_at_a_time
     def run_steps(self, program=None, feed=None, fetch_list=None,
                   scope=None, return_numpy=True, use_program_cache=True):
         """Run N consecutive steps of ``program`` (a Program or a

@@ -17,15 +17,20 @@ Counterpart of paddle_tpu/framework/resilience.py, its single-host part:
   * the structured event log (:func:`events`) and its aggregation
     (:func:`metrics`, :func:`metrics_text`, :func:`parse_metrics_text`)
     over the families this port feeds: events, faults, checkpoint bytes,
-    restore latency, executor step phases, failpoints and numeric faults.
-    The families of modules not ported yet (the router, the buddy tier,
-    the program verifier, the feed plane, the transport) are absent, as
-    the JAX package gives them with nothing recorded.
+    restore latency, executor step phases, failpoints, numeric faults
+    and the buddy tier's (restore outcomes, each host's generation, its
+    mailbox's resident bytes, the delta ratio, the p2p fetch ms). The
+    families of modules not ported yet (the router, the feed plane, the
+    transport) are absent, as the JAX package gives them with nothing
+    recorded;
+  * :class:`SDCDetector`, the pod's silent-data-corruption tripwire,
+    and ``ElasticTrainer``, resolved lazily from
+    :mod:`.coordination` (which holds the pod stack: the coordinators,
+    ``PodResilientTrainer``, ``ElasticTrainer``).
 
-The pod stack (``SDCDetector``, ``ElasticTrainer``), the metrics server
-and the serving parts (router counters, shedding) come with later
-slices; ``ResilientTrainer(feed=...)`` (a ShardedFeed) raises
-NotPortedError.
+The metrics server and the serving parts (router counters, shedding)
+come with the transport slice; ``ResilientTrainer(feed=...)`` (a
+ShardedFeed) raises NotPortedError.
 
 Env knobs (read once; ``reload_env()`` re-reads):
   PADDLE_TPU_FAULTS       fault spec string, e.g. ``step:preempt@5``
@@ -56,6 +61,10 @@ __all__ = [
     "record_bytes", "bytes_totals", "clear_bytes",
     "observe_executor_step", "executor_step_totals", "clear_exec",
     "record_analysis", "analysis_totals", "clear_analysis",
+    "record_buddy_gen", "buddy_gens", "clear_buddy_gens",
+    "record_buddy_resident", "buddy_resident",
+    "record_buddy_delta_ratio", "buddy_delta_ratio",
+    "record_buddy_fetch_ms", "buddy_fetch_ms", "SDCDetector",
 ]
 
 INJECTION_POINTS = ("step", "ckpt_write", "serve")
@@ -211,6 +220,7 @@ def clear_events():
     _LOG.clear()
     clear_bytes()
     clear_exec()
+    clear_buddy_gens()
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +263,74 @@ def bytes_totals():
 def clear_bytes():
     with _BYTES_LOCK:
         _BYTES.clear()
+
+
+# Buddy-snapshot gauges (framework/buddy.py), at window rate, so kept
+# outside the event log and cleared with it: the generation each host
+# last published or adopted, each mailbox's resident bytes (keys are
+# strings: a host id, or "coord" for the coordinator's own stores), the
+# last send's delta wire ratio and the last host-to-host fetch's ms.
+_BUDDY_GEN = {}
+_BUDDY_GEN_LOCK = threading.Lock()
+_BUDDY_RESIDENT = {}
+_BUDDY_P2P = {}
+_BUDDY_P2P_LOCK = threading.Lock()
+
+
+def record_buddy_gen(host, gen):
+    """Exported as the gauge ``<prefix>_buddy_generation{host=}``."""
+    with _BUDDY_GEN_LOCK:
+        _BUDDY_GEN[int(host)] = int(gen)
+
+
+def buddy_gens():
+    """{host: generation} snapshot."""
+    with _BUDDY_GEN_LOCK:
+        return dict(_BUDDY_GEN)
+
+
+def clear_buddy_gens():
+    with _BUDDY_GEN_LOCK:
+        _BUDDY_GEN.clear()
+    with _BUDDY_P2P_LOCK:
+        _BUDDY_RESIDENT.clear()
+        _BUDDY_P2P.clear()
+
+
+def record_buddy_resident(host, nbytes):
+    """Exported as ``<prefix>_buddy_resident_bytes{host=}``."""
+    with _BUDDY_P2P_LOCK:
+        _BUDDY_RESIDENT[str(host)] = int(nbytes)
+
+
+def buddy_resident():
+    """{host: bytes} snapshot."""
+    with _BUDDY_P2P_LOCK:
+        return dict(_BUDDY_RESIDENT)
+
+
+def record_buddy_delta_ratio(ratio):
+    """One send's wire bytes over the last full send's: 1.0 for a full
+    send. Exported as the gauge ``<prefix>_buddy_delta_ratio``."""
+    with _BUDDY_P2P_LOCK:
+        _BUDDY_P2P["delta_ratio"] = float(ratio)
+
+
+def buddy_delta_ratio():
+    with _BUDDY_P2P_LOCK:
+        return _BUDDY_P2P.get("delta_ratio")
+
+
+def record_buddy_fetch_ms(ms):
+    """One host-to-host mailbox pull's ms. Exported as the gauge
+    ``<prefix>_buddy_p2p_fetch_ms``."""
+    with _BUDDY_P2P_LOCK:
+        _BUDDY_P2P["fetch_ms"] = float(ms)
+
+
+def buddy_fetch_ms():
+    with _BUDDY_P2P_LOCK:
+        return _BUDDY_P2P.get("fetch_ms")
 
 
 # Executor step-phase latency: per-phase cumulative histograms outside
@@ -386,6 +464,16 @@ def metrics(event_list=None, by_host=False):
       <prefix>_trace_spans_dropped_total     spans the obs ring evicted
                                              (emitted while tracing is
                                              on or once any dropped)
+      <prefix>_buddy_snapshot_bytes_total{kind=}  the buddy tier's
+                                             raw-vs-wire window
+                                             snapshots (record_bytes)
+      <prefix>_buddy_restore_total{outcome=} buddy restores by outcome
+                                             (ok or the typed disk
+                                             fallback)
+      <prefix>_buddy_generation{host=}       gauges of the buddy tier,
+      <prefix>_buddy_resident_bytes{host=}   emitted once recorded
+      <prefix>_buddy_delta_ratio
+      <prefix>_buddy_p2p_fetch_ms
 
     Pass ``event_list`` to aggregate a snapshot instead of the live log.
     ``by_host=True`` labels the event counters with the host tag that
@@ -455,6 +543,27 @@ def metrics(event_list=None, by_host=False):
             {"name": METRIC_PREFIX + "_analysis_diagnostics_total",
              "labels": {"pass": pass_name, "severity": severity},
              "value": n})
+    br_counts = collections.Counter(
+        e.get("outcome", "?") for e in evs
+        if e["kind"] == "buddy_restore")
+    counters += [
+        {"name": METRIC_PREFIX + "_buddy_restore_total",
+         "labels": {"outcome": o}, "value": n}
+        for o, n in sorted(br_counts.items())]
+    gauges += [
+        {"name": METRIC_PREFIX + "_buddy_generation",
+         "labels": {"host": str(h)}, "value": g}
+        for h, g in sorted(buddy_gens().items())]
+    gauges += [
+        {"name": METRIC_PREFIX + "_buddy_resident_bytes",
+         "labels": {"host": str(h)}, "value": b}
+        for h, b in sorted(buddy_resident().items())]
+    if buddy_delta_ratio() is not None:
+        gauges.append({"name": METRIC_PREFIX + "_buddy_delta_ratio",
+                       "labels": {}, "value": buddy_delta_ratio()})
+    if buddy_fetch_ms() is not None:
+        gauges.append({"name": METRIC_PREFIX + "_buddy_p2p_fetch_ms",
+                       "labels": {}, "value": buddy_fetch_ms()})
     # a dropped span means a timeline that is missing part of the run
     from . import obs
     if obs.enabled() or obs.dropped_total():
@@ -752,6 +861,82 @@ def fire(point, what=""):
 
 
 # ---------------------------------------------------------------------------
+# silent-data-corruption detection (the pod's tripwire)
+# ---------------------------------------------------------------------------
+
+class SDCDetector(object):
+    """Per-host norm outlier detection. A host with a flaky ALU computes
+    wrong but finite values that no finite mask sees; what shows is its
+    norm drifting from its peers' on identical replicated math. Fed one
+    scalar per host per window, a host whose robust deviation from the
+    pod median, ``|x_h - median(x)| / (MAD(x) + eps)``, exceeds
+    ``threshold`` for ``consecutive`` windows is flagged a suspect once
+    (an ``sdc_suspect`` event) and handed to ElasticTrainer's drain.
+    Median and MAD, so that the corrupt host's own values cannot mask
+    themselves; the consecutive gate ignores a one-window spike."""
+
+    def __init__(self, threshold=6.0, consecutive=3, window=32,
+                 eps=1e-12):
+        if consecutive < 1:
+            raise ValueError("consecutive must be >= 1")
+        self.threshold = float(threshold)
+        self.consecutive = int(consecutive)
+        self.window = int(window)
+        self.eps = float(eps)
+        self._streak = {}      # host -> consecutive outlier windows
+        self._history = collections.deque(maxlen=self.window)
+        self._suspects = set()
+        self._lock = threading.Lock()
+
+    def observe(self, norms, step=None):
+        """One window's ``{host: norm}``; returns the newly flagged
+        hosts (usually none)."""
+        vals = {h: float(v) for h, v in norms.items()}
+        if len(vals) < 3:
+            return []   # a median of 2 cannot tell who is wrong
+        xs = sorted(vals.values())
+        mid = len(xs) // 2
+        med = xs[mid] if len(xs) % 2 else 0.5 * (xs[mid - 1] + xs[mid])
+        devs = sorted(abs(v - med) for v in xs)
+        mad = devs[mid] if len(devs) % 2 \
+            else 0.5 * (devs[mid - 1] + devs[mid])
+        new = []
+        with self._lock:
+            self._history.append(dict(vals))
+            for h, v in vals.items():
+                score = abs(v - med) / (mad + self.eps)
+                # a non-finite norm is an outlier by definition
+                outlier = score > self.threshold or v != v
+                self._streak[h] = self._streak.get(h, 0) + 1 \
+                    if outlier else 0
+                if self._streak[h] >= self.consecutive \
+                        and h not in self._suspects:
+                    self._suspects.add(h)
+                    new.append(h)
+                    record_event("sdc_suspect", host_suspect=str(h),
+                                 score=round(score, 3),
+                                 streak=self._streak[h],
+                                 **({} if step is None
+                                    else {"step": int(step)}))
+        return new
+
+    def suspects(self):
+        with self._lock:
+            return set(self._suspects)
+
+    def clear(self, host=None):
+        """Forget a drained host (or everything)."""
+        with self._lock:
+            if host is None:
+                self._suspects.clear()
+                self._streak.clear()
+                self._history.clear()
+            else:
+                self._suspects.discard(host)
+                self._streak.pop(host, None)
+
+
+# ---------------------------------------------------------------------------
 # retry policy
 # ---------------------------------------------------------------------------
 
@@ -950,12 +1135,14 @@ class ResilientTrainer(object):
                                compress=self._ckpt_compress)
         record_event("ckpt", step=step)
 
-    def _restore(self, step=None):
+    def _restore(self, step=None, shardings=None):
         """Restore ``step`` or the latest valid checkpoint. Joins an
         in-flight asynchronous commit first: a commit still writing
         while the restore picks its step could tear the very dir it
         reads. A failed asynchronous commit is recorded, not raised: its
-        torn step dir is what the load's quarantine handles."""
+        torn step dir is what the load's quarantine handles.
+        ``shardings`` goes to load_checkpoint (on one card the pod
+        passes None: a size-1 mesh has nothing to re-shard)."""
         from .. import io as io_mod
         t0 = time.perf_counter()
         try:
@@ -964,7 +1151,8 @@ class ResilientTrainer(object):
             record_event("ckpt_async_error", error=type(e).__name__)
         got = int(io_mod.load_checkpoint(self._executor, self._ckpt_dir,
                                          self._program, step=step,
-                                         scope=self._scope))
+                                         scope=self._scope,
+                                         shardings=shardings))
         record_event("restore", step=got,
                      latency_s=time.perf_counter() - t0)
         return got
@@ -1117,3 +1305,13 @@ class ResilientTrainer(object):
             self._max_restarts, delay)
         self._policy.sleep(delay)
         return self._restore(), restarts
+
+
+def __getattr__(name):
+    # ElasticTrainer lives in coordination.py, which imports this module
+    # at its top; resolve it lazily (PEP 562)
+    if name == "ElasticTrainer":
+        from .coordination import ElasticTrainer
+        return ElasticTrainer
+    raise AttributeError("module %r has no attribute %r"
+                         % (__name__, name))

@@ -36,7 +36,8 @@ Training state (the other half of paddle_tpu/io.py):
   shards_p0.npz`` members ``name##full`` with ``/`` as ``#SL#``,
   ``manifest.json`` format 1, or 2 for ``compress="q8"``, the ``latest``
   pointer), so a checkpoint written by either package restores in the
-  other; ``compress=None | "zlib" | "q8"`` (ops/quant_ops.py); the
+  other; ``compress=None | "zlib" | "q8"`` (ops/quant_ops.py; zlib
+  members deflate with Huffman coding only, on 8 threads); the
   reference's resilience (a torn step dir quarantined as
   ``step_N.corrupt`` and the newest valid one restored, a stale
   ``latest`` repaired, retention counting scrub-valid dirs only, a
@@ -56,8 +57,12 @@ Training state (the other half of paddle_tpu/io.py):
   and ``record_bytes("ckpt", raw, wire)``; ``scrub_checkpoint`` records
   a ``scrub`` event and a quarantine a ``ckpt_quarantine`` event
   (:894, :921). Its multi-host barriers and ``shardings=``
-  (NotPortedError) and the buddy tier's state blobs come with later
-  slices.
+  (NotPortedError) come with the multi-GPU slice.
+- The buddy tier's state blobs (:314-400): ``encode_state_blob`` /
+  ``decode_state_blob`` over the same payload codec (the zlib members
+  deflated on 8 threads, still a valid npz), ``leaf_digest``,
+  ``leaf_digests`` and ``state_digest``; bfloat16 travels as uint16
+  bits, and an f32 blob or digest of either package equals the other's.
 """
 import io
 import json
@@ -143,15 +148,18 @@ _DEFLATE_CHUNK = 1 << 24
 
 
 def _deflate(piece, last):
-    c = zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION, zlib.DEFLATED, -15)
+    # Huffman coding only: float bits hold few repeated strings, so
+    # deflate's string matching (zlib's default level) buys ~nothing at
+    # ~3x the time; any deflate stream inflates to the same bytes
+    c = zlib.compressobj(1, zlib.DEFLATED, -15, 8, zlib.Z_HUFFMAN_ONLY)
     return c.compress(piece) + c.flush(zlib.Z_FINISH if last
                                        else zlib.Z_SYNC_FLUSH)
 
 
 def _write_deflated_zip(f, arrays):
     """A zip64 archive of ``{name}.npy`` members (np.save's bytes),
-    deflated at zlib's default level, as np.savez_compressed writes, but
-    with each member's pieces compressed in parallel."""
+    deflated (``_deflate``) as np.savez_compressed writes, but with each
+    member's pieces compressed in parallel."""
     members = []
     with ThreadPoolExecutor(_IO_THREADS) as pool:
         for name, arr in arrays.items():
@@ -535,6 +543,110 @@ def _decode_member(z, key):
     return arr
 
 
+def encode_state_blob(arrays, step, compress="zlib", feed_state=None,
+                      text=True):
+    """One JSON-able blob of a ``{name: value}`` state snapshot in the
+    checkpoint's payload codec (:func:`_encode_payload`, the same npz
+    member layout and q8 companions), as the buddy tier moves it:
+    ``compress`` None (plain npz), "zlib" (lossless deflate, Huffman
+    coding only, on _IO_THREADS threads) or "q8" (lossy int8 blocks).
+    Values go through
+    ``_host_array``: a bfloat16 tensor travels as its uint16 bits, a
+    Python number as a 0-d array. Returns ``(blob, raw_bytes,
+    wire_bytes)``. ``text=True``: the npz bytes ride base64, JSON-safe,
+    and a blob of either package decodes in the other; ``text=False``
+    keeps them as bytes, for a blob that never leaves the process (the
+    buddy mailboxes of the in-process coordinators: base64 costs a
+    GIL-held pass each way)."""
+    import base64
+    if compress not in (None, "zlib", "q8"):
+        raise ValueError("encode_state_blob compress must be None, "
+                         "'zlib' or 'q8', got %r" % (compress,))
+    own, names = {}, {}
+    for name, val in sorted(arrays.items()):
+        safe = name.replace("/", "#SL#")
+        names[safe] = name
+        own[safe] = val if isinstance(val, np.ndarray) \
+            else _host_array(val)[0]
+    raw = sum(int(a.nbytes) for a in own.values())
+    buf = io.BytesIO()
+    payload = _encode_payload(own, compress)
+    if compress is None:
+        np.savez(buf, **payload)
+    else:
+        _write_deflated_zip(buf, payload)
+    data = buf.getvalue()
+    blob = {"v": 1, "step": int(step), "names": names,
+            "npz": base64.b64encode(data).decode("ascii") if text
+            else data}
+    if compress is not None:
+        blob["compress"] = compress
+    if feed_state is not None:
+        blob["feed_state"] = feed_state
+    return blob, raw, len(data)
+
+
+def decode_state_blob(blob):
+    """Inverse of :func:`encode_state_blob` (base64 text or bytes):
+    ``(arrays, step, feed_state)``, numpy arrays with q8 members
+    dequantized (bfloat16 values as their uint16 bits). A torn blob
+    raises (ValueError, KeyError, zipfile errors)."""
+    import base64
+    data = blob["npz"]
+    if not isinstance(data, bytes):
+        data = base64.b64decode(data)
+    names = blob.get("names", {})
+    with np.load(io.BytesIO(data), allow_pickle=False) as z:
+        keys = [k for k in z.files
+                if not k.endswith((_Q8_SCALE, _Q8_SHAPE, _Q8_DTYPE))]
+    out = {names.get(k, k): arr
+           for k, arr in _read_members(data, keys).items()}
+    return out, int(blob["step"]), blob.get("feed_state")
+
+
+def leaf_digest(arr):
+    """sha256 over one leaf's dtype, shape and C-order bytes (bit-exact:
+    the buddy tier's delta skip test). Equal to the JAX package's for an
+    equal numpy array."""
+    import hashlib
+    a = np.ascontiguousarray(arr if isinstance(arr, np.ndarray)
+                             else _host_array(arr)[0])
+    h = hashlib.sha256()
+    h.update(str(a.dtype.str).encode("ascii"))
+    h.update(repr(tuple(a.shape)).encode("ascii"))
+    h.update(a.reshape(-1).view(np.uint8).data)
+    return h.hexdigest()
+
+
+def leaf_digests(arrays):
+    """``{name: leaf_digest(value)}``, hashed on _IO_THREADS threads."""
+    names = list(arrays)
+    if len(names) < 2:
+        return {n: leaf_digest(arrays[n]) for n in names}
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        return dict(zip(names, pool.map(
+            lambda n: leaf_digest(arrays[n]), names)))
+
+
+def digest_of_leaves(digests):
+    """The state digest of a ``{name: leaf_digest}`` map: sha256 over the
+    sorted (name, leaf digest) pairs."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in sorted(digests):
+        h.update(str(name).encode("utf-8"))
+        h.update(b"\x00")
+        h.update(digests[name].encode("ascii"))
+    return h.hexdigest()
+
+
+def state_digest(arrays):
+    """Order-independent digest of a whole ``{name: value}`` state; the
+    buddy tier publishes it and verifies every reconstruction against
+    it. Equal to the JAX package's for equal numpy arrays."""
+    return digest_of_leaves(leaf_digests(arrays))
+
+
 class AsyncCheckpoint(object):
     """A ``save_checkpoint(..., blocking=False)`` in flight: ``result()``
     joins its writer thread and raises its failure."""
@@ -878,13 +990,14 @@ def _load_step_dir(dirname, step_dir):
 
 
 def _read_members(path, keys):
-    """{key: member} of one npz (a q8 member dequantized), read on up to
-    _IO_THREADS threads, each with its own handle (inflating a member
-    releases the GIL)."""
+    """{key: member} of one npz (a path, or its bytes; a q8 member
+    dequantized), read on up to _IO_THREADS threads, each with its own
+    handle (inflating a member releases the GIL)."""
     groups = [keys[i::_IO_THREADS] for i in range(_IO_THREADS)]
 
     def read(group):
-        with np.load(path, allow_pickle=False) as z:
+        src = io.BytesIO(path) if isinstance(path, bytes) else path
+        with np.load(src, allow_pickle=False) as z:
             return {k: _decode_member(z, k) for k in group}
     out = {}
     with ThreadPoolExecutor(_IO_THREADS) as pool:
@@ -995,4 +1108,6 @@ __all__ = ["save_inference_model", "load_inference_model",
            "load_persistables", "save_checkpoint", "load_checkpoint",
            "scrub_checkpoint", "checkpoint_dir_bytes",
            "wait_for_pending_saves", "AsyncCheckpoint",
-           "CheckpointFormatError", "CKPT_FORMAT_VERSION"]
+           "CheckpointFormatError", "CKPT_FORMAT_VERSION",
+           "encode_state_blob", "decode_state_blob", "leaf_digest",
+           "leaf_digests", "state_digest"]

@@ -21,7 +21,22 @@ Executor keeps a copy of such an input for a gradient that still needs
 its old value (``trace.overwritten_inputs``).
 """
 
+import os
+
 _REGISTRY = {}
+
+# PADDLE_TPU_OP_COVERAGE=<path>: append the type of every op kernel that
+# runs to <path>, once a type (tools/op_coverage.py reads it); nothing
+# is wrapped when unset
+_COVERAGE_PATH = os.environ.get("PADDLE_TPU_OP_COVERAGE")
+_COVERAGE_SEEN = set()
+
+
+def _track(op_type):
+    if op_type not in _COVERAGE_SEEN:
+        _COVERAGE_SEEN.add(op_type)
+        with open(_COVERAGE_PATH, "a") as f:
+            f.write(op_type + "\n")
 
 
 class NotPortedError(NotImplementedError):
@@ -49,6 +64,14 @@ def register_op(type, nondiff=(), uses_rng=False, differentiable=True,
     def deco(fn):
         if type in _REGISTRY:
             raise ValueError("op %r already registered" % type)
+        if _COVERAGE_PATH:
+            import functools
+            inner = fn
+
+            @functools.wraps(inner)
+            def fn(*a, **kw):
+                _track(type)
+                return inner(*a, **kw)
         _REGISTRY[type] = OpDef(type, fn, nondiff, uses_rng, differentiable,
                                 syncs_host, inplace)
         return fn
@@ -65,6 +88,10 @@ def get_op(type):
 
 def has_op(type):
     return type in _REGISTRY
+
+
+def registered_ops():
+    return sorted(_REGISTRY)
 
 
 # ---------------------------------------------------------------------------

@@ -85,20 +85,35 @@ def scrape_metrics(url, timeout_s=5.0):
     numeric_fault_total{policy=,culprit=}); ``--strict`` fails the probe
     when the armed gauge is nonzero, because live failpoint schedules
     in a production replica mean requests will be failed on purpose.
+    A "buddy" section folds the buddy-checkpoint tier's series (the
+    snapshot raw/wire pair, restore outcomes, the per-host generation
+    and mailbox residency gauges, the delta ratio and the fetch ms);
+    ``--strict`` fails the probe when the hosts' generations spread
+    over more than one window or the coordinator holds payload-sized
+    bytes (:func:`buddy_generation_flags`, :func:`buddy_resident_flags`).
     Raises on an unreachable or unparsable endpoint (the caller folds
     that into the health report). The JAX tool also folds the series
-    of the pod transport, the serving fleet, elastic pipelines and the
-    buddy checkpoints, which the port does not emit yet."""
+    of the pod transport, the serving fleet and elastic pipelines,
+    which the port does not emit yet."""
     import urllib.request
     from paddle_tpu_torch.framework.resilience import (METRIC_PREFIX,
                                                        parse_metrics_text)
     with urllib.request.urlopen(url, timeout=timeout_s) as resp:
         text = resp.read().decode("utf-8")
     samples = parse_metrics_text(text)
-    events, bytes_sec, obs_sec, faults = {}, {}, {}, {}
+    events, bytes_sec, obs_sec, faults, buddy = {}, {}, {}, {}, {}
     for name, labels, value in samples:
         key = name[len(METRIC_PREFIX) + 1:]
-        if name.startswith(METRIC_PREFIX + "_failpoint_") \
+        if name.startswith(METRIC_PREFIX + "_buddy_"):
+            # claimed before the generic *_bytes_total fold, so that the
+            # snapshot byte pair stays with its tier
+            for label in ("kind", "outcome"):
+                if label in labels:
+                    key += "/" + labels[label]
+            if "host" in labels:
+                key += "/host" + labels["host"]
+            buddy[key] = value
+        elif name.startswith(METRIC_PREFIX + "_failpoint_") \
                 or name.startswith(METRIC_PREFIX + "_faultinject_") \
                 or name.startswith(METRIC_PREFIX + "_numeric_fault_"):
             if "site" in labels:
@@ -125,7 +140,7 @@ def scrape_metrics(url, timeout_s=5.0):
             bytes_sec[key + "/" + labels.get("kind", "?")] = value
     out = {"url": url, "samples": len(samples), "events_total": events}
     for section, folded in (("obs", obs_sec), ("bytes", bytes_sec),
-                            ("faults", faults)):
+                            ("faults", faults), ("buddy", buddy)):
         if folded:
             out[section] = folded
     return out
@@ -141,6 +156,42 @@ def obs_overflow_flags(summary):
     if dropped:
         return ["span ring overflowed: trace_spans_dropped_total=%g — "
                 "merged timelines are missing spans" % dropped]
+    return []
+
+
+def buddy_generation_flags(summary):
+    """Buddy-mailbox lag in a scrape summary (empty = healthy): hosts may
+    straddle one window boundary, but ``buddy_generation`` gauges that
+    spread over more than one window mean some host's snapshots are not
+    landing, and its next loss rewinds to disk (``buddy_stale``).
+    ``--strict`` fails the probe on it."""
+    gens = {k: v for k, v in summary.get("buddy", {}).items()
+            if k.startswith("buddy_generation/")}
+    if gens and max(gens.values()) - min(gens.values()) > 1:
+        return ["buddy generation gauges diverge by more than one "
+                "window (a stale mailbox rewinds to disk on the next "
+                "host loss): %s" % sorted(gens.items())]
+    return []
+
+
+#: --strict ceiling for the coordinator's buddy_resident_bytes gauge: the
+#: p2p tier keeps payloads in peer mailboxes and only a metadata table on
+#: the coordinator, well under 64 KiB for a large pod
+BUDDY_COORD_RESIDENT_BOUND = 64 * 1024
+
+
+def buddy_resident_flags(summary, bound=BUDDY_COORD_RESIDENT_BOUND):
+    """Coordinator memory-ceiling regression in a scrape summary (empty =
+    healthy): ``buddy_resident_bytes{host="coord"}`` above ``bound``
+    means snapshot payloads are parked on the coordination plane.
+    ``--strict`` fails the probe on it."""
+    resident = summary.get("buddy", {}).get(
+        "buddy_resident_bytes/hostcoord")
+    if resident is not None and resident > bound:
+        return ["coordinator buddy residency is payload-sized: "
+                "buddy_resident_bytes{host=coord}=%g exceeds the "
+                "%d-byte metadata bound — snapshot payloads are "
+                "parked on the coordination plane" % (resident, bound)]
     return []
 
 
@@ -174,8 +225,11 @@ def main(argv=None):
                          "degraded serve or error during the probe "
                          "itself fails it — and, with --metrics-url, "
                          "span-ring overflow (trace_spans_dropped_total "
-                         "> 0) in the obs series or armed failpoints "
-                         "(faultinject_armed > 0) in the faults series")
+                         "> 0) in the obs series, armed failpoints "
+                         "(faultinject_armed > 0) in the faults series, "
+                         "buddy generations more than one window apart "
+                         "or payload-sized coordinator residency in the "
+                         "buddy series")
     ap.add_argument("--metrics-url", default=None,
                     help="scrape a metrics endpoint (resilience."
                          "metrics_text's exposition; file:// works) and "
@@ -200,7 +254,9 @@ def main(argv=None):
             health["metrics"] = scrape_metrics(args.metrics_url)
             for field, flags in (
                     ("obs_overflow", obs_overflow_flags),
-                    ("faults_armed", fault_plane_flags)):
+                    ("faults_armed", fault_plane_flags),
+                    ("buddy_lag", buddy_generation_flags),
+                    ("buddy_resident", buddy_resident_flags)):
                 # dropped spans mean the timeline is lying; armed
                 # failpoints mean requests WILL be failed on purpose:
                 # loud always, fatal under --strict

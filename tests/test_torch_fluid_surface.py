@@ -23,7 +23,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LATER_SLICES = {"distributed", "transpiler", "DistributeTranspiler",
+LATER_SLICES = {"transpiler", "DistributeTranspiler",
                 "DistributeTranspilerConfig", "memory_optimize",
                 "release_memory", "make_mesh"}
 NEW_MODULES = (

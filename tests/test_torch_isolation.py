@@ -146,6 +146,13 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.framework.watchdog\n"
             "import paddle_tpu_torch.framework.faultinject\n"
             "import paddle_tpu_torch.framework.resilience\n"
+            "import paddle_tpu_torch.framework.coordination\n"
+            "import paddle_tpu_torch.framework.buddy\n"
+            "import paddle_tpu_torch.distributed\n"
+            "import paddle_tpu_torch.distributed.mesh\n"
+            "import paddle_tpu_torch.tools.traceview\n"
+            "import paddle_tpu_torch.tools.op_coverage\n"
+            "import paddle_tpu_torch.tools.serving_probe\n"
             "import paddle_tpu_torch.framework.guard\n"
             "import paddle_tpu_torch.ops.kernels.numeric_guard\n"
             "import paddle_tpu_torch.compiler\n"
