@@ -303,17 +303,18 @@ its decay over GUARD_DECAY_STEPS runs):
   collective_timeout_s; checkpoint and restore seconds and bytes, steps
   replayed.
 - ``pod_recipe``: the pod half of the robustness stack, its hosts
-  threads on one LocalCoordinator, each with its own Executor, Scope
-  and checkpoint dir, on the recipe step and the replicated feed; every
-  live host bit-equal to the uninterrupted one-host run: (a) 12 layers,
-  two hosts, PodResilientTrainer with the buddy tier (zlib, p2p,
+  threads on one coordinator, each with its own Executor, Scope and
+  checkpoint dir, on the 2-layer recipe step and the replicated feed;
+  every live host bit-equal to the uninterrupted one-host run, two
+  hosts: (a) PodResilientTrainer with the buddy tier (zlib, p2p,
   delta), run_steps windows of 4, ``step:preempt@3`` restored from the
-  buddy mailboxes with no disk read; at 2 layers, four hosts: (b) a
-  torn checkpoint lowering the consensus to step 0, (c) ElasticTrainer
-  with a host dying (shrink at 3/4, no restore) and rejoining (grow at
-  4/4, its state shipped zlib), (d) numeric_policy="rewind" with one
-  batch NaN-poisoned and skipped by all; each host's launches a step
-  (train_recipe's, or derived from the 2-layer program), snapshot
+  buddy mailboxes with no disk read; (b) a torn checkpoint lowering the
+  consensus to step 0, (c) ElasticTrainer over a SocketCoordinator with
+  a host dying (shrink at 1/2, no restore) and rejoining (grow at 2/2,
+  its state shipped zlib), then one host's state through the
+  MailboxServers over TCP and back, bit-equal; (d)
+  numeric_policy="rewind" with one batch NaN-poisoned and skipped by
+  all; each host's launches a step (derived from the program), snapshot
   encode seconds and bytes, restore seconds, steps replayed, peak.
 - ``compiled_parity``: 2-layer BERT under numeric_policy="skip", card
   graphed against CPU with the same batch poisoned: the same step
@@ -399,6 +400,17 @@ Then the Program verifier, serving on one host and the spans:
 - ``spans``: with ``obs.enable()``, three graphed recipe steps and three
   served requests: the exec.step labels and parents, valid Chrome-trace
   JSON, and the replay's ms with the engine off and on.
+- ``fleet_serve`` (after ``amp_parity``): BERT-base (12 layers, T = 512)
+  exported with its pooled output at buckets 1 and 8 and served the way
+  users deploy it: one ``coordsvc`` process, two ``servingsvc replica``
+  processes on the card behind one ``servingsvc router``; 200 requests
+  from four ``FleetClient`` threads and a burst of 32, every answer
+  against the CPU's at SERVE_ATOL, p50 / p99 beside the in-process
+  ServingPredictor's, the router's batch histogram, each replica's
+  launches and peak; a replica SIGKILLed under load and restarted (no
+  request fails; seconds until it serves again), a rolling deploy to a
+  second weights file (no request fails; the new weights' answers), and
+  every process's /metrics clean under ``serving_probe --strict``.
 
 Then mixed precision and the training contribs (the kernels phase also
 holds the flash kernels in fp16: forward at BERT-base's (8, 12, 512,
@@ -434,9 +446,11 @@ and at a dO that carries a 2^16 loss scale, FP16_REL_TOL):
 
 Then the rest of the fluid surface and the vision and extras ops:
 
-- ``fluid_surface`` (inside the serving_artifact block, on its BERT-base
-  plain artifact): ``install_check.run_check()`` on the card, ``core``'s
-  places and ``cuda_places`` against torch's device count; the two CLIs
+- ``fluid_surface`` (on the serving_artifact phase's BERT-base plain
+  artifact; its CLI subprocesses run in the background from the end of
+  serving_artifact through amp_parity): ``install_check.run_check()``
+  on the card, ``core``'s places and ``cuda_places`` against torch's
+  device count; the two CLIs
   as subprocesses (``python -m paddle_tpu_torch.tools.progcheck DIR
   --json``: exit 0, and 2 on a copy with an op's input renamed;
   ``python -m paddle_tpu_torch.tools.serving_probe DIR --warmup
@@ -589,27 +603,29 @@ RESILIENT_LAYERS = 2
 RESILIENT_REWIND_POISON = 4
 RESILIENT_STALL_RUN = 5
 RESILIENT_STALL_S, RESILIENT_TIMEOUT_S = 3.0, 1.0
-# pod_recipe: a pod of simulated hosts (threads on one LocalCoordinator,
-# each with its own Executor, Scope and checkpoint dir) training the
-# recipe step on the replicated feed, POD_BATCHES batches. (a) 12 layers,
+# pod_recipe: a pod of simulated hosts (threads on one coordinator, each
+# with its own Executor, Scope and checkpoint dir) training the recipe
+# step at RESILIENT_LAYERS layers (cut from 12 for the smoke's time
+# budget) on the replicated feed, POD_BATCHES batches. (a)
 # POD_A_HOSTS hosts, PodResilientTrainer with the buddy tier (zlib, p2p,
 # delta), windows of POD_A_WINDOW (run_steps) and a checkpoint at each
 # POD_A_CKPT_EVERY: ``step:preempt@POD_A_PREEMPT`` fires at the first
 # dispatch of window 2, and the pod restores the buddy generation at
-# step POD_A_WINDOW from memory. (b)-(d) RESILIENT_LAYERS layers,
-# POD_HOSTS hosts, windows of one step, a checkpoint every
+# step POD_A_WINDOW from memory. (b)-(d) POD_HOSTS hosts (cut from 4: a
+# host repeats the others' steps, so 2 check the same agreement in half
+# the time), windows of one step, a checkpoint every
 # POD_CKPT_EVERY (the run's end: two saves a host, the phase's time),
 # buddy tier off: (b) ``io.manifest_write:raise@POD_TORN_AT`` tears one
-# host's step-POD_CKPT_EVERY save (visits 1-4 are the step-0 baselines)
+# host's step-POD_CKPT_EVERY save (visits 1-2 are the step-0 baselines)
 # and the consensus falls to step 0; (c)
-# ElasticTrainer(rejoin=True), ``step:die@POD_DIE_AT`` (round 3's first
-# dispatch): shrink at 3/4, the host rejoins at 4/4 with its state
-# shipped zlib; (d) numeric_policy="rewind" on every host, batch
+# ElasticTrainer(rejoin=True) on a SocketCoordinator (the socket plane,
+# in-process), ``step:die@POD_DIE_AT`` (round 3's first dispatch): shrink
+# at 1/2, the host rejoins at 2/2 with its state shipped zlib; (d) numeric_policy="rewind" on every host, batch
 # RESILIENT_REWIND_POISON NaN-poisoned in the shared feed. A coordinator
 # timeout of POD_TIMEOUT_S: no loss is meant to come from a slow host.
 POD_BATCHES, POD_KEEP, POD_TIMEOUT_S = 8, 2, 300.0
 POD_A_HOSTS, POD_A_WINDOW, POD_A_CKPT_EVERY, POD_A_PREEMPT = 2, 4, 8, 3
-POD_HOSTS, POD_CKPT_EVERY, POD_TORN_AT, POD_DIE_AT = 4, 8, 6, 9
+POD_HOSTS, POD_CKPT_EVERY, POD_TORN_AT, POD_DIE_AT = 2, 8, 3, 5
 # optimizer_parity: the PARITY_* comparison of train_parity (2-layer
 # BERT-base-width, PARITY_BATCH x 128, three steps) for each optimizer
 # under the recipe's schedule and clip and an L2Decay(PARITY_L2)
@@ -1228,6 +1244,26 @@ ARTIFACT_SLOW_S = 0.3
 ARTIFACT_DEADLINE_S = 0.15
 ARTIFACT_WAIT_S = 120.0
 Q8_SERVE_ATOL = 0.25
+# the serving fleet (fleet_serve): BERT-base as ``serve`` builds it, 12
+# layers, exported at FLEET_BUCKETS with its pooled output (a request's
+# answer is one 768-wide row: the sequence output would put 393k floats
+# of JSON on the wire a row), served by FLEET_REPLICAS ``servingsvc
+# replica`` processes behind one ``servingsvc router`` on one ``coordsvc``
+# group (heartbeat deadline FLEET_HB_DEADLINE_S). Traffic: FLEET_REQUESTS
+# one-row requests from FLEET_CLIENTS client threads, then FLEET_BURST at
+# once, each row one of FLEET_ROWS distinct rows held against the CPU's
+# answer at SERVE_ATOL; FLEET_DIRECT_REPS requests on the in-process
+# ServingPredictor beside them. Every process start and request is
+# bounded (FLEET_BOOT_S, FLEET_REQUEST_S).
+FLEET_REPLICAS = 2
+FLEET_BUCKETS = (1, 8)
+FLEET_REQUESTS, FLEET_CLIENTS, FLEET_BURST = 200, 4, 32
+FLEET_ROWS = 4
+FLEET_HB_DEADLINE_S = 2.0
+FLEET_BOOT_S = 240.0
+FLEET_REQUEST_S = 60.0
+FLEET_DIRECT_REPS = 20
+FLEET_TENANTS = {"gold": {"weight": 2, "priority": 1}}
 SPAN_STEPS = 3
 SPAN_TIMED = 5
 # mixed precision and the contribs: fp16's first loss scale (amp_bert,
@@ -7627,9 +7663,12 @@ def _host_calls(exe, counters):
 def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
              fetch_list, root, want, persist, per_step, window, ckpt_every,
              counters, elastic=False, fault=None, failpoint=None,
-             **pod_kw):
+             transport="local", **pod_kw):
     """One pod on POD_BATCHES batches: each host a thread with its own
-    Executor, a copy of ``start`` and its checkpoint dir. Its record (each
+    Executor, a copy of ``start`` and its checkpoint dir, all on one
+    LocalCoordinator or, with ``transport="socket"``, on one
+    SocketCoordinator (with its MailboxServer) over an in-process
+    CoordServer on 127.0.0.1. Its record (each
     live host's fetches and persistables against ``want``, bit for bit;
     every call's launches ``per_step`` times its steps, or none for a
     call a fault stopped before it dispatched; a step without fetches
@@ -7650,7 +7689,16 @@ def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
             scope=_copy_scope(torch, ptt, start)))
     cls = coordination.ElasticTrainer if elastic \
         else coordination.PodResilientTrainer
-    co = coordination.LocalCoordinator(n_hosts, timeout_s=POD_TIMEOUT_S)
+    servers = contextlib.ExitStack()
+    if transport == "socket":
+        from paddle_tpu_torch.framework.transport import CoordServer
+        srv = servers.enter_context(CoordServer(n_hosts).start())
+        co = servers.enter_context(coordination.SocketCoordinator(
+            srv.address, n_hosts, 0, timeout_s=POD_TIMEOUT_S,
+            poll_s=0.002))
+    else:
+        co = coordination.LocalCoordinator(n_hosts,
+                                           timeout_s=POD_TIMEOUT_S)
     pod = cls(trainers, co, **pod_kw)
     resilience.clear_events()
     torch.cuda.synchronize()
@@ -7669,6 +7717,9 @@ def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         spans = obs.spans()
+    except BaseException:
+        servers.close()
+        raise
     finally:
         obs.disable()
         obs.clear()
@@ -7719,6 +7770,7 @@ def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
              "stateship_bytes": resilience.bytes_totals().get(
                  "stateship"),
              "meta": {h: co.buddy_meta(h) for h in range(n_hosts)}}
+    servers.close()
     sends = [s for s in spans if s["name"] == "buddy.send"]
     restores = [s for s in spans if s["name"] == "buddy.restore"]
     runs = sum(hh["steps_dispatched"] for hh in hosts)
@@ -7727,7 +7779,8 @@ def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
     ok = all(hh["fetches_bit_equal"] and hh["steps_missed_ok"]
              and not hh["state_unequal"] and hh["launches_per_step_ok"]
              for hh in hosts)
-    return {"hosts_n": n_hosts, "seconds": seconds,
+    return {"hosts_n": n_hosts, "transport": transport,
+            "seconds": seconds,
             "peak_mem_gb": peak / 2 ** 30,
             "peak_above_resident_gb": (peak - resident) / 2 ** 30,
             "hosts": hosts, "events_by_kind_and_host": kinds,
@@ -7744,21 +7797,23 @@ def _pod_run(torch, np, ptt, label, n_hosts, make_target, start, batches,
 
 def pod_recipe(torch, np, ptt, counters):
     """The pod half of the robustness stack on one card: simulated hosts
-    (threads on one LocalCoordinator, each with its own Executor, Scope
-    and checkpoint dir) train the recipe step (BERT-base bf16, batch 128
-    x 128, dropout 0.1, AdamW, the warmup over the polynomial decay, the
-    global-norm clip) on the replicated feed, and every live host ends
-    bit-equal to the uninterrupted one-host run: (a) 12 layers, two
-    hosts, PodResilientTrainer with the buddy tier, preempted and
-    restored from the buddy mailboxes (no disk read); at
-    RESILIENT_LAYERS layers, four hosts: (b) a torn checkpoint lowers
-    the consensus to step 0, every host restores it from disk; (c)
-    ElasticTrainer: a host dies, the rest shrink to 3/4 and go on with
-    no restore, the host rejoins at 4/4 with the state shipped zlib; (d)
-    numeric_policy="rewind" on every host, one batch NaN-poisoned and
-    skipped by all. Each host's launches a step: train_recipe's at 12
-    layers, derived from the program at 2 (and one finite check under
-    (d))."""
+    (threads on one coordinator, each with its own Executor, Scope and
+    checkpoint dir) train the recipe step (BERT-base bf16 at
+    RESILIENT_LAYERS layers, batch 128 x 128, dropout 0.1, AdamW, the
+    warmup over the polynomial decay, the global-norm clip) on the
+    replicated feed, and every live host ends bit-equal to the
+    uninterrupted one-host run, POD_A_HOSTS and POD_HOSTS hosts: (a)
+    PodResilientTrainer with the buddy tier, preempted and restored from
+    the buddy mailboxes (no disk read); (b) a torn checkpoint lowers the
+    consensus to step 0, every host restores it from disk; (c)
+    ElasticTrainer over the socket plane (one SocketCoordinator with its
+    MailboxServer on an in-process CoordServer): a host dies, the rest
+    shrink and go on with no restore, the host rejoins with the state
+    shipped zlib; then the wired mailbox: one host's state deposited into its
+    buddy's MailboxServer over TCP and pulled back by a restarted host,
+    bit-equal; (d) numeric_policy="rewind" on every host, one batch
+    NaN-poisoned and skipped by all. Each host's launches a step are
+    derived from the program (and one finite check under (d))."""
     from paddle_tpu_torch.models import bert
     root = os.path.join(_ROOT, "build", "chip_smoke_pod")
     shutil.rmtree(root, ignore_errors=True)
@@ -7766,35 +7821,6 @@ def pod_recipe(torch, np, ptt, counters):
     out, ok = {}, True
     counters.zero()                          # the main path starts here
     try:
-        cfg = bert.bert_base(dtype="bfloat16")
-        main, startup, fetch_list = _guard_program(ptt, bert, cfg,
-                                                   BF16_TRAIN_BATCH)
-        persist = [v.name for v in main.list_vars() if v.persistable]
-        per_step = _program_launches(main)
-        want_launch = dict(TRAIN_PER_STEP, finite_flags=0, guarded_copy=0)
-        batches = [bert.synthetic_batch(cfg, BF16_TRAIN_BATCH, TRAIN_SEQ,
-                                        TRAIN_PREDS, seed=500 + s)
-                   for s in range(POD_BATCHES)]
-        start = _started(ptt, startup)
-        want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
-        out["a_buddy"], done = _pod_run(
-            torch, np, ptt, "a", POD_A_HOSTS, lambda: main, start, batches,
-            fetch_list, root, want, persist, per_step, POD_A_WINDOW,
-            POD_A_CKPT_EVERY, counters,
-            fault="step:preempt@%d" % POD_A_PREEMPT, buddy=True,
-            buddy_compress="zlib", buddy_p2p=True, buddy_delta=True)
-        evs = out["a_buddy"]["events"]
-        done = (done and per_step == want_launch
-                and {e["step"] for e in evs["pod_restore"]} == {POD_A_WINDOW}
-                and {e["outcome"] for e in evs["buddy_restore"]} == {"ok"}
-                and len(evs["pod_restore"]) == POD_A_HOSTS
-                and not any(k.startswith("restore/") for k in
-                            out["a_buddy"]["events_by_kind_and_host"]))
-        out["a_buddy"].update(layers=cfg.num_layers, ok=done,
-                              preempt="step:preempt@%d" % POD_A_PREEMPT)
-        ok = ok and done
-        del start, want
-        # (b)-(d) at RESILIENT_LAYERS layers of the same width
         cfg = bert.bert_base(dtype="bfloat16", num_layers=RESILIENT_LAYERS)
         main, startup, fetch_list = _guard_program(ptt, bert, cfg,
                                                    BF16_TRAIN_BATCH)
@@ -7806,6 +7832,22 @@ def pod_recipe(torch, np, ptt, counters):
                    for s in range(POD_BATCHES)]
         start = _started(ptt, startup)
         want = _uninterrupted(torch, ptt, main, start, batches, fetch_list)
+        out["a_buddy"], done = _pod_run(
+            torch, np, ptt, "a", POD_A_HOSTS, lambda: main, start, batches,
+            fetch_list, root, want, persist, per_step, POD_A_WINDOW,
+            POD_A_CKPT_EVERY, counters,
+            fault="step:preempt@%d" % POD_A_PREEMPT, buddy=True,
+            buddy_compress="zlib", buddy_p2p=True, buddy_delta=True)
+        evs = out["a_buddy"]["events"]
+        done = (done
+                and {e["step"] for e in evs["pod_restore"]} == {POD_A_WINDOW}
+                and {e["outcome"] for e in evs["buddy_restore"]} == {"ok"}
+                and len(evs["pod_restore"]) == POD_A_HOSTS
+                and not any(k.startswith("restore/") for k in
+                            out["a_buddy"]["events_by_kind_and_host"]))
+        out["a_buddy"].update(ok=done,
+                              preempt="step:preempt@%d" % POD_A_PREEMPT)
+        ok = ok and done
         out["b_torn"], done = _pod_run(
             torch, np, ptt, "b", POD_HOSTS, lambda: main, start, batches,
             fetch_list, root, want, persist, per_step, 1, POD_CKPT_EVERY,
@@ -7821,7 +7863,8 @@ def pod_recipe(torch, np, ptt, counters):
             torch, np, ptt, "c", POD_HOSTS, lambda: main, start, batches,
             fetch_list, root, want, persist, per_step, 1, POD_CKPT_EVERY,
             counters, elastic=True, fault="step:die@%d" % POD_DIE_AT,
-            rejoin=True, ship_compress="zlib", buddy=False)
+            rejoin=True, ship_compress="zlib", buddy=False,
+            transport="socket")
         evs = out["c_elastic"]["events"]
         kinds = out["c_elastic"]["events_by_kind_and_host"]
         done = (done and len(evs["host_death"]) == 1
@@ -7834,7 +7877,9 @@ def pod_recipe(torch, np, ptt, counters):
                 and len(evs["rejoin"]) == 1
                 and not any(k.split("/")[0] in ("restore", "pod_restore")
                             for k in kinds))
-        out["c_elastic"]["ok"] = done
+        out["c_elastic"]["wired_mailbox"] = wired = _wired_mailbox(
+            np, ptt, start)
+        out["c_elastic"]["ok"] = done = done and wired["bit_equal"]
         ok = ok and done
         clean = [b for i, b in enumerate(batches)
                  if i != RESILIENT_REWIND_POISON]
@@ -7867,8 +7912,7 @@ def pod_recipe(torch, np, ptt, counters):
     launches = counters.read_all()
     emit({"phase": "pod_recipe", "ok": ok, "model": "bert_base",
           "dtype": "bfloat16", "batch": BF16_TRAIN_BATCH,
-          "batches": POD_BATCHES, "layers": {"a": 12,
-                                             "b-d": RESILIENT_LAYERS},
+          "batches": POD_BATCHES, "layers": RESILIENT_LAYERS,
           "hosts": {"a": POD_A_HOSTS, "b-d": POD_HOSTS},
           "windows": {"a": POD_A_WINDOW, "b-d": 1},
           "checkpoint_every": {"a": POD_A_CKPT_EVERY, "b-d": POD_CKPT_EVERY},
@@ -7877,6 +7921,48 @@ def pod_recipe(torch, np, ptt, counters):
         raise AssertionError("pod_recipe checks failed (see the line "
                              "above)")
     return launches
+
+
+def _wired_mailbox(np, ptt, scope):
+    """One host's state (``scope``) through the socket plane's buddy
+    mailboxes: host 0 deposits it into its own and host 1's MailboxServer
+    (over TCP, base64 in newline JSON) and commits the metadata row; a
+    restarted host 0 (a new SocketCoordinator, its mailbox empty) pulls it
+    back from host 1's endpoint, verifies the digest and decodes it.
+    Seconds each way, raw and wire bytes, and whether the decoded arrays
+    equal the scope's bit for bit."""
+    from paddle_tpu_torch import io as io_mod
+    from paddle_tpu_torch.framework import buddy, coordination, resilience
+    from paddle_tpu_torch.framework.transport import CoordServer
+    before = resilience.bytes_totals().get("buddy_snapshot",
+                                           {"raw": 0, "wire": 0})
+    with contextlib.ExitStack() as stack:
+        srv = stack.enter_context(CoordServer(2).start())
+
+        def host(h):
+            return stack.enter_context(coordination.SocketCoordinator(
+                srv.address, 2, h, timeout_s=POD_TIMEOUT_S, poll_s=0.002,
+                mesh_reinit=False, heartbeat=False))
+        cos = [host(0), host(1)]
+        t0 = time.perf_counter()
+        sent = buddy.send_snapshot(cos[0], 0, [0, 1], 1, scope,
+                                   compress="zlib")
+        send_s = time.perf_counter() - t0
+        restarted = host(0)
+        t0 = time.perf_counter()
+        arrays, _ = buddy.fetch_and_decode(restarted, 0, 1)
+        fetch_s = time.perf_counter() - t0
+    after = resilience.bytes_totals()["buddy_snapshot"]
+    want = {n: io_mod._host_array(v)[0] for n, v in scope.items()
+            if v is not None}
+    equal = sent and sorted(arrays) == sorted(want) and all(
+        np.array_equal(arrays[n], want[n]) for n in want)
+    return {"sent": sent, "send_s": send_s, "fetch_s": fetch_s,
+            "leaves": len(want),
+            "raw_bytes": after["raw"] - before["raw"],
+            "wire_bytes": after["wire"] - before["wire"],
+            "p2p_fetch_ms": resilience.buddy_fetch_ms(),
+            "bit_equal": bool(equal)}
 
 
 def _cycles_per_ms(torch):
@@ -9728,15 +9814,13 @@ def _profiled(torch, fn):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_family, top, names, kernels = {}, [], set(), 0
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            ms = e.self_device_time_total / 1e3
-            fam = _family(e.key)
+        for (key, _), (ms, count) in _device_events(
+                prof, DeviceType.CUDA).items():
+            fam = _family(key)
             by_family[fam] = by_family.get(fam, 0.0) + ms
-            top.append([ms, e.count, e.key[:100]])
-            names.add(e.key[:120])
-            kernels += e.count
+            top.append([ms, count, key[:100]])
+            names.add(key[:120])
+            kernels += count
         if kernels:
             break
     busy = sum(by_family.values())
@@ -9750,6 +9834,28 @@ def _profiled(torch, fn):
             "device_ms_by_family": by_family,
             "top_kernels": sorted(top, reverse=True)[:12],
             "kernel_names": sorted(names)}
+
+
+def _device_events(prof, device_type):
+    """``{(name, user annotation): [ms, count]}`` of a finished
+    torch.profiler run's events on ``device_type``, read from its raw
+    events: the groups, names, counts and times ``key_averages()`` gives
+    for device events (an event's own duration, 0 if async), without the
+    event objects and tree it builds for every host and device event
+    first, which took seconds a run at tens of thousands of kernels."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != device_type or _filter_name(e.name()):
+            continue
+        key = (_rewrite_name(e.name(), with_wildcard=True),
+               bool(getattr(e, "is_user_annotation", lambda: False)()))
+        timed = not (e.is_async()
+                     or e.start_thread_id() != e.end_thread_id())
+        got = out.setdefault(key, [0.0, 0])
+        got[0] += e.duration_ns() / 1e6 if timed else 0.0
+        got[1] += 1
+    return out
 
 
 def profile(torch, runs):
@@ -10789,17 +10895,44 @@ def _broken_artifact(src, dst, how):
     return dst
 
 
-def fluid_surface(torch, np, ptt, counters, art_dir):
+def fluid_clis(art_dir):
+    """fluid_surface's CLI subprocesses, started in the background on the
+    serving_artifact phase's plain artifact and two broken copies of it
+    (``_clis``): the thread running them, the dict it fills, and the
+    kernel library's mtime before they ran. The smoke runs other phases
+    while they import, load and warm up."""
+    from paddle_tpu_torch.ops.kernels import build
+    plain_dir = os.path.join(art_dir, "plain")
+    renamed = _broken_artifact(plain_dir, os.path.join(art_dir, "renamed"),
+                               "rename")
+    truncated = _broken_artifact(plain_dir, os.path.join(art_dir, "cut"),
+                                 "truncate")
+    lib_stat = os.stat(os.path.join(build.library_dir(),
+                                    build.LIB_NAME)).st_mtime_ns
+    progcheck = "paddle_tpu_torch.tools.progcheck"
+    probe = "paddle_tpu_torch.tools.serving_probe"
+    commands = {"progcheck": [progcheck, plain_dir, "--json"],
+                "progcheck_renamed": [progcheck, renamed, "--json"],
+                "probe": [probe, plain_dir, "--warmup", "--strict"],
+                "probe_cut": [probe, truncated]}
+    done = {}
+    runner = threading.Thread(target=lambda: done.update(_clis(commands)))
+    runner.start()
+    return runner, done, lib_stat
+
+
+def fluid_surface(torch, np, ptt, counters, art_dir, clis):
     """The top-level fluid surface on the card: ``install_check.run_check``
     (CUDAPlace(0) by default), ``core``'s places and ``cuda_places``
     against torch's device count; the two CLIs as subprocesses on the
-    serving_artifact phase's BERT-base plain artifact (progcheck --json:
-    exit 0, and 2 on a copy with an op's input renamed; serving_probe
-    --warmup --strict: exit 0, every bucket warm and its own request
-    served, and 2 on a copy with its program cut in half), each one's
-    seconds, and whether a subprocess built the kernels again (it
-    should find serving_artifact's build under build/); then the probe in
-    this process, its launches counted."""
+    serving_artifact phase's BERT-base plain artifact, started earlier
+    by ``fluid_clis`` (progcheck --json: exit 0, and 2 on a copy with an
+    op's input renamed; serving_probe --warmup --strict: exit 0, every
+    bucket warm and its own request served, and 2 on a copy with its
+    program cut in half), each one's seconds, and whether a subprocess
+    built the kernels again (it should find serving_artifact's build
+    under build/); then the probe in this process, its launches
+    counted."""
     from paddle_tpu_torch import core
     from paddle_tpu_torch.layers import device as ldevice
     from paddle_tpu_torch.ops.kernels import build
@@ -10823,20 +10956,11 @@ def fluid_surface(torch, np, ptt, counters, art_dir):
                  core.is_compiled_with_cuda() and
                  core.CUDAPlace is ptt.CUDAPlace and
                  get_places == ptt.cuda_places())
-    renamed = _broken_artifact(plain_dir, os.path.join(art_dir, "renamed"),
-                               "rename")
-    truncated = _broken_artifact(plain_dir, os.path.join(art_dir, "cut"),
-                                 "truncate")
+    runner, done, lib_stat = clis
+    runner.join()
     lib = os.path.join(build.library_dir(), build.LIB_NAME)
-    lib_stat = os.stat(lib).st_mtime_ns
-    progcheck = "paddle_tpu_torch.tools.progcheck"
-    probe = "paddle_tpu_torch.tools.serving_probe"
     want = {"progcheck": 0, "progcheck_renamed": 2, "probe": 0,
             "probe_cut": 2}
-    done = _clis({"progcheck": [progcheck, plain_dir, "--json"],
-                  "progcheck_renamed": [progcheck, renamed, "--json"],
-                  "probe": [probe, plain_dir, "--warmup", "--strict"],
-                  "probe_cut": [probe, truncated]})
     runs = {}
     for label, (rc, out, err, seconds) in sorted(done.items()):
         lines = out.strip().splitlines()
@@ -11069,16 +11193,18 @@ def _vx_program(np, ptt, feed, call, diff, shapes=None):
 
 def _vx_runs(torch, ptt, main, start, feed, fetch, runs=4):
     """On the card: ``runs`` graphed runs (the first op by op, the second
-    captured, then replays) and two op-by-op runs on one scope, fetches
-    kept on the device; returns (graphed, op by op, the scope, the
-    Executor, the device feed, the wall ms of the first op-by-op run, of
-    the capturing run and of the last replay)."""
+    captured, then replays) and one uncached op-by-op run on one scope,
+    fetches kept on the device (the first graphed run and the uncached
+    one are the two op-by-op runs a caller compares); returns (graphed,
+    op by op, the scope, the Executor, the device feed, the wall ms of
+    the uncached op-by-op run, of the capturing run and of the last
+    replay)."""
     dev = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
     scope = ptt.Scope()
     exe = ptt.Executor()
     exe.run(start, scope=scope)
     walls, graphed, plain = [], [], []
-    for cache in [True] * runs + [False] * 2:
+    for cache in [True] * runs + [False]:
         t0 = time.perf_counter()
         out = exe.run(main, feed=dev, fetch_list=fetch, scope=scope,
                       return_numpy=False, use_program_cache=cache)
@@ -11234,7 +11360,7 @@ def _op_case(torch, np, ptt, op, feed, call, diff, exact, cut=None,
     replays_equal = all(_same_bits(torch, a, b) for a, b in
                         zip(graphed[2], graphed[3]))
     plain_equal = all(_same_bits(torch, a, b) for a, b in
-                      zip(plain[0], plain[1]))
+                      zip(graphed[0], plain[0]))
     finite = all(bool(torch.isfinite(t).all()) for t in graphed[3]
                  if t.is_floating_point())
     runs = dict(exe.graph_runs)
@@ -11796,7 +11922,7 @@ def _part_vs_cpu(torch, np, ptt, w, part, feed, rois=None):
                                        rois=rois)
     graphed, plain, scope, exe, _, walls = _vx_runs(torch, ptt, main, start,
                                                     feed, fetch)
-    equal = all(_same_bits(torch, a, b) for g in graphed[2:] + plain[1:]
+    equal = all(_same_bits(torch, a, b) for g in graphed[:1] + graphed[2:]
                 for a, b in zip(g, plain[0]))
     cscope, cexe = _to_cpu_scope(torch, ptt, main, start, scope)
     t0 = time.perf_counter()
@@ -12779,6 +12905,453 @@ def slim_vision(torch, np, ptt, counters, root):
     return launches
 
 
+def _fleet_spawn(args, log_dir, name):
+    """``python -m`` ``args`` from the checkout, its standard error in
+    ``log_dir/name.log``, its one status line on a pipe."""
+    with open(os.path.join(log_dir, name + ".log"), "a") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m"] + args, cwd=_ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=log,
+            env=dict(os.environ, PYTHONPATH=_ROOT))
+
+
+def _fleet_line(proc, what, timeout_s=FLEET_BOOT_S):
+    """The first line a fleet process prints (its JSON status), waited
+    for at most ``timeout_s``."""
+    box = []
+    reader = threading.Thread(
+        target=lambda: box.append(proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout_s)
+    if not box or not box[0].strip():
+        raise AssertionError("%s printed no status line within %.0f s "
+                             "(exit code %s)" % (what, timeout_s,
+                                                 proc.poll()))
+    return json.loads(box[0])
+
+
+def _fleet_rows(ptt, model_dir, rows):
+    """The CPU Predictor's pooled answers (plain versions) to ``rows``."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    config = Config(model_dir)
+    config.place = ptt.CPUPlace()
+    return create_predictor(config).run(rows)[0]
+
+
+def _fleet_weights(ptt, scope, names):
+    """``{name: host array}`` of ``names`` in ``scope``, as the serving
+    artifact's weights.npz holds them."""
+    from paddle_tpu_torch import io as io_mod
+    return {n: io_mod._host_array(scope.find_var(n))[0] for n in names}
+
+
+def _fleet_load(client, rows, clients, n, failures, seconds):
+    """``n`` one-row requests through ``client`` from ``clients``
+    threads: ``[(row, response)]`` in completion order; failures and
+    each request's seconds appended to the given lists."""
+    out, lock, counter = [], threading.Lock(), iter(range(n))
+
+    def worker():
+        while True:
+            with lock:
+                i = next(counter, None)
+            if i is None:
+                return
+            r = i % FLEET_ROWS
+            t0 = time.perf_counter()
+            try:
+                resp = client.infer({k: v[r:r + 1].tolist()
+                                     for k, v in rows.items()})
+            except Exception as e:   # noqa: BLE001 - counted
+                with lock:
+                    failures.append("%s: %s" % (type(e).__name__, e))
+                continue
+            with lock:
+                seconds.append(time.perf_counter() - t0)
+                out.append((r, resp))
+
+    ts = [threading.Thread(target=worker) for _ in range(clients)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(FLEET_REQUEST_S * n)
+    return out
+
+
+def _fleet_loader(client, rows, answers, failures):
+    """A thread sending rounds of FLEET_CLIENTS concurrent requests
+    through ``client`` (``_fleet_load``) until its event is set:
+    (thread, event)."""
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            answers.extend(_fleet_load(client, rows, FLEET_CLIENTS,
+                                       FLEET_CLIENTS, failures, []))
+    loader = threading.Thread(target=loop)
+    loader.start()
+    return loader, stop
+
+
+def _fleet_errs(np, answers, want):
+    """Largest |fleet - CPU| over ``answers`` ([(row, response)]),
+    against ``want`` (a generation -> CPU rows map)."""
+    errs = [float(np.abs(np.asarray(resp["outputs"][0], np.float32)
+                         - want[resp["generation"]][r:r + 1]).max())
+            for r, resp in answers]
+    return max(errs) if errs else float("inf")
+
+
+def _fleet_health(addr):
+    from paddle_tpu_torch.serving_fleet import http_json
+    status, body = http_json("GET", "http://%s/healthz" % addr,
+                             timeout_s=10.0)
+    if status != 200:
+        raise AssertionError("healthz of %s answered %d" % (addr, status))
+    return body
+
+
+def _fleet_launches(before, after):
+    keys = {"flash_attention_fwd": "flash_attention.launches",
+            "layer_norm_fwd": "layer_norm.launches"}
+    return {k: after["kernel_launches"][v] - before["kernel_launches"][v]
+            for k, v in keys.items()}
+
+
+def fleet_serve(torch, np, ptt, counters, root):
+    """BERT-base (serve's model, 12 layers, T=512, f32) exported with its
+    pooled output at FLEET_BUCKETS and served the way users deploy it:
+    one ``coordsvc`` process (heartbeat deadline armed), FLEET_REPLICAS
+    ``servingsvc replica`` processes on this card and one ``servingsvc
+    router`` (micro-batching, retry on a sibling, tenant classes).
+    FLEET_REQUESTS requests from FLEET_CLIENTS threads through
+    ``FleetClient``, then a burst the router coalesces: p50 / p99 beside
+    the in-process ServingPredictor's batch-1 latency, the router's
+    batch-size histogram, each replica's peak memory and kernel launches
+    (12 flash and 25 LayerNorm forward launches a dispatched batch, read
+    from its /healthz; one request's counted in this process on the
+    direct predictor); every answer against the CPU's at SERVE_ATOL.
+    Then a replica SIGKILLed under load and restarted (zero failed
+    requests; seconds until its new process serves again), a rolling
+    deploy to a second weights file beside the same exported programs
+    (zero failed requests; answers equal the new weights'), and the
+    router's and replicas' /metrics through serving_probe's --strict
+    checks. Every process it started is killed at the end, and the
+    phase fails if one survives."""
+    from paddle_tpu_torch import layers, serving
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.serving_fleet import FleetClient, http_json
+    from paddle_tpu_torch.tools import serving_probe
+
+    log_dir = os.path.join(_ROOT, "chiprun_out", "fleet")
+    os.makedirs(log_dir, exist_ok=True)
+    cfg = bert.bert_base()
+    # art_a: the artifact the replicas start on; dir_a / dir_b: the plain
+    # model files the CPU check reads (dir_b also becomes the second
+    # artifact: art_a's exported programs beside dir_b's weights)
+    art_a = os.path.join(root, "art_a")
+    dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.unique_name.guard(), ptt.program_guard(main, startup):
+        feeds = [layers.data(n, [SEQ_LEN, 1], dtype=dt) for n, dt in (
+            ("src_ids", "int64"), ("pos_ids", "int64"),
+            ("sent_ids", "int64"), ("input_mask", "float32"))]
+        _, pooled = bert.bert_encoder(*feeds, cfg, is_test=True)
+    names = [f.name for f in feeds]
+    exe = ptt.Executor()
+    scopes = {}
+    for seed, d in ((SEED, dir_a), (SEED + 1, dir_b)):
+        startup.random_seed = seed
+        scopes[d] = ptt.Scope()
+        with ptt.scope_guard(scopes[d]):
+            exe.run(startup)
+            ptt.save_inference_model(d, names, [pooled], exe,
+                                     main_program=main)
+    rng = np.random.RandomState(SEED)
+    rows = bert_feeds(np, rng, FLEET_ROWS, cfg.vocab_size)
+    # the CPU's answers for both weights, on a thread while the fleet
+    # boots (not during the export: scope_guard is process-wide)
+    want, timings = {}, {}
+
+    def cpu_answers():
+        t = time.perf_counter()
+        try:
+            want.update({1: _fleet_rows(ptt, dir_a, rows),
+                         2: _fleet_rows(ptt, dir_b, rows)})
+        except Exception as e:   # noqa: BLE001 - raised by the phase
+            timings["cpu_answers_error"] = "%s: %s" % (type(e).__name__, e)
+        timings["cpu_answers_s"] = time.perf_counter() - t
+    refs = threading.Thread(target=cpu_answers)
+
+    procs, out, ok, boot_s, pred = {}, {}, False, None, None
+    try:
+        # the coordination service boots while the artifact exports
+        coord = _fleet_spawn(
+            ["paddle_tpu_torch.tools.coordsvc", "--n-hosts", "auto",
+             "--host", "127.0.0.1", "--hb-deadline-s",
+             str(FLEET_HB_DEADLINE_S)], log_dir, "coordsvc")
+        procs["coordsvc"] = coord
+        t0 = time.perf_counter()
+        with ptt.scope_guard(scopes[dir_a]):
+            ptt.save_inference_model(art_a, names, [pooled], exe,
+                                     main_program=main, format="stablehlo",
+                                     batch_sizes=FLEET_BUCKETS)
+        timings["export_s"] = time.perf_counter() - t0
+        shutil.copytree(os.path.join(art_a, "serving"),
+                        os.path.join(dir_b, "serving"))
+        with open(os.path.join(art_a, "serving", "meta.json")) as f:
+            weight_names = json.load(f)["weight_names"]
+        np.savez(os.path.join(dir_b, "serving", "weights.npz"),
+                 **_fleet_weights(ptt, scopes[dir_b], weight_names))
+        exe.close()
+        scopes.clear()
+        torch.cuda.empty_cache()
+        refs.start()
+
+        def replica_args(rid):
+            return ["paddle_tpu_torch.tools.servingsvc", "replica",
+                    "--coord", coord_addr, "--n-replicas",
+                    str(FLEET_REPLICAS), "--replica-id", str(rid),
+                    "--artifact", art_a, "--metrics-port", "0",
+                    "--join-timeout-s", str(FLEET_REQUEST_S)]
+        coord_addr = _fleet_line(coord, "coordsvc")["address"]
+        t_boot = time.perf_counter()
+        for rid in range(FLEET_REPLICAS):
+            procs["replica%d" % rid] = _fleet_spawn(
+                replica_args(rid), log_dir, "replica%d" % rid)
+        procs["router"] = _fleet_spawn(
+            ["paddle_tpu_torch.tools.servingsvc", "router", "--coord",
+             coord_addr, "--n-replicas", str(FLEET_REPLICAS),
+             "--max-batch", str(max(FLEET_BUCKETS)), "--request-deadline-s",
+             str(FLEET_REQUEST_S), "--tenant-classes",
+             json.dumps(FLEET_TENANTS)], log_dir, "router")
+        # while they boot: the direct predictor in this process
+        t1 = time.perf_counter()
+        pred = serving.load_serving_artifact(art_a)
+        pred.warmup()
+        timings["direct_load_s"] = time.perf_counter() - t1
+        lines = {name: _fleet_line(p, name)
+                 for name, p in sorted(procs.items()) if name != "coordsvc"}
+        router_url = lines["router"]["url"]
+        rep_addr = {rid: lines["replica%d" % rid]["addr"]
+                    for rid in range(FLEET_REPLICAS)}
+        metrics_url = {rid: lines["replica%d" % rid]["metrics_url"]
+                       for rid in range(FLEET_REPLICAS)}
+        _wait_until(lambda: len(_fleet_health(
+            router_url.split("//")[1])["replicas"]) == FLEET_REPLICAS,
+            "every replica routable", timeout_s=FLEET_BOOT_S,
+            poll=lambda: time.sleep(0.05))
+        boot_s = time.perf_counter() - t_boot
+        refs.join(FLEET_BOOT_S)
+        if len(want) != 2:
+            raise AssertionError("the CPU answers did not finish: %s"
+                                 % timings.get("cpu_answers_error"))
+
+        # the direct predictor: one request's launches at each bucket,
+        # and its batch-1 latency
+        one = {k: v[:1] for k, v in rows.items()}
+        per_request = {}
+        for b, feed in ((1, one), (8, rows)):
+            counters.zero()
+            pred.run(feed)
+            got = counters.read()
+            per_request[b] = {k: got[k] for k in ("flash_attention_fwd",
+                                                  "layer_norm_fwd")}
+        direct_ms = []
+        for _ in range(FLEET_DIRECT_REPS):
+            t1 = time.perf_counter()
+            pred.run(one)
+            direct_ms.append((time.perf_counter() - t1) * 1e3)
+        direct_err = float(np.abs(pred.run(rows)[0] - want[1]).max())
+        pred = None
+
+        # traffic: the replicas' counters before and after
+        health0 = {rid: _fleet_health(a) for rid, a in rep_addr.items()}
+        client = FleetClient(router_url, request_deadline_s=FLEET_REQUEST_S,
+                             tenant="gold")
+        failures, secs, burst_secs = [], [], []
+        t1 = time.perf_counter()
+        answers = _fleet_load(client, rows, FLEET_CLIENTS,
+                              FLEET_REQUESTS, failures, secs)
+        traffic_s = time.perf_counter() - t1
+        burst = _fleet_load(client, rows, FLEET_BURST, FLEET_BURST,
+                            failures, burst_secs)
+        health1 = {rid: _fleet_health(a) for rid, a in rep_addr.items()}
+        launches = {rid: _fleet_launches(health0[rid], health1[rid])
+                    for rid in rep_addr}
+        batches = {rid: health1[rid]["requests"] - health0[rid]["requests"]
+                   for rid in rep_addr}
+        served_ok = (not failures and len(answers) == FLEET_REQUESTS
+                     and len(burst) == FLEET_BURST)
+        launches_ok = all(
+            launches[rid] == {"flash_attention_fwd":
+                              FLASH_PER_REQUEST * batches[rid],
+                              "layer_norm_fwd":
+                              LN_PER_REQUEST * batches[rid]}
+            for rid in rep_addr) and per_request == {
+                b: {"flash_attention_fwd": FLASH_PER_REQUEST,
+                    "layer_norm_fwd": LN_PER_REQUEST}
+                for b in (1, 8)}
+        err = max(_fleet_errs(np, answers, want),
+                  _fleet_errs(np, burst, want))
+        lat = sorted(secs)
+        out["traffic"] = {
+            "requests": len(answers), "burst": len(burst),
+            "failures": failures[:5], "seconds": traffic_s,
+            "p50_ms": lat[len(lat) // 2] * 1e3 if lat else None,
+            "p99_ms": lat[int(0.99 * (len(lat) - 1))] * 1e3
+            if lat else None,
+            "burst_p50_ms": statistics.median(burst_secs) * 1e3
+            if burst_secs else None,
+            "direct_p50_ms": statistics.median(direct_ms),
+            "direct_p99_ms": sorted(direct_ms)[
+                int(0.99 * (len(direct_ms) - 1))],
+            "direct_vs_cpu_max_abs_err": direct_err,
+            "fleet_vs_cpu_max_abs_err": err, "atol": SERVE_ATOL,
+            "replica_batches": batches, "replica_launches": launches,
+            "direct_launches_per_request": per_request,
+            "replica_peak_mem_gb": {
+                rid: h.get("peak_mem_bytes", 0) / 2 ** 30
+                for rid, h in health1.items()}}
+        ok = served_ok and launches_ok and err <= SERVE_ATOL
+
+        # SIGKILL replica 1 under load, restart it: zero failed requests,
+        # seconds until its new process serves
+        victim = FLEET_REPLICAS - 1
+        under_load, load_fail = [], []
+        loader, stop = _fleet_loader(client, rows, under_load, load_fail)
+        try:
+            time.sleep(0.5)
+            t_kill = time.perf_counter()
+            procs["replica%d" % victim].kill()
+            procs["replica%d" % victim].wait(10)
+            procs["replica%d_restarted" % victim] = _fleet_spawn(
+                replica_args(victim), log_dir, "replica%d" % victim)
+            line = _fleet_line(procs["replica%d_restarted" % victim],
+                               "the restarted replica")
+            up_s = time.perf_counter() - t_kill
+            _wait_until(lambda: _fleet_health(line["addr"])["requests"] > 0,
+                        "the restarted replica serving",
+                        timeout_s=FLEET_BOOT_S,
+                        poll=lambda: time.sleep(0.02))
+            back_s = time.perf_counter() - t_kill
+        finally:
+            stop.set()
+            loader.join(FLEET_BOOT_S)
+        rep_addr[victim] = line["addr"]
+        metrics_url[victim] = line["metrics_url"]
+        kill_err = _fleet_errs(np, under_load, want)
+        out["sigkill"] = {"replica": victim, "requests": len(under_load),
+                          "failures": load_fail[:5],
+                          "process_up_s": up_s, "back_in_rotation_s":
+                          back_s, "max_abs_err": kill_err}
+        ok = ok and not load_fail and kill_err <= SERVE_ATOL \
+            and len(under_load) > 0
+
+        # the rolling deploy to the second weights file, under load
+        during, dep_fail = [], []
+        loader, stop = _fleet_loader(client, rows, during, dep_fail)
+        try:
+            time.sleep(0.5)
+            t2 = time.perf_counter()
+            status, summary = http_json(
+                "POST", router_url + "/admin/deploy",
+                {"dir": dir_b, "per_replica_timeout_s": FLEET_BOOT_S},
+                timeout_s=FLEET_BOOT_S * FLEET_REPLICAS)
+            deploy_s = time.perf_counter() - t2
+            n_at = len(during)
+            _wait_until(lambda: len(during) >= n_at + 4 * FLEET_CLIENTS,
+                        "traffic after the deploy", timeout_s=FLEET_BOOT_S,
+                        poll=lambda: time.sleep(0.02))
+        finally:
+            stop.set()
+            loader.join(FLEET_BOOT_S)
+        after = during[n_at:]
+        dep_err = _fleet_errs(np, during, want)
+        health2 = {rid: _fleet_health(a) for rid, a in rep_addr.items()}
+        ship = _fleet_ship(metrics_url)
+        out["deploy"] = {"status": status, "summary": summary,
+                         "seconds": deploy_s, "requests": len(during),
+                         "failures": dep_fail[:5], "max_abs_err": dep_err,
+                         "after_all_new": all(r["generation"] == 2
+                                              for _, r in after),
+                         "generations": {rid: h["generation"]
+                                         for rid, h in health2.items()},
+                         "artifact_bytes": ship}
+        ok = ok and status == 200 and not dep_fail \
+            and dep_err <= SERVE_ATOL and out["deploy"]["after_all_new"] \
+            and sorted(summary.get("refreshed", [])) == list(
+                range(FLEET_REPLICAS))
+
+        # the router's and the replicas' /metrics under --strict
+        scraped = {"router": router_url + "/metrics"}
+        scraped.update({"replica%d" % rid: u
+                        for rid, u in metrics_url.items()})
+        probes = {}
+        for name, url in scraped.items():
+            summ = serving_probe.scrape_metrics(url)
+            probes[name] = {"flags": serving_probe.strict_flags(summ),
+                            "folds": sorted(k for k in summ if k in (
+                                "transport", "router", "qos"))}
+        hist = serving_probe.scrape_metrics(scraped["router"])["router"]
+        out["histogram"] = {k.split("/le")[-1]: v for k, v in hist.items()
+                            if k.startswith("router_batch_size_bucket")}
+        out["probes"] = probes
+        ok = ok and not any(p["flags"] for p in probes.values()) \
+            and probes["router"]["folds"] == ["qos", "router",
+                                              "transport"] \
+            and all("transport" in p["folds"] for p in probes.values())
+        out["health"] = {rid: {k: h[k] for k in ("requests", "status",
+                                                 "generation")}
+                         for rid, h in health2.items()}
+    finally:
+        if refs.ident is not None:
+            refs.join(FLEET_BOOT_S)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p in procs.values():
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                pass
+        alive = [n for n, p in procs.items() if p.poll() is None]
+        for p in procs.values():
+            if p.stdout is not None:
+                p.stdout.close()
+    emit({"phase": "fleet_serve", "ok": ok and not alive,
+          "model": "bert_base", "layers": cfg.num_layers,
+          "seq_len": SEQ_LEN, "buckets": list(FLEET_BUCKETS),
+          "replicas": FLEET_REPLICAS, "clients": FLEET_CLIENTS,
+          "boot_s": boot_s, "processes_left_alive": alive, **timings,
+          **out})
+    if alive:
+        raise AssertionError("fleet processes survived the kill: %s"
+                             % alive)
+    if not ok:
+        raise AssertionError("fleet_serve checks failed (see the line "
+                             "above)")
+    return {k: sum(v[k] for v in out["traffic"]["replica_launches"]
+                   .values()) for k in ("flash_attention_fwd",
+                                        "layer_norm_fwd")}
+
+
+def _fleet_ship(metrics_urls):
+    """The replicas' stateship raw / wire byte counters (a rolling
+    deploy's artifact movement), summed over their /metrics."""
+    import urllib.request
+    from paddle_tpu_torch.framework.resilience import (METRIC_PREFIX,
+                                                       parse_metrics_text)
+    tot = {"raw": 0.0, "wire": 0.0}
+    for url in metrics_urls.values():
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            for name, labels, value in parse_metrics_text(
+                    resp.read().decode()):
+                if name == METRIC_PREFIX + "_stateship_bytes_total":
+                    tot[labels["kind"]] += value
+    return tot
+
+
 def main():
     import numpy as np
     import torch
@@ -13041,21 +13614,30 @@ def main():
     try:
         art = phase("serving_artifact")(serving_artifact)(
             torch, np, ptt, counters, art_dir)
-        if art is not None:
+        # fluid_surface's CLI subprocesses run in the background through
+        # spans, amp_bert and amp_parity
+        clis = None if art is None else phase("fluid_surface")(
+            fluid_clis)(art_dir)
+        by_path["serving_artifact"] = None if art is None else art[0]
+        if art is not None and recipe is not None:
+            phase("spans")(spans)(torch, np, ptt, art[1], art[2], recipe)
+        del art, recipe
+        amp = phase("amp_bert")(amp_bert)(torch, np, ptt, counters)
+        by_path["amp_bert_bf16"] = None if amp is None else amp[0]["bf16"]
+        by_path["amp_bert_fp16"] = None if amp is None else amp[0]["fp16"]
+        f16_launches = {} if amp is None else amp[2]
+        phase("amp_parity")(amp_parity)(torch, np, ptt)
+        if clis is not None:
             by_path["fluid_surface"] = phase("fluid_surface")(
-                fluid_surface)(torch, np, ptt, counters, art_dir)
+                fluid_surface)(torch, np, ptt, counters, art_dir, clis)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
-    by_path["serving_artifact"] = None if art is None else art[0]
-    if art is not None and recipe is not None:
-        phase("spans")(spans)(torch, np, ptt, art[1], art[2], recipe)
-    del art, recipe
-
-    amp = phase("amp_bert")(amp_bert)(torch, np, ptt, counters)
-    by_path["amp_bert_bf16"] = None if amp is None else amp[0]["bf16"]
-    by_path["amp_bert_fp16"] = None if amp is None else amp[0]["fp16"]
-    f16_launches = {} if amp is None else amp[2]
-    phase("amp_parity")(amp_parity)(torch, np, ptt)
+    fleet_dir = os.path.join(_ROOT, "build", "chip_smoke_fleet")
+    try:
+        by_path["fleet_serve"] = phase("fleet_serve")(fleet_serve)(
+            torch, np, ptt, counters, fleet_dir)
+    finally:
+        shutil.rmtree(fleet_dir, ignore_errors=True)
     by_path["amp_resnet"] = phase("amp_resnet")(amp_resnet)(
         torch, np, ptt, counters)
     by_path["grad_merge"] = phase("grad_merge")(grad_merge)(

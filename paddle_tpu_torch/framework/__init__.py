@@ -13,6 +13,7 @@ from . import analysis  # noqa
 from . import obs  # noqa
 from . import resilience  # noqa
 from . import coordination  # noqa
+from . import transport  # noqa
 from . import watchdog  # noqa
 from .watchdog import (CollectiveTimeoutError, wait_with_timeout,  # noqa
                        StragglerDetector)
@@ -25,3 +26,5 @@ from .coordination import (Coordinator, LocalCoordinator,  # noqa
                            PodResilientTrainer,
                            CoordinationError, HostLostError,
                            NoQuorumError)
+from .transport import (CoordServer, CoordClient, TransportError,  # noqa
+                        replicated_group)

@@ -27,10 +27,13 @@ whole).
   (``snapshot_torn`` otherwise). A zlib buddy restore loses at most one
   window and equals the uninterrupted run bit for bit.
 
-In this port the mailboxes live in the coordinator object's in-process
-registry (:class:`~.coordination.LocalCoordinator`'s threads share it);
-the socket plane's per-host mailbox endpoints arrive with the transport
-slice. A host copy goes through ``io._host_array`` (a CUDA tensor copied
+The mailboxes live where the coordinator keeps them: in the
+coordinator object's in-process registry for
+:class:`~.coordination.LocalCoordinator` (its threads share it), or in
+each host's own :class:`~.transport.MailboxServer` endpoint for
+:class:`~.coordination.SocketCoordinator`, whose newline-JSON wire
+carries blobs as base64 text (``co.blob_text``). A host copy goes
+through ``io._host_array`` (a CUDA tensor copied
 to the host; bfloat16 as its uint16 bits), and :func:`adopt_arrays`
 binds new tensors on the trainer's device, which the next replay copies
 into its static inputs, as a checkpoint restore does.
@@ -275,7 +278,7 @@ class DeltaTracker(object):
 
 # -- window-boundary send ---------------------------------------------------
 def _encode_payload(io_mod, arrays, gen, compress, tracker, reset,
-                    force_full):
+                    force_full, text=False):
     """Encode one boundary send as a full or delta payload. Returns
     ``(payload, raw_bytes, wire_bytes, leaf_digests, kind)`` — raw is
     always the FULL scope's bytes (what the uncompressed path would
@@ -296,14 +299,14 @@ def _encode_payload(io_mod, arrays, gen, compress, tracker, reset,
     # to replay: send it full (AdamW's steps change every leaf)
     if len(changed) < len(arrays) or removed:
         blob, _, wire = io_mod.encode_state_blob(
-            changed, gen, compress=compress, text=False)
+            changed, gen, compress=compress, text=text)
         return ({"kind": "delta", "gen": gen,
                  "prev_gen": tracker.gen,
                  "prev_digest": tracker.digest,
                  "digest": digest, "removed": removed, "blob": blob},
                 raw_full, wire, digests, "delta")
     blob, _, wire = io_mod.encode_state_blob(
-        arrays, gen, compress=compress, text=False)
+        arrays, gen, compress=compress, text=text)
     payload = {"kind": "full", "gen": gen, "digest": digest,
                "blob": blob}
     if reset:
@@ -364,15 +367,17 @@ def send_snapshot(co, host_id, members, gen, scope, compress="zlib",
             # the failpoint fires BEFORE any deposit: a fault mid-send
             # must leave the previous generation committed
             faultinject.hit("buddy.send", {"gen": gen}, host=hid)
+            # a JSON wire (SocketCoordinator) takes the blob as text
+            text = bool(getattr(co, "blob_text", False))
             if not p2p:
                 blob, raw, wire = io_mod.encode_state_blob(
-                    arrays, gen, compress=compress, text=False)
+                    arrays, gen, compress=compress, text=text)
                 co.put_blob(hid, gen, buds[hid], blob, reset=reset)
                 kind, digests, ack = "full", None, None
             else:
                 payload, raw, wire, digests, kind = _encode_payload(
                     io_mod, arrays, gen, compress, tracker, reset,
-                    force_full=False)
+                    force_full=False, text=text)
                 ack, refused = _deposit_dual(co, hid, buds[hid],
                                              payload)
                 if ack is None and kind == "delta" \
@@ -383,7 +388,8 @@ def send_snapshot(co, host_id, members, gen, scope, compress="zlib",
                                  gen=gen, reason=refused)
                     payload, raw, wire, digests, kind = \
                         _encode_payload(io_mod, arrays, gen, compress,
-                                        tracker, reset, force_full=True)
+                                        tracker, reset, force_full=True,
+                                        text=text)
                     ack, refused = _deposit_dual(co, hid, buds[hid],
                                                  payload)
                 if ack is None:

@@ -17,9 +17,11 @@ detect-and-recover loop for one process; this module is the pod half:
   * :class:`FileCoordinator`: one object per process, agreeing through
     atomically written files in a shared directory (tombstones, round
     files, heartbeat leases).
-  * :class:`SocketCoordinator`: the TCP rendezvous client; its transport
-    (framework/transport.py) is the next slice, so its constructor
-    raises NotPortedError.
+  * :class:`SocketCoordinator`: one object per process over a TCP
+    rendezvous service (framework/transport.py's ``CoordServer``, in
+    process or ``python -m paddle_tpu_torch.tools.coordsvc``), with
+    heartbeat leases, failover across a replicated server group and a
+    per-host buddy mailbox endpoint (``transport.MailboxServer``).
   * :class:`PodResilientTrainer`: N per-host ResilientTrainers; every
     dispatch window ends in a status exchange, and a transient fault on
     any host takes the pod to the agreed buddy restore (at most one
@@ -146,8 +148,8 @@ class Coordinator(object):
         # shares ONE coordinator object across simulated hosts, so the
         # store is naturally pod-wide; File is per-process, so a dead
         # host's mailbox is simply absent there and restores fall back
-        # to disk). The JAX package's SocketCoordinator keeps them on
-        # its CoordServer instead (the transport slice of this port).
+        # to disk). SocketCoordinator keeps them on its CoordServer
+        # instead.
         self._blobs = {}
         self._blob_lock = threading.Lock()
         # legacy put_blob payload ceiling (None = unbounded, the
@@ -158,8 +160,8 @@ class Coordinator(object):
         # topology note as _blobs — Local's shared object makes the
         # registry pod-wide (deposits really land in "the other
         # host's" mailbox), File's per-process registry degrades every
-        # restore to buddy_missing. (The JAX package's SocketCoordinator
-        # runs a per-host MailboxServer endpoint instead.)
+        # restore to buddy_missing. (SocketCoordinator runs a per-host
+        # MailboxServer endpoint instead.)
         self._mailboxes = {}
         self._buddy_meta = {}
         self._mailbox_lock = threading.Lock()
@@ -1080,23 +1082,455 @@ class FileCoordinator(Coordinator):
 # ---------------------------------------------------------------------------
 
 class SocketCoordinator(Coordinator):
-    """Coordinator over a TCP rendezvous service (the JAX package's
-    ``transport.CoordServer``), one object per process, with heartbeat
-    liveness and per-host buddy mailbox endpoints. Its transport is the
-    next slice of this port: the constructor raises NotPortedError."""
+    """Coordinator over a TCP rendezvous service — one object per
+    PROCESS, no shared filesystem anywhere.
+
+    The full protocol of Local/FileCoordinator (sticky round
+    completion, tombstone fencing, join announcements, consensus
+    elections) lives server-side in :class:`~.transport.CoordServer`
+    (in-process for tests, standalone via
+    ``python -m paddle_tpu_torch.tools.coordsvc``); this
+    client implements the :class:`Coordinator` contract over it, so
+    :class:`PodResilientTrainer`/:class:`ElasticTrainer` run unmodified.
+
+    What the network transport adds over FileCoordinator:
+
+      * **Real liveness.** A daemon thread heartbeats the server every
+        ``hb_interval_s``; the server tombstones any host whose
+        heartbeat goes stale past its ``hb_deadline_s`` — a
+        ``kill -9`` is detected by the DEADLINE, not by a peer calling
+        :meth:`mark_lost` or waiting out a gather timeout. Every
+        response carries the server's lost map, so survivors fire their
+        loss hooks (mesh re-init) even with no gather in flight.
+      * **Transient-fault tolerance.** Socket errors reconnect and
+        re-send through the shared :class:`~.resilience.RetryPolicy`;
+        round contributions are idempotent server-side (keyed by
+        ``(name, host_id)`` plus a per-call token), so a replay after a
+        broken pipe never double-counts — and an imposter with a
+        different token still gets the split-brain
+        :class:`CoordinationError`.
+      * **Observability.** ``transport_reconnects_total`` and the
+        per-host ``transport_heartbeat_lag`` gauge ride
+        ``resilience.metrics()``.
+
+    ``host_id`` binds the object to its host (the heartbeat identity);
+    the per-call ``host_id`` arguments of the contract remain and must
+    match in a real deployment. ``heartbeat=False`` builds a passive
+    client (observers, tests driving liveness by hand).
+
+    ``address`` may be a LIST of endpoints (``"h:p1,h:p2"`` or a list)
+    — a term-replicated CoordServer group in index order. Failover is
+    transparent: on primary loss the client rotates to the promoted
+    standby inside its retry budget, contributions replay idempotently
+    by ``(name, host_id, token)``, and a stale ex-primary's responses
+    are refused by term (``transport_stale_primary``) — the trainers
+    above this class run UNMODIFIED through a coordinator SIGKILL.
+
+    The wire is newline JSON, so a buddy blob sent through this
+    coordinator travels as base64 text (``blob_text``; the in-process
+    coordinators keep it as bytes), which either package decodes."""
+
+    # buddy.send_snapshot encodes blobs as text for a JSON wire
+    blob_text = True
 
     def __init__(self, address, n_hosts, host_id, timeout_s=30.0,
                  poll_s=0.01, poll_max_s=0.25, detect_loss=True,
                  mesh_reinit=True, heartbeat=True, hb_interval_s=0.5,
                  retry_policy=None, mailbox=True,
                  mailbox_host="127.0.0.1", mailbox_port=0):
-        raise NotPortedError(
-            "SocketCoordinator talks to a CoordServer over TCP "
-            "(framework/transport.py); the transport arrives with the "
-            "next slice of paddle_tpu_torch — use LocalCoordinator "
-            "(threads) or FileCoordinator (a shared directory)")
+        super(SocketCoordinator, self).__init__(
+            n_hosts, timeout_s=timeout_s, detect_loss=detect_loss,
+            mesh_reinit=mesh_reinit)
+        from .transport import CoordClient
+        self.host_id = int(host_id)
+        self._mb_server = None
+        self._mb_addrs = {}
+        self.poll_s = float(poll_s)
+        self.poll_max_s = max(self.poll_s, float(poll_max_s))
+        self._known_lost = set()
+        self._known_lock = threading.Lock()
+        self._lost_seen_v = -1
+        self._token_seq = 0
+        # per-INCARNATION token base: a reconnect replay from this
+        # process matches its own token (idempotent), while a duplicate
+        # process launched with the same host_id generates a different
+        # base and still gets the split-brain CoordinationError
+        import os as _os
+        import random as _random
+        self._token_base = "%d.%08x" % (_os.getpid(),
+                                        _random.getrandbits(32))
+        self._client = CoordClient(address, host_id=self.host_id,
+                                   retry_policy=retry_policy)
+        # hello validates the pod size before anything else rides the
+        # connection; the heartbeat (when armed) then takes the lease
+        with obs.span("coord.hello", host=self.host_id):
+            self._call("hello", n_hosts=self.n_hosts)
+        if mailbox:
+            # p2p buddy mailbox endpoint: started and registered BEFORE
+            # this constructor returns (and so before any pod_start
+            # barrier completes), so every peer can resolve this host's
+            # address by the time the first gen-0 seed streams.
+            from . import buddy as buddy_mod
+            from .transport import MailboxServer
+            self._mb_server = MailboxServer(
+                buddy_mod.BuddyMailbox(host_id=self.host_id),
+                host=mailbox_host, port=int(mailbox_port))
+            self._call("mailbox_hello", addr=self._mb_server.address)
+        if obs.enabled():
+            # align this process's span timestamps to the coordination
+            # server's clock (min-RTT midpoint probe) — what lets one
+            # merged timeline order spans across hosts. Best-effort:
+            # an old server without the `time` op changes nothing.
+            try:
+                obs.probe_clock_offset(lambda cmd: self._call(cmd))
+            except Exception:
+                pass
+        if heartbeat:
+            self._client.start_heartbeat(interval_s=hb_interval_s,
+                                         on_lost=self._observe_lost)
+        else:
+            self._client._lost_cb = self._observe_lost
 
+    # -- loss observation (runs on gather AND heartbeat threads) ----------
+    def _observe_lost(self, lost, version=None):
+        """Fire _on_loss exactly once per process per tombstone —
+        including ones the server's heartbeat monitor wrote. The update
+        of _known_lost happens BEFORE the hooks so the nested
+        live_hosts() calls inside _on_loss cannot re-enter. ``version``
+        is the server's lost_v: a delayed delivery older than one we
+        already processed is DROPPED, so a pre-unfence map can never
+        re-fire hooks for a host this coordinator just readmitted (or
+        poison _known_lost into suppressing its next real loss)."""
+        with self._known_lock:
+            if version is not None:
+                if version < self._lost_seen_v:
+                    return
+                self._lost_seen_v = version
+            # a GROWN slot's birth fence is not a loss: the host was
+            # never a member, so no hooks fire and it stays out of
+            # _known_lost (else its first REAL loss after joining
+            # would be suppressed) — LocalCoordinator.resize parity
+            growing = {h for h, r in lost.items()
+                       if str(r).startswith(GROW_FENCE_REASON)} \
+                if isinstance(lost, dict) else set()
+            newly = sorted(set(lost) - growing - self._known_lost
+                           - {self.host_id})
+            self._known_lost.update(h for h in lost
+                                    if h not in growing)
+        if newly:
+            self._on_loss(newly)
 
+    def _call(self, cmd, **fields):
+        """call() with server errors mapped onto the Coordinator error
+        taxonomy (transport errors — ConnectionError — raise through
+        as transients for the caller's policy)."""
+        try:
+            return self._client.call(cmd, **fields)
+        except CoordinationError:
+            raise
+        except RuntimeError as e:
+            raise CoordinationError(str(e))
+
+    # -- contract ----------------------------------------------------------
+    def lost_hosts(self):
+        self._call("lost")            # call() refreshed last_lost
+        return dict(self._client.last_lost)
+
+    def live_hosts(self):
+        lost = self.lost_hosts()
+        return [i for i in range(self.n_hosts) if i not in lost]
+
+    def mark_lost(self, host_id, reason="declared lost"):
+        # the response's lost map runs through _observe_lost, which
+        # fires _on_loss for the newly tombstoned host
+        self._call("mark_lost", host=int(host_id), reason=reason)
+
+    def announce_join(self, host_id, nonce):
+        self._call("announce_join", host=int(host_id), nonce=int(nonce))
+
+    def pending_joins(self):
+        joins = self._call("pending_joins").get("joins", {})
+        return {int(h): int(n) for h, n in joins.items()}
+
+    # -- member registry (serving fleet) -----------------------------------
+    def put_info(self, info):
+        """Publish this host's JSON blob to the server's member
+        registry (last write wins). The serving fleet advertises each
+        replica's HTTP address + artifact generation here so the
+        router needs no static fleet configuration."""
+        self._call("put_info", info=info)
+
+    # -- buddy-snapshot mailboxes (server-side store) ----------------------
+    def put_blob(self, host_id, gen, buddy, blob, reset=False):
+        """Mailbox write on the CoordServer (see Coordinator.put_blob):
+        synchronously replicated to standbys and snapshot-covered, so
+        an acked snapshot survives coordinator failover. The server's
+        ``blob_max_bytes`` refusal surfaces as
+        :class:`BlobTooLargeError`."""
+        try:
+            resp = self._call("put_blob", host=int(host_id),
+                              gen=int(gen), buddy=int(buddy),
+                              blob=blob, reset=bool(reset))
+        except CoordinationError as e:
+            if "blob_max_bytes" in str(e):
+                raise BlobTooLargeError(str(e))
+            raise
+        if "fenced" in resp:
+            raise HostLostError(
+                "host %d is fenced (%s) — a fenced host must not "
+                "publish buddy snapshots" % (int(host_id),
+                                             resp["fenced"]))
+
+    def get_blob(self, owner, meta_only=False):
+        resp = self._call("get_blob", owner=int(owner),
+                          meta_only=bool(meta_only))
+        if resp.get("miss"):
+            return None
+        out = {"gen": int(resp["gen"]), "buddy": int(resp["buddy"])}
+        if not meta_only:
+            out["blob"] = resp.get("blob")
+        return out
+
+    # -- p2p buddy mailboxes (real per-host endpoints) ---------------------
+    def mailbox_of(self, host_id):
+        """This host's own mailbox when the endpoint is armed; the
+        in-process base registry otherwise (mailbox=False clients,
+        observers)."""
+        if self._mb_server is not None \
+                and int(host_id) == self.host_id:
+            return self._mb_server.mailbox
+        return super(SocketCoordinator, self).mailbox_of(host_id)
+
+    def _mailbox_addr(self, host_id):
+        """Resolve a peer's MailboxServer address from the local cache,
+        refreshed from the coordinator's replicated address book on a
+        miss."""
+        h = int(host_id)
+        addr = self._mb_addrs.get(h)
+        if addr is None:
+            resp = self._call("buddy_meta")
+            self._mb_addrs.update(
+                {int(k): a
+                 for k, a in resp.get("addrs", {}).items()})
+            addr = self._mb_addrs.get(h)
+        return addr
+
+    def _mailbox_request(self, host_id, req):
+        """One-shot request against ``host_id``'s mailbox endpoint. A
+        dead/renumbered endpoint drops the cached address before the
+        ConnectionError propagates, so the next attempt re-resolves."""
+        from .transport import mailbox_request
+        h = int(host_id)
+        addr = self._mailbox_addr(h)
+        if addr is None:
+            raise ConnectionError(
+                "no mailbox endpoint registered for host %d" % h)
+        try:
+            return mailbox_request(addr, req)
+        except ConnectionError:
+            self._mb_addrs.pop(h, None)
+            raise
+
+    def mailbox_send(self, owner, at, payload):
+        at = int(at)
+        if self._mb_server is not None and at == self.host_id:
+            return self._mb_server.mailbox.deposit(owner, payload)
+        if self._mb_server is None:
+            return super(SocketCoordinator, self).mailbox_send(
+                owner, at, payload)
+        resp = self._mailbox_request(
+            at, {"cmd": "mb_deposit", "owner": int(owner),
+                 "payload": payload})
+        if "error" in resp:
+            raise ConnectionError(
+                "mailbox deposit for host %d failed: %s"
+                % (int(owner), resp["error"]))
+        return resp
+
+    def mailbox_fetch(self, owner, at):
+        at = int(at)
+        if self._mb_server is not None and at == self.host_id:
+            try:
+                return self._mb_server.mailbox.reconstruct(owner)
+            except LookupError:
+                return None
+        if self._mb_server is None:
+            return super(SocketCoordinator, self).mailbox_fetch(
+                owner, at)
+        resp = self._mailbox_request(
+            at, {"cmd": "mb_fetch", "owner": int(owner)})
+        if resp.get("miss"):
+            return None
+        if "refused" in resp or "error" in resp:
+            raise RuntimeError(
+                "mailbox fetch for host %d refused: %s"
+                % (int(owner),
+                   resp.get("refused") or resp.get("error")))
+        return resp
+
+    def put_buddy_meta(self, host_id, gen, buddy, digest, nbytes,
+                       reset=False):
+        """Metadata commit on the CoordServer (replicated + snapshot-
+        covered) — see Coordinator.put_buddy_meta."""
+        resp = self._call("put_buddy_meta", host=int(host_id),
+                          gen=int(gen), buddy=int(buddy),
+                          digest=digest, nbytes=int(nbytes),
+                          reset=bool(reset))
+        if "fenced" in resp:
+            raise HostLostError(
+                "host %d is fenced (%s) — a fenced host must not "
+                "publish buddy metadata" % (int(host_id),
+                                            resp["fenced"]))
+
+    def buddy_meta(self, owner):
+        resp = self._call("buddy_meta", owner=int(owner))
+        if resp.get("miss"):
+            return None
+        out = {"gen": int(resp["gen"]), "buddy": int(resp["buddy"]),
+               "digest": resp.get("digest"),
+               "nbytes": int(resp.get("nbytes", 0))}
+        if resp.get("addr"):
+            # piggybacked address of the recorded buddy's endpoint —
+            # prime the cache so the restore-time pull needs no extra
+            # round-trip
+            self._mb_addrs[out["buddy"]] = resp["addr"]
+        return out
+
+    def members(self):
+        """One snapshot of the whole membership picture:
+        ``{"n_hosts", "hb_deadline_s", "hb_age": {host: seconds},
+        "info": {host: blob}, "lost": {host: reason}}`` — host keys as
+        ints. The routing table is derived from exactly this (live =
+        registered, not fenced), and ``hb_deadline_s`` lets a client
+        judge a lease live-looking by the same bound the server's
+        monitor fences by."""
+        resp = self._call("members")
+        n = resp.get("n_hosts")
+        if n is not None and int(n) != self.n_hosts:
+            # a peer resized the group (dynamic resize): adopt — the
+            # server is the size's single source of truth, and a stale
+            # client-side n_hosts would mis-enumerate live_hosts()
+            self.n_hosts = int(n)
+            record_event("group_resize", n_hosts=self.n_hosts,
+                         adopted=True)
+        return {"n_hosts": resp.get("n_hosts"),
+                "resize_v": resp.get("resize_v"),
+                "hb_deadline_s": resp.get("hb_deadline_s"),
+                "hb_age": {int(h): float(v)
+                           for h, v in resp.get("hb_age", {}).items()},
+                "info": {int(h): v
+                         for h, v in resp.get("info", {}).items()},
+                "lost": {int(h): v
+                         for h, v in resp.get("lost", {}).items()}}
+
+    def unfence(self, host_id):
+        self._call("unfence", host=int(host_id))
+        with self._known_lock:
+            # a future re-loss of this host must re-fire _on_loss here
+            self._known_lost.discard(int(host_id))
+
+    def resize(self, n_hosts):
+        """Server-side dynamic resize (primary-replicated, snapshot-
+        covered); adopts the new size locally. Raises
+        CoordinationError mid-round or for a live id in a shrink range
+        (the server's named refusals)."""
+        if int(n_hosts) < 1:
+            # local pre-check so the caller-facing contract matches
+            # Local/File: ValueError for a bad ARGUMENT, reserving
+            # CoordinationError for the protocol's named refusals
+            raise ValueError("resize: n_hosts must be >= 1, got %d"
+                             % int(n_hosts))
+        resp = self._call("resize", n_hosts=int(n_hosts))
+        self.n_hosts = int(resp.get("n_hosts", n_hosts))
+        record_event("group_resize", n_hosts=self.n_hosts)
+        return self.n_hosts
+
+    def all_gather(self, name, host_id, value=None, timeout_s=None):
+        # the span covers put + poll-to-freeze + ack: the whole
+        # barrier WAIT, which is exactly what makes an elastic window
+        # barrier attributable (compute vs coordination) on a merged
+        # timeline
+        with obs.span("coord.gather", round=name, host=host_id):
+            return self._all_gather_traced(name, host_id, value,
+                                           timeout_s)
+
+    def _all_gather_traced(self, name, host_id, value, timeout_s):
+        deadline = time.monotonic() + (self.timeout_s if timeout_s is None
+                                       else float(timeout_s))
+        with self._known_lock:
+            self._token_seq += 1
+            token = "h%d.%s.%d" % (self.host_id, self._token_base,
+                                   self._token_seq)
+        resp = self._call("put", name=name, host=host_id, value=value,
+                          token=token)
+        if "fenced" in resp:
+            raise HostLostError(
+                "host %d is fenced (%s) — rejoin, don't resume"
+                % (host_id, resp["fenced"]))
+        sleep_s = self.poll_s
+        while True:
+            try:
+                resp = self._call("poll", name=name, host=host_id)
+            except CoordinationError as e:
+                if "unknown" not in str(e):
+                    raise
+                # "round unknown" AFTER our put landed: the service
+                # failed over to a standby the contribution had not
+                # replicated to yet (a sub-sync-window race). The put
+                # is idempotent keyed by (name, host, token) — re-send
+                # it against the promoted member and keep polling; a
+                # replay the new primary DID inherit answers "resent"
+                resp = self._call("put", name=name, host=host_id,
+                                  value=value, token=token)
+                if "fenced" in resp:
+                    raise HostLostError(
+                        "host %d is fenced (%s) — rejoin, don't resume"
+                        % (host_id, resp["fenced"]))
+                continue
+            if "fenced" in resp:
+                raise HostLostError(
+                    "host %d is fenced (%s) — rejoin, don't resume"
+                    % (host_id, resp["fenced"]))
+            if "done" in resp:
+                break
+            if time.monotonic() >= deadline:
+                waiting = resp.get("waiting", [])
+                if not self.detect_loss:
+                    raise BarrierTimeoutError(
+                        "round %r timed out waiting for hosts %s"
+                        % (name, waiting))
+                for i in waiting:
+                    # client-driven fencing at the gather deadline —
+                    # the slow path; the server's heartbeat monitor
+                    # usually tombstones a dead host long before this
+                    self._call("mark_lost", host=i,
+                               reason="missed round %r" % name)
+                continue
+            time.sleep(min(sleep_s,
+                           max(0.0, deadline - time.monotonic())))
+            sleep_s = min(sleep_s * 2.0, self.poll_max_s)
+        result = {int(h): v for h, v in resp["values"].items()}
+        if host_id in self._client.last_lost:
+            # fenced between the freeze and our exit (File/Local
+            # parity): the snapshot exists for the survivors; we fence
+            raise HostLostError(
+                "host %d is fenced (%s) — rejoin, don't resume"
+                % (host_id, self._client.last_lost[host_id]))
+        # last one out cleans up server-side; fenced hosts never ack —
+        # their rounds leak server-side, bounded by the loss count
+        self._call("ack", name=name, host=host_id)
+        return result
+
+    def close(self):
+        if self._mb_server is not None:
+            self._mb_server.close()
+        self._client.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1511,11 +1945,12 @@ class ElasticTrainer(PodResilientTrainer):
     boundary and the survivors shrink, never below ``drain_floor`` and
     at most one host per ``drain_cooldown`` windows. Every decision is
     computed from the frozen window verdicts, so every live host agrees.
-    A pipeline mesh's re-cut (``pp_recut``) raises NotPortedError with
-    the torch.distributed slice; so do the heartbeat-lag drain
-    (``drain_hb_lag_s``, which reads the socket transport's heartbeat
-    client) and the stream-lag drain (``drain_stream_lag``, which reads
-    per-host ShardedFeed cursors)."""
+    ``drain_hb_lag_s`` flags a host whose heartbeat-cadence lag, carried
+    on the window exchange, exceeds it (a SocketCoordinator's client
+    measures the lag; Local and File coordinators carry 0.0). A pipeline
+    mesh's re-cut (``pp_recut``) raises NotPortedError (the
+    torch.distributed slice); so does the stream-lag drain
+    (``drain_stream_lag``, which reads per-host ShardedFeed cursors)."""
 
     # the LR-rescale factor currently applied, checkpointed with the
     # state so that a restore saved under another capacity reconciles
@@ -1565,11 +2000,11 @@ class ElasticTrainer(PodResilientTrainer):
             if drain_cooldown is None and self._drain_after \
             else (None if drain_cooldown is None
                   else int(drain_cooldown))
-        if drain_hb_lag_s is not None:
-            raise NotPortedError(
-                "ElasticTrainer(drain_hb_lag_s=) drains on the socket "
-                "transport's heartbeat lag; it arrives with the transport "
-                "slice of paddle_tpu_torch (framework/transport.py)")
+        if drain_hb_lag_s is not None and float(drain_hb_lag_s) <= 0:
+            raise ValueError("drain_hb_lag_s must be > 0 seconds "
+                             "(or None to ignore heartbeat lag)")
+        self._drain_hb_lag_s = None if drain_hb_lag_s is None \
+            else float(drain_hb_lag_s)
         if drain_stream_lag is not None:
             raise NotPortedError(
                 "ElasticTrainer(drain_stream_lag=) drains on per-host "
@@ -1685,12 +2120,31 @@ class ElasticTrainer(PodResilientTrainer):
             total += float(p)
         return float(total ** 0.5)
 
+    def _hb_lag(self, hid):
+        """This host's heartbeat-cadence lag (the value behind the
+        transport_heartbeat_lag gauge) for the window exchange: 0.0 on
+        coordinators without a transport client (Local, File)."""
+        client = getattr(self._coordinator, "_client", None)
+        try:
+            return float(getattr(client, "hb_lag_s", 0.0) or 0.0)
+        except (TypeError, ValueError):
+            return 0.0
+
     def _drain_flags(self, verdicts, sdc=None):
         """Per-host straggler flags from the frozen verdicts only: the
-        compute latch (v[3]) and the SDC detector's suspects."""
+        compute latch (v[3]), the heartbeat lag it carried (v[4], against
+        drain_hb_lag_s) and the SDC detector's suspects."""
         suspects = sdc.suspects() if sdc is not None else ()
-        return {h: (bool(v[3]) if len(v) > 3 else False) or h in suspects
-                for h, v in verdicts.items()}
+        flags = {}
+        for h, v in verdicts.items():
+            f = bool(v[3]) if len(v) > 3 else False
+            if not f and self._drain_hb_lag_s is not None and len(v) > 4:
+                try:
+                    f = float(v[4] or 0.0) > self._drain_hb_lag_s
+                except (TypeError, ValueError):
+                    f = False
+            flags[h] = f or h in suspects
+        return flags
 
     # -- gradient-merge-aware LR rescale (fixed-per-host-batch regime) ----
     def _grad_merge_k(self, n_live):
@@ -1916,13 +2370,12 @@ class ElasticTrainer(PodResilientTrainer):
             pending = sorted([int(h), int(nc)] for h, nc in
                              co.pending_joins().items())
             strag = bool(self._straggler_flag(hid))
-            # v[4], the heartbeat lag, is 0.0 without the transport's
-            # client; the SDC norm, computed after the window ran (v[5])
+            # the SDC norm, computed after the window ran (v[5])
             norm = None if sdc is None else self._sdc_norm(trainer)
             try:
                 verdicts = co.all_gather("%sw%d" % (run_tag, rnd), hid,
                                          [status, pending, None, strag,
-                                          0.0, norm])
+                                          self._hb_lag(hid), norm])
             except HostLostError:
                 # a peer's timeout fenced us: stop competing
                 record_event("host_fenced", step=step)

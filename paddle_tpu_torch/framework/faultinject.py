@@ -3,10 +3,13 @@
 Counterpart of paddle_tpu/framework/faultinject.py, with its closed site
 catalog (:data:`SITES`) and spec grammar unchanged, so a spec that arms a
 site of a later slice still parses. Named failpoint sites are hit
-deterministically by ``(site, hit-count, host)`` schedules; this slice's
-sites are ``executor.step`` (Executor.run and run_steps, payload = the
+deterministically by ``(site, hit-count, host)`` schedules; the port
+hits ``executor.step`` (Executor.run and run_steps, payload = the
 feeds), ``io.member_write`` and ``io.manifest_write`` (a checkpoint's
-commit).
+commit), ``buddy.send``, ``buddy.delta_apply`` and ``buddy.restore``
+(the buddy tier), ``transport.send`` and ``coordination.hb`` (the socket
+plane's client), ``serving.infer`` (a fleet replica's request) and
+``serving.dispatch`` (the fleet router's dispatch to a replica).
 
 Usage at a site (the call is the site)::
 

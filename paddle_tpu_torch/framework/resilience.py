@@ -19,18 +19,21 @@ Counterpart of paddle_tpu/framework/resilience.py, its single-host part:
     over the families this port feeds: events, faults, checkpoint bytes,
     restore latency, executor step phases, failpoints, numeric faults
     and the buddy tier's (restore outcomes, each host's generation, its
-    mailbox's resident bytes, the delta ratio, the p2p fetch ms). The
-    families of modules not ported yet (the router, the feed plane, the
-    transport) are absent, as the JAX package gives them with nothing
-    recorded;
+    mailbox's resident bytes, the delta ratio, the p2p fetch ms), the
+    socket transport's (reconnects, failovers, heartbeat lag, terms,
+    replication lag) and the serving fleet's router and tenant series
+    (:func:`record_router_request` and its siblings: cumulative
+    counters outside the event log); the feed plane's families render
+    as the JAX package's would, but nothing in this port records them
+    yet;
+  * :class:`MetricsServer` / :func:`serve_metrics`: the stdlib HTTP pull
+    endpoint of the exposition (``GET /metrics``, ``GET /healthz``);
   * :class:`SDCDetector`, the pod's silent-data-corruption tripwire,
     and ``ElasticTrainer``, resolved lazily from
     :mod:`.coordination` (which holds the pod stack: the coordinators,
     ``PodResilientTrainer``, ``ElasticTrainer``).
 
-The metrics server and the serving parts (router counters, shedding)
-come with the transport slice; ``ResilientTrainer(feed=...)`` (a
-ShardedFeed) raises NotPortedError.
+``ResilientTrainer(feed=...)`` (a ShardedFeed) raises NotPortedError.
 
 Env knobs (read once; ``reload_env()`` re-reads):
   PADDLE_TPU_FAULTS       fault spec string, e.g. ``step:preempt@5``
@@ -65,6 +68,11 @@ __all__ = [
     "record_buddy_resident", "buddy_resident",
     "record_buddy_delta_ratio", "buddy_delta_ratio",
     "record_buddy_fetch_ms", "buddy_fetch_ms", "SDCDetector",
+    "record_router_request", "record_router_retry", "observe_router_batch",
+    "record_router_slow", "record_router_expired",
+    "set_router_queue_depth", "set_router_inflight",
+    "set_router_tenant_queue_depth", "router_totals", "clear_router",
+    "MetricsServer", "serve_metrics",
 ]
 
 INJECTION_POINTS = ("step", "ckpt_write", "serve")
@@ -399,6 +407,265 @@ def clear_analysis():
         _ANALYSIS.clear()
 
 
+# Serving-fleet router accounting (serving_fleet.FleetRouter). Same
+# design pressure as the byte counters: the router serves at request
+# rate, and one event per request would evict the whole bounded log in
+# minutes — so these are cumulative process-global counters/gauges
+# OUTSIDE the event log, folded into metrics() only once any activity
+# exists (router-less jobs export nothing new). Rare router events
+# (a replica dispatch failing over, a rolling-deploy step) still ride
+# the ordinary event log.
+#
+# Every series carries an optional ``router=`` label: N concurrent
+# FleetRouters (the HA router tier) share this process-global state,
+# and an unlabeled gauge would be overwritten by whichever router
+# wrote last — per-router label keys keep the series apart. ``router=
+# None`` keeps the historical unlabeled series (single-router callers
+# and direct test use are unchanged).
+_ROUTER_LOCK = threading.Lock()
+ROUTER_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+ROUTER_SLOW_K = 8
+
+
+def _fresh_router_state():
+    return {"requests": {},      # (router, outcome) -> count
+            "batch": {},         # router -> {"counts", "sum", "count"}
+            "queue_depth": {},   # router -> gauge
+            "inflight": {},      # (router, replica) -> gauge
+            "retries": {},       # (router, replica) -> count
+            "slow": {},          # router -> top-K
+                                 #   [(latency_s, trace, tenant)]
+            # multi-tenant QoS series (additive: the aggregate series
+            # above are written unconditionally, so a tenant-less
+            # deployment's exposition is bit-for-bit the old one)
+            "tenant_requests": {},  # (router, tenant, outcome) -> n
+            "expired": {},          # (router, tenant, where) -> n
+            "tenant_queue": {}}     # (router, tenant) -> gauge
+
+
+_ROUTER = _fresh_router_state()
+
+
+def _router_key(router):
+    return None if router is None else str(router)
+
+
+def record_router_request(outcome, router=None, tenant=None):
+    """Count one routed request's terminal outcome ("ok", "shed",
+    "deadline", "error", "replay", ...). Exported as
+    ``<prefix>_router_requests_total{outcome=[,router=]}``. When the
+    caller knows the tenant a SECOND, ``tenant=``-labelled series is
+    bumped alongside (never instead of) the aggregate — per-class SLO
+    accounting without perturbing the historical series, and the probe
+    cross-checks the two for quota-accounting drift."""
+    with _ROUTER_LOCK:
+        key = (_router_key(router), str(outcome))
+        r = _ROUTER["requests"]
+        r[key] = r.get(key, 0) + 1
+        if tenant is not None:
+            tkey = (_router_key(router), str(tenant), str(outcome))
+            t = _ROUTER["tenant_requests"]
+            t[tkey] = t.get(tkey, 0) + 1
+
+
+def record_router_retry(replica, router=None):
+    """Count one failed dispatch attempt that was retried on a
+    sibling. A cumulative counter, NOT an event: under a shed storm
+    retries run at request rate and would evict the bounded event log
+    (the router still records an event for the RARE connection-level
+    failures — a replica death — just not for load-driven 5xx)."""
+    with _ROUTER_LOCK:
+        key = (_router_key(router), int(replica))
+        r = _ROUTER["retries"]
+        r[key] = r.get(key, 0) + 1
+
+
+def observe_router_batch(size, router=None):
+    """Record one dispatched micro-batch's coalesced request count in
+    the ``<prefix>_router_batch_size`` histogram (per-router series)."""
+    size = float(size)
+    with _ROUTER_LOCK:
+        b = _ROUTER["batch"].setdefault(
+            _router_key(router),
+            {"counts": [0] * (len(ROUTER_BATCH_BUCKETS) + 1),
+             "sum": 0.0, "count": 0})
+        for i, le in enumerate(ROUTER_BATCH_BUCKETS):
+            if size <= le:
+                b["counts"][i] += 1
+                break
+        else:
+            b["counts"][-1] += 1
+        b["sum"] += size
+        b["count"] += 1
+
+
+def record_router_slow(latency_s, trace=None, router=None,
+                       tenant=None):
+    """Keep this request as a slow-request EXEMPLAR if it makes the
+    router's top-K by latency. Exemplars pair the p99 a histogram can
+    only bound with the trace id that lets an operator pull the exact
+    offending timeline (``paddle_tpu_torch.tools.traceview``) — the classic
+    metrics-to-trace bridge — and the tenant, so "whose request was
+    slow" is one lookup. Exported by :func:`router_totals` as
+    ``slow_requests``."""
+    latency_s = float(latency_s)
+    with _ROUTER_LOCK:
+        top = _ROUTER["slow"].setdefault(_router_key(router), [])
+        top.append((latency_s, None if trace is None else str(trace),
+                    None if tenant is None else str(tenant)))
+        top.sort(key=lambda e: -e[0])
+        del top[ROUTER_SLOW_K:]
+
+
+def record_router_expired(where, tenant=None, router=None):
+    """Count one request whose propagated deadline budget had already
+    expired, by WHERE the expiry was caught:
+
+      * ``"queue"``    expired while waiting in (or arriving at) the
+                       router queue — failed 504 WITHOUT dispatching;
+      * ``"dispatch"`` expired between batch cut and dispatch — the
+                       member is failed alone and the batch recomposed;
+      * ``"replica"``  the replica-side guard refused dispatched work
+                       that was already expired on arrival. The router
+                       checks remaining budget immediately before every
+                       send, so this series staying at ZERO is the
+                       counter-assertable form of "no request is ever
+                       dispatched after its budget expired".
+
+    Exported as ``<prefix>_router_deadline_expired_total{where=,
+    tenant=[,router=]}``."""
+    with _ROUTER_LOCK:
+        key = (_router_key(router),
+               "default" if tenant is None else str(tenant),
+               str(where))
+        e = _ROUTER["expired"]
+        e[key] = e.get(key, 0) + 1
+
+
+def set_router_queue_depth(depth, router=None):
+    """Update the ``<prefix>_router_queue_depth`` gauge (requests
+    waiting to be coalesced into a batch) for ``router``'s series."""
+    with _ROUTER_LOCK:
+        _ROUTER["queue_depth"][_router_key(router)] = float(depth)
+
+
+def set_router_inflight(replica, n, router=None):
+    """Update the per-replica ``<prefix>_router_replica_inflight``
+    gauge (batches the router currently has dispatched to it)."""
+    with _ROUTER_LOCK:
+        _ROUTER["inflight"][(_router_key(router), int(replica))] = \
+            float(n)
+
+
+def set_router_tenant_queue_depth(tenant, depth, router=None):
+    """Update the per-tenant ``<prefix>_router_tenant_queue_depth``
+    gauge (requests waiting in that tenant's WFQ queue). Written only
+    by QoS-mode routers, so tenant-less deployments export nothing
+    new."""
+    with _ROUTER_LOCK:
+        _ROUTER["tenant_queue"][(_router_key(router), str(tenant))] = \
+            float(depth)
+
+
+def router_totals(by_router=False):
+    """One consistent snapshot of the router accounting. The default
+    AGGREGATES across router labels (the historical single-router
+    shape): ``{"requests": {outcome: n}, "batch_counts" (per-bucket,
+    non-cumulative), "batch_count", "batch_sum", "queue_depth",
+    "inflight": {replica: n}, "retries": {replica: n}}``.
+    ``by_router=True`` returns the same shape PER ROUTER KEY (None =
+    the unlabeled series) — what :func:`metrics` exports from, and
+    what the Autoscaler reads its own shed rate out of. Taken under
+    ONE lock acquisition so the histogram's bucket counts can never
+    run ahead of its total (a non-monotonic histogram is invalid to
+    Prometheus consumers). ``slow_requests`` carries the top-K
+    slow-request exemplars as ``[{"latency_s", "trace", "tenant"}]``,
+    worst first (see :func:`record_router_slow`). QoS additions ride
+    as ``"tenants"`` ({tenant: {outcome: n}}), ``"expired"``
+    ({where: {tenant: n}}) and ``"tenant_queue_depth"``
+    ({tenant: depth}) — all empty for tenant-less deployments."""
+    with _ROUTER_LOCK:
+        requests = dict(_ROUTER["requests"])
+        batch = {r: {"counts": list(b["counts"]), "sum": b["sum"],
+                     "count": b["count"]}
+                 for r, b in _ROUTER["batch"].items()}
+        queue_depth = dict(_ROUTER["queue_depth"])
+        inflight = dict(_ROUTER["inflight"])
+        retries = dict(_ROUTER["retries"])
+        slow = {r: list(v) for r, v in _ROUTER["slow"].items()}
+        tenant_requests = dict(_ROUTER["tenant_requests"])
+        expired = dict(_ROUTER["expired"])
+        tenant_queue = dict(_ROUTER["tenant_queue"])
+    routers = (set(r for r, _ in requests) | set(batch)
+               | set(queue_depth) | set(r for r, _ in inflight)
+               | set(r for r, _ in retries) | set(slow)
+               | set(r for r, _, _ in tenant_requests)
+               | set(r for r, _, _ in expired)
+               | set(r for r, _ in tenant_queue))
+    out = {}
+    for rkey in (sorted(routers, key=lambda r: (r is not None, str(r)))
+                 if by_router else [None]):
+        def _mine(k):
+            return by_router is False or k == rkey
+        b_counts = [0] * (len(ROUTER_BATCH_BUCKETS) + 1)
+        b_sum, b_count = 0.0, 0
+        for r, b in batch.items():
+            if _mine(r):
+                b_counts = [a + c for a, c in zip(b_counts, b["counts"])]
+                b_sum += b["sum"]
+                b_count += b["count"]
+        depths = [v for r, v in queue_depth.items() if _mine(r)]
+        merged_slow = sorted(
+            (e for r, top in slow.items() if _mine(r) for e in top),
+            key=lambda e: -e[0])[:ROUTER_SLOW_K]
+        tmap = {}
+        for (r, t, o), n in tenant_requests.items():
+            if _mine(r):
+                d = tmap.setdefault(t, {})
+                d[o] = d.get(o, 0) + n
+        emap = {}
+        for (r, t, w), n in expired.items():
+            if _mine(r):
+                d = emap.setdefault(w, {})
+                d[t] = d.get(t, 0) + n
+        tq = {}
+        for (r, t), v in tenant_queue.items():
+            if _mine(r):
+                tq[t] = tq.get(t, 0.0) + v
+        ent = {
+            "requests": _sum_by(requests, _mine),
+            "batch_counts": b_counts, "batch_count": b_count,
+            "batch_sum": b_sum,
+            "queue_depth": sum(depths) if depths else None,
+            "inflight": _sum_by(inflight, _mine),
+            "retries": _sum_by(retries, _mine),
+            "tenants": tmap, "expired": emap,
+            "tenant_queue_depth": tq,
+            "slow_requests": [{"latency_s": lat, "trace": tr,
+                               "tenant": tn}
+                              for lat, tr, tn in merged_slow]}
+        if not by_router:
+            return ent
+        out[rkey] = ent
+    return out
+
+
+def _sum_by(pairs, mine):
+    out = {}
+    for (r, k), n in pairs.items():
+        if mine(r):
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def clear_router():
+    with _ROUTER_LOCK:
+        global _ROUTER
+        _ROUTER = _fresh_router_state()
+
+
 def _counts_histogram(name, buckets, counts, total, hsum,
                       labels=None):
     """Prometheus histogram dict from PRE-BUCKETED per-bucket counts.
@@ -428,56 +695,118 @@ def _histogram(name, values, buckets, labels=None):
 
 
 def metrics(event_list=None, by_host=False):
-    """Aggregate the bounded event log into Prometheus-style counters,
-    gauges and histograms.
+    """Aggregate the bounded event log into Prometheus-style counters and
+    histograms.
 
-    Returns a JSON-ready dict ``{"counters": [...], "gauges": [...],
-    "histograms": [...]}``: each counter and gauge is ``{"name",
-    "labels", "value"}``, each histogram carries cumulative ``buckets``
-    ([le, count] pairs ending at "+Inf"), ``sum`` and ``count``. Series
-    (the JAX package's, for the families this port feeds):
+    The JAX package's function and series, line for line (so one event
+    list renders byte-equal in both packages), less its
+    kernel-selection counter (the kernel dispatch slice).
+
+    Returns a JSON-ready dict ``{"counters": [...], "histograms": [...]}``
+    where each counter is ``{"name", "labels", "value"}`` and each
+    histogram carries cumulative ``buckets`` ([le, count] pairs ending at
+    "+Inf"), ``sum`` and ``count``. Series:
 
       <prefix>_events_total{kind=...}        every event kind (faults,
-                                             retries, restarts,
+                                             retries, restarts, sheds,
                                              restores, stragglers, ...)
-      <prefix>_faults_total{point=,fault=}   injected faults by
+      <prefix>_faults_total{point=,fault=}   injected/observed faults by
                                              injection point and kind
-      <prefix>_ckpt_bytes_total{kind=}       raw-vs-wire bytes of the
-                                             checkpoint payloads
-                                             (record_bytes; emitted only
-                                             for channels that moved
-                                             bytes)
+      <prefix>_feed_rebalance_total          data-plane lane re-maps on
+                                             membership change (emitted
+                                             only once any occurred)
+      <prefix>_feed_epoch{host=}             gauge: slowest owned feed
+                                             lane's epoch per host
+      <prefix>_feed_stream_lag{host=}        gauge: committed samples a
+                                             host's feed streams trail
+                                             the most-advanced host
+      <prefix>_transport_reconnects_total    socket-coordinator client
+                                             reconnects (emitted only
+                                             once any occurred)
+      <prefix>_transport_failovers_total     client endpoint failovers
+                                             that reached a serving
+                                             (promoted) coordination
+                                             member (emitted only once
+                                             any occurred)
+      <prefix>_transport_heartbeat_lag{host=}  gauge: seconds a host's
+                                             liveness heartbeat cadence
+                                             is running behind (0 when
+                                             healthy)
+      <prefix>_transport_term{host=}         gauge: the replication
+                                             term last observed (per
+                                             client host; the unlabeled
+                                             series is the server's own
+                                             promote/demote view) — a
+                                             host pinned BELOW the
+                                             others is talking to a
+                                             stale ex-primary
+      <prefix>_transport_replication_lag     gauge: ops the furthest-
+                                             behind in-sync standby
+                                             trails the primary
+      <prefix>_collective_bytes_total{kind=} raw-vs-wire bytes of the
+      <prefix>_stateship_bytes_total{kind=}  block-quantized gradient
+      <prefix>_ckpt_bytes_total{kind=}       all-reduce / elastic state
+                                             ship / checkpoint payloads
+                                             (kind="raw" is what the
+                                             uncompressed path would
+                                             move; kind="wire" what
+                                             actually moved — the pair
+                                             makes compression ratios
+                                             assertable, see
+                                             record_bytes)
+      <prefix>_router_requests_total{outcome=}  serving-fleet router
+                                             requests by terminal
+                                             outcome (ok/shed/deadline/
+                                             error — cumulative process
+                                             counters, see
+                                             record_router_request)
+      <prefix>_router_retries_total{replica=}  failed dispatch attempts
+                                             retried on a sibling
+                                             (cumulative — load-driven
+                                             5xx retries run at request
+                                             rate and must not ride the
+                                             bounded event log)
+      <prefix>_router_queue_depth            gauge: requests waiting in
+                                             the router's coalescing
+                                             queue
+      <prefix>_router_replica_inflight{replica=}  gauge: batches the
+                                             router has in flight at
+                                             each replica
+      <prefix>_router_batch_size             histogram: requests
+                                             coalesced per dispatched
+                                             micro-batch
       <prefix>_restore_latency_seconds       checkpoint-restore wall time
-                                             (restore events' latency_s)
-      <prefix>_executor_step_seconds{kind=}  executor step phases
-                                             (emitted for phases that
-                                             ran)
-      <prefix>_failpoint_hits_total{site=}   fired failpoints, with the
-      <prefix>_faultinject_armed             armed gauge (emitted only
-                                             when anything armed or
-                                             fired)
-      <prefix>_numeric_fault_total{policy=,culprit=}  numeric faults
-      <prefix>_analysis_diagnostics_total{pass=,severity=}  Program
-                                             verifier diagnostics
-                                             (emitted once any was
-                                             counted)
-      <prefix>_trace_spans_dropped_total     spans the obs ring evicted
-                                             (emitted while tracing is
-                                             on or once any dropped)
-      <prefix>_buddy_snapshot_bytes_total{kind=}  the buddy tier's
-                                             raw-vs-wire window
-                                             snapshots (record_bytes)
-      <prefix>_buddy_restore_total{outcome=} buddy restores by outcome
-                                             (ok or the typed disk
-                                             fallback)
-      <prefix>_buddy_generation{host=}       gauges of the buddy tier,
-      <prefix>_buddy_resident_bytes{host=}   emitted once recorded
-      <prefix>_buddy_delta_ratio
-      <prefix>_buddy_p2p_fetch_ms
+                                             (from restore events'
+                                             latency_s)
+      <prefix>_buddy_snapshot_bytes_total{kind=}  raw-vs-wire bytes of
+                                             the buddy-checkpoint tier's
+                                             window snapshots (rides the
+                                             same record_bytes channel
+                                             discipline as the pairs
+                                             above)
+      <prefix>_buddy_restore_total{outcome=} buddy-restore attempts by
+                                             outcome (ok, or the typed
+                                             disk-fallback reason:
+                                             buddy_missing/buddy_stale/
+                                             buddy_and_host_lost/
+                                             snapshot_torn)
+      <prefix>_buddy_generation{host=}       gauge: the buddy-snapshot
+                                             generation each host last
+                                             published (strict probes
+                                             compare these across live
+                                             hosts)
 
-    Pass ``event_list`` to aggregate a snapshot instead of the live log.
-    ``by_host=True`` labels the event counters with the host tag that
-    :func:`context` attached."""
+    The result dict also carries a ``gauges`` list (same shape as
+    counters) for the feed-plane last-value series.
+
+    ``metrics_text()`` renders the exposition format; a scraper
+    sidecar/pushgateway can serve it as-is (or pull it live from
+    :func:`serve_metrics`). Pass ``event_list`` to aggregate a snapshot
+    instead of the live log. ``by_host=True`` additionally labels the
+    event counters with the per-host tags :func:`context` attached
+    (``{kind=...,host=...}``) so one pod-wide scrape still tells the
+    hosts apart; events recorded outside a host context keep the plain
+    ``{kind=...}`` series."""
     evs = _LOG.events() if event_list is None else list(event_list)
     if by_host:
         kind_counts = collections.Counter(
@@ -502,26 +831,196 @@ def metrics(event_list=None, by_host=False):
         {"name": METRIC_PREFIX + "_faults_total",
          "labels": {"point": p, "fault": f}, "value": n}
         for (p, f), n in sorted(fault_counts.items())]
-    # cumulative byte counters (not events: they ride the live counters
-    # even for an event_list snapshot)
+    # feed-plane series (elastic data plane): emitted only when the
+    # corresponding events exist, so feed-less jobs export nothing new
+    n_rebalance = sum(1 for e in evs if e["kind"] == "feed_rebalance")
+    if n_rebalance:
+        counters.append({"name": METRIC_PREFIX + "_feed_rebalance_total",
+                         "labels": {}, "value": n_rebalance})
+    # transport series (socket coordinator): reconnect attempts are a
+    # counter; the heartbeat cadence lag is a per-host last-value gauge
+    n_reconnect = sum(1 for e in evs
+                      if e["kind"] == "transport_reconnect")
+    if n_reconnect:
+        counters.append(
+            {"name": METRIC_PREFIX + "_transport_reconnects_total",
+             "labels": {}, "value": n_reconnect})
+    # coordination-plane HA: failovers are the headline counter (a
+    # SIGKILLed primary costs exactly one per client, not an abort)
+    n_failover = sum(1 for e in evs
+                     if e["kind"] == "transport_failover")
+    if n_failover:
+        counters.append(
+            {"name": METRIC_PREFIX + "_transport_failovers_total",
+             "labels": {}, "value": n_failover})
+    # compressed-movement byte accounting (quantized collectives, elastic
+    # state ship, checkpoint payloads): raw-vs-wire counter pairs from the
+    # cumulative process counters — emitted only for channels that moved
+    # bytes, so jobs without the compression paths export nothing new.
+    # NB: these ride the live counters even for event_list snapshots
+    # (they are not events — snapshotting them is bytes_totals()).
     for ch, tot in sorted(bytes_totals().items()):
         for kind in ("raw", "wire"):
             counters.append(
                 {"name": "%s_%s_bytes_total" % (METRIC_PREFIX, ch),
                  "labels": {"kind": kind}, "value": tot[kind]})
+    # program-verifier diagnostics (framework/analysis.py): cumulative
+    # per-(pass, severity) counters — emitted only once a verification
+    # produced diagnostics, so clean jobs export nothing new
+    for (pass_name, severity), n in sorted(analysis_totals().items()):
+        counters.append(
+            {"name": METRIC_PREFIX + "_analysis_diagnostics_total",
+             "labels": {"pass": pass_name, "severity": severity},
+             "value": n})
+    # serving-fleet router series (cumulative process counters like the
+    # byte pairs — NOT events; see record_router_request): emitted only
+    # once the router did anything, so router-less jobs export nothing
+    # new. Counter: requests by terminal outcome. Gauges: queue depth +
+    # per-replica in-flight. Histogram: coalesced batch size. Every
+    # series is per-ROUTER (router= label) so N concurrent routers in
+    # one process never overwrite each other; the unlabeled series is
+    # the single-router/legacy shape.
+    by_router = router_totals(by_router=True)
+
+    def _rlbl(rkey, **extra):
+        lbl = dict(extra)
+        if rkey is not None:
+            lbl["router"] = rkey
+        return lbl
+
+    router_hists = []
+    for rkey, rt in by_router.items():
+        counters += [
+            {"name": METRIC_PREFIX + "_router_requests_total",
+             "labels": _rlbl(rkey, outcome=outcome), "value": n}
+            for outcome, n in sorted(rt["requests"].items())]
+        counters += [
+            {"name": METRIC_PREFIX + "_router_retries_total",
+             "labels": _rlbl(rkey, replica=str(r)), "value": n}
+            for r, n in sorted(rt["retries"].items())]
+        # QoS additions: per-tenant outcome counters alongside the
+        # aggregate (never instead of it — the aggregate above is the
+        # tenant-less deployment's exact historical series), plus the
+        # deadline-budget-expiry counters by catch point
+        counters += [
+            {"name": METRIC_PREFIX + "_router_requests_total",
+             "labels": _rlbl(rkey, outcome=outcome, tenant=t),
+             "value": n}
+            for t, by_out in sorted(rt["tenants"].items())
+            for outcome, n in sorted(by_out.items())]
+        counters += [
+            {"name": METRIC_PREFIX + "_router_deadline_expired_total",
+             "labels": _rlbl(rkey, where=where, tenant=t), "value": n}
+            for where, by_t in sorted(rt["expired"].items())
+            for t, n in sorted(by_t.items())]
+        if rt["batch_count"]:
+            router_hists.append(_counts_histogram(
+                METRIC_PREFIX + "_router_batch_size",
+                ROUTER_BATCH_BUCKETS, rt["batch_counts"],
+                rt["batch_count"], rt["batch_sum"],
+                labels=_rlbl(rkey)))
+    last_epoch, last_lag, last_hb = {}, {}, {}
+    last_term, last_repl_lag = {}, {}
+    last_lterm, last_target = {}, {}
+    for e in evs:
+        if e["kind"] == "feed_epoch":
+            last_epoch[e.get("host")] = e.get("epoch", 0)
+        elif e["kind"] == "feed_lag":
+            last_lag[e.get("host")] = e.get("lag", 0)
+        elif e["kind"] == "transport_hb_lag":
+            last_hb[e.get("host")] = e.get("lag_s", 0.0)
+        elif e["kind"] in ("transport_term", "transport_promote"):
+            # per-client-host term views, plus the server's own
+            # (unlabeled) promote/demote view: a host whose gauge sits
+            # below the others is still trusting a stale ex-primary
+            last_term[e.get("host")] = e.get("term", 0)
+        elif e["kind"] == "transport_repl_lag":
+            last_repl_lag[e.get("host")] = e.get("lag", 0)
+        elif e["kind"] == "fleet_leader_term":
+            # per-router admission-leader term views (the router-tier
+            # twin of transport_term): a router pinned below its peers
+            # is still trusting a stale ex-leader
+            last_lterm[e.get("router")] = e.get("term", 0)
+        elif e["kind"] == "fleet_autoscale":
+            # last autoscale decision's target replica count
+            last_target[None] = e.get("target", 0)
     gauges = []
+    for name, series, label in (
+            (METRIC_PREFIX + "_feed_epoch", last_epoch, "host"),
+            (METRIC_PREFIX + "_feed_stream_lag", last_lag, "host"),
+            (METRIC_PREFIX + "_transport_heartbeat_lag", last_hb,
+             "host"),
+            (METRIC_PREFIX + "_transport_term", last_term, "host"),
+            (METRIC_PREFIX + "_transport_replication_lag",
+             last_repl_lag, "host"),
+            (METRIC_PREFIX + "_fleet_leader_term", last_lterm,
+             "router"),
+            (METRIC_PREFIX + "_fleet_target_replicas", last_target,
+             "router")):
+        gauges += [{"name": name,
+                    "labels": {} if h is None else {label: str(h)},
+                    "value": v}
+                   for h, v in sorted(series.items(),
+                                      key=lambda kv: str(kv[0]))]
+    for rkey, rt in by_router.items():
+        if rt["queue_depth"] is not None:
+            gauges.append(
+                {"name": METRIC_PREFIX + "_router_queue_depth",
+                 "labels": _rlbl(rkey), "value": rt["queue_depth"]})
+        gauges += [{"name": METRIC_PREFIX + "_router_replica_inflight",
+                    "labels": _rlbl(rkey, replica=str(r)), "value": v}
+                   for r, v in sorted(rt["inflight"].items())]
+        gauges += [{"name": METRIC_PREFIX + "_router_tenant_queue_depth",
+                    "labels": _rlbl(rkey, tenant=t), "value": v}
+                   for t, v in sorted(rt["tenant_queue_depth"].items())]
+    # elastic pp re-cut (stage re-stacking over a shrunk mesh): the
+    # re-cut counter, the last re-cut's retarget wall, and the CURRENT
+    # slot count + live-host pair (both from the last pp retarget
+    # event — re-grow moves them back) — emitted only for pods that
+    # ever re-cut, so plain pods export nothing new. serving_probe
+    # --strict cross-checks pp_slots against pp_live_hosts: more slots
+    # than surviving hosts means a torn re-cut.
+    recut_evs = [e for e in evs if e["kind"] == "elastic_pp_recut"]
+    if recut_evs:
+        counters.append({"name": METRIC_PREFIX + "_pp_recut_total",
+                         "labels": {}, "value": len(recut_evs)})
+        last_ms = next((1000.0 * float(e["latency_s"])
+                        for e in reversed(recut_evs)
+                        if "latency_s" in e), None)
+        if last_ms is not None:
+            gauges.append({"name": METRIC_PREFIX + "_pp_recut_ms",
+                           "labels": {}, "value": round(last_ms, 3)})
+    last_pp = next((e for e in reversed(evs)
+                    if "pp_slots" in e
+                    and e["kind"] in ("elastic_pp_recut",
+                                      "elastic_grow")), None)
+    if last_pp is not None:
+        gauges.append({"name": METRIC_PREFIX + "_pp_slots",
+                       "labels": {}, "value": int(last_pp["pp_slots"])})
+        cap = str(last_pp.get("capacity", "")).partition("/")[0]
+        if cap.isdigit():
+            gauges.append({"name": METRIC_PREFIX + "_pp_live_hosts",
+                           "labels": {}, "value": int(cap)})
     restore_lat = [e["latency_s"] for e in evs
                    if e["kind"] == "restore" and "latency_s" in e]
     histograms = [_histogram(METRIC_PREFIX + "_restore_latency_seconds",
                              restore_lat, RESTORE_LATENCY_BUCKETS)]
+    histograms += router_hists
+    # executor step-phase latency (the obs layer's always-on metrics
+    # half): per-kind histograms from the cumulative process counters —
+    # emitted only for phases that ran, so executor-less jobs export
+    # nothing new
     for kind, h in sorted(executor_step_totals().items()):
         if h["count"]:
             histograms.append(_counts_histogram(
                 METRIC_PREFIX + "_executor_step_seconds",
                 EXEC_STEP_BUCKETS, h["counts"], h["count"], h["sum"],
                 labels={"kind": kind}))
-    # the failpoint plane: emitted only when something armed or fired,
-    # so a production process exports nothing new
+    # failpoint plane (framework/faultinject.py): fired-hit counters by
+    # site plus an armed gauge — emitted only when something armed or
+    # fired, so production processes export nothing new; when anything
+    # IS exported, serving_probe --strict refuses the scrape on
+    # armed=1 (live failpoints have no business in production)
     from . import faultinject
     counters += [
         {"name": METRIC_PREFIX + "_failpoint_hits_total",
@@ -531,6 +1030,9 @@ def metrics(event_list=None, by_host=False):
         gauges.append(
             {"name": METRIC_PREFIX + "_faultinject_armed",
              "labels": {}, "value": 1 if faultinject.armed() else 0})
+    # numeric-fault recovery (BuildStrategy numeric_policy): one
+    # counter per (policy, culprit) from the numeric_fault events —
+    # the chaos battery and serving_probe assert on the culprit label
     nf_counts = collections.Counter(
         (e.get("policy", "?"), e.get("culprit", "?"))
         for e in evs if e["kind"] == "numeric_fault")
@@ -538,11 +1040,12 @@ def metrics(event_list=None, by_host=False):
         {"name": METRIC_PREFIX + "_numeric_fault_total",
          "labels": {"policy": p, "culprit": c}, "value": n}
         for (p, c), n in sorted(nf_counts.items())]
-    for (pass_name, severity), n in sorted(analysis_totals().items()):
-        counters.append(
-            {"name": METRIC_PREFIX + "_analysis_diagnostics_total",
-             "labels": {"pass": pass_name, "severity": severity},
-             "value": n})
+    # buddy-checkpoint tier (framework/buddy.py): restore outcomes by
+    # label plus the per-host last-published-generation gauge — emitted
+    # only for pods that ever ran the buddy tier, so plain jobs export
+    # nothing new. serving_probe --strict compares the generation
+    # gauges across live hosts (divergence > 1 window = some host's
+    # snapshots are not landing).
     br_counts = collections.Counter(
         e.get("outcome", "?") for e in evs
         if e["kind"] == "buddy_restore")
@@ -554,6 +1057,11 @@ def metrics(event_list=None, by_host=False):
         {"name": METRIC_PREFIX + "_buddy_generation",
          "labels": {"host": str(h)}, "value": g}
         for h, g in sorted(buddy_gens().items())]
+    # p2p mailbox gauges: residency per mailbox host (the coordinator's
+    # row, host="coord", is the memory-ceiling gate serving_probe
+    # --strict enforces), the last send's delta wire ratio, and the
+    # last host-to-host pull latency. Nothing recorded -> nothing
+    # exported.
     gauges += [
         {"name": METRIC_PREFIX + "_buddy_resident_bytes",
          "labels": {"host": str(h)}, "value": b}
@@ -564,7 +1072,11 @@ def metrics(event_list=None, by_host=False):
     if buddy_fetch_ms() is not None:
         gauges.append({"name": METRIC_PREFIX + "_buddy_p2p_fetch_ms",
                        "labels": {}, "value": buddy_fetch_ms()})
-    # a dropped span means a timeline that is missing part of the run
+    # span-ring overflow (obs tentpole): dropped spans mean a merged
+    # timeline is LYING about what happened — exported whenever the
+    # engine is on (0 = trustworthy) or anything was ever dropped, so
+    # serving_probe --strict can gate on it; tracing-off jobs export
+    # nothing new
     from . import obs
     if obs.enabled() or obs.dropped_total():
         counters.append(
@@ -668,6 +1180,74 @@ def parse_metrics_text(text):
     return samples
 
 
+
+
+class MetricsServer(object):
+    """A tiny stdlib HTTP listener serving the live metrics exposition.
+
+    ``GET /metrics`` renders ``metrics_text(metrics(by_host=True))`` at
+    request time — per-host labels ride the :func:`context` tags — and
+    ``GET /healthz`` answers 200 (liveness). Runs on a daemon thread;
+    :meth:`close` shuts it down. Start one via :func:`serve_metrics`.
+    """
+
+    def __init__(self, port=0, host="127.0.0.1"):
+        import http.server
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):   # noqa: N802 - stdlib naming
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    body = metrics_text(metrics(by_host=True)).encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif path == "/healthz":
+                    body, ctype = b"ok\n", "text/plain"
+                else:
+                    self.send_error(404, "try /metrics")
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):   # scrapes are not log lines
+                pass
+
+        self._server = http.server.ThreadingHTTPServer((host, port),
+                                                       _Handler)
+        self.host, self.port = self._server.server_address[:2]
+        self.url = "http://%s:%d/metrics" % (self.host, self.port)
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True,
+            name="paddle_tpu-metrics-%d" % self.port)
+        self._thread.start()
+
+    def close(self):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def serve_metrics(port=0, host="127.0.0.1"):
+    """Start the metrics pull endpoint (Prometheus text exposition at
+    ``/metrics``, per-host labels from :func:`context` tags).
+
+    ``port=0`` binds an ephemeral port — read it back from the returned
+    server's ``.port``/``.url``. The listener renders the live event
+    log on every scrape, so there is nothing to push and nothing goes
+    stale; ``paddle_tpu_torch.tools.serving_probe --metrics-url``
+    knows how to scrape it. Call ``.close()`` (or use as a context
+    manager) to stop."""
+    server = MetricsServer(port=port, host=host)
+    record_event("metrics_serve", url=server.url)
+    return server
 
 
 # ---------------------------------------------------------------------------

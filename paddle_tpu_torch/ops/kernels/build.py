@@ -4,10 +4,12 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``, then linked into one ``.so`` with a plain C
 interface that ``ctypes`` loads. The library lands in
 ``<repo>/build/paddle_tpu_torch/<hash>/``, keyed by a hash of the sources
-and flags, so a checkout builds once and an edited source rebuilds. A
-failed build raises ``KernelBuildError`` carrying nvcc's output.
+and flags, so a checkout builds once and an edited source rebuilds;
+processes that start together take a lock on the directory and build it
+once. A failed build raises ``KernelBuildError`` carrying nvcc's output.
 """
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -141,9 +143,15 @@ def load():
     path = os.path.join(out_dir, LIB_NAME)
     if not os.path.exists(path):
         os.makedirs(out_dir, exist_ok=True)
-        t0 = time.perf_counter()
-        _compile(out_dir)
-        build_seconds = time.perf_counter() - t0
+        # processes starting together (the serving fleet's replicas)
+        # build once: the first holds the lock and compiles, the others
+        # wait for it and then load its library
+        with open(os.path.join(out_dir, "build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(path):
+                t0 = time.perf_counter()
+                _compile(out_dir)
+                build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -36,6 +36,7 @@ import os
 import shutil
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -390,6 +391,38 @@ class _Bucket(object):
         return outs
 
 
+def _memoize_export_type_hints():
+    """``torch.export.load`` rebuilds an exported program's schema
+    dataclasses from JSON and asks ``typing.get_type_hints`` for a class
+    at every node it rebuilds (tens of thousands of calls for
+    BERT-base's two 12-layer buckets, most of the load's time). A
+    class's hints do not change, so the deserializer module is
+    handed, once for the process, a ``typing`` whose ``get_type_hints``
+    is memoized; a torch whose deserializer reads no ``typing`` attribute
+    is left as it is."""
+    try:
+        from torch._export.serde import serialize as serde
+    except ImportError:
+        return
+    real = getattr(serde, "typing", None)
+    if real is None or getattr(real, "memoized_type_hints", False):
+        return
+    memo = {}
+
+    def get_type_hints(obj, globalns=None, localns=None,
+                       include_extras=False):
+        key = (obj, id(globalns), id(localns), include_extras)
+        hints = memo.get(key)
+        if hints is None:
+            hints = memo[key] = real.get_type_hints(
+                obj, globalns, localns, include_extras)
+        return hints
+    proxy = types.SimpleNamespace(**vars(real))
+    proxy.get_type_hints = get_type_hints
+    proxy.memoized_type_hints = True
+    serde.typing = proxy
+
+
 class ServingPredictor(object):
     """Loader for the exported artifact: load and call.
 
@@ -462,6 +495,7 @@ class ServingPredictor(object):
         self._fetch_names = self._meta["fetch_var_names"]
         self._weights = self._load_weights(out_dir)
         self._fns = {}
+        _memoize_export_type_hints()
         for key, spec in self._meta["buckets"].items():
             program = torch.export.load(
                 os.path.join(out_dir, "export_b%s.pt2" % key))

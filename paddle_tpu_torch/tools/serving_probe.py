@@ -20,10 +20,11 @@ Usage:
       [--cpu]
 
 ``--metrics-url`` additionally scrapes a metrics endpoint in the
-Prometheus text exposition that ``resilience.metrics_text`` writes (any
-URL ``urllib`` opens, ``file://`` included: the port has no
-``serve_metrics`` server yet) and folds the event totals into the
-report under ``"metrics"`` — per-host labels included — so one
+Prometheus text exposition that ``resilience.metrics_text`` writes (a
+``resilience.serve_metrics`` server, a fleet router's or replica's
+``/metrics``, or any URL ``urllib`` opens, ``file://`` included) and
+folds the event totals into the report under ``"metrics"`` — per-host
+labels included — so one
 probe answers both "is the replica loadable" and "what has the
 resilience layer been seeing". An unreachable/unparsable endpoint sets
 ``metrics_error`` and fails a ``--strict`` probe.
@@ -91,10 +92,23 @@ def scrape_metrics(url, timeout_s=5.0):
     ``--strict`` fails the probe when the hosts' generations spread
     over more than one window or the coordinator holds payload-sized
     bytes (:func:`buddy_generation_flags`, :func:`buddy_resident_flags`).
-    Raises on an unreachable or unparsable endpoint (the caller folds
-    that into the health report). The JAX tool also folds the series
-    of the pod transport, the serving fleet and elastic pipelines,
-    which the port does not emit yet."""
+    A "transport" section folds the socket transport's series
+    (transport_reconnects_total, transport_failovers_total, and per
+    host transport_heartbeat_lag and transport_term, with
+    transport_replication_lag), a "router" section the serving fleet's
+    (router_requests_total{outcome=}, router_retries_total,
+    router_queue_depth, router_replica_inflight per replica, the
+    router_batch_size histogram samples, fleet_leader_term and
+    fleet_target_replicas), and a "qos" section every ``tenant=``-
+    labelled router series, keyed ``.../tenant:<id>`` so it never
+    collides with the aggregate's key; ``--strict`` fails the probe on
+    a stale primary or disagreeing terms
+    (:func:`term_regression_flags`) and on tenant series that do not
+    sum to the aggregate (:func:`qos_quota_flags`). Raises on an
+    unreachable or unparsable endpoint (the caller folds that into the
+    health report). The JAX tool also folds the feed plane's and the
+    elastic pipeline re-cut's series, which this port does not emit
+    yet (the multi-GPU slice)."""
     import urllib.request
     from paddle_tpu_torch.framework.resilience import (METRIC_PREFIX,
                                                        parse_metrics_text)
@@ -102,6 +116,7 @@ def scrape_metrics(url, timeout_s=5.0):
         text = resp.read().decode("utf-8")
     samples = parse_metrics_text(text)
     events, bytes_sec, obs_sec, faults, buddy = {}, {}, {}, {}, {}
+    transport, router, qos = {}, {}, {}
     for name, labels, value in samples:
         key = name[len(METRIC_PREFIX) + 1:]
         if name.startswith(METRIC_PREFIX + "_buddy_"):
@@ -135,15 +150,105 @@ def scrape_metrics(url, timeout_s=5.0):
             if "le" in labels:
                 key += "/le" + labels["le"]
             obs_sec[key] = value
+        elif name.startswith(METRIC_PREFIX + "_router_") \
+                and "tenant" in labels:
+            # claimed before the router fold, whose aggregate key a
+            # tenant-labelled sample would otherwise overwrite
+            for label in ("where", "outcome"):
+                if label in labels:
+                    key += "/" + labels[label]
+            if "router" in labels:
+                key += "/router" + labels["router"]
+            qos[key + "/tenant:" + labels["tenant"]] = value
+        elif name.startswith(METRIC_PREFIX + "_router_") \
+                or name.startswith(METRIC_PREFIX + "_fleet_"):
+            if "outcome" in labels:
+                key += "/" + labels["outcome"]
+            for label in ("replica", "router"):
+                if label in labels:
+                    key += "/" + label + labels[label]
+            if "le" in labels:
+                key += "/le" + labels["le"]
+            router[key] = value
         elif name.startswith(METRIC_PREFIX) \
                 and name.endswith("_bytes_total"):
             bytes_sec[key + "/" + labels.get("kind", "?")] = value
+        elif name.startswith(METRIC_PREFIX + "_transport_"):
+            if "host" in labels:
+                key += "/host" + labels["host"]
+            transport[key] = value
     out = {"url": url, "samples": len(samples), "events_total": events}
-    for section, folded in (("obs", obs_sec), ("bytes", bytes_sec),
-                            ("faults", faults), ("buddy", buddy)):
+    for section, folded in (("transport", transport), ("router", router),
+                            ("obs", obs_sec), ("qos", qos),
+                            ("bytes", bytes_sec), ("faults", faults),
+                            ("buddy", buddy)):
         if folded:
             out[section] = folded
     return out
+
+
+def qos_quota_flags(summary):
+    """Quota-accounting drift in a scrape summary (empty = healthy):
+    per (outcome, router), the tenant-labelled
+    ``router_requests_total`` series must sum EXACTLY to the
+    aggregate series — both are bumped under the same lock on the
+    same request, so any gap means an admission path recorded one
+    side without the other (a shed that charged no tenant, a tenant
+    series double-bump) and per-class SLO accounting cannot be
+    trusted. ``--strict`` fails the probe on any drift."""
+    flags = []
+    qos = summary.get("qos", {})
+    router = summary.get("router", {})
+    sums = {}
+    for k, v in qos.items():
+        if not k.startswith("router_requests_total"):
+            continue
+        base = k.rpartition("/tenant:")[0]
+        sums[base] = sums.get(base, 0) + v
+    for base, total in sorted(sums.items()):
+        agg = router.get(base)
+        if agg is None or abs(agg - total) > 1e-9:
+            flags.append("quota accounting drift on %s: tenant "
+                         "series sum to %g, aggregate reads %s"
+                         % (base, total, agg))
+    return flags
+
+
+def term_regression_flags(summary):
+    """Stale-primary symptoms in a scrape summary (empty = healthy):
+
+      * any ``transport_stale_primary`` event — a client watched the
+        replication term go BACKWARDS, i.e. an ex-primary woke up and
+        answered from a stale term (the client refused it, but the
+        zombie is still reachable and should be restarted/demoted);
+      * per-host ``transport_term`` gauges disagreeing — some client
+        is still pinned to a lower term than its peers observed, the
+        split-brain smell term fencing exists to catch;
+      * per-router ``fleet_leader_term`` gauges disagreeing — the
+        router-tier twin of the transport check: a router pinned
+        below its peers' admission-leader term is still trusting a
+        stale ex-leader, and its enactments would be refused.
+
+    ``--strict`` fails the probe on any of them."""
+    flags = []
+    stale = {k: v for k, v in summary.get("events_total", {}).items()
+             if k.startswith("transport_stale_primary")}
+    if stale:
+        flags.append("stale-primary responses observed: %s"
+                     % sorted(stale.items()))
+    terms = {k: v for k, v in summary.get("transport", {}).items()
+             if k.startswith("transport_term")}
+    if len(set(terms.values())) > 1:
+        flags.append("transport_term gauges disagree (a client is "
+                     "pinned below the group term): %s"
+                     % sorted(terms.items()))
+    lterms = {k: v for k, v in summary.get("router", {}).items()
+              if k.startswith("fleet_leader_term")}
+    if len(set(lterms.values())) > 1:
+        flags.append("fleet_leader_term gauges disagree (a router is "
+                     "pinned below the admission-leader term): %s"
+                     % sorted(lterms.items()))
+    return flags
 
 
 def obs_overflow_flags(summary):
@@ -211,6 +316,26 @@ def fault_plane_flags(summary):
     return []
 
 
+#: (report field, flag function) pairs that fail a ``--strict`` probe
+STRICT_FLAGS = (("term_regression", term_regression_flags),
+                ("obs_overflow", obs_overflow_flags),
+                ("qos_drift", qos_quota_flags),
+                ("faults_armed", fault_plane_flags),
+                ("buddy_lag", buddy_generation_flags),
+                ("buddy_resident", buddy_resident_flags))
+
+
+def strict_flags(summary):
+    """{report field: flags} of every ``--strict`` check that fails on a
+    scrape summary (empty = clean)."""
+    out = {}
+    for field, flags in STRICT_FLAGS:
+        found = flags(summary)
+        if found:
+            out[field] = found
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("dirname", help="artifact dir (holds serving/)")
@@ -229,7 +354,10 @@ def main(argv=None):
                          "(faultinject_armed > 0) in the faults series, "
                          "buddy generations more than one window apart "
                          "or payload-sized coordinator residency in the "
-                         "buddy series")
+                         "buddy series, a stale primary or disagreeing "
+                         "terms in the transport and router series, "
+                         "tenant series that do not sum to the "
+                         "aggregate in the qos series")
     ap.add_argument("--metrics-url", default=None,
                     help="scrape a metrics endpoint (resilience."
                          "metrics_text's exposition; file:// works) and "
@@ -252,18 +380,12 @@ def main(argv=None):
     if args.metrics_url:
         try:
             health["metrics"] = scrape_metrics(args.metrics_url)
-            for field, flags in (
-                    ("obs_overflow", obs_overflow_flags),
-                    ("faults_armed", fault_plane_flags),
-                    ("buddy_lag", buddy_generation_flags),
-                    ("buddy_resident", buddy_resident_flags)):
-                # dropped spans mean the timeline is lying; armed
-                # failpoints mean requests WILL be failed on purpose:
-                # loud always, fatal under --strict
-                found = flags(health["metrics"])
-                if found:
-                    health[field] = found
-                    metrics_ok = False
+            # dropped spans mean the timeline is lying; armed
+            # failpoints mean requests WILL be failed on purpose:
+            # loud always, fatal under --strict
+            found = strict_flags(health["metrics"])
+            health.update(found)
+            metrics_ok = not found
         except Exception as e:
             # a loadable replica with a dead metrics endpoint is still
             # serviceable — degrade to exit 1 only under --strict

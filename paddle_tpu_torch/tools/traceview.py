@@ -1,17 +1,22 @@
 """Merge per-process span dumps into one Perfetto timeline (counterpart
 of the JAX package's tools/traceview.py).
 
-Each process's spans (framework/obs.py) are written by ``obs.dump(path)``;
-this tool merges any number of such dumps into one Chrome-trace-event
-JSON (``obs.chrome_trace``) that chrome://tracing and
-https://ui.perfetto.dev load: each process on its own named track, every
-event carrying its trace, span and parent ids in ``args``. The JAX
-tool's live pull (``--from``, a fleet member's ``GET /admin/trace``)
-arrives with the port's serving fleet.
+Each process's spans (framework/obs.py) are written by ``obs.dump(path)``
+or pulled live from a serving-fleet member's ``GET /admin/trace``
+(router or replica, ``--from``); this tool merges any number of them
+into one Chrome-trace-event JSON (``obs.chrome_trace``) that
+chrome://tracing and https://ui.perfetto.dev load: each process on its
+own named track, every event carrying its trace, span and parent ids in
+``args``, so one client request reads as one tree across the router and
+the replica that served it.
 
 Usage:
   python -m paddle_tpu_torch.tools.traceview -o trace.json dump1.json ...
+  python -m paddle_tpu_torch.tools.traceview -o trace.json \
+      --from URL[,URL...] [files]
   python -m paddle_tpu_torch.tools.traceview --stdout dump1.json
+
+``--from`` takes fleet-member base URLs (``http://h:p`` or ``h:p``).
 
 Exit code 1 when any input failed to load (the merge of the rest is
 still written); 2 when no spans were collected at all.
@@ -19,6 +24,15 @@ still written); 2 when no spans were collected at all.
 import argparse
 import json
 import sys
+
+
+def pull_live(url, timeout_s=5.0):
+    """Fetch one live member's span dump from GET /admin/trace."""
+    import urllib.request
+    base = url if "://" in url else "http://" + url
+    with urllib.request.urlopen(base.rstrip("/") + "/admin/trace",
+                                timeout=timeout_s) as resp:
+        return json.loads(resp.read().decode("utf-8"))
 
 
 def load_dump(path):
@@ -56,7 +70,12 @@ def summarize(dumps):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("dumps", nargs="*", help="span dump files (obs.dump)")
+    ap.add_argument("dumps", nargs="*",
+                    help="span dump files (obs.dump / /admin/trace "
+                         "JSON)")
+    ap.add_argument("--from", dest="live", default=None,
+                    help="comma-joined fleet member base URLs to pull "
+                         "/admin/trace from live")
     ap.add_argument("-o", "--out", default=None,
                     help="output Chrome trace JSON path")
     ap.add_argument("--stdout", action="store_true",
@@ -70,6 +89,16 @@ def main(argv=None):
             blobs.append(load_dump(path))
         except (OSError, ValueError) as e:
             print("skipping %s: %s" % (path, e), file=sys.stderr)
+            failed += 1
+    for url in (args.live.split(",") if args.live else []):
+        url = url.strip()
+        if not url:
+            continue
+        try:
+            blobs.append(pull_live(url))
+        except Exception as e:  # noqa: BLE001 - reported, not fatal
+            print("live pull %s failed: %s" % (url, e),
+                  file=sys.stderr)
             failed += 1
     total = sum(len(b.get("spans", [])) for b in blobs)
     if total == 0:

@@ -378,8 +378,17 @@ def test_file_coordinator_heartbeat_deadline_and_poll_backoff(tmp_path,
 
 
 def test_socket_coordinator_and_multi_device_mesh_are_not_ported():
-    with pytest.raises(NotPortedError, match="transport"):
-        pt_coord.SocketCoordinator("127.0.0.1:1", 2, 0)
+    """The multi-device mesh is still the torch.distributed slice's. The
+    SocketCoordinator is ported now (tests/test_torch_transport.py): it
+    dials its server, so an unreachable one is a transport error after
+    the retry budget, not a NotPortedError."""
+    from paddle_tpu_torch.framework.resilience import RetryPolicy
+    from paddle_tpu_torch.framework.transport import TransportError
+    with pytest.raises(TransportError, match="unreachable"):
+        pt_coord.SocketCoordinator(
+            "127.0.0.1:1", 2, 0, retry_policy=RetryPolicy(
+                max_attempts=2, base_delay_s=0.0, jitter=0.0,
+                sleep=lambda s: None))
     with pytest.raises(NotPortedError, match="torch.distributed"):
         pt_mesh.init_mesh({"dp": 2}, devices=[0, 1])
     with pytest.raises(ValueError, match="needs 4 devices"):

@@ -153,6 +153,10 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.tools.traceview\n"
             "import paddle_tpu_torch.tools.op_coverage\n"
             "import paddle_tpu_torch.tools.serving_probe\n"
+            "import paddle_tpu_torch.framework.transport\n"
+            "import paddle_tpu_torch.serving_fleet\n"
+            "import paddle_tpu_torch.tools.coordsvc\n"
+            "import paddle_tpu_torch.tools.servingsvc\n"
             "import paddle_tpu_torch.framework.guard\n"
             "import paddle_tpu_torch.ops.kernels.numeric_guard\n"
             "import paddle_tpu_torch.compiler\n"
@@ -375,3 +379,25 @@ def test_a_decorated_program_defaults_to_cuda_and_raises_without_it(
         out, = exe.run(main, feed={"x": np.ones((2, 4), np.float32)},
                        fetch_list=[loss])
     assert np.isfinite(out).all()
+
+
+def test_fleet_replicas_default_to_cuda_and_raise_without_it(no_cuda,
+                                                             tmp_path):
+    """A ReplicaMember and ``servingsvc replica`` serve on CUDAPlace(0)
+    unless told ``CPUPlace()`` / ``--place cpu``, and without a CUDA
+    device they refuse before binding a port or joining a group (the
+    coordinator address here is unreachable and never dialled)."""
+    from paddle_tpu_torch.serving_fleet import ReplicaMember
+    from paddle_tpu_torch.tools import servingsvc
+    with pytest.raises(ptt.NoCUDADeviceError, match="CPUPlace"):
+        ReplicaMember(str(tmp_path), "127.0.0.1:9", 1, 0)
+    with pytest.raises(ptt.NoCUDADeviceError):
+        ReplicaMember(str(tmp_path), "127.0.0.1:9", 1, 0,
+                      place=ptt.CUDAPlace(0))
+    member = ReplicaMember(str(tmp_path), "127.0.0.1:9", 1, 0,
+                           place=ptt.CPUPlace())
+    assert member.place == ptt.CPUPlace() and member.address is None
+    with pytest.raises(ptt.NoCUDADeviceError):
+        servingsvc.main(["replica", "--coord", "127.0.0.1:9",
+                         "--n-replicas", "1", "--replica-id", "0",
+                         "--artifact", str(tmp_path)])

@@ -376,10 +376,19 @@ def _systemic_then_host2(pod):
     pod._straggler_flag = flag
 
 
-@pytest.mark.parametrize("case", ["drain", "floor", "cooldown"])
+def _lagging_host2(pod):
+    """Host 2's heartbeat lag 2 s, no compute latch anywhere (the JAX
+    package's test_drain_weighs_heartbeat_lag_not_just_compute)."""
+    pod._straggler_flag = lambda hid: False
+    pod._hb_lag = lambda hid: 2.0 if hid == 2 else 0.0
+
+
+@pytest.mark.parametrize("case", ["drain", "floor", "cooldown", "hb_lag"])
 def test_straggler_drain_floor_and_cooldown(tmp_path, weights, case):
     kw = {"drain": dict(n_hosts=3, drain_after=2,
                         mutate=_systemic_then_host2),
+          "hb_lag": dict(n_hosts=3, drain_after=2, drain_hb_lag_s=0.5,
+                         mutate=_lagging_host2),
           "floor": dict(n_hosts=2, drain_after=1, drain_floor=2,
                         mutate=lambda p: setattr(
                             p, "_straggler_flag", lambda h: h == 1)),
@@ -402,6 +411,9 @@ def test_straggler_drain_floor_and_cooldown(tmp_path, weights, case):
         assert "cooldown" in {e[5] for e in sig}
     else:
         assert drains and "pod_restore" not in {e[0] for e in sig}
+    if case == "hb_lag":
+        assert {int(e["drained"]) for e in tres.events("elastic_drain")} \
+            == {2}
     lost = got["torch"][3].coordinator.lost_hosts()
     assert lost == got["jax"][3].coordinator.lost_hosts()
 
@@ -469,11 +481,11 @@ def test_pipeline_recut_and_sharded_feeds_are_not_ported(tmp_path,
 
 
 @pytest.mark.parametrize("option,slice_", [
-    ("drain_hb_lag_s", "transport"), ("drain_stream_lag", "ShardedFeed")])
+    ("drain_stream_lag", "ShardedFeed")])
 def test_lag_drains_are_not_ported(tmp_path, weights, option, slice_):
-    """The heartbeat-lag drain reads the socket transport's client and
-    the stream-lag drain per-host ShardedFeed cursors: neither exists on
-    one card, so asking for either is refused, not silently ignored."""
+    """The stream-lag drain reads per-host ShardedFeed cursors, which do
+    not exist on one card, so asking for it is refused, not silently
+    ignored."""
     _, trainers = _pod("torch", weights, str(tmp_path), n_hosts=2,
                        elastic=True)
     with pytest.raises(NotPortedError, match=slice_):
