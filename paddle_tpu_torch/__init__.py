@@ -64,8 +64,11 @@ fluid's top-level surface is here too: ``core``, the place helpers
 ``tools.serving_probe`` vet a saved model and a serving artifact from
 the command line. ``distributed`` holds the mesh's host bookkeeping
 that the pod coordinators (``framework.coordination``) drive on one
-card; multi-device meshes, the fleet API, ``transpiler`` and
-``make_mesh`` are later slices (see ROADMAP.md).
+card; ``transpiler`` (``DistributeTranspiler`` returns the same
+Program, ``memory_optimize`` records the request) and the
+parameter-server stubs keep the fluid scripts' calls working;
+multi-device meshes, the fleet API and ``make_mesh`` are later slices
+(see ROADMAP.md).
 """
 from . import ops            # registers all op kernels
 from .framework import (Program, Variable, Parameter, default_main_program,
@@ -99,6 +102,9 @@ from . import incubate
 from .data import data  # fluid.data: the full shape, None dims
 from .data_feed_desc import DataFeedDesc
 from .parallel_executor import ParallelExecutor
+from . import transpiler
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         memory_optimize, release_memory)
 from . import compiler
 from . import distributed
 from . import dygraph

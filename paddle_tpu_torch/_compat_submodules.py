@@ -11,8 +11,10 @@ registered here as a VIRTUAL module re-exporting the flat
 implementation's objects — one instance of the code, two import
 spellings. A path whose capability the port does not have (the MKL-DNN
 quantization passes) is registered with a module whose every attribute
-raises NotImplementedError with guidance. The parameter-server paths
-come with the torch.distributed slice (ROADMAP.md, Queue 1 item 7).
+raises NotImplementedError with guidance, as are the ``pslib`` children
+of the parameter-server path (the port has no pserver binary). The
+``parameter_server.distribute_transpiler`` path comes with the collective
+fleet of the torch.distributed slice (ROADMAP.md, Queue 1 item 7).
 """
 import importlib
 import importlib.machinery
@@ -126,3 +128,10 @@ def install():
     V("paddle_tpu_torch.contrib.reader.distributed_reader",
       "ref contrib/reader/distributed_reader.py",
       {"distributed_batch_reader": _crdr.distributed_batch_reader})
+    for child in ("optimizer_factory", "ps_pb2", "node"):
+        _guided("paddle_tpu_torch.incubate.fleet.parameter_server.pslib."
+                + child,
+                "ref incubate/fleet/parameter_server/pslib/%s.py" % child,
+                "PSLib configures Baidu's pserver binary; in "
+                "paddle_tpu_torch sparse tables are embeddings marked "
+                "is_distributed=True, trained synchronously")

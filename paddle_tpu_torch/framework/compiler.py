@@ -19,12 +19,23 @@ What one card means:
 - a mesh that fits but spans more than one device, ``pp_stages`` and
   ``quantize_collectives=True`` raise NotPortedError: they arrive with
   the torch.distributed slice;
-- ``kernel_policy`` ("auto", "xla", "pallas") and ``use_pallas`` are
-  validated as the JAX package validates them. Every op of the port
-  reaches its one hand-written kernel under "auto" and "pallas";
-  ``"xla"`` on a CUDA place raises NotPortedError: the port has no
-  second lowering, and a plain version never runs on the card. On the
-  CPU every op runs its plain version whatever the policy;
+- ``kernel_policy`` ("auto", "xla", "pallas"), ``use_pallas`` and
+  ``pallas_tune_cache`` are validated as the JAX package validates them
+  and choose each kernel call site's launch config: a compile builds one
+  ``ops/kernel_dispatch.PallasConfig`` (``_kernel_config``) holding the
+  tuning cache (the explicit one, else under "auto" with ``use_pallas``
+  set the banked ``paddle_tpu_torch/tools/tuned/<card>.json``) and,
+  under "auto" with a cache, the cost model fitted from it
+  (``_cost_model``, memoized per cache identity), which predicts a
+  config for a never-swept shape only from a kernel family fitted over
+  at least ``autotune.PREDICT_MIN_SHAPES`` shapes; the Executor runs the
+  step under it. With no cache every kernel launches its default
+  config, and a never-swept shape of a family the cache fits over fewer
+  shapes keeps it too. Every op of the port reaches its one hand-written kernel
+  under "auto" and "pallas"; ``"xla"`` on a CUDA place raises
+  NotPortedError: the port has no second lowering, and a plain version
+  never runs on the card. On the CPU every op runs its plain version
+  whatever the policy;
 - ``verify_program`` runs the Program verifier (framework/analysis.py)
   through ``verify_for_compile``, as the JAX package does: "strict"
   raises ProgramVerificationError listing every error, "warn" logs and
@@ -40,17 +51,12 @@ import os
 import numpy as np
 import torch
 
+from ..ops import kernel_dispatch as _kd
+from ..ops.kernel_dispatch import KERNEL_POLICIES, PALLAS_OPS
 from ..ops.registry import NotPortedError
 from . import analysis
 from .place import _current_expected_place
 
-# kernel_policy values BuildStrategy accepts (paddle_tpu/ops/
-# pallas_dispatch.py KERNEL_POLICIES)
-KERNEL_POLICIES = ("auto", "xla", "pallas")
-# the op names use_pallas may name (paddle_tpu/ops/pallas_dispatch.py
-# PALLAS_OPS)
-PALLAS_OPS = ("softmax_with_cross_entropy", "adam", "layer_norm",
-              "fused_mlm_head_loss")
 VERIFY_MODES = ("strict", "warn", "off")
 
 
@@ -336,16 +342,108 @@ class CompiledProgram(object):
                 "kernel_policy='xla' asks for each op's second lowering; "
                 "every op of paddle_tpu_torch has one hand-written kernel "
                 "on the card, and a plain version never runs there — use "
-                "'auto' or 'pallas' (kernel dispatch between two kernels "
-                "of one op is ROADMAP.md Queue 1 item 5)")
+                "'auto' or 'pallas' (each kernel's launch config is tuned "
+                "per call site through pallas_tune_cache; a second kernel "
+                "of one op, such as a decode variant of flash attention, "
+                "is ROADMAP.md Queue 2's parked debt 5)")
 
-    def _cache_token(self):
-        """What changes the port's step: the numeric guard and its policy,
-        and the mesh axes."""
+    def _resolve_tune(self, device):
+        """The compile's tuning cache: the strategy's explicit
+        pallas_tune_cache, else under kernel_policy "auto" with use_pallas
+        set the banked ``paddle_tpu_torch/tools/tuned/<card>.json`` when
+        it exists. A path or a cache object, or None."""
         bs = self._build_strategy
+        tune = getattr(bs, "pallas_tune_cache", None)
+        if tune is None and self._kernel_policy() == "auto" and \
+                getattr(bs, "use_pallas", None):
+            from ..ops.kernels.autotune import banked_cache_path
+            path = banked_cache_path(_kd.backend_name(device))
+            if os.path.exists(path):
+                tune = path
+        return tune
+
+    def _selection_token(self, device):
+        """The kernel-selection part of the compile token: the op set, the
+        cache's identity (path, mtime, size: a rewritten cache re-plans)
+        and (policy, the selection layer's fingerprint)."""
+        from ..ops.kernels.autotune import selection_fingerprint
+        bs = self._build_strategy
+        tune = self._resolve_tune(device)
+        tune_tok = None
+        if tune is not None:
+            path = str(getattr(tune, "path", tune))
+            try:
+                st = os.stat(path)
+                tune_tok = (path, st.st_mtime_ns, st.st_size)
+            except OSError:
+                tune_tok = (path, None, None)
+        return (tuple(sorted(getattr(bs, "use_pallas", ()) or ())),
+                tune_tok, (self._kernel_policy(), selection_fingerprint()))
+
+    def _cache_token(self, device=None):
+        """What changes the port's step: the numeric guard and its policy,
+        the mesh axes and the kernel selection (``_selection_token``)."""
+        bs = self._build_strategy
+        if device is None:
+            device = _current_expected_place().torch_device()
         return (tuple(sorted((bs.mesh_axes or {}).items())),
                 bool(getattr(bs, "check_numerics", False)),
-                getattr(bs, "numeric_policy", "raise"))
+                getattr(bs, "numeric_policy", "raise"),
+                self._selection_token(device))
+
+    def _kernel_config(self, device):
+        """This compile's kernel dispatch state (the JAX package's
+        ``_pallas_ctx``), or None when no call site consults one: the ops
+        ``use_pallas`` names (all of them under "pallas", or under "auto"
+        with an explicit cache), the tuning cache, and under "auto" with a
+        cache the cost model fitted from it. Without a cache there is no
+        model, so every kernel keeps its default launch (the JAX package
+        fits an analytic-only model there)."""
+        bs = self._build_strategy
+        policy = self._kernel_policy()
+        ops = frozenset(getattr(bs, "use_pallas", ()) or ())
+        if policy == "xla":
+            return None
+        if not ops:
+            if policy == "pallas" or (
+                    policy == "auto" and
+                    getattr(bs, "pallas_tune_cache", None) is not None):
+                ops = frozenset(PALLAS_OPS)
+            else:
+                return None
+        tune = self._resolve_tune(device)
+        if tune is not None and not hasattr(tune, "lookup"):
+            from ..ops.kernels.autotune import AutotuneCache
+            tune = AutotuneCache(str(tune))
+        backend = _kd.backend_name(device)
+        model = None
+        if policy == "auto" and tune is not None:
+            model = self._cost_model(tune, backend)
+        return _kd.PallasConfig(ops, tuning=tune,
+                                mesh_axes=dict(bs.mesh_axes or {}),
+                                backend=backend, cost_model=model,
+                                policy=policy,
+                                token=self._selection_token(device))
+
+    def _cost_model(self, tune, backend):
+        """The fitted cost model of this compile, memoized per (cache
+        identity, backend): a repeat compile against an unchanged cache
+        reuses the fit. It predicts only from families fitted over
+        PREDICT_MIN_SHAPES shapes."""
+        from ..ops.kernels.autotune import (PREDICT_MIN_SHAPES,
+                                            fit_cost_model)
+        path = str(getattr(tune, "path", tune))
+        try:
+            st = os.stat(path)
+            ident = (path, (st.st_mtime_ns, st.st_size), backend)
+        except OSError:
+            ident = (path, None, backend)
+        memo = getattr(self, "_cm_memo", None)
+        if memo is not None and memo[0] == ident:
+            return memo[1]
+        model = fit_cost_model(tune, predict_min_shapes=PREDICT_MIN_SHAPES)
+        self._cm_memo = (ident, model)
+        return model
 
     def _pp_enabled(self):
         bs = self._build_strategy
@@ -390,7 +488,7 @@ class CompiledProgram(object):
         if not cache or all(k[0] != self._program._version
                             for k in cache):
             verify_for_compile(self._program, bs, source="compile_plan")
-        return CompilePlan("single_jit", self._cache_token())
+        return CompilePlan("single_jit", self._cache_token(device))
 
 
 __all__ = ["BuildStrategy", "ExecutionStrategy", "CompilePlan",

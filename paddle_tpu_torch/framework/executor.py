@@ -59,9 +59,14 @@ and ``exec.writeback``, and each phase is observed in the
 "writeback", "total").
 
 A CompiledProgram (framework/compiler.py) runs the same way on one card:
-``_unwrap`` checks its strategy against the Executor's device, and its
-numeric guard (``check_numerics``, ``numeric_policy``; framework/guard.py)
-is part of the key: the finite check and, under "skip", the revert run
+``_unwrap`` checks its strategy against the Executor's device; its
+kernel selection (``use_pallas``, ``pallas_tune_cache``,
+``kernel_policy``) gives each compile its ``kernel_dispatch.PallasConfig``,
+under which the compile's runs decide each kernel call site's launch
+config once (ops/kernel_dispatch.py), and whose token is part of the CUDA
+graph's key; its numeric guard (``check_numerics``, ``numeric_policy``;
+framework/guard.py) is part of the key: the finite check and, under
+"skip", the revert run
 inside the captured step, and the host reads the verdict once a run or
 once a ``run_steps`` window (``_settle_run``, ``_run_window``). A run with
 a fetch list is a step for the fault hooks: the legacy injector's
@@ -98,6 +103,7 @@ import time
 import numpy as np
 import torch
 
+from ..ops import kernel_dispatch
 from ..ops.registry import NotPortedError, get_op, has_op
 from . import faultinject, obs, resilience, trace, watchdog
 from .compiled_step import CompiledStep, GraphCaptureError
@@ -248,6 +254,13 @@ class RunContext(object):
         self._op_pos = "%d" % op_idx if block_idx == 0 else \
             "%d.%d" % (block_idx, op_idx)
         self.op = op
+
+    @property
+    def site(self):
+        """The current op's position in its program ("i", or "block.i"
+        in a sub-block): a kernel call site's name for its decisions
+        (ops/kernel_dispatch.decide)."""
+        return self._op_pos
 
     def generator(self, attrs, flagged=True):
         """A seeded torch.Generator on the run's device for the current
@@ -446,18 +459,19 @@ def _check_feed_shape(name, got, var):
                              "%s" % (name, got, tuple(want)))
 
 
-def _graph_key(plan, feeds, state, scope, guard=None):
+def _graph_key(plan, feeds, state, scope, guard=None, kernels=None):
     """The key of a CUDA run's captured step: the plan's key, each feed's
     name, shape and dtype, each state tensor's name, shape and dtype, the
-    scope, and the numeric guard's policy (None: no guard; as
-    paddle_tpu's step cache holds check_numerics and the policy). A
-    persistable of a new shape is a new key (its first run goes op by op,
-    as ``jax.jit`` traces again on a new shape), never a copy into the
-    captured shape."""
+    scope, the numeric guard's policy (None: no guard; as paddle_tpu's
+    step cache holds check_numerics and the policy) and the kernel
+    selection's token (``kernels``, a PallasConfig or None: a captured
+    step holds its launch configs). A persistable of a new shape is a new
+    key (its first run goes op by op, as ``jax.jit`` traces again on a
+    new shape), never a copy into the captured shape."""
     return (plan.key, tuple(sorted((n, tuple(t.shape), d)
                                    for n, (t, d) in feeds.items())),
             tuple((n, tuple(v.shape), v.dtype) for n, v in state), id(scope),
-            guard)
+            guard, None if kernels is None else kernels.token)
 
 
 def _checked(fetch_names, fetches, state):
@@ -531,17 +545,20 @@ class Executor(object):
 
     def _compile(self, program, strategy, shapes, fetch_names,
                  use_program_cache, sp):
-        """The step's plan. On a compile-cache miss (see the module
-        docstring), under an ``exec.compile`` span: the verifier with the
-        feeds' ``shapes`` and the fetch roots, then the plan; the step's
-        span is labelled "miss" and the "compile" histogram observes the
-        seam. A hit is one probe of ``_compiled``."""
+        """(the step's plan, the compile's kernel dispatch config or
+        None). On a compile-cache miss (see the module docstring), under
+        an ``exec.compile`` span: the verifier with the feeds' ``shapes``
+        and the fetch roots, then the plan and a fresh dispatch config
+        (whose decisions the compile's first run makes); the step's span
+        is labelled "miss" and the "compile" histogram observes the seam.
+        A hit is one probe of ``_compiled``."""
         key = (_plan_key(program, fetch_names), shapes,
-               None if strategy is None else strategy._cache_token())
-        plan = self._compiled.get(key) if use_program_cache else None
-        if plan is not None and plan.program is program:
+               None if strategy is None else
+               strategy._cache_token(self.device))
+        hit = self._compiled.get(key) if use_program_cache else None
+        if hit is not None and hit[0].program is program:
             sp.set(cache="hit")
-            return plan
+            return hit
         sp.set(cache="miss")
         t0 = time.perf_counter()
         with obs.span("exec.compile"):
@@ -556,11 +573,13 @@ class Executor(object):
                 feeds=dict(shapes), fetch_names=fetch_names,
                 source="compile")
             plan = self._plan(program, fetch_names, use_program_cache)
+            kernels = None if strategy is None else \
+                strategy._kernel_config(self.device)
         if use_program_cache:
-            self._compiled[key] = plan
+            self._compiled[key] = (plan, kernels)
         resilience.observe_executor_step("compile",
                                          time.perf_counter() - t0)
-        return plan
+        return plan, kernels
 
     def _note_capture(self, captures, sp):
         """After a step: when it captured a graph (``graph_runs``'
@@ -640,18 +659,19 @@ class Executor(object):
         with obs.span("exec.step", entry="run") as sp:
             timeout = self._await_pending(strategy)
             check, policy, budget = _numeric_config(program, strategy)
-            plan = self._compile(program, strategy, _feed_shapes(feed),
-                                 fetch_names, use_program_cache, sp)
+            plan, kernels = self._compile(program, strategy,
+                                          _feed_shapes(feed), fetch_names,
+                                          use_program_cache, sp)
             feeds = self._feed_tensors(program, feed, plan)
             salt = scope.find_var(_SALT_VAR) or 0
             captures = self.graph_runs["capture"]
             t1 = time.perf_counter()
-            with obs.span("exec.execute"):
+            with obs.span("exec.execute"), kernel_dispatch.scope(kernels):
                 fetches, guard = self._step(
                     program, plan, feeds, fetch_names, scope,
                     self._graphed(plan, fetch_names, use_program_cache),
                     policy if check else None, fresh=True,
-                    copy=not return_numpy)
+                    copy=not return_numpy, kernels=kernels)
                 self._after_dispatch(timeout,
                                      return_numpy or guard is not None,
                                      "Executor.run step")
@@ -764,8 +784,9 @@ class Executor(object):
         with obs.span("exec.step", entry="run_steps", steps=n_steps) as sp:
             timeout = self._await_pending(strategy)
             check, policy, budget = _numeric_config(program, strategy)
-            plan = self._compile(program, strategy, _feed_shapes(feed, 1),
-                                 fetch_names, use_program_cache, sp)
+            plan, kernels = self._compile(program, strategy,
+                                          _feed_shapes(feed, 1), fetch_names,
+                                          use_program_cache, sp)
             window = {n: v if isinstance(v, torch.Tensor) else
                       torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
                       for n, v in feed.items()}
@@ -776,12 +797,12 @@ class Executor(object):
                       for n, d in dtypes.items()}
             captures = self.graph_runs["capture"]
             t1 = time.perf_counter()
-            with obs.span("exec.execute"):
+            with obs.span("exec.execute"), kernel_dispatch.scope(kernels):
                 stacked = self._run_window(
                     program, plan, window, dtypes, fetch_names, scope,
                     self._graphed(plan, fetch_names, use_program_cache),
                     policy if check else None, budget, n_steps, timeout,
-                    return_numpy)
+                    return_numpy, kernels)
             resilience.observe_executor_step("execute",
                                              time.perf_counter() - t1)
             self._note_capture(captures, sp)
@@ -815,13 +836,14 @@ class Executor(object):
         return guard
 
     def _step(self, program, plan, feeds, fetch_names, scope, graphed,
-              policy, fresh, copy):
+              policy, fresh, copy, kernels=None):
         """One step, graphed or op by op: (fetch tensors, its StepGuard
         or None). ``policy``: the numeric guard's (None: no guard);
-        ``fresh``: clear the guard's sticky flag first."""
+        ``fresh``: clear the guard's sticky flag first; ``kernels``: the
+        compile's kernel dispatch config (part of a graph's key)."""
         if graphed:
             return self._run_graphed(program, plan, feeds, fetch_names,
-                                     scope, copy, policy, fresh)
+                                     scope, copy, policy, fresh, kernels)
         guard = None
         if policy is not None:
             guard = self._guard_for((plan.key, policy), policy, plan)
@@ -831,7 +853,8 @@ class Executor(object):
                              guard=guard), guard
 
     def _run_window(self, program, plan, window, dtypes, fetch_names, scope,
-                    graphed, policy, budget, n_steps, timeout, sync):
+                    graphed, policy, budget, n_steps, timeout, sync,
+                    kernels=None):
         """The steps of a ``run_steps`` window: the fetches stacked.
 
         With the numeric guard each step's flags go into a row of a
@@ -853,7 +876,8 @@ class Executor(object):
                 feeds = {n: (w[i], dtypes[n]) for n, w in window.items()}
                 outs, guard = self._step(program, plan, feeds, fetch_names,
                                          scope, graphed, policy,
-                                         fresh=i == start, copy=False)
+                                         fresh=i == start, copy=False,
+                                         kernels=kernels)
                 if stacked is None:
                     stacked = [torch.empty((n_steps,) + tuple(o.shape),
                                            dtype=o.dtype, device=o.device)
@@ -1022,7 +1046,7 @@ class Executor(object):
         return fetches
 
     def _run_graphed(self, program, plan, feeds, fetch_names, scope, copy,
-                     policy=None, fresh=True):
+                     policy=None, fresh=True, kernels=None):
         """A run of a CUDA key on the Executor's stream: op by op the first
         time, captured and replayed the second, replayed after. ``copy``:
         return clones of a replay's outputs, and of a first run's fetched
@@ -1031,7 +1055,7 @@ class Executor(object):
         flag first. Returns (outputs, the key's StepGuard or None)."""
         state = [(n, v) for n in plan.persistable
                  for v in (scope.find_var(n),) if v is not None]
-        key = _graph_key(plan, feeds, state, scope, policy)
+        key = _graph_key(plan, feeds, state, scope, policy, kernels)
         guard = None if policy is None else self._guard_for(key, policy,
                                                             plan)
         if self._stream is None:

@@ -35,9 +35,12 @@ Design:
 Spans the port emits: ``exec.step`` (labels ``entry`` "run" or
 "run_steps", ``cache`` "hit" or "miss"), under it ``exec.compile`` (the
 verifier and the plan on a miss, and on the card the CUDA-graph
-capture), ``exec.execute`` and ``exec.writeback``; ``serve.request``
-(``ServingPredictor.run``) with ``serve.call`` (one bucket's call) under
-it.
+capture), ``exec.execute`` and ``exec.writeback``; ``kernel_choice``
+(a point span under ``exec.execute`` for each kernel call site's
+decision at a compile's first run: labels ``op``, ``shape``, ``dtype``,
+``impl``, ``source``, ``predicted_s``, ``measured_s``;
+ops/kernel_dispatch.py); ``serve.request`` (``ServingPredictor.run``)
+with ``serve.call`` (one bucket's call) under it.
 """
 import contextlib
 import collections

@@ -64,6 +64,7 @@ __all__ = [
     "record_bytes", "bytes_totals", "clear_bytes",
     "observe_executor_step", "executor_step_totals", "clear_exec",
     "record_analysis", "analysis_totals", "clear_analysis",
+    "record_kernel_choice", "kernel_choice_totals", "clear_kernel_choice",
     "record_buddy_gen", "buddy_gens", "clear_buddy_gens",
     "record_buddy_resident", "buddy_resident",
     "record_buddy_delta_ratio", "buddy_delta_ratio",
@@ -228,6 +229,7 @@ def clear_events():
     _LOG.clear()
     clear_bytes()
     clear_exec()
+    clear_kernel_choice()
     clear_buddy_gens()
 
 
@@ -378,6 +380,34 @@ def executor_step_totals():
 def clear_exec():
     with _EXEC_LOCK:
         _EXEC.clear()
+
+
+# Kernel-selection accounting (ops/kernel_dispatch.choose): one increment
+# per call site's decision, at the rate of compiles, kept as cumulative
+# counters keyed (op, impl, source): whether a job runs the tuned or
+# predicted launch configs it thinks it does is a scrapeable series.
+_KCHOICE = {}
+_KCHOICE_LOCK = threading.Lock()
+
+
+def record_kernel_choice(op, impl, source):
+    """Count one kernel decision (ops/kernel_dispatch.KernelChoice):
+    exported by :func:`metrics` as
+    ``<prefix>_kernel_choice_total{op=,impl=,source=}``."""
+    with _KCHOICE_LOCK:
+        k = (str(op), str(impl), str(source))
+        _KCHOICE[k] = _KCHOICE.get(k, 0) + 1
+
+
+def kernel_choice_totals():
+    """Snapshot ``{(op, impl, source): count}``."""
+    with _KCHOICE_LOCK:
+        return dict(_KCHOICE)
+
+
+def clear_kernel_choice():
+    with _KCHOICE_LOCK:
+        _KCHOICE.clear()
 
 
 # Program-verifier accounting (framework/analysis.py): one increment per
@@ -864,6 +894,13 @@ def metrics(event_list=None, by_host=False):
             counters.append(
                 {"name": "%s_%s_bytes_total" % (METRIC_PREFIX, ch),
                  "labels": {"kind": kind}, "value": tot[kind]})
+    # kernel-selection decisions (ops/kernel_dispatch.choose): cumulative
+    # counters like the byte pairs, emitted only once a compile decided
+    for (op, impl, source), n in sorted(kernel_choice_totals().items()):
+        counters.append(
+            {"name": METRIC_PREFIX + "_kernel_choice_total",
+             "labels": {"op": op, "impl": impl, "source": source},
+             "value": n})
     # program-verifier diagnostics (framework/analysis.py): cumulative
     # per-(pass, severity) counters — emitted only once a verification
     # produced diagnostics, so clean jobs export nothing new

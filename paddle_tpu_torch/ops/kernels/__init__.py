@@ -7,8 +7,8 @@ csrc/ at first use.
 ``credit_launches(delta)`` adds to them: a captured step's launches
 happen on the device when its graph replays, with no wrapper called, so
 the Executor credits each replay with what its capture counted."""
-from . import (blockwise_ce, build, flash_attention, fused_adam,  # noqa: F401
-               layer_norm, numeric_guard)
+from . import (blockwise_ce, build, costmodel,  # noqa: F401
+               flash_attention, fused_adam, layer_norm, numeric_guard)
 
 # (module, counter) of each kernel, in a fixed order
 LAUNCH_COUNTERS = (
@@ -20,7 +20,7 @@ LAUNCH_COUNTERS = (
     (blockwise_ce, "ce_bwd_launches"), (numeric_guard, "launches"),
     (numeric_guard, "copy_launches"), (flash_attention, "f16_launches"),
     (flash_attention, "f16_dkv_launches"),
-    (flash_attention, "f16_dq_launches"))
+    (flash_attention, "f16_dq_launches"), (blockwise_ce, "head_bf16_launches"))
 
 
 def launch_counts():

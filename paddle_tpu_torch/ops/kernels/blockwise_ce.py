@@ -19,7 +19,15 @@ Every wrapper runs its kernel for a CUDA tensor and the plain version for
 a CPU tensor; none falls back from one to the other. The plain versions
 build the (T, V) logits: they are the CPU path and the kernels' oracle.
 Launch counters: ``head_launches``, ``head_dh_launches``,
-``head_dw_launches``, ``ce_launches``, ``ce_bwd_launches``.
+``head_dw_launches``, ``ce_launches``, ``ce_bwd_launches``;
+``head_bf16_launches`` also counts the head forward's launches on bf16
+operands (a ``pallas_q`` verdict's route).
+
+``config`` is a kernel's launch config (costmodel.py; None: the
+default), which ops/kernel_dispatch.py picks per call site: the CE
+kernels' ``{"threads": 256 | 512}`` (the forward's merge order follows
+it) and the head forward's ``{"stages": n}`` (its ring's depth, which
+changes no sum); the head's backward kernels take none.
 
 Layout: ``hidden (T, D)``, ``weight (V, D)`` (the tied embedding table as
 stored, never transposed), ``bias (V,)`` f32 or None, ``logits (T, V)``,
@@ -30,7 +38,7 @@ lse are f32 (T,); gradients come back in their input's dtype.
 """
 import torch
 
-from . import build
+from . import build, costmodel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,6 +47,7 @@ head_dh_launches = 0
 head_dw_launches = 0
 ce_launches = 0
 ce_bwd_launches = 0
+head_bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -151,14 +160,24 @@ def _head_operands(what, hidden, weight, labels, bias):
             _labels(labels, t, hidden.device), b, t, v, d, lib)
 
 
-def fused_head_loss(hidden, weight, labels, bias=None):
+def _head_stages(config, t, v, d, dtype):
+    """The head forward's ring stages under ``config``, 0 for None (the
+    kernel's own)."""
+    if not config:
+        return 0
+    return costmodel.resolve("fused_mlm_head_loss", (t, v), config, dtype,
+                             d)["stages"]
+
+
+def fused_head_loss(hidden, weight, labels, bias=None, config=None):
     """(loss, lse), both f32 (T,), of softmax(hidden @ weight^T + bias)
     at labels: the head forward kernel for a CUDA tensor."""
-    global head_launches
+    global head_launches, head_bf16_launches
     if hidden.device.type == "cpu":
         return fused_head_loss_plain(hidden, weight, labels, bias)
     h, w, lab, b, t, v, d, lib = _head_operands(
         "fused_head_loss", hidden, weight, labels, bias)
+    stages = _head_stages(config, t, v, d, h.dtype)
     loss = torch.empty(t, dtype=torch.float32, device=h.device)
     lse = torch.empty_like(loss)
     with torch.cuda.device(h.device):
@@ -169,9 +188,12 @@ def fused_head_loss(hidden, weight, labels, bias=None):
         rc = lib.ptt_fused_head_fwd(
             h.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             lab.data_ptr(), loss.data_ptr(), lse.data_ptr(), t, v, d,
-            _DTYPES[h.dtype], scratch.data_ptr(), _stream())
+            _DTYPES[h.dtype], stages, scratch.data_ptr(), _stream())
     build.check(rc, "fused_head_fwd")
     head_launches += 1
+    if h.dtype == torch.bfloat16:
+        head_bf16_launches += 1
+    build.count_config("fused_head_fwd", config)
     return loss, lse
 
 
@@ -264,30 +286,41 @@ def _ce_operands(what, logits, labels):
     return logits.contiguous(), _labels(labels, t, logits.device), t, v
 
 
-def softmax_ce(logits, labels):
+def _ce_threads(config, t, v, dtype):
+    if not config:
+        return 0
+    return costmodel.resolve("softmax_with_cross_entropy", (t, v), config,
+                             dtype)["threads"]
+
+
+def softmax_ce(logits, labels, config=None):
     """(loss, lse), both f32 (T,), of existing (T, V) logits: the CE
     forward kernel for a CUDA tensor."""
     global ce_launches
     if logits.device.type == "cpu":
         return softmax_ce_plain(logits, labels)
     x, lab, t, v = _ce_operands("softmax_ce", logits, labels)
+    threads = _ce_threads(config, t, v, x.dtype)
     loss = torch.empty(t, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     lib = build.load()
     with torch.cuda.device(x.device):
         rc = lib.ptt_ce_fwd(x.data_ptr(), lab.data_ptr(), loss.data_ptr(),
-                            lse.data_ptr(), t, v, _DTYPES[x.dtype], _stream())
+                            lse.data_ptr(), t, v, _DTYPES[x.dtype], threads,
+                            _stream())
     build.check(rc, "ce_fwd")
     ce_launches += 1
+    build.count_config("ce_fwd", config)
     return loss, lse
 
 
-def softmax_ce_bwd(logits, labels, lse, dloss):
+def softmax_ce_bwd(logits, labels, lse, dloss, config=None):
     """dlogits like logits, by the CE backward kernel."""
     global ce_bwd_launches
     if logits.device.type == "cpu":
         return softmax_ce_bwd_plain(logits, labels, lse, dloss)
     x, lab, t, v = _ce_operands("softmax_ce_bwd", logits, labels)
+    threads = _ce_threads(config, t, v, x.dtype)
     lse = _row_vec(lse, t, x.device, "lse")
     dl = _row_vec(dloss, t, x.device, "dloss")
     dx = torch.empty_like(x)
@@ -295,9 +328,10 @@ def softmax_ce_bwd(logits, labels, lse, dloss):
     with torch.cuda.device(x.device):
         rc = lib.ptt_ce_bwd(x.data_ptr(), lab.data_ptr(), lse.data_ptr(),
                             dl.data_ptr(), dx.data_ptr(), t, v,
-                            _DTYPES[x.dtype], _stream())
+                            _DTYPES[x.dtype], threads, _stream())
     build.check(rc, "ce_bwd")
     ce_bwd_launches += 1
+    build.count_config("ce_bwd", config)
     return dx
 
 
@@ -306,14 +340,14 @@ def softmax_ce_bwd(logits, labels, lse, dloss):
 # ---------------------------------------------------------------------------
 
 class FusedHeadLoss(torch.autograd.Function):
-    """``FusedHeadLoss.apply(hidden, weight, bias, labels) -> loss (T,)``
-    f32: the head forward kernel, and in backward the dhidden and dweight
-    kernels from the saved lse. bias may be None; labels get no
-    gradient."""
+    """``FusedHeadLoss.apply(hidden, weight, bias, labels, config=None) ->
+    loss (T,)`` f32: the head forward kernel under the launch ``config``,
+    and in backward the dhidden and dweight kernels from the saved lse.
+    bias may be None; labels get no gradient."""
 
     @staticmethod
-    def forward(ctx, hidden, weight, bias, labels):
-        loss, lse = fused_head_loss(hidden, weight, labels, bias)
+    def forward(ctx, hidden, weight, bias, labels, config=None):
+        loss, lse = fused_head_loss(hidden, weight, labels, bias, config)
         ctx.save_for_backward(hidden, weight, bias, labels, lse)
         return loss
 
@@ -325,21 +359,23 @@ class FusedHeadLoss(torch.autograd.Function):
                                     need_dh=need[0],
                                     need_dw=need[1] or need[2])
         return (dh, dw if need[1] else None,
-                db.to(bias.dtype) if need[2] else None, None)
+                db.to(bias.dtype) if need[2] else None, None, None)
 
 
 class BlockwiseCE(torch.autograd.Function):
-    """``BlockwiseCE.apply(logits, labels) -> (loss, lse)``, both f32
-    (T,): the CE forward kernel, and in backward the CE backward kernel.
+    """``BlockwiseCE.apply(logits, labels, config=None) -> (loss, lse)``,
+    both f32 (T,): the CE forward kernel, and in backward the CE backward
+    kernel, both under the launch ``config``.
     lse is differentiable (d lse / d logits = softmax), so a softmax a
     caller builds as exp(logits - lse) gets its true gradient; that term
     is one elementwise expression beside the kernel, added only when the
     lse receives a cotangent."""
 
     @staticmethod
-    def forward(ctx, logits, labels):
+    def forward(ctx, logits, labels, config=None):
         ctx.set_materialize_grads(False)
-        loss, lse = softmax_ce(logits, labels)
+        loss, lse = softmax_ce(logits, labels, config)
+        ctx.config = config
         ctx.save_for_backward(logits, labels, lse)
         return loss, lse
 
@@ -348,8 +384,8 @@ class BlockwiseCE(torch.autograd.Function):
         logits, labels, lse = ctx.saved_tensors
         if dloss is None:
             dloss = torch.zeros_like(lse)
-        dx = softmax_ce_bwd(logits, labels, lse, dloss)
+        dx = softmax_ce_bwd(logits, labels, lse, dloss, ctx.config)
         if dlse is not None:
             dx = dx + (torch.exp(logits.float() - lse[:, None]) *
                        dlse.float()[:, None]).to(dx.dtype)
-        return dx, None
+        return dx, None, None

@@ -7,7 +7,13 @@ interface that ``ctypes`` loads. The library lands in
 and flags, so a checkout builds once and an edited source rebuilds;
 processes that start together take a lock on the directory and build it
 once. A failed build raises ``KernelBuildError`` carrying nvcc's output.
+
+``config_launches`` tallies the tuned kernels' launches by launch config,
+as their wrappers made them (``count_config``): it shows which config a
+call site's decision reached. A CUDA graph's replays are not credited to
+it; the launch counters of ``ops/kernels/__init__.py`` hold those.
 """
+import collections
 import ctypes
 import fcntl
 import glob
@@ -44,14 +50,14 @@ _SIGNATURES = {
                            _i),
     "ptt_layer_norm_bwd": ([_vp] * 9 + [_i] * 7 + [_vp], _i),
     "ptt_layer_norm_max_cols": ([], _i),
-    "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 6 + [_vp], _i),
-    "ptt_fused_head_fwd": ([_vp] * 6 + [_i] * 4 + [_vp, _vp], _i),
+    "ptt_fused_adam": ([_vp] * 7 + [_ll, _i] + [_f] * 6 + [_i, _vp], _i),
+    "ptt_fused_head_fwd": ([_vp] * 6 + [_i] * 5 + [_vp, _vp], _i),
     "ptt_fused_head_fwd_scratch_bytes": ([_i] * 4, _ll),
     "ptt_fused_head_dh": ([_vp] * 7 + [_i] * 4 + [_vp], _i),
     "ptt_fused_head_dw": ([_vp] * 8 + [_i] * 4 + [_vp], _i),
     "ptt_fused_head_max_d": ([], _i),
-    "ptt_ce_fwd": ([_vp] * 4 + [_i] * 3 + [_vp], _i),
-    "ptt_ce_bwd": ([_vp] * 5 + [_i] * 3 + [_vp], _i),
+    "ptt_ce_fwd": ([_vp] * 4 + [_i] * 4 + [_vp], _i),
+    "ptt_ce_bwd": ([_vp] * 5 + [_i] * 4 + [_vp], _i),
     "ptt_finite_chunk": ([], _ll),
     "ptt_copy_chunk": ([], _ll),
     "ptt_finite_flags": ([_vp, _i, _ll, _vp, _vp], _i),
@@ -69,6 +75,7 @@ class KernelLaunchError(RuntimeError):
 
 
 _lib = None
+config_launches = collections.Counter()
 build_seconds = None   # wall time of this process's build, None if cached
 
 
@@ -167,3 +174,10 @@ def check(rc, what):
         msg = load().ptt_cuda_error_string(rc).decode(errors="replace")
         raise KernelLaunchError("%s failed: CUDA error %d (%s)"
                                 % (what, rc, msg))
+
+
+def count_config(kernel, config):
+    """One launch of ``kernel`` under ``config`` (None: the default),
+    tallied under ``(kernel, "knob=value,...")``, ``""`` the default."""
+    tag = ",".join("%s=%s" % kv for kv in sorted((config or {}).items()))
+    config_launches[(kernel, tag)] += 1

@@ -28,6 +28,11 @@
 // threads move float4s, the widest plain load; otherwise one element per
 // thread. The TPU kernel's floor of one (8, 128) tile and its lane padding
 // are TPU tiling rules: this kernel takes any size and never pads.
+//
+// Launch config (the TPU kernel's block_rows; ops/kernel_dispatch.py picks
+// it per call site from a sweep's verdict): the grid's cap in blocks an
+// SM, 1-64; 0 keeps the default, 16. The update of an element does not
+// depend on it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -35,6 +40,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kDefaultBlocksPerSm = 16;
 
 struct Hyper {
   float b1, one_minus_b1, b2, one_minus_b2, eps, coeff;
@@ -128,9 +134,10 @@ adam_kernel_vec4(float4* __restrict__ p, const float4* __restrict__ g,
   }
 }
 
-int grid_for(long long work) {
+int grid_for(long long work, int blocks_per_sm) {
   const long long blocks = (work + kThreads - 1) / kThreads;
-  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);   // 16 per SM
+  const long long cap = 132LL * blocks_per_sm;
+  return (int)(blocks < cap ? blocks : cap);
 }
 
 bool aligned16(const void* a) { return ((uintptr_t)a & 15u) == 0; }
@@ -138,27 +145,27 @@ bool aligned16(const void* a) { return ((uintptr_t)a & 15u) == 0; }
 template <bool kDecay>
 int launch(void* p, const void* g, void* m1, void* m2, const float* lrp,
            const float* b1p, const float* b2p, long long n, int dtype,
-           const Hyper& h, cudaStream_t s) {
+           const Hyper& h, int bps, cudaStream_t s) {
   if (dtype == 0) {
     long long n4 = 0;
     if (aligned16(p) && aligned16(g) && aligned16(m1) && aligned16(m2)) {
       n4 = n / 4;
       if (n4)
-        adam_kernel_vec4<kDecay><<<grid_for(n4), kThreads, 0, s>>>(
+        adam_kernel_vec4<kDecay><<<grid_for(n4, bps), kThreads, 0, s>>>(
             static_cast<float4*>(p), static_cast<const float4*>(g),
             static_cast<float4*>(m1), static_cast<float4*>(m2), lrp, b1p,
             b2p, h, n4);
     }
     const long long done = 4 * n4;
     if (done < n)
-      adam_kernel<float, kDecay><<<grid_for(n - done), kThreads, 0, s>>>(
+      adam_kernel<float, kDecay><<<grid_for(n - done, bps), kThreads, 0, s>>>(
           static_cast<float*>(p) + done, static_cast<const float*>(g) + done,
           static_cast<float*>(m1) + done, static_cast<float*>(m2) + done,
           lrp, b1p, b2p, h, n - done);
     return cudaGetLastError();
   }
   if (dtype == 1) {
-    adam_kernel<__nv_bfloat16, kDecay><<<grid_for(n), kThreads, 0, s>>>(
+    adam_kernel<__nv_bfloat16, kDecay><<<grid_for(n, bps), kThreads, 0, s>>>(
         static_cast<__nv_bfloat16*>(p), static_cast<const float*>(g),
         static_cast<float*>(m1), static_cast<float*>(m2), lrp, b1p, b2p, h,
         n);
@@ -172,20 +179,25 @@ int launch(void* p, const void* g, void* m1, void* m2, const float* lrp,
 // dtype: 0 = float32, 1 = bfloat16 (the parameter p). g, m1, m2: float32,
 // n elements each, dense; p, m1 and m2 are updated in place. lr, beta1_pow
 // and beta2_pow point at one float32 each. coeff: AdamW's decoupled weight
-// decay, 0 for Adam. Returns a cudaError_t.
+// decay, 0 for Adam. blocks_per_sm: the launch config (1-64; 0 the
+// default). Returns a cudaError_t.
 extern "C" int ptt_fused_adam(void* p, const void* g, void* m1, void* m2,
                               const void* lr, const void* beta1_pow,
                               const void* beta2_pow, long long n, int dtype,
                               float beta1, float beta2, float one_minus_beta1,
                               float one_minus_beta2, float eps, float coeff,
-                              void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                              int blocks_per_sm, void* stream) {
+  if (blocks_per_sm == 0) blocks_per_sm = kDefaultBlocksPerSm;
+  if (n < 1 || blocks_per_sm < 1 || blocks_per_sm > 64)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Hyper h{beta1, one_minus_beta1, beta2, one_minus_beta2, eps, coeff};
   const float* lrp = static_cast<const float*>(lr);
   const float* b1p = static_cast<const float*>(beta1_pow);
   const float* b2p = static_cast<const float*>(beta2_pow);
   return coeff != 0.f
-             ? launch<true>(p, g, m1, m2, lrp, b1p, b2p, n, dtype, h, s)
-             : launch<false>(p, g, m1, m2, lrp, b1p, b2p, n, dtype, h, s);
+             ? launch<true>(p, g, m1, m2, lrp, b1p, b2p, n, dtype, h,
+                            blocks_per_sm, s)
+             : launch<false>(p, g, m1, m2, lrp, b1p, b2p, n, dtype, h,
+                             blocks_per_sm, s);
 }

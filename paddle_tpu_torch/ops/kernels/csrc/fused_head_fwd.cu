@@ -42,6 +42,10 @@
 // GPT-base's f32 head), above the operations' bound.
 // A label outside [0, V) (an ignore_index of -100) hits no column. D runs to
 // 1024 (kMaxD).
+// Launch config (ops/kernel_dispatch.py picks it per call site from a
+// sweep's verdict): the ring's stages, each its own instance: f32 2 or 3
+// (64 KB a stage), bf16 3 or 4 (32 KB); 0 keeps the default, three f32
+// and four bf16. The stages change when a copy is issued, never a sum.
 #include "blockwise_ce.cuh"
 #include "wgmma_sm90.cuh"
 
@@ -57,13 +61,13 @@ constexpr int kHeadThreads = 256;   // two consumer warpgroups
 constexpr int kChunk = 128;         // D columns a chain
 constexpr int kRow = wg::kSwizzleBytes;
 
-template <typename T>
+template <typename T, int S = sizeof(T) == 4 ? 3 : 4>
 struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kPlanes = kF32 ? 2 : 1;        // hi, lo | bf16
   static constexpr int kKE = kRow / sizeof(T);         // D a K-block
   static constexpr int kBPC = kChunk / kKE;            // K-blocks a chain
-  static constexpr int kStages = kF32 ? 3 : 4;
+  static constexpr int kStages = S;
   static constexpr int kPlaneBytes = kBM * kRow;       // == kBN * kRow
   static constexpr int kStageBytes = 2 * kPlanes * kPlaneBytes;
   static constexpr int kSmem = kStages * kStageBytes + wg::kAtomBytes;
@@ -104,10 +108,10 @@ struct HeadArgs {
   int Tn, V, Tp, row_bytes, tiles, tiles_per_split;
 };
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(kHeadThreads, 1)
 head_fwd_kernel(const HeadArgs a) {
-  using C = Cfg<T>;
+  using C = Cfg<T, S>;
   extern __shared__ char smem_raw[];
   char* smem = wg::align_atom(smem_raw);
   const int tid = threadIdx.x;
@@ -295,7 +299,7 @@ Plan plan(int Tn, int V, int D, int dtype) {
   return p;
 }
 
-template <typename T>
+template <typename T, int S>
 cudaError_t launch(const void* h, const void* w, const void* bias,
                    const void* labels, void* loss, void* lse, int Tn, int V,
                    int D, void* scratch, cudaStream_t stream) {
@@ -325,12 +329,12 @@ cudaError_t launch(const void* h, const void* w, const void* bias,
   a.row_bytes = p.Dp * (int)sizeof(T);
   a.tiles = p.tiles;
   a.tiles_per_split = p.tiles_per_split;
-  err = cudaFuncSetAttribute(head_fwd_kernel<T>,
+  err = cudaFuncSetAttribute(head_fwd_kernel<T, S>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg<T>::kSmem);
+                             Cfg<T, S>::kSmem);
   if (err != cudaSuccess) return err;
-  head_fwd_kernel<T><<<dim3(p.Tp / kBM, p.splits), kHeadThreads,
-                       Cfg<T>::kSmem, stream>>>(a);
+  head_fwd_kernel<T, S><<<dim3(p.Tp / kBM, p.splits), kHeadThreads,
+                          Cfg<T, S>::kSmem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_kernel<<<(Tn + 255) / 256, 256, 0, stream>>>(
@@ -353,18 +357,33 @@ extern "C" long long ptt_fused_head_fwd_scratch_bytes(int Tn, int V, int D,
 
 // dtype: 0 = float32, 1 = bfloat16 (hidden (T, D) and weight (V, D), dense,
 // row-major); bias: float32 (V,) or null; labels: int64 (T,); scratch: at
-// least ptt_fused_head_fwd_scratch_bytes, 16-byte aligned. Writes loss and
-// lse, float32 (T,). Returns a cudaError_t.
+// least ptt_fused_head_fwd_scratch_bytes, 16-byte aligned; stages: the
+// ring's (f32 2 or 3, bf16 3 or 4; 0 the default). Writes loss and lse,
+// float32 (T,). Returns a cudaError_t.
 extern "C" int ptt_fused_head_fwd(const void* h, const void* w,
                                   const void* bias, const void* labels,
                                   void* loss, void* lse, int Tn, int V, int D,
-                                  int dtype, void* scratch, void* stream) {
+                                  int dtype, int stages, void* scratch,
+                                  void* stream) {
   if (Tn < 1 || V < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(h, w, bias, labels, loss, lse, Tn, V, D, scratch, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(h, w, bias, labels, loss, lse, Tn, V, D,
-                                 scratch, s);
+  using BF = __nv_bfloat16;
+  if (dtype == 0) {
+    switch (stages) {
+      case 2: return launch<float, 2>(h, w, bias, labels, loss, lse, Tn, V,
+                                      D, scratch, s);
+      case 0:
+      case 3: return launch<float, 3>(h, w, bias, labels, loss, lse, Tn, V,
+                                      D, scratch, s);
+    }
+  } else if (dtype == 1) {
+    switch (stages) {
+      case 3: return launch<BF, 3>(h, w, bias, labels, loss, lse, Tn, V, D,
+                                   scratch, s);
+      case 0:
+      case 4: return launch<BF, 4>(h, w, bias, labels, loss, lse, Tn, V, D,
+                                   scratch, s);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,10 @@ the JAX package's ``adamw`` does (paddle_tpu/ops/optimizer_ops.py:116).
 
 ``fused_adam`` runs the kernel for a CUDA tensor and the plain version
 for a CPU tensor; it never falls back from one to the other. ``launches``
-counts the kernel's launches.
+counts the kernel's launches. ``config`` is the kernel's launch config
+(``{"blocks_per_sm": 1-64}``, the grid's cap, costmodel.py; None: the
+default, 16), which ops/kernel_dispatch.py picks per call site; the
+update's arithmetic does not depend on it.
 
 p is f32 or bf16 (updated through f32), g any float dtype (taken as f32),
 m1/m2 f32; lr, beta1_pow and beta2_pow are one-element f32 tensors on
@@ -25,7 +28,7 @@ tensors.
 """
 import torch
 
-from . import build
+from . import build, costmodel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,9 +36,10 @@ launches = 0
 
 
 def fused_adam_plain(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
-                     beta2=0.999, eps=1e-8, coeff=0.0):
+                     beta2=0.999, eps=1e-8, coeff=0.0, config=None):
     """The same update in plain PyTorch, f32 (the CPU path and the
-    kernel's oracle)."""
+    kernel's oracle). It takes the kernel's arguments; ``config``, the
+    launch, does not change the update and is not read."""
     gf = g.float()
     m1n = beta1 * m1 + (1 - beta1) * gf
     m2n = beta2 * m2 + (1 - beta2) * gf * gf
@@ -57,7 +61,7 @@ def _scalar(t, device, what):
 
 
 def fused_adam(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
-               beta2=0.999, eps=1e-8, coeff=0.0):
+               beta2=0.999, eps=1e-8, coeff=0.0, config=None):
     """One Adam (``coeff`` 0) or AdamW step of one parameter; see the
     module docstring."""
     global launches
@@ -92,14 +96,17 @@ def fused_adam(p, g, m1, m2, lr, beta1_pow, beta2_pow, beta1=0.9,
     n = p.numel()
     if n == 0:
         return p, m1, m2
+    bps = costmodel.resolve("adam", (n,), config, p.dtype)[
+        "blocks_per_sm"] if config else 0
     lib = build.load()
     with torch.cuda.device(p.device):
         rc = lib.ptt_fused_adam(
             p.data_ptr(), g.data_ptr(), m1.data_ptr(), m2.data_ptr(),
             lr.data_ptr(), beta1_pow.data_ptr(), beta2_pow.data_ptr(), n,
             _DTYPES[p.dtype], float(beta1), float(beta2), float(1 - beta1),
-            float(1 - beta2), float(eps), float(coeff),
+            float(1 - beta2), float(eps), float(coeff), bps,
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "fused_adam")
     launches += 1
+    build.count_config("fused_adam", config)
     return p, m1, m2

@@ -21,12 +21,18 @@ x is (rows, cols) f32 or bf16, normalised over cols; scale and bias are
 optional (cols,). The forward returns (y like x, mean (rows,) f32,
 rstd (rows,) f32); the backward (dx like x, dscale (cols,) f32,
 dbias (cols,) f32).
+
+``config`` is the launch's tunable part (``{"blocks_per_sm": 1-8}``, the
+persistent grid, costmodel.py), which ops/kernel_dispatch.py picks per
+call site; None keeps ``_ln_plan``'s own launch. y, mean, rstd and dx do
+not depend on it; dscale and dbias are summed over partial rows whose
+number it sets.
 """
 import collections
 
 import torch
 
-from . import build
+from . import build, costmodel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PACK = {torch.float32: 4, torch.bfloat16: 8}     # values in 16 bytes
@@ -54,10 +60,12 @@ LnPlan = collections.namedtuple(
     "partial_rows")
 
 
-def _ln_plan(rows, cols, dtype, aligned, backward=False, sms=_H100_SMS):
+def _ln_plan(rows, cols, dtype, aligned, backward=False, sms=_H100_SMS,
+             blocks_per_sm=None):
     """The launch of the forward (or, with ``backward``, the backward)
     kernel for x (rows, cols) of ``dtype``; ``aligned``: x, the outputs,
-    scale and bias all start on 16 bytes."""
+    scale and bias all start on 16 bytes. ``blocks_per_sm`` (None: the
+    plan's own) is a launch config's knob."""
     vec = _PACK[dtype] if aligned and cols % _PACK[dtype] == 0 else 1
     team = 1
     while 32 * team * _MAX_PER_LANE < cols:
@@ -78,9 +86,21 @@ def _ln_plan(rows, cols, dtype, aligned, backward=False, sms=_H100_SMS):
         threads = 32 * team
         blocks = rows
         per_sm = max(1, 256 // threads)     # up to 255 registers a thread
+    if blocks_per_sm is not None:
+        per_sm = blocks_per_sm
     grid = max(1, min(blocks, per_sm * sms))
     return LnPlan("warp" if team == 1 else "block", vec, k, k * vec, team,
                   threads, grid, grid if backward else 0)
+
+
+def _config_plan(x, config, aligned, backward, sms):
+    """_ln_plan under a launch ``config`` (None: the plan's own)."""
+    rows, cols = x.shape
+    if not config:
+        return _ln_plan(rows, cols, x.dtype, aligned, backward, sms)
+    cfg = costmodel.resolve("layer_norm", (rows, cols), config, x.dtype)
+    return _ln_plan(rows, cols, x.dtype, aligned, backward, sms,
+                    cfg.get("blocks_per_sm"))
 
 
 _max_cols = None
@@ -141,7 +161,7 @@ def _check(what, x, max_cols):
                          % (what, max_cols, x.shape[1]))
 
 
-def layer_norm(x, scale=None, bias=None, eps=1e-5):
+def layer_norm(x, scale=None, bias=None, eps=1e-5, config=None):
     """LayerNorm forward over the last axis of 2-D x; see the module
     docstring."""
     global launches
@@ -161,7 +181,7 @@ def layer_norm(x, scale=None, bias=None, eps=1e-5):
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return y, mean, rstd
-    plan = _ln_plan(rows, cols, x.dtype, _aligned(x, y, s, b), sms=sms)
+    plan = _config_plan(x, config, _aligned(x, y, s, b), False, sms)
     with torch.cuda.device(x.device):
         rc = build.load().ptt_layer_norm_fwd(
             x.data_ptr(), None if s is None else s.data_ptr(),
@@ -171,6 +191,7 @@ def layer_norm(x, scale=None, bias=None, eps=1e-5):
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "layer_norm_fwd")
     launches += 1
+    build.count_config("layer_norm_fwd", config)
     return y, mean, rstd
 
 
@@ -187,7 +208,7 @@ def layer_norm_bwd_plain(x, g, scale, mean, rstd):
     return dx.to(x.dtype), (gf * xhat).sum(dim=0), gf.sum(dim=0)
 
 
-def layer_norm_bwd(x, g, scale, mean, rstd):
+def layer_norm_bwd(x, g, scale, mean, rstd, config=None):
     """LayerNorm backward over the last axis of 2-D x, from the forward's
     mean and rstd; see the module docstring."""
     global bwd_launches
@@ -213,8 +234,7 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
     if rows == 0:
         zeros = torch.zeros(cols, dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
-    plan = _ln_plan(rows, cols, x.dtype, _aligned(x, g, dx, s),
-                    backward=True, sms=sms)
+    plan = _config_plan(x, config, _aligned(x, g, dx, s), True, sms)
     part = torch.empty((2, plan.partial_rows, cols), dtype=torch.float32,
                        device=x.device)
     dscale, dbias = torch.empty((2, cols), dtype=torch.float32,
@@ -228,19 +248,29 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "layer_norm_bwd")
     bwd_launches += 1
+    build.count_config("layer_norm_bwd", config)
     return dx, dscale, dbias
+
+
+def _layer_norm_op(x, scale, bias, eps, blocks_per_sm=0):
+    """The operator's kernel: the launch config as an int (0: the
+    plan's own)."""
+    return layer_norm(x, scale, bias, eps,
+                      {"blocks_per_sm": blocks_per_sm} if blocks_per_sm
+                      else None)
 
 
 # the op's schema, kernels and fake implementation (see flash_attention.py)
 _LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
 _LIB.define("layer_norm_fwd(Tensor x, Tensor? scale, Tensor? bias, "
-            "float eps) -> (Tensor, Tensor, Tensor)")
+            "float eps, int blocks_per_sm=0) -> "
+            "(Tensor, Tensor, Tensor)")
 for _key in ("CPU", "CUDA"):
-    _LIB.impl("layer_norm_fwd", layer_norm, _key)
+    _LIB.impl("layer_norm_fwd", _layer_norm_op, _key)
 
 
 @torch.library.register_fake("paddle_tpu_torch::layer_norm_fwd", lib=_LIB)
-def _layer_norm_fwd_fake(x, scale, bias, eps):
+def _layer_norm_fwd_fake(x, scale, bias, eps, blocks_per_sm=0):
     rows = x.shape[0]
     return (torch.empty_like(x),
             x.new_empty((rows,), dtype=torch.float32),
@@ -251,13 +281,16 @@ layer_norm_fwd = torch.ops.paddle_tpu_torch.layer_norm_fwd.default
 
 
 class LayerNorm(torch.autograd.Function):
-    """``LayerNorm.apply(x, scale, bias, eps) -> (y, mean, rstd)`` over
-    the last axis of 2-D x: the forward kernel, and in backward the
-    backward kernel. mean and rstd carry no gradient."""
+    """``LayerNorm.apply(x, scale, bias, eps, config=None) -> (y, mean,
+    rstd)`` over the last axis of 2-D x: the forward kernel, and in
+    backward the backward kernel, both under the launch ``config``. mean
+    and rstd carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        y, mean, rstd = layer_norm_fwd(x, scale, bias, float(eps))
+    def forward(ctx, x, scale, bias, eps, config=None):
+        y, mean, rstd = layer_norm_fwd(x, scale, bias, float(eps),
+                                       (config or {}).get("blocks_per_sm", 0))
+        ctx.config = config
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.mark_non_differentiable(mean, rstd)
         if bias is not None:
@@ -267,11 +300,12 @@ class LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gmean, grstd):
         x, scale, mean, rstd = ctx.saved_tensors
-        dx, dscale, dbias = layer_norm_bwd(x, gy, scale, mean, rstd)
+        dx, dscale, dbias = layer_norm_bwd(x, gy, scale, mean, rstd,
+                                           ctx.config)
         need = ctx.needs_input_grad
         return (dx if need[0] else None,
                 dscale.reshape(scale.shape).to(scale.dtype)
                 if need[1] else None,
                 dbias.reshape(ctx.bias_shape).to(ctx.bias_dtype)
                 if need[2] else None,
-                None)
+                None, None)

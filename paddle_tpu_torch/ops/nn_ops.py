@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import kernel_dispatch as _kd
 from .kernels import blockwise_ce as _ce_kernel
 from .kernels import layer_norm as _ln_kernel
 from .math_ops import jnp_abs
@@ -233,7 +234,9 @@ def _dropout(ctx, ins, attrs):
 def _layer_norm(ctx, ins, attrs):
     """Collapse to (rows, cols) at begin_norm_axis and run the LayerNorm
     kernels' autograd Function; Mean/Variance come from its per-row mean
-    and rstd and carry no gradient."""
+    and rstd and carry no gradient. With a scale and a bias the call site
+    takes its launch config from the compile's kernel dispatch, as the
+    JAX package's ``_pallas_layer_norm`` does."""
     x = ins["X"][0]
     eps = attrs.get("epsilon", 1e-5)
     begin = attrs.get("begin_norm_axis", 1)
@@ -241,8 +244,10 @@ def _layer_norm(ctx, ins, attrs):
     cols = math.prod(x.shape[begin:])
     scale = ins["Scale"][0] if ins.get("Scale") else None
     bias = ins["Bias"][0] if ins.get("Bias") else None
-    y, mean, rstd = _ln_kernel.LayerNorm.apply(x.reshape(-1, cols), scale,
-                                               bias, eps)
+    x2 = x.reshape(-1, cols)
+    config = _kd.decide("layer_norm", x2.shape, x2.dtype, ctx).config \
+        if scale is not None and bias is not None else None
+    y, mean, rstd = _ln_kernel.LayerNorm.apply(x2, scale, bias, eps, config)
     return {"Y": y.reshape(x.shape),
             "Mean": mean.reshape(lead),
             "Variance": (rstd.pow(-2) - eps).reshape(lead)}
@@ -362,7 +367,7 @@ def _softmax_with_cross_entropy(ctx, ins, attrs):
         if logits.dim() >= 2 and axis in (-1, logits.dim() - 1) and \
                 lbl.dim() == logits.dim() - 1 and \
                 blockwise_kernel_would_tile(logits.numel() // max(v, 1), v):
-            return _blockwise_softmax_ce(logits, lbl, attrs)
+            return _blockwise_softmax_ce(ctx, logits, lbl, attrs)
     x = logits.float()
     logp = torch.log_softmax(x, dim=axis)
     if soft:
@@ -389,15 +394,17 @@ def _label_loss(x, logp, idx, axis):
     return off - torch.take_along_dim(logp, safe, dim=axis)
 
 
-def _blockwise_softmax_ce(logits, lbl, attrs):
+def _blockwise_softmax_ce(ctx, logits, lbl, attrs):
     """The blockwise-CE route: the CE kernels' autograd Function on the
-    (rows, V) logits; ``ignore_index`` rows are zeroed afterwards, and
-    Softmax is exp(logits - lse) from the kernel's lse, one elementwise
-    expression beside it (the JAX package's ``_pallas_softmax_ce``)."""
+    (rows, V) logits under the call site's launch config; ``ignore_index``
+    rows are zeroed afterwards, and Softmax is exp(logits - lse) from the
+    kernel's lse, one elementwise expression beside it (the JAX package's
+    ``_pallas_softmax_ce``)."""
     v = logits.shape[-1]
     x = logits.reshape(-1, v)
     flat = lbl.reshape(-1)
-    loss, lse = _ce_kernel.BlockwiseCE.apply(x, flat)
+    loss, lse = _ce_kernel.BlockwiseCE.apply(x, flat, _kd.decide(
+        "softmax_with_cross_entropy", x.shape, x.dtype, ctx).config)
     ignore = attrs.get("ignore_index", -100)
     loss = torch.where(flat == ignore, torch.zeros((), device=loss.device),
                        loss)
@@ -411,8 +418,10 @@ def _fused_mlm_head_loss(ctx, ins, attrs):
     """LM/MLM head + softmax CE: ``Hidden (T, D) @ Weight^T (+ Bias)`` ->
     per-token Loss (T, 1), Weight the (V, D) tied embedding table. Where
     the blockwise kernel tiles, the fused-head autograd Function (no (T, V)
-    logits on the card); elsewhere the JAX package's non-Pallas lowering,
-    where the logits exist."""
+    logits on the card) under the call site's launch config, whose
+    ``pallas_q`` verdict runs bf16 operands as ``cast_bf16`` does;
+    elsewhere the JAX package's non-Pallas lowering, where the logits
+    exist."""
     hidden, weight = ins["Hidden"][0], ins["Weight"][0]
     label = ins["Label"][0]
     bias = ins["Bias"][0] if ins.get("Bias") else None
@@ -426,7 +435,15 @@ def _fused_mlm_head_loss(ctx, ins, attrs):
             # the kernels take bf16 operands and sum in f32, as the JAX op
             # casts before its kernel
             h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
-        loss = _ce_kernel.FusedHeadLoss.apply(h, w, bias, lbl)
+        choice = _kd.decide("fused_mlm_head_loss", (h.shape[0], w.shape[0]),
+                            h.dtype, ctx, d=h.shape[1],
+                            also="softmax_with_cross_entropy")
+        if choice.impl == "pallas_q":
+            # the measured quantized variant: the cast_bf16 route chosen
+            # per call site by a sweep's verdict
+            h, w = h.to(torch.bfloat16), w.to(torch.bfloat16)
+        loss = _ce_kernel.FusedHeadLoss.apply(h, w, bias, lbl,
+                                              choice.config)
         return {"Loss": loss[:, None]}
     h, w = hidden, weight
     if cast_bf16:

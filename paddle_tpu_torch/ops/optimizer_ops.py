@@ -23,6 +23,7 @@ sums) is plain torch too, its counters and branches on the device.
 """
 import torch
 
+from . import kernel_dispatch as _kd
 from .kernels import fused_adam as _adam_kernel
 from .registry import register_op
 
@@ -92,9 +93,11 @@ def _lars_momentum(ctx, ins, attrs):
     return {"ParamOut": p - v_new, "VelocityOut": v_new}
 
 
-def _adam_update(ins, attrs, coeff):
+def _adam_update(ctx, ins, attrs, coeff):
     """(ParamOut, Moment1Out, Moment2Out, Beta1Pow, Beta2Pow as f32
-    scalars) of Adam, with AdamW's decoupled decay ``coeff`` (0: Adam)."""
+    scalars) of Adam, with AdamW's decoupled decay ``coeff`` (0: Adam);
+    the fused kernel under the call site's launch config (keyed on the
+    flattened size, as the JAX package's ``_pallas_adam``)."""
     p, g = _p(ins, "Param"), _p(ins, "Grad")
     m1, m2 = _p(ins, "Moment1"), _p(ins, "Moment2")
     b1p_in, b2p_in = _p(ins, "Beta1Pow"), _p(ins, "Beta2Pow")
@@ -103,8 +106,9 @@ def _adam_update(ins, attrs, coeff):
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     if not attrs.get("lazy_mode"):
+        config = _kd.decide("adam", (p.numel(),), p.dtype, ctx).config
         return _adam_kernel.fused_adam(p, g, m1, m2, lr, b1p, b2p, b1, b2,
-                                       eps, coeff) + (b1p, b2p)
+                                       eps, coeff, config) + (b1p, b2p)
     # reference lazy mode: rows absent from the batch (all-zero gradient
     # rows of an embedding) keep their param and moments, with no decay
     p_new, m1n, m2n = _adam_kernel.fused_adam_plain(p, g, m1, m2, lr, b1p,
@@ -117,8 +121,8 @@ def _adam_update(ins, attrs, coeff):
     return p_new, m1n, m2n, b1p, b2p
 
 
-def _adam_outs(ins, attrs, coeff):
-    p_new, m1n, m2n, b1p, b2p = _adam_update(ins, attrs, coeff)
+def _adam_outs(ctx, ins, attrs, coeff):
+    p_new, m1n, m2n, b1p, b2p = _adam_update(ctx, ins, attrs, coeff)
     return dict(_pows(ins, b1p, b2p, attrs), ParamOut=p_new,
                 Moment1Out=m1n, Moment2Out=m2n)
 
@@ -128,7 +132,7 @@ _ADAM_INPLACE = ("Param", "Moment1", "Moment2")
 
 @register_op("adam", inplace=_ADAM_INPLACE)
 def _adam(ctx, ins, attrs):
-    return _adam_outs(ins, attrs, 0.0)
+    return _adam_outs(ctx, ins, attrs, 0.0)
 
 
 @register_op("adamw", inplace=_ADAM_INPLACE)
@@ -136,7 +140,7 @@ def _adamw(ctx, ins, attrs):
     """Adam, then ``p' = p' - lr * coeff * p`` from the parameter before
     the step and the raw learning rate, each result rounded to the
     parameter's dtype (paddle_tpu/ops/optimizer_ops.py:116-132)."""
-    return _adam_outs(ins, attrs, float(attrs.get("coeff", 0.01)))
+    return _adam_outs(ctx, ins, attrs, float(attrs.get("coeff", 0.01)))
 
 
 @register_op("adagrad")

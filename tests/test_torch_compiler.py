@@ -112,12 +112,17 @@ def test_with_data_parallel_on_one_device_gives_dp_1():
     main, _, loss = _toy(ptt)
     comp = ptt.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
     assert comp._build_strategy.mesh_axes == {"dp": 1}
-    plan = comp.compile_plan(torch.device("cpu"))
+    cpu = torch.device("cpu")
+    plan = comp.compile_plan(cpu)
     assert plan.kind == "single_jit"
-    assert plan.token == ((("dp", 1),), False, "raise")
+    # the mesh, the numeric guard, then the kernel selection: no
+    # use_pallas, no cache, "auto" with the selection layer's fingerprint
+    assert plan.token[:3] == ((("dp", 1),), False, "raise")
+    assert plan.token[3][:2] == ((), None)
+    assert plan.token[3][2][0] == "auto"
     guarded = ptt.CompiledProgram(main, ptt.BuildStrategy(
         numeric_policy="skip")).with_data_parallel()
-    assert guarded._cache_token() != comp._cache_token()
+    assert guarded._cache_token(cpu) != comp._cache_token(cpu)
 
 
 @pytest.mark.parametrize("dropout", [False, True])
@@ -166,7 +171,7 @@ def test_compiled_program_equals_executor_run_bit_for_bit(dropout):
     assert pe.device_count == torch.cuda.device_count()
 
 
-def test_what_one_card_cannot_run_raises():
+def test_what_one_card_cannot_run_raises(tmp_path):
     main, startup, loss = _toy(ptt)
     exe = ptt.Executor(ptt.CPUPlace())
     scope = ptt.Scope()
@@ -202,13 +207,27 @@ def test_what_one_card_cannot_run_raises():
             verify_program="strict")).with_data_parallel(
                 loss_name=loss.name),
             feed=feed, fetch_list=[loss], scope=scope)
-    # kernel_policy: "xla" has no second lowering on the card; on the CPU
-    # every op runs its plain version whatever the policy
+    # kernel_policy: "xla" has no second lowering on the card (the error
+    # points at the per-call-site tuning instead); on the CPU every op
+    # runs its plain version whatever the policy, with or without a
+    # tuning cache, whose verdicts the call sites still decide by
     comp = ptt.CompiledProgram(main, ptt.BuildStrategy(kernel_policy="xla"))
-    with pytest.raises(ptt.NotPortedError, match="xla"):
+    with pytest.raises(ptt.NotPortedError, match="xla") as e:
         comp.compile_plan(torch.device("cuda", 0))
+    assert "pallas_tune_cache" in str(e.value)
+    assert "Queue 1 item 5" not in str(e.value)
+    from paddle_tpu_torch.ops import kernel_dispatch as kd
+    from paddle_tpu_torch.ops.kernels import autotune as at
+    cache = at.AutotuneCache(str(tmp_path / "tune.json"))
+    cache.put(kd.cache_key("adam", (32,), "float32", {"dp": 1}, "cpu"),
+              {"impl": "pallas", "config": {"blocks_per_sm": 4}})
+    cache.save()
+    ref = run()
     for policy in ("xla", "auto", "pallas"):
         run(kernel_policy=policy, use_pallas={"adam"})
+        got = run(kernel_policy=policy, use_pallas={"adam"},
+                  pallas_tune_cache=cache.path)
+        assert got[0].shape == ref[0].shape and np.isfinite(got[0]).all()
     # the JAX package's parity no-ops are accepted
     run(fuse_all_reduce_ops=False, memory_optimize=False,
         enable_inplace=False, num_trainers=1, trainer_id=0,

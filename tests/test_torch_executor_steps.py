@@ -311,14 +311,14 @@ def test_accuracy_and_assign_value_keep_their_values():
 
 def test_launch_counters_are_read_and_credited_together():
     """The Executor credits a replay with what its capture counted: the
-    sixteen counters (the eleven kernels', the numeric guard's two and
-    the flash kernels' fp16 launches) in one fixed order, read and moved
-    as one."""
+    seventeen counters (the eleven kernels', the numeric guard's two, the
+    flash kernels' fp16 launches and the head forward's bf16 launches)
+    in one fixed order, read and moved as one."""
     from paddle_tpu_torch.ops import kernels
-    assert len(kernels.LAUNCH_COUNTERS) == 16
-    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 16
+    assert len(kernels.LAUNCH_COUNTERS) == 17
+    assert len({(m.__name__, a) for m, a in kernels.LAUNCH_COUNTERS}) == 17
     before = kernels.launch_counts()
-    delta = tuple(range(1, 17))
+    delta = tuple(range(1, 18))
     kernels.credit_launches(delta)
     try:
         assert kernels.launch_counts() == tuple(

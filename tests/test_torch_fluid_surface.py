@@ -23,9 +23,7 @@ import paddle_tpu as pt
 import paddle_tpu_torch as ptt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LATER_SLICES = {"transpiler", "DistributeTranspiler",
-                "DistributeTranspilerConfig", "memory_optimize",
-                "release_memory", "make_mesh"}
+LATER_SLICES = {"make_mesh"}
 NEW_MODULES = (
     "core", "install_check", "lod_tensor", "debugger", "input",
     "annotations", "default_scope_funcs", "compat", "backward", "executor",
@@ -342,11 +340,29 @@ def test_compat_submodules():
             mod.QuantInt8MkldnnPass
     import paddle_tpu_torch.fluid.contrib.slim.prune.pruner as fpr
     assert fpr.Pruner is Pruner
-    # the parameter-server deep paths come with the torch.distributed
-    # slice
+    # the pslib children resolve to modules that raise with guidance,
+    # as the JAX package's do; the parameter-server distribute_transpiler
+    # path comes with the collective fleet of the torch.distributed slice
+    for child in ("optimizer_factory", "ps_pb2", "node"):
+        mod = __import__("paddle_tpu_torch.incubate.fleet.parameter_"
+                         "server.pslib." + child, fromlist=["x"])
+        jmod = __import__("paddle_tpu.incubate.fleet.parameter_server."
+                          "pslib." + child, fromlist=["x"])
+        for m in (mod, jmod):
+            with pytest.raises(NotImplementedError, match="PSLib"):
+                m.DownpourServer
+    from paddle_tpu_torch.incubate.fleet.parameter_server import pslib
+    with pytest.raises(NotImplementedError, match="PSLib"):
+        pslib.fleet.init
     with pytest.raises(ImportError):
         __import__("paddle_tpu_torch.incubate.fleet.parameter_server."
                    "distribute_transpiler")
+    # the top-level transpiler names resolve to the transpiler package
+    assert ptt.transpiler.DistributeTranspiler is ptt.DistributeTranspiler
+    assert ptt.DistributeTranspilerConfig is \
+        ptt.transpiler.DistributeTranspilerConfig
+    assert ptt.memory_optimize is ptt.transpiler.memory_optimize
+    assert ptt.release_memory is ptt.transpiler.release_memory
 
 
 def test_weight_norm_param_attr():

@@ -197,6 +197,30 @@ def test_importing_the_port_loads_neither_jax_nor_paddle_tpu():
             "import paddle_tpu_torch.contrib.op_frequence\n"
             "import paddle_tpu_torch.metrics, paddle_tpu_torch.evaluator\n"
             "import paddle_tpu_torch.average, paddle_tpu_torch.profiler\n"
+            "import paddle_tpu_torch.ops.kernel_dispatch\n"
+            "import paddle_tpu_torch.ops.kernels.costmodel\n"
+            "import paddle_tpu_torch.ops.kernels.autotune\n"
+            "import paddle_tpu_torch.tools.autotune\n"
+            "import paddle_tpu_torch.tools.tunecheck\n"
+            "import paddle_tpu_torch.transpiler\n"
+            "import paddle_tpu_torch.transpiler.geo_sgd_transpiler\n"
+            "import paddle_tpu_torch.transpiler.details.checkport\n"
+            "import paddle_tpu_torch.transpiler.details.ufind\n"
+            "import paddle_tpu_torch.transpiler.details.vars_distributed\n"
+            "import paddle_tpu_torch.communicator\n"
+            "import paddle_tpu_torch.distribute_lookup_table\n"
+            "import paddle_tpu_torch.distributed.downpour\n"
+            "import paddle_tpu_torch.distributed.node\n"
+            "import paddle_tpu_torch.distributed.ps_pb2\n"
+            "import paddle_tpu_torch.distributed.helper\n"
+            "import paddle_tpu_torch.distributed.ps_instance\n"
+            "import paddle_tpu_torch.incubate.fleet.parameter_server.pslib\n"
+            "import paddle_tpu_torch.log_helper, paddle_tpu_torch.net_drawer\n"
+            "import paddle_tpu_torch.wrapped_decorator\n"
+            "import paddle_tpu_torch.check_import_scipy\n"
+            "import paddle_tpu_torch.sysconfig\n"
+            "import paddle_tpu_torch.incubate.data_generator."
+            "test_data_generator\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'paddle_tpu'))\n"
             "print(bad)\n"
